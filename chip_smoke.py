@@ -1,0 +1,796 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (kubernetes_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase, on cuda:0
+
+Phases, each reported on its own line:
+  1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
+  2. the build of every CUDA kernel from kubernetes_tpu_torch/csrc/;
+  3. each kernel against its plain PyTorch version on the card, on
+     seeded lean inputs at the SchedulingBasic harness shapes (5,000 nodes
+     padded to 8,192, batch 8,192), exact equality of every output and
+     carry field, with kernel, plain and library timings;
+  4. SchedulingBasic 5000Nodes_10000Pods end to end through
+     kubernetes_tpu_torch.scheduler.Scheduler on the card;
+  5. a mixed lean workload (taints, selectors, host ports, images, four
+     rotating signatures) at 500 nodes that forces scan spans and uniform
+     rewinds.
+Phases 4 and 5 compare their bind maps with a device="cpu" run of the same
+workload. Any failure exits non-zero without the final line. The line
+before the last is one JSON object with a row per kernel; the last line is
+{"ok": true, "device": {...}}.
+
+The script imports neither jax nor kubernetes_tpu, and needs no pyyaml:
+the SchedulingBasic parameters are those of
+kubernetes_tpu/perf/configs/performance-config.yaml:28-34 and the node and
+pod shapes of kubernetes_tpu/perf/harness.py:159-185 (nodes 32 cpu, 64 Gi,
+110 pods, 16 zones; pods 900m cpu, 1 Gi).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet, dense rates, 700 W): HBM 3.35 TB/s
+# and 67 TFLOP/s in float32 outside the tensor cores, which is 128 FP32
+# lanes per SM per clock with an FMA counted as two operations. The CUDA
+# C++ Programming Guide's instruction-throughput table gives compute
+# capability 9.0 64 lanes per SM per clock for 32-bit integer add,
+# compare, min/max, logic and multiply-add, and 64 for float64 add, mul
+# and fma: one instruction per lane at a quarter of the FP32 FLOP rate
+# (the data sheet's 34 TFLOP/s float64, FMA as two, agrees). The kernels
+# do no tensor-core work.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 67e12 / 4   # 32-bit integer instructions
+F64_OPS_PER_S = 67e12 / 4     # float64 instructions
+
+# SchedulingBasic 5000Nodes_10000Pods (performance-config.yaml:28-34)
+SB_NODES, SB_INIT_PODS, SB_PODS = 5000, 1000, 10000
+BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
+CREATE_BATCH = 512        # perf/harness.py:279 create_batch
+
+
+def log(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}, sort_keys=True), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+# ---------------------------------------------------------------------------
+# timing
+
+
+def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def nbytes(*trees) -> int:
+    import torch
+    total = 0
+    stack = list(trees)
+    while stack:
+        t = stack.pop()
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            stack.extend(t)
+    return total
+
+
+class Ops:
+    """Operations a function needs, by type. An int64 add, compare or
+    multiply is two 32-bit integer instructions (a multiply takes more and
+    a division far more, so two keeps the count a lower bound)."""
+
+    def __init__(self, i32=0, i64=0, f64=0):
+        self.i32, self.i64, self.f64 = int(i32), int(i64), int(f64)
+
+    def __add__(self, o):
+        return Ops(self.i32 + o.i32, self.i64 + o.i64, self.f64 + o.f64)
+
+    def __mul__(self, k):
+        return Ops(self.i32 * k, self.i64 * k, self.f64 * k)
+
+    def seconds(self) -> float:
+        # the integer and float64 pipes issue side by side
+        return max((self.i32 + 2 * self.i64) / INT32_OPS_PER_S,
+                   self.f64 / F64_OPS_PER_S)
+
+
+def bound_of(moved: int, ops: Ops) -> tuple:
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over their pipes' peak rates."""
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops.seconds()
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def np_of(t):
+    return t.cpu().numpy()
+
+
+def node_slots(na, carry) -> dict:
+    """Occupied slots per node (padding slots cost nothing)."""
+    eff = np_of(na.taint_eff)
+    valid = np_of(na.valid)
+    return dict(
+        n_valid=int(valid.sum()), n_pad=int((~valid).sum()),
+        hard=((eff == 1) | (eff == 3)).sum(1)[valid],     # NoSchedule/Execute
+        pref=(eff == 2).sum(1)[valid],                    # PreferNoSchedule
+        labels=(np_of(na.label_key) != 0).sum(1)[valid],
+        images=(np_of(na.image_id) != 0).sum(1)[valid],
+        ports=(np_of(carry.ports) != 0).sum(1)[valid])
+
+
+def score_ops(C: int, nreq: int, balanced: bool) -> Ops:
+    """One node's fit check and Least/MostAllocated + BalancedAllocation at
+    a given carry row (csrc/lean_eval.cuh kt_fit, kt_fit_scores)."""
+    return Ops(i64=1 + 2 * nreq + 9 * C + 1 + (C if balanced else 0),
+               f64=(6 * C + 7) if balanced else 0)
+
+
+def eval_ops(table, u: int, slots: dict, C: int) -> Ops:
+    """One full evaluation of signature row `u` over the valid nodes
+    (_eval_pod, program.py:495): every filter and score, each loop over
+    the pod's live entries and the node's occupied slots only. Padded
+    nodes cost their validity test."""
+    t = {f: np_of(getattr(table, f)[u]) for f in (
+        "req", "tol_op", "tol_eff", "ns_sel_val", "aff_has",
+        "aff_term_valid", "aff_op", "aff_val", "pref_weight", "pref_op",
+        "pref_val", "port_ids", "img_ids", "img_containers",
+        "skip_balanced", "node_name_id")}
+    live_tol = t["tol_op"] != 0
+    n_tol = int(live_tol.sum())
+    n_tol_pref = int((live_tol & ((t["tol_eff"] == 0)
+                                  | (t["tol_eff"] == 2))).sum())
+    nl, ni, pocc = slots["labels"], slots["images"], slots["ports"]
+
+    def terms(active, ops, vals) -> Ops:
+        out = Ops()
+        for k in range(ops.shape[0]):
+            if not active[k]:
+                continue
+            for q in range(ops.shape[1]):
+                if 1 <= ops[k, q] <= 6:       # a live requirement
+                    nv = int((vals[k, q] != 0).sum())
+                    out = out + Ops(i32=int((nl * (1 + nv)).sum()),
+                                    i64=int(nl.sum()) * (ops[k, q] >= 5))
+        return out
+
+    nreq = int((t["req"] != 0).sum())
+    n_pid = int((t["port_ids"] != 0).sum())
+    n_img = int((t["img_ids"] != 0).sum())
+    imgs = int(t["img_containers"]) > 0
+    # per valid node: the validity, unschedulable, node-name and
+    # feasibility tests and the image counts (int32); the two maxima, the
+    # normalised weighted total and the argmax (int64); fit and scores;
+    # the ImageLocality sum and clamp
+    per = Ops(i32=3 + int(t["node_name_id"] != 0) + n_img, i64=2 + 15 + 1)
+    per = per + score_ops(C, nreq, not bool(t["skip_balanced"]))
+    if imgs:
+        per = per + Ops(i64=n_img + 6, f64=2 * n_img)
+    total = per * slots["n_valid"] + Ops(i32=slots["n_pad"])
+    # the loops over occupied slots: taint effects, tolerations, selector
+    # values, host ports, images
+    total = total + Ops(
+        i32=int((slots["hard"] + slots["pref"]).sum())
+        + 4 * n_tol * int(slots["hard"].sum())
+        + 4 * n_tol_pref * int(slots["pref"].sum())
+        + int((np_of(table.ns_sel_val[u]) != 0).sum()) * int(nl.sum())
+        + n_pid * int(pocc.sum()) + (int(pocc.sum()) if n_pid else 0)
+        + n_img * int(ni.sum()),
+        i64=int(slots["pref"].sum()) + n_img * int(ni.sum()))
+    if t["aff_has"]:
+        total = total + terms(t["aff_term_valid"], t["aff_op"], t["aff_val"])
+    total = total + terms(t["pref_weight"] != 0, t["pref_op"], t["pref_val"])
+    return total
+
+
+def fast_ops(slots: dict) -> Ops:
+    """One SigCache fast-path step: feasibility, the two maxima, the
+    weighted total and the argmax on every valid node."""
+    return Ops(i32=1, i64=2 + 15 + 1) * slots["n_valid"]
+
+
+def select_ops(n: int, k: int) -> Ops:
+    """Top-k of n int64 keys, in order: n - 1 compares to select, then
+    k·log2(k) to order what was selected."""
+    k = min(k, n)
+    return Ops(i64=max(n - 1, 0) + k * max(k - 1, 1).bit_length())
+
+
+# ---------------------------------------------------------------------------
+# seeded lean inputs
+
+
+def lean_cluster(rng: np.random.RandomState, n_nodes: int, wrappers):
+    """Nodes with NoSchedule / PreferNoSchedule / NoExecute taints, zone,
+    disk and numeric labels, and images."""
+    make_node = wrappers.make_node
+    nodes = []
+    for i in range(n_nodes):
+        w = make_node(f"node-{i}").capacity({
+            "cpu": int(rng.choice([8, 16, 32, 64])),
+            "memory": f"{int(rng.choice([16, 32, 64, 128]))}Gi",
+            "pods": 110})
+        w = w.zone(f"zone-{i % 16}").label("kubernetes.io/hostname",
+                                          f"node-{i}")
+        if rng.rand() < 0.4:
+            w = w.label("disk", "ssd" if rng.rand() < 0.5 else "hdd")
+        if rng.rand() < 0.3:
+            w = w.label("gen", str(int(rng.randint(1, 6))))
+        r = rng.rand()
+        if r < 0.1:
+            w = w.taint("dedicated", "batch", effect="NoSchedule")
+        elif r < 0.2:
+            w = w.taint("spot", "", effect="PreferNoSchedule")
+        elif r < 0.22:
+            w = w.taint("drain", "", effect="NoExecute")
+        if rng.rand() < 0.5:
+            for img in ("nginx:1.25", "redis:7")[: int(rng.randint(1, 3))]:
+                w = w.image(img, int(rng.choice([50, 300, 800])) << 20)
+        nodes.append(w.obj())
+    return nodes
+
+
+def lean_pods(rng: np.random.RandomState, n: int, wrappers, prefix: str,
+              ports: bool = True):
+    """Eight pod shapes: plain, selector, toleration, preferred affinity,
+    required affinity with Gt, host port, images, best effort."""
+    make_pod = wrappers.make_pod
+    shapes = []
+    for s in range(8):
+        w = make_pod(f"{prefix}-proto{s}").req(
+            {"cpu": ["900m", "250m", "2"][s % 3],
+             "memory": ["1Gi", "512Mi", "4Gi"][s % 3]})
+        if s == 1:
+            w = w.node_selector({"disk": "ssd"})
+        if s == 2:
+            w = w.toleration(key="dedicated", operator="Exists").toleration(
+                key="spot", operator="Exists", effect="PreferNoSchedule")
+        if s == 3:
+            w = w.preferred_node_affinity_in(
+                "topology.kubernetes.io/zone", ["zone-1", "zone-2"], 7)
+        if s == 4:
+            w = w.node_affinity_in("topology.kubernetes.io/zone",
+                                   [f"zone-{z}" for z in range(8)])
+        if s == 5 and ports:
+            w = w.host_port(8080)
+        if s == 6:
+            w = w.container({"cpu": "100m"}, image="nginx:1.25").container(
+                {"cpu": "100m"}, image="redis:7")
+        if s == 7:
+            w = make_pod(f"{prefix}-proto{s}")
+        shapes.append(w.obj())
+    return [shapes[int(rng.randint(0, 8))] for _ in range(n)]
+
+
+def staged(nodes, bound, pods, device, pkg):
+    """(NodeArrays, PodBatch, device table) through the port's own
+    state layer."""
+    cache = pkg.Cache()
+    for nd in nodes:
+        cache.add_node(nd)
+    for p in bound:
+        cache.add_pod(p)
+    snap = pkg.Snapshot()
+    cache.update_snapshot(snap)
+    state = pkg.ClusterState(device=device)
+    state.apply_snapshot(snap, full=True)
+    builder = pkg.BatchBuilder(state)
+    batch = builder.build(pods)
+    if batch.host_fallback[:len(pods)].any():
+        fail("smoke inputs hit a host-fallback signature")
+    return state.device_arrays(), batch, pkg.table_from_batch(batch, device)
+
+
+class _Pkg:
+    """The port's modules, imported after the CUDA and checkout checks."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.backend.cache import Cache, Snapshot
+        from kubernetes_tpu_torch.ops import kernels, program
+        from kubernetes_tpu_torch.state import convert
+        from kubernetes_tpu_torch.state.batch import BatchBuilder
+        from kubernetes_tpu_torch.state.tensorize import ClusterState
+        from kubernetes_tpu_torch.testing import wrappers
+        self.Cache, self.Snapshot = Cache, Snapshot
+        self.kernels, self.program, self.convert = kernels, program, convert
+        self.BatchBuilder, self.ClusterState = BatchBuilder, ClusterState
+        self.wrappers = wrappers
+        self.table_from_batch = program.table_from_batch
+
+
+def assert_equal_trees(torch, a, b, what: str) -> float:
+    """Exact equality of every tensor in two (nested) tuples; returns the
+    largest absolute difference found (0.0 when they are equal)."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what}: {a.dtype}{tuple(a.shape)} vs "
+                 f"{b.dtype}{tuple(b.shape)}")
+        diff = (float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+                if a.numel() else 0.0)
+        if not torch.equal(a, b):
+            fail(f"{what}: kernel and plain version differ "
+                 f"(max abs {diff})")
+        return diff
+    err = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        name = getattr(a, "_fields", None)
+        err = max(err, assert_equal_trees(
+            torch, x, y, f"{what}.{name[i] if name else i}"))
+    return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+
+
+def check_run_batch(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+    rng = np.random.RandomState(11)
+    nodes = lean_cluster(rng, SB_NODES, pkg.wrappers)
+    bound = []
+    for i in range(600):
+        # 7·i mod 5000 is distinct for i < 5000: one bound pod per node,
+        # every fifth holding host port 8080
+        w = pkg.wrappers.make_pod(f"bound-{i}").req(
+            {"cpu": "500m", "memory": "1Gi"}).node(f"node-{7 * i % SB_NODES}")
+        if i % 5 == 0:
+            w = w.host_port(8080)
+        bound.append(w.obj())
+    span = 1024
+    pods = lean_pods(rng, span - 24, pkg.wrappers, "scan")
+    na, batch, table = staged(nodes, bound, pods, device, pkg)
+    carry0 = P.initial_carry(na)
+    xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:span], sig=batch.sig[:span],
+        tidx=batch.tidx[:span]), device)
+    err = 0.0
+    for strategy in ("LeastAllocated", "MostAllocated"):
+        cfg = P.ScoreConfig(strategy=strategy)
+        kc, ka = P.run_batch(cfg, na, carry0, xs, table)
+        pc, pa = P._run_batch_plain(cfg, na, carry0, xs, table)
+        torch.cuda.synchronize()
+        err = max(err, assert_equal_trees(torch, (ka, kc), (pa, pc),
+                                          f"run_batch[{strategy}]"))
+    cfg = P.ScoreConfig()
+    k_ms = cuda_ms(torch, lambda: P.run_batch(cfg, na, carry0, xs, table), 3)
+    t0 = time.perf_counter()
+    _, assigned = P._run_batch_plain(cfg, na, carry0, xs, table)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    # each input read once, each output written once; a pod whose
+    # signature differs from the one before pays the full evaluation, a
+    # repeat the SigCache fast path; each placement refreshes one node
+    moved = (nbytes(na, carry0, xs, table) + nbytes(carry0)
+             + xs.sig.numel() * 4)
+    slots = node_slots(na, carry0)
+    C = len(cfg.score_cols)
+    ops, prev, per_row = Ops(), int(carry0.cache.sig), {}
+    for s_, u, best in zip(batch.sig[:span].tolist(),
+                           batch.tidx[:span].tolist(),
+                           np_of(assigned).tolist()):
+        if u not in per_row:
+            per_row[u] = eval_ops(table, u, slots, C)
+        ops = ops + (fast_ops(slots) if s_ != 0 and s_ == prev
+                     else per_row[u])
+        if best >= 0:
+            nreq = int((np_of(table.req[u]) != 0).sum())
+            ops = ops + Ops(i64=nreq + 3) + score_ops(C, nreq, True)
+        prev = s_
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="run_batch", pods=span, nodes=SB_NODES,
+        exact=True, max_abs_err=err, ms=k_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, ops=vars(ops), bytes=moved)
+    rows.append(dict(
+        name="run_batch", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_batch.cu",
+        replaces="kubernetes_tpu/ops/program.py:984", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+def check_run_uniform(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+    W = pkg.wrappers
+    # the SchedulingBasic shape: 5,000 harness nodes, one 900m / 1Gi
+    # signature, L = K = 8192, J = 8 (scheduler._uniform_shape at batch
+    # 8192 over 5,000 nodes)
+    nodes = [W.make_node(f"node-{i}").capacity(
+        {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
+        f"zone-{i % 16}").label("kubernetes.io/hostname", f"node-{i}").obj()
+        for i in range(SB_NODES)]
+    rng = np.random.RandomState(5)
+    bound = [W.make_pod(f"init-{i}").req({"cpu": "900m", "memory": "1Gi"})
+             .node(f"node-{int(rng.randint(0, SB_NODES))}").obj()
+             for i in range(SB_INIT_PODS)]
+    pods = [W.make_pod(f"p{i}").req({"cpu": "900m", "memory": "1Gi"}).obj()
+            for i in range(4)]
+    na, batch, table = staged(nodes, bound, pods, device, pkg)
+    L, K, J = BATCH, min(BATCH, na.cap.shape[0]), 8
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    carry0 = P.initial_carry(na)
+    cfg = P.ScoreConfig()
+    err = 0.0
+    for n_actual in (BATCH, 5000):
+        kc, kp = P.run_uniform(cfg, na, carry0, x, table, n_actual, L, K, J)
+        pc, pp = P._run_uniform_plain(cfg, na, carry0, x, table, n_actual,
+                                      L, K, J)
+        torch.cuda.synchronize()
+        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
+                                          f"run_uniform[n={n_actual}]"))
+        flags = kp[L:].tolist()
+        log("kernel", name="run_uniform", n_actual=n_actual, exact=True,
+            flags=flags)
+        if n_actual == BATCH:
+            placed = pp[:L][pp[:L] >= 0]
+    # depth overflow and the fast path (cache hit) on the same inputs
+    kc2, kp2 = P.run_uniform(cfg, na, kc, x, table, 900, L, K, 2)
+    pc2, pp2 = P._run_uniform_plain(cfg, na, pc, x, table, 900, L, K, 2)
+    err = max(err, assert_equal_trees(torch, (kp2, kc2), (pp2, pc2),
+                                      "run_uniform[J=2]"))
+    # a mixed cluster: taints, images, selectors, both strategies
+    mixed = lean_cluster(np.random.RandomState(9), SB_NODES, W)
+    for s, proto in enumerate(lean_pods(np.random.RandomState(3), 8, W,
+                                        "uni", ports=False)[:4]):
+        na_m, b_m, t_m = staged(mixed, (), [proto], device, pkg)
+        if b_m.sig[0] == 0:
+            continue
+        xm = P.PodXs(True, int(b_m.sig[0]), int(b_m.tidx[0]))
+        cm = P.initial_carry(na_m)
+        km = min(4096, na_m.cap.shape[0])
+        for strategy in ("LeastAllocated", "MostAllocated"):
+            cfg_m = P.ScoreConfig(strategy=strategy)
+            kc3, kp3 = P.run_uniform(cfg_m, na_m, cm, xm, t_m, 3000, 4096,
+                                     km, 8)
+            pc3, pp3 = P._run_uniform_plain(cfg_m, na_m, cm, xm, t_m, 3000,
+                                            4096, km, 8)
+            err = max(err, assert_equal_trees(
+                torch, (kp3, kc3), (pp3, pc3),
+                f"run_uniform[mixed{s},{strategy}]"))
+    log("kernel", name="run_uniform", mixed=True, exact=True)
+
+    k_ms = cuda_ms(torch, lambda: P.run_uniform(
+        cfg, na, carry0, x, table, BATCH, L, K, J), 10)
+    plain_ms = cuda_ms(torch, lambda: P._run_uniform_plain(
+        cfg, na, carry0, x, table, BATCH, L, K, J), 3)
+    # the library yardstick: torch.topk over the same K·J flat keys
+    keys = flat_keys(torch, P, cfg, na, carry0, x, table, K, J)
+    lib_ms = cuda_ms(torch, lambda: torch.topk(keys, L), 10)
+    moved = (nbytes(na.cap, na.allowed_pods, na.valid, na.unschedulable,
+                    na.name_id, na.taint_key, na.taint_val, na.taint_eff,
+                    na.label_key, na.label_kv, na.label_num, na.image_id,
+                    na.image_size, carry0) + nbytes(kc.used, kc.nonzero_used,
+                                                    kc.npods, kc.cache, kp))
+    # the run's row over the valid nodes at carry0 (an empty SigCache: the
+    # full evaluation) and its candidate keys; the top-K of those keys;
+    # the [K, J] entries of the feasible candidates (fit, scores, key,
+    # monotonicity); the top-L of those entries; per touched node the
+    # carry update
+    slots = node_slots(na, carry0)
+    C = len(cfg.score_cols)
+    pod = P._gather_row(table, x.tidx, True, x.sig)
+    feasible = int(P._eval_pod(cfg, na, carry0, pod)[0].sum())
+    nreq = int((np_of(table.req[x.tidx]) != 0).sum())
+    touched = int(torch.unique(placed).numel())
+    entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
+    ops = (eval_ops(table, x.tidx, slots, C) + Ops(i64=4) * slots["n_valid"]
+           + select_ops(slots["n_valid"], K) + entry * (feasible * J)
+           + select_ops(feasible * J, L) + Ops(i32=L)
+           + Ops(i32=1, i64=2 * nreq + 4) * touched)
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="run_uniform", ms=k_ms, plain_ms=plain_ms,
+        library_ms=lib_ms, L=L, K=K, J=J, max_abs_err=err,
+        bound_ms=bound_ms, ops=vars(ops), bytes=moved)
+    rows.append(dict(
+        name="run_uniform", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_uniform.cu",
+        replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms))
+
+
+def flat_keys(torch, P, cfg, na, carry, x, table, K, J):
+    """The [K·J] flat keys run_uniform selects its top-L from (plain
+    version), for the torch.topk yardstick."""
+    pod = P._gather_row(table, x.tidx, True, x.sig)
+    feas, total, parts = P._eval_pod(cfg, na, carry, pod)
+    masked0 = torch.where(feas, total, torch.full_like(total, -1))
+    N = masked0.shape[0]
+    ar = torch.arange(N, device=masked0.device)
+    cand = N - 1 - torch.sort((masked0 + 1) * N + (N - 1 - ar),
+                              descending=True).values[:K] % N
+    fit, s_fit, s_bal = P._uniform_matrix(cfg, na, carry.used, carry.npods,
+                                          carry.used, carry.nonzero_used,
+                                          cand, pod, J)
+    score = cfg.w_fit * s_fit + cfg.w_balanced * s_bal
+    masked = torch.where(fit, score, torch.full_like(score, -1))
+    ent = cand[:, None] * J + torch.arange(J, device=cand.device)[None, :]
+    return (masked * (N * J) - ent).reshape(-1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the scheduler end to end
+
+
+HOST_SPLIT = {"create_s": 0.0, "schedule_s": 0.0}
+
+
+def create_pods(api, sched, pods, chunk: int = CREATE_BATCH) -> None:
+    """perf/harness.py createPods: chunks, each followed by a non-blocking
+    schedule_pending, then the full drain. HOST_SPLIT accumulates the wall
+    spent creating (API server + watch fan-out + queue add) and scheduling
+    (drain, device dispatch, commit, bind)."""
+    for k in range(0, len(pods), chunk):
+        t0 = time.perf_counter()
+        api.create_pods(pods[k:k + chunk])
+        t1 = time.perf_counter()
+        sched.schedule_pending(wait=False)
+        HOST_SPLIT["create_s"] += t1 - t0
+        HOST_SPLIT["schedule_s"] += time.perf_counter() - t1
+    t0 = time.perf_counter()
+    sched.schedule_pending()
+    HOST_SPLIT["schedule_s"] += time.perf_counter() - t0
+
+
+def device_share(torch, pkg) -> dict:
+    """One more SchedulingBasic run under torch.profiler: device time per
+    kernel and the device's busy share of the run's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scheduling_basic("cuda", pkg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            per_kernel[ev.key] = us / 1e3
+    busy_ms = sum(per_kernel.values())
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_s": wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / wall if busy_ms else None,
+            "top_device_ms": top}
+
+
+def scheduling_basic(device: str, pkg):
+    """SchedulingBasic 5000Nodes_10000Pods: returns (api, scheduler,
+    measured pods/s)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: 1000.0)
+    for i in range(SB_NODES):
+        api.create_node(W.make_node(f"node-{i}").capacity(
+            {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % 16}").label("kubernetes.io/hostname",
+                                    f"node-{i}").obj())
+    sched.prime()
+    seq, rate = 0, 0.0
+    for count, measured in ((SB_INIT_PODS, False), (SB_PODS, True)):
+        pods = [W.make_pod(f"pod-{seq + i}").req(
+            {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(count)]
+        seq += count
+        before = sched.scheduled_count
+        t0 = time.perf_counter()
+        create_pods(api, sched, pods)
+        if measured:
+            rate = (sched.scheduled_count - before) / (
+                time.perf_counter() - t0)
+    return api, sched, rate
+
+
+def mixed_workload(device: str, pkg, n_nodes: int = 500):
+    """Lean mixed workload: NoSchedule and PreferNoSchedule taints,
+    nodeSelector, hostPort and images; four rotating signatures (scan
+    spans), same-signature runs (uniform spans) and memory-heavy runs on
+    cpu-saturated nodes (uniform rewinds); some pods fit nowhere."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    rng = np.random.RandomState(17)
+    api = APIServer()
+    sched = Scheduler(api, batch_size=1024, device=device,
+                      clock=lambda: 1000.0)
+
+    def nodes(prefix, n, prefer):
+        out = []
+        for i in range(n):
+            hog = i % 50 == 0
+            w = W.make_node(f"{prefix}{i}").capacity({
+                "cpu": 4 if hog else int(rng.choice([8, 16, 32])),
+                "memory": "64Gi" if hog
+                else f"{int(rng.choice([16, 32, 64]))}Gi",
+                "pods": 110}).zone(f"zone-{i % 8}")
+            if rng.rand() < 0.3:
+                w = w.label("disk", "ssd" if rng.rand() < 0.5 else "hdd")
+            if i % 9 == 5:
+                w = w.taint("dedicated", "batch", effect="NoSchedule")
+            if prefer and i % 7 == 1:
+                w = w.taint("spot", "", effect="PreferNoSchedule")
+            if i % 5 == 0:
+                w = w.image("nginx:1.25", 300 << 20)
+            out.append(w.obj())
+        return out
+
+    def pods(prefix, runs):
+        shapes = [
+            lambda k: W.make_pod(k).req({"cpu": "500m", "memory": "1Gi"}),
+            lambda k: W.make_pod(k).req({"cpu": "1", "memory": "512Mi"})
+            .node_selector({"disk": "ssd"}),
+            lambda k: W.make_pod(k).req({"cpu": "250m", "memory": "2Gi"})
+            .toleration(key="dedicated", operator="Exists")
+            .container({"cpu": "100m"}, image="nginx:1.25"),
+            lambda k: W.make_pod(k).req({"cpu": "200m", "memory": "256Mi"})
+            .host_port(8080),
+        ]
+        out = []
+        for r in range(runs):
+            kind = r % 4
+            if kind == 0:
+                for k in range(int(rng.randint(40, 200))):
+                    out.append(shapes[k % 4](f"{prefix}-{len(out)}").obj())
+            elif kind == 1:
+                cpu = ["100m", "300m", "1"][int(rng.randint(0, 3))]
+                for _ in range(int(rng.randint(100, 600))):
+                    out.append(W.make_pod(f"{prefix}-{len(out)}").req(
+                        {"cpu": cpu, "memory": "128Mi"}).obj())
+            elif kind == 2:
+                for _ in range(int(rng.randint(32, 96))):
+                    out.append(W.make_pod(f"{prefix}-{len(out)}").req(
+                        {"cpu": "0", "memory": "3Gi"}).obj())
+            else:
+                out.append(W.make_pod(f"{prefix}-{len(out)}").req(
+                    {"cpu": "900"}).obj())
+                out.append(W.make_pod(f"{prefix}-{len(out)}").req(
+                    {"cpu": "1"}).node_selector({"disk": "nvme"}).obj())
+        return out
+
+    for nd in nodes("m", n_nodes, prefer=False):
+        api.create_node(nd)
+    sched.prime()
+    api.create_pods([W.make_pod(f"hog-{i}").req(
+        {"cpu": "3500m", "memory": "0"}).node(f"m{i}").obj()
+        for i in range(0, n_nodes, 50)])
+    create_pods(api, sched, pods("a", 16), chunk=256)
+    for nd in nodes("late", n_nodes // 10, prefer=True):
+        api.create_node(nd)
+    create_pods(api, sched, pods("b", 8), chunk=256)
+    return api, sched
+
+
+def outcome(api, sched):
+    binds = {uid: p.spec.node_name for uid, p in api.pods.items()
+             if p.spec.node_name}
+    pending = sorted(p.uid for p in sched.queue.pending_pods()[0])
+    return binds, pending
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); the port's smoke run needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "kubernetes_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository (no "
+              "kubernetes_tpu_torch/ beside this script)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    device = "cuda"
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    log("device", name=name, count=torch.cuda.device_count(),
+        torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
+
+    pkg = _Pkg()
+    t0 = time.perf_counter()
+    pkg.kernels.build()
+    info = pkg.kernels.BUILD_INFO
+    ptxas = {k: [ln.strip() for ln in v.splitlines()
+                 if "registers" in ln or "spill" in ln]
+             for k, v in info.get("ptxas", {}).items()}
+    log("build", seconds=time.perf_counter() - t0, built=info.get("built"),
+        ptxas=ptxas)
+
+    rows: list = []
+    check_run_batch(torch, pkg, device, rows)
+    check_run_uniform(torch, pkg, device, rows)
+
+    # phase 4: SchedulingBasic on the card — the counts cover exactly this
+    # run (the comparisons above do not count)
+    pkg.kernels.reset_launches()
+    HOST_SPLIT.update(create_s=0.0, schedule_s=0.0)
+    t0 = time.perf_counter()
+    api, sched, rate = scheduling_basic(device, pkg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sb_counts = dict(pkg.kernels.LAUNCHES)
+    host_split = dict(HOST_SPLIT)
+    got = outcome(api, sched)
+    if len(got[0]) != SB_INIT_PODS + SB_PODS:
+        fail(f"SchedulingBasic bound {len(got[0])} of "
+             f"{SB_INIT_PODS + SB_PODS} pods")
+    if sb_counts["run_uniform"] <= 0:
+        fail("SchedulingBasic never launched the run_uniform kernel")
+    if sched.reconcile() != []:
+        fail("SchedulingBasic: device carry diverges from the host cache")
+    t1 = time.perf_counter()
+    want = outcome(*scheduling_basic("cpu", pkg)[:2])
+    if got != want:
+        fail("SchedulingBasic: cuda bind map differs from the cpu run")
+    log("scheduling_basic", pods=SB_INIT_PODS + SB_PODS, nodes=SB_NODES,
+        pods_per_s=rate, wall_s=wall, launches=sb_counts,
+        uniform_rewinds=sched.uniform_rewinds, cpu_run_s=time.perf_counter()
+        - t1, card=smi, bind_map_equals_cpu=True, host_split=host_split)
+    log("scheduling_basic_profile", **device_share(torch, pkg))
+
+    # phase 5: the mixed lean workload (scan spans and rewinds)
+    pkg.kernels.reset_launches()
+    api, sched = mixed_workload(device, pkg)
+    torch.cuda.synchronize()
+    mixed_counts = dict(pkg.kernels.LAUNCHES)
+    got = outcome(api, sched)
+    if mixed_counts["run_batch"] <= 0 or mixed_counts["run_uniform"] <= 0:
+        fail(f"mixed workload launches {mixed_counts}: both kernels must run")
+    if not got[1]:
+        fail("mixed workload: expected unschedulable pods to stay pending")
+    if sched.reconcile() != []:
+        fail("mixed workload: device carry diverges from the host cache")
+    if got != outcome(*mixed_workload("cpu", pkg)):
+        fail("mixed workload: cuda bind map differs from the cpu run")
+    log("mixed", bound=len(got[0]), pending=len(got[1]),
+        launches=mixed_counts, uniform_rewinds=sched.uniform_rewinds,
+        bind_map_equals_cpu=True)
+    # `launches` sums the two main-path runs, each counted from 0;
+    # `launches_by_path` keeps them apart
+    for row in rows:
+        by_path = {"scheduling_basic": sb_counts[row["name"]],
+                   "mixed": mixed_counts[row["name"]]}
+        row["launches"] = sum(by_path.values())
+        row["launches_by_path"] = by_path
+
+    print(json.dumps({"kernels": rows}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

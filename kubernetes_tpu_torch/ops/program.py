@@ -1,0 +1,685 @@
+"""The lean device program: per-pod scan and the closed-form uniform run.
+
+PyTorch counterpart of kubernetes_tpu/ops/program.py, lean subset (no
+nominated-pod overlay, no group kernels). Every device program here has
+two implementations:
+
+- a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain` and
+  the filter/score functions below), a line-for-line translation of the
+  JAX functions with the same dtypes and the same integer and float
+  arithmetic — the CPU path and the reference the CUDA kernels are held
+  to;
+- a hand-written CUDA kernel (ops/kernels.py, csrc/), launched when the
+  inputs lie on a CUDA device.
+
+`run_batch` / `run_uniform` pick by the device of the carry: CPU tensors
+take the plain version, CUDA tensors launch the kernel, and anything
+else raises. There is no fallback between the two.
+
+Translation notes (where a naive port diverges from the JAX program):
+- int64 / int64 in torch is float32; every ratio casts to float64 first
+  (JAX x64 true division is float64);
+- `//` on torch integers floors, like jnp's;
+- the BalancedAllocation sums run left to right over the score columns
+  (the order XLA and numpy use for these short rows), and the squares are
+  written `d * d`;
+- top-k: keys fold the node index in, so ties resolve to the lowest
+  index exactly like `lax.top_k`;
+- count scatters with duplicate indices use `index_add`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..plugins.imagelocality import (MAX_CONTAINER_THRESHOLD as
+                                     IMG_MAX_CONTAINER_THRESHOLD,
+                                     MIN_THRESHOLD as IMG_MIN_THRESHOLD)
+from ..state.batch import (OP_DOES_NOT_EXIST, OP_EXISTS, OP_GT, OP_IN,
+                           OP_LT, OP_NOT_IN, TOL_EXISTS)
+from ..state.tensorize import (EFFECT_NO_EXECUTE, EFFECT_NO_SCHEDULE,
+                               EFFECT_PREFER_NO_SCHEDULE, NodeArrays)
+
+MAX_SCORE = 100
+I64_MIN = -(2 ** 63)
+
+_I64, _I32 = torch.int64, torch.int32
+
+
+class ScoreConfig(NamedTuple):
+    """Static per-profile scoring configuration."""
+
+    score_cols: tuple[int, ...] = (0, 1)        # resource columns to score
+    col_weights: tuple[int, ...] = (1, 1)       # per-column weights
+    col_nonzero: tuple[bool, ...] = (True, True)  # use NonZeroRequested path
+    nonzero_slot: tuple[int, ...] = (0, 1)      # index into nonzero arrays
+    w_fit: int = 1
+    w_balanced: int = 1
+    w_taint: int = 3
+    w_node_affinity: int = 2
+    w_spread: int = 2                           # PodTopologySpread weight
+    w_ipa: int = 2                              # InterPodAffinity weight
+    w_image: int = 1                            # ImageLocality weight
+    strategy: str = "LeastAllocated"            # or MostAllocated
+
+
+class SigCache(NamedTuple):
+    """Per-signature cached evaluation: consecutive pods with an identical
+    device row reuse the carry-independent kernels; only the row touched by
+    the previous placement is recomputed. sig 0 never matches."""
+
+    sig: torch.Tensor          # i32 scalar
+    static_mask: torch.Tensor  # bool [N]
+    taint_raw: torch.Tensor    # i64 [N]
+    na_raw: torch.Tensor       # i64 [N]
+    s_img: torch.Tensor        # i64 [N]
+    fit_ok: torch.Tensor       # bool [N]
+    s_fit: torch.Tensor        # i64 [N]
+    s_bal: torch.Tensor        # i64 [N]
+
+
+class Carry(NamedTuple):
+    used: torch.Tensor          # i64 [N, R]
+    nonzero_used: torch.Tensor  # i64 [N, 2]
+    npods: torch.Tensor         # i32 [N]
+    ports: torch.Tensor         # i32 [N, P]
+    cache: SigCache
+
+
+class PodTableDev(NamedTuple):
+    """Device copy of state.batch.PodTable ([U, ...], U = distinct sigs)."""
+
+    req: torch.Tensor
+    nonzero_req: torch.Tensor
+    node_name_id: torch.Tensor
+    tol_key: torch.Tensor
+    tol_val: torch.Tensor
+    tol_eff: torch.Tensor
+    tol_op: torch.Tensor
+    tolerates_unsched: torch.Tensor
+    ns_sel_val: torch.Tensor
+    aff_has: torch.Tensor
+    aff_term_valid: torch.Tensor
+    aff_key: torch.Tensor
+    aff_op: torch.Tensor
+    aff_num: torch.Tensor
+    aff_val: torch.Tensor
+    pref_weight: torch.Tensor
+    pref_key: torch.Tensor
+    pref_op: torch.Tensor
+    pref_num: torch.Tensor
+    pref_val: torch.Tensor
+    port_ids: torch.Tensor
+    skip_balanced: torch.Tensor
+    img_ids: torch.Tensor
+    img_containers: torch.Tensor
+
+
+class PodXs(NamedTuple):
+    """Per-pod scan inputs: bool/i32 [B] tensors for `run_batch`; Python
+    scalars (the run's one row) for `run_uniform`."""
+
+    valid: object
+    sig: object
+    tidx: object
+
+
+class PodRow(NamedTuple):
+    """One pod's view inside a step: table row + per-pod scalars."""
+
+    valid: bool
+    sig: int
+    req: torch.Tensor
+    nonzero_req: torch.Tensor
+    node_name_id: torch.Tensor
+    tol_key: torch.Tensor
+    tol_val: torch.Tensor
+    tol_eff: torch.Tensor
+    tol_op: torch.Tensor
+    tolerates_unsched: torch.Tensor
+    ns_sel_val: torch.Tensor
+    aff_has: torch.Tensor
+    aff_term_valid: torch.Tensor
+    aff_key: torch.Tensor
+    aff_op: torch.Tensor
+    aff_num: torch.Tensor
+    aff_val: torch.Tensor
+    pref_weight: torch.Tensor
+    pref_key: torch.Tensor
+    pref_op: torch.Tensor
+    pref_num: torch.Tensor
+    pref_val: torch.Tensor
+    port_ids: torch.Tensor
+    skip_balanced: torch.Tensor
+    img_ids: torch.Tensor
+    img_containers: torch.Tensor
+
+
+def _gather_row(table: PodTableDev, tidx: int, valid: bool,
+                sig: int) -> PodRow:
+    fields = {name: getattr(table, name)[tidx]
+              for name in PodTableDev._fields}
+    return PodRow(valid=bool(valid), sig=int(sig), **fields)
+
+
+def table_from_batch(batch, device) -> PodTableDev:
+    """PodBatch → device signature table."""
+    from ..state.convert import pod_table_from_numpy
+    return pod_table_from_numpy(batch.table, device)
+
+
+# ---------------------------------------------------------------------------
+# filter functions (full node axis)
+
+
+def fit_mask(cap, used, npods, allowed_pods, req):
+    pods_ok = npods + 1 <= allowed_pods
+    cols_ok = ((req[None, :] == 0) | (used + req[None, :] <= cap)).all(dim=1)
+    return pods_ok & cols_ok
+
+
+def tolerates(tol_key, tol_val, tol_eff, tol_op, taint_key, taint_val,
+              taint_eff):
+    """[N, T] taints × [TT] tolerations → bool [N, T, TT]: does toleration
+    tt cover taint t. Empty toleration key (0) matches all keys; empty
+    effect (0) matches all effects; Exists ignores the value."""
+    tk, tv, te = taint_key[..., None], taint_val[..., None], taint_eff[..., None]
+    key_ok = (tol_key == 0) | (tol_key == tk)
+    eff_ok = (tol_eff == 0) | (tol_eff == te)
+    val_ok = (tol_op == TOL_EXISTS) | (tol_val == tv)
+    return (tol_op != 0) & key_ok & eff_ok & val_ok
+
+
+def taint_filter_mask(na: NodeArrays, pod):
+    """No untolerated NoSchedule/NoExecute taint."""
+    tol = tolerates(pod.tol_key, pod.tol_val, pod.tol_eff, pod.tol_op,
+                    na.taint_key, na.taint_val, na.taint_eff)
+    tolerated = tol.any(dim=2)
+    hard = ((na.taint_eff == EFFECT_NO_SCHEDULE)
+            | (na.taint_eff == EFFECT_NO_EXECUTE))
+    return ~(hard & ~tolerated).any(dim=1)
+
+
+def taint_prefer_count(na: NodeArrays, pod):
+    """Untolerated PreferNoSchedule taints; only tolerations with empty or
+    PreferNoSchedule effect participate."""
+    prefer_tol_op = torch.where(
+        (pod.tol_eff == 0) | (pod.tol_eff == EFFECT_PREFER_NO_SCHEDULE),
+        pod.tol_op, torch.zeros_like(pod.tol_op))
+    tol = tolerates(pod.tol_key, pod.tol_val, pod.tol_eff, prefer_tol_op,
+                    na.taint_key, na.taint_val, na.taint_eff)
+    tolerated = tol.any(dim=2)
+    prefer = na.taint_eff == EFFECT_PREFER_NO_SCHEDULE
+    return (prefer & ~tolerated).sum(dim=1).to(_I64)
+
+
+def _terms_ok(na: NodeArrays, keys, ops, nums, vals):
+    """Selector terms against every node: keys/ops/nums [T, Q], vals
+    [T, Q, V] → bool [N, T], each term the AND of its requirements."""
+    lk = na.label_key[:, None, None, :]                       # [N,1,1,L]
+    key_hit = (lk == keys[None, :, :, None]) & (keys != 0)[None, :, :, None]
+    key_present = key_hit.any(dim=-1)                         # [N,T,Q]
+    kv = na.label_kv[:, None, None, :, None]                  # [N,1,1,L,1]
+    v = vals[None, :, :, None, :]                             # [1,T,Q,1,V]
+    kv_match = ((kv == v) & (v != 0)).any(dim=-1).any(dim=-1)  # [N,T,Q]
+    num = na.label_num[:, None, None, :]
+    numeric = torch.where(key_hit, num,
+                          torch.full_like(num, I64_MIN)).amax(dim=-1)
+    has_numeric = key_present & (numeric != I64_MIN)
+    res = torch.ones_like(key_present)
+    res = torch.where(ops == OP_IN, kv_match, res)
+    res = torch.where(ops == OP_NOT_IN, ~kv_match, res)
+    res = torch.where(ops == OP_EXISTS, key_present, res)
+    res = torch.where(ops == OP_DOES_NOT_EXIST, ~key_present, res)
+    res = torch.where(ops == OP_GT, has_numeric & (numeric > nums), res)
+    res = torch.where(ops == OP_LT, has_numeric & (numeric < nums), res)
+    return res.all(dim=-1)
+
+
+def selector_mask(na: NodeArrays, pod):
+    """spec.nodeSelector conjuncts AND required nodeAffinity terms (ORed)."""
+    present = (pod.ns_sel_val[None, :, None]
+               == na.label_kv[:, None, :]).any(dim=-1)        # [N, Q]
+    sel_ok = ((pod.ns_sel_val == 0)[None, :] | present).all(dim=-1)
+    terms = _terms_ok(na, pod.aff_key, pod.aff_op, pod.aff_num, pod.aff_val)
+    aff_ok = (terms & pod.aff_term_valid[None, :]).any(dim=-1)
+    return sel_ok & (aff_ok | ~pod.aff_has)
+
+
+def preferred_affinity_score(na: NodeArrays, pod):
+    """Σ weight over matching preferred terms."""
+    match = _terms_ok(na, pod.pref_key, pod.pref_op, pod.pref_num,
+                      pod.pref_val)                           # [N, PT]
+    w = pod.pref_weight[None, :]
+    return torch.where(match, w, torch.zeros_like(w)).sum(dim=-1)
+
+
+def ports_mask(ports, pod_port_ids):
+    """No interned (proto, port) id collision, and enough free row slots to
+    record the pod's ports."""
+    pid = pod_port_ids[None, None, :]
+    collide = ((ports[:, :, None] == pid) & (pid != 0)).any(dim=2).any(dim=1)
+    free = (ports == 0).sum(dim=1)
+    needed = (pod_port_ids != 0).sum()
+    return ~collide & (free >= needed)
+
+
+# ---------------------------------------------------------------------------
+# score functions
+
+
+def image_locality_score(na: NodeArrays, pod):
+    """image_locality.go:95-131: per container image, the node's stored
+    size scaled by the image's cluster spread (float64, truncated), summed,
+    clamped, mapped to [0, 100]."""
+    ids = pod.img_ids[None, None, :]
+    match = (na.image_id[:, :, None] == ids) & (ids != 0)    # [N, I, IC]
+    size = na.image_size[:, :, None]
+    size_c = torch.where(match, size, torch.zeros_like(size)).sum(dim=1)
+    present_c = match.any(dim=1)                              # [N, IC]
+    num_with = (present_c & na.valid[:, None]).sum(dim=0)     # [IC]
+    total = na.valid.sum().clamp(min=1)
+    spread = num_with.to(torch.float64) / total.to(torch.float64)
+    scaled = (size_c.to(torch.float64) * spread[None, :]).to(_I64)
+    sum_scores = scaled.sum(dim=1)
+    nc = pod.img_containers.clamp(min=1).to(_I64)
+    max_thr = IMG_MAX_CONTAINER_THRESHOLD * nc
+    clamped = torch.minimum(sum_scores.clamp(min=IMG_MIN_THRESHOLD), max_thr)
+    score = (MAX_SCORE * (clamped - IMG_MIN_THRESHOLD)
+             // (max_thr - IMG_MIN_THRESHOLD).clamp(min=1))
+    return torch.where(pod.img_containers > 0, score, torch.zeros_like(score))
+
+
+def least_allocated(cfg: ScoreConfig, cap, used_cols):
+    """least_allocated.go:30-60 exact int64 arithmetic. cap/used_cols:
+    [..., C] for the configured score columns."""
+    w = torch.tensor(cfg.col_weights, dtype=_I64, device=cap.device)
+    col_ok = cap > 0
+    capm = cap.clamp(min=1)
+    if cfg.strategy == "MostAllocated":
+        val = used_cols * MAX_SCORE // capm
+    else:
+        val = (cap - used_cols) * MAX_SCORE // capm
+    zero = torch.zeros_like(val)
+    raw = torch.where((cap == 0) | (used_cols > cap), zero, val)
+    score_sum = torch.where(col_ok, raw * w, zero).sum(dim=-1)
+    w_sum = torch.where(col_ok, w.expand_as(raw), zero).sum(dim=-1)
+    return torch.where(w_sum > 0, score_sum // w_sum.clamp(min=1),
+                       torch.zeros_like(score_sum))
+
+
+def _balanced_from_fracs(fracs: list, oks: list):
+    """100·(1 − population std of the utilization fractions), the sums taken
+    left to right over the columns; shared by the scan and the closed form
+    so both compute the same bits."""
+    cnt = oks[0].to(_I64)
+    total = fracs[0]
+    for ok, f in zip(oks[1:], fracs[1:]):
+        cnt = cnt + ok.to(_I64)
+        total = total + f
+    cntf = cnt.clamp(min=1).to(torch.float64)
+    mean = total / cntf
+    var = None
+    for ok, f in zip(oks, fracs):
+        d = f - mean
+        sq = torch.where(ok, d * d, torch.zeros_like(d))
+        var = sq if var is None else var + sq
+    std = torch.sqrt(var / cntf)
+    return torch.floor((1.0 - std) * MAX_SCORE + 1e-9).to(_I64)
+
+
+def _frac(cap, used):
+    ok = cap > 0
+    f = torch.minimum(used.to(torch.float64)
+                      / cap.clamp(min=1).to(torch.float64),
+                      torch.ones((), dtype=torch.float64, device=cap.device))
+    return ok, torch.where(ok, f, torch.zeros_like(f))
+
+
+def balanced_allocation(cap, used_cols):
+    """balanced_allocation.go:195-237 over [N, C] columns."""
+    oks, fracs = [], []
+    for c in range(cap.shape[-1]):
+        ok, f = _frac(cap[..., c], used_cols[..., c])
+        oks.append(ok)
+        fracs.append(f)
+    return _balanced_from_fracs(fracs, oks)
+
+
+def default_normalize(scores, feasible, reverse: bool):
+    """DefaultNormalizeScore over the feasible set."""
+    maxc = torch.where(feasible, scores, torch.zeros_like(scores)).max()
+    scaled = torch.where(maxc > 0, scores * MAX_SCORE // maxc.clamp(min=1),
+                         torch.full_like(scores, MAX_SCORE) if reverse
+                         else scores)
+    if reverse:
+        scaled = torch.where(maxc > 0, MAX_SCORE - scaled, scaled)
+    return scaled
+
+
+# ---------------------------------------------------------------------------
+# the scan
+
+
+def _cols(cfg: ScoreConfig):
+    return list(cfg.score_cols), list(cfg.nonzero_slot)
+
+
+def _fit_scores(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
+    """LeastAllocated + BalancedAllocation over all nodes → ([N], [N])."""
+    cols, slots = _cols(cfg)
+    cap_cols = na.cap[:, cols]
+    nz = torch.tensor(cfg.col_nonzero, device=cap_cols.device)
+    used_nonzero = carry.nonzero_used[:, slots] + pod.nonzero_req[slots][None]
+    used_plain = carry.used[:, cols] + pod.req[cols][None, :]
+    used_cols = torch.where(nz[None, :], used_nonzero, used_plain)
+    s_fit = least_allocated(cfg, cap_cols, used_cols)
+    bal = balanced_allocation(cap_cols, used_plain)
+    s_bal = torch.where(pod.skip_balanced, torch.zeros_like(bal), bal)
+    return s_fit, s_bal
+
+
+def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                pod: PodRow) -> SigCache:
+    """Everything SigCache caches, freshly computed."""
+    m = na.valid.clone()
+    m &= (pod.node_name_id == 0) | (na.name_id == pod.node_name_id)
+    m &= ~na.unschedulable | pod.tolerates_unsched
+    m &= taint_filter_mask(na, pod)
+    m &= selector_mask(na, pod)
+    m &= ports_mask(carry.ports, pod.port_ids)
+    fit_ok = fit_mask(na.cap, carry.used, carry.npods, na.allowed_pods,
+                      pod.req)
+    s_fit, s_bal = _fit_scores(cfg, na, carry, pod)
+    return SigCache(
+        sig=torch.tensor(pod.sig, dtype=_I32, device=m.device),
+        static_mask=m, taint_raw=taint_prefer_count(na, pod),
+        na_raw=preferred_affinity_score(na, pod),
+        s_img=image_locality_score(na, pod), fit_ok=fit_ok, s_fit=s_fit,
+        s_bal=s_bal)
+
+
+def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
+    """Feasibility + total score for one pod over all nodes → (feasible,
+    total, parts), consulting the signature cache."""
+    cache = carry.cache
+    if pod.sig != 0 and pod.sig == int(cache.sig):
+        parts = cache._replace(
+            sig=torch.tensor(pod.sig, dtype=_I32, device=cache.sig.device))
+    else:
+        parts = _slow_parts(cfg, na, carry, pod)
+    feasible = parts.static_mask & parts.fit_ok
+    s_taint = default_normalize(parts.taint_raw, feasible, reverse=True)
+    s_na = default_normalize(parts.na_raw, feasible, reverse=False)
+    total = (cfg.w_fit * parts.s_fit + cfg.w_balanced * parts.s_bal
+             + cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
+             + cfg.w_image * parts.s_img)
+    return feasible, total, parts
+
+
+def _row_refresh(cfg: ScoreConfig, na: NodeArrays, c2: Carry, pod: PodRow,
+                 best, gate, cache: SigCache) -> SigCache:
+    """Recompute fit_ok/s_fit/s_bal for the single row the placement
+    touched (everything else in the cache is carry-independent)."""
+    cols, slots = _cols(cfg)
+    cap_row = na.cap[best]
+    used_row = c2.used[best]
+    fit_ok_b = ((c2.npods[best] + 1 <= na.allowed_pods[best])
+                & ((pod.req == 0) | (used_row + pod.req <= cap_row)).all())
+    nz = torch.tensor(cfg.col_nonzero, device=cap_row.device)
+    cap_r = cap_row[cols][None, :]
+    used_nz_r = c2.nonzero_used[best][slots] + pod.nonzero_req[slots]
+    used_pl_r = used_row[cols] + pod.req[cols]
+    used_cols_r = torch.where(nz, used_nz_r, used_pl_r)[None, :]
+    s_fit_b = least_allocated(cfg, cap_r, used_cols_r)[0]
+    bal_b = balanced_allocation(cap_r, used_pl_r[None, :])[0]
+    s_bal_b = torch.where(pod.skip_balanced, torch.zeros_like(bal_b), bal_b)
+
+    def put(vec, val):
+        out = vec.clone()
+        out[best] = torch.where(gate, val, vec[best])
+        return out
+
+    return cache._replace(fit_ok=put(cache.fit_ok, fit_ok_b),
+                          s_fit=put(cache.s_fit, s_fit_b),
+                          s_bal=put(cache.s_bal, s_bal_b))
+
+
+def _apply_assignment(carry: Carry, pod: PodRow, best, assigned) -> Carry:
+    n = carry.npods.shape[0]
+    onehot = (torch.arange(n, device=best.device) == best) & assigned
+    oh = onehot[:, None]
+    used = carry.used + torch.where(oh, pod.req[None, :],
+                                    torch.zeros_like(carry.used))
+    nonzero = carry.nonzero_used + torch.where(
+        oh, pod.nonzero_req[None, :], torch.zeros_like(carry.nonzero_used))
+    npods = carry.npods + onehot.to(carry.npods.dtype)
+    # place pod port ids into the first free slots of the chosen node's row
+    row = carry.ports[best]
+    free = row == 0
+    rank = torch.cumsum(free.to(_I64), dim=0) - 1
+    pod_ports = pod.port_ids
+    nport = pod_ports.shape[0]
+    incoming = torch.where((rank >= 0) & (rank < nport) & free,
+                           pod_ports[rank.clamp(0, nport - 1)],
+                           torch.zeros_like(row))
+    new_row = torch.where(free, incoming, row)
+    ports = torch.where(oh & (pod_ports != 0).any(),
+                        new_row[None, :].expand_as(carry.ports), carry.ports)
+    return carry._replace(used=used, nonzero_used=nonzero, npods=npods,
+                          ports=ports)
+
+
+def _run_batch_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                     pods: PodXs, table: PodTableDev):
+    """The sequential scan, one pod per step (plain version)."""
+    out = []
+    c = carry
+    for v, s, t in zip(pods.valid.tolist(), pods.sig.tolist(),
+                       pods.tidx.tolist()):
+        pod = _gather_row(table, t, v, s)
+        mask, score, parts = _eval_pod(cfg, na, c, pod)
+        masked = torch.where(mask, score, torch.full_like(score, -1))
+        best = torch.argmax(masked)          # first max
+        assigned = (masked[best] >= 0) & bool(v)
+        c2 = _apply_assignment(c, pod, best, assigned)
+        c = c2._replace(cache=_row_refresh(cfg, na, c2, pod, best, assigned,
+                                           parts))
+        out.append(torch.where(assigned, best, torch.full_like(best, -1)))
+    if not out:
+        return c, torch.zeros((0,), dtype=_I32, device=carry.used.device)
+    return c, torch.stack(out).to(_I32)
+
+
+def run_batch(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pods: PodXs,
+              table: PodTableDev):
+    """Scan the batch; returns (final carry, assignments i32 [B] (-1 =
+    none)). Never writes into `carry`: the output carry is fresh."""
+    dev = carry.used.device
+    if dev.type == "cuda":
+        from .kernels import run_batch_cuda
+        return run_batch_cuda(cfg, na, carry, pods, table)
+    if dev.type != "cpu":
+        raise RuntimeError(f"run_batch: unsupported device {dev}")
+    return _run_batch_plain(cfg, na, carry, pods, table)
+
+
+# ---------------------------------------------------------------------------
+# the closed-form uniform run
+
+
+def _uniform_matrix(cfg: ScoreConfig, na: NodeArrays, fit_used, fit_npods,
+                    score_used, score_nz, cand, pod: PodRow, J: int):
+    """The closed-form [K, J] matrices: entry j = fit + post-placement
+    scores of the (j+1)-th run-pod on candidate k → (fit_kj, s_fit_kj,
+    s_bal_kj)."""
+    dev = cand.device
+    j1 = torch.arange(1, J + 1, dtype=_I64, device=dev)[None, :]   # [1, J]
+    npods_kj = fit_npods[cand][:, None].to(_I64) + j1
+    fit_kj = npods_kj <= na.allowed_pods[cand][:, None].to(_I64)
+    used_kjr = fit_used[cand][:, None, :] + j1[:, :, None] * pod.req
+    cap_kr = na.cap[cand][:, None, :]
+    fit_kj &= ((pod.req == 0) | (used_kjr <= cap_kr)).all(dim=-1)
+
+    w = cfg.col_weights
+    K = cand.shape[0]
+    zero = torch.zeros((K, J), dtype=_I64, device=dev)
+    score_sum = zero
+    w_sum = zero
+    fracs, oks = [], []
+    for ci, col in enumerate(cfg.score_cols):
+        cap_c = na.cap[cand, col][:, None]                       # [K, 1]
+        used_pl = score_used[cand, col][:, None] + j1 * pod.req[col]
+        if cfg.col_nonzero[ci]:
+            slot = cfg.nonzero_slot[ci]
+            used_c = score_nz[cand, slot][:, None] + j1 * pod.nonzero_req[slot]
+        else:
+            used_c = used_pl
+        col_ok = (cap_c > 0).expand(K, J)
+        capm = cap_c.clamp(min=1)
+        if cfg.strategy == "MostAllocated":
+            val = used_c * MAX_SCORE // capm
+        else:
+            val = (cap_c - used_c) * MAX_SCORE // capm
+        raw = torch.where((cap_c == 0) | (used_c > cap_c), zero, val)
+        score_sum = score_sum + torch.where(col_ok, raw * w[ci], zero)
+        w_sum = w_sum + torch.where(col_ok, torch.full_like(zero, w[ci]),
+                                    zero)
+        ok, f = _frac(cap_c.expand(K, J), used_pl)
+        oks.append(ok)
+        fracs.append(f)
+    s_fit_kj = torch.where(w_sum > 0, score_sum // w_sum.clamp(min=1), zero)
+    bal = _balanced_from_fracs(fracs, oks)
+    s_bal_kj = torch.where(pod.skip_balanced, zero, bal)
+    return fit_kj, s_fit_kj, s_bal_kj
+
+
+def _run_uniform_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                       x: PodXs, table: PodTableDev, n_actual: int, L: int,
+                       K: int, J: int):
+    pod = _gather_row(table, int(x.tidx), True, int(x.sig))
+    feasible0, total0, parts = _eval_pod(cfg, na, carry, pod)
+    masked0 = torch.where(feasible0, total0, torch.full_like(total0, -1))
+    N = masked0.shape[0]
+    dev = masked0.device
+    ar_n = torch.arange(N, dtype=_I64, device=dev)
+    # top-K with ties to the lowest index: the index rides in the key
+    key0 = (masked0 + 1) * N + (N - 1 - ar_n)
+    cand = (N - 1 - torch.sort(key0, descending=True).values[:K] % N)
+
+    s_taint = default_normalize(parts.taint_raw, feasible0, reverse=True)
+    s_na = default_normalize(parts.na_raw, feasible0, reverse=False)
+    static_add = (cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
+                  + cfg.w_image * parts.s_img)[cand]
+    static_m = parts.static_mask[cand]
+    zero_n = torch.zeros_like(parts.taint_raw)
+    norm_ok = ((torch.where(feasible0, parts.taint_raw, zero_n).max() == 0)
+               & (torch.where(feasible0, parts.na_raw, zero_n).max() == 0))
+
+    fit_kj, s_fit_kj, s_bal_kj = _uniform_matrix(
+        cfg, na, carry.used, carry.npods, carry.used, carry.nonzero_used,
+        cand, pod, J)
+    score_kj = (cfg.w_fit * s_fit_kj + cfg.w_balanced * s_bal_kj
+                + static_add[:, None])
+    masked_kj = torch.where(static_m[:, None] & fit_kj, score_kj,
+                            torch.full_like(score_kj, -1))
+    mono_ok = (masked_kj[:, 1:] <= masked_kj[:, :-1]).all()
+
+    # key = (score desc, node idx asc, j asc), unique per entry
+    M = N * J
+    if K * J < L:
+        raise ValueError(f"run_uniform: K*J = {K * J} < L = {L}")
+    ent_id = (cand[:, None] * J
+              + torch.arange(J, dtype=_I64, device=dev)[None, :])
+    flat_key = (masked_kj * M - ent_id).reshape(K * J)
+    srt = torch.sort(flat_key, descending=True)
+    top_vals, flat_i = srt.values[:L], srt.indices[:L]
+    krank = flat_i // J
+    node_of = cand[krank]
+    sel_ok = (top_vals > -M) & (torch.arange(L, device=dev) < n_actual)
+    assignments = torch.where(sel_ok, node_of,
+                              torch.full_like(node_of, -1)).to(_I32)
+
+    counts = torch.zeros((K,), dtype=_I64, device=dev).index_add_(
+        0, krank, sel_ok.to(_I64))
+    depth_ok = (counts < J).all()
+    used = carry.used.index_add(0, cand, counts[:, None] * pod.req[None, :])
+    nonzero = carry.nonzero_used.index_add(
+        0, cand, counts[:, None] * pod.nonzero_req[None, :])
+    npods = carry.npods.index_add(0, cand, counts.to(carry.npods.dtype))
+
+    # cache refresh: entry j=counts IS the next-pod evaluation for this sig
+    ar = torch.arange(K, device=dev)
+    cnt_i = counts.clamp(max=J - 1)
+
+    def put(vec, mat):
+        out = vec.clone()
+        out[cand] = mat[ar, cnt_i]
+        return out
+
+    new_cache = parts._replace(fit_ok=put(parts.fit_ok, fit_kj),
+                               s_fit=put(parts.s_fit, s_fit_kj),
+                               s_bal=put(parts.s_bal, s_bal_kj))
+    new_carry = carry._replace(used=used, nonzero_used=nonzero, npods=npods,
+                               cache=new_cache)
+    packed = torch.cat([assignments,
+                        torch.stack([mono_ok & norm_ok, depth_ok]).to(_I32)])
+    return new_carry, packed
+
+
+def run_uniform(cfg: ScoreConfig, na: NodeArrays, carry: Carry, x: PodXs,
+                table: PodTableDev, n_actual: int, L: int, K: int, J: int):
+    """Closed-form assignment of a run of `n_actual` same-signature pods
+    (row `x.tidx`, signature `x.sig != 0`; see the JAX package's
+    `_uniform_core` for the exactness argument). Returns (carry', packed
+    i32 [L+2]): assignments, then the exactness flag (monotonicity and
+    normalization constancy held) and the depth flag (no candidate used
+    all J entries). Never writes into `carry`: the scheduler keeps it for
+    rewind and replay."""
+    dev = carry.used.device
+    if dev.type == "cuda":
+        from .kernels import run_uniform_cuda
+        return run_uniform_cuda(cfg, na, carry, x, table, n_actual, L, K, J)
+    if dev.type != "cpu":
+        raise RuntimeError(f"run_uniform: unsupported device {dev}")
+    return _run_uniform_plain(cfg, na, carry, x, table, n_actual, L, K, J)
+
+
+# ---------------------------------------------------------------------------
+# state helpers
+
+
+def scatter_rows(dev: NodeArrays, idx, rows: NodeArrays) -> NodeArrays:
+    """Scatter `rows` ([D, ...], one staging row per dirty node) into the
+    resident NodeArrays at `idx` (int [D]). Non-writing: returns fresh
+    tensors, because in-flight drains still hold the previous copy."""
+    device = dev.used.device
+    index = torch.as_tensor(idx, dtype=_I64).to(device)
+    return NodeArrays(*(d.index_copy(0, index, r) for d, r in zip(dev, rows)))
+
+
+def empty_cache(n: int, device) -> SigCache:
+    def z(dtype):
+        return torch.zeros((n,), dtype=dtype, device=device)
+    return SigCache(sig=torch.zeros((), dtype=_I32, device=device),
+                    static_mask=z(torch.bool), taint_raw=z(_I64),
+                    na_raw=z(_I64), s_img=z(_I64), fit_ok=z(torch.bool),
+                    s_fit=z(_I64), s_bal=z(_I64))
+
+
+def initial_carry(na: NodeArrays) -> Carry:
+    """Carry seeded from the node arrays (copies: the programs return fresh
+    carries and never alias the resident NodeArrays) plus an empty
+    SigCache."""
+    return Carry(used=na.used.clone(), nonzero_used=na.nonzero_used.clone(),
+                 npods=na.npods.clone(), ports=na.ports.clone(),
+                 cache=empty_cache(na.npods.shape[0], na.used.device))
+
+
+def with_cache_sig(carry: Carry, sig: int) -> Carry:
+    """The carry with its signature cache relabelled (sig 0 = invalid)."""
+    return carry._replace(cache=carry.cache._replace(sig=torch.tensor(
+        sig, dtype=_I32, device=carry.cache.sig.device)))
+

@@ -1,0 +1,870 @@
+"""The Scheduler, lean: host orchestration around the PyTorch device program.
+
+Counterpart of kubernetes_tpu/scheduler.py for the lean default profile
+(NodeUnschedulable, NodeName, TaintToleration, NodeAffinity, NodePorts,
+NodeResourcesFit, BalancedAllocation, ImageLocality). The queue drains in
+device-sized batches; the drain compiler splits each batch into
+same-signature "uniform" runs (closed-form top-L, ops/program.py
+run_uniform) and "scan" spans (ops/program.py run_batch); the carry chains
+on the device from span to span and drain to drain; the commit assumes the
+winners in the host cache and bulk-binds them through the dispatcher.
+
+Where the JAX package degrades, this one refuses:
+- no device-fault circuit breaker and no host scheduling path: a fault in
+  a build or a launch raises;
+- a pod that needs a feature this port lacks — topology spread,
+  inter-pod affinity, gangs (Workload), volumes or DRA claims, extenders,
+  nominated-pod overlays, preemption — raises NotImplementedError naming
+  the missing piece, and is never scheduled with a reduced plugin set.
+
+`Scheduler(api, device=None)` runs on "cuda"; without a CUDA device it
+raises unless the caller asks for `device="cpu"` (the plain PyTorch
+versions of the kernels — what the tests use).
+"""
+
+from __future__ import annotations
+
+import time as _time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .api.types import DEFAULT_SCHEDULER_NAME, Node, Pod
+from .backend.apiserver import APIServer, WatchHandlers
+from .backend.cache import Cache, Snapshot, _PodState
+from .backend.dispatcher import APICall, APIDispatcher, CallType
+from .backend.queue import ClusterEventWithHint, SchedulingQueue
+from .framework.interface import CycleState, Status
+from .framework.runtime import Framework
+from .framework.types import (ActionType, ClusterEvent, Diagnosis,
+                              EventResource, FitError, PodInfo,
+                              QueuedPodInfo)
+from .ops.program import (PodXs, ScoreConfig, initial_carry, run_batch,
+                          run_uniform, table_from_batch, with_cache_sig)
+from .plugins import noderesources as nr
+from .plugins.defaultbinder import DefaultBinder
+from .plugins.imagelocality import ImageLocality
+from .plugins.node_basics import (NodeName, NodePorts, NodeUnschedulable,
+                                  PrioritySort, SchedulingGates,
+                                  TaintToleration)
+from .plugins.nodeaffinity import NodeAffinity
+from .state.batch import BatchBuilder
+from .state.convert import pod_xs_from_numpy
+from .state.tensorize import (EFFECT_PREFER_NO_SCHEDULE, ClusterState,
+                              pow2_at_least)
+
+EVENT_NODE_ADD = ClusterEvent(EventResource.NODE, ActionType.ADD)
+EVENT_ASSIGNED_POD_DELETE = ClusterEvent(EventResource.ASSIGNED_POD,
+                                         ActionType.DELETE)
+EVENT_ASSIGNED_POD_ADD = ClusterEvent(EventResource.ASSIGNED_POD,
+                                      ActionType.ADD)
+
+# default plugin weights (apis/config/v1/default_plugins.go:30-93)
+DEFAULT_WEIGHTS = {
+    "TaintToleration": 3,
+    "NodeAffinity": 2,
+    "NodeResourcesFit": 1,
+    "NodeResourcesBalancedAllocation": 1,
+    "ImageLocality": 1,
+}
+
+
+def node_update_action(old: Node, new: Node) -> ActionType:
+    """Per-property node update flags (eventhandlers.go:88-99)."""
+    flags = ActionType(0)
+    if new.status.allocatable != old.status.allocatable:
+        flags |= ActionType.UPDATE_NODE_ALLOCATABLE
+    if new.metadata.labels != old.metadata.labels:
+        flags |= ActionType.UPDATE_NODE_LABEL
+    if (new.spec.taints != old.spec.taints
+            or new.spec.unschedulable != old.spec.unschedulable):
+        flags |= ActionType.UPDATE_NODE_TAINT
+    if new.status.declared_features != old.status.declared_features:
+        flags |= ActionType.UPDATE_NODE_DECLARED_FEATURE
+    return flags
+
+
+def pod_update_action(old: Pod, new: Pod) -> ActionType:
+    """Per-property pod update flags (eventhandlers.go
+    podSchedulingPropertiesChange)."""
+    from .api import resources as res
+    flags = ActionType(0)
+    if new.metadata.labels != old.metadata.labels:
+        flags |= ActionType.UPDATE_POD_LABEL
+    if new.spec.scheduling_gates != old.spec.scheduling_gates:
+        flags |= ActionType.UPDATE_POD_SCHEDULING_GATES
+    if new.spec.tolerations != old.spec.tolerations:
+        flags |= ActionType.UPDATE_POD_TOLERATION
+    old_req = res.pod_requests(old)
+    new_req = res.pod_requests(new)
+    if any(new_req.get(k, 0) < v for k, v in old_req.items()):
+        flags |= ActionType.UPDATE_POD_SCALE_DOWN
+    return flags
+
+
+def default_plugins(client=None) -> list:
+    """The lean default profile, in the reference filter order
+    (apis/config/v1/default_plugins.go:30)."""
+    plugins = [SchedulingGates(), PrioritySort(), NodeUnschedulable(),
+               NodeName(), TaintToleration(), NodeAffinity(), NodePorts(),
+               nr.Fit(), nr.BalancedAllocation(), ImageLocality()]
+    if client is not None:
+        plugins.append(DefaultBinder(client))
+    return plugins
+
+
+@dataclass
+class Profile:
+    name: str = DEFAULT_SCHEDULER_NAME
+    framework: Optional[Framework] = None
+    score_config: ScoreConfig = ScoreConfig()
+
+
+@dataclass
+class _RunRec:
+    """One dispatched device run awaiting readback. `carry_in` is the carry
+    the run read — kept for uniform runs, the kind that can rewind and
+    replay (no kernel writes into its input carry)."""
+
+    kind: str                 # "uniform" | "scan"
+    i: int
+    j: int
+    carry_in: object
+    result: object            # device tensor: packed or assignments
+    L: int = 0
+    J: int = 0
+    span: tuple = ("scan",)
+
+
+@dataclass
+class _PendingDrain:
+    """A dispatched-but-uncommitted drain: the device work is queued on
+    the stream; the host commit runs when it is resolved."""
+
+    qpis: list
+    profile: object
+    batch: object             # PodBatch (numpy) — kept for replay
+    table: object             # PodTableDev
+    na: object                # NodeArrays used at dispatch
+    n: int
+    records: list = field(default_factory=list)
+    done: object = None       # CUDA event recorded after the dispatch
+
+    def ready(self) -> bool:
+        return self.done is None or self.done.query()
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "kubernetes_tpu_torch.Scheduler runs on a CUDA device by "
+            "default and none is available; pass device=\"cpu\" to run the "
+            "plain PyTorch versions of the kernels on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class Scheduler:
+    """scheduler.Scheduler (scheduler.go:74), lean."""
+
+    UNIFORM_RUN_MIN = 16
+
+    def __init__(self, client: APIServer,
+                 profiles: Optional[list[Profile]] = None,
+                 batch_size: Optional[int] = None,
+                 clock: Callable[[], float] = _time.monotonic,
+                 device=None):
+        self.device = _resolve_device(device)
+        self.client = client
+        self.clock = clock
+        self.batch_size = 512 if batch_size is None else batch_size
+        if profiles is None:
+            fwk = Framework(DEFAULT_SCHEDULER_NAME, default_plugins(client),
+                            weights=dict(DEFAULT_WEIGHTS))
+            profiles = [Profile(framework=fwk)]
+        for prof in profiles:
+            fwk = prof.framework
+            if (fwk.reserve_plugins or fwk.permit_plugins
+                    or fwk.pre_bind_plugins or fwk.post_filter_plugins):
+                raise NotImplementedError(
+                    f"profile {prof.name!r}: Reserve/Permit/PreBind/"
+                    "PostFilter plugins (volumes, gangs, preemption) are "
+                    "not ported to kubernetes_tpu_torch yet")
+        self.profiles: dict[str, Profile] = {p.name: p for p in profiles}
+
+        self.cache = Cache(clock=clock)
+        self.snapshot = Snapshot()
+        self.state = ClusterState(device=str(self.device))
+        self.builder = BatchBuilder(self.state)
+        self.dispatcher = APIDispatcher(client=client,
+                                        on_bind_error=self._on_bind_error)
+        default_fwk = next(iter(self.profiles.values())).framework
+        self.queue = SchedulingQueue(
+            pre_enqueue=self._make_pre_enqueue(default_fwk),
+            queueing_hints=self._build_queueing_hints(default_fwk),
+            clock=clock)
+        from .compiler.plan import DrainCompiler
+        self.compiler = DrainCompiler(builder=self.builder)
+        self._register_event_handlers()
+
+        self.schedule_attempts = 0
+        self.scheduled_count = 0
+        self.unschedulable_count = 0
+        self.error_count = 0
+        self.device_batches = 0
+        # uniform runs whose exactness or depth flag failed (rewound and
+        # replayed at commit)
+        self.uniform_rewinds = 0
+        # per-pod consecutive bind-error count → escalating error backoff
+        self._bind_errors: dict[str, int] = {}
+        # device-resident carry, reused across drains while no event
+        # outside the device's own placements touches node state
+        self._device_carry = None
+        self._carry_profile = None   # profile whose cfg filled the sig cache
+        self._builder_reset_seen = 0
+        # dispatched-but-uncommitted drains (async commit pipeline; the
+        # JAX package's default with SchedulerAsyncAPICalls on)
+        self._pending: deque[_PendingDrain] = deque()
+        self.max_inflight_drains = 8
+        # device copy of the PodTable, re-uploaded when rows are added
+        self._table_dev = None
+        self._table_dev_version = -1
+
+    # -- wiring ---------------------------------------------------------------
+
+    @staticmethod
+    def _make_pre_enqueue(fwk: Framework):
+        """PreEnqueue gate with a constant-time fast path for pods with no
+        scheduling gates."""
+        run = fwk.run_pre_enqueue_plugins
+        if not all(p.name() == "SchedulingGates"
+                   for p in fwk.pre_enqueue_plugins):
+            return run
+        ok = Status.success()
+
+        def pre_enqueue(pod: Pod) -> Status:
+            if not pod.spec.scheduling_gates:
+                return ok
+            return run(pod)
+        return pre_enqueue
+
+    @staticmethod
+    def _build_queueing_hints(
+            fwk: Framework) -> dict[str, list[ClusterEventWithHint]]:
+        hints: dict[str, list[ClusterEventWithHint]] = {}
+        for p in fwk.plugins:
+            if hasattr(p, "events_to_register"):
+                hints[p.name()] = list(p.events_to_register())
+        return hints
+
+    def _register_event_handlers(self) -> None:
+        """eventhandlers.go:499 addAllEventHandlers: nodes replay before
+        pods so bound pods land on real cache entries."""
+        self.client.watch_nodes(WatchHandlers(
+            on_add=self._on_node_add, on_update=self._on_node_update,
+            on_delete=self._on_node_delete))
+        self.client.watch_pods(WatchHandlers(
+            on_add=self._on_pod_add, on_update=self._on_pod_update,
+            on_delete=self._on_pod_delete,
+            on_add_bulk=self._on_pod_add_bulk))
+
+    def _responsible(self, pod: Pod) -> bool:
+        return pod.spec.scheduler_name in self.profiles
+
+    # -- event handlers (eventhandlers.go) ------------------------------------
+
+    def _invalidate_device_state(self) -> None:
+        self._device_carry = None
+
+    def _on_pod_add(self, pod: Pod) -> None:
+        if pod.spec.node_name:
+            self.cache.add_pod(pod)
+            self._invalidate_device_state()
+            self.queue.move_all_to_active_or_backoff_queue(
+                EVENT_ASSIGNED_POD_ADD, None, pod)
+        elif self._responsible(pod):
+            self.queue.add(pod)
+
+    def _on_pod_add_bulk(self, pods: list[Pod]) -> None:
+        """Batch ingest: plain unbound pods owned by this scheduler take the
+        queue's bulk add; bound or foreign pods take the per-pod path."""
+        plain: list[Pod] = []
+        for pod in pods:
+            if pod.spec.node_name or not self._responsible(pod):
+                self._on_pod_add(pod)
+            else:
+                plain.append(pod)
+        if plain:
+            self.queue.add_bulk(plain)
+
+    def _on_pod_update(self, old: Pod, new: Pod) -> None:
+        if new.spec.node_name:
+            if old.spec.node_name:
+                self.cache.update_pod(old, new)
+                self._invalidate_device_state()
+                flags = pod_update_action(old, new)
+                if flags:
+                    self.queue.move_all_to_active_or_backoff_queue(
+                        ClusterEvent(EventResource.ASSIGNED_POD, flags),
+                        old, new)
+            else:
+                # became bound: our own bind echo confirms a pod the device
+                # carry already accounts for; anything else is external
+                if not self.cache.is_assumed_pod(new):
+                    self._invalidate_device_state()
+                self._bind_errors.pop(new.uid, None)
+                self.cache.add_pod(new)
+                self.queue.delete(new)
+                self.queue.move_all_to_active_or_backoff_queue(
+                    EVENT_ASSIGNED_POD_ADD, old, new)
+        elif self._responsible(new):
+            self.queue.update(old, new)
+            flags = pod_update_action(old, new)
+            if flags:
+                self.queue.move_all_to_active_or_backoff_queue(
+                    ClusterEvent(EventResource.POD, flags), old, new)
+
+    def _on_pod_delete(self, pod: Pod) -> None:
+        self._bind_errors.pop(pod.uid, None)
+        if pod.spec.node_name:
+            self.cache.remove_pod(pod)
+            self._invalidate_device_state()
+            self.queue.move_all_to_active_or_backoff_queue(
+                EVENT_ASSIGNED_POD_DELETE, pod, None)
+        else:
+            self.queue.delete(pod)
+
+    def _on_node_add(self, node: Node) -> None:
+        self.cache.add_node(node)
+        self._invalidate_device_state()
+        self.queue.move_all_to_active_or_backoff_queue(EVENT_NODE_ADD, None,
+                                                       node)
+
+    def _on_node_update(self, old: Node, new: Node) -> None:
+        self.cache.update_node(old, new)
+        self._invalidate_device_state()
+        flags = node_update_action(old, new)
+        if flags:
+            self.queue.move_all_to_active_or_backoff_queue(
+                ClusterEvent(EventResource.NODE, flags), old, new)
+
+    def _on_node_delete(self, node: Node) -> None:
+        self.cache.remove_node(node)
+        self._invalidate_device_state()
+
+    # -- scheduling: batch path ----------------------------------------------
+
+    def schedule_pending(self, max_batches: int = 0,
+                         wait: bool = True) -> int:
+        """Drain + schedule everything currently pending. Returns the net
+        number of binds committed. With `wait=False` the call returns after
+        dispatching; results still in flight commit on a later call."""
+        start = self.scheduled_count
+        batches = 0
+        while True:
+            self.commit_ready()
+            self.queue.flush_backoff_completed()
+            if not len(self.queue.active_q):
+                if not wait or not self._pending:
+                    break
+                self.wait_pending()
+                continue    # a commit may have re-activated pods
+            qlen = len(self.queue.active_q)
+            if not wait and qlen < self.batch_size:
+                # adaptive batching: let the queue accumulate; dispatch
+                # early only to fill an idle pipeline with half a drain
+                if self._pending or qlen < max(self.batch_size // 2, 1):
+                    break
+            qpis = self.queue.drain(self.batch_size)
+            if not qpis:
+                break
+            self._schedule_batch(qpis)
+            while len(self._pending) > self.max_inflight_drains:
+                self._commit_next()
+            self.dispatcher.flush()
+            batches += 1
+            if max_batches and batches >= max_batches:
+                break
+        if wait:
+            self.wait_pending()
+        elif len(self.dispatcher):
+            self.dispatcher.flush()
+        return self.scheduled_count - start
+
+    def commit_ready(self, limit: int = 0) -> int:
+        """Commit in-flight drains whose device work has finished, head
+        first (commit order IS dispatch order)."""
+        done = 0
+        while self._pending and self._pending[0].ready():
+            self._commit_next()
+            done += 1
+            if limit and done >= limit:
+                break
+        return done
+
+    def wait_pending(self) -> None:
+        """Commit every in-flight drain and flush the dispatcher."""
+        self._drain_pending()
+        self.dispatcher.flush()
+
+    def prime(self) -> None:
+        """Pre-build the host snapshot and staging arrays from the current
+        cluster state (WaitForCacheSync analog)."""
+        self._drain_pending()
+        self.cache.update_snapshot(self.snapshot)
+        self.state.apply_snapshot(self.snapshot)
+        self.state.ensure_arrays()
+
+    def flush_queues(self) -> None:
+        """SchedulingQueue.Run periodic work (scheduling_queue.go:406-413)."""
+        self._drain_pending()
+        self.queue.flush_backoff_completed()
+        self.queue.flush_unschedulable_leftover()
+
+    def _schedule_batch(self, qpis: list[QueuedPodInfo]) -> None:
+        if self.queue.nominator.nominated_pods:
+            raise NotImplementedError(
+                "nominated pods present: the nominated-pod resource overlay "
+                "is not ported to kubernetes_tpu_torch yet")
+        # route per profile: each maximal same-profile stretch runs with
+        # ITS weights/strategy, in queue order
+        i = 0
+        while i < len(qpis):
+            name = qpis[i].pod.spec.scheduler_name
+            j = i + 1
+            while j < len(qpis) and qpis[j].pod.spec.scheduler_name == name:
+                j += 1
+            profile = self.profiles.get(name)
+            if profile is None:
+                for q in qpis[i:j]:
+                    self.queue.done(q.pod.uid)
+            else:
+                self._dispatch_device_drain(qpis[i:j], profile)
+            i = j
+
+    def _refuse_unsupported(self, qpis, batch) -> None:
+        for k, q in enumerate(qpis):
+            pod = q.pod
+            if pod.spec.workload_ref:
+                raise NotImplementedError(
+                    f"pod {pod.uid}: gang scheduling (workloadRef) is not "
+                    "ported to kubernetes_tpu_torch yet")
+            if batch.host_fallback[k]:
+                reason = self.builder.fallback_reason(pod)
+                raise NotImplementedError(
+                    f"pod {pod.uid}: {reason} — kubernetes_tpu_torch has no "
+                    "device form for it yet and no host scheduling path")
+        if (self.snapshot.have_pods_with_affinity_list
+                or self.snapshot.have_pods_with_required_anti_affinity_list):
+            raise NotImplementedError(
+                "bound pods carry inter-pod (anti-)affinity: InterPodAffinity "
+                "is not ported to kubernetes_tpu_torch yet")
+
+    def _dispatch_device_drain(self, qpis: list[QueuedPodInfo],
+                               profile: Profile) -> None:
+        """Build + dispatch one drain WITHOUT waiting for the device; the
+        commit happens when the drain is resolved."""
+        carry = self._device_carry
+        if carry is not None and self._carry_profile != profile.name:
+            # the signature cache was filled under another profile's
+            # ScoreConfig: invalidate it (sig 0 never matches)
+            carry = with_cache_sig(carry, 0)
+            self._device_carry = carry
+        self._carry_profile = profile.name
+        if carry is None:
+            # reseed device state from the host snapshot; pending commits
+            # mutate the cache the snapshot is built from, so they land
+            # first
+            self._drain_pending()
+            self.cache.update_snapshot(self.snapshot)
+            self.state.apply_snapshot(self.snapshot)
+        batch = self.builder.build([q.pod for q in qpis],
+                                   pad_to=self.batch_size)
+        self._refuse_unsupported(qpis, batch)
+        na = self.state.device_arrays()
+        table_reset = self.builder.reset_count != self._builder_reset_seen
+        self._builder_reset_seen = self.builder.reset_count
+        if carry is not None and (table_reset
+                                  or carry.used.shape != na.used.shape):
+            # structural change: reseed from the host snapshot
+            carry = None
+            self._drain_pending()
+            self.cache.update_snapshot(self.snapshot)
+            self.state.apply_snapshot(self.snapshot)
+            na = self.state.device_arrays()
+        if carry is None:
+            carry = initial_carry(na)
+        if (self._table_dev is None
+                or self._table_dev_version != batch.table_version):
+            self._table_dev = table_from_batch(batch, self.device)
+            self._table_dev_version = batch.table_version
+        table = self._table_dev
+        n = len(qpis)
+        carry, records = self._dispatch_runs(profile, na, carry, batch,
+                                             table, n)
+        self._device_carry = carry
+        self.device_batches += 1
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        self._pending.append(_PendingDrain(
+            qpis=qpis, profile=profile, batch=batch, table=table, na=na,
+            n=n, records=records, done=done))
+
+    def _cluster_has_prefer_taints(self) -> bool:
+        # mask by valid: freed rows of removed nodes keep their taint
+        # columns until the slot is rewritten
+        a = self.state.arrays
+        return a is not None and bool(
+            ((a.taint_eff == EFFECT_PREFER_NO_SCHEDULE)
+             & a.valid[:, None]).any())
+
+    def _dispatch_runs(self, profile: Profile, na, carry, batch, table,
+                       n: int):
+        """Dispatch the drain's compiled plan with no host synchronization;
+        returns (chain carry, [_RunRec])."""
+        cfg = profile.score_config
+        plan = self.compiler.compile_drain(
+            batch, n, strategy=cfg.strategy,
+            prefer_taints=self._cluster_has_prefer_taints(),
+            uniform_min=self.UNIFORM_RUN_MIN)
+        return self._dispatch_spans(cfg, na, batch, table, plan.spans,
+                                    carry)
+
+    def _uniform_shape(self, na) -> tuple[int, int, int]:
+        """(L, K, J) for run_uniform, stable across drains: L is the
+        standing batch bucket, J quantizes the node count to its pow2
+        bucket."""
+        L = pow2_at_least(self.batch_size)
+        K = min(L, na.cap.shape[0])
+        n_q = pow2_at_least(max(self.cache.node_count(), 1))
+        J = min(max(pow2_at_least(4 * L // n_q + 4), 8), L + 1)
+        return L, K, J
+
+    @staticmethod
+    def _xone(batch, i: int) -> PodXs:
+        return PodXs(valid=True, sig=int(batch.sig[i]),
+                     tidx=int(batch.tidx[i]))
+
+    def _dispatch_spans(self, cfg: ScoreConfig, na, batch, table, spans,
+                        carry):
+        """Dispatch (i, j, kind) spans back to back, chaining the carry on
+        the device. Uniform records keep their input carry for rewind."""
+        records = []
+        for (i, j, kind) in spans:
+            if kind[0] == "uniform":
+                L, K, J = self._uniform_shape(na)
+                c2, packed = run_uniform(cfg, na, carry,
+                                         self._xone(batch, i), table, j - i,
+                                         L, K, J)
+                records.append(_RunRec("uniform", i, j, carry, packed, L, J,
+                                       span=kind))
+            else:
+                c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
+                                                  j, table)
+                records.append(_RunRec("scan", i, j, None, assigns,
+                                       span=kind))
+            carry = c2
+        return carry, records
+
+    def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                       j: int, table):
+        """run_batch over pods [i:j) padded to a pow2 bucket; returns
+        (carry, device assignments) without synchronizing."""
+        bucket = pow2_at_least(j - i)
+        m = j - i
+        valid = np.zeros((bucket,), bool)
+        valid[:m] = batch.valid[i:j]
+        sig = np.full((bucket,), batch.sig[j - 1], np.int32)
+        sig[:m] = batch.sig[i:j]
+        tidx = np.full((bucket,), batch.tidx[j - 1], np.int32)
+        tidx[:m] = batch.tidx[i:j]
+        xs = pod_xs_from_numpy(PodXs(valid=valid, sig=sig, tidx=tidx),
+                               self.device)
+        return run_batch(cfg, na, carry, xs, table)
+
+    def _uniform_escalate(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                          j: int, table, out, j_failed: int):
+        """Depth-J overflow recovery: retry the run with a deeper matrix,
+        falling back to the scan if even J = L+1 reports failure."""
+        L, K, _ = self._uniform_shape(na)
+        J = j_failed
+        while J < L + 1:
+            J = min(8 * J, L + 1)
+            c2, packed = run_uniform(cfg, na, carry, self._xone(batch, i),
+                                     table, j - i, L, K, J)
+            r = packed.cpu().numpy()
+            if r[L] and r[L + 1]:
+                out[i:j] = r[:j - i]
+                return c2
+            if not r[L]:
+                break
+        carry, a = self._scan_dispatch(cfg, na, carry, batch, i, j, table)
+        out[i:j] = a.cpu().numpy()[:j - i]
+        return carry
+
+    # -- commit pipeline ------------------------------------------------------
+
+    def _drain_pending(self) -> None:
+        while self._pending:
+            self._commit_next()
+
+    def _commit_next(self) -> None:
+        """Commit the oldest in-flight drain: one readback of its results,
+        validation of the uniform runs' exactness flags (an inexact run
+        rewinds to its input carry and replays everything downstream),
+        then the host commit."""
+        pd = self._pending.popleft()
+        out = np.full((pd.n,), -1, np.int32)
+        self._resolve_records(pd, out)
+        names = self.state.node_names
+        assigned = out[out >= 0]
+        if ((out < -1).any() or (out >= len(names)).any()
+                or any(not names[int(a)] for a in assigned)):
+            raise RuntimeError(
+                f"device assignments out of range: {out.tolist()}")
+        self._commit_assignments(pd, out)
+
+    @staticmethod
+    def _readback(records: list) -> list:
+        """Host copies of the records' results with ONE synchronizing
+        device-to-host copy."""
+        if not records:
+            return []
+        flat = torch.cat([r.result.reshape(-1) for r in records])
+        host = flat.cpu().numpy()
+        out, k = [], 0
+        for r in records:
+            size = r.result.numel()
+            out.append(host[k:k + size])
+            k += size
+        return out
+
+    def _resolve_records(self, pd: _PendingDrain, out) -> None:
+        host = self._readback(pd.records)
+        idx = 0
+        while idx < len(pd.records):
+            rec = pd.records[idx]
+            r = host[idx]
+            m = rec.j - rec.i
+            if rec.kind == "scan":
+                out[rec.i:rec.j] = r[:m]
+                idx += 1
+                continue
+            exact, depth = bool(r[rec.L]), bool(r[rec.L + 1])
+            if exact and depth:
+                out[rec.i:rec.j] = r[:m]
+                idx += 1
+                continue
+            # rewind: resolve THIS run synchronously from its input carry
+            self.uniform_rewinds += 1
+            cfg = pd.profile.score_config
+            carry = rec.carry_in
+            if exact:
+                carry = self._uniform_escalate(cfg, pd.na, carry, pd.batch,
+                                               rec.i, rec.j, pd.table, out,
+                                               rec.J)
+            else:
+                carry, a = self._scan_dispatch(cfg, pd.na, carry, pd.batch,
+                                               rec.i, rec.j, pd.table)
+                out[rec.i:rec.j] = a.cpu().numpy()[:m]
+            self._replay_downstream(pd, idx, carry)
+            host[idx + 1:] = self._readback(pd.records[idx + 1:])
+            idx += 1
+
+    def _replay_downstream(self, pd: _PendingDrain, idx: int, carry) -> None:
+        """Re-dispatch everything chained after record `idx`: the rest of
+        this drain's spans, then every later pending drain, against the
+        corrected carry."""
+        cfg = pd.profile.score_config
+        spans = [(q.i, q.j, q.span) for q in pd.records[idx + 1:]]
+        carry, new_recs = self._dispatch_spans(cfg, pd.na, pd.batch,
+                                               pd.table, spans, carry)
+        pd.records[idx + 1:] = new_recs
+        prev_profile = pd.profile
+        for pd2 in self._pending:
+            if pd2.profile is not prev_profile:
+                carry = with_cache_sig(carry, 0)
+                prev_profile = pd2.profile
+            carry, pd2.records = self._dispatch_runs(
+                pd2.profile, pd2.na, carry, pd2.batch, pd2.table, pd2.n)
+        if self._device_carry is not None:
+            self._device_carry = carry
+
+    def _commit_assignments(self, pd: _PendingDrain, out) -> int:
+        """Host commit of a resolved drain: bulk assume + bind enqueue for
+        the placed pods, failure handling for the rest."""
+        qpis = pd.qpis
+        profile = pd.profile
+        n = pd.n
+        self.schedule_attempts += n
+        names = self.state.node_names
+        fast: list[tuple[QueuedPodInfo, str]] = []
+        failures: list[QueuedPodInfo] = []
+        for i in range(n):
+            a = out[i]
+            if a < 0:
+                failures.append(qpis[i])
+            else:
+                fast.append((qpis[i], names[int(a)]))
+        bound = self._fast_commit(fast)
+        if failures:
+            # diagnosis reads the live snapshot (assumes included)
+            self.cache.update_snapshot(self.snapshot)
+            diag_cache: dict = {}
+            for qpi in failures:
+                self._handle_failure(
+                    qpi, self._device_fit_error(qpi, profile, diag_cache))
+        return bound
+
+    def _fast_commit(self, pairs: list) -> int:
+        """Assume (cache.go:369) + FinishBinding + bulk bind enqueue for the
+        hook-free lean pods."""
+        if not pairs:
+            return 0
+        cache = self.cache
+        pod_states = cache.pod_states
+        assumed_set = cache.assumed_pods
+        ttl = cache.ttl
+        in_flight = self.queue.in_flight_pods
+        now = self.clock()
+        bound_pods: list[tuple[Pod, Pod]] = []
+        for qpi, node_name in pairs:
+            pod = qpi.pod
+            uid = pod.uid
+            if uid in pod_states:
+                in_flight.pop(uid, None)
+                continue
+            assumed = pod.with_node_name(node_name)
+            pi = PodInfo(pod=assumed, requests=qpi.pod_info.requests,
+                         cpu_nonzero=qpi.pod_info.cpu_nonzero,
+                         mem_nonzero=qpi.pod_info.mem_nonzero)
+            cache._add_pod_info_to_node(pi)
+            st = _PodState(pod=assumed, assumed=True, binding_finished=True)
+            if ttl > 0:
+                st.deadline = now + ttl
+            pod_states[uid] = st
+            assumed_set.add(uid)
+            in_flight.pop(uid, None)
+            bound_pods.append((assumed, pod))
+            if qpi.unschedulable_plugins:
+                qpi.unschedulable_plugins = set()
+            qpi.consecutive_errors_count = 0
+        if not in_flight:
+            self.queue.in_flight_events.clear()
+        self.dispatcher.add_binds(bound_pods)
+        self.scheduled_count += len(bound_pods)
+        return len(bound_pods)
+
+    # -- failures -------------------------------------------------------------
+
+    def _device_fit_error(self, qpi: QueuedPodInfo, profile: Profile,
+                          diag_cache: dict) -> FitError:
+        """The device reports only that no node fits; the diagnosis (the
+        rejecting plugins, which drive the queueing hints) comes from a
+        host-oracle filter replay over the live snapshot, once per pod
+        signature per drain."""
+        sig = BatchBuilder._sig_key(qpi.pod)
+        cached = diag_cache.get(sig)
+        if cached is None:
+            cached = self._host_replay_diagnosis(qpi, profile)
+            if not cached.unschedulable_plugins:
+                cached.unschedulable_plugins = {"NodeResourcesFit"}
+            diag_cache[sig] = cached
+        err = FitError(qpi.pod, len(self.snapshot.node_info_list))
+        err.diagnosis = cached
+        return err
+
+    def _host_replay_diagnosis(self, qpi: QueuedPodInfo,
+                               profile: Profile) -> Diagnosis:
+        fwk = profile.framework
+        nodes = self.snapshot.node_info_list
+        diagnosis = Diagnosis()
+        state = CycleState()
+        pre_result, status = fwk.run_pre_filter_plugins(state, qpi.pod,
+                                                        nodes)
+        if not status.is_success():
+            diagnosis.pre_filter_msg = "; ".join(status.reasons)
+            if status.plugin:
+                diagnosis.unschedulable_plugins.add(status.plugin)
+        else:
+            fwk.find_nodes_that_pass_filters(state, qpi.pod, nodes,
+                                             pre_result, diagnosis)
+        return diagnosis
+
+    def _could_preempt(self, pod: Pod) -> bool:
+        """True when DefaultPreemption might find victims for `pod`: it may
+        preempt, and some pod in the cluster has a lower priority."""
+        if pod.spec.preemption_policy == "Never":
+            return False
+        prio = pod.spec.priority
+        return any(st.pod.spec.priority < prio
+                   for st in self.cache.pod_states.values())
+
+    def _handle_failure(self, qpi: QueuedPodInfo, err: FitError,
+                        try_preempt: bool = True) -> None:
+        """schedule_one.go:1038 handleSchedulingFailure, without PostFilter:
+        a failure that preemption could resolve raises."""
+        self.unschedulable_count += 1
+        qpi.unschedulable_plugins = set(err.diagnosis.unschedulable_plugins)
+        qpi.pending_plugins = set(err.diagnosis.pending_plugins)
+        pod = qpi.pod
+        if try_preempt and err.num_all_nodes > 0:
+            # the reference computes victims only on state that includes
+            # every in-flight drain's assignments
+            self._drain_pending()
+            if self._could_preempt(pod):
+                raise NotImplementedError(
+                    f"pod {pod.uid} failed to schedule and lower-priority "
+                    "pods exist: preemption (DefaultPreemption) is not "
+                    "ported to kubernetes_tpu_torch yet")
+        self.queue.add_unschedulable_if_not_present(qpi)
+        self.dispatcher.add(APICall(
+            CallType.STATUS_PATCH, qpi.pod,
+            condition={"type": "PodScheduled", "status": "False",
+                       "reason": "Unschedulable", "message": str(err)},
+            nominated_node_name=pod.status.nominated_node_name))
+
+    def _on_bind_error(self, pod: Pod, node_name: str,
+                       err: Exception) -> None:
+        """schedule_one.go:361-393: forget the assumed pod and requeue it
+        with error backoff."""
+        self.scheduled_count -= 1
+        self.error_count += 1
+        try:
+            self.cache.forget_pod(pod)
+        except (KeyError, ValueError):
+            pass
+        self._invalidate_device_state()
+        fresh = pod.with_node_name("")
+        errors = self._bind_errors.get(pod.uid, 0) + 1
+        self._bind_errors[pod.uid] = errors
+        qpi = QueuedPodInfo(pod_info=PodInfo.of(fresh),
+                            timestamp=self.clock(),
+                            consecutive_errors_count=errors)
+        self.queue.add_unschedulable_if_not_present(qpi)
+        self.queue.move_all_to_active_or_backoff_queue(
+            EVENT_ASSIGNED_POD_DELETE, pod, None)
+
+    # -- debugging ------------------------------------------------------------
+
+    def reconcile(self) -> list:
+        """Pull the resident device carry into staging and compare it with
+        the host cache; returns divergent node names ([] when the device
+        bookkeeping matches)."""
+        self._drain_pending()
+        self.cache.update_snapshot(self.snapshot)
+        if self._device_carry is not None:
+            c = self._device_carry
+            gens = {ni.name: ni.generation
+                    for ni in self.snapshot.node_info_list}
+            self.state.adopt_carry(c.used, c.nonzero_used, c.npods, c.ports,
+                                   touched=gens)
+        return self.state.reconcile(self.snapshot)
+
