@@ -6,25 +6,37 @@
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
   2. the build of every CUDA kernel from kubernetes_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version on the card, on
-     seeded lean inputs at the SchedulingBasic harness shapes (5,000 nodes
-     padded to 8,192, batch 8,192), exact equality of every output and
-     carry field, with kernel, plain and library timings;
+  3. each kernel against its plain PyTorch version on the card, exact
+     equality of every output and carry field, with kernel, plain and
+     library timings: run_batch and run_uniform on seeded lean inputs at
+     the SchedulingBasic harness shapes (5,000 nodes padded to 8,192,
+     batch 8,192); scatter_rows, wave_statics, run_wave and run_batch's
+     group mode at the full-width shapes of TopologySpreading and
+     SchedulingPodAntiAffinity;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
      rotating signatures) at 500 nodes that forces scan spans and uniform
-     rewinds.
-Phases 4 and 5 compare their bind maps with a device="cpu" run of the same
-workload. Any failure exits non-zero without the final line. The line
-before the last is one JSON object with a row per kernel; the last line is
+     rewinds;
+  6. TopologySpreading 5000Nodes_5000Pods end to end (merge waves);
+  7. SchedulingPodAntiAffinity 5000Nodes_2000Pods end to end (merge waves
+     with champion-per-domain selection);
+  8. a mixed group workload at 500 nodes (ScheduleAnyway, required
+     affinity, two anti terms, preferred terms, PreferNoSchedule taints,
+     short drains) that drives run_batch's group mode and the serial and
+     renormalizing wave tiers.
+Phases 4-8 compare their bind maps with a device="cpu" run of the same
+workload, at full width. Any failure exits non-zero without the final
+line. The line before the last is the card's name and power limit, the
+one before it one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.
 
 The script imports neither jax nor kubernetes_tpu, and needs no pyyaml:
-the SchedulingBasic parameters are those of
-kubernetes_tpu/perf/configs/performance-config.yaml:28-34 and the node and
-pod shapes of kubernetes_tpu/perf/harness.py:159-185 (nodes 32 cpu, 64 Gi,
-110 pods, 16 zones; pods 900m cpu, 1 Gi).
+the workload parameters are those of
+kubernetes_tpu/perf/configs/performance-config.yaml (SchedulingBasic
+:28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129) and
+the node and pod shapes of kubernetes_tpu/perf/harness.py:159-200 (nodes
+32 cpu, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
 """
 
 from __future__ import annotations
@@ -54,6 +66,13 @@ F64_OPS_PER_S = 67e12 / 4     # float64 instructions
 
 # SchedulingBasic 5000Nodes_10000Pods (performance-config.yaml:28-34)
 SB_NODES, SB_INIT_PODS, SB_PODS = 5000, 1000, 10000
+# TopologySpreading 5000Nodes_5000Pods (performance-config.yaml:63-94) and
+# SchedulingPodAntiAffinity 5000Nodes_2000Pods (:96-129):
+# (nodes, init pods, measured pods, zones)
+TS_SHAPE = (5000, 1000, 5000, 16)
+AA_SHAPE = (5000, 500, 2000, 10000)
+LABEL_ZONE = "topology.kubernetes.io/zone"
+LABEL_HOSTNAME = "kubernetes.io/hostname"
 BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
 CREATE_BATCH = 512        # perf/harness.py:279 create_batch
 
@@ -83,6 +102,16 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time per call of `fn` (kernels and copies, from
+    torch.profiler), without the host time between launches that
+    `cuda_ms` sees when the wrapper is slower than its kernel."""
+    fn()
+    torch.cuda.synchronize()
+    return profile_run(torch, lambda: [fn() for _ in range(reps)])[
+        "device_busy_ms"] / reps
 
 
 def nbytes(*trees) -> int:
@@ -325,6 +354,10 @@ class _Pkg:
 def assert_equal_trees(torch, a, b, what: str) -> float:
     """Exact equality of every tensor in two (nested) tuples; returns the
     largest absolute difference found (0.0 when they are equal)."""
+    if a is None or b is None:
+        if a is not None or b is not None:
+            fail(f"{what}: one side is None")
+        return 0.0
     if isinstance(a, torch.Tensor):
         if a.dtype != b.dtype or a.shape != b.shape:
             fail(f"{what}: {a.dtype}{tuple(a.shape)} vs "
@@ -532,6 +565,369 @@ def flat_keys(torch, P, cfg, na, carry, x, table, K, J):
 
 
 # ---------------------------------------------------------------------------
+# phase 3, the group path: full-width shapes of TopologySpreading and
+# SchedulingPodAntiAffinity
+
+
+def harness_nodes(W, n: int, zones: int):
+    """perf/harness.py _make_nodes: 32 cpu / 64 Gi / 110 pods."""
+    return [W.make_node(f"node-{i}").capacity(
+        {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
+        f"zone-{i % zones}").label(LABEL_HOSTNAME, f"node-{i}").obj()
+        for i in range(n)]
+
+
+def group_pod(W, name: str, kind: str):
+    """The measured pods of the two workloads (performance-config.yaml
+    podTemplate): a zone DoNotSchedule spread with maxSkew 5 over
+    app=spread, or a required zone anti-affinity against anti=yes."""
+    w = W.make_pod(name).req({"cpu": "900m", "memory": "1Gi"})
+    if kind == "spread":
+        return w.label("app", "spread").spread_constraint(
+            5, LABEL_ZONE, "DoNotSchedule", {"app": "spread"}).obj()
+    return w.label("anti", "yes").pod_affinity(
+        LABEL_ZONE, {"anti": "yes"}, anti=True).obj()
+
+
+def group_staged(pkg, device, nodes, bound, pods):
+    """(na, batch, table, gd, gc, fam, builder, state, snapshot) through the
+    port's own state layer, the group tensors on `device`."""
+    from kubernetes_tpu_torch.ops.groups import to_device
+    cache = pkg.Cache()
+    for nd in nodes:
+        cache.add_node(nd)
+    for p in bound:
+        cache.add_pod(p)
+    snap = pkg.Snapshot()
+    cache.update_snapshot(snap)
+    state = pkg.ClusterState(device=device)
+    state.apply_snapshot(snap, full=True)
+    builder = pkg.BatchBuilder(state)
+    batch = builder.build(pods)
+    if batch.host_fallback[:len(pods)].any():
+        fail("smoke inputs hit a host-fallback signature")
+    gd_np, gc_np = builder.groups.build_dev(snap)
+    return (state.device_arrays(), batch,
+            pkg.table_from_batch(batch, device), to_device(gd_np, device),
+            to_device(gc_np, device), builder.groups.families(snap),
+            builder, state)
+
+
+def check_scatter_rows(torch, pkg, device, rows: list) -> None:
+    """The TopologySpreading reseed's upload: 1,000 dirty rows (the nodes
+    the init pods landed on) into the 8,192-row NodeArrays."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = lean_cluster(np.random.RandomState(21), SB_NODES, W)
+    na, _, _ = staged(nodes, (), [W.make_pod("p").obj()], device, pkg)
+    other = lean_cluster(np.random.RandomState(22), SB_NODES, W)
+    na2, _, _ = staged(other, (), [W.make_pod("p").obj()], device, pkg)
+    idx = np.sort(np.random.RandomState(23).choice(
+        SB_NODES, TS_SHAPE[1], replace=False)).astype(np.int64)
+    it = torch.from_numpy(idx).to(device)
+    rows_in = type(na)(*(x[it].contiguous() for x in na2))
+    before = type(na)(*(x.clone() for x in na))
+    got = P.scatter_rows(na, idx, rows_in)
+    want = P._scatter_rows_plain(na, idx, rows_in)
+    torch.cuda.synchronize()
+    err = assert_equal_trees(torch, got, want, "scatter_rows")
+    assert_equal_trees(torch, na, before, "scatter_rows input")
+    k_ms = cuda_ms(torch, lambda: P.scatter_rows(na, idx, rows_in), 20)
+    plain_ms = cuda_ms(torch, lambda: P._scatter_rows_plain(
+        na, idx, rows_in), 20)
+    # the fresh copy: every field read and written once, plus the rows
+    moved = 2 * nbytes(na) + nbytes(rows_in) + idx.nbytes
+    bound_ms, bound_by = bound_of(moved, Ops())
+    dev_ms = device_ms(torch, lambda: P.scatter_rows(na, idx, rows_in), 20)
+    plain_dev_ms = device_ms(torch, lambda: P._scatter_rows_plain(
+        na, idx, rows_in), 20)
+    log("kernel", name="scatter_rows", rows=len(idx), nodes=SB_NODES,
+        exact=True, max_abs_err=err, ms=k_ms, device_ms=dev_ms,
+        plain_ms=plain_ms, plain_device_ms=plain_dev_ms, bound_ms=bound_ms,
+        bytes=moved)
+    rows.append(dict(
+        name="scatter_rows", route="cuda",
+        source="kubernetes_tpu_torch/csrc/scatter_rows.cu",
+        replaces="kubernetes_tpu/ops/program.py:722", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+def time_initial_carry(torch, pkg, device) -> None:
+    """initial_carry is eager in both packages (clones of the aggregate
+    columns, a zeroed SigCache, the seeded group counts passed through):
+    not a kernel, so it has no row in the kernel line; its time at the
+    TopologySpreading reseed shape is logged for the kernel table."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = harness_nodes(W, TS_SHAPE[0], TS_SHAPE[3])
+    na, _b, _t, _gd, gc, _f, _bl, _s = group_staged(
+        pkg, device, nodes, (), [group_pod(W, "s", "spread")])
+    ms = cuda_ms(torch, lambda: P.initial_carry(na, gc), 50)
+    c = P.initial_carry(na, gc)
+    moved = nbytes(na.used, na.nonzero_used, na.npods, na.ports) + nbytes(
+        c.used, c.nonzero_used, c.npods, c.ports, c.cache)
+    bound_ms, bound_by = bound_of(moved, Ops())
+    log("eager", name="initial_carry", ms=ms, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=moved)
+
+
+def check_wave_statics(torch, pkg, device, rows: list) -> None:
+    """The main path's call (one spread row on the harness cluster: no
+    taints, selectors or images, so every family flag is off), and four
+    mixed rows with every family on over a tainted, labelled cluster."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = harness_nodes(W, TS_SHAPE[0], TS_SHAPE[3])
+    na, batch, table = staged(nodes, (), [group_pod(W, "s", "spread")],
+                              device, pkg)
+    u = int(batch.tidx[0])
+    feats = (False, False, False)
+    err = assert_equal_trees(torch, P.wave_statics(na, table, [u], feats),
+                             P._wave_statics_plain(na, table, [u], feats),
+                             "wave_statics[main]")
+    mixed = lean_cluster(np.random.RandomState(31), SB_NODES, W)
+    pods = lean_pods(np.random.RandomState(32), 8, W, "ws", ports=False)
+    na_m, b_m, t_m = staged(mixed, (), pods, device, pkg)
+    rows_m = sorted(set(int(t) for t in b_m.tidx[:8]))[:4]
+    for fl in ((True, True, True), (True, False, True)):
+        err = max(err, assert_equal_trees(
+            torch, P.wave_statics(na_m, t_m, rows_m, fl),
+            P._wave_statics_plain(na_m, t_m, rows_m, fl),
+            f"wave_statics[mixed,{fl}]"))
+    k_ms = cuda_ms(torch, lambda: P.wave_statics(na, table, [u], feats), 20)
+    plain_ms = cuda_ms(torch, lambda: P._wave_statics_plain(
+        na, table, [u], feats), 5)
+    mixed_ms = cuda_ms(torch, lambda: P.wave_statics(
+        na_m, t_m, rows_m, (True, True, True)), 20)
+    N = na.valid.shape[0]
+    # main path: valid, name id and unschedulable read, four [N] surfaces
+    # written; three tests and a select per node
+    moved = nbytes(na.valid, na.name_id, na.unschedulable) + N * (1 + 24)
+    bound_ms, bound_by = bound_of(moved, Ops(i32=4 * N))
+    dev_ms = device_ms(torch, lambda: P.wave_statics(na, table, [u], feats),
+                       20)
+    plain_dev_ms = device_ms(torch, lambda: P._wave_statics_plain(
+        na, table, [u], feats), 5)
+    log("kernel", name="wave_statics", exact=True, max_abs_err=err,
+        ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+        plain_device_ms=plain_dev_ms, mixed_4rows_ms=mixed_ms,
+        bound_ms=bound_ms, bytes=moved)
+    rows.append(dict(
+        name="wave_statics", route="cuda",
+        source="kubernetes_tpu_torch/csrc/wave_statics.cu",
+        replaces="kubernetes_tpu/ops/program.py:1635", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+def wave_inputs(torch, pkg, device, kind: str):
+    """Full-width run_wave inputs as the scheduler builds them for the
+    workload's first measured drain: (args for program.run_wave, packed
+    layout B, shape dict)."""
+    P = pkg.program
+    W = pkg.wrappers
+    n_nodes, n_init, n_meas, zones = TS_SHAPE if kind == "spread" else AA_SHAPE
+    nodes = harness_nodes(W, n_nodes, zones)
+    # the init pods where the scheduler's uniform run puts them on the
+    # empty, identical harness nodes: one per node, lowest index first
+    bound = [W.make_pod(f"init-{i}").req({"cpu": "900m", "memory": "1Gi"})
+             .node(f"node-{i}").obj() for i in range(n_init)]
+    # the drain the scheduler dispatches: the first 4,096 spread pods, or
+    # all 2,000 anti pods
+    m = 4096 if kind == "spread" else n_meas
+    pods = [group_pod(W, f"g{i}", kind) for i in range(m)]
+    na, batch, table, gd, gc, fam, builder, state = group_staged(
+        pkg, device, nodes, bound, pods)
+    u = int(batch.tidx[0])
+    from kubernetes_tpu_torch.compiler.plan import wave_same_mode
+    mode, anti = wave_same_mode(builder.groups, u)
+    if mode != "merge":
+        fail(f"run_wave[{kind}]: expected a merge-mode row, got {mode}")
+    B = 1 << (m - 1).bit_length()
+    valid = torch.zeros((B,), dtype=torch.bool, device=device)
+    valid[:m] = True
+    statics = tuple(x[0] for x in P.wave_statics(na, table, [u]))
+    N = na.cap.shape[0]
+    # scheduler._wave_dispatch's shape choice at batch 8,192
+    Lw = min(512 if fam.spr_f else 1024, B)
+    K = min(Lw, N)
+    J = 1 if (anti >= 0 and not fam.spr_f) else 8
+    norm_live = not P.static_norm_ok(state.ensure_arrays(),
+                                     builder.table.pref_weight[u])
+    carry = P.initial_carry(na, gc)
+    args = (P.ScoreConfig(), na, carry, valid, table, u, gd, statics, K, J,
+            Lw, fam, norm_live, anti, True)
+    return args, B, dict(kind=kind, pods=m, B=B, Lw=Lw, K=K, J=J,
+                         anti_term=anti, norm_live=norm_live)
+
+
+def wave_ops(pkg, args, stats, slots) -> Ops:
+    """The operations one run_wave call needs for these inputs: per merge
+    wave the row's evaluation on every valid node, the top-K and top-Lw
+    selections, the [K, J] entries, the spread replay and the fold; per
+    serial step an evaluation and an argmax; then the fold into the
+    group carry."""
+    cfg, na, carry, valid, table, u, gd, statics, K, J, Lw, fam = args[:12]
+    P = pkg.program
+    C = len(cfg.score_cols)
+    nreq = int((np_of(table.req[u]) != 0).sum())
+    SC, TAA = gd.spr_f_active.shape[1], gd.ipa_raa_active.shape[1]
+    nv = slots["n_valid"]
+    group = Ops(i32=(4 * SC if fam.spr_f else 0)
+                + (1 + 3 * TAA if fam.ipa_anti else 0))
+    per_node = score_ops(C, nreq, True) + Ops(i64=8) + group
+    evaluation = per_node * nv + Ops(i32=SC * nv)
+    entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4)
+    waves, serial = int(stats[0]), int(stats[3])
+    wave = (evaluation + select_ops(nv, K) + entry * (K * J)
+            + select_ops(K * J, Lw) + Ops(i64=nv if args[13] >= 0 else 0)
+            + Ops(i64=(nreq + 4) * Lw))
+    if fam.spr_f:
+        wave = wave + Ops(i32=Lw * Lw * SC // 2 + 2 * SC * nv
+                          + Lw * SC * 33 + 3 * SC * nv)
+    U = gd.spr_f_active.shape[0]
+    fold = Ops(i32=3 * U * SC * nv) if fam.spr_f else Ops()
+    if fam.ipa_anti:
+        fold = fold + Ops(i32=3 * U * TAA * nv)
+    return wave * waves + (evaluation + Ops(i64=2 * nv)) * serial + fold
+
+
+def check_run_wave(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+    err = 0.0
+    times = {}
+    first = None
+    for kind in ("spread", "anti"):
+        args, B, shape = wave_inputs(torch, pkg, device, kind)
+        cfg, na, carry, valid, table, u, gd, statics, K, J, Lw, fam, \
+            norm_live, anti, merge = args
+        kc, kp = P.run_wave(cfg, na, carry, valid, table, u, gd, statics, K,
+                            J, fam, norm_live, anti_term=anti,
+                            merge_on=merge, Lw=Lw)
+        pc, pp = P._run_wave_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
+                                          f"run_wave[{kind}]"))
+        stats = kp[B:].tolist()
+        k_ms = cuda_ms(torch, lambda: P.run_wave(
+            cfg, na, carry, valid, table, u, gd, statics, K, J, fam,
+            norm_live, anti_term=anti, merge_on=merge, Lw=Lw), 5)
+        plain_ms = cuda_ms(torch, lambda: P._run_wave_plain(*args), 1,
+                           warmup=0)
+        slots = node_slots(na, carry)
+        ops = wave_ops(pkg, args, stats, slots)
+        wt_slices = [getattr(gd, f)[u] for f in (
+            "spr_f_tv", "spr_f_elig", "spr_f_dom", "ipa_raa_tv",
+            "ipa_raa_dom")]
+        moved = (nbytes(na.cap, na.allowed_pods, statics, carry.used,
+                        carry.nonzero_used, carry.npods, carry.groups,
+                        wt_slices, valid)
+                 + nbytes(kc.used, kc.nonzero_used, kc.npods, kc.groups,
+                          kp))
+        bound_ms, bound_by = bound_of(moved, ops)
+        times[kind] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, waves=stats[0],
+                           conflicts=stats[1], first_prefix=stats[2],
+                           serial_steps=stats[3], ops=vars(ops),
+                           bytes=moved, **shape)
+        log("kernel", name="run_wave", exact=True, max_abs_err=err,
+            **times[kind])
+        if first is None:
+            first = times[kind]
+    rows.append(dict(
+        name="run_wave", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_wave.cu",
+        replaces="kubernetes_tpu/ops/program.py:1703", launches=0,
+        max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=None,
+        by_shape={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "waves")}
+                  for k, v in times.items()}))
+
+
+def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
+    """run_batch's group mode at full width: a 1,024-pod scan over the
+    5,000-node harness cluster in 16 zones, rotating four group
+    signatures (zone spread, hostname ScheduleAnyway spread, zone
+    anti-affinity, preferred pod affinity) plus plain pods — the span the
+    port runs where the JAX package takes its plan program."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = harness_nodes(W, SB_NODES, 16)
+    rng = np.random.RandomState(51)
+    bound = [W.make_pod(f"init-{i}").req({"cpu": "900m", "memory": "1Gi"})
+             .label("app", "spread")
+             .node(f"node-{int(rng.randint(0, SB_NODES))}").obj()
+             for i in range(500)]
+    shapes = [
+        lambda k: group_pod(W, k, "spread"),
+        lambda k: W.make_pod(k).req({"cpu": "500m", "memory": "1Gi"})
+        .label("app", "spread").spread_constraint(
+            2, LABEL_HOSTNAME, "ScheduleAnyway", {"app": "spread"}).obj(),
+        lambda k: group_pod(W, k, "anti"),
+        lambda k: W.make_pod(k).req({"cpu": "250m", "memory": "512Mi"})
+        .preferred_pod_affinity(LABEL_ZONE, {"app": "spread"}, 5).obj(),
+        lambda k: W.make_pod(k).req({"cpu": "900m", "memory": "1Gi"}).obj(),
+    ]
+    span = 1024
+    pods = [shapes[int(rng.randint(0, 5))](f"q{i}") for i in range(span)]
+    na, batch, table, gd, gc, fam, _b, _s = group_staged(
+        pkg, device, nodes, bound, pods)
+    xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:span], sig=batch.sig[:span],
+        tidx=batch.tidx[:span]), device)
+    carry = P.initial_carry(na, gc)
+    cfg = P.ScoreConfig()
+    kc, ka = P.run_batch(cfg, na, carry, xs, table, groups=gd, fam=fam)
+    pc, pa = P._run_batch_plain(cfg, na, carry, xs, table, gd, fam)
+    torch.cuda.synchronize()
+    err = assert_equal_trees(torch, (ka, kc), (pa, pc), "run_batch[groups]")
+    k_ms = cuda_ms(torch, lambda: P.run_batch(cfg, na, carry, xs, table,
+                                              groups=gd, fam=fam), 2)
+    plain_ms = cuda_ms(torch, lambda: P._run_batch_plain(
+        cfg, na, carry, xs, table, gd, fam), 1, warmup=0)
+    slots = node_slots(na, carry)
+    C = len(cfg.score_cols)
+    U, SC = gd.spr_f_active.shape
+    TA, TAA = gd.ipa_ra_active.shape[1], gd.ipa_raa_active.shape[1]
+    CT, PT = gd.ipa_stc_tv.shape[1], gd.ipa_stp_tv.shape[1]
+    nv = slots["n_valid"]
+    # per pod: the lean evaluation (or its fast path), the group mask and
+    # scores on every valid node (spread minima, the domain flags and the
+    # score ranges; log and rint per scored node), and per placement the
+    # count update over every consumer row
+    group_eval = Ops(i32=nv * (4 * SC + 3 * TAA + 3 * TA + 2 * SC),
+                     i64=nv * 6, f64=nv * SC * 3 if fam.spr_s else 0)
+    update = Ops(i32=nv * U * (2 * SC * 4 + TAA * 4 + TA * 3),
+                 i64=nv * U * (CT + PT))
+    ops, prev, per_row = Ops(), int(carry.cache.sig), {}
+    for s_, u, best in zip(batch.sig[:span].tolist(),
+                           batch.tidx[:span].tolist(), np_of(ka).tolist()):
+        if u not in per_row:
+            per_row[u] = eval_ops(table, u, slots, C)
+        ops = ops + (fast_ops(slots) if s_ != 0 and s_ == prev
+                     else per_row[u]) + group_eval
+        if best >= 0:
+            ops = ops + update
+        prev = s_
+    moved = (nbytes(na, carry, xs, table, gd)
+             + nbytes(kc.used, kc.nonzero_used, kc.npods, kc.ports,
+                      kc.cache, kc.groups, ka))
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="run_batch_groups", pods=span, nodes=SB_NODES,
+        families=list(fam), exact=True, max_abs_err=err, ms=k_ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, ops=vars(ops), bytes=moved)
+    rows.append(dict(
+        name="run_batch_groups", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_batch.cu",
+        replaces="kubernetes_tpu/ops/program.py:929", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the scheduler end to end
 
 
@@ -686,6 +1082,191 @@ def mixed_workload(device: str, pkg, n_nodes: int = 500):
     return api, sched
 
 
+def group_workload(device: str, pkg, kind: str):
+    """TopologySpreading 5000Nodes_5000Pods ("spread") or
+    SchedulingPodAntiAffinity 5000Nodes_2000Pods ("anti"): createNodes,
+    the plain init pods, then the measured group pods in 512-pod chunks.
+    Returns (api, scheduler, measured pods/s, measured-op dict)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    n_nodes, n_init, n_meas, zones = TS_SHAPE if kind == "spread" else AA_SHAPE
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: 1000.0)
+    for nd in harness_nodes(W, n_nodes, zones):
+        api.create_node(nd)
+    sched.prime()
+    create_pods(api, sched, [W.make_pod(f"pod-{i}").req(
+        {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(n_init)])
+    pods = [group_pod(W, f"pod-{n_init + i}", kind) for i in range(n_meas)]
+    before = (sched.scheduled_count, sched.device_batches, sched.wave_runs)
+    t0 = time.perf_counter()
+    create_pods(api, sched, pods)
+    rate = (sched.scheduled_count - before[0]) / (time.perf_counter() - t0)
+    measured = {"drains": sched.device_batches - before[1],
+                "wave_runs": sched.wave_runs - before[2]}
+    return api, sched, rate, measured
+
+
+def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
+    """Group drains the port routes to run_batch's group mode or to the
+    serial and renormalizing wave tiers: ScheduleAnyway spreads, required
+    affinity, two self-matching anti terms, preferred pod affinity,
+    drains of 16-23 and of fewer than 16 pods, and PreferNoSchedule
+    taints on some nodes."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    api = APIServer()
+    sched = Scheduler(api, batch_size=256, device=device,
+                      clock=lambda: 1000.0)
+    for i in range(n_nodes):
+        w = W.make_node(f"m{i}").capacity(
+            {"cpu": 16, "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % 10}").label(LABEL_HOSTNAME, f"m{i}")
+        if i % 11 == 3:
+            w = w.taint("spot", "", effect="PreferNoSchedule")
+        api.create_node(w.obj())
+    sched.prime()
+    seq = [0]
+
+    def pods(n, build):
+        out = []
+        for _ in range(n):
+            out.append(build(W.make_pod(f"g-{seq[0]}").req(
+                {"cpu": "500m", "memory": "1Gi"})).obj())
+            seq[0] += 1
+        return out
+
+    def drain(batch):
+        api.create_pods(batch)
+        sched.schedule_pending()
+
+    seeds = pods(20, lambda w: w.label("app", "db"))
+    drain(seeds)
+    # ScheduleAnyway spread (the JAX package's plan program)
+    drain(pods(200, lambda w: w.label("app", "web").spread_constraint(
+        3, LABEL_ZONE, "ScheduleAnyway", {"app": "web"})))
+    # required affinity to the seeds, self-matching (plan program there)
+    drain(pods(120, lambda w: w.label("app", "db").pod_affinity(
+        LABEL_ZONE, {"app": "db"})))
+    # two self-matching anti terms (the serial wave tier)
+    drain(pods(60, lambda w: w.label("anti", "x").label("side", "x")
+               .pod_affinity(LABEL_ZONE, {"anti": "x"}, anti=True)
+               .pod_affinity(LABEL_HOSTNAME, {"side": "x"}, anti=True)))
+    # a same-signature spread drain of 20 pods (host greedy there) and one
+    # of 10 (scan there too)
+    drain(pods(20, lambda w: w.label("app", "s").spread_constraint(
+        1, LABEL_ZONE, "DoNotSchedule", {"app": "s"})))
+    drain(pods(10, lambda w: w.label("app", "s").spread_constraint(
+        1, LABEL_ZONE, "DoNotSchedule", {"app": "s"})))
+    # a long spread drain on the tainted cluster (norm_live wave)
+    drain(pods(300, lambda w: w.label("app", "t").spread_constraint(
+        2, LABEL_ZONE, "DoNotSchedule", {"app": "t"})))
+    # preferred pod affinity and plain pods mixed in one drain
+    mixed = []
+    for k in range(150):
+        if k % 3 == 0:
+            mixed += pods(1, lambda w: w.preferred_pod_affinity(
+                LABEL_ZONE, {"app": "web"}, 7))
+        else:
+            mixed += pods(1, lambda w: w)
+    drain(mixed)
+    return api, sched
+
+
+def wave_stats(sched) -> dict:
+    """The scheduler's summed run_wave stats, JSON-ready."""
+    st = dict(sched.wave_stats)
+    st["first_prefix"] = list(st["first_prefix"])
+    return st
+
+
+def zone_counts(api, label: tuple) -> dict:
+    """Pods carrying `label` per zone, from the API server's bind map."""
+    zone_of = {n.metadata.name: n.metadata.labels.get(LABEL_ZONE)
+               for n in api.nodes.values()}
+    out: dict = {}
+    k, v = label
+    for p in api.pods.values():
+        if p.spec.node_name and p.metadata.labels.get(k) == v:
+            z = zone_of[p.spec.node_name]
+            out[z] = out.get(z, 0) + 1
+    return out
+
+
+def profile_run(torch, fn) -> dict:
+    """One more run of `fn` under torch.profiler: device time per kernel
+    and the device's busy share of the run's wall."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us > 0:
+            per_kernel[ev.key] = us / 1e3
+    busy_ms = sum(per_kernel.values())
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return {"wall_s": wall, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / 1e3 / wall if busy_ms else None,
+            "top_device_ms": top}
+
+
+def group_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
+    """Phase 6 / 7: one group workload on the card, checked against its
+    cpu run and its own constraint; returns the launch counts."""
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    api, sched, rate, measured = group_workload(device, pkg, kind)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pkg.kernels.LAUNCHES)
+    n_nodes, n_init, n_meas, zones = TS_SHAPE if kind == "spread" else AA_SHAPE
+    name = ("TopologySpreading" if kind == "spread"
+            else "SchedulingPodAntiAffinity")
+    got = outcome(api, sched)
+    if len(got[0]) != n_init + n_meas:
+        fail(f"{name}: bound {len(got[0])} of {n_init + n_meas} pods")
+    if counts["run_wave"] <= 0 or measured["wave_runs"] != measured["drains"]:
+        fail(f"{name}: run_wave ran on {measured['wave_runs']} of "
+             f"{measured['drains']} measured drains")
+    if sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    per_zone = zone_counts(api, ("app", "spread") if kind == "spread"
+                           else ("anti", "yes"))
+    if kind == "spread":
+        skew = max(per_zone.values()) - min(per_zone.values())
+        if len(per_zone) != zones or skew > 5:
+            fail(f"{name}: zone skew {skew} over {len(per_zone)} zones")
+        check = {"zone_skew": skew}
+    else:
+        if max(per_zone.values()) > 1:
+            fail(f"{name}: a zone holds more than one anti pod")
+        check = {"max_anti_pods_per_zone": max(per_zone.values())}
+    t1 = time.perf_counter()
+    want = outcome(*group_workload("cpu", pkg, kind)[:2])
+    if got != want:
+        fail(f"{name}: cuda bind map differs from the cpu run")
+    log(kind == "spread" and "topology_spreading" or "pod_anti_affinity",
+        pods=n_init + n_meas, bound=len(got[0]), nodes=n_nodes,
+        pods_per_s=rate, wall_s=wall,
+        launches=counts, measured_drains=measured["drains"],
+        wave_runs=sched.wave_runs, wave_stats=wave_stats(sched),
+        merge_loop_readbacks=0, drain_readbacks=sched.device_batches,
+        cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True, **check)
+    log(f"{kind}_profile", **profile_run(
+        torch, lambda: group_workload(device, pkg, kind)))
+    return counts
+
+
 def outcome(api, sched):
     binds = {uid: p.spec.node_name for uid, p in api.pods.items()
              if p.spec.node_name}
@@ -730,6 +1311,11 @@ def main() -> int:
     rows: list = []
     check_run_batch(torch, pkg, device, rows)
     check_run_uniform(torch, pkg, device, rows)
+    check_scatter_rows(torch, pkg, device, rows)
+    time_initial_carry(torch, pkg, device)
+    check_wave_statics(torch, pkg, device, rows)
+    check_run_wave(torch, pkg, device, rows)
+    check_run_batch_groups(torch, pkg, device, rows)
 
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
     # run (the comparisons above do not count)
@@ -776,13 +1362,41 @@ def main() -> int:
     log("mixed", bound=len(got[0]), pending=len(got[1]),
         launches=mixed_counts, uniform_rewinds=sched.uniform_rewinds,
         bind_map_equals_cpu=True)
-    # `launches` sums the two main-path runs, each counted from 0;
+
+    # phases 6 and 7: the two group workloads at full width
+    spread_counts = group_phase(torch, pkg, device, "spread", smi)
+    anti_counts = group_phase(torch, pkg, device, "anti", smi)
+
+    # phase 8: the mixed group workload (run_batch's group mode, the
+    # serial and renormalizing wave tiers)
+    pkg.kernels.reset_launches()
+    api, sched = mixed_group_workload(device, pkg)
+    torch.cuda.synchronize()
+    mg_counts = dict(pkg.kernels.LAUNCHES)
+    got = outcome(api, sched)
+    if mg_counts["run_batch_groups"] <= 0 or mg_counts["run_wave"] <= 0:
+        fail(f"mixed group workload launches {mg_counts}: the group mode "
+             "of run_batch and run_wave must both run")
+    if sched.reconcile() != []:
+        fail("mixed group workload: device carry diverges from the host "
+             "cache")
+    if got != outcome(*mixed_group_workload("cpu", pkg)):
+        fail("mixed group workload: cuda bind map differs from the cpu run")
+    log("mixed_groups", bound=len(got[0]), pending=len(got[1]),
+        launches=mg_counts, wave_runs=sched.wave_runs,
+        wave_stats=wave_stats(sched), bind_map_equals_cpu=True)
+
+    # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
+    paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
+             "topology_spreading": spread_counts,
+             "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts}
     for row in rows:
-        by_path = {"scheduling_basic": sb_counts[row["name"]],
-                   "mixed": mixed_counts[row["name"]]}
+        by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path
+        if row["launches"] <= 0:
+            fail(f"{row['name']}: never launched on the main path")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

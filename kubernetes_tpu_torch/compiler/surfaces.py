@@ -1,0 +1,68 @@
+"""Per-signature kernel-surface cache with generation-diff retention.
+
+Counterpart of kubernetes_tpu/compiler/surfaces.py. The wave program
+hoists every carry-INDEPENDENT kernel — the static filter mask
+(name/unschedulable/taints/selector), the TaintToleration and
+preferred-affinity raw counts, the ImageLocality score — out of the
+dispatch as per-signature [N] surfaces (ops/program.py wave_statics).
+They are pure functions of (signature table row, static node columns), so
+they stay valid across every placement: a commit only moves the aggregate
+columns (used/npods/ports). The cache keys on `ClusterState.statics_gen`
+(bumped only by full row writes, row invalidations and shape growth) and
+the builder's `reset_count`, so surfaces are retained across the
+steady-state drain cycle.
+"""
+
+from __future__ import annotations
+
+
+class SurfaceCache:
+    """u (table row) → (static_mask, taint_raw, na_raw, s_img), each [N]."""
+
+    def __init__(self, state, builder):
+        self.state = state
+        self.builder = builder
+        self._rows: dict[int, tuple] = {}
+        self._key = (-1, -1)      # (statics_gen, reset_count)
+        self.hits = 0
+        self.misses = 0
+
+    def invalidate(self) -> None:
+        self._rows.clear()
+        self._key = (-1, -1)
+
+    def get(self, na, table, rows: tuple) -> list:
+        """Cached surfaces for signature table rows `rows` (ordered,
+        duplicates allowed), computing only the missing ones. `na` /
+        `table` must reflect the current statics generation."""
+        from ..ops.program import wave_statics
+
+        key = (self.state.statics_gen, self.builder.reset_count)
+        if self._key != key:
+            # reset_count remaps every row id; statics_gen means some
+            # node's static columns moved, which every [N] surface read
+            self._rows.clear()
+            self._key = key
+        missing = [u for u in dict.fromkeys(rows) if u not in self._rows]
+        self.hits += len(dict.fromkeys(rows)) - len(missing)
+        self.misses += len(missing)
+        t = self.builder.table
+        a = self.state.arrays
+        has_taints = a is None or bool(
+            ((a.taint_key != 0) & a.valid[:, None]).any())
+        for c0 in range(0, len(missing), 4):
+            chunk = missing[c0:c0 + 4]
+            # pad only to the next pow2 row count (the JAX package's
+            # executable-count rule; the same rows come out either way)
+            S = 1 if len(chunk) == 1 else (2 if len(chunk) == 2 else 4)
+            wts = (chunk + [chunk[-1]] * S)[:S]
+            # feature flags trim wave_statics to the kernels the rows can
+            # actually exercise
+            feats = (has_taints,
+                     any(bool(t.ns_sel_val[u].any()) or bool(t.aff_has[u])
+                         or bool(t.pref_weight[u].any()) for u in chunk),
+                     any(bool(t.img_containers[u]) for u in chunk))
+            m_, tr, nr, si = wave_statics(na, table, wts, feats)
+            for k, u in enumerate(chunk):
+                self._rows[u] = (m_[k], tr[k], nr[k], si[k])
+        return [self._rows[u] for u in rows]

@@ -1,0 +1,540 @@
+// Per-node group math (PodTopologySpread + InterPodAffinity) shared by the
+// scan kernel (run_batch.cu) and the wave kernel (run_wave.cu). Each
+// function is the CUDA form of the matching plain function in
+// kubernetes_tpu_torch/ops/groups.py and of kubernetes_tpu/ops/groups.py
+// (line numbers below):
+//   block_spread_min / kt_group_mask   group_mask_view   (:287-329)
+//   block_group_scores                 group_scores_view (:389-444),
+//                                      _ipa_norm_scores  (:459-472)
+//   block_group_update                 group_update      (:475-570)
+//   block_dom_share                    _dom_share        (:1185-1213)
+//   block_wave_fold                    wave_fold         (:1215-1311),
+//                                      for one wave row
+//
+// All of them run inside ONE block that owns the whole node axis (node n
+// belongs to thread n % BLOCK), so the reductions are block reductions and
+// the scatters are plain stores or shared/global atomics followed by a
+// barrier. The family flags (FamC) are runtime ints: a spread-only span
+// skips every inter-pod-affinity loop, as the JAX program skips them at
+// trace time.
+//
+// Arithmetic rules: counts are int32 and the score surface int64, as in
+// the JAX package; the spread score's float64 terms use the rounded
+// intrinsics (no FMA) and rint (round half to even, jnp.round); the
+// inter-pod normalization takes its range in wrapping int64 arithmetic,
+// as XLA does (only masked-out nodes can see a wrapped value).
+#pragma once
+
+#include "lean_eval.cuh"
+
+#define KT_MAX_SC 8          // spread constraints per row
+#define KT_INT32_MAX 2147483647LL
+#define KT_I64_MAX 9223372036854775807LL
+#define KT_M_CAP 32          // run_wave's spread-replay level cap
+
+struct GroupsC {          // GroupsDev, field for field ([U] rows, [N] nodes)
+  const uint8_t* spr_f_active;    // [U, SC]
+  const int32_t* spr_f_max_skew;  // [U, SC]
+  const int32_t* spr_f_self;      // [U, SC]
+  const int32_t* spr_f_tv;        // [U, SC, N]
+  const uint8_t* spr_f_elig;      // [U, SC, N]
+  const int32_t* spr_f_dom;       // [U, SC, N]
+  const uint8_t* spr_s_active;    // [U, SC]
+  const int32_t* spr_s_max_skew;  // [U, SC]
+  const uint8_t* spr_s_is_host;   // [U, SC]
+  const int32_t* spr_s_tv;        // [U, SC, N]
+  const uint8_t* spr_s_elig;      // [U, SC, N]
+  const uint8_t* spr_s_keys_ok;   // [U, N]
+  const int32_t* spr_s_dom;       // [U, SC, N]
+  const uint8_t* ipa_ra_active;   // [U, TA]
+  const int32_t* ipa_ra_tv;       // [U, TA, N]
+  const int32_t* ipa_ra_dom;      // [U, TA, N]
+  const uint8_t* ipa_raa_active;  // [U, TAA]
+  const int32_t* ipa_raa_tv;      // [U, TAA, N]
+  const int32_t* ipa_raa_dom;     // [U, TAA, N]
+  const uint8_t* ipa_self_all;    // [U]
+  const int32_t* ipa_stc_tv;      // [U, CT, N]
+  const int32_t* ipa_stc_dom;     // [U, CT, N]
+  const int32_t* ipa_stp_tv;      // [U, PT, N]
+  const int32_t* ipa_stp_dom;     // [U, PT, N]
+  const uint8_t* m_spr_f;         // [U, U, SC]
+  const uint8_t* m_spr_s;         // [U, U, SC]
+  const uint8_t* m_ipa_a;         // [U, U]
+  const uint8_t* m_ipa_aa;        // [U, U, TAA]
+  const uint8_t* m_ipa_exist;     // [U, U, TAA]
+  const int64_t* w_stc;           // [U, U, CT]
+  const int64_t* w_stp;           // [U, U, PT]
+  int32_t U, SC, TA, TAA, CT, PT, N;
+};
+
+struct GCarryC {          // GroupCarry
+  int32_t* spr_f_cnt;       // [U, SC, N]
+  uint8_t* spr_f_min_zero;  // [U, SC]
+  int32_t* spr_s_cnt;       // [U, SC, N]
+  int32_t* ipa_veto;        // [U, N]
+  int32_t* ipa_a_cnt;       // [U, TA, N]
+  int64_t* ipa_a_total;     // [U]
+  int32_t* ipa_aa_cnt;      // [U, TAA, N]
+  int64_t* ipa_score;       // [U, N]
+};
+
+struct FamC {             // GroupFamilies
+  int32_t spr_f, spr_s, ipa_req, ipa_anti, ipa_score;
+};
+
+// one signature row's group tensors (GroupView); the wave kernel points
+// f_cnt / veto / aa_cnt at its maintained in-run counters
+struct GViewD {
+  const uint8_t* f_act;
+  const int32_t* f_skew;
+  const int32_t* f_self;
+  const uint8_t* f_minz;
+  const int32_t* f_tv;      // [SC, N]
+  const uint8_t* f_elig;    // [SC, N]
+  const int32_t* f_cnt;     // [SC, N]
+  const int32_t* f_dom;     // [SC, N] dense domain ids
+  const uint8_t* s_act;
+  const int32_t* s_skew;
+  const uint8_t* s_is_host;
+  const int32_t* s_tv;      // [SC, N]
+  const uint8_t* s_keys_ok; // [N]
+  const int32_t* s_dom;     // [SC, N]
+  const int32_t* s_cnt;     // [SC, N]
+  const uint8_t* ra_act;
+  const int32_t* ra_tv;     // [TA, N]
+  const uint8_t* raa_act;
+  const int32_t* raa_tv;    // [TAA, N]
+  bool self_all;
+  const int32_t* veto;      // [N]
+  const int32_t* a_cnt;     // [TA, N]
+  int64_t a_total;
+  const int32_t* aa_cnt;    // [TAA, N]
+  const int64_t* iscore;    // [N]
+  int32_t SC, TA, TAA, N;
+};
+
+__device__ __forceinline__ GViewD view_of(const GroupsC& g,
+                                          const GCarryC& c, int u) {
+  GViewD v;
+  const int64_t N = g.N, SC = g.SC, TA = g.TA, TAA = g.TAA;
+  v.f_act = g.spr_f_active + u * SC;
+  v.f_skew = g.spr_f_max_skew + u * SC;
+  v.f_self = g.spr_f_self + u * SC;
+  v.f_minz = c.spr_f_min_zero + u * SC;
+  v.f_tv = g.spr_f_tv + u * SC * N;
+  v.f_elig = g.spr_f_elig + u * SC * N;
+  v.f_cnt = c.spr_f_cnt + u * SC * N;
+  v.f_dom = g.spr_f_dom + u * SC * N;
+  v.s_act = g.spr_s_active + u * SC;
+  v.s_skew = g.spr_s_max_skew + u * SC;
+  v.s_is_host = g.spr_s_is_host + u * SC;
+  v.s_tv = g.spr_s_tv + u * SC * N;
+  v.s_keys_ok = g.spr_s_keys_ok + u * N;
+  v.s_dom = g.spr_s_dom + u * SC * N;
+  v.s_cnt = c.spr_s_cnt + u * SC * N;
+  v.ra_act = g.ipa_ra_active + u * TA;
+  v.ra_tv = g.ipa_ra_tv + u * TA * N;
+  v.raa_act = g.ipa_raa_active + u * TAA;
+  v.raa_tv = g.ipa_raa_tv + u * TAA * N;
+  v.self_all = g.ipa_self_all[u] != 0;
+  v.veto = c.ipa_veto + u * N;
+  v.a_cnt = c.ipa_a_cnt + u * TA * N;
+  v.a_total = c.ipa_a_total[u];
+  v.aa_cnt = c.ipa_aa_cnt + u * TAA * N;
+  v.iscore = c.ipa_score + u * N;
+  v.SC = g.SC;
+  v.TA = g.TA;
+  v.TAA = g.TAA;
+  v.N = g.N;
+  return v;
+}
+
+template <int BLOCK>
+__device__ __forceinline__ int64_t block_min(int64_t x,
+                                             BlockScratch<BLOCK>& sh) {
+  // no caller passes KT_I64_MIN, so the negation cannot overflow
+  return -block_max<BLOCK>(-x, sh);
+}
+
+// the DoNotSchedule minimum per constraint over the count-eligible nodes,
+// 0 when fewer eligible domains than minDomains (filtering.go:66-77);
+// INT32_MAX when no node is eligible. Ends with a barrier.
+template <int BLOCK>
+__device__ void block_spread_min(const GViewD& v, int32_t* minv_sh,
+                                 BlockScratch<BLOCK>& sh) {
+  const int N = v.N;
+  for (int c = 0; c < v.SC; ++c) {
+    int64_t m = KT_INT32_MAX;
+    for (int n = threadIdx.x; n < N; n += BLOCK) {
+      const int64_t k = (int64_t)c * N + n;
+      if (v.f_elig[k] && v.f_cnt[k] < m) m = v.f_cnt[k];
+    }
+    m = block_min<BLOCK>(m, sh);
+    if (threadIdx.x == 0) minv_sh[c] = v.f_minz[c] ? 0 : (int32_t)m;
+  }
+  __syncthreads();
+}
+
+// group_mask_view for node n, given the spread minima
+__device__ __forceinline__ bool kt_group_mask(const GViewD& v,
+                                              const FamC& fam, int n,
+                                              const int32_t* minv) {
+  const int64_t N = v.N;
+  if (fam.spr_f) {
+    for (int c = 0; c < v.SC; ++c) {
+      if (!v.f_act[c]) continue;
+      const int64_t k = c * N + n;
+      // a node missing the key is UnschedulableAndUnresolvable
+      if (v.f_tv[k] == 0) return false;
+      if ((int64_t)v.f_cnt[k] + v.f_self[c] - minv[c] > v.f_skew[c])
+        return false;
+    }
+  }
+  if (fam.ipa_anti) {
+    if (v.veto[n] != 0) return false;
+    for (int t = 0; t < v.TAA; ++t) {
+      const int64_t k = t * N + n;
+      if (v.raa_act[t] && v.raa_tv[k] != 0 && v.aa_cnt[k] > 0) return false;
+    }
+  }
+  if (fam.ipa_req) {
+    bool any = false, tv_all = true, pods_exist = true;
+    for (int t = 0; t < v.TA; ++t) {
+      if (!v.ra_act[t]) continue;
+      const int64_t k = t * N + n;
+      any = true;
+      tv_all = tv_all && v.ra_tv[k] != 0;
+      pods_exist = pods_exist && v.a_cnt[k] > 0;
+    }
+    const bool escape = v.a_total == 0 && v.self_all;
+    if (any && !(tv_all && (pods_exist || escape))) return false;
+  }
+  return true;
+}
+
+// _ipa_norm_scores for one node, given the feasible-set range
+__device__ __forceinline__ int64_t kt_ipa_norm(int64_t s, int64_t lo,
+                                               int64_t hi) {
+  const int64_t diff =
+      (int64_t)((unsigned long long)hi - (unsigned long long)lo);
+  if (diff <= 0) return 0;
+  const int64_t d = (int64_t)((unsigned long long)s - (unsigned long long)lo);
+  const double val = __ddiv_rn(__dmul_rn(100.0, (double)d), (double)diff);
+  return (int64_t)val;
+}
+
+// group_scores_view over the node axis: the weighted spread + inter-pod
+// score of every node into gsc[n], for the feasibility flags feas[n]
+// (the FULL filtered set). flags: int32 [SC * N] scratch. Starts and ends
+// with a barrier.
+template <int BLOCK>
+__device__ void block_group_scores(const GViewD& v, const FamC& fam,
+                                   int64_t w_spread, int64_t w_ipa,
+                                   const uint8_t* feas, int32_t* flags,
+                                   int64_t* gsc, BlockScratch<BLOCK>& sh) {
+  const int N = v.N;
+  __syncthreads();
+  int64_t lo = 0, hi = 0;
+  if (fam.ipa_score) {
+    int64_t l = KT_I64_MAX, h = -KT_I64_MAX;
+    for (int n = threadIdx.x; n < N; n += BLOCK) {
+      if (!feas[n]) continue;
+      const int64_t s = v.iscore[n];
+      l = s < l ? s : l;
+      h = s > h ? s : h;
+    }
+    lo = block_min<BLOCK>(l, sh);
+    hi = block_max<BLOCK>(h, sh);
+  }
+  bool spread = fam.spr_s != 0;
+  bool has_s = false;
+  double weight[KT_MAX_SC];
+  int64_t rmin = 0, rmax = 0;
+  if (spread) {
+    for (int c = 0; c < v.SC; ++c) has_s = has_s || v.s_act[c];
+    int64_t np = 0;
+    for (int n = threadIdx.x; n < N; n += BLOCK)
+      np += feas[n] && v.s_keys_ok[n];
+    const int64_t npart = block_sum<BLOCK>(np, sh);
+    for (int c = 0; c < v.SC; ++c) {
+      // distinct domains among the scored nodes (topologyNormalizingWeight)
+      int32_t* fl = flags + (int64_t)c * N;
+      for (int n = threadIdx.x; n < N; n += BLOCK) fl[n] = 0;
+      __syncthreads();
+      for (int n = threadIdx.x; n < N; n += BLOCK)
+        if (feas[n] && v.s_keys_ok[n]) fl[v.s_dom[(int64_t)c * N + n]] = 1;
+      __syncthreads();
+      int64_t d = 0;
+      for (int n = threadIdx.x; n < N; n += BLOCK) d += fl[n] != 0;
+      const int64_t distinct = block_sum<BLOCK>(d, sh);
+      const int64_t size = v.s_is_host[c] ? npart : distinct;
+      weight[c] = log(__dadd_rn((double)size, 2.0));
+    }
+    int64_t l = KT_INT32_MAX, h = 0;
+    for (int n = threadIdx.x; n < N; n += BLOCK) {
+      double tot = 0.0;
+      for (int c = 0; c < v.SC; ++c) {
+        const int64_t k = (int64_t)c * N + n;
+        const double x = (v.s_act[c] && v.s_tv[k] != 0)
+            ? __dadd_rn(__dmul_rn((double)v.s_cnt[k], weight[c]),
+                        (double)(v.s_skew[c] - 1))
+            : 0.0;
+        tot = c == 0 ? x : __dadd_rn(tot, x);
+      }
+      const int64_t raw = (int64_t)rint(tot);
+      gsc[n] = raw;
+      if (feas[n] && v.s_keys_ok[n]) {
+        l = raw < l ? raw : l;
+        h = raw > h ? raw : h;
+      }
+    }
+    rmin = block_min<BLOCK>(l, sh);
+    rmax = block_max<BLOCK>(h, sh);
+  }
+  for (int n = threadIdx.x; n < N; n += BLOCK) {
+    int64_t out = 0;
+    if (spread) {
+      const bool scored = feas[n] && v.s_keys_ok[n];
+      int64_t norm = KT_MAX_SCORE;
+      if (rmax != 0)
+        norm = floordiv(KT_MAX_SCORE * (rmax + rmin - gsc[n]),
+                        rmax > 1 ? rmax : 1);
+      out = w_spread * ((has_s && scored) ? norm : 0);
+    }
+    if (fam.ipa_score) out += w_ipa * kt_ipa_norm(v.iscore[n], lo, hi);
+    gsc[n] = out;
+  }
+  __syncthreads();
+}
+
+// group_update after placing a pod of row u on node `best` (the caller
+// only calls it when the pod was placed). Every element is written by one
+// thread; ends with a barrier.
+template <int BLOCK>
+__device__ void block_group_update(const GroupsC& g, const GCarryC& c,
+                                   const FamC& fam, int u, int best) {
+  const int64_t N = g.N, U = g.U, SC = g.SC, TA = g.TA, TAA = g.TAA;
+  const int64_t CT = g.CT, PT = g.PT;
+  if (fam.spr_f) {
+    for (int64_t e = threadIdx.x; e < U * SC * N; e += BLOCK) {
+      const int64_t vc = e / N, v = vc / SC, cc = vc % SC;
+      const int32_t tvb = g.spr_f_tv[vc * N + best];
+      if (g.m_spr_f[(u * U + v) * SC + cc] && g.spr_f_elig[vc * N + best]
+          && tvb != 0 && g.spr_f_tv[e] == tvb)
+        c.spr_f_cnt[e] += 1;
+    }
+  }
+  if (fam.spr_s) {
+    for (int64_t e = threadIdx.x; e < U * SC * N; e += BLOCK) {
+      const int64_t vc = e / N, n = e % N, v = vc / SC, cc = vc % SC;
+      const bool m = g.m_spr_s[(u * U + v) * SC + cc];
+      bool hit;
+      if (g.spr_s_is_host[vc]) {
+        hit = m && n == best;
+      } else {
+        const int32_t tvb = g.spr_s_tv[vc * N + best];
+        hit = m && g.spr_s_elig[vc * N + best] && tvb != 0
+            && g.spr_s_tv[e] == tvb;
+      }
+      if (hit) c.spr_s_cnt[e] += 1;
+    }
+  }
+  if (fam.ipa_anti) {
+    for (int64_t e = threadIdx.x; e < U * N; e += BLOCK) {
+      const int64_t v = e / N, n = e % N;
+      int32_t d = 0;
+      for (int64_t t = 0; t < TAA; ++t) {
+        const int32_t* tv = g.ipa_raa_tv + (u * TAA + t) * N;
+        d += g.m_ipa_exist[(u * U + v) * TAA + t] && tv[best] != 0
+             && tv[n] == tv[best];
+      }
+      c.ipa_veto[e] += d;
+    }
+    for (int64_t e = threadIdx.x; e < U * TAA * N; e += BLOCK) {
+      const int64_t vt = e / N, v = vt / TAA, t = vt % TAA;
+      const int32_t tvb = g.ipa_raa_tv[vt * N + best];
+      if (g.m_ipa_aa[(u * U + v) * TAA + t] && tvb != 0
+          && g.ipa_raa_tv[e] == tvb)
+        c.ipa_aa_cnt[e] += 1;
+    }
+  }
+  if (fam.ipa_req) {
+    for (int64_t e = threadIdx.x; e < U * TA * N; e += BLOCK) {
+      const int64_t vt = e / N, v = vt / TA;
+      const int32_t tvb = g.ipa_ra_tv[vt * N + best];
+      if (g.m_ipa_a[u * U + v] && g.ipa_ra_active[vt] && tvb != 0
+          && g.ipa_ra_tv[e] == tvb)
+        c.ipa_a_cnt[e] += 1;
+    }
+    if (threadIdx.x == 0) {
+      for (int64_t v = 0; v < U; ++v) {
+        if (!g.m_ipa_a[u * U + v]) continue;
+        int64_t k = 0;
+        for (int64_t t = 0; t < TA; ++t)
+          k += g.ipa_ra_active[v * TA + t]
+               && g.ipa_ra_tv[(v * TA + t) * N + best] != 0;
+        c.ipa_a_total[v] += k;
+      }
+    }
+  }
+  if (fam.ipa_score) {
+    for (int64_t e = threadIdx.x; e < U * N; e += BLOCK) {
+      const int64_t v = e / N, n = e % N;
+      int64_t d = 0;
+      for (int64_t t = 0; t < CT; ++t) {
+        const int32_t* tv = g.ipa_stc_tv + (v * CT + t) * N;
+        if (tv[best] != 0 && tv[n] == tv[best])
+          d += g.w_stc[(u * U + v) * CT + t];
+      }
+      for (int64_t t = 0; t < PT; ++t) {
+        const int32_t* tv = g.ipa_stp_tv + (u * PT + t) * N;
+        if (tv[best] != 0 && tv[n] == tv[best])
+          d += g.w_stp[(u * U + v) * PT + t];
+      }
+      c.ipa_score[e] += d;
+    }
+  }
+  __syncthreads();
+}
+
+// _dom_share for one [N] vector: out(n, Σ_m w(m) over the nodes m sharing
+// n's topology value), 0 where tv == 0. seg: int64 [N] scratch (a domain
+// id is the index of one of its nodes). Ends with a barrier.
+template <int BLOCK, class WFn, class OutFn>
+__device__ void block_dom_share(const int32_t* tv, const int32_t* dom,
+                                int N, int64_t* seg, WFn w, OutFn out) {
+  for (int n = threadIdx.x; n < N; n += BLOCK) seg[n] = 0;
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += BLOCK) {
+    if (tv[n] == 0) continue;
+    const int64_t x = w(n);
+    if (x != 0)
+      atomicAdd((unsigned long long*)&seg[dom[n]], (unsigned long long)x);
+  }
+  __syncthreads();
+  for (int n = threadIdx.x; n < N; n += BLOCK)
+    out(n, tv[n] != 0 ? seg[dom[n]] : (int64_t)0);
+  __syncthreads();
+}
+
+// wave_fold for the single wave row u: fold the per-node placement counts
+// cnt[n] into the group carry c (in place). Skipped terms are those whose
+// match weight is zero — their add is identically zero.
+template <int BLOCK>
+__device__ void block_wave_fold(const GroupsC& g, const GCarryC& c,
+                                const FamC& fam, int u, const int32_t* cnt,
+                                int64_t* seg, BlockScratch<BLOCK>& sh) {
+  const int N = g.N;
+  const int64_t NN = N, U = g.U, SC = g.SC, TA = g.TA, TAA = g.TAA;
+  const int64_t CT = g.CT, PT = g.PT;
+  if (fam.spr_f) {
+    for (int64_t v = 0; v < U; ++v)
+      for (int64_t cc = 0; cc < SC; ++cc) {
+        if (!g.m_spr_f[(u * U + v) * SC + cc]) continue;
+        const int64_t b = (v * SC + cc) * NN;
+        const uint8_t* el = g.spr_f_elig + b;
+        int32_t* dst = c.spr_f_cnt + b;
+        block_dom_share<BLOCK>(
+            g.spr_f_tv + b, g.spr_f_dom + b, N, seg,
+            [&](int n) { return (int64_t)(el[n] ? cnt[n] : 0); },
+            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
+      }
+  }
+  if (fam.spr_s) {
+    for (int64_t v = 0; v < U; ++v)
+      for (int64_t cc = 0; cc < SC; ++cc) {
+        if (!g.m_spr_s[(u * U + v) * SC + cc]) continue;
+        const int64_t b = (v * SC + cc) * NN;
+        int32_t* dst = c.spr_s_cnt + b;
+        if (g.spr_s_is_host[v * SC + cc]) {
+          // hostname constraints count the node's own pods, ungated
+          for (int n = threadIdx.x; n < N; n += BLOCK) dst[n] += cnt[n];
+          __syncthreads();
+          continue;
+        }
+        const uint8_t* el = g.spr_s_elig + b;
+        block_dom_share<BLOCK>(
+            g.spr_s_tv + b, g.spr_s_dom + b, N, seg,
+            [&](int n) { return (int64_t)(el[n] ? cnt[n] : 0); },
+            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
+      }
+  }
+  if (fam.ipa_anti) {
+    // existing-anti veto: shared along the placed row's term topology
+    for (int64_t t = 0; t < TAA; ++t) {
+      const int64_t b = (u * TAA + t) * NN;
+      block_dom_share<BLOCK>(
+          g.ipa_raa_tv + b, g.ipa_raa_dom + b, N, seg,
+          [&](int n) { return (int64_t)cnt[n]; },
+          [&](int n, int64_t x) {
+            for (int64_t v = 0; v < U; ++v)
+              if (g.m_ipa_exist[(u * U + v) * TAA + t])
+                c.ipa_veto[v * NN + n] += (int32_t)x;
+          });
+    }
+    // incoming-anti counts: shared along the consumer's term topology
+    for (int64_t v = 0; v < U; ++v)
+      for (int64_t t = 0; t < TAA; ++t) {
+        if (!g.m_ipa_aa[(u * U + v) * TAA + t]) continue;
+        const int64_t b = (v * TAA + t) * NN;
+        int32_t* dst = c.ipa_aa_cnt + b;
+        block_dom_share<BLOCK>(
+            g.ipa_raa_tv + b, g.ipa_raa_dom + b, N, seg,
+            [&](int n) { return (int64_t)cnt[n]; },
+            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
+      }
+  }
+  if (fam.ipa_req) {
+    for (int64_t v = 0; v < U; ++v) {
+      if (!g.m_ipa_a[u * U + v]) continue;
+      for (int64_t t = 0; t < TA; ++t) {
+        if (!g.ipa_ra_active[v * TA + t]) continue;
+        const int64_t b = (v * TA + t) * NN;
+        int32_t* dst = c.ipa_a_cnt + b;
+        block_dom_share<BLOCK>(
+            g.ipa_ra_tv + b, g.ipa_ra_dom + b, N, seg,
+            [&](int n) { return (int64_t)cnt[n]; },
+            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
+      }
+      // a_total: Σ_n cnt[n] · (# active terms whose key the node carries)
+      int64_t part = 0;
+      for (int n = threadIdx.x; n < N; n += BLOCK) {
+        int64_t k = 0;
+        for (int64_t t = 0; t < TA; ++t)
+          k += g.ipa_ra_active[v * TA + t]
+               && g.ipa_ra_tv[(v * TA + t) * NN + n] != 0;
+        part += (int64_t)cnt[n] * k;
+      }
+      const int64_t add = block_sum<BLOCK>(part, sh);
+      if (threadIdx.x == 0) c.ipa_a_total[v] += add;
+      __syncthreads();
+    }
+  }
+  if (fam.ipa_score) {
+    // consumer-side preferred terms matching the placed pod
+    for (int64_t v = 0; v < U; ++v)
+      for (int64_t t = 0; t < CT; ++t) {
+        const int64_t w = g.w_stc[(u * U + v) * CT + t];
+        if (w == 0) continue;
+        const int64_t b = (v * CT + t) * NN;
+        int64_t* dst = c.ipa_score + v * NN;
+        block_dom_share<BLOCK>(
+            g.ipa_stc_tv + b, g.ipa_stc_dom + b, N, seg,
+            [&](int n) { return w * cnt[n]; },
+            [&](int n, int64_t x) { dst[n] += x; });
+      }
+    // placed-side terms: share along the placed row's term topology, then
+    // weight per consumer
+    for (int64_t t = 0; t < PT; ++t) {
+      const int64_t b = (u * PT + t) * NN;
+      block_dom_share<BLOCK>(
+          g.ipa_stp_tv + b, g.ipa_stp_dom + b, N, seg,
+          [&](int n) { return (int64_t)cnt[n]; },
+          [&](int n, int64_t x) {
+            for (int64_t v = 0; v < U; ++v)
+              c.ipa_score[v * NN + n] += g.w_stp[(u * U + v) * PT + t] * x;
+          });
+    }
+  }
+  __syncthreads();
+}

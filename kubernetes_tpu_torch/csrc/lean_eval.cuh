@@ -551,7 +551,9 @@ __device__ __forceinline__ void block_argmax(int64_t& v, int32_t& i,
 // fast path), `out` receives the parts (may alias `in`). Returns, in
 // *tmax / *namax, the feasible-set maxima of the PreferNoSchedule counts
 // and the preferred-affinity weights (the default_normalize
-// denominators). Ends with a __syncthreads.
+// denominators); `gmask`, when given, is the group mask folded into the
+// feasible set before those maxima (_eval_pod :544-550), read only at the
+// nodes this thread owns. Ends with a __syncthreads.
 
 template <int BLOCK>
 __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
@@ -560,7 +562,8 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
                                  const CacheC& in, const CacheC& out,
                                  BlockScratch<BLOCK>& sh,
                                  int64_t* num_with_sh, int64_t* tmax,
-                                 int64_t* namax) {
+                                 int64_t* namax,
+                                 const uint8_t* gmask = nullptr) {
   const int N = na.N;
   const int IC = tb.IC;
   if (!use_fast) {
@@ -617,7 +620,7 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
   // barrier is needed before the maxima pass
   int64_t tm = 0, nm = 0;
   for (int n = threadIdx.x; n < N; n += BLOCK) {
-    if (out.static_mask[n] && out.fit_ok[n]) {
+    if (out.static_mask[n] && out.fit_ok[n] && (!gmask || gmask[n])) {
       tm = out.taint_raw[n] > tm ? out.taint_raw[n] : tm;
       nm = out.na_raw[n] > nm ? out.na_raw[n] : nm;
     }
@@ -634,4 +637,34 @@ __device__ __forceinline__ int64_t kt_total(const CfgC& cfg, const CacheC& c,
        + cfg.w_taint * kt_normalize(c.taint_raw[n], tmax, true)
        + cfg.w_node_affinity * kt_normalize(c.na_raw[n], namax, false)
        + cfg.w_image * c.s_img[n];
+}
+
+// one entry of the closed-form [K, J] matrix (_uniform_matrix :1007): fit
+// and post-placement scores of the j1-th same-signature pod on `node`,
+// from that node's carry rows
+__device__ __forceinline__ void kt_uniform_entry(
+    const CfgC& cfg, const NodeC& na, int node, const int64_t* used,
+    const int64_t* nz, int64_t npods, const PodRowD& p, int64_t j1,
+    bool* fit_out, int64_t* s_fit, int64_t* s_bal) {
+  const int64_t* cap = na.cap + (int64_t)node * na.R;
+  bool fit = npods + j1 <= (int64_t)na.allowed_pods[node];
+  for (int r = 0; r < na.R; ++r) {
+    const int64_t q = p.req[r];
+    if (q != 0 && !(used[r] + j1 * q <= cap[r])) fit = false;
+  }
+  int64_t capc[KT_MAX_C], usedc[KT_MAX_C], plain[KT_MAX_C];
+  for (int c = 0; c < cfg.C; ++c) {
+    const int col = cfg.score_cols[c];
+    capc[c] = cap[col];
+    plain[c] = used[col] + j1 * p.req[col];
+    if (cfg.col_nonzero[c]) {
+      const int s = cfg.nonzero_slot[c];
+      usedc[c] = nz[s] + j1 * p.nonzero_req[s];
+    } else {
+      usedc[c] = plain[c];
+    }
+  }
+  *fit_out = fit;
+  *s_fit = kt_least_allocated(cfg, capc, usedc);
+  *s_bal = p.skip_balanced ? 0 : kt_balanced(cfg.C, capc, plain);
 }

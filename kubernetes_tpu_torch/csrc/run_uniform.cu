@@ -88,33 +88,16 @@ uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
   const int64_t M = (int64_t)N * J;
   const bool sm = out.static_mask[node] != 0;
   const int64_t sadd = static_add[node];
-  const int64_t* cap = na.cap + (int64_t)node * na.R;
   const int64_t* used = cin.used + (int64_t)node * na.R;
   const int64_t* nz = cin.nonzero_used + (int64_t)node * 2;
-  const int64_t npods = cin.npods[node], allowed = na.allowed_pods[node];
+  const int64_t npods = cin.npods[node];
   int64_t prev = 0;
   bool mono = true;
   for (int j = 0; j < J; ++j) {
-    const int64_t j1 = j + 1;
-    bool fit = npods + j1 <= allowed;
-    for (int r = 0; r < na.R; ++r) {
-      const int64_t q = p.req[r];
-      if (q != 0 && !(used[r] + j1 * q <= cap[r])) fit = false;
-    }
-    int64_t capc[KT_MAX_C], usedc[KT_MAX_C], plain[KT_MAX_C];
-    for (int c = 0; c < cfg.C; ++c) {
-      const int col = cfg.score_cols[c];
-      capc[c] = cap[col];
-      plain[c] = used[col] + j1 * p.req[col];
-      if (cfg.col_nonzero[c]) {
-        const int s = cfg.nonzero_slot[c];
-        usedc[c] = nz[s] + j1 * p.nonzero_req[s];
-      } else {
-        usedc[c] = plain[c];
-      }
-    }
-    const int64_t s_fit = kt_least_allocated(cfg, capc, usedc);
-    const int64_t s_bal = p.skip_balanced ? 0 : kt_balanced(cfg.C, capc, plain);
+    bool fit;
+    int64_t s_fit, s_bal;
+    kt_uniform_entry(cfg, na, node, used, nz, npods, p, j + 1, &fit, &s_fit,
+                     &s_bal);
     const int64_t masked = (sm && fit)
         ? cfg.w_fit * s_fit + cfg.w_balanced * s_bal + sadd : -1;
     if (j > 0 && masked > prev) mono = false;

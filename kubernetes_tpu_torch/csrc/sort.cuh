@@ -1,9 +1,11 @@
 // Descending bitonic sort of int64 keys in device memory (n a power of
-// two). The keys of the uniform run are unique (the node index and the
-// matrix column are folded in), so the order is total and no stability is
-// needed. Chunks of SORT_CHUNK keys sort and merge in shared memory; only
-// the strides of SORT_CHUNK and above go through global memory, one launch
-// per stride.
+// two). The keys of the uniform and wave runs are unique (the node index
+// and the matrix column are folded in), so the order is total and no
+// stability is needed. kt_sort_desc (host side): chunks of SORT_CHUNK keys
+// sort and merge in shared memory; only the strides of SORT_CHUNK and
+// above go through global memory, one launch per stride. block_sort_desc
+// (device side): the whole network inside one block, for kernels that
+// keep a dependent chain on one SM (run_wave.cu).
 #pragma once
 
 #include <cstdint>
@@ -80,5 +82,21 @@ static void kt_sort_desc(int64_t* keys, int n, cudaStream_t stream) {
                             SORT_THREADS, 0, stream>>>(keys, n, k, j);
     bitonic_chunk_merge<<<n / SORT_CHUNK, SORT_THREADS, 0, stream>>>(keys, n,
                                                                       k);
+  }
+}
+
+// the full network over keys[0, n) by the calling block alone (every
+// thread of the block must call it); ends with a barrier
+template <int BLOCK>
+__device__ void block_sort_desc(int64_t* keys, int n) {
+  __syncthreads();
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int t = threadIdx.x; t < n; t += BLOCK) {
+        const int l = t ^ j;
+        if (l > t) kt_cmpx(keys, t, l, (t & k) == 0);
+      }
+      __syncthreads();
+    }
   }
 }

@@ -24,6 +24,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -31,16 +32,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
-SOURCES = ("run_batch", "run_uniform")
+SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
+           "run_wave")
 
-# launches per wrapper since the last reset (one per kernel-wrapper call)
-LAUNCHES = {name: 0 for name in SOURCES}
+# launches per wrapper since the last reset (one per kernel-wrapper call);
+# run_batch counts its lean and its group mode under two keys
+LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",)}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
 
 MAX_C = 8      # csrc/lean_eval.cuh KT_MAX_C
 MAX_IC = 16    # csrc/lean_eval.cuh KT_MAX_IC
+MAX_SC = 8     # csrc/group_eval.cuh KT_MAX_SC
+MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
+MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
 
 
 def reset_launches() -> None:
@@ -150,14 +156,86 @@ class CfgC(ctypes.Structure):
                 ("w_image", ctypes.c_int64), ("most_allocated", _I)]
 
 
+_GROUPS_FIELDS = (
+    "spr_f_active", "spr_f_max_skew", "spr_f_self", "spr_f_tv",
+    "spr_f_elig", "spr_f_dom", "spr_s_active", "spr_s_max_skew",
+    "spr_s_is_host", "spr_s_tv", "spr_s_elig", "spr_s_keys_ok", "spr_s_dom",
+    "ipa_ra_active", "ipa_ra_tv", "ipa_ra_dom", "ipa_raa_active",
+    "ipa_raa_tv", "ipa_raa_dom", "ipa_self_all", "ipa_stc_tv",
+    "ipa_stc_dom", "ipa_stp_tv", "ipa_stp_dom", "m_spr_f", "m_spr_s",
+    "m_ipa_a", "m_ipa_aa", "m_ipa_exist", "w_stc", "w_stp")
+_GCARRY_FIELDS = ("spr_f_cnt", "spr_f_min_zero", "spr_s_cnt", "ipa_veto",
+                  "ipa_a_cnt", "ipa_a_total", "ipa_aa_cnt", "ipa_score")
+
+
+class GroupsC(ctypes.Structure):
+    _fields_ = [(f, _P) for f in _GROUPS_FIELDS] + [
+        (f, _I) for f in ("U", "SC", "TA", "TAA", "CT", "PT", "N")]
+
+
+class GCarryC(ctypes.Structure):
+    _fields_ = [(f, _P) for f in _GCARRY_FIELDS]
+
+
+class FamC(ctypes.Structure):
+    _fields_ = [(f, _I) for f in ("spr_f", "spr_s", "ipa_req", "ipa_anti",
+                                  "ipa_score")]
+
+
+class WaveRowsC(ctypes.Structure):
+    _fields_ = [("u", _I * MAX_WAVE_ROWS)]
+
+
+class ScatterField(ctypes.Structure):
+    _fields_ = [("dst", _P), ("base", _P), ("rows", _P),
+                ("row_units", ctypes.c_int64), ("unit_bytes", _I),
+                ("pad", _I)]
+
+
+class ScatterC(ctypes.Structure):
+    _fields_ = [("f", ScatterField * MAX_SCATTER_FIELDS), ("nf", _I),
+                ("N", _I), ("D", _I)]
+
+
+_WAVE_SCRATCH = ("f_cnt", "veto", "aa_cnt", "cnt_n", "cnt_add", "gmask",
+                 "feas", "masked", "gsc", "flags", "seg", "elig_dom",
+                 "keys0", "cand", "keys1", "node_i", "j_i", "gate", "dom_ic",
+                 "newcnt", "lvlmask")
+
+
+class WaveArgsC(ctypes.Structure):
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
+                 ("g", GroupsC), ("gin", GCarryC), ("gout", GCarryC),
+                 ("fam", FamC)]
+                + [(f, _P) for f in ("used", "nonzero_used", "npods", "m0",
+                                     "taint_raw", "na_raw", "s_img",
+                                     "valid")]
+                + [(f, _I) for f in ("wt", "B", "K", "J", "Lw", "norm_live",
+                                     "anti_term", "merge_on")]
+                + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)]
+                + [(f, _P) for f in _WAVE_SCRATCH]
+                + [("P0", _I), ("P1", _I), ("packed", _P)])
+
+
 def _bind(name: str, lib):
     if name == "run_batch":
-        lib.ktpu_run_batch.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P]
+        lib.ktpu_run_batch.argtypes = (
+            [_P] * 7 + [_I, ctypes.c_int64, ctypes.c_int64] + [_P] * 6
+            + [_I, _P, _P])
         lib.ktpu_run_batch.restype = ctypes.c_int
-    else:
+    elif name == "run_uniform":
         lib.ktpu_run_uniform.argtypes = (
             [_P] * 5 + [_I] * 6 + [_P, _P, _I, _P, _P, _I] + [_P] * 7)
         lib.ktpu_run_uniform.restype = ctypes.c_int
+    elif name == "scatter_rows":
+        lib.ktpu_scatter_rows.argtypes = [_P, _P, _P]
+        lib.ktpu_scatter_rows.restype = ctypes.c_int
+    elif name == "wave_statics":
+        lib.ktpu_wave_statics.argtypes = [_P, _P, _P] + [_I] * 4 + [_P] * 6
+        lib.ktpu_wave_statics.restype = ctypes.c_int
+    else:
+        lib.ktpu_run_wave.argtypes = [_P, _P]
+        lib.ktpu_run_wave.restype = ctypes.c_int
     return lib
 
 
@@ -316,24 +394,107 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+_GROUPS_SPEC = {   # field → (dtype, rank)
+    "spr_f_active": (torch.bool, 2), "spr_f_max_skew": (torch.int32, 2),
+    "spr_f_self": (torch.int32, 2), "spr_f_tv": (torch.int32, 3),
+    "spr_f_elig": (torch.bool, 3), "spr_f_dom": (torch.int32, 3),
+    "spr_s_active": (torch.bool, 2), "spr_s_max_skew": (torch.int32, 2),
+    "spr_s_is_host": (torch.bool, 2), "spr_s_tv": (torch.int32, 3),
+    "spr_s_elig": (torch.bool, 3), "spr_s_keys_ok": (torch.bool, 2),
+    "spr_s_dom": (torch.int32, 3), "ipa_ra_active": (torch.bool, 2),
+    "ipa_ra_tv": (torch.int32, 3), "ipa_ra_dom": (torch.int32, 3),
+    "ipa_raa_active": (torch.bool, 2), "ipa_raa_tv": (torch.int32, 3),
+    "ipa_raa_dom": (torch.int32, 3), "ipa_self_all": (torch.bool, 1),
+    "ipa_stc_tv": (torch.int32, 3), "ipa_stc_dom": (torch.int32, 3),
+    "ipa_stp_tv": (torch.int32, 3), "ipa_stp_dom": (torch.int32, 3),
+    "m_spr_f": (torch.bool, 3), "m_spr_s": (torch.bool, 3),
+    "m_ipa_a": (torch.bool, 2), "m_ipa_aa": (torch.bool, 3),
+    "m_ipa_exist": (torch.bool, 3), "w_stc": (torch.int64, 3),
+    "w_stp": (torch.int64, 3),
+}
+_GCARRY_SPEC = {
+    "spr_f_cnt": (torch.int32, 3), "spr_f_min_zero": (torch.bool, 2),
+    "spr_s_cnt": (torch.int32, 3), "ipa_veto": (torch.int32, 2),
+    "ipa_a_cnt": (torch.int32, 3), "ipa_a_total": (torch.int64, 1),
+    "ipa_aa_cnt": (torch.int32, 3), "ipa_score": (torch.int64, 2),
+}
+
+
+def _groups_c(gd, N: int, device) -> GroupsC:
+    ptrs = {f: _check(getattr(gd, f), f"gd.{f}", *spec, device)
+            for f, spec in _GROUPS_SPEC.items()}
+    U, SC = gd.spr_f_active.shape
+    TA, TAA = gd.ipa_ra_active.shape[1], gd.ipa_raa_active.shape[1]
+    CT, PT = gd.ipa_stc_tv.shape[1], gd.ipa_stp_tv.shape[1]
+    want = {"spr_f_max_skew": (U, SC), "spr_f_self": (U, SC),
+            "spr_f_tv": (U, SC, N), "spr_f_elig": (U, SC, N),
+            "spr_f_dom": (U, SC, N), "spr_s_active": (U, SC),
+            "spr_s_max_skew": (U, SC), "spr_s_is_host": (U, SC),
+            "spr_s_tv": (U, SC, N), "spr_s_elig": (U, SC, N),
+            "spr_s_keys_ok": (U, N), "spr_s_dom": (U, SC, N),
+            "ipa_ra_tv": (U, TA, N), "ipa_ra_dom": (U, TA, N),
+            "ipa_raa_tv": (U, TAA, N), "ipa_raa_dom": (U, TAA, N),
+            "ipa_self_all": (U,), "ipa_stc_tv": (U, CT, N),
+            "ipa_stc_dom": (U, CT, N), "ipa_stp_tv": (U, PT, N),
+            "ipa_stp_dom": (U, PT, N), "m_spr_f": (U, U, SC),
+            "m_spr_s": (U, U, SC), "m_ipa_a": (U, U),
+            "m_ipa_aa": (U, U, TAA), "m_ipa_exist": (U, U, TAA),
+            "w_stc": (U, U, CT), "w_stp": (U, U, PT)}
+    for f, shape in want.items():
+        if tuple(getattr(gd, f).shape) != shape:
+            raise ValueError(f"gd.{f}: {tuple(getattr(gd, f).shape)}, "
+                             f"expected {shape}")
+    if SC > MAX_SC:
+        raise ValueError(f"{SC} spread constraints > kernel limit {MAX_SC}")
+    return GroupsC(**ptrs, U=U, SC=SC, TA=TA, TAA=TAA, CT=CT, PT=PT, N=N)
+
+
+def _gcarry_c(gc, g: GroupsC, device) -> GCarryC:
+    ptrs = {f: _check(getattr(gc, f), f"groups.{f}", *spec, device)
+            for f, spec in _GCARRY_SPEC.items()}
+    U, SC, TA, TAA, N = g.U, g.SC, g.TA, g.TAA, g.N
+    want = {"spr_f_cnt": (U, SC, N), "spr_f_min_zero": (U, SC),
+            "spr_s_cnt": (U, SC, N), "ipa_veto": (U, N),
+            "ipa_a_cnt": (U, TA, N), "ipa_a_total": (U,),
+            "ipa_aa_cnt": (U, TAA, N), "ipa_score": (U, N)}
+    for f, shape in want.items():
+        if tuple(getattr(gc, f).shape) != shape:
+            raise ValueError(f"groups.{f}: {tuple(getattr(gc, f).shape)}, "
+                             f"expected {shape}")
+    return GCarryC(**ptrs)
+
+
+def _fam_c(fam) -> FamC:
+    return FamC(*(int(bool(x)) for x in fam))
+
+
+def _clone_groups(gc):
+    return type(gc)(*(t.clone() for t in gc))
+
+
 def _out_carry(carry, scan: bool):
     """The carry a kernel writes in place: copies of the fields it
     updates, because the input carry may still be held for rewind. The
-    scan (run_batch) writes port ids and starts from the input SigCache,
-    so both are copied; run_uniform never writes ports, which stay
-    shared, and writes its SigCache in full, which starts uninitialised."""
+    scan (run_batch) writes port ids, group counts and starts from the
+    input SigCache, so all are copied; run_uniform never writes ports or
+    group counts, which stay shared, and writes its SigCache in full,
+    which starts uninitialised."""
     from .program import Carry, SigCache
     fresh = torch.Tensor.clone if scan else torch.empty_like
+    groups = carry.groups
+    if scan and groups is not None:
+        groups = _clone_groups(groups)
     return Carry(used=carry.used.clone(),
                  nonzero_used=carry.nonzero_used.clone(),
                  npods=carry.npods.clone(),
                  ports=carry.ports.clone() if scan else carry.ports,
-                 cache=SigCache(*(fresh(t) for t in carry.cache)))
+                 cache=SigCache(*(fresh(t) for t in carry.cache)),
+                 groups=groups)
 
 
-def run_batch_cuda(cfg, na, carry, pods, table):
+def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None):
     """The scan kernel (csrc/run_batch.cu) over pods [B]; same contract as
-    program.run_batch."""
+    program.run_batch, with the group branch when `groups` is given."""
     libs = build()
     device = carry.used.device
     node = _node_c(na, device)
@@ -347,18 +508,32 @@ def run_batch_cuda(cfg, na, carry, pods, table):
     out_carry = _out_carry(carry, scan=True)
     cc = _carry_c(out_carry, node.N, node.R, device)
     out = torch.empty((B,), dtype=torch.int32, device=device)
+    if groups is not None:
+        g = _groups_c(groups, node.N, device)
+        gc = _gcarry_c(out_carry.groups, g, device)
+        if g.U > tab.U:
+            raise ValueError("run_batch: more group rows than table rows")
+        famc = _fam_c(fam if fam is not None else (1,) * 5)
+        gmask = torch.empty((node.N,), dtype=torch.uint8, device=device)
+        flags = torch.empty((g.SC * node.N,), dtype=torch.int32,
+                            device=device)
+        gsc = torch.empty((node.N,), dtype=torch.int64, device=device)
+        scratch = (gmask.data_ptr(), flags.data_ptr(), gsc.data_ptr())
+    else:
+        g, gc, famc = GroupsC(), GCarryC(), FamC()
+        scratch = (None, None, None)
     # every struct stays bound to a name until the call returns: the C
     # entry copies them into the launch, from host memory ctypes owns
     cfgc = _cfg_c(cfg, node.R)
     rc = libs["run_batch"].ktpu_run_batch(
         ctypes.addressof(node), ctypes.addressof(tab), ctypes.addressof(cc),
-        ctypes.addressof(cfgc), valid, sig, tidx, B, out.data_ptr(),
+        ctypes.addressof(cfgc), ctypes.addressof(g), ctypes.addressof(gc),
+        ctypes.addressof(famc), int(groups is not None), cfg.w_spread,
+        cfg.w_ipa, *scratch, valid, sig, tidx, B, out.data_ptr(),
         _stream(device))
     _raise_on(rc, "run_batch")
-    LAUNCHES["run_batch"] += 1
+    LAUNCHES["run_batch" if groups is None else "run_batch_groups"] += 1
     return out_carry, out
-
-
 def _pow2(n: int) -> int:
     v = 1
     while v < n:
@@ -414,3 +589,151 @@ def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
     _raise_on(rc, "run_uniform")
     LAUNCHES["run_uniform"] += 1
     return out_carry, packed
+
+
+def scatter_rows_cuda(dev, idx, rows):
+    """The row scatter (csrc/scatter_rows.cu); same contract as
+    program.scatter_rows: fresh tensors, dev untouched. `idx` is a host
+    array or tensor; the row map the kernel reads is built from it on the
+    host and copied from pinned memory without blocking."""
+    from ..state.tensorize import NodeArrays
+    libs = build()
+    device = dev.used.device
+    index = torch.as_tensor(idx, dtype=torch.int64).cpu().numpy()
+    if index.ndim != 1:
+        raise ValueError("scatter_rows: idx must be 1-D")
+    D = index.shape[0]
+    N = dev.used.shape[0]
+    if D and (int(index.min()) < 0 or int(index.max()) >= N):
+        raise ValueError("scatter_rows: row index outside the node axis")
+    if len(dev) > MAX_SCATTER_FIELDS:
+        raise ValueError("scatter_rows: too many fields")
+    row_map = np.full((N,), -1, np.int32)
+    row_map[index] = np.arange(D, dtype=np.int32)
+    map_t = torch.from_numpy(row_map).pin_memory().to(device,
+                                                       non_blocking=True)
+    sc = ScatterC(nf=len(dev), N=N, D=D)
+    outs = []
+    for k, (name, d, r) in enumerate(zip(NodeArrays._fields, dev, rows)):
+        dp = _check(d, f"dev.{name}", d.dtype, d.dim(), device)
+        rp = _check(r, f"rows.{name}", d.dtype, d.dim(), device)
+        if d.shape[0] != N or r.shape[0] != D or d.shape[1:] != r.shape[1:]:
+            raise ValueError(f"scatter_rows: {name} shapes "
+                             f"{tuple(d.shape)} / {tuple(r.shape)}")
+        o = torch.empty_like(d)
+        outs.append(o)
+        op = o.data_ptr()
+        row_bytes = d.element_size()
+        for x in d.shape[1:]:
+            row_bytes *= x
+        # the widest unit that divides the row and all three addresses
+        unit = 16
+        while (row_bytes | op | dp | rp) % unit:
+            unit //= 2
+        sc.f[k] = ScatterField(op, dp, rp, row_bytes // unit, unit)
+    rc = libs["scatter_rows"].ktpu_scatter_rows(
+        ctypes.addressof(sc), map_t.data_ptr(), _stream(device))
+    _raise_on(rc, "scatter_rows")
+    LAUNCHES["scatter_rows"] += 1
+    return NodeArrays(*outs)
+
+
+def wave_statics_cuda(na, table, wt, feats=(True, True, True)):
+    """The per-signature surfaces (csrc/wave_statics.cu); same contract as
+    program.wave_statics."""
+    libs = build()
+    device = na.valid.device
+    node = _node_c(na, device)
+    tab = _table_c(table, node.R, device)
+    rows = [int(u) for u in wt]
+    if not rows or any(not 0 <= u < tab.U for u in rows):
+        raise ValueError(f"wave_statics: rows {rows} outside the table")
+    if len(rows) > MAX_WAVE_ROWS:
+        raise ValueError(f"wave_statics: {len(rows)} rows, at most "
+                         f"{MAX_WAVE_ROWS} per call")
+    S, N = len(rows), node.N
+    wt_c = WaveRowsC()
+    wt_c.u[:S] = rows
+    img_cnt = torch.empty((S * (tab.IC + 1),), dtype=torch.int64,
+                          device=device)
+    mask = torch.empty((S, N), dtype=torch.bool, device=device)
+    traw, nraw, simg = (torch.empty((S, N), dtype=torch.int64,
+                                    device=device) for _ in range(3))
+    has_taints, has_sel, has_img = (int(bool(f)) for f in feats)
+    rc = libs["wave_statics"].ktpu_wave_statics(
+        ctypes.addressof(node), ctypes.addressof(tab),
+        ctypes.addressof(wt_c), S,
+        has_taints, has_sel, has_img, img_cnt.data_ptr(), mask.data_ptr(),
+        traw.data_ptr(), nraw.data_ptr(), simg.data_ptr(), _stream(device))
+    _raise_on(rc, "wave_statics")
+    LAUNCHES["wave_statics"] += 1
+    return mask, traw, nraw, simg
+
+
+def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
+                  J: int, Lw: int, fam, norm_live: bool, anti_term: int,
+                  merge_on: bool):
+    """The same-signature wave kernel (csrc/run_wave.cu); same contract as
+    program.run_wave (Lw already capped at the span bucket)."""
+    from .program import Carry
+    libs = build()
+    device = carry.used.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    g = _groups_c(gd, N, device)
+    gin = _gcarry_c(carry.groups, g, device)
+    wt = int(wt)
+    if not (0 <= wt < g.U and wt < tab.U):
+        raise ValueError(f"run_wave: row {wt} outside the tables")
+    B = valid.shape[0]
+    valid_p = _check(valid, "valid", torch.bool, 1, device)
+    stat = [_check(t, f"statics[{k}]", dt, 1, device) for k, (t, dt) in
+            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
+                                    torch.int64)))]
+    if any(t.shape[0] != N for t in statics):
+        raise ValueError("run_wave: statics must be [N] each")
+    if not (1 <= K <= N and J >= 1 and 1 <= Lw <= min(B, K * J)):
+        raise ValueError(f"run_wave: bad shape K={K} J={J} Lw={Lw} B={B} "
+                         f"N={N}")
+    if not -1 <= anti_term < g.TAA:
+        raise ValueError(f"run_wave: anti term {anti_term} out of range")
+    gout_t = _clone_groups(carry.groups)
+    gout = _gcarry_c(gout_t, g, device)
+    used = carry.used.clone()
+    nz = carry.nonzero_used.clone()
+    npods = carry.npods.clone()
+    _carry_c(carry._replace(used=used, nonzero_used=nz, npods=npods), N, R,
+             device)
+    P0, P1 = _pow2(N), _pow2(K * J)
+    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
+    SC, TAA = g.SC, g.TAA
+    sizes = {"f_cnt": (SC * N, i32), "veto": (N, i32),
+             "aa_cnt": (TAA * N, i32), "cnt_n": (N, i32),
+             "cnt_add": (N, i32), "gmask": (N, u8), "feas": (N, u8),
+             "masked": (N, i64), "gsc": (N, i64), "flags": (SC * N, i32),
+             "seg": (N, i64), "elig_dom": (SC * N, i32), "keys0": (P0, i64),
+             "cand": (K, i32), "keys1": (P1, i64), "node_i": (Lw, i32),
+             "j_i": (Lw, i32), "gate": (Lw * SC, u8),
+             "dom_ic": (Lw * SC, i32), "newcnt": (Lw * SC, i32),
+             "lvlmask": (Lw * SC, i32)}
+    scratch = {k: torch.empty((max(n, 1),), dtype=dt, device=device)
+               for k, (n, dt) in sizes.items()}
+    packed = torch.empty((B + 4,), dtype=i32, device=device)
+    args = WaveArgsC(
+        na=node, tb=tab, cfg=_cfg_c(cfg, R), g=g, gin=gin, gout=gout,
+        fam=_fam_c(fam), used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+        npods=npods.data_ptr(), m0=stat[0], taint_raw=stat[1],
+        na_raw=stat[2], s_img=stat[3], valid=valid_p, wt=wt, B=B, K=K, J=J,
+        Lw=Lw, norm_live=int(bool(norm_live)), anti_term=int(anti_term),
+        merge_on=int(bool(merge_on)), w_spread=cfg.w_spread,
+        w_ipa=cfg.w_ipa, P0=P0, P1=P1, packed=packed.data_ptr(),
+        **{k: t.data_ptr() for k, t in scratch.items()})
+    rc = libs["run_wave"].ktpu_run_wave(ctypes.addressof(args),
+                                        _stream(device))
+    _raise_on(rc, "run_wave")
+    LAUNCHES["run_wave"] += 1
+    cache = carry.cache._replace(
+        sig=torch.zeros((), dtype=torch.int32, device=device))
+    return Carry(used=used, nonzero_used=nz, npods=npods, ports=carry.ports,
+                 cache=cache, groups=gout_t), packed

@@ -1,20 +1,22 @@
-"""The lean device program: per-pod scan and the closed-form uniform run.
+"""The device program: per-pod scan, closed-form uniform run, group waves.
 
-PyTorch counterpart of kubernetes_tpu/ops/program.py, lean subset (no
-nominated-pod overlay, no group kernels). Every device program here has
-two implementations:
+PyTorch counterpart of kubernetes_tpu/ops/program.py without the
+nominated-pod overlay and the multi-signature plan program. Every device
+program here has two implementations:
 
-- a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain` and
-  the filter/score functions below), a line-for-line translation of the
-  JAX functions with the same dtypes and the same integer and float
+- a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain`,
+  `_wave_statics_plain`, `_run_wave_plain`, `_scatter_rows_plain` and the
+  filter/score functions below), a line-for-line translation of the JAX
+  functions with the same dtypes and the same integer and float
   arithmetic — the CPU path and the reference the CUDA kernels are held
   to;
 - a hand-written CUDA kernel (ops/kernels.py, csrc/), launched when the
   inputs lie on a CUDA device.
 
-`run_batch` / `run_uniform` pick by the device of the carry: CPU tensors
-take the plain version, CUDA tensors launch the kernel, and anything
-else raises. There is no fallback between the two.
+`run_batch`, `run_uniform`, `wave_statics`, `run_wave` and `scatter_rows`
+pick by the device of their inputs: CPU tensors take the plain version,
+CUDA tensors launch the kernel, and anything else raises. There is no
+fallback between the two.
 
 Translation notes (where a naive port diverges from the JAX program):
 - int64 / int64 in torch is float32; every ratio casts to float64 first
@@ -25,7 +27,9 @@ Translation notes (where a naive port diverges from the JAX program):
   written `d * d`;
 - top-k: keys fold the node index in, so ties resolve to the lowest
   index exactly like `lax.top_k`;
-- count scatters with duplicate indices use `index_add`.
+- count scatters with duplicate indices use `index_add`;
+- int64 arithmetic wraps like XLA's (the inter-pod score range over an
+  empty feasible set), and only masked-out nodes ever see a wrapped value.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import NamedTuple
 
 import torch
 
+from .groups import group_mask, group_scores, group_update
 from ..plugins.imagelocality import (MAX_CONTAINER_THRESHOLD as
                                      IMG_MAX_CONTAINER_THRESHOLD,
                                      MIN_THRESHOLD as IMG_MIN_THRESHOLD)
@@ -86,6 +91,10 @@ class Carry(NamedTuple):
     npods: torch.Tensor         # i32 [N]
     ports: torch.Tensor         # i32 [N, P]
     cache: SigCache
+    # PodTopologySpread / InterPodAffinity counts (ops/groups.py
+    # GroupCarry), None when neither the batch nor the cluster carries
+    # group constraints
+    groups: object = None
 
 
 class PodTableDev(NamedTuple):
@@ -401,9 +410,13 @@ def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
         s_bal=s_bal)
 
 
-def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
+def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow,
+              groups=None, tidx: int = 0, fam=None):
     """Feasibility + total score for one pod over all nodes → (feasible,
-    total, parts), consulting the signature cache."""
+    total, parts), consulting the signature cache. With `groups` (the
+    GroupsDev of the table, and `carry.groups`), the group mask folds into
+    the feasible set BEFORE normalization and the group scores add to the
+    total; they are carry-coupled, so never cached."""
     cache = carry.cache
     if pod.sig != 0 and pod.sig == int(cache.sig):
         parts = cache._replace(
@@ -411,11 +424,16 @@ def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
     else:
         parts = _slow_parts(cfg, na, carry, pod)
     feasible = parts.static_mask & parts.fit_ok
+    if groups is not None:
+        feasible = feasible & group_mask(groups, carry.groups, tidx, fam=fam)
     s_taint = default_normalize(parts.taint_raw, feasible, reverse=True)
     s_na = default_normalize(parts.na_raw, feasible, reverse=False)
     total = (cfg.w_fit * parts.s_fit + cfg.w_balanced * parts.s_bal
              + cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
              + cfg.w_image * parts.s_img)
+    if groups is not None:
+        total = total + group_scores(cfg.w_spread, cfg.w_ipa, groups,
+                                     carry.groups, tidx, feasible, fam=fam)
     return feasible, total, parts
 
 
@@ -473,20 +491,24 @@ def _apply_assignment(carry: Carry, pod: PodRow, best, assigned) -> Carry:
 
 
 def _run_batch_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
-                     pods: PodXs, table: PodTableDev):
+                     pods: PodXs, table: PodTableDev, groups=None, fam=None):
     """The sequential scan, one pod per step (plain version)."""
     out = []
     c = carry
     for v, s, t in zip(pods.valid.tolist(), pods.sig.tolist(),
                        pods.tidx.tolist()):
         pod = _gather_row(table, t, v, s)
-        mask, score, parts = _eval_pod(cfg, na, c, pod)
+        mask, score, parts = _eval_pod(cfg, na, c, pod, groups=groups,
+                                       tidx=t, fam=fam)
         masked = torch.where(mask, score, torch.full_like(score, -1))
         best = torch.argmax(masked)          # first max
         assigned = (masked[best] >= 0) & bool(v)
         c2 = _apply_assignment(c, pod, best, assigned)
         c = c2._replace(cache=_row_refresh(cfg, na, c2, pod, best, assigned,
                                            parts))
+        if groups is not None:
+            c = c._replace(groups=group_update(groups, c.groups, t, best,
+                                               assigned, fam=fam))
         out.append(torch.where(assigned, best, torch.full_like(best, -1)))
     if not out:
         return c, torch.zeros((0,), dtype=_I32, device=carry.used.device)
@@ -494,16 +516,21 @@ def _run_batch_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
 
 
 def run_batch(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pods: PodXs,
-              table: PodTableDev):
+              table: PodTableDev, groups=None, fam=None):
     """Scan the batch; returns (final carry, assignments i32 [B] (-1 =
-    none)). Never writes into `carry`: the output carry is fresh."""
+    none)). `groups` (GroupsDev, with `carry.groups`) turns on the
+    PodTopologySpread / InterPodAffinity mask, scores and per-placement
+    count update; `fam` (GroupFamilies) skips the inactive families.
+    Never writes into `carry`: the output carry is fresh."""
     dev = carry.used.device
+    if (groups is None) != (carry.groups is None):
+        raise ValueError("run_batch: groups and carry.groups go together")
     if dev.type == "cuda":
         from .kernels import run_batch_cuda
-        return run_batch_cuda(cfg, na, carry, pods, table)
+        return run_batch_cuda(cfg, na, carry, pods, table, groups, fam)
     if dev.type != "cpu":
         raise RuntimeError(f"run_batch: unsupported device {dev}")
-    return _run_batch_plain(cfg, na, carry, pods, table)
+    return _run_batch_plain(cfg, na, carry, pods, table, groups, fam)
 
 
 # ---------------------------------------------------------------------------
@@ -651,13 +678,23 @@ def run_uniform(cfg: ScoreConfig, na: NodeArrays, carry: Carry, x: PodXs,
 # state helpers
 
 
-def scatter_rows(dev: NodeArrays, idx, rows: NodeArrays) -> NodeArrays:
-    """Scatter `rows` ([D, ...], one staging row per dirty node) into the
-    resident NodeArrays at `idx` (int [D]). Non-writing: returns fresh
-    tensors, because in-flight drains still hold the previous copy."""
-    device = dev.used.device
-    index = torch.as_tensor(idx, dtype=_I64).to(device)
+def _scatter_rows_plain(dev: NodeArrays, idx, rows: NodeArrays) -> NodeArrays:
+    index = torch.as_tensor(idx, dtype=_I64).to(dev.used.device)
     return NodeArrays(*(d.index_copy(0, index, r) for d, r in zip(dev, rows)))
+
+
+def scatter_rows(dev: NodeArrays, idx, rows: NodeArrays) -> NodeArrays:
+    """Scatter `rows` ([D, ...], one staging row per dirty node; duplicate
+    indices carry identical rows) into the resident NodeArrays at `idx`
+    (int [D]). Non-writing: returns fresh tensors, because in-flight drains
+    still hold the previous copy."""
+    device = dev.used.device
+    if device.type == "cuda":
+        from .kernels import scatter_rows_cuda
+        return scatter_rows_cuda(dev, idx, rows)
+    if device.type != "cpu":
+        raise RuntimeError(f"scatter_rows: unsupported device {device}")
+    return _scatter_rows_plain(dev, idx, rows)
 
 
 def empty_cache(n: int, device) -> SigCache:
@@ -669,13 +706,15 @@ def empty_cache(n: int, device) -> SigCache:
                     s_fit=z(_I64), s_bal=z(_I64))
 
 
-def initial_carry(na: NodeArrays) -> Carry:
+def initial_carry(na: NodeArrays, groups=None) -> Carry:
     """Carry seeded from the node arrays (copies: the programs return fresh
-    carries and never alias the resident NodeArrays) plus an empty
-    SigCache."""
+    carries and never alias the resident NodeArrays), an empty SigCache
+    and the seeded group counts (GroupCarry or None). Eager clones, like
+    the JAX package's (not a device program there either)."""
     return Carry(used=na.used.clone(), nonzero_used=na.nonzero_used.clone(),
                  npods=na.npods.clone(), ports=na.ports.clone(),
-                 cache=empty_cache(na.npods.shape[0], na.used.device))
+                 cache=empty_cache(na.npods.shape[0], na.used.device),
+                 groups=groups)
 
 
 def with_cache_sig(carry: Carry, sig: int) -> Carry:
@@ -683,3 +722,363 @@ def with_cache_sig(carry: Carry, sig: int) -> Carry:
     return carry._replace(cache=carry.cache._replace(sig=torch.tensor(
         sig, dtype=_I32, device=carry.cache.sig.device)))
 
+
+
+# ---------------------------------------------------------------------------
+# speculative wave placement (same-signature group spans)
+
+
+def static_norm_ok(arrays, pref_weight) -> bool:
+    """True when the TaintToleration / preferred-NodeAffinity
+    DefaultNormalize constants cannot shift during a same-signature run:
+    no valid node carries a PreferNoSchedule taint and the row has no
+    preferred-affinity weight (numpy inputs: the staging arrays and the
+    row's PodTable weights). run_wave keys `norm_live` on it: False keeps
+    the constant normalization and allows the merge tier, True
+    renormalizes every step and sends the whole span to the serial tier
+    (the JAX package's ops/hostgreedy.py static_norm_ok)."""
+    prefer = ((arrays.taint_eff == EFFECT_PREFER_NO_SCHEDULE)
+              & arrays.valid[:, None]).any()
+    return (not prefer) and (not pref_weight.any())
+
+
+def _wave_statics_plain(na: NodeArrays, table: PodTableDev, wt,
+                        feats: tuple = (True, True, True)):
+    has_taints, has_sel, has_img = feats
+    n = na.valid.shape[0]
+    dev = na.valid.device
+    out = ([], [], [], [])
+    for u in [int(x) for x in wt]:
+        row = _gather_row(table, u, True, 1)
+        m = na.valid.clone()
+        m &= (row.node_name_id == 0) | (na.name_id == row.node_name_id)
+        m &= ~na.unschedulable | row.tolerates_unsched
+        zero = torch.zeros((n,), dtype=_I64, device=dev)
+        traw = naraw = simg = zero
+        if has_taints:
+            m &= taint_filter_mask(na, row)
+            traw = taint_prefer_count(na, row)
+        if has_sel:
+            m &= selector_mask(na, row)
+            naraw = preferred_affinity_score(na, row)
+        if has_img:
+            simg = image_locality_score(na, row)
+        for lst, x in zip(out, (m, traw, naraw, simg)):
+            lst.append(x)
+    return tuple(torch.stack(lst) for lst in out)
+
+
+def wave_statics(na: NodeArrays, table: PodTableDev, wt,
+                 feats: tuple = (True, True, True)):
+    """Carry-independent per-signature surfaces for the wave program —
+    static filter mask (name/unschedulable/taints/selector; ports vacuous
+    for sig != 0 rows), TaintToleration / preferred-affinity raw counts,
+    ImageLocality score — for the table rows `wt` (sequence of int) →
+    ([S, N] bool, [S, N] i64, [S, N] i64, [S, N] i64). `feats` = (taints,
+    selectors, images): a False skips that family (its outputs are the
+    identity: mask bits set, counts zero)."""
+    dev = na.valid.device
+    if dev.type == "cuda":
+        from .kernels import wave_statics_cuda
+        return wave_statics_cuda(na, table, wt, feats)
+    if dev.type != "cpu":
+        raise RuntimeError(f"wave_statics: unsupported device {dev}")
+    return _wave_statics_plain(na, table, wt, feats)
+
+
+# spread-replay level cap of the merge tier (JAX run_wave M_CAP)
+WAVE_M_CAP = 32
+
+
+def _topk_lowest_index(vals, k: int):
+    """Indices of the k largest int64 `vals`, ties to the lowest index
+    (lax.top_k's order): the index rides in a unique key."""
+    n = vals.shape[0]
+    ar = torch.arange(n, dtype=_I64, device=vals.device)
+    key = (vals + 1) * n + (n - 1 - ar)
+    return n - 1 - torch.sort(key, descending=True).values[:k] % n
+
+
+def _run_wave_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry, valid,
+                    table: PodTableDev, wt: int, gd, statics, K: int,
+                    J: int, Lw: int, fam, norm_live: bool, anti_term: int,
+                    merge_on: bool):
+    from .groups import (INT32_MAX, GroupView, _dom_share, group_mask_view,
+                         group_scores_view, wave_fold)
+
+    gc = carry.groups
+    dev = carry.used.device
+    B = valid.shape[0]
+    n = na.cap.shape[0]
+    W = int(valid.sum())
+    wt = int(wt)
+    row = _gather_row(table, wt, True, 1)
+    m0, taint_raw, na_raw, s_img = statics
+    ar_n = torch.arange(n, dtype=_I64, device=dev)
+    zero_i32 = torch.zeros((), dtype=_I32, device=dev)
+
+    # own-row group statics (JAX :1760-1790)
+    f_act, f_skew = gd.spr_f_active[wt], gd.spr_f_max_skew[wt]
+    f_self, f_minz = gd.spr_f_self[wt], gc.spr_f_min_zero[wt]
+    f_tv, f_elig, f_dom = gd.spr_f_tv[wt], gd.spr_f_elig[wt], gd.spr_f_dom[wt]
+    raa_tv, raa_dom = gd.ipa_raa_tv[wt], gd.ipa_raa_dom[wt]
+    iscore0 = gc.ipa_score[wt]
+    mf_self = gd.m_spr_f[wt, wt]       # [SC]
+    mex_self = gd.m_ipa_exist[wt, wt]  # [TAA]
+    maa_self = gd.m_ipa_aa[wt, wt]
+    if anti_term >= 0:
+        anti_tv = raa_tv[anti_term]
+        anti_dom = raa_dom[anti_term].long()
+
+    def view(f_cnt, veto, aa_cnt):
+        return GroupView(
+            f_act=f_act, f_skew=f_skew, f_self=f_self, f_minz=f_minz,
+            f_tv=f_tv, f_elig=f_elig, f_cnt=f_cnt,
+            s_act=gd.spr_s_active[wt], s_skew=gd.spr_s_max_skew[wt],
+            s_is_host=gd.spr_s_is_host[wt], s_tv=gd.spr_s_tv[wt],
+            s_keys_ok=gd.spr_s_keys_ok[wt], s_dom=gd.spr_s_dom[wt],
+            s_cnt=gc.spr_s_cnt[wt], ra_act=gd.ipa_ra_active[wt],
+            ra_tv=gd.ipa_ra_tv[wt], raa_act=gd.ipa_raa_active[wt],
+            raa_tv=raa_tv, self_all=gd.ipa_self_all[wt], veto=veto,
+            a_cnt=gc.ipa_a_cnt[wt], a_total=gc.ipa_a_total[wt],
+            aa_cnt=aa_cnt, iscore=iscore0)
+
+    def eval_row(used, nz, npods, f_cnt, veto, aa_cnt):
+        fit_ok = fit_mask(na.cap, used, npods, na.allowed_pods, row.req)
+        s_fit, s_bal = _fit_scores(
+            cfg, na, carry._replace(used=used, nonzero_used=nz), row)
+        v = view(f_cnt, veto, aa_cnt)
+        gmask = m0 & group_mask_view(v, fam)
+        feasible = gmask & fit_ok
+        if norm_live:
+            s_taint = default_normalize(taint_raw, feasible, reverse=True)
+            s_na = default_normalize(na_raw, feasible, reverse=False)
+            tn = cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
+        else:
+            tn = cfg.w_taint * MAX_SCORE
+        total = (cfg.w_fit * s_fit + cfg.w_balanced * s_bal + tn
+                 + cfg.w_image * s_img)
+        total = total + group_scores_view(cfg.w_spread, cfg.w_ipa, v,
+                                          feasible, fam)
+        return gmask, feasible, total
+
+    used, nz, npods = carry.used, carry.nonzero_used, carry.npods
+    f_cnt, veto, aa_cnt = gc.spr_f_cnt[wt], gc.ipa_veto[wt], gc.ipa_aa_cnt[wt]
+    cnt_n = torch.zeros((n,), dtype=_I32, device=dev)
+    out = torch.full((B,), -1, dtype=_I32, device=dev)
+    done, prog, ok = 0, True, True
+    waves, confs, first_prefix = 0, 0, -1
+
+    # ---- merge tier (JAX merge_body :1828-2000)
+    while merge_on and not norm_live and ok and prog and done < W:
+        gmask, feasible0, total0 = eval_row(used, nz, npods, f_cnt, veto,
+                                            aa_cnt)
+        masked0 = torch.where(feasible0, total0, torch.full_like(total0, -1))
+        # inter-pod score surface must be FLAT over the feasible set
+        isc_min = torch.where(feasible0, iscore0,
+                              torch.full_like(iscore0, 2**63 - 1)).min()
+        isc_max = torch.where(feasible0, iscore0,
+                              torch.full_like(iscore0, -(2**63 - 1))).max()
+        flat = bool(isc_max <= isc_min)
+        # the skew check must not mask any keyed node at wave start
+        if fam.spr_f:
+            minv = torch.where(f_elig, f_cnt, torch.full_like(
+                f_cnt, int(INT32_MAX))).amin(dim=-1)
+            minv = torch.where(f_minz, torch.zeros_like(minv), minv)
+            ok_cn = (f_cnt + f_self[:, None] - minv[:, None]
+                     <= f_skew[:, None])
+            start_inert = bool((~f_act[:, None] | (f_tv == 0)
+                                | ok_cn).all())
+        else:
+            minv = torch.zeros(f_skew.shape, dtype=_I32, device=dev)
+            start_inert = True
+
+        # lax.top_k(masked0.astype(int32), K): ties to the lowest index
+        cand = _topk_lowest_index(masked0.to(_I32).to(_I64), K)
+        if anti_term >= 0:
+            # champion per anti-topology domain (score desc, idx asc);
+            # keyless nodes are unconstrained
+            keyN = masked0 * n - ar_n
+            has = anti_tv != 0
+            seg = torch.full((n,), I64_MIN, dtype=_I64, device=dev)
+            seg.scatter_reduce_(0, anti_dom, torch.where(
+                has, keyN, torch.full_like(keyN, I64_MIN)), reduce="amax")
+            champ = ~has | (has & (keyN == seg[anti_dom]))
+            champ_cand = champ[cand][:, None]
+            jcap = 1
+        else:
+            champ_cand = torch.ones((K, 1), dtype=torch.bool, device=dev)
+            jcap = J
+        fit_kj, s_fit_kj, s_bal_kj = _uniform_matrix(
+            cfg, na, used, npods, used, nz, cand, row, J)
+        static_add = (cfg.w_taint * MAX_SCORE + cfg.w_image * s_img)[cand]
+        score_kj = (cfg.w_fit * s_fit_kj + cfg.w_balanced * s_bal_kj
+                    + static_add[:, None])
+        jmask = torch.arange(J, device=dev)[None, :] < jcap
+        masked_kj = torch.where(gmask[cand][:, None] & champ_cand & fit_kj
+                                & jmask, score_kj,
+                                torch.full_like(score_kj, -1))
+        mono_ok = bool((masked_kj[:, 1:] <= masked_kj[:, :-1]).all())
+
+        # key = (score desc, node idx asc, j asc); the JAX program narrows
+        # it to int32 when (score_max + 2)·M < 2³¹ — same values, same order
+        M = n * J
+        ent_id = cand[:, None] * J + torch.arange(J, dtype=_I64,
+                                                  device=dev)[None, :]
+        flat_key = (masked_kj * M - ent_id).reshape(K * J)
+        if Lw > K * J:
+            raise ValueError(f"run_wave: Lw = {Lw} > K*J = {K * J}")
+        srt = torch.sort(flat_key, descending=True)
+        top_vals, flat_i = srt.values[:Lw], srt.indices[:Lw]
+        node_i = cand[flat_i // J]
+        j_i = flat_i % J
+        avail = W - done
+        sel_ok = (top_vals > -M) & (torch.arange(Lw, device=dev) < avail)
+
+        # conflict detection over the speculated sequence
+        if fam.spr_f:
+            # the skew bound replayed at domain level against the exact
+            # evolving minimum, level by level (JAX :1905-1946)
+            gate = mf_self[None, :] & f_elig[:, node_i].T & sel_ok[:, None]
+            dom_ic = f_dom[:, node_i].T                       # [Lw, SC]
+            eq = dom_ic[None, :, :] == dom_ic[:, None, :]     # [i, j, SC]
+            lower = torch.ones((Lw, Lw), dtype=torch.bool,
+                               device=dev).tril(-1)
+            r_ic = (eq & gate[None, :, :] & lower[:, :, None]).sum(
+                dim=1).to(_I32)
+            newcnt = f_cnt[:, node_i].T + r_ic + 1
+            lvlv = minv[:, None] + torch.arange(
+                1, WAVE_M_CAP + 1, dtype=_I32, device=dev)[None, :]
+            # a domain id IS the index of one of its nodes: mark the
+            # domains with an eligible member, read their counts there
+            elig_dom = torch.zeros(f_dom.shape, dtype=_I32, device=dev)
+            elig_dom.scatter_reduce_(1, f_dom.long(), f_elig.to(_I32),
+                                     reduce="amax")
+            d_need = ((elig_dom[:, None, :] > 0)
+                      & (f_cnt[:, None, :] < lvlv[:, :, None])).sum(
+                dim=2).to(_I32)                               # [SC, M]
+            comp = gate[:, :, None] & (newcnt[:, :, None]
+                                       == lvlv[None, :, :])   # [Lw,SC,M]
+            cum_excl = comp.to(_I64).cumsum(dim=0) - comp.to(_I64)
+            reached = cum_excl >= d_need[None, :, :]
+            lvl_up = reached.sum(dim=2).to(_I32)              # [Lw, SC]
+            min_i = torch.where(f_minz[None, :], zero_i32,
+                                minv[None, :] + lvl_up)
+            viol = (f_act[None, :] & gate
+                    & ((newcnt + f_self[None, :] - min_i > f_skew[None, :])
+                       | (lvl_up >= WAVE_M_CAP))).any(dim=1)
+        else:
+            viol = torch.zeros((Lw,), dtype=torch.bool, device=dev)
+        if anti_term >= 0:
+            # a keyless node hides its deeper entries from the jcap=1
+            # merge: cut after it so the next wave re-offers it
+            viol |= anti_tv[node_i] == 0
+        else:
+            # depth cut: a candidate consuming its last matrix entry
+            viol |= j_i == J - 1
+        viol &= sel_ok
+        excl = viol.to(_I64).cumsum(0) - viol.to(_I64)
+        accept = sel_ok & (excl == 0)
+        iter_ok = mono_ok and flat and start_inert
+        accept &= iter_ok
+        a = int(accept.sum())
+
+        cnt_add = torch.zeros((n,), dtype=_I32, device=dev).index_add_(
+            0, node_i, accept.to(_I32))
+        used = used + cnt_add[:, None].to(_I64) * row.req[None, :]
+        nz = nz + cnt_add[:, None].to(_I64) * row.nonzero_req[None, :]
+        npods = npods + cnt_add.to(npods.dtype)
+        if fam.spr_f:
+            inc = _dom_share(f_tv, f_dom, f_elig.to(_I32) * cnt_add[None, :])
+            f_cnt = f_cnt + torch.where(mf_self[:, None], inc,
+                                        torch.zeros_like(inc))
+        if fam.ipa_anti:
+            sh = _dom_share(raa_tv, raa_dom, cnt_add[None, :])
+            zero = torch.zeros_like(sh)
+            veto = veto + torch.where(mex_self[:, None], sh, zero).sum(
+                dim=0).to(_I32)
+            aa_cnt = aa_cnt + torch.where(maa_self[:, None], sh, zero)
+        rank = accept.to(_I64).cumsum(0) - accept.to(_I64)
+        out = out.clone()
+        out[(done + rank)[accept]] = node_i[accept].to(_I32)
+        cnt_n = cnt_n + cnt_add
+        confs += int(a < avail and iter_ok)
+        first_prefix = a if waves == 0 else first_prefix
+        waves += 1
+        done += a
+        prog = a > 0
+        ok = ok and iter_ok
+
+    # ---- serial tier: the exact per-pod rule for the remainder. A pod
+    # that fits nowhere leaves the state unchanged, so every later pod of
+    # the span fails identically: the rest is -1 at one step each.
+    steps = 0
+    while done < W:
+        _, feasible, total = eval_row(used, nz, npods, f_cnt, veto, aa_cnt)
+        masked = torch.where(feasible, total, torch.full_like(total, -1))
+        best = int(torch.argmax(masked))
+        if int(masked[best]) < 0:
+            steps += W - done
+            done = W
+            break
+        used = used.clone()
+        used[best] += row.req
+        nz = nz.clone()
+        nz[best] += row.nonzero_req
+        npods = npods.clone()
+        npods[best] += 1
+        if fam.spr_f:
+            tvb = f_tv[:, best]
+            inc = ((mf_self & f_elig[:, best])[:, None]
+                   & (f_tv == tvb[:, None]) & (tvb[:, None] != 0))
+            f_cnt = f_cnt + inc.to(_I32)
+        if fam.ipa_anti:
+            tvb_a = raa_tv[:, best]
+            share = (raa_tv == tvb_a[:, None]) & (tvb_a[:, None] != 0)
+            veto = veto + (mex_self[:, None] & share).sum(dim=0).to(_I32)
+            aa_cnt = aa_cnt + (maa_self[:, None] & share).to(_I32)
+        out = out.clone()
+        out[done] = best
+        cnt_n = cnt_n.clone()
+        cnt_n[best] += 1
+        done += 1
+        steps += 1
+
+    new_gc = wave_fold(gd, gc, [wt], cnt_n[None, :], fam=fam)
+    new_carry = Carry(used=used, nonzero_used=nz, npods=npods,
+                      ports=carry.ports,
+                      cache=carry.cache._replace(sig=torch.zeros(
+                          (), dtype=_I32, device=dev)),
+                      groups=new_gc)
+    stats = torch.tensor([waves, confs, first_prefix, steps], dtype=_I32,
+                         device=dev)
+    return new_carry, torch.cat([out, stats])
+
+
+def run_wave(cfg: ScoreConfig, na: NodeArrays, carry: Carry, valid,
+             table: PodTableDev, wt: int, gd, statics, K: int, J: int,
+             fam, norm_live: bool, anti_term: int = -1,
+             merge_on: bool = True, Lw: int = 512):
+    """Speculative wave placement for a same-signature run of group pods
+    (row `wt`; `valid` bool [B] is a prefix mask), one call for the whole
+    span — see the JAX package's `_run_wave_same_impl` for the exactness
+    argument. Merge tier: closed-form waves over the [K, J] post-placement
+    matrix, champion-per-domain selection for the row's self-matching
+    anti term `anti_term`, the spread skew replayed at domain level; the
+    longest conflict-free prefix is accepted per wave. Serial tier: the
+    exact per-pod rule for the rest. `statics` is the row's wave_statics
+    ([N] each); `Lw` caps the speculated entries per wave. Returns
+    (carry', packed i32 [B + 4]): assignments, then [waves, conflicts,
+    first_prefix, serial_steps]. Never writes into `carry`."""
+    Lw = min(Lw, valid.shape[0])
+    dev = carry.used.device
+    if carry.groups is None:
+        raise ValueError("run_wave needs the group carry")
+    if dev.type == "cuda":
+        from .kernels import run_wave_cuda
+        return run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics,
+                             K, J, Lw, fam, norm_live, anti_term, merge_on)
+    if dev.type != "cpu":
+        raise RuntimeError(f"run_wave: unsupported device {dev}")
+    return _run_wave_plain(cfg, na, carry, valid, table, wt, gd, statics, K,
+                           J, Lw, fam, norm_live, anti_term, merge_on)

@@ -1,21 +1,25 @@
-"""The Scheduler, lean: host orchestration around the PyTorch device program.
+"""The Scheduler: host orchestration around the PyTorch device program.
 
-Counterpart of kubernetes_tpu/scheduler.py for the lean default profile
-(NodeUnschedulable, NodeName, TaintToleration, NodeAffinity, NodePorts,
-NodeResourcesFit, BalancedAllocation, ImageLocality). The queue drains in
-device-sized batches; the drain compiler splits each batch into
-same-signature "uniform" runs (closed-form top-L, ops/program.py
-run_uniform) and "scan" spans (ops/program.py run_batch); the carry chains
-on the device from span to span and drain to drain; the commit assumes the
+Counterpart of kubernetes_tpu/scheduler.py for the default profile without
+the volume, DRA and gang plugins (NodeUnschedulable, NodeName,
+TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
+BalancedAllocation, PodTopologySpread, InterPodAffinity, ImageLocality).
+The queue drains in device-sized batches; the drain compiler splits each
+batch into same-signature "uniform" runs (closed-form top-L, ops/program.py
+run_uniform), same-signature group "wave" spans (ops/program.py run_wave)
+and "scan" spans (ops/program.py run_batch, with the group branch when the
+drain needs groups); the carry, group counts included, chains on the
+device from span to span and drain to drain; the commit assumes the
 winners in the host cache and bulk-binds them through the dispatcher.
 
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
-  a build or a launch raises;
-- a pod that needs a feature this port lacks — topology spread,
-  inter-pod affinity, gangs (Workload), volumes or DRA claims, extenders,
-  nominated-pod overlays, preemption — raises NotImplementedError naming
-  the missing piece, and is never scheduled with a reduced plugin set.
+  a build or a launch raises; group drains the JAX package hands to its
+  host greedy run the device scan here;
+- a pod that needs a feature this port lacks — gangs (Workload), volumes
+  or DRA claims, extenders, nominated-pod overlays, preemption — raises
+  NotImplementedError naming the missing piece, and is never scheduled
+  with a reduced plugin set.
 
 `Scheduler(api, device=None)` runs on "cuda"; without a CUDA device it
 raises unless the caller asks for `device="cpu"` (the plain PyTorch
@@ -42,15 +46,19 @@ from .framework.runtime import Framework
 from .framework.types import (ActionType, ClusterEvent, Diagnosis,
                               EventResource, FitError, PodInfo,
                               QueuedPodInfo)
+from .ops.groups import scatter_new_rows, to_device
 from .ops.program import (PodXs, ScoreConfig, initial_carry, run_batch,
-                          run_uniform, table_from_batch, with_cache_sig)
+                          run_uniform, run_wave, static_norm_ok,
+                          table_from_batch, with_cache_sig)
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
 from .plugins.imagelocality import ImageLocality
 from .plugins.node_basics import (NodeName, NodePorts, NodeUnschedulable,
                                   PrioritySort, SchedulingGates,
                                   TaintToleration)
+from .plugins.interpodaffinity import InterPodAffinity
 from .plugins.nodeaffinity import NodeAffinity
+from .plugins.podtopologyspread import PodTopologySpread
 from .state.batch import BatchBuilder
 from .state.convert import pod_xs_from_numpy
 from .state.tensorize import (EFFECT_PREFER_NO_SCHEDULE, ClusterState,
@@ -66,6 +74,8 @@ EVENT_ASSIGNED_POD_ADD = ClusterEvent(EventResource.ASSIGNED_POD,
 DEFAULT_WEIGHTS = {
     "TaintToleration": 3,
     "NodeAffinity": 2,
+    "PodTopologySpread": 2,
+    "InterPodAffinity": 2,
     "NodeResourcesFit": 1,
     "NodeResourcesBalancedAllocation": 1,
     "ImageLocality": 1,
@@ -105,12 +115,13 @@ def pod_update_action(old: Pod, new: Pod) -> ActionType:
     return flags
 
 
-def default_plugins(client=None) -> list:
-    """The lean default profile, in the reference filter order
-    (apis/config/v1/default_plugins.go:30)."""
+def default_plugins(client=None, ns_lister=None) -> list:
+    """The default profile without the volume, DRA and gang plugins, in
+    the reference filter order (apis/config/v1/default_plugins.go:30)."""
     plugins = [SchedulingGates(), PrioritySort(), NodeUnschedulable(),
                NodeName(), TaintToleration(), NodeAffinity(), NodePorts(),
-               nr.Fit(), nr.BalancedAllocation(), ImageLocality()]
+               nr.Fit(), nr.BalancedAllocation(), PodTopologySpread(),
+               InterPodAffinity(ns_lister=ns_lister), ImageLocality()]
     if client is not None:
         plugins.append(DefaultBinder(client))
     return plugins
@@ -129,7 +140,7 @@ class _RunRec:
     the run read — kept for uniform runs, the kind that can rewind and
     replay (no kernel writes into its input carry)."""
 
-    kind: str                 # "uniform" | "scan"
+    kind: str                 # "uniform" | "scan" | "wave"
     i: int
     j: int
     carry_in: object
@@ -150,6 +161,7 @@ class _PendingDrain:
     table: object             # PodTableDev
     na: object                # NodeArrays used at dispatch
     n: int
+    groups_needed: bool = False
     records: list = field(default_factory=list)
     done: object = None       # CUDA event recorded after the dispatch
 
@@ -170,7 +182,7 @@ def _resolve_device(device) -> torch.device:
 
 
 class Scheduler:
-    """scheduler.Scheduler (scheduler.go:74), lean."""
+    """scheduler.Scheduler (scheduler.go:74)."""
 
     UNIFORM_RUN_MIN = 16
 
@@ -200,7 +212,13 @@ class Scheduler:
         self.cache = Cache(clock=clock)
         self.snapshot = Snapshot()
         self.state = ClusterState(device=str(self.device))
-        self.builder = BatchBuilder(self.state)
+        default_list = next(iter(self.profiles.values())).framework.plugins
+        self.builder = BatchBuilder(
+            self.state,
+            spread_plugin=next((p for p in default_list
+                                if p.name() == "PodTopologySpread"), None),
+            ipa_plugin=next((p for p in default_list
+                             if p.name() == "InterPodAffinity"), None))
         self.dispatcher = APIDispatcher(client=client,
                                         on_bind_error=self._on_bind_error)
         default_fwk = next(iter(self.profiles.values())).framework
@@ -209,7 +227,7 @@ class Scheduler:
             queueing_hints=self._build_queueing_hints(default_fwk),
             clock=clock)
         from .compiler.plan import DrainCompiler
-        self.compiler = DrainCompiler(builder=self.builder)
+        self.compiler = DrainCompiler(builder=self.builder, state=self.state)
         self._register_event_handlers()
 
         self.schedule_attempts = 0
@@ -234,6 +252,19 @@ class Scheduler:
         # device copy of the PodTable, re-uploaded when rows are added
         self._table_dev = None
         self._table_dev_version = -1
+        # resident group state: GroupsDev on the device, the active
+        # families, the (device rows, node bucket) capacity it was built
+        # for, and the table rows already seeded
+        self._gd_dev = None
+        self._gd_fam = None
+        self._gd_capacity = None
+        self._seeded_rows = 0
+        # run_wave records resolved, and their packed stats summed: merge
+        # waves, conflict-cut events, serially placed pods, and the first
+        # wave's accepted prefix of the most recent runs
+        self.wave_runs = 0
+        self.wave_stats = {"waves": 0, "conflicts": 0, "serial_steps": 0,
+                           "first_prefix": deque(maxlen=256)}
 
     # -- wiring ---------------------------------------------------------------
 
@@ -459,11 +490,6 @@ class Scheduler:
                 raise NotImplementedError(
                     f"pod {pod.uid}: {reason} — kubernetes_tpu_torch has no "
                     "device form for it yet and no host scheduling path")
-        if (self.snapshot.have_pods_with_affinity_list
-                or self.snapshot.have_pods_with_required_anti_affinity_list):
-            raise NotImplementedError(
-                "bound pods carry inter-pod (anti-)affinity: InterPodAffinity "
-                "is not ported to kubernetes_tpu_torch yet")
 
     def _dispatch_device_drain(self, qpis: list[QueuedPodInfo],
                                profile: Profile) -> None:
@@ -487,18 +513,60 @@ class Scheduler:
                                    pad_to=self.batch_size)
         self._refuse_unsupported(qpis, batch)
         na = self.state.device_arrays()
+        # group kernels are needed when any signature row carries spread or
+        # inter-pod affinity constraints, or when existing cluster pods do
+        # (affinity is symmetric: they veto/score any incoming pod)
+        groups_needed = (
+            self.builder.groups.any_groups()
+            or bool(self.snapshot.have_pods_with_affinity_list)
+            or bool(self.snapshot.have_pods_with_required_anti_affinity_list))
         table_reset = self.builder.reset_count != self._builder_reset_seen
         self._builder_reset_seen = self.builder.reset_count
-        if carry is not None and (table_reset
-                                  or carry.used.shape != na.used.shape):
-            # structural change: reseed from the host snapshot
+        capacity = (self.builder.groups.device_rows(), na.used.shape[0])
+        if carry is not None and (
+                table_reset or carry.used.shape != na.used.shape
+                or groups_needed != (carry.groups is not None)
+                or (groups_needed and capacity != self._gd_capacity)):
+            # structural change (every signature id / group row
+            # invalidated, the node bucket or the group-row capacity
+            # moved): reseed from the host snapshot
             carry = None
             self._drain_pending()
             self.cache.update_snapshot(self.snapshot)
             self.state.apply_snapshot(self.snapshot)
             na = self.state.device_arrays()
         if carry is None:
-            carry = initial_carry(na)
+            gcarry = None
+            self._gd_dev = self._gd_fam = None
+            if groups_needed:
+                gd_np, gc_np = self.builder.groups.build_dev(self.snapshot)
+                self._gd_dev = to_device(gd_np, self.device)
+                gcarry = to_device(gc_np, self.device)
+                self._gd_fam = self.builder.groups.families(self.snapshot)
+            self._gd_capacity = capacity
+            self._seeded_rows = self.builder.table_used
+            carry = initial_carry(na, gcarry)
+        elif groups_needed and self.builder.table_used > self._seeded_rows:
+            # new signature rows while the carry is resident: seed just
+            # those rows from the live snapshot (assumes included) and
+            # scatter them in. Pending commits land first: the seeds count
+            # them.
+            self._drain_pending()
+            carry = self._device_carry
+            if carry is None or ((self.builder.groups.device_rows(),
+                                  na.used.shape[0]) != self._gd_capacity):
+                # a bind error invalidated the carry, or the commits
+                # interned rows past the pow2 capacity of the resident
+                # group tensors: restart against reseeded state
+                self._invalidate_device_state()
+                return self._dispatch_device_drain(qpis, profile)
+            self.cache.update_snapshot(self.snapshot)
+            self._gd_dev, gcarry = scatter_new_rows(
+                self._gd_dev, carry.groups, self.builder.groups,
+                self.snapshot, self._seeded_rows, self.builder.table_used)
+            self._gd_fam = self.builder.groups.families(self.snapshot)
+            carry = carry._replace(groups=gcarry)
+            self._seeded_rows = self.builder.table_used
         if (self._table_dev is None
                 or self._table_dev_version != batch.table_version):
             self._table_dev = table_from_batch(batch, self.device)
@@ -506,7 +574,7 @@ class Scheduler:
         table = self._table_dev
         n = len(qpis)
         carry, records = self._dispatch_runs(profile, na, carry, batch,
-                                             table, n)
+                                             table, n, groups_needed)
         self._device_carry = carry
         self.device_batches += 1
         done = None
@@ -515,7 +583,7 @@ class Scheduler:
             done.record()
         self._pending.append(_PendingDrain(
             qpis=qpis, profile=profile, batch=batch, table=table, na=na,
-            n=n, records=records, done=done))
+            n=n, groups_needed=groups_needed, records=records, done=done))
 
     def _cluster_has_prefer_taints(self) -> bool:
         # mask by valid: freed rows of removed nodes keep their taint
@@ -526,16 +594,15 @@ class Scheduler:
              & a.valid[:, None]).any())
 
     def _dispatch_runs(self, profile: Profile, na, carry, batch, table,
-                       n: int):
+                       n: int, groups_needed: bool = False):
         """Dispatch the drain's compiled plan with no host synchronization;
         returns (chain carry, [_RunRec])."""
         cfg = profile.score_config
         plan = self.compiler.compile_drain(
-            batch, n, strategy=cfg.strategy,
+            batch, n, groups_needed=groups_needed, strategy=cfg.strategy,
             prefer_taints=self._cluster_has_prefer_taints(),
             uniform_min=self.UNIFORM_RUN_MIN)
-        return self._dispatch_spans(cfg, na, batch, table, plan.spans,
-                                    carry)
+        return self._dispatch_spans(cfg, na, batch, table, plan.spans, carry)
 
     def _uniform_shape(self, na) -> tuple[int, int, int]:
         """(L, K, J) for run_uniform, stable across drains: L is the
@@ -565,6 +632,11 @@ class Scheduler:
                                          L, K, J)
                 records.append(_RunRec("uniform", i, j, carry, packed, L, J,
                                        span=kind))
+            elif kind[0] == "wave":
+                c2, packed, bucket = self._wave_dispatch(
+                    cfg, na, carry, batch, i, j, table, kind)
+                records.append(_RunRec("wave", i, j, None, packed, bucket,
+                                       span=kind))
             else:
                 c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
                                                   j, table)
@@ -573,10 +645,54 @@ class Scheduler:
             carry = c2
         return carry, records
 
+    def _wave_norm_static(self, rows: tuple) -> bool:
+        pref_w = self.builder.table.pref_weight
+        return all(static_norm_ok(self.state.arrays, pref_w[u])
+                   for u in rows)
+
+    def _get_wave_statics(self, na, table, rows: tuple) -> list:
+        """Hoisted per-signature surfaces ([N] tuples per signature) from
+        the compiler's SurfaceCache, recomputed only when a node's static
+        columns or the signature table move."""
+        return self.compiler.surfaces.get(na, table, rows)
+
+    def _wave_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                       j: int, table, span):
+        """run_wave over the same-signature group pods [i:j), with the JAX
+        package's wave shape (Lw, K, J)."""
+        _, u, anti_term, merge_on = span
+        m = j - i
+        bucket = pow2_at_least(m)
+        # a wave span's pods are all valid (DrainCompiler._classify_wave):
+        # its mask is the length-m prefix, built on the device
+        valid = torch.arange(bucket, device=self.device) < m
+        statics = self._get_wave_statics(na, table, (u,))[0]
+        # the spread replay holds an [Lw, Lw, SC] rank comparison: cap the
+        # wave width under it; without it wider waves just cut waves
+        Lw = min(512 if self._gd_fam.spr_f else 1024, bucket)
+        K = min(Lw, na.cap.shape[0])
+        if anti_term >= 0 and not self._gd_fam.spr_f:
+            # domain-veto waves accept one entry per node (jcap = 1): the
+            # deeper matrix columns would be masked, so none are built
+            J = 1
+        else:
+            _L, _K, J = self._uniform_shape(na)
+        # a wave merges at most K·J entries; on a node axis narrower than
+        # the wave the JAX package's top_k raises and its drain degrades
+        # to the host path, while the port keeps the wave exact and narrow
+        Lw = min(Lw, K * J)
+        norm_live = not self._wave_norm_static((u,))
+        carry2, packed = run_wave(
+            cfg, na, carry, valid, table, u, self._gd_dev, statics, K, J,
+            self._gd_fam, norm_live,
+            anti_term=anti_term, merge_on=merge_on, Lw=Lw)
+        return carry2, packed, bucket
+
     def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
                        j: int, table):
-        """run_batch over pods [i:j) padded to a pow2 bucket; returns
-        (carry, device assignments) without synchronizing."""
+        """run_batch over pods [i:j) padded to a pow2 bucket (with the
+        group branch when the carry holds group counts); returns (carry,
+        device assignments) without synchronizing."""
         bucket = pow2_at_least(j - i)
         m = j - i
         valid = np.zeros((bucket,), bool)
@@ -587,7 +703,8 @@ class Scheduler:
         tidx[:m] = batch.tidx[i:j]
         xs = pod_xs_from_numpy(PodXs(valid=valid, sig=sig, tidx=tidx),
                                self.device)
-        return run_batch(cfg, na, carry, xs, table)
+        return run_batch(cfg, na, carry, xs, table, groups=self._gd_dev,
+                         fam=self._gd_fam)
 
     def _uniform_escalate(self, cfg: ScoreConfig, na, carry, batch, i: int,
                           j: int, table, out, j_failed: int):
@@ -653,8 +770,10 @@ class Scheduler:
             rec = pd.records[idx]
             r = host[idx]
             m = rec.j - rec.i
-            if rec.kind == "scan":
+            if rec.kind in ("scan", "wave"):
                 out[rec.i:rec.j] = r[:m]
+                if rec.kind == "wave":
+                    self._observe_wave(rec, r)
                 idx += 1
                 continue
             exact, depth = bool(r[rec.L]), bool(r[rec.L + 1])
@@ -693,9 +812,23 @@ class Scheduler:
                 carry = with_cache_sig(carry, 0)
                 prev_profile = pd2.profile
             carry, pd2.records = self._dispatch_runs(
-                pd2.profile, pd2.na, carry, pd2.batch, pd2.table, pd2.n)
+                pd2.profile, pd2.na, carry, pd2.batch, pd2.table, pd2.n,
+                pd2.groups_needed)
         if self._device_carry is not None:
             self._device_carry = carry
+
+    def _observe_wave(self, rec: _RunRec, r) -> None:
+        """Sum a resolved run_wave record's stats (packed [B:B+4]): merge
+        waves, conflict-cut events, the first wave's accepted prefix (-1
+        when no merge wave ran) and serially placed pods."""
+        B = rec.L
+        waves, confs, prefix, serial = (int(x) for x in r[B:B + 4])
+        self.wave_runs += 1
+        st = self.wave_stats
+        st["waves"] += waves
+        st["conflicts"] += confs
+        st["serial_steps"] += serial
+        st["first_prefix"].append(prefix)
 
     def _commit_assignments(self, pd: _PendingDrain, out) -> int:
         """Host commit of a resolved drain: bulk assume + bind enqueue for
@@ -725,7 +858,7 @@ class Scheduler:
 
     def _fast_commit(self, pairs: list) -> int:
         """Assume (cache.go:369) + FinishBinding + bulk bind enqueue for the
-        hook-free lean pods."""
+        hook-free pods (the port has no Reserve/Permit/PreBind plugins)."""
         if not pairs:
             return 0
         cache = self.cache

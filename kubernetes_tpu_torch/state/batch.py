@@ -19,9 +19,9 @@ tables evaluated against the node label arrays on device (SURVEY §7
 hard-part 6). Pods whose constraints exceed the padding (or use semantics
 with no tensor form yet) get `host_fallback=True`; the PyTorch port has no
 host scheduling path, so its scheduler refuses such pods with the reason
-`fallback_reason` gives. Topology spread and inter-pod affinity have no
-device form in this port yet: `_fill_row` raises NotImplementedError for
-them.
+`fallback_reason` gives. Topology spread and inter-pod affinity rows are
+parsed by `groups` (ops/groups.py GroupManager), row for row with the
+PodTable.
 
 Selector op encoding (0 = padding → vacuously true):
   1=In  2=NotIn  3=Exists  4=DoesNotExist  5=Gt  6=Lt
@@ -118,7 +118,9 @@ class BatchCapacityError(ValueError):
 
 
 class BatchBuilder:
-    def __init__(self, state: ClusterState, dims: Optional[BatchDims] = None):
+    def __init__(self, state: ClusterState, dims: Optional[BatchDims] = None,
+                 spread_plugin=None, ipa_plugin=None, group_dims=None):
+        from ..ops.groups import GroupManager
         self.state = state
         self.dims = dims or BatchDims()
         # bumped whenever existing rows are INVALIDATED (reset), as opposed
@@ -140,6 +142,9 @@ class BatchBuilder:
                                  state.dims.resources, self.dims)
         self.table_used = 0
         self.table_version = 0
+        self.groups = GroupManager(state, spread_plugin=spread_plugin,
+                                   ipa_plugin=ipa_plugin, dims=group_dims,
+                                   table_rows=self.dims.table_rows)
 
     # -- table lifecycle ------------------------------------------------------
 
@@ -151,6 +156,7 @@ class BatchBuilder:
                                  self.state.dims.resources, self.dims)
         self.table_used = 0
         self.table_version += 1
+        self.groups.reset()
 
     def _grow_table(self) -> None:
         self.dims.table_rows *= 2
@@ -161,6 +167,7 @@ class BatchBuilder:
             getattr(self.table, name)[: self.table_used] = getattr(old, name)[
                 : self.table_used]
         self.table_version += 1
+        self.groups.grow(self.dims.table_rows)
 
     # -- build ---------------------------------------------------------------
 
@@ -223,6 +230,7 @@ class BatchBuilder:
         u = self.table_used
         try:
             self._fill_row(self.table, u, pod)
+            self.groups.add_row(u, pod)
         except BatchCapacityError as e:
             for name in PodTable._fields:
                 getattr(self.table, name)[u] = 0
@@ -295,15 +303,6 @@ class BatchBuilder:
         d = self.dims
         intr = self.state.interner
         aff = pod.spec.affinity
-        if pod.spec.topology_spread_constraints:
-            raise NotImplementedError(
-                f"pod {pod.uid}: topology spread constraints "
-                "(PodTopologySpread) are not ported to the PyTorch device "
-                "program yet")
-        if aff is not None and (aff.pod_affinity or aff.pod_anti_affinity):
-            raise NotImplementedError(
-                f"pod {pod.uid}: inter-pod affinity (InterPodAffinity) is "
-                "not ported to the PyTorch device program yet")
         if pod.spec.volumes:
             # the PVC/PV binding state machine is API-coupled (SURVEY §2.4
             # volumebinding): volume-bearing pods keep host semantics

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.groups import GroupCarry, GroupsDev
 from ..ops.program import Carry, PodTableDev, PodXs, SigCache
 from .tensorize import NodeArrays
 
@@ -46,6 +47,25 @@ CACHE_DTYPES = {
 CARRY_DTYPES = {"used": _I64, "nonzero_used": _I64, "npods": _I32,
                 "ports": _I32}
 
+GROUPS_DEV_DTYPES = {
+    "spr_f_active": _B, "spr_f_max_skew": _I32, "spr_f_self": _I32,
+    "spr_f_tv": _I32, "spr_f_elig": _B, "spr_f_dom": _I32,
+    "spr_s_active": _B, "spr_s_max_skew": _I32, "spr_s_is_host": _B,
+    "spr_s_tv": _I32, "spr_s_elig": _B, "spr_s_keys_ok": _B,
+    "spr_s_dom": _I32, "ipa_ra_active": _B, "ipa_ra_tv": _I32,
+    "ipa_ra_dom": _I32, "ipa_raa_active": _B, "ipa_raa_tv": _I32,
+    "ipa_raa_dom": _I32, "ipa_self_all": _B, "ipa_stc_tv": _I32,
+    "ipa_stc_dom": _I32, "ipa_stp_tv": _I32, "ipa_stp_dom": _I32,
+    "m_spr_f": _B, "m_spr_s": _B, "m_ipa_a": _B, "m_ipa_aa": _B,
+    "m_ipa_exist": _B, "w_stc": _I64, "w_stp": _I64,
+}
+
+GROUP_CARRY_DTYPES = {
+    "spr_f_cnt": _I32, "spr_f_min_zero": _B, "spr_s_cnt": _I32,
+    "ipa_veto": _I32, "ipa_a_cnt": _I32, "ipa_a_total": _I64,
+    "ipa_aa_cnt": _I32, "ipa_score": _I64,
+}
+
 
 def _tensor(x, dtype, device) -> torch.Tensor:
     arr = np.ascontiguousarray(np.asarray(x))
@@ -69,13 +89,21 @@ def pod_xs_from_numpy(src, device) -> PodXs:
     return _convert(PodXs, src, POD_XS_DTYPES, device)
 
 
+def groups_dev_from_numpy(src, device) -> GroupsDev:
+    return _convert(GroupsDev, src, GROUPS_DEV_DTYPES, device)
+
+
+def group_carry_from_numpy(src, device) -> GroupCarry:
+    return _convert(GroupCarry, src, GROUP_CARRY_DTYPES, device)
+
+
 def carry_from_numpy(src, device) -> Carry:
-    """`src` has used/nonzero_used/npods/ports and a `cache` with the
-    SigCache fields (its `groups`, if any, must be None)."""
-    if getattr(src, "groups", None) is not None:
-        raise NotImplementedError(
-            "group (spread / inter-pod affinity) carries are not ported")
+    """`src` has used/nonzero_used/npods/ports, a `cache` with the SigCache
+    fields and, optionally, `groups` with the GroupCarry fields."""
     cache = _convert(SigCache, src.cache, CACHE_DTYPES, device)
+    groups = getattr(src, "groups", None)
+    if groups is not None:
+        groups = group_carry_from_numpy(groups, device)
     return Carry(*(_tensor(getattr(src, f), CARRY_DTYPES[f], device)
                    for f in ("used", "nonzero_used", "npods", "ports")),
-                 cache=cache)
+                 cache=cache, groups=groups)

@@ -116,6 +116,13 @@ class ClusterState:
     _device_dirty: bool = True
     # torch device the resident copy lives on ("cuda" or "cpu")
     device: str = "cuda"
+    # monotonic generation of the STATIC node columns only (valid, name,
+    # labels, taints, images, capacity — everything the carry-independent
+    # signature surfaces read): bumped by full row writes, row
+    # invalidations and shape growth, but not by the per-commit aggregate
+    # updates (used/npods/ports). The compiler's SurfaceCache and the
+    # group label columns key on it.
+    statics_gen: int = 0
     # name → the Node object whose static fields row `name` reflects
     # (strong refs: identity comparison is only safe while we hold them)
     _row_node: dict = field(default_factory=dict)
@@ -157,6 +164,7 @@ class ClusterState:
         self.dims.nodes = pow2_at_least(len(self.node_names), max(8, old * 2))
         if self.arrays is not None:
             self.arrays = _pad_rows(self.arrays, self.dims.nodes)
+            self.statics_gen += 1   # [N]-shaped surfaces are stale
             self._dirty_rows = None  # shape moved: full upload
 
     def node_id(self, name: str) -> int:
@@ -193,6 +201,7 @@ class ClusterState:
                     self.arrays.valid[idx] = False
                     self.node_names[idx] = ""
                     self._free.append(idx)
+                    self.statics_gen += 1
                     # the cleared valid bit must reach the device even
                     # when no other row was written this apply
                     self._device_dirty = True
@@ -261,6 +270,9 @@ class ClusterState:
         a = self.arrays
         d = self.dims
         node = ni.node
+        # full row write touches the static columns: hoisted per-signature
+        # surfaces over this node axis must recompute
+        self.statics_gen += 1
         if self._dirty_rows is not None:
             self._dirty_rows.add(idx)
         # resources
@@ -343,12 +355,14 @@ class ClusterState:
             self.arrays = a._replace(image_id=pad(a.image_id),
                                      image_size=pad(a.image_size))
         self._device_dirty = True
+        self.statics_gen += 1
         self._dirty_rows = None
 
     def _grow_resources(self) -> None:
         self.dims.resources = self.rtable.width
         if self.arrays is not None:
             self.arrays = _pad_cols(self.arrays, self.dims)
+            self.statics_gen += 1
             self._dirty_rows = None
 
     # -- device transfer ------------------------------------------------------

@@ -4,7 +4,10 @@ Both packages run the same workload — built twice, once from each
 package's own testing wrappers, from the same seed — under a fixed clock,
 and must end with the same bind map and the same set of pending pods
 (exact equality). The port also refuses, with NotImplementedError, the
-pods whose constraints it has no device form for."""
+pods whose constraints it has no device form for; topology spread and
+inter-pod affinity, refused before the group path was ported, now bind
+as the JAX package binds them (the three test_refuses_* cases below
+that kept their names)."""
 
 
 import pytest
@@ -114,26 +117,54 @@ def _refuses(build_pod, bound=None, match="not ported"):
         sched.schedule_pending()
 
 
+def _binds_like_jax(build_pod, bound=None):
+    """One pod (and optionally one bound pod) through both schedulers on
+    the 4-node cluster of `_refuses`: equal bind maps, the pod bound."""
+    outs = []
+    for pkg in (JAX, TORCH):
+        w, Api = pkg[0], pkg[1]
+        api = Api()
+        sched = make_scheduler(pkg, api, 16)
+        for nd in _basic_nodes(w, 4):
+            api.create_node(nd)
+        if bound is not None:
+            api.create_pod(bound(w))
+        api.create_pod(build_pod(w))
+        sched.schedule_pending()
+        outs.append(_outcome(api, sched))
+    assert outs[1] == outs[0]
+    assert not outs[1][1]
+    return outs[1]
+
+
 def test_refuses_topology_spread():
-    _refuses(lambda: tw.make_pod("s").req({"cpu": "1"}).label("app", "x")
-             .spread_constraint(1, "topology.kubernetes.io/zone",
-                                "DoNotSchedule", {"app": "x"}).obj(),
-             match="topology spread")
+    """Now a bind-parity check: the group path is ported, so the pod binds
+    exactly as the JAX package binds it. The name is kept on purpose."""
+    _binds_like_jax(lambda w: w.make_pod("s").req({"cpu": "1"})
+                    .label("app", "x")
+                    .spread_constraint(1, "topology.kubernetes.io/zone",
+                                       "DoNotSchedule", {"app": "x"}).obj())
 
 
 def test_refuses_inter_pod_affinity():
-    _refuses(lambda: tw.make_pod("a").req({"cpu": "1"})
-             .pod_affinity("topology.kubernetes.io/zone", {"app": "x"},
-                           anti=True).obj(),
-             match="inter-pod affinity")
+    """Now a bind-parity check: the group path is ported, so the pod binds
+    exactly as the JAX package binds it. The name is kept on purpose."""
+    _binds_like_jax(lambda w: w.make_pod("a").req({"cpu": "1"})
+                    .pod_affinity("topology.kubernetes.io/zone",
+                                  {"app": "x"}, anti=True).obj())
 
 
 def test_refuses_bound_pods_with_affinity():
-    bound = (tw.make_pod("b").req({"cpu": "1"}).node("node-0")
-             .pod_affinity("topology.kubernetes.io/zone", {"app": "x"},
-                           anti=True).obj())
-    _refuses(lambda: tw.make_pod("p").req({"cpu": "1"}).obj(), bound=bound,
-             match="InterPodAffinity")
+    """Now a bind-parity check: the group path is ported, so the pod binds
+    exactly as the JAX package binds it. The name is kept on purpose."""
+    binds, _ = _binds_like_jax(
+        lambda w: w.make_pod("p").req({"cpu": "1"}).label("app", "x")
+        .obj(),
+        bound=lambda w: w.make_pod("b").req({"cpu": "1"}).node("node-0")
+        .pod_affinity("topology.kubernetes.io/zone", {"app": "x"},
+                      anti=True).obj())
+    # the bound pod's anti term keeps the new pod out of node-0's zone
+    assert binds["default/p"] != "node-0"
 
 
 def test_refuses_volumes_and_gangs():
