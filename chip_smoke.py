@@ -12,20 +12,28 @@ Phases, each reported on its own line:
      the SchedulingBasic harness shapes (5,000 nodes padded to 8,192,
      batch 8,192); scatter_rows, wave_statics, run_wave and run_batch's
      group mode at the full-width shapes of TopologySpreading and
-     SchedulingPodAntiAffinity;
+     SchedulingPodAntiAffinity; run_plan at the MixedHighSignature shape
+     (S = 8 signatures, a 4,096-pod span) and on a lean four-signature
+     host-port span; diagnose_row on lean and group rows at 8,192 nodes;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
-     rotating signatures) at 500 nodes that forces scan spans and uniform
-     rewinds;
+     rotating signatures) at 500 nodes: lean plan spans (run_plan, with
+     the ports variant), scan spans, uniform rewinds, and pods no node
+     fits (diagnose_row);
   6. TopologySpreading 5000Nodes_5000Pods end to end (merge waves);
   7. SchedulingPodAntiAffinity 5000Nodes_2000Pods end to end (merge waves
      with champion-per-domain selection);
   8. a mixed group workload at 500 nodes (ScheduleAnyway, required
      affinity, two anti terms, preferred terms, PreferNoSchedule taints,
-     short drains) that drives run_batch's group mode and the serial and
-     renormalizing wave tiers.
-Phases 4-8 compare their bind maps with a device="cpu" run of the same
+     short drains) that drives run_plan, run_batch's group mode, the
+     serial and renormalizing wave tiers and diagnose_row;
+  9. MixedHighSignature 5000Nodes end to end (a run_plan span of eight
+     interleaved signatures per drain);
+ 10. MixedSchedulingBasePod 5000Nodes end to end (ScheduleAnyway and
+     self-matching required-affinity drains on run_plan, then plain pods
+     on run_wave).
+Phases 4-10 compare their bind maps with a device="cpu" run of the same
 workload, at full width. Any failure exits non-zero without the final
 line. The line before the last is the card's name and power limit, the
 one before it one JSON object with a row per kernel; the last line is
@@ -34,7 +42,8 @@ one before it one JSON object with a row per kernel; the last line is
 The script imports neither jax nor kubernetes_tpu, and needs no pyyaml:
 the workload parameters are those of
 kubernetes_tpu/perf/configs/performance-config.yaml (SchedulingBasic
-:28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129) and
+:28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129,
+MixedSchedulingBasePod :195-237, MixedHighSignature :239-284) and
 the node and pod shapes of kubernetes_tpu/perf/harness.py:159-200 (nodes
 32 cpu, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
 """
@@ -46,6 +55,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -71,6 +81,11 @@ SB_NODES, SB_INIT_PODS, SB_PODS = 5000, 1000, 10000
 # (nodes, init pods, measured pods, zones)
 TS_SHAPE = (5000, 1000, 5000, 16)
 AA_SHAPE = (5000, 500, 2000, 10000)
+# MixedHighSignature 5000Nodes (:239-284): nodes, init pods, measured pods,
+# zones, signatureCycle; MixedSchedulingBasePod 5000Nodes (:195-237):
+# nodes, init pods, init affinity pods, measured pods, zones
+MHS_SHAPE = (5000, 1000, 5000, 16, 8)
+MBP_SHAPE = (5000, 1000, 500, 5000, 16)
 LABEL_ZONE = "topology.kubernetes.io/zone"
 LABEL_HOSTNAME = "kubernetes.io/hostname"
 BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
@@ -851,8 +866,9 @@ def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
     """run_batch's group mode at full width: a 1,024-pod scan over the
     5,000-node harness cluster in 16 zones, rotating four group
     signatures (zone spread, hostname ScheduleAnyway spread, zone
-    anti-affinity, preferred pod affinity) plus plain pods — the span the
-    port runs where the JAX package takes its plan program."""
+    anti-affinity, preferred pod affinity) plus plain pods. The scheduler
+    compiles a drain of this mix to run_plan; group drains below
+    WAVE_MIN_SPAN keep this mode, so it is held at full width here."""
     P = pkg.program
     W = pkg.wrappers
     nodes = harness_nodes(W, SB_NODES, 16)
@@ -923,6 +939,341 @@ def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
         name="run_batch_groups", route="cuda",
         source="kubernetes_tpu_torch/csrc/run_batch.cu",
         replaces="kubernetes_tpu/ops/program.py:929", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None))
+
+
+# ---------------------------------------------------------------------------
+# phase 3, the plan program and the mask diagnosis
+
+
+def mix_pod(W, name: str, cpu: str, labels: dict, action: str):
+    """A MixedHighSignature / MixedSchedulingBasePod template pod
+    (performance-config.yaml :203-212, :252-266): 1 Gi, the template's
+    labels, a maxSkew-5 zone spread over them."""
+    w = W.make_pod(name).req({"cpu": cpu, "memory": "1Gi"})
+    for k, v in labels.items():
+        w = w.label(k, v)
+    return w.spread_constraint(5, LABEL_ZONE, action, labels).obj()
+
+
+def mhs_pod(W, name: str, seq: int):
+    """A measured MixedHighSignature pod: the cpu request rotates over
+    eight values with the pod's sequence number (perf/harness.py
+    signatureCycle)."""
+    return mix_pod(W, name, f"{250 + 50 * (seq % MHS_SHAPE[4])}m",
+                   {"app": "mix"}, "DoNotSchedule")
+
+
+# the GroupsDev [U, ·, N] tensors run_plan reads per row, by family
+PLAN_ROW_FIELDS = {
+    "spr_f": ("spr_f_tv", "spr_f_elig"),
+    "spr_s": ("spr_s_tv", "spr_s_elig", "spr_s_keys_ok", "spr_s_dom"),
+    "ipa_req": ("ipa_ra_tv",), "ipa_anti": ("ipa_raa_tv",),
+    "ipa_score": ("ipa_stc_tv", "ipa_stp_tv")}
+
+
+def plan_layout(torch, P, batch, m: int, device):
+    """(wt, WaveXs) for the batch's first m pods, as
+    Scheduler._wavescan_dispatch lays a span out."""
+    uniq = list(dict.fromkeys(int(t) for t in batch.tidx[:m]))
+    S = max(2, 1 << (len(uniq) - 1).bit_length())
+    wt = (uniq + [uniq[-1]] * S)[:S]
+    slot: dict = {}
+    for s, u in enumerate(wt):
+        slot.setdefault(u, s)
+    bucket = max(8, 1 << (m - 1).bit_length())
+    widx = [slot[int(t)] for t in batch.tidx[:m]]
+    widx += [widx[-1]] * (bucket - m)
+    xs = P.WaveXs(valid=torch.arange(bucket, device=device) < m,
+                  widx=torch.tensor(widx, dtype=torch.int32, device=device))
+    return wt, xs
+
+
+def domain_sizes(tv) -> np.ndarray:
+    """Per node, the number of nodes sharing its topology value (0 where
+    the node has none)."""
+    tv = np.asarray(tv)
+    out = np.zeros(tv.shape, np.int64)
+    nz = tv != 0
+    if nz.any():
+        _, inv, cnt = np.unique(tv[nz], return_inverse=True,
+                                return_counts=True)
+        out[nz] = cnt[inv]
+    return out
+
+
+def plan_ops(P, args, out, slots) -> Ops:
+    """The operations one run_plan call needs for these inputs: Phase A's
+    fit surfaces of the S slots on every valid node and their speculative
+    evaluation; per step the slot's evaluation on every valid node and
+    its argmax; per placement the S slots' refresh at the touched node
+    and the counter increments of the nodes that share its domain; then
+    the fold of the placements."""
+    cfg, na, carry, xs, table, wt, gd, statics, fam, norm_live, \
+        has_groups, has_ports = args
+    C = len(cfg.score_cols)
+    S = len(wt)
+    nv = slots["n_valid"]
+    reqs = [int((np_of(table.req[u]) != 0).sum()) for u in wt]
+    fit = [score_ops(C, r, True) + Ops(i64=r) for r in reqs]
+    per_node = Ops(i32=2, i64=8 + (4 if norm_live else 0))
+    if has_ports:
+        per_node = per_node + Ops(i32=int(slots["ports"].mean()) + 1)
+    SC = TA = TAA = 0
+    if has_groups:
+        SC, TA, TAA = (gd.spr_f_active.shape[1], gd.ipa_ra_active.shape[1],
+                       gd.ipa_raa_active.shape[1])
+        per_node = per_node + Ops(
+            i32=(4 * SC if fam.spr_f else 0) + (1 + 3 * TAA if fam.ipa_anti
+                                                else 0)
+            + (3 * TA if fam.ipa_req else 0),
+            i64=(2 if fam.ipa_score else 0),
+            f64=(3 * SC if fam.spr_s else 0))
+    evaluation = per_node * nv + Ops(i32=SC * nv)
+    ops = Ops()
+    for f in fit:
+        ops = ops + f * nv
+    ops = ops + evaluation * S
+    widx = np_of(xs.widx).tolist()
+    valid = np_of(xs.valid).tolist()
+    dom = None
+    if has_groups and fam.spr_f:
+        dom = [[domain_sizes(np_of(gd.spr_f_tv[u, c])) for c in range(SC)]
+               for u in wt]
+    for k, best in enumerate(out):
+        if not valid[k]:
+            continue
+        ops = ops + evaluation
+        if best < 0:
+            continue
+        w = widx[k]
+        for s in range(S):
+            ops = ops + fit[s] + Ops(i64=reqs[w] + 3)
+            if dom is not None:
+                ops = ops + Ops(i32=2 * sum(int(dom[s][c][best])
+                                            for c in range(SC)))
+    if has_groups:
+        U = gd.spr_f_active.shape[0]
+        ops = ops + Ops(i32=3 * U * max(SC, 1) * nv) * len(set(wt))
+    return ops
+
+
+def plan_inputs(torch, pkg, device, kind: str):
+    """Full-width run_plan inputs. "mhs": the first MixedHighSignature
+    measured drain as the scheduler dispatches it — the 1,000 init pods
+    one per node, 4,096 pods of eight rotating signatures under one zone
+    spread (S = 8, W = 4,096). "lean_ports": a lean 1,024-pod span of four
+    signatures, one with a host port, over the mixed 5,000-node cluster
+    (S = 4, the ports variant)."""
+    P = pkg.program
+    W = pkg.wrappers
+    if kind == "mhs":
+        n_nodes, n_init, _n_meas, zones, _cyc = MHS_SHAPE
+        nodes = harness_nodes(W, n_nodes, zones)
+        bound = [W.make_pod(f"init-{i}").req({"cpu": "900m",
+                                              "memory": "1Gi"})
+                 .label("app", "mix").node(f"node-{i}").obj()
+                 for i in range(n_init)]
+        m = 4096
+        pods = [mhs_pod(W, f"pod-{n_init + i}", n_init + i)
+                for i in range(m)]
+        na, batch, table, gd, gc, fam, _b, _s = group_staged(
+            pkg, device, nodes, bound, pods)
+        has_groups = True
+    else:
+        nodes = lean_cluster(np.random.RandomState(61), SB_NODES, W)
+        shapes = [
+            W.make_pod("plan-0").req({"cpu": "900m", "memory": "1Gi"}),
+            W.make_pod("plan-1").req({"cpu": "250m", "memory": "512Mi"})
+            .node_selector({"disk": "ssd"}),
+            W.make_pod("plan-2").req({"cpu": "2", "memory": "4Gi"})
+            .toleration(key="dedicated", operator="Exists")
+            .container({"cpu": "100m"}, image="nginx:1.25"),
+            W.make_pod("plan-3").req({"cpu": "200m", "memory": "256Mi"})
+            .host_port(8080)]
+        m = 1024
+        pods = [shapes[i % 4].obj() for i in range(m)]
+        na, batch, table = staged(nodes, (), pods, device, pkg)
+        gd = gc = None
+        from kubernetes_tpu_torch.ops.groups import GroupFamilies
+        fam = GroupFamilies(False, False, False, False, False)
+        has_groups = False
+    wt, xs = plan_layout(torch, P, batch, m, device)
+    has_ports = bool((batch.sig[:m] == 0).any())
+    statics = P.wave_statics(na, table, wt)
+    # Scheduler._wave_norm_static over the span's rows
+    arrays = SimpleNamespace(taint_eff=np_of(na.taint_eff),
+                             valid=np_of(na.valid))
+    norm_live = not all(P.static_norm_ok(arrays, np_of(table.pref_weight[u]))
+                        for u in wt)
+    carry = P.initial_carry(na, gc)
+    args = (P.ScoreConfig(), na, carry, xs, table, wt, gd, statics, fam,
+            norm_live, has_groups, has_ports)
+    return args, m, dict(kind=kind, pods=m, S=len(wt), W=xs.valid.shape[0],
+                         has_groups=has_groups, has_ports=has_ports,
+                         norm_live=norm_live)
+
+
+def check_run_plan(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+    err = 0.0
+    times = {}
+    for kind in ("mhs", "lean_ports"):
+        args, m, shape = plan_inputs(torch, pkg, device, kind)
+        cfg, na, carry, xs, table, wt, gd, statics, fam, norm_live, \
+            has_groups, has_ports = args
+        if kind == "lean_ports" and not has_ports:
+            fail("run_plan[lean_ports]: the span holds no host-port row")
+        kc, kp = P.run_plan(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc, pp = P._run_plan_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
+                                          f"run_plan[{kind}]"))
+        Wb = xs.valid.shape[0]
+        n_conf, prefix = kp[Wb:].tolist()
+        out = np_of(kp[:Wb]).tolist()
+        k_ms = cuda_ms(torch, lambda: P.run_plan(*args), 3)
+        dev_ms = device_ms(torch, lambda: P.run_plan(*args), 3)
+        slots = node_slots(na, carry)
+        ops = plan_ops(P, args, out, slots)
+        # each input read once, each output written once: the node
+        # columns, the S rows' surfaces and their active families' group
+        # rows, the carry (the whole group carry: the fold writes every
+        # consumer row from it)
+        rows_g = []
+        if has_groups:
+            distinct = sorted(set(wt))
+            rows_g = [getattr(gd, f)[distinct]
+                      for fam_name, fields in PLAN_ROW_FIELDS.items()
+                      if getattr(fam, fam_name) for f in fields]
+        moved = (nbytes(na.cap, na.allowed_pods, statics, carry.used,
+                        carry.nonzero_used, carry.npods, xs, table.req,
+                        table.nonzero_req, rows_g)
+                 + (nbytes(carry.ports, kc.ports) if has_ports else 0)
+                 + (nbytes(carry.groups, kc.groups) if has_groups else 0)
+                 + nbytes(kc.used, kc.nonzero_used, kc.npods, kp))
+        bound_ms, bound_by = bound_of(moved, ops)
+        placed = sum(1 for x in out[:m] if x >= 0)
+        times[kind] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           placed=placed, conflicts=n_conf, prefix=prefix,
+                           ops=vars(ops), bytes=moved, **shape)
+        log("kernel", name="run_plan", exact=True, max_abs_err=err,
+            **times[kind])
+    first = times["mhs"]
+    rows.append(dict(
+        name="run_plan", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_plan.cu",
+        replaces="kubernetes_tpu/ops/program.py:1259", launches=0,
+        max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"],
+        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+        library_ms=None,
+        by_shape={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "S", "W")}
+                  for k, v in times.items()}))
+
+
+def diag_ops(table, u: int, slots: dict, R: int, groups) -> Ops:
+    """One diagnose_row call: per valid node the validity, unschedulable,
+    name, port and fit tests, the taint and selector loops over the
+    node's occupied slots and the row's live entries, and with groups the
+    spread, affinity and anti tests; the spread minimum once per
+    constraint over the valid nodes."""
+    t = {f: np_of(getattr(table, f)[u]) for f in (
+        "req", "tol_op", "ns_sel_val", "port_ids")}
+    n_tol = int((t["tol_op"] != 0).sum())
+    nl, pocc = slots["labels"], slots["ports"]
+    nv = slots["n_valid"]
+    n_pid = int((t["port_ids"] != 0).sum())
+    ops = Ops(i32=6 * nv + slots["n_pad"], i64=2 * R * nv)
+    ops = ops + Ops(i32=int(slots["hard"].sum()) * (1 + 4 * n_tol)
+                    + int((t["ns_sel_val"] != 0).sum()) * int(nl.sum())
+                    + n_pid * int(pocc.sum()) + int(pocc.sum()))
+    if groups is not None:
+        SC, TA, TAA = groups
+        ops = ops + Ops(i32=nv * (4 * SC + 3 * TA + 3 * TAA + 1) + SC * nv)
+    return ops
+
+
+def check_diagnose_row(torch, pkg, device, rows: list) -> None:
+    """Lean rows over the mixed 5,000-node cluster (taints, selectors,
+    host ports, a pod no node fits) and group rows over the harness
+    cluster (zone spread with skew, affinity with and without a match,
+    zone anti-affinity, an existing anti term), N = 8,192."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = lean_cluster(np.random.RandomState(71), SB_NODES, W)
+    bound = [W.make_pod(f"b{i}").req({"cpu": "6", "memory": "8Gi"})
+             .host_port(8080).node(f"node-{7 * i % SB_NODES}").obj()
+             for i in range(1500)]
+    lean = lean_pods(np.random.RandomState(72), 16, W, "diag")
+    lean.append(W.make_pod("huge").req({"cpu": "100"}).obj())
+    na, batch, table = staged(nodes, bound, lean, device, pkg)
+    lean_rows = sorted(set(int(t) for t in batch.tidx[:len(lean)]))
+    err = 0.0
+    for u in lean_rows:
+        err = max(err, assert_equal_trees(
+            torch, P.diagnose_row(na, table, u),
+            P._diagnose_plain(na, table, u), f"diagnose_row[lean {u}]"))
+    gnodes = harness_nodes(W, SB_NODES, 16)
+    # 20 spread pods in each of zones 0-7, none in 8-15: skew
+    gbound = [W.make_pod(f"s{i}").req({"cpu": "900m", "memory": "1Gi"})
+              .label("app", "mix").node(f"node-{i % 8}").obj()
+              for i in range(160)]
+    gbound.append(W.make_pod("guard").req({"cpu": "1"})
+                  .node("node-20").pod_affinity(
+                      LABEL_ZONE, {"app": "web"}, anti=True).obj())
+    gpods = [mhs_pod(W, "m0", 0),
+             W.make_pod("aff").req({"cpu": "1"}).pod_affinity(
+                 LABEL_ZONE, {"app": "nowhere"}).obj(),
+             W.make_pod("near").req({"cpu": "1"}).pod_affinity(
+                 LABEL_ZONE, {"app": "mix"}).obj(),
+             W.make_pod("anti").req({"cpu": "1"}).label("anti", "y")
+             .pod_affinity(LABEL_ZONE, {"app": "mix"}, anti=True).obj(),
+             W.make_pod("web").req({"cpu": "1"}).label("app", "web").obj()]
+    gna, gbatch, gtable, gd, gc, fam, _b, _s = group_staged(
+        pkg, device, gnodes, gbound, gpods)
+    group_rows = sorted(set(int(t) for t in gbatch.tidx[:len(gpods)]))
+    slots_seen = set()
+    for u in group_rows:
+        got = P.diagnose_row(gna, gtable, u, gd=gd, gc=gc, fam=fam)
+        err = max(err, assert_equal_trees(
+            torch, got, P._diagnose_plain(gna, gtable, u, gd, gc, fam),
+            f"diagnose_row[group {u}]"))
+        slots_seen |= set(np_of(got[0]).tolist())
+    u0, g0 = lean_rows[-1], group_rows[0]
+    k_ms = cuda_ms(torch, lambda: P.diagnose_row(na, table, u0), 20)
+    dev_ms = device_ms(torch, lambda: P.diagnose_row(na, table, u0), 20)
+    plain_ms = cuda_ms(torch, lambda: P._diagnose_plain(na, table, u0), 5)
+    gk_ms = cuda_ms(torch, lambda: P.diagnose_row(
+        gna, gtable, g0, gd=gd, gc=gc, fam=fam), 20)
+    gplain_ms = cuda_ms(torch, lambda: P._diagnose_plain(
+        gna, gtable, g0, gd, gc, fam), 5)
+    R = na.cap.shape[1]
+    slots = node_slots(na, P.initial_carry(na))
+    ops = diag_ops(table, u0, slots, R, None)
+    moved = (nbytes(na.cap, na.allowed_pods, na.valid, na.unschedulable,
+                    na.name_id, na.taint_key, na.taint_val, na.taint_eff,
+                    na.label_key, na.label_kv, na.used, na.npods, na.ports)
+             + nbytes(P._diagnose_plain(na, table, u0)))
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="diagnose_row", exact=True, max_abs_err=err,
+        ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, group_ms=gk_ms,
+        group_plain_ms=gplain_ms, bound_ms=bound_ms, ops=vars(ops),
+        bytes=moved, lean_rows=len(lean_rows), group_rows=len(group_rows),
+        group_slots=sorted(slots_seen))
+    for want in (P.DIAG_SPREAD_SKEW, P.DIAG_IPA_AFFINITY, P.DIAG_IPA_ANTI,
+                 P.DIAG_IPA_EXISTING_ANTI):
+        if want not in slots_seen:
+            fail(f"diagnose_row: the group rows never produced slot {want}")
+    rows.append(dict(
+        name="diagnose_row", route="cuda",
+        source="kubernetes_tpu_torch/csrc/diagnose_row.cu",
+        replaces="kubernetes_tpu/ops/program.py:627", launches=0,
         max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None))
 
@@ -1110,11 +1461,12 @@ def group_workload(device: str, pkg, kind: str):
 
 
 def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
-    """Group drains the port routes to run_batch's group mode or to the
-    serial and renormalizing wave tiers: ScheduleAnyway spreads, required
-    affinity, two self-matching anti terms, preferred pod affinity,
-    drains of 16-23 and of fewer than 16 pods, and PreferNoSchedule
-    taints on some nodes."""
+    """Group drains on every group route of the port: ScheduleAnyway
+    spreads, self-matching required affinity and mixed preferred-affinity
+    drains (run_plan), two self-matching anti terms (the serial wave
+    tier), drains of 16-23 and of fewer than 16 pods (run_batch's group
+    mode), PreferNoSchedule taints on some nodes (the renormalizing wave
+    tier), and anti pods no zone can take (diagnose_row)."""
     from kubernetes_tpu_torch.backend.apiserver import APIServer
     from kubernetes_tpu_torch.scheduler import Scheduler
     W = pkg.wrappers
@@ -1145,18 +1497,18 @@ def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
 
     seeds = pods(20, lambda w: w.label("app", "db"))
     drain(seeds)
-    # ScheduleAnyway spread (the JAX package's plan program)
+    # ScheduleAnyway spread (the plan program)
     drain(pods(200, lambda w: w.label("app", "web").spread_constraint(
         3, LABEL_ZONE, "ScheduleAnyway", {"app": "web"})))
-    # required affinity to the seeds, self-matching (plan program there)
+    # required affinity to the seeds, self-matching (the plan program)
     drain(pods(120, lambda w: w.label("app", "db").pod_affinity(
         LABEL_ZONE, {"app": "db"})))
     # two self-matching anti terms (the serial wave tier)
     drain(pods(60, lambda w: w.label("anti", "x").label("side", "x")
                .pod_affinity(LABEL_ZONE, {"anti": "x"}, anti=True)
                .pod_affinity(LABEL_HOSTNAME, {"side": "x"}, anti=True)))
-    # a same-signature spread drain of 20 pods (host greedy there) and one
-    # of 10 (scan there too)
+    # a same-signature spread drain of 20 pods (the JAX package's host
+    # greedy, the port's scan) and one of 10 (the scan in both)
     drain(pods(20, lambda w: w.label("app", "s").spread_constraint(
         1, LABEL_ZONE, "DoNotSchedule", {"app": "s"})))
     drain(pods(10, lambda w: w.label("app", "s").spread_constraint(
@@ -1176,8 +1528,106 @@ def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
     return api, sched
 
 
+def plan_workload(device: str, pkg, kind: str):
+    """MixedHighSignature 5000Nodes ("mhs": 1,000 zone-spread init pods,
+    then 5,000 measured pods of eight rotating signatures under the same
+    DoNotSchedule spread) or MixedSchedulingBasePod 5000Nodes ("mbp":
+    1,000 ScheduleAnyway-spread init pods, 500 self-matching required
+    zone-affinity pods, then 5,000 plain measured pods), in the harness's
+    512-pod create chunks. Returns (api, scheduler, measured pods/s,
+    measured-op dict)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: 1000.0)
+    if kind == "mhs":
+        n_nodes, n_init, n_meas, zones, _cyc = MHS_SHAPE
+        mix = {"app": "mix"}
+        init_ops = [[mix_pod(W, f"pod-{i}", "900m", mix, "DoNotSchedule")
+                     for i in range(n_init)]]
+        seq = n_init
+        measured = [mhs_pod(W, f"pod-{seq + i}", seq + i)
+                    for i in range(n_meas)]
+    else:
+        n_nodes, n_init, n_aff, n_meas, zones = MBP_SHAPE
+        base = {"mixed": "base"}
+        init_ops = [
+            [mix_pod(W, f"pod-{i}", "900m", base, "ScheduleAnyway")
+             for i in range(n_init)],
+            [W.make_pod(f"pod-{n_init + i}").req(
+                {"cpu": "500m", "memory": "512Mi"}).label("mixed", "base")
+             .pod_affinity(LABEL_ZONE, base).obj() for i in range(n_aff)]]
+        seq = n_init + n_aff
+        measured = [W.make_pod(f"pod-{seq + i}").req(
+            {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(n_meas)]
+    for nd in harness_nodes(W, n_nodes, zones):
+        api.create_node(nd)
+    sched.prime()
+    for pods in init_ops:
+        create_pods(api, sched, pods)
+    before = (sched.scheduled_count, sched.device_batches, sched.plan_runs,
+              sched.wave_runs)
+    t0 = time.perf_counter()
+    create_pods(api, sched, measured)
+    rate = (sched.scheduled_count - before[0]) / (time.perf_counter() - t0)
+    return api, sched, rate, {
+        "drains": sched.device_batches - before[1],
+        "plan_runs": sched.plan_runs - before[2],
+        "wave_runs": sched.wave_runs - before[3]}
+
+
+def plan_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
+    """Phase 9 / 10: one plan-program workload on the card, checked
+    against its cpu run and its own constraint; returns the launch
+    counts."""
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    api, sched, rate, measured = plan_workload(device, pkg, kind)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pkg.kernels.LAUNCHES)
+    if kind == "mhs":
+        name, phase = "MixedHighSignature", "mixed_high_signature"
+        n_nodes, n_init, n_meas, zones, _cyc = MHS_SHAPE
+        total, min_plans = n_init + n_meas, 1
+    else:
+        name, phase = "MixedSchedulingBasePod", "mixed_base_pod"
+        n_nodes, n_init, n_aff, n_meas, zones = MBP_SHAPE
+        total, min_plans = n_init + n_aff + n_meas, 2
+    got = outcome(api, sched)
+    if len(got[0]) != total:
+        fail(f"{name}: bound {len(got[0])} of {total} pods")
+    if counts["run_plan"] < min_plans:
+        fail(f"{name}: run_plan launched {counts['run_plan']} times, "
+             f"expected at least {min_plans}")
+    if sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    check = {}
+    if kind == "mhs":
+        per_zone = zone_counts(api, ("app", "mix"))
+        skew = max(per_zone.values()) - min(per_zone.values())
+        if len(per_zone) != zones or skew > 5:
+            fail(f"{name}: zone skew {skew} over {len(per_zone)} zones")
+        check = {"zone_skew": skew}
+    t1 = time.perf_counter()
+    want = outcome(*plan_workload("cpu", pkg, kind)[:2])
+    if got != want:
+        fail(f"{name}: cuda bind map differs from the cpu run")
+    log(phase, pods=total, bound=len(got[0]), nodes=n_nodes,
+        pods_per_s=rate, wall_s=wall, launches=counts, measured=measured,
+        plan_runs=sched.plan_runs, wave_runs=sched.wave_runs,
+        wave_stats=wave_stats(sched), drain_readbacks=sched.device_batches,
+        cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True, **check)
+    log(f"{phase}_profile", card=smi, **profile_run(
+        torch, lambda: plan_workload(device, pkg, kind)))
+    return counts
+
+
 def wave_stats(sched) -> dict:
-    """The scheduler's summed run_wave stats, JSON-ready."""
+    """The scheduler's summed run_wave and run_plan stats, JSON-ready."""
     st = dict(sched.wave_stats)
     st["first_prefix"] = list(st["first_prefix"])
     return st
@@ -1316,6 +1766,8 @@ def main() -> int:
     check_wave_statics(torch, pkg, device, rows)
     check_run_wave(torch, pkg, device, rows)
     check_run_batch_groups(torch, pkg, device, rows)
+    check_run_plan(torch, pkg, device, rows)
+    check_diagnose_row(torch, pkg, device, rows)
 
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
     # run (the comparisons above do not count)
@@ -1345,14 +1797,16 @@ def main() -> int:
         - t1, card=smi, bind_map_equals_cpu=True, host_split=host_split)
     log("scheduling_basic_profile", **device_share(torch, pkg))
 
-    # phase 5: the mixed lean workload (scan spans and rewinds)
+    # phase 5: the mixed lean workload (plan and scan spans, rewinds,
+    # diagnosis)
     pkg.kernels.reset_launches()
     api, sched = mixed_workload(device, pkg)
     torch.cuda.synchronize()
     mixed_counts = dict(pkg.kernels.LAUNCHES)
     got = outcome(api, sched)
-    if mixed_counts["run_batch"] <= 0 or mixed_counts["run_uniform"] <= 0:
-        fail(f"mixed workload launches {mixed_counts}: both kernels must run")
+    for k in ("run_batch", "run_uniform", "run_plan", "diagnose_row"):
+        if mixed_counts[k] <= 0:
+            fail(f"mixed workload launches {mixed_counts}: {k} never ran")
     if not got[1]:
         fail("mixed workload: expected unschedulable pods to stay pending")
     if sched.reconcile() != []:
@@ -1361,6 +1815,7 @@ def main() -> int:
         fail("mixed workload: cuda bind map differs from the cpu run")
     log("mixed", bound=len(got[0]), pending=len(got[1]),
         launches=mixed_counts, uniform_rewinds=sched.uniform_rewinds,
+        plan_runs=sched.plan_runs, wave_stats=wave_stats(sched),
         bind_map_equals_cpu=True)
 
     # phases 6 and 7: the two group workloads at full width
@@ -1374,9 +1829,10 @@ def main() -> int:
     torch.cuda.synchronize()
     mg_counts = dict(pkg.kernels.LAUNCHES)
     got = outcome(api, sched)
-    if mg_counts["run_batch_groups"] <= 0 or mg_counts["run_wave"] <= 0:
-        fail(f"mixed group workload launches {mg_counts}: the group mode "
-             "of run_batch and run_wave must both run")
+    for k in ("run_batch_groups", "run_wave", "run_plan", "diagnose_row"):
+        if mg_counts[k] <= 0:
+            fail(f"mixed group workload launches {mg_counts}: {k} never "
+                 "ran")
     if sched.reconcile() != []:
         fail("mixed group workload: device carry diverges from the host "
              "cache")
@@ -1384,13 +1840,20 @@ def main() -> int:
         fail("mixed group workload: cuda bind map differs from the cpu run")
     log("mixed_groups", bound=len(got[0]), pending=len(got[1]),
         launches=mg_counts, wave_runs=sched.wave_runs,
-        wave_stats=wave_stats(sched), bind_map_equals_cpu=True)
+        plan_runs=sched.plan_runs, wave_stats=wave_stats(sched),
+        bind_map_equals_cpu=True)
+
+    # phases 9 and 10: the plan program's workloads at full width
+    mhs_counts = plan_phase(torch, pkg, device, "mhs", smi)
+    mbp_counts = plan_phase(torch, pkg, device, "mbp", smi)
 
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
              "topology_spreading": spread_counts,
-             "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts}
+             "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts,
+             "mixed_high_signature": mhs_counts,
+             "mixed_base_pod": mbp_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

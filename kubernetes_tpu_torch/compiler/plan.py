@@ -1,27 +1,32 @@
-"""The drain compiler: "wave", "uniform" and "scan" spans.
+"""The drain compiler: "wave", "wavescan", "uniform" and "scan" spans.
 
-Counterpart of kubernetes_tpu/compiler/plan.py without the plan-program
-("wavescan") and gang tiers. A drain's pod mix becomes an ordered list of
-spans, each mapped to the cheapest EXACT program the port has:
+Counterpart of kubernetes_tpu/compiler/plan.py without the gang tier and
+the sharded mesh. A drain's pod mix becomes an ordered list of spans, each
+mapped to the cheapest EXACT program the port has:
 
-  ("wave", u, anti, merge)  same-signature group wave (run_wave)
-  ("uniform",)              closed-form top-L same-signature run
-                            (run_uniform)
-  ("scan",)                 the per-pod scan (run_batch, with its group
-                            branch when the drain needs groups)
+  ("wave", u, anti, merge)    same-signature group wave (run_wave)
+  ("wavescan", rows, ports)   the plan program (ops/program.py run_plan):
+                              any mix of group / group-free / host-port
+                              rows, the signature set padded to the pow2
+                              lattice {2, 4, ..., PLAN_MAX_SIGS}
+  ("uniform",)                closed-form top-L same-signature run
+                              (run_uniform)
+  ("scan",)                   the per-pod scan (run_batch, with its group
+                              branch when the drain needs groups)
 
 Routing differences from the JAX package, all exact sequential greedy
 (so the bind map is the same):
-- long mixed lean spans: the JAX package upgrades them to its plan
-  program; the port keeps them on the scan;
-- group drains the JAX package maps to "wavescan" (several signatures,
-  or a row `wave_same_mode` sends to the plan program: ScheduleAnyway,
-  self-matching required affinity, self score terms) run the scan;
 - scan-only group drains (below `WAVE_MIN_SPAN`, or with invalid rows):
   the JAX package tries its host greedy on a same-signature drain of
   16 pods or more; the port has no host scheduling path and runs the
-  scan.
+  scan;
+- the wave program's K·J narrowing: a same-signature wave wider than the
+  node axis (K·J < Lw) raises in the JAX package's `lax.top_k`, which
+  degrades the drain to its host path; the port narrows the wave
+  (Scheduler._wave_dispatch).
 
+The wave and plan tiers take spans of `WAVE_MIN_SPAN` pods or more;
+below it a group drain runs the scan in both packages.
 OpportunisticBatching and SpeculativeWavePlacement, the JAX package's
 gates for the uniform and wave tiers, are fixed at their defaults (on).
 """
@@ -31,12 +36,13 @@ from __future__ import annotations
 from collections import OrderedDict
 from dataclasses import dataclass, field
 
+from ..ops.program import PLAN_MAX_SIGS
 from .surfaces import SurfaceCache
 
 # plan cache bound (structural keys are small; drains repeat heavily)
 PLAN_CACHE_LIMIT = 256
-# shortest same-signature group drain the wave program takes (the JAX
-# package's Scheduler.wave_min_span)
+# shortest span the wave and plan programs take (the JAX package's
+# Scheduler.wave_min_span)
 WAVE_MIN_SPAN = 24
 
 
@@ -51,7 +57,8 @@ class DrainPlan:
 @dataclass
 class DrainCompiler:
     """Maps a drain's pod mix to a DrainPlan. Holds the per-signature
-    SurfaceCache (hoisted wave surfaces) and the keyed plan cache."""
+    SurfaceCache (hoisted wave and plan surfaces) and the keyed plan
+    cache."""
 
     builder: object
     state: object
@@ -76,15 +83,26 @@ class DrainCompiler:
         if plan is not None:
             self._plans.move_to_end(key)
             return plan
+        spans = None
         if groups_needed:
             wave = self._classify_wave(batch, n)
-            spans = [(0, n, wave if wave is not None else ("scan",))]
-        elif strategy != "LeastAllocated" or prefer_taints:
-            spans = [(0, n, ("scan",))]
-        else:
-            spans = [(i, j, ("uniform",) if uniform else ("scan",))
-                     for (i, j, uniform)
-                     in self._classify_runs(batch, n, uniform_min)]
+            if wave is not None:
+                spans = [(0, n, wave)]
+        if spans is None:
+            # the lean tiers; a group drain no wave program covers is one
+            # scan span
+            if (groups_needed or strategy != "LeastAllocated"
+                    or prefer_taints):
+                spans = [(0, n, ("scan",))]
+            else:
+                spans = [(i, j, ("uniform",) if uniform else ("scan",))
+                         for (i, j, uniform)
+                         in self._classify_runs(batch, n, uniform_min)]
+            if not groups_needed:
+                # non-interacting signatures in one plan span: the
+                # alternating mixed drain that thrashes the scan's
+                # one-slot signature cache
+                spans = [self._lean_span(batch, s) for s in spans]
         plan = DrainPlan(spans=spans, key=key)
         self._plans[key] = plan
         if len(self._plans) > PLAN_CACHE_LIMIT:
@@ -113,30 +131,47 @@ class DrainCompiler:
         return runs
 
     def _classify_wave(self, batch, n: int):
-        """("wave", u, anti_term, merge) for a same-signature port-free
-        group drain of at least WAVE_MIN_SPAN valid pods whose row the
-        same-signature program covers; None otherwise (the scan)."""
+        """Whole-drain program for a group drain, or None (the scan):
+        ("wave", u, anti_term, merge) for a same-signature port-free drain
+        whose row the same-signature program covers; otherwise
+        ("wavescan", rows, has_ports) for up to PLAN_MAX_SIGS distinct
+        signatures, host-port rows included. Both need at least
+        WAVE_MIN_SPAN pods, all valid."""
         if n < WAVE_MIN_SPAN or not batch.valid[:n].all():
             return None
-        sig = batch.sig[:n]
-        if (sig == 0).any():
-            return None
+        has_ports = bool((batch.sig[:n] == 0).any())
         uniq = list(dict.fromkeys(batch.tidx[:n].tolist()))
-        if len(uniq) != 1:
-            return None
-        mode, anti = wave_same_mode(self.builder.groups, int(uniq[0]))
-        if mode is None:
-            return None
-        return ("wave", int(uniq[0]), anti, mode == "merge")
+        if len(uniq) == 1 and not has_ports:
+            mode, anti = wave_same_mode(self.builder.groups, int(uniq[0]))
+            if mode is not None:
+                return ("wave", int(uniq[0]), anti, mode == "merge")
+        if len(uniq) <= PLAN_MAX_SIGS:
+            return ("wavescan", tuple(int(u) for u in uniq), has_ports)
+        return None
+
+    def _lean_span(self, batch, span):
+        """Upgrade an eligible scan span of a group-free drain to the lean
+        plan program; anything ineligible keeps its kind."""
+        i, j, kind = span
+        if kind[0] != "scan" or j - i < WAVE_MIN_SPAN:
+            return span
+        if not batch.valid[i:j].all():
+            return span
+        has_ports = bool((batch.sig[i:j] == 0).any())
+        uniq = list(dict.fromkeys(int(t) for t in batch.tidx[i:j]))
+        if len(uniq) > PLAN_MAX_SIGS:
+            return span
+        return (i, j, ("wavescan", tuple(uniq), has_ports))
 
 
 def wave_same_mode(g, u: int):
     """(mode, anti_term) of GroupManager `g`'s row `u` for the
     same-signature program: "merge" runs the closed-form wave loop (with
     `anti_term` the row's single self-matching required-anti term, -1 =
-    none), "serial" the exact in-dispatch scan only, None = the row's
-    in-wave self-interactions (ScheduleAnyway counts, required affinity,
-    score terms) are outside the state the program maintains."""
+    none), "serial" the exact in-dispatch scan only, None = the row needs
+    the plan program (its in-wave self-interactions — ScheduleAnyway
+    counts, required affinity, score terms — are outside the
+    same-signature state the wave program maintains)."""
     if u >= len(g.rows):
         return None, -1
     if g.spr_s_active[u].any():

@@ -1,7 +1,7 @@
 """Per-signature kernel-surface cache with generation-diff retention.
 
-Counterpart of kubernetes_tpu/compiler/surfaces.py. The wave program
-hoists every carry-INDEPENDENT kernel — the static filter mask
+Counterpart of kubernetes_tpu/compiler/surfaces.py. The wave and plan
+programs hoist every carry-INDEPENDENT kernel — the static filter mask
 (name/unschedulable/taints/selector), the TaintToleration and
 preferred-affinity raw counts, the ImageLocality score — out of the
 dispatch as per-signature [N] surfaces (ops/program.py wave_statics).
@@ -14,6 +14,8 @@ steady-state drain cycle.
 """
 
 from __future__ import annotations
+
+import torch
 
 
 class SurfaceCache:
@@ -66,3 +68,9 @@ class SurfaceCache:
             for k, u in enumerate(chunk):
                 self._rows[u] = (m_[k], tr[k], nr[k], si[k])
         return [self._rows[u] for u in rows]
+
+    def stacked(self, na, table, rows: tuple) -> tuple:
+        """Surfaces for `rows` stacked into ([S, N], ...) — the layout
+        run_plan consumes."""
+        per_row = self.get(na, table, rows)
+        return tuple(torch.stack([r[f] for r in per_row]) for f in range(4))

@@ -246,6 +246,46 @@ def group_mask(gd: GroupsDev, gc: GroupCarry, tidx,
     return group_mask_view(view_of(gd, gc, tidx), fam or ALL_FAMILIES)
 
 
+def group_reason_masks(gd: GroupsDev, gc: GroupCarry, tidx,
+                       fam: Optional[GroupFamilies] = None):
+    """Diagnosis companion of `group_mask`: the same formulas, split into
+    the five per-node failure masks the host filters report —
+    (spr_missing, spr_skew, aff_fail, anti_fail, exist_fail), each bool
+    [N]. Spread attributes each node to its FIRST failing constraint (the
+    host filter returns on the first violation); the caller layers these
+    under the host's plugin order (spread before inter-pod affinity)."""
+    fam = fam or ALL_FAMILIES
+    v = view_of(gd, gc, tidx)
+    n = v.veto.shape[-1]
+    false = torch.zeros((n,), dtype=torch.bool, device=v.veto.device)
+    spr_missing = spr_skew = aff_fail = anti_fail = exist_fail = false
+
+    if fam.spr_f:
+        minv = spread_min(v)
+        ok = (v.f_cnt + v.f_self[:, None] - minv[:, None]
+              <= v.f_skew[:, None])
+        missing_c = v.f_act[:, None] & (v.f_tv == 0)        # [SC, N]
+        fail_c = v.f_act[:, None] & ((v.f_tv == 0) | ~ok)
+        any_fail = fail_c.any(dim=0)
+        first_c = torch.argmax(fail_c.to(_I32), dim=0)      # first max
+        first_missing = torch.gather(missing_c, 0, first_c[None, :])[0]
+        spr_missing = any_fail & first_missing
+        spr_skew = any_fail & ~first_missing
+
+    if fam.ipa_req:
+        tv_all = (~v.ra_act[:, None] | (v.ra_tv != 0)).all(dim=0)
+        pods_exist = (~v.ra_act[:, None] | (v.a_cnt > 0)).all(dim=0)
+        escape = (v.a_total == 0) & v.self_all
+        aff_fail = v.ra_act.any() & ~(tv_all & (pods_exist | escape))
+
+    if fam.ipa_anti:
+        anti_fail = (v.raa_act[:, None] & (v.raa_tv != 0)
+                     & (v.aa_cnt > 0)).any(dim=0)
+        exist_fail = v.veto != 0
+
+    return spr_missing, spr_skew, aff_fail, anti_fail, exist_fail
+
+
 def _spread_scores(v: GroupView, feasible):
     """PodTopologySpread score (scoring.go:199-271), normalized
     (MAX·(max+min−s)//max); 0 on missing-keys and infeasible nodes."""

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
-           "run_wave")
+           "run_wave", "run_plan", "diagnose_row")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean and its group mode under two keys
@@ -47,6 +47,7 @@ MAX_IC = 16    # csrc/lean_eval.cuh KT_MAX_IC
 MAX_SC = 8     # csrc/group_eval.cuh KT_MAX_SC
 MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
 MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
+MAX_PLAN_SLOTS = 32       # csrc/run_plan.cu KT_PLAN_MAX_S
 
 
 def reset_launches() -> None:
@@ -203,6 +204,11 @@ _WAVE_SCRATCH = ("f_cnt", "veto", "aa_cnt", "cnt_n", "cnt_add", "gmask",
                  "newcnt", "lvlmask")
 
 
+_PLAN_SCRATCH = ("fit_ok", "s_fit", "s_bal", "f_cnt", "s_cnt", "veto",
+                 "a_cnt", "a_total", "aa_cnt", "iscore", "cnt_sn", "feas",
+                 "gsc", "flags", "seg")
+
+
 class WaveArgsC(ctypes.Structure):
     _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
                  ("g", GroupsC), ("gin", GCarryC), ("gout", GCarryC),
@@ -215,6 +221,30 @@ class WaveArgsC(ctypes.Structure):
                 + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)]
                 + [(f, _P) for f in _WAVE_SCRATCH]
                 + [("P0", _I), ("P1", _I), ("packed", _P)])
+
+
+class PlanArgsC(ctypes.Structure):
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
+                 ("g", GroupsC), ("gin", GCarryC), ("gout", GCarryC),
+                 ("fam", FamC)]
+                + [(f, _P) for f in ("used", "nonzero_used", "npods",
+                                     "ports")]
+                + [("P", _I)]
+                + [(f, _P) for f in ("m0", "taint_raw", "na_raw", "s_img",
+                                     "valid", "widx")]
+                + [("wt", _I * MAX_PLAN_SLOTS)]
+                + [(f, _I) for f in ("S", "W", "norm_live", "has_groups",
+                                     "has_ports")]
+                + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)]
+                + [(f, _P) for f in _PLAN_SCRATCH]
+                + [("packed", _P)])
+
+
+class DiagArgsC(ctypes.Structure):
+    _fields_ = [("na", NodeC), ("tb", TableC), ("used", _P), ("npods", _P),
+                ("ports", _P), ("P", _I), ("tidx", _I), ("has_groups", _I),
+                ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
+                ("slot", _P), ("pods_fail", _P), ("cols_fail", _P)]
 
 
 def _bind(name: str, lib):
@@ -233,9 +263,15 @@ def _bind(name: str, lib):
     elif name == "wave_statics":
         lib.ktpu_wave_statics.argtypes = [_P, _P, _P] + [_I] * 4 + [_P] * 6
         lib.ktpu_wave_statics.restype = ctypes.c_int
-    else:
+    elif name == "run_wave":
         lib.ktpu_run_wave.argtypes = [_P, _P]
         lib.ktpu_run_wave.restype = ctypes.c_int
+    elif name == "run_plan":
+        lib.ktpu_run_plan.argtypes = [_P, _P]
+        lib.ktpu_run_plan.restype = ctypes.c_int
+    else:
+        lib.ktpu_diagnose_row.argtypes = [_P, _P]
+        lib.ktpu_diagnose_row.restype = ctypes.c_int
     return lib
 
 
@@ -737,3 +773,127 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
         sig=torch.zeros((), dtype=torch.int32, device=device))
     return Carry(used=used, nonzero_used=nz, npods=npods, ports=carry.ports,
                  cache=cache, groups=gout_t), packed
+
+
+def run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
+                  norm_live: bool, has_groups: bool, has_ports: bool):
+    """The plan program (csrc/run_plan.cu) over one mixed-signature span;
+    same contract as program.run_plan."""
+    from .program import Carry
+    libs = build()
+    device = carry.used.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    rows = [int(u) for u in wt]
+    S = len(rows)
+    if not 1 <= S <= MAX_PLAN_SLOTS:
+        raise ValueError(f"run_plan: {S} signature slots, kernel takes "
+                         f"1..{MAX_PLAN_SLOTS}")
+    if any(not 0 <= u < tab.U for u in rows):
+        raise ValueError(f"run_plan: rows {rows} outside the table")
+    W = xs.valid.shape[0]
+    valid_p = _check(xs.valid, "xs.valid", torch.bool, 1, device)
+    widx_p = _check(xs.widx, "xs.widx", torch.int32, 1, device)
+    if xs.widx.shape[0] != W or W < 1:
+        raise ValueError("run_plan: xs.valid / xs.widx lengths differ")
+    stat = [_check(t, f"statics[{k}]", dt, 2, device) for k, (t, dt) in
+            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
+                                    torch.int64)))]
+    if any(tuple(t.shape) != (S, N) for t in statics):
+        raise ValueError(f"run_plan: statics must be [{S}, {N}] each")
+    _carry_c(carry, N, R, device)
+    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
+    if has_groups:
+        g = _groups_c(gd, N, device)
+        gin = _gcarry_c(carry.groups, g, device)
+        if any(u >= g.U for u in rows):
+            raise ValueError(f"run_plan: rows {rows} outside the group "
+                             "tables")
+        if g.U > tab.U:
+            raise ValueError("run_plan: more group rows than table rows")
+        gout_t = _clone_groups(carry.groups)
+        gout = _gcarry_c(gout_t, g, device)
+        famc = _fam_c(fam)
+        SC, TA, TAA = g.SC, g.TA, g.TAA
+    else:
+        g, gin, gout, famc = GroupsC(), GCarryC(), GCarryC(), FamC()
+        gout_t = carry.groups
+        SC = TA = TAA = 0
+    used = carry.used.clone()
+    nz = carry.nonzero_used.clone()
+    npods = carry.npods.clone()
+    ports = carry.ports.clone() if has_ports else carry.ports
+    G = S if has_groups else 0    # slots with group state
+    sizes = {"fit_ok": (S * N, u8), "s_fit": (S * N, i64),
+             "s_bal": (S * N, i64), "feas": (N, u8),
+             "f_cnt": (G * SC * N, i32), "s_cnt": (G * SC * N, i32),
+             "veto": (G * N, i32), "a_cnt": (G * TA * N, i32),
+             "a_total": (G, i64), "aa_cnt": (G * TAA * N, i32),
+             "iscore": (G * N, i64), "cnt_sn": (G * N, i32),
+             "gsc": (G and N, i64), "flags": (SC * N, i32),
+             "seg": (G and N, i64)}
+    scratch = {k: torch.empty((max(n, 1),), dtype=dt, device=device)
+               for k, (n, dt) in sizes.items()}
+    packed = torch.empty((W + 2,), dtype=i32, device=device)
+    wt_c = (_I * MAX_PLAN_SLOTS)(*(rows + [0] * (MAX_PLAN_SLOTS - S)))
+    # the struct stays bound to a name until the call returns
+    args = PlanArgsC(
+        na=node, tb=tab, cfg=_cfg_c(cfg, R), g=g, gin=gin, gout=gout,
+        fam=famc, used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+        npods=npods.data_ptr(), ports=ports.data_ptr(),
+        P=carry.ports.shape[1], m0=stat[0], taint_raw=stat[1],
+        na_raw=stat[2], s_img=stat[3], valid=valid_p, widx=widx_p, wt=wt_c,
+        S=S, W=W, norm_live=int(bool(norm_live)),
+        has_groups=int(bool(has_groups)), has_ports=int(bool(has_ports)),
+        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, packed=packed.data_ptr(),
+        **{k: t.data_ptr() for k, t in scratch.items()})
+    rc = libs["run_plan"].ktpu_run_plan(ctypes.addressof(args),
+                                        _stream(device))
+    _raise_on(rc, "run_plan")
+    LAUNCHES["run_plan"] += 1
+    cache = carry.cache._replace(
+        sig=torch.zeros((), dtype=torch.int32, device=device))
+    return Carry(used=used, nonzero_used=nz, npods=npods, ports=ports,
+                 cache=cache, groups=gout_t), packed
+
+
+def diagnose_row_cuda(na, table, tidx: int, gd=None, gc=None, fam=None):
+    """The mask diagnosis (csrc/diagnose_row.cu) of table row `tidx`; same
+    contract as program.diagnose_row."""
+    libs = build()
+    device = na.valid.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    tidx = int(tidx)
+    if not 0 <= tidx < tab.U:
+        raise ValueError(f"diagnose_row: row {tidx} outside the table")
+    used = _check(na.used, "na.used", torch.int64, 2, device)
+    npods = _check(na.npods, "na.npods", torch.int32, 1, device)
+    ports = _check(na.ports, "na.ports", torch.int32, 2, device)
+    if (tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N
+            or na.ports.shape[0] != N):
+        raise ValueError("diagnose_row: node state shapes differ from cap")
+    if gd is not None:
+        g = _groups_c(gd, N, device)
+        gcc = _gcarry_c(gc, g, device)
+        if tidx >= g.U:
+            raise ValueError(f"diagnose_row: row {tidx} outside the group "
+                             "tables")
+        famc = _fam_c(fam if fam is not None else (1,) * 5)
+    else:
+        g, gcc, famc = GroupsC(), GCarryC(), FamC()
+    slot = torch.empty((N,), dtype=torch.int32, device=device)
+    pods_fail = torch.empty((N,), dtype=torch.bool, device=device)
+    cols_fail = torch.empty((N, R), dtype=torch.bool, device=device)
+    args = DiagArgsC(na=node, tb=tab, used=used, npods=npods, ports=ports,
+                     P=na.ports.shape[1], tidx=tidx,
+                     has_groups=int(gd is not None), g=g, gc=gcc, fam=famc,
+                     slot=slot.data_ptr(), pods_fail=pods_fail.data_ptr(),
+                     cols_fail=cols_fail.data_ptr())
+    rc = libs["diagnose_row"].ktpu_diagnose_row(ctypes.addressof(args),
+                                                _stream(device))
+    _raise_on(rc, "diagnose_row")
+    LAUNCHES["diagnose_row"] += 1
+    return slot, pods_fail, cols_fail

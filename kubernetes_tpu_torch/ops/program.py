@@ -1,22 +1,23 @@
-"""The device program: per-pod scan, closed-form uniform run, group waves.
+"""The device program: per-pod scan, closed-form uniform run, group waves,
+the multi-signature plan program and the mask diagnosis.
 
 PyTorch counterpart of kubernetes_tpu/ops/program.py without the
-nominated-pod overlay and the multi-signature plan program. Every device
-program here has two implementations:
+nominated-pod overlay. Every device program here has two implementations:
 
 - a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain`,
-  `_wave_statics_plain`, `_run_wave_plain`, `_scatter_rows_plain` and the
-  filter/score functions below), a line-for-line translation of the JAX
+  `_wave_statics_plain`, `_run_wave_plain`, `_run_plan_plain`,
+  `_diagnose_plain`, `_scatter_rows_plain` and the filter/score
+  functions below), a line-for-line translation of the JAX
   functions with the same dtypes and the same integer and float
   arithmetic — the CPU path and the reference the CUDA kernels are held
   to;
 - a hand-written CUDA kernel (ops/kernels.py, csrc/), launched when the
   inputs lie on a CUDA device.
 
-`run_batch`, `run_uniform`, `wave_statics`, `run_wave` and `scatter_rows`
-pick by the device of their inputs: CPU tensors take the plain version,
-CUDA tensors launch the kernel, and anything else raises. There is no
-fallback between the two.
+`run_batch`, `run_uniform`, `wave_statics`, `run_wave`, `run_plan`,
+`diagnose_row` and `scatter_rows` pick by the device of their inputs: CPU
+tensors take the plain version, CUDA tensors launch the kernel, and
+anything else raises. There is no fallback between the two.
 
 Translation notes (where a naive port diverges from the JAX program):
 - int64 / int64 in torch is float32; every ratio casts to float64 first
@@ -1082,3 +1083,368 @@ def run_wave(cfg: ScoreConfig, na: NodeArrays, carry: Carry, valid,
         raise RuntimeError(f"run_wave: unsupported device {dev}")
     return _run_wave_plain(cfg, na, carry, valid, table, wt, gd, statics, K,
                            J, Lw, fam, norm_live, anti_term, merge_on)
+
+
+# ---------------------------------------------------------------------------
+# the plan program: mixed-signature spans over hoisted surfaces
+
+# signature-lattice ceiling of one plan span (compiler/plan.py)
+PLAN_MAX_SIGS = 32
+
+
+class WaveXs(NamedTuple):
+    """Per-pod plan inputs ([W] = span bucket, serial priority order)."""
+
+    valid: object    # bool [W]
+    widx: object     # i32 [W] — slot into the span's row set wt [S]
+
+
+class _WaveState(NamedTuple):
+    """The plan program's loop state: node bookkeeping, the S rows' fit
+    surfaces and group counters, and the conflict stats."""
+
+    used: torch.Tensor          # i64 [N, R]
+    nonzero_used: torch.Tensor  # i64 [N, 2]
+    npods: torch.Tensor         # i32 [N]
+    fit_ok: torch.Tensor        # bool [S, N]
+    s_fit: torch.Tensor         # i64 [S, N]
+    s_bal: torch.Tensor         # i64 [S, N]
+    f_cnt: object               # i32 [S, SC, N]
+    s_cnt: object               # i32 [S, SC, N]
+    veto: object                # i32 [S, N]
+    a_cnt: object               # i32 [S, TA, N]
+    a_total: object             # i64 [S]
+    aa_cnt: object              # i32 [S, TAA, N]
+    iscore: object              # i64 [S, N]
+    cnt_sn: object              # i32 [S, N] — accepted placements (fold)
+    ports: object = None        # i32 [N, P] (has_ports only)
+
+
+def _run_plan_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                    xs: WaveXs, table: PodTableDev, wt, gd, statics, fam,
+                    norm_live: bool, has_groups: bool, has_ports: bool):
+    from .groups import GroupView, group_mask_view, group_scores_view, \
+        wave_fold
+
+    gc = carry.groups
+    dev = carry.used.device
+    wt = [int(u) for u in wt]
+    S = len(wt)
+    wt_t = torch.tensor(wt, dtype=_I64, device=dev)
+    rows = PodRow(valid=True, sig=1, **{
+        name: getattr(table, name)[wt_t] for name in PodTableDev._fields})
+    static_mask, taint_raw, na_raw, s_img = statics
+
+    # Phase A: the fit surfaces of every row at the pre-span carry
+    fits = [(fit_mask(na.cap, carry.used, carry.npods, na.allowed_pods,
+                      rows.req[s]),)
+            + _fit_scores(cfg, na, carry, _gather_row(table, u, True, 1))
+            for s, u in enumerate(wt)]
+    fit0, sfit0, sbal0 = (torch.stack([f[k] for f in fits])
+                          for k in range(3))
+
+    if has_groups:
+        # span-local group statics ([S, ...]) and the pairwise
+        # [placed slot, consumer slot] match slices
+        f_act, f_skew = gd.spr_f_active[wt_t], gd.spr_f_max_skew[wt_t]
+        f_self, f_minz = gd.spr_f_self[wt_t], gc.spr_f_min_zero[wt_t]
+        f_tv, f_elig = gd.spr_f_tv[wt_t], gd.spr_f_elig[wt_t]
+        s_act, s_skew = gd.spr_s_active[wt_t], gd.spr_s_max_skew[wt_t]
+        s_ishost, s_tv = gd.spr_s_is_host[wt_t], gd.spr_s_tv[wt_t]
+        s_elig, s_keys = gd.spr_s_elig[wt_t], gd.spr_s_keys_ok[wt_t]
+        s_dom = gd.spr_s_dom[wt_t]
+        ra_act, ra_tv = gd.ipa_ra_active[wt_t], gd.ipa_ra_tv[wt_t]
+        raa_act, raa_tv = gd.ipa_raa_active[wt_t], gd.ipa_raa_tv[wt_t]
+        self_all = gd.ipa_self_all[wt_t]
+        stc_tv, stp_tv = gd.ipa_stc_tv[wt_t], gd.ipa_stp_tv[wt_t]
+        m_f = gd.m_spr_f[wt_t][:, wt_t]
+        m_s = gd.m_spr_s[wt_t][:, wt_t]
+        m_a = gd.m_ipa_a[wt_t][:, wt_t]
+        m_aa = gd.m_ipa_aa[wt_t][:, wt_t]
+        m_ex = gd.m_ipa_exist[wt_t][:, wt_t]
+        w_c = gd.w_stc[wt_t][:, wt_t]
+        w_p = gd.w_stp[wt_t][:, wt_t]
+
+    def grp(name):
+        return getattr(gc, name)[wt_t] if has_groups else None
+
+    st = _WaveState(
+        used=carry.used, nonzero_used=carry.nonzero_used, npods=carry.npods,
+        fit_ok=fit0, s_fit=sfit0, s_bal=sbal0, f_cnt=grp("spr_f_cnt"),
+        s_cnt=grp("spr_s_cnt"), veto=grp("ipa_veto"),
+        a_cnt=grp("ipa_a_cnt"), a_total=grp("ipa_a_total"),
+        aa_cnt=grp("ipa_aa_cnt"), iscore=grp("ipa_score"),
+        cnt_sn=(torch.zeros((S, na.cap.shape[0]), dtype=_I32, device=dev)
+                if has_groups else None),
+        ports=carry.ports if has_ports else None)
+
+    def _eval(stx: _WaveState, w: int):
+        """Feasibility + total score of slot `w` at the state (the scan's
+        _eval_pod formulas over the maintained surfaces and counters)."""
+        feasible = static_mask[w] & stx.fit_ok[w]
+        if has_ports:
+            feasible = feasible & ports_mask(stx.ports, rows.port_ids[w])
+        if has_groups:
+            view = GroupView(
+                f_act=f_act[w], f_skew=f_skew[w], f_self=f_self[w],
+                f_minz=f_minz[w], f_tv=f_tv[w], f_elig=f_elig[w],
+                f_cnt=stx.f_cnt[w], s_act=s_act[w], s_skew=s_skew[w],
+                s_is_host=s_ishost[w], s_tv=s_tv[w], s_keys_ok=s_keys[w],
+                s_dom=s_dom[w], s_cnt=stx.s_cnt[w], ra_act=ra_act[w],
+                ra_tv=ra_tv[w], raa_act=raa_act[w], raa_tv=raa_tv[w],
+                self_all=self_all[w], veto=stx.veto[w], a_cnt=stx.a_cnt[w],
+                a_total=stx.a_total[w], aa_cnt=stx.aa_cnt[w],
+                iscore=stx.iscore[w])
+            feasible = feasible & group_mask_view(view, fam)
+        if norm_live:
+            s_taint = default_normalize(taint_raw[w], feasible, reverse=True)
+            s_na = default_normalize(na_raw[w], feasible, reverse=False)
+            tn = cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
+        else:
+            # static_norm_ok: every raw count is zero, so DefaultNormalize
+            # degenerates to the constants 100 / 0
+            tn = cfg.w_taint * MAX_SCORE
+        total = (cfg.w_fit * stx.s_fit[w] + cfg.w_balanced * stx.s_bal[w]
+                 + tn + cfg.w_image * s_img[w])
+        if has_groups:
+            total = total + group_scores_view(cfg.w_spread, cfg.w_ipa, view,
+                                              feasible, fam)
+        return feasible, total
+
+    def _argmax(feasible, total):
+        masked = torch.where(feasible, total, torch.full_like(total, -1))
+        best = int(torch.argmax(masked))
+        return best, int(masked[best]) >= 0
+
+    # the speculative choice of every slot at the pre-span state
+    spec_y = []
+    for s in range(S):
+        b, ok = _argmax(*_eval(st, s))
+        spec_y.append(b if ok else -1)
+
+    cols, slots = _cols(cfg)
+    nz = torch.tensor(cfg.col_nonzero, device=dev)
+
+    def same_tv(tv, tvb):
+        return (tv == tvb[..., None]) & (tvb[..., None] != 0)
+
+    valid = [bool(v) for v in xs.valid.tolist()]
+    widx = [int(w) for w in xs.widx.tolist()]
+    ys = []
+    clean, n_conf, prefix = True, 0, 0
+    for v, w in zip(valid, widx):
+        best, ok = _argmax(*_eval(st, w))
+        assigned = ok and v
+        if assigned:
+            # a placement that does not happen adds zeros everywhere, so
+            # the unassigned step is the identity
+            used = st.used.clone()
+            used[best] += rows.req[w]
+            nzu = st.nonzero_used.clone()
+            nzu[best] += rows.nonzero_req[w]
+            npods = st.npods.clone()
+            npods[best] += 1
+            # refresh the fit surfaces of EVERY slot at the touched node
+            # (_row_refresh semantics, batched over the slots)
+            cap_row, used_row, nz_row = na.cap[best], used[best], nzu[best]
+            fit_b = ((npods[best] + 1 <= na.allowed_pods[best])
+                     & ((rows.req == 0)
+                        | (used_row[None] + rows.req <= cap_row[None]))
+                     .all(dim=1))
+            cap_r = cap_row[cols][None, :]
+            used_pl_r = used_row[cols][None, :] + rows.req[:, cols]
+            used_cols_r = torch.where(
+                nz[None, :], nz_row[slots][None, :]
+                + rows.nonzero_req[:, slots], used_pl_r)
+            sfit_b = least_allocated(cfg, cap_r, used_cols_r)
+            bal_b = balanced_allocation(cap_r, used_pl_r)
+            sbal_b = torch.where(rows.skip_balanced, torch.zeros_like(bal_b),
+                                 bal_b)
+
+            def put_col(arr, new):
+                out = arr.clone()
+                out[:, best] = new
+                return out
+
+            upd = dict(used=used, nonzero_used=nzu, npods=npods,
+                       fit_ok=put_col(st.fit_ok, fit_b),
+                       s_fit=put_col(st.s_fit, sfit_b),
+                       s_bal=put_col(st.s_bal, sbal_b))
+            # the group_update increments with consumer axis U → S
+            if has_groups and fam.spr_f:
+                inc = ((m_f[w] & f_elig[:, :, best])[:, :, None]
+                       & same_tv(f_tv, f_tv[:, :, best]))
+                upd["f_cnt"] = st.f_cnt + inc.to(_I32)
+            if has_groups and fam.spr_s:
+                tvb = s_tv[:, :, best]
+                is_b = (torch.arange(s_tv.shape[-1], device=dev)
+                        == best)[None, None, :]
+                share = torch.where(s_ishost[:, :, None], is_b,
+                                    same_tv(s_tv, tvb))
+                gate_c = torch.where(s_ishost, m_s[w],
+                                     m_s[w] & s_elig[:, :, best])
+                upd["s_cnt"] = st.s_cnt + (gate_c[:, :, None]
+                                           & share).to(_I32)
+            if has_groups and fam.ipa_anti:
+                share_anti = same_tv(raa_tv[w], raa_tv[w][:, best])
+                upd["veto"] = st.veto + (m_ex[w][:, :, None]
+                                         & share_anti[None]).sum(
+                    dim=1).to(_I32)
+                inc_aa = m_aa[w][:, :, None] & same_tv(raa_tv,
+                                                       raa_tv[:, :, best])
+                upd["aa_cnt"] = st.aa_cnt + inc_aa.to(_I32)
+            if has_groups and fam.ipa_req:
+                tvb_a = ra_tv[:, :, best]
+                inc_a = ((m_a[w][:, None] & ra_act)[:, :, None]
+                         & same_tv(ra_tv, tvb_a))
+                upd["a_cnt"] = st.a_cnt + inc_a.to(_I32)
+                upd["a_total"] = st.a_total + (
+                    m_a[w].to(_I64) * (ra_act & (tvb_a != 0)).sum(dim=1))
+            if has_groups and fam.ipa_score:
+                d_cons = (w_c[w][:, :, None]
+                          * same_tv(stc_tv, stc_tv[:, :, best])).sum(dim=1)
+                share_p = same_tv(stp_tv[w], stp_tv[w][:, best])
+                d_plcd = (w_p[w][:, :, None] * share_p[None]).sum(dim=1)
+                upd["iscore"] = st.iscore + d_cons + d_plcd
+            if has_groups:
+                cnt_sn = st.cnt_sn.clone()
+                cnt_sn[w, best] += 1
+                upd["cnt_sn"] = cnt_sn
+            pp = rows.port_ids[w]
+            if has_ports and bool((pp != 0).any()):
+                # the pod's port ids into the first free slots of the
+                # chosen node's row (_apply_assignment's port logic)
+                prow = st.ports[best]
+                free = prow == 0
+                rank = torch.cumsum(free.to(_I64), dim=0) - 1
+                nport = pp.shape[0]
+                incoming = torch.where(
+                    (rank >= 0) & (rank < nport) & free,
+                    pp[rank.clamp(0, nport - 1)], torch.zeros_like(prow))
+                ports = st.ports.clone()
+                ports[best] = torch.where(free, incoming, prow)
+                upd["ports"] = ports
+            st = st._replace(**upd)
+        y = best if assigned else -1
+        conflict = v and y != spec_y[w]
+        prefix += int(clean and v and not conflict)
+        clean = clean and not conflict
+        n_conf += int(conflict)
+        ys.append(y)
+
+    new_gc = (wave_fold(gd, gc, wt, st.cnt_sn, fam=fam) if has_groups
+              else carry.groups)
+    new_carry = Carry(used=st.used, nonzero_used=st.nonzero_used,
+                      npods=st.npods,
+                      ports=st.ports if has_ports else carry.ports,
+                      cache=carry.cache._replace(sig=torch.zeros(
+                          (), dtype=_I32, device=dev)),
+                      groups=new_gc)
+    packed = torch.tensor(ys + [n_conf, prefix], dtype=_I32, device=dev)
+    return new_carry, packed
+
+
+def run_plan(cfg: ScoreConfig, na: NodeArrays, carry: Carry, xs: WaveXs,
+             table: PodTableDev, wt, gd, statics, fam, norm_live: bool,
+             has_groups: bool = True, has_ports: bool = False):
+    """The drain compiler's plan program for one mixed-signature span (see
+    the JAX package's `_run_wave_scan_impl` for the exactness argument).
+    `wt` (sequence of int, S ≤ PLAN_MAX_SIGS, padded by repeating the
+    last row) are the span's table rows, `xs.widx` maps each pod to its
+    slot, `statics` are the rows' wave_statics stacked ([S, N] each).
+    Phase A evaluates every slot at the pre-span carry and records its
+    speculative argmax; Phase B replays the span exactly in serial order
+    over the maintained fit surfaces and group counters (and, with
+    `has_ports`, the ports carry); the epilogue folds the placements into
+    the full group carry. `has_groups=False` is the lean variant (no group
+    state; `gd` may be None). Returns (carry', packed i32 [W+2]):
+    assignments (-1 = none), then the conflict count and the conflict-free
+    prefix length. Never writes into `carry`."""
+    dev = carry.used.device
+    if len(wt) > PLAN_MAX_SIGS:
+        raise ValueError(f"run_plan: {len(wt)} signature slots > "
+                         f"{PLAN_MAX_SIGS}")
+    if has_groups and (gd is None or carry.groups is None):
+        raise ValueError("run_plan: has_groups needs gd and carry.groups")
+    if dev.type == "cuda":
+        from .kernels import run_plan_cuda
+        return run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
+                             norm_live, has_groups, has_ports)
+    if dev.type != "cpu":
+        raise RuntimeError(f"run_plan: unsupported device {dev}")
+    return _run_plan_plain(cfg, na, carry, xs, table, wt, gd, statics, fam,
+                           norm_live, has_groups, has_ports)
+
+
+# ---------------------------------------------------------------------------
+# mask diagnosis: each node's first failing filter, in the host plugin
+# order (a node's status comes from the first plugin that rejects it),
+# plus the per-resource fit detail the NodeResourcesFit reasons need
+
+DIAG_FEASIBLE = 0
+DIAG_INVALID = -1                 # padding / freed node row
+DIAG_NODE_UNSCHEDULABLE = 1
+DIAG_NODE_NAME = 2
+DIAG_TAINT = 3
+DIAG_NODE_AFFINITY = 4
+DIAG_PORTS = 5
+DIAG_FIT = 6
+DIAG_SPREAD_LABEL = 7             # missing topology key (unresolvable)
+DIAG_SPREAD_SKEW = 8
+DIAG_IPA_AFFINITY = 9
+DIAG_IPA_ANTI = 10
+DIAG_IPA_EXISTING_ANTI = 11
+
+
+def _diagnose_plain(na: NodeArrays, table: PodTableDev, tidx: int, gd=None,
+                    gc=None, fam=None):
+    """The JAX package's _diagnose_masks for table row `tidx`."""
+    from .groups import group_reason_masks
+
+    pod = _gather_row(table, int(tidx), True, 0)
+    unsched_ok = ~na.unschedulable | pod.tolerates_unsched
+    name_ok = (pod.node_name_id == 0) | (na.name_id == pod.node_name_id)
+    taint_ok = taint_filter_mask(na, pod)
+    sel_ok = selector_mask(na, pod)
+    ports_ok = ports_mask(na.ports, pod.port_ids)
+    pods_fail = na.npods + 1 > na.allowed_pods
+    cols_fail = (pod.req[None, :] != 0) & (na.used + pod.req[None, :]
+                                           > na.cap)           # [N, R]
+    fit_ok = ~pods_fail & ~cols_fail.any(dim=1)
+    false = torch.zeros_like(na.valid)
+    if gd is not None:
+        group = group_reason_masks(gd, gc, int(tidx), fam)
+    else:
+        group = (false,) * 5
+    # jnp.select: the first true condition wins, so apply them last first
+    conds = [~na.valid, ~unsched_ok, ~name_ok, ~taint_ok, ~sel_ok,
+             ~ports_ok, ~fit_ok, *group]
+    vals = [DIAG_INVALID, DIAG_NODE_UNSCHEDULABLE, DIAG_NODE_NAME,
+            DIAG_TAINT, DIAG_NODE_AFFINITY, DIAG_PORTS, DIAG_FIT,
+            DIAG_SPREAD_LABEL, DIAG_SPREAD_SKEW, DIAG_IPA_AFFINITY,
+            DIAG_IPA_ANTI, DIAG_IPA_EXISTING_ANTI]
+    slot = torch.full(na.valid.shape, DIAG_FEASIBLE, dtype=_I32,
+                      device=na.valid.device)
+    for c, v in zip(reversed(conds), reversed(vals)):
+        slot = torch.where(c, torch.full_like(slot, v), slot)
+    return slot, pods_fail, cols_fail
+
+
+def diagnose_row(na: NodeArrays, table: PodTableDev, tidx: int, gd=None,
+                 gc=None, fam=None):
+    """Reduce the filter masks of signature row `tidx` against node state
+    `na` (used/npods/ports = the post-commit truth) into (slot i32 [N],
+    pods_fail bool [N], cols_fail bool [N, R]): `slot` holds each node's
+    first failing filter (DIAG_*), the fit arrays the detail of DIAG_FIT
+    nodes ("Too many pods" / per-column Insufficient). With `gd` (and the
+    group carry `gc`, families `fam`) the spread and inter-pod filters
+    take part; without, the lean filters only."""
+    dev = na.valid.device
+    if (gd is None) != (gc is None):
+        raise ValueError("diagnose_row: gd and gc go together")
+    if dev.type == "cuda":
+        from .kernels import diagnose_row_cuda
+        return diagnose_row_cuda(na, table, tidx, gd, gc, fam)
+    if dev.type != "cpu":
+        raise RuntimeError(f"diagnose_row: unsupported device {dev}")
+    return _diagnose_plain(na, table, tidx, gd, gc, fam)

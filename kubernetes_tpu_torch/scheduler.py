@@ -6,11 +6,14 @@ TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
 BalancedAllocation, PodTopologySpread, InterPodAffinity, ImageLocality).
 The queue drains in device-sized batches; the drain compiler splits each
 batch into same-signature "uniform" runs (closed-form top-L, ops/program.py
-run_uniform), same-signature group "wave" spans (ops/program.py run_wave)
-and "scan" spans (ops/program.py run_batch, with the group branch when the
-drain needs groups); the carry, group counts included, chains on the
-device from span to span and drain to drain; the commit assumes the
-winners in the host cache and bulk-binds them through the dispatcher.
+run_uniform), same-signature group "wave" spans (ops/program.py run_wave),
+mixed-signature "wavescan" spans (the plan program, ops/program.py
+run_plan) and "scan" spans (ops/program.py run_batch, with the group
+branch when the drain needs groups); the carry, group counts included,
+chains on the device from span to span and drain to drain; the commit
+assumes the winners in the host cache and bulk-binds them through the
+dispatcher. A pod no node fits is diagnosed from the device filter masks
+(ops/program.py diagnose_row), as the JAX package does by default.
 
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
@@ -46,10 +49,12 @@ from .framework.runtime import Framework
 from .framework.types import (ActionType, ClusterEvent, Diagnosis,
                               EventResource, FitError, PodInfo,
                               QueuedPodInfo)
-from .ops.groups import scatter_new_rows, to_device
-from .ops.program import (PodXs, ScoreConfig, initial_carry, run_batch,
-                          run_uniform, run_wave, static_norm_ok,
-                          table_from_batch, with_cache_sig)
+from .ops import program as prog
+from .ops.groups import GroupFamilies, scatter_new_rows, to_device
+from .ops.program import (PodXs, ScoreConfig, WaveXs, diagnose_row,
+                          initial_carry, run_batch, run_plan, run_uniform,
+                          run_wave, static_norm_ok, table_from_batch,
+                          with_cache_sig)
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
 from .plugins.imagelocality import ImageLocality
@@ -140,7 +145,7 @@ class _RunRec:
     the run read — kept for uniform runs, the kind that can rewind and
     replay (no kernel writes into its input carry)."""
 
-    kind: str                 # "uniform" | "scan" | "wave"
+    kind: str                 # "uniform" | "scan" | "wave" | "wavescan"
     i: int
     j: int
     carry_in: object
@@ -259,10 +264,12 @@ class Scheduler:
         self._gd_fam = None
         self._gd_capacity = None
         self._seeded_rows = 0
-        # run_wave records resolved, and their packed stats summed: merge
-        # waves, conflict-cut events, serially placed pods, and the first
+        # run_wave and run_plan records resolved, and their packed stats
+        # summed: merge waves (one per plan span), conflict-cut events (a
+        # plan span's conflicting pods), serially placed pods, and the first
         # wave's accepted prefix of the most recent runs
         self.wave_runs = 0
+        self.plan_runs = 0
         self.wave_stats = {"waves": 0, "conflicts": 0, "serial_steps": 0,
                            "first_prefix": deque(maxlen=256)}
 
@@ -637,6 +644,11 @@ class Scheduler:
                     cfg, na, carry, batch, i, j, table, kind)
                 records.append(_RunRec("wave", i, j, None, packed, bucket,
                                        span=kind))
+            elif kind[0] == "wavescan":
+                c2, packed, bucket = self._wavescan_dispatch(
+                    cfg, na, carry, batch, i, j, table, kind)
+                records.append(_RunRec("wavescan", i, j, None, packed,
+                                       bucket, span=kind))
             else:
                 c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
                                                   j, table)
@@ -686,6 +698,42 @@ class Scheduler:
             cfg, na, carry, valid, table, u, self._gd_dev, statics, K, J,
             self._gd_fam, norm_live,
             anti_term=anti_term, merge_on=merge_on, Lw=Lw)
+        return carry2, packed, bucket
+
+    def _wavescan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                           j: int, table, span):
+        """The plan program (run_plan) over the mixed-signature pods
+        [i:j): group rows ride the resident group tensors, a group-free
+        drain takes the lean variant, a span holding host-port rows the
+        ports variant. The signature set pads to the pow2 lattice by
+        repeating its last row."""
+        _, uniq, has_ports = span
+        uniq = list(uniq)
+        m = j - i
+        bucket = pow2_at_least(m)
+        S = pow2_at_least(len(uniq), 2)
+        wt_list = (uniq + [uniq[-1]] * S)[:S]
+        slot: dict = {}
+        for s, u in enumerate(wt_list):
+            slot.setdefault(u, s)
+        widx = np.empty((bucket,), np.int32)
+        widx[:m] = [slot[int(t)] for t in batch.tidx[i:j]]
+        widx[m:] = widx[m - 1]
+        widx_t = torch.from_numpy(widx)
+        if self.device.type == "cuda":
+            widx_t = widx_t.pin_memory().to(self.device, non_blocking=True)
+        # a plan span's pods are all valid (DrainCompiler): its mask is the
+        # length-m prefix, built on the device
+        valid = torch.arange(bucket, device=self.device) < m
+        statics = self.compiler.surfaces.stacked(na, table, tuple(wt_list))
+        norm_live = not self._wave_norm_static(tuple(wt_list))
+        has_groups = self._gd_dev is not None
+        fam = (self._gd_fam if has_groups
+               else GroupFamilies(False, False, False, False, False))
+        carry2, packed = run_plan(
+            cfg, na, carry, WaveXs(valid=valid, widx=widx_t), table,
+            wt_list, self._gd_dev, statics, fam, norm_live,
+            has_groups=has_groups, has_ports=has_ports)
         return carry2, packed, bucket
 
     def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
@@ -770,9 +818,9 @@ class Scheduler:
             rec = pd.records[idx]
             r = host[idx]
             m = rec.j - rec.i
-            if rec.kind in ("scan", "wave"):
+            if rec.kind in ("scan", "wave", "wavescan"):
                 out[rec.i:rec.j] = r[:m]
-                if rec.kind == "wave":
+                if rec.kind != "scan":
                     self._observe_wave(rec, r)
                 idx += 1
                 continue
@@ -818,12 +866,19 @@ class Scheduler:
             self._device_carry = carry
 
     def _observe_wave(self, rec: _RunRec, r) -> None:
-        """Sum a resolved run_wave record's stats (packed [B:B+4]): merge
+        """Sum a resolved record's stats. run_wave (packed [B:B+4]): merge
         waves, conflict-cut events, the first wave's accepted prefix (-1
-        when no merge wave ran) and serially placed pods."""
+        when no merge wave ran) and serially placed pods. run_plan (packed
+        [B:B+2]): one wave, its conflicting pods and its conflict-free
+        prefix."""
         B = rec.L
-        waves, confs, prefix, serial = (int(x) for x in r[B:B + 4])
-        self.wave_runs += 1
+        if rec.kind == "wave":
+            waves, confs, prefix, serial = (int(x) for x in r[B:B + 4])
+            self.wave_runs += 1
+        else:
+            waves, serial = 1, 0
+            confs, prefix = int(r[B]), int(r[B + 1])
+            self.plan_runs += 1
         st = self.wave_stats
         st["waves"] += waves
         st["conflicts"] += confs
@@ -900,13 +955,18 @@ class Scheduler:
     def _device_fit_error(self, qpi: QueuedPodInfo, profile: Profile,
                           diag_cache: dict) -> FitError:
         """The device reports only that no node fits; the diagnosis (the
-        rejecting plugins, which drive the queueing hints) comes from a
-        host-oracle filter replay over the live snapshot, once per pod
-        signature per drain."""
+        rejecting plugins, which drive the queueing hints, and the per-node
+        reasons of the FailedScheduling message) comes from the device mask
+        reduction (diagnose_row) when the pod has a signature row, else
+        from a host filter replay over the live snapshot — the JAX
+        package's route. Once per pod signature per drain."""
+        # content key: host-port pods share a signature row yet carry sig 0
         sig = BatchBuilder._sig_key(qpi.pod)
         cached = diag_cache.get(sig)
         if cached is None:
-            cached = self._host_replay_diagnosis(qpi, profile)
+            cached = self._mask_diagnosis(qpi, diag_cache)
+            if cached is None:
+                cached = self._host_replay_diagnosis(qpi, profile)
             if not cached.unschedulable_plugins:
                 cached.unschedulable_plugins = {"NodeResourcesFit"}
             diag_cache[sig] = cached
@@ -929,6 +989,154 @@ class Scheduler:
         else:
             fwk.find_nodes_that_pass_filters(state, qpi.pod, nodes,
                                              pre_result, diagnosis)
+        return diagnosis
+
+    def _mask_diagnosis(self, qpi: QueuedPodInfo,
+                        diag_cache: dict) -> Optional[Diagnosis]:
+        """Diagnosis from the device filter masks: one diagnose_row
+        reduction against the post-commit node state attributes every
+        rejected node to its first failing plugin (host filter order) with
+        the exact per-reason detail. None for a pod without a signature
+        row (the host replay takes it, as in the JAX package)."""
+        ent = self.builder._lookup(qpi.pod)
+        if ent[0] != "row":
+            return None
+        tidx = ent[2]
+        ctx = diag_cache.get("_device_ctx")
+        if ctx is None or ctx[0] != self.builder.table_version:
+            ctx = diag_cache["_device_ctx"] = (self.builder.table_version,
+                                               self._diagnosis_context())
+        na, table, gd, gc, fam = ctx[1]
+        slot, pods_fail, cols_fail = diagnose_row(na, table, tidx, gd=gd,
+                                                  gc=gc, fam=fam)
+        return self._assemble_diagnosis(qpi, tidx, slot.cpu().numpy(),
+                                        pods_fail.cpu().numpy(),
+                                        cols_fail.cpu().numpy())
+
+    def _diagnosis_context(self):
+        """Post-commit device state for diagnose_row, built once per failed
+        drain: the node arrays refreshed from the live snapshot, the
+        signature table, and — when group constraints are live — fresh
+        group tensors."""
+        self.state.apply_snapshot(self.snapshot)
+        self.state.ensure_arrays()
+        na = self.state.device_arrays()
+        if (self._table_dev is not None
+                and self._table_dev_version == self.builder.table_version):
+            table = self._table_dev
+        else:
+            from .state.convert import pod_table_from_numpy
+            table = pod_table_from_numpy(self.builder.table, self.device)
+        gd = gc = fam = None
+        if (self.builder.groups.any_groups()
+                or bool(self.snapshot.have_pods_with_affinity_list)
+                or bool(self.snapshot
+                        .have_pods_with_required_anti_affinity_list)):
+            gd_np, gc_np = self.builder.groups.build_dev(self.snapshot)
+            gd = to_device(gd_np, self.device)
+            gc = to_device(gc_np, self.device)
+            fam = self.builder.groups.families(self.snapshot)
+        return na, table, gd, gc, fam
+
+    def _assemble_diagnosis(self, qpi: QueuedPodInfo, tidx: int, slot,
+                            pods_fail, cols_fail) -> Diagnosis:
+        """slot / fit arrays → Diagnosis with per-node Statuses carrying
+        the host plugins' exact reason strings and codes."""
+        from .plugins.interpodaffinity import (ERR_AFFINITY,
+                                               ERR_ANTI_AFFINITY,
+                                               ERR_EXISTING_ANTI_AFFINITY)
+        from .plugins.node_basics import find_matching_untolerated_taint
+        from .plugins.nodeaffinity import ERR_REASON as NA_ERR
+        from .plugins.podtopologyspread import (
+            ERR_REASON_CONSTRAINTS_NOT_MATCH, ERR_REASON_NODE_LABEL_NOT_MATCH)
+        pod = qpi.pod
+        diagnosis = Diagnosis()
+        names = self.state.node_names
+        # one shared Status per identical (slot, detail): a 5k-node mass
+        # rejection allocates a handful of Status objects, not 5k
+        shared: dict = {}
+        simple = {
+            prog.DIAG_NODE_UNSCHEDULABLE: (
+                Status.unresolvable, "node(s) were unschedulable",
+                "NodeUnschedulable"),
+            prog.DIAG_NODE_NAME: (
+                Status.unresolvable,
+                "node(s) didn't match the requested node name", "NodeName"),
+            prog.DIAG_NODE_AFFINITY: (
+                Status.unresolvable, NA_ERR, "NodeAffinity"),
+            prog.DIAG_PORTS: (
+                Status.unschedulable,
+                "node(s) didn't have free ports for the requested pod ports",
+                "NodePorts"),
+            prog.DIAG_SPREAD_LABEL: (
+                Status.unresolvable, ERR_REASON_NODE_LABEL_NOT_MATCH,
+                "PodTopologySpread"),
+            prog.DIAG_SPREAD_SKEW: (
+                Status.unschedulable, ERR_REASON_CONSTRAINTS_NOT_MATCH,
+                "PodTopologySpread"),
+            prog.DIAG_IPA_AFFINITY: (
+                Status.unresolvable, ERR_AFFINITY, "InterPodAffinity"),
+            prog.DIAG_IPA_ANTI: (
+                Status.unschedulable, ERR_ANTI_AFFINITY, "InterPodAffinity"),
+            prog.DIAG_IPA_EXISTING_ANTI: (
+                Status.unschedulable, ERR_EXISTING_ANTI_AFFINITY,
+                "InterPodAffinity"),
+        }
+        req_row = self.builder.table.req[tidx]
+        cap = self.state.arrays.cap
+        rnames = self.state.rtable.names
+        for i in np.nonzero(slot > 0)[0]:
+            i = int(i)
+            name = names[i] if i < len(names) else ""
+            if not name:
+                continue
+            s = int(slot[i])
+            if s == prog.DIAG_TAINT:
+                # the reason carries the taint: resolve it from the node
+                # itself, exactly like the host plugin
+                ni = self.snapshot.get(name)
+                taint = find_matching_untolerated_taint(
+                    ni.node.spec.taints, pod.spec.tolerations,
+                    TaintToleration.FILTER_EFFECTS) if ni is not None \
+                    else None
+                key = (s, taint.key if taint else "",
+                       taint.value if taint else "")
+                status = shared.get(key)
+                if status is None:
+                    reason = (f"node(s) had untolerated taint "
+                              f"{{{taint.key}: {taint.value}}}" if taint
+                              else "node(s) had untolerated taint")
+                    status = shared[key] = Status.unresolvable(
+                        reason, plugin="TaintToleration")
+            elif s == prog.DIAG_FIT:
+                # fit.go insufficient_resources: Too many pods + per-column
+                # Insufficient <resource>; unresolvable when a request
+                # exceeds this node's raw allocatable
+                cols = tuple(int(c) for c in np.nonzero(cols_fail[i])[0])
+                unresolvable = any(int(req_row[c]) > int(cap[i, c])
+                                   for c in cols)
+                key = (s, bool(pods_fail[i]), cols, unresolvable)
+                status = shared.get(key)
+                if status is None:
+                    reasons = []
+                    if pods_fail[i]:
+                        reasons.append("Too many pods")
+                    reasons.extend(
+                        "Insufficient " + (rnames[c] if c < len(rnames)
+                                           else f"resource-{c}")
+                        for c in cols)
+                    mk = (Status.unresolvable if unresolvable
+                          else Status.unschedulable)
+                    status = shared[key] = mk(*reasons,
+                                              plugin="NodeResourcesFit")
+            else:
+                status = shared.get(s)
+                if status is None:
+                    mk, reason, plugin = simple[s]
+                    status = shared[s] = mk(reason, plugin=plugin)
+            diagnosis.node_to_status[name] = status
+            if status.plugin:
+                diagnosis.unschedulable_plugins.add(status.plugin)
         return diagnosis
 
     def _could_preempt(self, pod: Pod) -> bool:

@@ -291,3 +291,175 @@ def test_scatter_rows_kernel_equals_plain(cuda):
     _equal(got, P._scatter_rows_plain(na, idx, rows))
     # non-writing: the input arrays are untouched
     _equal(na, before)
+
+
+# ---------------------------------------------------------------------------
+# the plan program (run_plan) and the mask diagnosis (diagnose_row)
+
+
+def _plan_span(batch, m, device):
+    """(wt, WaveXs) for the batch's first m pods, laid out as
+    Scheduler._wavescan_dispatch lays a span out."""
+    from kubernetes_tpu_torch.state.tensorize import pow2_at_least
+    uniq = list(dict.fromkeys(int(t) for t in batch.tidx[:m]))
+    S = pow2_at_least(len(uniq), 2)
+    wt = (uniq + [uniq[-1]] * S)[:S]
+    slot = {}
+    for s, u in enumerate(wt):
+        slot.setdefault(u, s)
+    bucket = pow2_at_least(m)
+    widx = [slot[int(t)] for t in batch.tidx[:m]]
+    widx += [widx[-1]] * (bucket - m)
+    valid = torch.arange(bucket, device=device) < m
+    return wt, P.WaveXs(valid=valid, widx=torch.tensor(
+        widx, dtype=torch.int32, device=device))
+
+
+def _mixed_pods(n, sigs, ports=False, kinds=("spread",)):
+    out = []
+    for i in range(n):
+        k = i % sigs
+        kind = kinds[i % len(kinds)]
+        w = make_pod(f"m{i}").req({"cpu": f"{250 + 50 * k}m",
+                                   "memory": "1Gi"}).label("app", "mix")
+        if kind == "spread":
+            w = w.spread_constraint(5, ZONE, "DoNotSchedule", {"app": "mix"})
+        elif kind == "anyway":
+            w = w.spread_constraint(2, ZONE, "ScheduleAnyway",
+                                    {"app": "mix"})
+        elif kind == "affinity":
+            w = w.pod_affinity(ZONE, {"app": "mix"})
+        elif kind == "anti":
+            w = w.label("anti", "y").pod_affinity(HOSTNAME, {"anti": "y"},
+                                                  anti=True)
+        elif kind == "score":
+            w = w.preferred_pod_affinity(ZONE, {"app": "mix"}, 7)
+        if ports and i % 4 == 1:
+            w = w.host_port(8080 + k % 2)
+        out.append(w.obj())
+    return out
+
+
+PLAN_CASES = {
+    # name: (nodes, pods, lean)
+    "lean_8sigs": (lambda: _zone_nodes(48, 4), lambda: _mixed_pods(
+        64, 8, kinds=("plain",)), True),
+    "lean_ports": (lambda: _zone_nodes(24, 3), lambda: _mixed_pods(
+        48, 4, ports=True, kinds=("plain",)), True),
+    "lean_prefer_taints": (lambda: _zone_nodes(40, 4, prefer=True),
+                           lambda: _mixed_pods(40, 4, kinds=("plain",)),
+                           True),
+    "spread_8sigs": (lambda: _zone_nodes(64, 16), lambda: _mixed_pods(
+        100, 8), False),
+    "spread_32sigs": (lambda: _zone_nodes(64, 8, cpu=64),
+                      lambda: _mixed_pods(96, 32), False),
+    "schedule_anyway": (lambda: _zone_nodes(40, 4, prefer=True),
+                        lambda: _mixed_pods(50, 2, kinds=("anyway",)),
+                        False),
+    "self_affinity": (lambda: _zone_nodes(40, 5), lambda: _mixed_pods(
+        40, 1, kinds=("affinity",)), False),
+    "mixed_terms_ports": (lambda: _zone_nodes(40, 5), lambda: _mixed_pods(
+        60, 5, ports=True,
+        kinds=("spread", "anyway", "affinity", "anti", "score")), False),
+    "capacity_tail": (lambda: _zone_nodes(6, 3, cpu=4), lambda: _mixed_pods(
+        40, 3), False),
+}
+
+
+def _run_plan_case(nodes, pods, lean, device, norm_live=None):
+    na, batch, table, gd, gc, fam, builder, state = _group_setup(
+        nodes, [], pods, device)
+    m = len(pods)
+    wt, xs = _plan_span(batch, m, device)
+    has_ports = bool((batch.sig[:m] == 0).any())
+    statics = P.wave_statics(na, table, wt)
+    if norm_live is None:
+        norm_live = not all(P.static_norm_ok(state.ensure_arrays(),
+                                             builder.table.pref_weight[u])
+                            for u in wt)
+    if lean:
+        from kubernetes_tpu_torch.ops.groups import GroupFamilies
+        gd = gc = None
+        fam = GroupFamilies(False, False, False, False, False)
+    carry = P.initial_carry(na, gc)
+    cfg = P.ScoreConfig()
+    got = P.run_plan(cfg, na, carry, xs, table, wt, gd, statics, fam,
+                     norm_live, has_groups=not lean, has_ports=has_ports)
+    want = P._run_plan_plain(cfg, na, carry, xs, table, wt, gd, statics,
+                             fam, norm_live, not lean, has_ports)
+    _equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("norm_live", [None, True])
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_run_plan_kernel_equals_plain(cuda, case, norm_live):
+    mk_nodes, mk_pods, lean = PLAN_CASES[case]
+    _run_plan_case(mk_nodes(), mk_pods(), lean, cuda, norm_live)
+
+
+def test_run_plan_kernel_full_width(cuda):
+    """MixedHighSignature's shape at full width: 5,000 nodes (8,192 rows),
+    16 zones, eight signatures under one zone spread."""
+    (kc, kp) = _run_plan_case(_zone_nodes(5000, 16, cpu=32),
+                              _mixed_pods(300, 8), False, cuda)
+    assert kc.used.shape[0] == 8192 and (kp[:300] >= 0).all()
+
+
+def test_run_plan_refuses_bad_arguments(cuda):
+    nodes, pods = _zone_nodes(16, 4), _mixed_pods(40, 4)
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(nodes, [], pods,
+                                                         cuda)
+    wt, xs = _plan_span(batch, 40, cuda)
+    statics = P.wave_statics(na, table, wt)
+    carry = P.initial_carry(na, gc)
+    cfg = P.ScoreConfig()
+    with pytest.raises(ValueError):
+        P.run_plan(cfg, na, carry, xs, table, wt * 9, gd,
+                   tuple(torch.cat([s] * 9) for s in statics), fam, False)
+    with pytest.raises(ValueError):
+        P.run_plan(cfg, na, carry, P.WaveXs(valid=xs.valid.cpu(),
+                                            widx=xs.widx), table, wt, gd,
+                   statics, fam, False)
+
+
+def _diag_cases():
+    nodes = _zone_nodes(30, 3, cpu=4)
+    nodes.append(make_node("keyless").capacity({"cpu": 8}).obj())
+    nodes.append(make_node("tainted").capacity({"cpu": 8})
+                 .taint("t", "v").zone("z0").label(HOSTNAME, "tainted")
+                 .obj())
+    existing = [make_pod(f"e{k}").req({"cpu": "3"}).label("app", "mix")
+                .node(f"n{k}").obj() for k in range(6)]
+    existing.append(make_pod("guard").req({"cpu": "1"}).node("n7")
+                    .pod_affinity(ZONE, {"app": "web"}, anti=True).obj())
+    pods = _mixed_pods(6, 3, ports=True,
+                       kinds=("spread", "affinity", "anti"))
+    pods.append(make_pod("web").req({"cpu": "1"}).label("app", "web").obj())
+    pods.append(make_pod("big").req({"cpu": "6"}).node_selector(
+        {"disk": "ssd"}).obj())
+    return nodes, existing, pods
+
+
+@pytest.mark.parametrize("groups", [False, True])
+def test_diagnose_row_kernel_equals_plain(cuda, groups):
+    nodes, existing, pods = _diag_cases()
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    kw = dict(gd=gd, gc=gc, fam=fam) if groups else {}
+    for u in sorted(set(int(t) for t in batch.tidx[:len(pods)])):
+        _equal(P.diagnose_row(na, table, u, **kw),
+               P._diagnose_plain(na, table, u, **kw))
+
+
+def test_diagnose_row_kernel_full_width(cuda):
+    nodes = _zone_nodes(5000, 16, cpu=32)
+    existing = [make_pod(f"e{k}").req({"cpu": "30"}).label("app", "mix")
+                .node(f"n{k}").obj() for k in range(0, 5000, 7)]
+    pods = _mixed_pods(8, 8)
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    for u in sorted(set(int(t) for t in batch.tidx[:8])):
+        _equal(P.diagnose_row(na, table, u, gd=gd, gc=gc, fam=fam),
+               P._diagnose_plain(na, table, u, gd, gc, fam))
+        _equal(P.diagnose_row(na, table, u), P._diagnose_plain(na, table, u))

@@ -6,7 +6,9 @@ images, four rotating signatures (scan spans), same-signature runs
 (uniform spans), memory-heavy runs on cpu-saturated nodes (uniform runs
 whose monotonicity fails: rewound and replayed) and pods no node can
 hold. Both packages, same seed, fixed clock: the bind map and the set of
-pending pods must be equal (exact)."""
+pending pods must be equal (exact), and every drain must compile to the
+same spans — the long mixed stretches to the lean plan program
+("wavescan"), with its ports variant where hostPort pods ride along."""
 
 import random
 
@@ -90,11 +92,30 @@ def _mixed_pods(w, rng, prefix, n_runs):
     return pods
 
 
+def _spy_plans(sched):
+    """The compiled spans of every drain, once per drain in dispatch
+    order. A rewound uniform run re-dispatches the drains chained after
+    it, and when that happens depends on how far each package's commit
+    pipeline had run; the plan of each drain does not."""
+    seen, batches = [], []
+    orig = sched.compiler.compile_drain
+
+    def spy(batch, n, **kw):
+        plan = orig(batch, n, **kw)
+        if not any(b is batch for b in batches):
+            batches.append(batch)
+            seen.append([tuple(s) for s in plan.spans])
+        return plan
+    sched.compiler.compile_drain = spy
+    return seen
+
+
 def _mixed(pkg, seed):
     w, Api = pkg[0], pkg[1]
     rng = random.Random(seed)
     api = Api()
     sched = make_scheduler(pkg, api, 256)
+    spans = _spy_plans(sched)
     for nd in _mixed_nodes(w, rng, 40, prefer=False):
         api.create_node(nd)
     sched.prime()
@@ -108,15 +129,20 @@ def _mixed(pkg, seed):
     for nd in _mixed_nodes(w, rng, 12, prefer=True, prefix="late"):
         api.create_node(nd)
     _create_pods(api, sched, _mixed_pods(w, rng, "b", 4), chunk=128)
-    return api, sched
+    return api, sched, spans
 
 
 @pytest.mark.parametrize("seed", [0])
 def test_mixed_lean_workload_bind_parity(seed):
-    jres = _outcome(*_mixed(JAX, seed))
-    tapi, tsched = _mixed(TORCH, seed)
+    japi, jsched, jspans = _mixed(JAX, seed)
+    jres = _outcome(japi, jsched)
+    tapi, tsched, tspans = _mixed(TORCH, seed)
     tres = _outcome(tapi, tsched)
     assert tres[1], "the workload must leave unschedulable pods pending"
     assert tsched.uniform_rewinds > 0, "no uniform run was rewound"
     assert tres == jres
+    assert tspans == jspans
+    plans = [s[2] for spans in tspans for s in spans if s[2][0] == "wavescan"]
+    assert plans and any(k[2] for k in plans), "no ports plan span"
+    assert tsched.plan_runs >= len(plans)
     assert tsched.reconcile() == []

@@ -6,9 +6,11 @@ workloads of kubernetes_tpu/perf/configs/performance-config.yaml:63-129,
 cut to 64 nodes and a few hundred pods created in 64-pod chunks) must end
 with the same bind map and pending set in both packages; every wave drain
 of the JAX package must compile to the same span in the port, and the
-port must have run run_wave. Then one case per routing difference (the
-port runs the scan where the JAX package takes its host greedy or its
-plan program), each with equal bind maps."""
+port must have run run_wave. MixedHighSignature- and
+MixedSchedulingBasePod-shaped workloads (:195-284, cut the same way) hold
+the plan program's "wavescan" spans to the JAX package's. Then one case
+per routing difference (the port runs the scan where the JAX package
+takes its host greedy), each with equal bind maps."""
 
 import pytest
 import torch
@@ -123,14 +125,18 @@ def _spread_pod(skew, action="DoNotSchedule", app="s"):
     return build
 
 
-def _check_routing(builds):
+def _check_routing(builds, same_spans: bool = False):
+    """Equal bind maps; with `same_spans` every drain compiled to the
+    JAX package's spans, else the port ran every drain on its scan."""
     japi, jsched, jspans = _routing_case(JAX, builds)
     tapi, tsched, tspans = _routing_case(TORCH, builds)
     assert _outcome(tapi, tsched) == _outcome(japi, jsched)
     assert tsched.reconcile() == []
-    # the port ran every drain on its scan
-    assert tspans and all(s[2] == ("scan",) for spans in tspans
-                          for s in spans)
+    if same_spans:
+        assert tspans == jspans
+    else:
+        assert tspans and all(s[2] == ("scan",) for spans in tspans
+                              for s in spans)
     return jsched, jspans
 
 
@@ -142,10 +148,10 @@ def test_routing_same_signature_drain_16_to_23_pods():
 
 
 def test_routing_schedule_anyway_drain():
-    """ScheduleAnyway rows go to the JAX package's plan program
-    ("wavescan"); the port's scan binds the same."""
+    """ScheduleAnyway rows go to the plan program ("wavescan") in both
+    packages: the same spans, the same binds."""
     _jsched, jspans = _check_routing(
-        [(40, _spread_pod(2, "ScheduleAnyway"))])
+        [(40, _spread_pod(2, "ScheduleAnyway"))], same_spans=True)
     assert any(s[2][0] == "wavescan" for spans in jspans for s in spans)
 
 
@@ -173,14 +179,16 @@ def test_wave_drain_on_tainted_cluster_renormalizes():
 def test_bound_pods_with_affinity_score_every_pod():
     """A bound pod's preferred and required terms move every incoming
     pod's scores and filters (symmetric affinity): the lean pods of the
-    drain run the group scan, in both packages."""
+    drain run the group plan program with the web pods, in both
+    packages."""
     def plain(w, name):
         return w.make_pod(name).req({"cpu": "500m", "memory": "1Gi"}).obj()
 
-    outs = []
+    outs, plans = [], []
     for pkg in (JAX, TORCH):
         w = pkg[0]
         api, sched = _cluster(pkg, 24, 4, 64)
+        plans.append(_spy_spans(sched))
         api.create_pod(w.make_pod("anchor").req({"cpu": "1"})
                        .label("app", "db").node("node-3")
                        .preferred_pod_affinity(ZONE, {"app": "web"}, 9)
@@ -193,6 +201,8 @@ def test_bound_pods_with_affinity_score_every_pod():
         sched.schedule_pending()
         outs.append(_outcome(api, sched))
     assert outs[0] == outs[1]
+    assert plans[0] == plans[1]
+    assert plans[1][0][0][2][0] == "wavescan"
     assert "node-3" not in [n for uid, n in outs[1][0].items()
                             if uid.startswith("default/web-")]
 
@@ -217,3 +227,74 @@ def test_anti_wave_wider_than_the_node_axis():
     assert jsched.device_fallbacks == 1
     assert tres == jres and len(tres[0]) == 12
     assert tsched.wave_runs == 1
+
+
+# -- the plan program's workloads (performance-config.yaml:195-284) --------
+
+
+def _mix_pod(w, name, cpu, labels, action="DoNotSchedule", mem="1Gi"):
+    p = w.make_pod(name).req({"cpu": cpu, "memory": mem})
+    for k, v in labels.items():
+        p = p.label(k, v)
+    return p.spread_constraint(5, ZONE, action, labels).obj()
+
+
+def _mixed_high_signature(pkg, n_init, n_meas):
+    """MixedHighSignature (:239-284) cut to 64 nodes: 900m zone-spread
+    init pods, then measured pods whose cpu request rotates over eight
+    values (signatureCycle 8, perf/harness.py) under the same
+    DoNotSchedule zone spread, maxSkew 5."""
+    w = pkg[0]
+    api, sched = _cluster(pkg, 64, 16, 64)
+    spans = _spy_spans(sched)
+    mix = {"app": "mix"}
+    _create(api, sched, [_mix_pod(w, f"init-{i}", "900m", mix)
+                         for i in range(n_init)], 64)
+    _create(api, sched, [_mix_pod(w, f"pod-{i}", f"{250 + 50 * (i % 8)}m",
+                                  mix) for i in range(n_meas)], 64)
+    return api, sched, spans
+
+
+def _mixed_base_pod(pkg, n_init, n_aff, n_meas):
+    """MixedSchedulingBasePod (:195-237) cut to 64 nodes: ScheduleAnyway
+    zone-spread init pods, self-matching required zone affinity pods,
+    then plain measured pods."""
+    w = pkg[0]
+    api, sched = _cluster(pkg, 64, 16, 64)
+    spans = _spy_spans(sched)
+    base = {"mixed": "base"}
+    _create(api, sched, [_mix_pod(w, f"init-{i}", "900m", base,
+                                  action="ScheduleAnyway")
+                         for i in range(n_init)], 64)
+    _create(api, sched, [
+        w.make_pod(f"aff-{i}").req({"cpu": "500m", "memory": "512Mi"})
+        .label("mixed", "base").pod_affinity(ZONE, base).obj()
+        for i in range(n_aff)], 64)
+    _create(api, sched, [_template(w, f"pod-{i}", "plain")
+                         for i in range(n_meas)], 64)
+    return api, sched, spans
+
+
+def test_mixed_high_signature_bind_and_plan_parity():
+    japi, jsched, jspans = _mixed_high_signature(JAX, 64, 320)
+    tapi, tsched, tspans = _mixed_high_signature(TORCH, 64, 320)
+    tres = _outcome(tapi, tsched)
+    assert len(tres[0]) == 384
+    assert tres == _outcome(japi, jsched)
+    assert tspans == jspans
+    plans = [s for spans in tspans for s in spans if s[2][0] == "wavescan"]
+    assert plans and len(plans[0][2][1]) == 8
+    assert tsched.plan_runs == len(plans)
+    assert tsched.reconcile() == []
+
+
+def test_mixed_scheduling_base_pod_bind_and_plan_parity():
+    japi, jsched, jspans = _mixed_base_pod(JAX, 64, 48, 256)
+    tapi, tsched, tspans = _mixed_base_pod(TORCH, 64, 48, 256)
+    tres = _outcome(tapi, tsched)
+    assert len(tres[0]) == 64 + 48 + 256
+    assert tres == _outcome(japi, jsched)
+    assert tspans == jspans
+    plans = [s for spans in tspans for s in spans if s[2][0] == "wavescan"]
+    assert len(plans) >= 2 and tsched.plan_runs == len(plans)
+    assert tsched.reconcile() == []
