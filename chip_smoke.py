@@ -15,6 +15,9 @@ Phases, each reported on its own line:
      SchedulingPodAntiAffinity; run_plan at the MixedHighSignature shape
      (S = 8 signatures, a 4,096-pod span) and on a lean four-signature
      host-port span; diagnose_row on lean and group rows at 8,192 nodes;
+     the overlay variants of run_batch and run_uniform at their lean
+     shapes; dry_run at the PreemptionChurn shape (C = 8,192 candidates,
+     V = 1) and at C = 512, V = 8 with and without a spread;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -32,9 +35,14 @@ Phases, each reported on its own line:
      interleaved signatures per drain);
  10. MixedSchedulingBasePod 5000Nodes end to end (ScheduleAnyway and
      self-matching required-affinity drains on run_plan, then plain pods
-     on run_wave).
-Phases 4-10 compare their bind maps with a device="cpu" run of the same
-workload, at full width. Any failure exits non-zero without the final
+     on run_wave);
+ 11. PreemptionChurn 5000Nodes_10000Pods end to end: 200 preemptors each
+     evict one victim through the batched dry run (dry_run) and take a
+     nomination; the measured pods drain under the nominated-pod overlay
+     (run_uniform's overlay variant), and the drain that takes the
+     preemptors back runs run_batch's overlay variant.
+Phases 4-11 compare their bind maps (phase 11 also its nominations and
+victims) with a device="cpu" run of the same workload, at full width. Any failure exits non-zero without the final
 line. The line before the last is the card's name and power limit, the
 one before it one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.
@@ -43,9 +51,10 @@ The script imports neither jax nor kubernetes_tpu, and needs no pyyaml:
 the workload parameters are those of
 kubernetes_tpu/perf/configs/performance-config.yaml (SchedulingBasic
 :28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129,
-MixedSchedulingBasePod :195-237, MixedHighSignature :239-284) and
-the node and pod shapes of kubernetes_tpu/perf/harness.py:159-200 (nodes
-32 cpu, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
+MixedSchedulingBasePod :195-237, MixedHighSignature :239-284,
+PreemptionChurn :286-329) and the node and pod shapes of
+kubernetes_tpu/perf/harness.py:159-200 (nodes 32 cpu — 8 for
+PreemptionChurn —, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
 """
 
 from __future__ import annotations
@@ -86,6 +95,10 @@ AA_SHAPE = (5000, 500, 2000, 10000)
 # nodes, init pods, init affinity pods, measured pods, zones
 MHS_SHAPE = (5000, 1000, 5000, 16, 8)
 MBP_SHAPE = (5000, 1000, 500, 5000, 16)
+# PreemptionChurn 5000Nodes_10000Pods (:286-329): nodes of 8 cpu, init
+# pods of 4 cpu / 1 Gi, preemptors of 8 cpu / 1 Gi at priority 100,
+# measured pods of 500m / 256 Mi, zones
+PC_SHAPE = (5000, 5000, 200, 10000, 16)
 LABEL_ZONE = "topology.kubernetes.io/zone"
 LABEL_HOSTNAME = "kubernetes.io/hostname"
 BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
@@ -264,6 +277,45 @@ def select_ops(n: int, k: int) -> Ops:
     return Ops(i64=max(n - 1, 0) + k * max(k - 1, 1).bit_length())
 
 
+def scan_ops(table, sigs, tidxs, assigned, sig0: int, slots: dict, C: int,
+             nom=None) -> tuple:
+    """run_batch's operations over one span, in order: a pod whose
+    signature differs from the one before pays the full evaluation, a
+    repeat the SigCache fast path; each placement refreshes one node.
+    With `nom` (the pods' nominated rows, the overlay variant): each full
+    evaluation adds the overlay (an add per requested column and the pod
+    count) on every valid node, each nominated pod its own-row fit, and
+    each nominated pod placed the overlay's consumption at its row."""
+    ops, prev, per_row, nreq = Ops(), sig0, {}, {}
+    for k, (s_, u, best) in enumerate(zip(sigs, tidxs, assigned)):
+        if u not in per_row:
+            per_row[u] = eval_ops(table, u, slots, C)
+            nreq[u] = len(req_cols(np_of(table.req[u])))
+        n = nreq[u]
+        fast = s_ != 0 and s_ == prev
+        ops = ops + (fast_ops(slots) if fast else per_row[u])
+        if best >= 0:
+            ops = ops + Ops(i64=n + 3) + score_ops(C, n, True)
+        if nom is not None:
+            if not fast:
+                ops = ops + Ops(i64=(n + 1) * slots["n_valid"])
+            if nom[k] >= 0:
+                ops = ops + Ops(i64=2 * n + 2)
+                if best >= 0:
+                    ops = ops + Ops(i64=n + 1)
+        prev = s_
+    return ops
+
+
+def ovl_bytes(ovl, table, tidxs) -> int:
+    """The overlay's bytes a launch must read: the columns its pods
+    request of ovl_used and the pod counts, on every node row."""
+    req = np_of(table.req)[np.unique(np.asarray(tidxs))]
+    cols = len(req_cols(req.any(axis=0)))
+    N = ovl[1].shape[0]
+    return N * (cols * ovl[0].element_size() + ovl[1].element_size())
+
+
 # ---------------------------------------------------------------------------
 # seeded lean inputs
 
@@ -330,9 +382,9 @@ def lean_pods(rng: np.random.RandomState, n: int, wrappers, prefix: str,
     return [shapes[int(rng.randint(0, 8))] for _ in range(n)]
 
 
-def staged(nodes, bound, pods, device, pkg):
-    """(NodeArrays, PodBatch, device table) through the port's own
-    state layer."""
+def stage(nodes, bound, device, pkg):
+    """The ClusterState of `nodes` holding the `bound` pods, through the
+    port's own cache, snapshot and state layer."""
     cache = pkg.Cache()
     for nd in nodes:
         cache.add_node(nd)
@@ -342,8 +394,14 @@ def staged(nodes, bound, pods, device, pkg):
     cache.update_snapshot(snap)
     state = pkg.ClusterState(device=device)
     state.apply_snapshot(snap, full=True)
-    builder = pkg.BatchBuilder(state)
-    batch = builder.build(pods)
+    return state
+
+
+def staged(nodes, bound, pods, device, pkg):
+    """(NodeArrays, PodBatch, device table) through the port's own
+    state layer."""
+    state = stage(nodes, bound, device, pkg)
+    batch = pkg.BatchBuilder(state).build(pods)
     if batch.host_fallback[:len(pods)].any():
         fail("smoke inputs hit a host-fallback signature")
     return state.device_arrays(), batch, pkg.table_from_batch(batch, device)
@@ -436,18 +494,9 @@ def check_run_batch(torch, pkg, device, rows: list) -> None:
              + xs.sig.numel() * 4)
     slots = node_slots(na, carry0)
     C = len(cfg.score_cols)
-    ops, prev, per_row = Ops(), int(carry0.cache.sig), {}
-    for s_, u, best in zip(batch.sig[:span].tolist(),
-                           batch.tidx[:span].tolist(),
-                           np_of(assigned).tolist()):
-        if u not in per_row:
-            per_row[u] = eval_ops(table, u, slots, C)
-        ops = ops + (fast_ops(slots) if s_ != 0 and s_ == prev
-                     else per_row[u])
-        if best >= 0:
-            nreq = int((np_of(table.req[u]) != 0).sum())
-            ops = ops + Ops(i64=nreq + 3) + score_ops(C, nreq, True)
-        prev = s_
+    sigs, tidxs = batch.sig[:span].tolist(), batch.tidx[:span].tolist()
+    ops = scan_ops(table, sigs, tidxs, np_of(assigned).tolist(),
+                   int(carry0.cache.sig), slots, C)
     bound_ms, bound_by = bound_of(moved, ops)
     log("kernel", name="run_batch", pods=span, nodes=SB_NODES,
         exact=True, max_abs_err=err, ms=k_ms, plain_ms=plain_ms,
@@ -458,6 +507,134 @@ def check_run_batch(torch, pkg, device, rows: list) -> None:
         replaces="kubernetes_tpu/ops/program.py:984", launches=0,
         max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None))
+
+    # the overlay variant on the same span: every tenth pod nominated
+    # (its own request at its row, as the scheduler builds the overlay)
+    # and 200 more nodes reserved whole by 64-cpu nominations
+    N, R = na.cap.shape
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_np = np.zeros((N,), np.int32)
+    nom = np.full((span,), -1, np.int32)
+    req = batch.table.req
+    for k in range(0, span, 10):
+        row = (7 * k + 3) % SB_NODES
+        nom[k] = row
+        ovl_used[row] += req[batch.tidx[k]]
+        ovl_np[row] += 1
+    for k in range(200):
+        row = (13 * k + 1) % SB_NODES
+        ovl_used[row, 0] += 64000
+        ovl_np[row] += 1
+    ovl = (torch.from_numpy(ovl_used).to(device),
+           torch.from_numpy(ovl_np).to(device))
+    xs_n = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:span], sig=batch.sig[:span],
+        tidx=batch.tidx[:span], nom_idx=nom), device)
+    kc, ka = P.run_batch(cfg, na, carry0, xs_n, table, overlay=ovl)
+    pc, pa = P._run_batch_plain(cfg, na, carry0, xs_n, table, overlay=ovl)
+    torch.cuda.synchronize()
+    err_o = assert_equal_trees(torch, (ka, kc), (pa, pc), "run_batch[ovl]")
+    changed = int((ka != assigned).sum())
+    k_ms_o = cuda_ms(torch, lambda: P.run_batch(cfg, na, carry0, xs_n,
+                                                table, overlay=ovl), 3)
+    t0 = time.perf_counter()
+    P._run_batch_plain(cfg, na, carry0, xs_n, table, overlay=ovl)
+    torch.cuda.synchronize()
+    plain_ms_o = (time.perf_counter() - t0) * 1e3
+    # the lean count at this run's placements plus the overlay's work;
+    # the overlay's requested columns and counts, the nominated rows
+    ops_o = scan_ops(table, sigs, tidxs, np_of(pa).tolist(),
+                     int(carry0.cache.sig), slots, C, nom=nom)
+    n_nom = int((nom >= 0).sum())
+    moved_o = moved + ovl_bytes(ovl, table, tidxs) + nom.nbytes
+    bound_o, by_o = bound_of(moved_o, ops_o)
+    log("kernel", name="run_batch_ovl", pods=span, nodes=SB_NODES,
+        nominated=n_nom, assignments_changed=changed, exact=True,
+        max_abs_err=err_o, ms=k_ms_o, plain_ms=plain_ms_o,
+        bound_ms=bound_o, ops=vars(ops_o), bytes=moved_o)
+    rows.append(dict(
+        name="run_batch_ovl", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_batch.cu",
+        replaces="kubernetes_tpu/ops/program.py:984", launches=0,
+        max_abs_err=err_o, ms=k_ms_o, plain_ms=plain_ms_o,
+        bound_ms=bound_o, bound_by=by_o, library_ms=None))
+
+
+def check_run_batch_churn(torch, pkg, device) -> None:
+    """run_batch's overlay variant at the shape PreemptionChurn's last
+    drain gives it: the 8-cpu cluster after the preemptor wave (an init
+    pod of 4 cpu on every node but the 200 nominated ones, 8,192 measured
+    pods of 500m / 256 Mi bound at seeded nodes), the 200 preemptors
+    (8 cpu / 1 Gi, each nominated on its own node) and 1,808 measured
+    pods in one scan span padded to a 2,048 bucket, as the scheduler's
+    _scan_dispatch pads it. Every preemptor must land on its nominated
+    node. Logs the times and bound beside the kernel table's row."""
+    P, W = pkg.program, pkg.wrappers
+    n_nodes, _n_init, n_pre, _n_meas, zones = PC_SHAPE
+    rng = np.random.RandomState(31)
+    nominated = np.sort(rng.choice(n_nodes, n_pre, replace=False))
+    free = np.setdiff1d(np.arange(n_nodes), nominated)
+    bound = [W.make_pod(f"init-{i}").req({"cpu": "4", "memory": "1Gi"})
+             .node(f"node-{i}").obj() for i in free]
+    bound += [W.make_pod(f"done-{k}").req({"cpu": "500m", "memory": "256Mi"})
+              .node(f"node-{int(i)}").obj()
+              for k, i in enumerate(rng.choice(free, 8192))]
+    span, bucket = n_pre + 1808, 2048
+    pods = [W.make_pod(f"pre-{k}").req({"cpu": "8", "memory": "1Gi"})
+            .priority(100).obj() for k in range(n_pre)]
+    pods += [W.make_pod(f"meas-{k}").req({"cpu": "500m", "memory": "256Mi"})
+             .obj() for k in range(span - n_pre)]
+    state = stage(pc_nodes(W, n_nodes, zones), bound, device, pkg)
+    batch = pkg.BatchBuilder(state).build(pods)
+    na, table = state.device_arrays(), pkg.table_from_batch(batch, device)
+    carry0 = P.initial_carry(na)
+    N, R = na.cap.shape
+    rows_of = np.array([state.node_index[f"node-{i}"] for i in nominated],
+                       np.int32)
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_np = np.zeros((N,), np.int32)
+    ovl_used[rows_of] = batch.table.req[batch.tidx[0]]
+    ovl_np[rows_of] = 1
+    ovl = (torch.from_numpy(ovl_used).to(device),
+           torch.from_numpy(ovl_np).to(device))
+
+    def padded(x, fill):
+        out = np.full((bucket,), fill, x.dtype)
+        out[:span] = x[:span]
+        return out
+    sig = padded(batch.sig, batch.sig[span - 1])
+    tidx = padded(batch.tidx, batch.tidx[span - 1])
+    nom = np.full((bucket,), -1, np.int32)
+    nom[:n_pre] = rows_of
+    xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=padded(batch.valid, False), sig=sig, tidx=tidx, nom_idx=nom),
+        device)
+    cfg = P.ScoreConfig()
+    kc, ka = P.run_batch(cfg, na, carry0, xs, table, overlay=ovl)
+    t0 = time.perf_counter()
+    pc, pa = P._run_batch_plain(cfg, na, carry0, xs, table, overlay=ovl)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = assert_equal_trees(torch, (ka, kc), (pa, pc),
+                             "run_batch[ovl, PreemptionChurn span]")
+    got = np_of(ka)
+    if (got[:n_pre] != rows_of).any():
+        fail("run_batch[ovl, PreemptionChurn span]: a preemptor left its "
+             "nominated node")
+    k_ms = cuda_ms(torch, lambda: P.run_batch(cfg, na, carry0, xs, table,
+                                              overlay=ovl), 3)
+    ops = scan_ops(table, sig.tolist(), tidx.tolist(), got.tolist(),
+                   int(carry0.cache.sig), node_slots(na, carry0),
+                   len(cfg.score_cols), nom=nom)
+    # as the lean row's count, plus the overlay
+    moved = (nbytes(na, carry0, xs, table) + nbytes(carry0) + bucket * 4
+             + ovl_bytes(ovl, table, tidx))
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="run_batch_ovl", shape="PreemptionChurn span",
+        pods=span, bucket=bucket, nodes=n_nodes, nominated=n_pre,
+        bound_pods=int((got[:span] >= 0).sum()), exact=True,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, ops=vars(ops), bytes=moved)
 
 
 def check_run_uniform(torch, pkg, device, rows: list) -> None:
@@ -494,6 +671,7 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
             flags=flags)
         if n_actual == BATCH:
             placed = pp[:L][pp[:L] >= 0]
+            kp_full = kp
     # depth overflow and the fast path (cache hit) on the same inputs
     kc2, kp2 = P.run_uniform(cfg, na, kc, x, table, 900, L, K, 2)
     pc2, pp2 = P._run_uniform_plain(cfg, na, pc, x, table, 900, L, K, 2)
@@ -558,6 +736,49 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
         replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
         max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=lib_ms))
+
+    # the overlay variant at the same shape: 200 nodes each reserved by
+    # nominations of 31 cpu / 1 Gi (room for one run pod at most)
+    N, R = na.cap.shape
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_np = np.zeros((N,), np.int32)
+    rows_n = (17 * np.arange(200) + 5) % SB_NODES
+    ovl_used[rows_n, 0] = 31000
+    ovl_used[rows_n, 1] = 1 << 30
+    ovl_np[rows_n] = 1
+    ovl = (torch.from_numpy(ovl_used).to(device),
+           torch.from_numpy(ovl_np).to(device))
+    kco, kpo = P.run_uniform(cfg, na, carry0, x, table, BATCH, L, K, J,
+                             overlay=ovl)
+    pco, ppo = P._run_uniform_plain(cfg, na, carry0, x, table, BATCH, L, K,
+                                    J, overlay=ovl)
+    torch.cuda.synchronize()
+    err_o = assert_equal_trees(torch, (kpo, kco), (ppo, pco),
+                               "run_uniform[ovl]")
+    changed = int((kpo[:L] != kp_full[:L]).sum())
+    k_ms_o = cuda_ms(torch, lambda: P.run_uniform(
+        cfg, na, carry0, x, table, BATCH, L, K, J, overlay=ovl), 10)
+    plain_ms_o = cuda_ms(torch, lambda: P._run_uniform_plain(
+        cfg, na, carry0, x, table, BATCH, L, K, J, overlay=ovl), 3)
+    # the lean count plus the overlay's adds on every fit (one per
+    # requested column and the pod count): the run's row over the valid
+    # nodes and every matrix entry
+    feasible_o = int(P._eval_pod(cfg, na, carry0, pod, overlay=ovl)[0]
+                     .sum())
+    ops_o = (ops + entry * ((feasible_o - feasible) * J)
+             + Ops(i64=nreq + 1) * (slots["n_valid"] + feasible_o * J))
+    moved_o = moved + ovl_bytes(ovl, table, [x.tidx])
+    bound_o, by_o = bound_of(moved_o, ops_o)
+    log("kernel", name="run_uniform_ovl", ms=k_ms_o, plain_ms=plain_ms_o,
+        L=L, K=K, J=J, nominated_nodes=200, assignments_changed=changed,
+        flags=kpo[L:].tolist(), max_abs_err=err_o,
+        bound_ms=bound_o, ops=vars(ops_o), bytes=moved_o)
+    rows.append(dict(
+        name="run_uniform_ovl", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_uniform.cu",
+        replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
+        max_abs_err=err_o, ms=k_ms_o, plain_ms=plain_ms_o,
+        bound_ms=bound_o, bound_by=by_o, library_ms=None))
 
 
 def flat_keys(torch, P, cfg, na, carry, x, table, K, J):
@@ -1282,6 +1503,266 @@ def check_diagnose_row(torch, pkg, device, rows: list) -> None:
 # phases 4 and 5: the scheduler end to end
 
 
+# ---------------------------------------------------------------------------
+# phase 3, preemption: the batched dry run
+
+
+def pc_nodes(W, n: int, zones: int):
+    """perf/harness.py _make_nodes with PreemptionChurn's nodeCpu 8."""
+    return [W.make_node(f"node-{i}").capacity(
+        {"cpu": 8, "memory": "64Gi", "pods": 110}).zone(
+        f"zone-{i % zones}").label(LABEL_HOSTNAME, f"node-{i}").obj()
+        for i in range(n)]
+
+
+def dry_inputs(torch, pkg, device, C: int, V: int, spread: bool, seed: int,
+               n_nodes: int = PC_SHAPE[0]):
+    """Dry-run inputs over the PreemptionChurn cluster after its init op
+    (every node holds one 4-cpu pod), the preemptor's row (8 cpu / 1 Gi,
+    priority 100), the first C candidate rows (padded with row 0, the
+    Evaluator's layout). V = 1: each candidate's one init pod, the
+    PreemptionChurn shape; V > 1: seeded victims with holes and, with
+    `spread`, seeded DryRunSpread tensors (two constraints). Returns
+    (args, real candidates, the preemptor's request vector)."""
+    from kubernetes_tpu_torch.framework.types import PodInfo
+    from kubernetes_tpu_torch.ops.groups import DryRunSpread
+    P, W = pkg.program, pkg.wrappers
+    n_init = n_nodes
+    rng = np.random.RandomState(seed)
+    init = [W.make_pod(f"init-{i}").req({"cpu": "4", "memory": "1Gi"})
+            .node(f"node-{i}").obj() for i in range(n_init)]
+    vip = W.make_pod("vip").req({"cpu": "8", "memory": "1Gi"}) \
+        .priority(100).obj()
+    state = stage(pc_nodes(W, n_nodes, PC_SHAPE[4]), init, device, pkg)
+    batch = pkg.BatchBuilder(state).build([vip])
+    na = state.device_arrays()
+    row = P.pod_row_from_table(batch.table, int(batch.tidx[0]), device)
+    R = na.cap.shape[1]
+    real = min(C, n_nodes)
+    cand = np.zeros((C,), np.int32)
+    cand[:real] = [state.node_index[f"node-{i}"] for i in range(real)]
+    vreq = np.zeros((C, V, R), np.int64)
+    vvalid = np.zeros((C, V), bool)
+    if V == 1:
+        vreq[:real, 0] = state.request_vector(PodInfo.of(init[0]).requests)
+        vvalid[:real, 0] = True
+    else:
+        vreq[:real, :, 0] = rng.choice([500, 1000, 2000, 4000], (real, V))
+        vreq[:real, :, 1] = rng.choice([0, 1 << 28, 1 << 30], (real, V))
+        vvalid[:real] = rng.rand(real, V) < 0.7
+    sp = None
+    if spread:
+        SC = 2
+        other = rng.randint(0, 6, (C, SC)).astype(np.int32)
+        other[rng.rand(C, SC) < 0.2] = np.iinfo(np.int32).max
+        sp = DryRunSpread(*(torch.from_numpy(np.asarray(x)).to(device)
+                            for x in DryRunSpread(
+            max_skew=np.array([1, 2], np.int32),
+            self_match=np.array([1, 0], np.int32),
+            min_zero=np.array([False, True]), tv_ok=rng.rand(C, SC) < 0.9,
+            cnt0=rng.randint(0, 6, (C, SC)).astype(np.int32),
+            other_min=other, vic_match=rng.rand(C, V, SC) < 0.5)))
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+    zero_u = np.zeros((C, R), np.int64)
+    zero_n = np.zeros((C,), np.int32)
+    return ((na, row, t(cand), t(vreq), t(vvalid), t(zero_u), t(zero_n),
+             sp), real, state.request_vector(PodInfo.of(vip).requests))
+
+
+def dry_subset(torch, args, touched, ovl_used, ovl_npods):
+    """The Evaluator's overlay-subset launch (_dry_run_overrides) over
+    `args`: the touched candidate positions padded to a power of two by
+    repeating the first, their slices of the plan tensors, and the summed
+    nominations on the touched rows (zero on the padding)."""
+    na, row, cand, vreq, vvalid, _u, _n, sp = args
+    s = len(touched)
+    s_pad = 1 << max(s - 1, 0).bit_length()
+    sub = np.full((s_pad,), touched[0], np.int64)
+    sub[:s] = touched
+    ou = np.zeros((s_pad, vreq.shape[2]), np.int64)
+    on = np.zeros((s_pad,), np.int32)
+    ou[:s], on[:s] = ovl_used, ovl_npods
+    sub_t = torch.from_numpy(sub).to(cand.device)
+    if sp is not None:
+        sp = sp._replace(tv_ok=sp.tv_ok[sub_t], cnt0=sp.cnt0[sub_t],
+                         other_min=sp.other_min[sub_t],
+                         vic_match=sp.vic_match[sub_t])
+    return (na, row, cand[sub_t], vreq[sub_t], vvalid[sub_t],
+            torch.from_numpy(ou).to(cand.device),
+            torch.from_numpy(on).to(cand.device), sp)
+
+
+def req_cols(req) -> np.ndarray:
+    """The resource columns a request row asks for."""
+    return np.flatnonzero(np.asarray(req) != 0)
+
+
+def dry_bytes(na, row, args) -> int:
+    """Bytes the dry run must move on this run's data, each read once:
+    per distinct candidate node row its validity bit, pod count and
+    limit, the preemptor's requested columns of cap and used, and what
+    the filters read for this preemptor (the unschedulable bit unless it
+    tolerates it, the name id when it names a node, the occupied taint
+    slots' effects and, when it tolerates taints, the hard slots' keys
+    and values, the occupied label slots when it selects); the fields of
+    its row the kernel reads; per candidate its row index, the requested
+    columns of every victim slot and of the overlay, the victims' valid
+    bits, the overlay's pod count, the spread tensors and the output."""
+    cand, vreq, vvalid, sp = args[2], args[3], args[4], args[7]
+    rows = np.unique(np_of(cand))
+    nreq = len(req_cols(np_of(row.req)))
+    eff = np_of(na.taint_eff)[rows]
+    occupied = eff != 0
+    hard = (eff == 1) | (eff == 3)
+    labels = int((np_of(na.label_key)[rows] != 0).sum())
+    n_tol = int((np_of(row.tol_op) != 0).sum())
+    selects = bool((np_of(row.ns_sel_val) != 0).any())
+    aff = bool(np_of(row.aff_has))
+    per_row = (na.valid.element_size() + na.npods.element_size()
+               + na.allowed_pods.element_size()
+               + nreq * (na.cap.element_size() + na.used.element_size())
+               + (0 if bool(np_of(row.tolerates_unsched))
+                  else na.unschedulable.element_size())
+               + (na.name_id.element_size()
+                  if int(np_of(row.node_name_id)) else 0))
+    moved = per_row * len(rows)
+    moved += int(occupied.sum()) * na.taint_eff.element_size()
+    if n_tol:
+        moved += int(hard.sum()) * (na.taint_key.element_size()
+                                    + na.taint_val.element_size())
+    if selects or aff:
+        moved += labels * na.label_kv.element_size()
+    if aff:
+        moved += labels * (na.label_key.element_size()
+                           + na.label_num.element_size())
+    fields = ["req", "tol_op", "tol_key", "tol_val", "tol_eff",
+              "ns_sel_val", "node_name_id", "tolerates_unsched", "aff_has"]
+    if aff:
+        fields += ["aff_term_valid", "aff_key", "aff_op", "aff_num",
+                   "aff_val"]
+    moved += nbytes(tuple(getattr(row, f) for f in fields))
+    C, V = vvalid.shape
+    moved += C * (cand.element_size() + V * nreq * vreq.element_size()
+                  + nreq * args[5].element_size() + args[6].element_size())
+    moved += vvalid.numel() * vvalid.element_size() + C * (V + 1)
+    return moved + (nbytes(tuple(sp)) if sp is not None else 0)
+
+
+def dry_ops(na, row, args, real: int, slots: dict) -> Ops:
+    """The dry run's operations on this run's data: per real candidate
+    the static filters (validity, name, unschedulable, each occupied hard
+    taint against the preemptor's live tolerations), the victims' sums
+    and the overlay on the requested columns (no other column moves the
+    verdict), the base fit, and per valid victim the reprieve fit and the
+    running sum; with a spread, the skew test per constraint at the base
+    and at each valid victim."""
+    vvalid = np_of(args[4])[:real]
+    nreq = len(req_cols(np_of(row.req)))
+    n_tol = int((np_of(row.tol_op) != 0).sum())
+    hard = int(slots["hard"][:real].sum()) if len(slots["hard"]) else 0
+    n_vic = int(vvalid.sum())
+    # per candidate: used + overlay − the victims' sum and the base fit
+    # (an add and a compare) on each requested column, the pod count; per
+    # valid victim: its share of the sum and its reprieve fit (two adds
+    # and a compare) on each requested column, the pod count
+    ops = Ops(i32=4 * real + hard * (1 + 4 * n_tol),
+              i64=real * (4 * nreq + 2) + n_vic * (4 * nreq + 2))
+    sp = args[7]
+    if sp is not None:
+        SC = sp.max_skew.shape[0]
+        ops = ops + Ops(i32=6 * SC * (real + n_vic) + SC * n_vic)
+    return ops
+
+
+def check_dry_run(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+
+    def held(args, real, what, **kw) -> tuple:
+        k = P.dry_run_select_victims(*args)
+        p = P._dry_run_select_victims_plain(*args)
+        torch.cuda.synchronize()
+        e = assert_equal_trees(torch, k, p, what)
+        viable = int(k[:real, 0].sum())
+        log("kernel", name="dry_run", exact=True, viable=viable,
+            reprieved=int(k[:real, 1:].sum()), **kw)
+        return e, viable
+
+    err, timed = 0.0, None
+    for C, V, spread in ((8192, 1, False), (512, 8, True), (512, 8, False)):
+        args, real, nom_vec = dry_inputs(torch, pkg, device, C, V, spread,
+                                         seed=C + V)
+        e, viable = held(args, real, f"dry_run[C={C},V={V}]", C=C, V=V,
+                         spread=spread)
+        err = max(err, e)
+        if V == 1 and viable != real:
+            fail(f"dry_run: {viable} of {real} PreemptionChurn candidates "
+                 "viable, expected every one")
+        if timed is None:
+            timed = (args, real, nom_vec)
+    args, real, nom_vec = timed
+    # the overlay-subset launches of the preemptor wave: the 199 candidate
+    # rows the earlier preemptors' 8-cpu / 1 Gi nominations touch, padded
+    # to 256 (the main path's shape: no touched candidate stays viable),
+    # then seeded nominations of 0-500m / 256 Mi-64 Gi, 1-110 pods, on the
+    # same rows (cpu, memory and the pod limit each turn some away)
+    rng = np.random.RandomState(29)
+    touched = np.sort(rng.choice(real, 199, replace=False))
+    sub = dry_subset(torch, args, touched, np.tile(nom_vec, (199, 1)),
+                     np.ones((199,), np.int32))
+    e, viable = held(sub, 199, "dry_run[subset]", C=256, V=1,
+                     nominations="8 cpu / 1 Gi")
+    err = max(err, e)
+    if viable != 0:
+        fail(f"dry_run: {viable} candidates under an 8-cpu nomination "
+             "still viable")
+    ou = np.zeros((199, nom_vec.shape[0]), np.int64)
+    ou[:, 0] = rng.choice([0, 0, 500], 199)
+    ou[:, 1] = rng.choice([256 << 20, 1 << 30, 64 << 30], 199)
+    on = rng.choice([1, 2, 109, 110], 199).astype(np.int32)
+    e, viable_m = held(dry_subset(torch, args, touched, ou, on), 199,
+                       "dry_run[subset,mixed]", C=256, V=1,
+                       nominations="seeded")
+    err = max(err, e)
+    if not 0 < viable_m < 199:
+        fail(f"dry_run: {viable_m} of 199 mixed-overlay candidates viable, "
+             "expected some of each")
+    sub_ms = cuda_ms(torch, lambda: P.dry_run_select_victims(*sub), 20)
+    sub_dev_ms = device_ms(torch, lambda: P.dry_run_select_victims(*sub), 20)
+    sub_plain_ms = cuda_ms(
+        torch, lambda: P._dry_run_select_victims_plain(*sub), 3)
+    # timed at the PreemptionChurn base shape (C = 8,192, V = 1)
+    na, row = args[0], args[1]
+    k_ms = cuda_ms(torch, lambda: P.dry_run_select_victims(*args), 20)
+    dev_ms = device_ms(torch, lambda: P.dry_run_select_victims(*args), 20)
+    plain_ms = cuda_ms(torch,
+                       lambda: P._dry_run_select_victims_plain(*args), 3)
+    plain_dev_ms = device_ms(
+        torch, lambda: P._dry_run_select_victims_plain(*args), 3)
+    def slots_of(args):
+        rows_ = torch.unique(args[2].to(torch.int64))
+        return node_slots(P.NodeArrays(*(x[rows_] for x in na)),
+                          SimpleNamespace(ports=na.ports[rows_]))
+
+    moved = dry_bytes(na, row, args)
+    ops = dry_ops(na, row, args, real, slots_of(args))
+    bound_ms, bound_by = bound_of(moved, ops)
+    sub_bound, _ = bound_of(dry_bytes(na, row, sub),
+                            dry_ops(na, row, sub, 199, slots_of(sub)))
+    log("kernel", name="dry_run", C=args[2].shape[0], V=args[3].shape[1],
+        max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+        plain_device_ms=plain_dev_ms, bound_ms=bound_ms, ops=vars(ops),
+        bytes=moved, subset_ms=sub_ms, subset_device_ms=sub_dev_ms,
+        subset_plain_ms=sub_plain_ms, subset_bound_ms=sub_bound)
+    rows.append(dict(
+        name="dry_run", route="cuda",
+        source="kubernetes_tpu_torch/csrc/dry_run.cu",
+        replaces="kubernetes_tpu/ops/program.py:2169", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, device_ms=dev_ms))
+
+
 HOST_SPLIT = {"create_s": 0.0, "schedule_s": 0.0}
 
 
@@ -1626,6 +2107,110 @@ def plan_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
     return counts
 
 
+def preemption_churn(device: str, pkg):
+    """PreemptionChurn 5000Nodes_10000Pods: createNodes; the init pods
+    (one 4-cpu pod per 8-cpu node); the preemptor wave (each preemptor
+    fails, DefaultPreemption evicts one victim and nominates its node);
+    then the measured pods in 512-pod chunks, every drain dispatched
+    while the nominations are pending (the overlay). The scheduler's
+    clock stands still, so the preemptors wait out their requeue backoff
+    until it moves 15 s forward, just before the measured op's final
+    drain: that drain takes them with the last measured pods, as one scan
+    span. Returns (api, scheduler, measured pods/s, dict)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    n_nodes, n_init, n_pre, n_meas, zones = PC_SHAPE
+    api = APIServer()
+    clock = SimpleNamespace(t=1000.0)
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: clock.t)
+    for nd in pc_nodes(W, n_nodes, zones):
+        api.create_node(nd)
+    sched.prime()
+
+    def pods(seq, count, req, prio=0):
+        out = []
+        for i in range(count):
+            w = W.make_pod(f"pod-{seq + i}").req(req)
+            out.append((w.priority(prio) if prio else w).obj())
+        return out
+
+    create_pods(api, sched, pods(0, n_init, {"cpu": "4", "memory": "1Gi"}))
+    init_uids = set(api.pods)
+    t0 = time.perf_counter()
+    create_pods(api, sched, pods(n_init, n_pre,
+                                 {"cpu": "8", "memory": "1Gi"}, prio=100))
+    wave_s = time.perf_counter() - t0
+    noms = dict(sched.queue.nominator.nominated_pods)
+    victims = sorted(init_uids - set(api.pods))
+    measured = pods(n_init + n_pre, n_meas,
+                    {"cpu": "500m", "memory": "256Mi"})
+    before = sched.scheduled_count
+    t0 = time.perf_counter()
+    for k in range(0, n_meas, CREATE_BATCH):
+        api.create_pods(measured[k:k + CREATE_BATCH])
+        sched.schedule_pending(wait=False)
+    clock.t += 15.0
+    sched.schedule_pending()
+    measured_s = time.perf_counter() - t0
+    rate = (sched.scheduled_count - before) / measured_s
+    return api, sched, rate, {"noms": noms, "victims": victims,
+                              "wave_s": wave_s, "measured_s": measured_s}
+
+
+def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
+    """Phase 11: PreemptionChurn on the card, checked against its cpu run
+    and its own constraints; returns the launch counts."""
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    api, sched, rate, info = preemption_churn(device, pkg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pkg.kernels.LAUNCHES)
+    n_nodes, n_init, n_pre, n_meas, _zones = PC_SHAPE
+    name = "PreemptionChurn"
+    got = outcome(api, sched)
+    noms, victims = info["noms"], info["victims"]
+    if len(victims) != n_pre:
+        fail(f"{name}: {len(victims)} victims deleted, expected {n_pre}")
+    if len(noms) != n_pre or any(got[0].get(uid) != node
+                                 for uid, node in noms.items()):
+        fail(f"{name}: not every preemptor bound to its nominated node")
+    if len(got[0]) != n_init - n_pre + n_pre + n_meas or got[1]:
+        fail(f"{name}: bound {len(got[0])} pods, {len(got[1])} pending")
+    ev = next(p for p in sched.profiles["default-scheduler"].framework
+              .plugins if p.name() == "DefaultPreemption")._evaluator
+    if counts["dry_run"] < 1 or ev.host_dry_runs != 0:
+        fail(f"{name}: dry_run launched {counts['dry_run']} times, "
+             f"{ev.host_dry_runs} host dry runs")
+    for k in ("run_batch_ovl", "run_uniform_ovl"):
+        if counts[k] < 1:
+            fail(f"{name}: {k} never launched ({counts})")
+    if sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    t1 = time.perf_counter()
+    api_c, sched_c, _rate, info_c = preemption_churn("cpu", pkg)
+    if outcome(api_c, sched_c) != got:
+        fail(f"{name}: cuda bind map differs from the cpu run")
+    if info_c["noms"] != noms or info_c["victims"] != victims:
+        fail(f"{name}: nominations or victims differ from the cpu run")
+    log("preemption_churn", pods=n_init + n_pre + n_meas, bound=len(got[0]),
+        nodes=n_nodes, victims=len(victims), nominations=len(noms),
+        pods_per_s=rate, measured_s=info["measured_s"],
+        preemptor_wave_s=info["wave_s"], wall_s=wall, launches=counts,
+        batched_dry_runs=ev.batched_dry_runs, host_dry_runs=ev.host_dry_runs,
+        preemption_attempts=sched.preemption_attempts,
+        uniform_rewinds=sched.uniform_rewinds,
+        drain_readbacks=sched.device_batches,
+        cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True, nominations_equal_cpu=True,
+        victims_equal_cpu=True)
+    log("preemption_churn_profile", card=smi, **profile_run(
+        torch, lambda: preemption_churn(device, pkg)))
+    return counts
+
+
 def wave_stats(sched) -> dict:
     """The scheduler's summed run_wave and run_plan stats, JSON-ready."""
     st = dict(sched.wave_stats)
@@ -1760,6 +2345,7 @@ def main() -> int:
 
     rows: list = []
     check_run_batch(torch, pkg, device, rows)
+    check_run_batch_churn(torch, pkg, device)
     check_run_uniform(torch, pkg, device, rows)
     check_scatter_rows(torch, pkg, device, rows)
     time_initial_carry(torch, pkg, device)
@@ -1768,6 +2354,7 @@ def main() -> int:
     check_run_batch_groups(torch, pkg, device, rows)
     check_run_plan(torch, pkg, device, rows)
     check_diagnose_row(torch, pkg, device, rows)
+    check_dry_run(torch, pkg, device, rows)
 
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
     # run (the comparisons above do not count)
@@ -1811,11 +2398,18 @@ def main() -> int:
         fail("mixed workload: expected unschedulable pods to stay pending")
     if sched.reconcile() != []:
         fail("mixed workload: device carry diverges from the host cache")
-    if got != outcome(*mixed_workload("cpu", pkg)):
+    api_c, sched_c = mixed_workload("cpu", pkg)
+    if got != outcome(api_c, sched_c):
         fail("mixed workload: cuda bind map differs from the cpu run")
+    # how the node arrays reached the device: whole, or dirty rows through
+    # scatter_rows (the cpu run's counts beside the card's)
+    uploads = {k: (getattr(sched.state, k), getattr(sched_c.state, k))
+               for k in ("full_uploads_total", "rows_scattered_total")}
     log("mixed", bound=len(got[0]), pending=len(got[1]),
         launches=mixed_counts, uniform_rewinds=sched.uniform_rewinds,
         plan_runs=sched.plan_runs, wave_stats=wave_stats(sched),
+        uploads_cuda_cpu=uploads,
+        preemption_attempts=sched.preemption_attempts,
         bind_map_equals_cpu=True)
 
     # phases 6 and 7: the two group workloads at full width
@@ -1847,13 +2441,16 @@ def main() -> int:
     mhs_counts = plan_phase(torch, pkg, device, "mhs", smi)
     mbp_counts = plan_phase(torch, pkg, device, "mbp", smi)
 
+    # phase 11: PreemptionChurn (the dry run, the overlay variants)
+    pc_counts = preemption_phase(torch, pkg, device, smi)
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
              "topology_spreading": spread_counts,
              "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts,
              "mixed_high_signature": mhs_counts,
-             "mixed_base_pod": mbp_counts}
+             "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

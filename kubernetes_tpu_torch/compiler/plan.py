@@ -69,36 +69,41 @@ class DrainCompiler:
         self.surfaces = SurfaceCache(self.state, self.builder)
 
     def compile_drain(self, batch, n: int, *, groups_needed: bool = False,
+                      overlay: bool = False, nominated: bool = False,
                       strategy: str = "LeastAllocated",
                       prefer_taints: bool = False,
                       uniform_min: int = 16) -> DrainPlan:
         """Compile one drain's pod mix into a DrainPlan. Everything the
         spans depend on is in the cache key or immutable per signature
-        row, so a cached plan is always valid."""
+        row, so a cached plan is always valid. Under a nominated-pod
+        `overlay` no wave or plan program runs: a drain holding a
+        `nominated` pod is one scan span (the per-pod self-exclusion is
+        outside the closed form), an overlay-only drain keeps its
+        uniform / scan runs."""
         key = (self.builder.reset_count, self.builder.table_used,
-               groups_needed, strategy, prefer_taints, uniform_min, n,
-               batch.sig[:n].tobytes(), batch.tidx[:n].tobytes(),
-               bool(batch.valid[:n].all()))
+               groups_needed, overlay, nominated, strategy, prefer_taints,
+               uniform_min, n, batch.sig[:n].tobytes(),
+               batch.tidx[:n].tobytes(), bool(batch.valid[:n].all()))
         plan = self._plans.get(key)
         if plan is not None:
             self._plans.move_to_end(key)
             return plan
         spans = None
-        if groups_needed:
+        if groups_needed and not overlay and not nominated:
             wave = self._classify_wave(batch, n)
             if wave is not None:
                 spans = [(0, n, wave)]
         if spans is None:
             # the lean tiers; a group drain no wave program covers is one
             # scan span
-            if (groups_needed or strategy != "LeastAllocated"
+            if (nominated or groups_needed or strategy != "LeastAllocated"
                     or prefer_taints):
                 spans = [(0, n, ("scan",))]
             else:
                 spans = [(i, j, ("uniform",) if uniform else ("scan",))
                          for (i, j, uniform)
                          in self._classify_runs(batch, n, uniform_min)]
-            if not groups_needed:
+            if not groups_needed and not overlay and not nominated:
                 # non-interacting signatures in one plan span: the
                 # alternating mixed drain that thrashes the scan's
                 # one-slot signature cache

@@ -1,6 +1,6 @@
 // Per-node filter and score math of the lean device program, shared by the
-// scan kernel (run_batch.cu) and the closed-form kernels (run_uniform.cu)
-// so both compute the same bits. Each function is the CUDA form of the
+// scan kernel (run_batch.cu), the closed-form kernels (run_uniform.cu) and
+// the preemption dry run (dry_run.cu) so all compute the same bits. Each function is the CUDA form of the
 // matching function in kubernetes_tpu/ops/program.py (line numbers below)
 // and of its plain PyTorch twin in kubernetes_tpu_torch/ops/program.py.
 //
@@ -188,6 +188,49 @@ __device__ __forceinline__ bool kt_fit(const NodeC& na, int n,
     const int64_t q = p.req[r];
     if (q != 0 && !(used_row[r] + q <= cap[r])) return false;
   }
+  return true;
+}
+
+// The nominated-pod overlay (_slow_parts :424-454 `overlay`): nominated
+// pods' requests and counts per node row, folded into the FIT only. Null
+// pointers = no overlay; the lean launches pass nulls and take kt_fit.
+struct OvlD {
+  const int64_t* used;          // [N, R]
+  const int32_t* npods;         // [N]
+};
+
+// fit_mask at `used + ovl_used`, `npods + ovl_npods` (the overlaid fit of
+// _slow_parts and _row_refresh)
+__device__ __forceinline__ bool kt_fit_ovl(const NodeC& na, int n,
+                                           const int64_t* used_row,
+                                           int32_t npods, const PodRowD& p,
+                                           const OvlD& ovl) {
+  if (ovl.used == nullptr) return kt_fit(na, n, used_row, npods, p);
+  const int64_t* orow = ovl.used + (int64_t)n * na.R;
+  const int32_t onp = npods + ovl.npods[n];
+  if (!((int64_t)onp + 1 <= (int64_t)na.allowed_pods[n])) return false;
+  const int64_t* cap = na.cap + (int64_t)n * na.R;
+  for (int r = 0; r < na.R; ++r) {
+    const int64_t q = p.req[r];
+    if (q != 0 && !(used_row[r] + orow[r] + q <= cap[r])) return false;
+  }
+  return true;
+}
+
+// _eval_pod's self-exclusion (:515-528): the fit at the pod's own
+// nominated row `n` with its own nomination taken back out of the overlay.
+// The overlay holds the pod's own request and count there, so removing
+// them and adding the pod back leaves used + ovl ≤ cap on the pod's
+// columns and npods + ovl_npods ≤ allowed.
+__device__ __forceinline__ bool kt_own_nomination_fit(
+    const NodeC& na, int n, const int64_t* used_row, int32_t npods,
+    const PodRowD& p, const OvlD& ovl) {
+  const int64_t* orow = ovl.used + (int64_t)n * na.R;
+  const int32_t onp = npods + ovl.npods[n];
+  if (!((int64_t)onp <= (int64_t)na.allowed_pods[n])) return false;
+  const int64_t* cap = na.cap + (int64_t)n * na.R;
+  for (int r = 0; r < na.R; ++r)
+    if (p.req[r] != 0 && !(used_row[r] + orow[r] <= cap[r])) return false;
   return true;
 }
 
@@ -553,7 +596,11 @@ __device__ __forceinline__ void block_argmax(int64_t& v, int32_t& i,
 // and the preferred-affinity weights (the default_normalize
 // denominators); `gmask`, when given, is the group mask folded into the
 // feasible set before those maxima (_eval_pod :544-550), read only at the
-// nodes this thread owns. Ends with a __syncthreads.
+// nodes this thread owns. `ovl` (null pointers: none) folds the
+// nominated-pod overlay into the slow path's fit; `nom_row` >= 0 is the
+// pod's own nominated row, whose EFFECTIVE fit `nom_fit` replaces the
+// cached one in the maxima (the cache itself keeps the signature-pure
+// fit). Ends with a __syncthreads.
 
 template <int BLOCK>
 __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
@@ -563,7 +610,9 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
                                  BlockScratch<BLOCK>& sh,
                                  int64_t* num_with_sh, int64_t* tmax,
                                  int64_t* namax,
-                                 const uint8_t* gmask = nullptr) {
+                                 const uint8_t* gmask = nullptr,
+                                 OvlD ovl = OvlD{nullptr, nullptr},
+                                 int nom_row = -1, bool nom_fit = false) {
   const int N = na.N;
   const int IC = tb.IC;
   if (!use_fast) {
@@ -601,7 +650,7 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
       out.taint_raw[n] = kt_taint_prefer(na, n, p, tb.TT);
       out.na_raw[n] = kt_pref_score(na, n, p, tb.PT, tb.Q, tb.V);
       out.s_img[n] = kt_image_score(p, IC, size_c, num_with_sh, total);
-      out.fit_ok[n] = kt_fit(na, n, used_row, carry.npods[n], p);
+      out.fit_ok[n] = kt_fit_ovl(na, n, used_row, carry.npods[n], p, ovl);
       out.s_fit[n] = s_fit;
       out.s_bal[n] = s_bal;
     }
@@ -620,7 +669,8 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
   // barrier is needed before the maxima pass
   int64_t tm = 0, nm = 0;
   for (int n = threadIdx.x; n < N; n += BLOCK) {
-    if (out.static_mask[n] && out.fit_ok[n] && (!gmask || gmask[n])) {
+    const bool fit = n == nom_row ? nom_fit : out.fit_ok[n] != 0;
+    if (out.static_mask[n] && fit && (!gmask || gmask[n])) {
       tm = out.taint_raw[n] > tm ? out.taint_raw[n] : tm;
       nm = out.na_raw[n] > nm ? out.na_raw[n] : nm;
     }
@@ -641,16 +691,20 @@ __device__ __forceinline__ int64_t kt_total(const CfgC& cfg, const CacheC& c,
 
 // one entry of the closed-form [K, J] matrix (_uniform_matrix :1007): fit
 // and post-placement scores of the j1-th same-signature pod on `node`,
-// from that node's carry rows
+// from that node's carry rows; `ovl_used` (null: none) and `ovl_npods`
+// are the node's nominated-pod overlay, folded into the fit only
+// (_uniform_core :1135-1140)
 __device__ __forceinline__ void kt_uniform_entry(
     const CfgC& cfg, const NodeC& na, int node, const int64_t* used,
     const int64_t* nz, int64_t npods, const PodRowD& p, int64_t j1,
-    bool* fit_out, int64_t* s_fit, int64_t* s_bal) {
+    bool* fit_out, int64_t* s_fit, int64_t* s_bal,
+    const int64_t* ovl_used = nullptr, int64_t ovl_npods = 0) {
   const int64_t* cap = na.cap + (int64_t)node * na.R;
-  bool fit = npods + j1 <= (int64_t)na.allowed_pods[node];
+  bool fit = npods + ovl_npods + j1 <= (int64_t)na.allowed_pods[node];
   for (int r = 0; r < na.R; ++r) {
     const int64_t q = p.req[r];
-    if (q != 0 && !(used[r] + j1 * q <= cap[r])) fit = false;
+    const int64_t fit_used = ovl_used ? used[r] + ovl_used[r] : used[r];
+    if (q != 0 && !(fit_used + j1 * q <= cap[r])) fit = false;
   }
   int64_t capc[KT_MAX_C], usedc[KT_MAX_C], plain[KT_MAX_C];
   for (int c = 0; c < cfg.C; ++c) {

@@ -3,7 +3,14 @@
 // Replaces kubernetes_tpu/ops/program.py run_batch (:984; _run_batch_impl
 // :929 with _eval_pod :495, _apply_assignment :906, _row_refresh :458 and
 // the group steps: group_mask / group_scores inside _eval_pod :544-555,
-// group_update per placement :961-966). No nominated-pod overlay.
+// group_update per placement :961-966), and its nominated-pod overlay
+// variant (lean scan only): the overlay folds into the slow path's fit
+// and the row refresh, each nominated pod's own nomination is taken back
+// out of its EFFECTIVE mask at its nominated row (:515-528; the cached
+// fit_ok stays signature-pure), and a bound nominated pod consumes its
+// nomination at that row, not at the chosen one (:942-966). The overlay
+// the kernel consumes is a scratch copy the wrapper makes; the caller's
+// is never written.
 //
 // What bounds it on an H100: the scan is sequential in pods — pod i+1
 // reads the carry pod i wrote — so the span is a chain of B dependent
@@ -32,6 +39,13 @@ namespace {
 
 constexpr int BLOCK = 512;
 
+struct OvlArgs {          // the overlay variant (used == nullptr: none)
+  int64_t* used;          // [N, R] scratch copy of ovl_used, consumed
+  int32_t* npods;         // [N] scratch copy of ovl_npods, consumed
+  const int32_t* nom_idx; // [B] each pod's own nominated row (-1 none),
+                          // nullptr when no pod of the span is nominated
+};
+
 struct GroupArgs {        // the group branch (has_groups = 0: lean scan)
   GroupsC g;
   GCarryC c;
@@ -45,7 +59,7 @@ struct GroupArgs {        // the group branch (has_groups = 0: lean scan)
 
 __global__ void __launch_bounds__(BLOCK)
 run_batch_kernel(NodeC na, TableC tb, CarryC c, CfgC cfg, GroupArgs ga,
-                 const uint8_t* __restrict__ valid,
+                 OvlArgs oa, const uint8_t* __restrict__ valid,
                  const int32_t* __restrict__ sig,
                  const int32_t* __restrict__ tidx, int B,
                  int32_t* __restrict__ out) {
@@ -54,6 +68,7 @@ run_batch_kernel(NodeC na, TableC tb, CarryC c, CfgC cfg, GroupArgs ga,
   __shared__ int32_t minv[KT_MAX_SC];
   const bool groups = ga.has_groups != 0;
   const bool gscores = groups && (ga.fam.spr_s || ga.fam.ipa_score);
+  const OvlD ovl{oa.used, oa.npods};
   for (int i = 0; i < B; ++i) {
     const int32_t s = sig[i];
     const int u = tidx[i];
@@ -73,10 +88,18 @@ run_batch_kernel(NodeC na, TableC tb, CarryC c, CfgC cfg, GroupArgs ga,
       for (int n = threadIdx.x; n < na.N; n += BLOCK)
         ga.gmask[n] = kt_group_mask(v, ga.fam, n, minv);
     }
+    // the pod's own nominated row and its effective fit there: every
+    // thread computes the same value from the carry and overlay rows
+    // (both final since the previous step's barrier)
+    const int nom = (oa.used != nullptr && oa.nom_idx != nullptr)
+                        ? oa.nom_idx[i] : -1;
+    const bool nom_fit =
+        nom >= 0 && kt_own_nomination_fit(na, nom, c.used + (int64_t)nom * na.R,
+                                          c.npods[nom], p, ovl);
     int64_t tmax, namax;
     block_eval_parts<BLOCK>(cfg, na, tb, c, p, use_fast, c.cache, c.cache,
                             sh, num_with, &tmax, &namax,
-                            groups ? ga.gmask : nullptr);
+                            groups ? ga.gmask : nullptr, ovl, nom, nom_fit);
     if (gscores) {
       // group_scores (:551) over the full filtered set
       for (int n = threadIdx.x; n < na.N; n += BLOCK)
@@ -89,7 +112,8 @@ run_batch_kernel(NodeC na, TableC tb, CarryC c, CfgC cfg, GroupArgs ga,
     int64_t bv = KT_I64_MIN;
     int32_t bi = 0x7fffffff;
     for (int n = threadIdx.x; n < na.N; n += BLOCK) {
-      const bool feas = c.cache.static_mask[n] && c.cache.fit_ok[n]
+      const bool fit = n == nom ? nom_fit : c.cache.fit_ok[n] != 0;
+      const bool feas = c.cache.static_mask[n] && fit
                         && (!groups || ga.gmask[n]);
       int64_t val = -1;
       if (feas) {
@@ -121,10 +145,18 @@ run_batch_kernel(NodeC na, TableC tb, CarryC c, CfgC cfg, GroupArgs ga,
             ++rank;
           }
         }
-        // _row_refresh (:458) at the post-placement carry
+        if (nom >= 0) {
+          // the commit deletes a bound pod's nomination: consume it at
+          // its NOMINATED row (:955-960)
+          int64_t* orow = oa.used + (int64_t)nom * na.R;
+          for (int r = 0; r < na.R; ++r) orow[r] -= p.req[r];
+          oa.npods[nom] -= 1;
+        }
+        // _row_refresh (:458) at the post-placement carry and overlay
         int64_t s_fit, s_bal;
         kt_fit_scores(cfg, na, best, used_row, nz_row, p, &s_fit, &s_bal);
-        c.cache.fit_ok[best] = kt_fit(na, best, used_row, c.npods[best], p);
+        c.cache.fit_ok[best] =
+            kt_fit_ovl(na, best, used_row, c.npods[best], p, ovl);
         c.cache.s_fit[best] = s_fit;
         c.cache.s_bal[best] = s_bal;
       }
@@ -145,6 +177,8 @@ extern "C" int ktpu_run_batch(const NodeC* na, const TableC* tb,
                               const FamC* fam, int has_groups,
                               long long w_spread, long long w_ipa,
                               uint8_t* gmask, int32_t* flags, int64_t* gsc,
+                              int64_t* ovl_used, int32_t* ovl_npods,
+                              const int32_t* nom_idx,
                               const uint8_t* valid, const int32_t* sig,
                               const int32_t* tidx, int B, int32_t* out,
                               void* stream) {
@@ -159,8 +193,12 @@ extern "C" int ktpu_run_batch(const NodeC* na, const TableC* tb,
     ga.gmask = gmask;
     ga.flags = flags;
     ga.gsc = gsc;
+    OvlArgs oa;
+    oa.used = ovl_used;
+    oa.npods = ovl_npods;
+    oa.nom_idx = nom_idx;
     run_batch_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(
-        *na, *tb, *carry, *cfg, ga, valid, sig, tidx, B, out);
+        *na, *tb, *carry, *cfg, ga, oa, valid, sig, tidx, B, out);
   }
   return (int)cudaGetLastError();
 }

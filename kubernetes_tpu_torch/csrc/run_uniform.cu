@@ -2,7 +2,11 @@
 //
 // Replaces kubernetes_tpu/ops/program.py run_uniform (:1207; the jit
 // _run_uniform_jit :1190 over _uniform_core :1076 and _uniform_matrix
-// :1007), lean variant (no nominated-pod overlay).
+// :1007), with its nominated-pod overlay variant: the overlay (null
+// pointers: none) folds into the fit of the run's row in launch 1 — so
+// into the candidate keys, the normalization maxima and the fresh
+// SigCache — and into the fit of every matrix entry in launch 3
+// (:1135-1140); the scores and the carry update never see it.
 //
 // The run's L pods take the top-L entries of a [K, J] matrix of
 // post-placement scores (entry (k, j) = score of candidate node k after
@@ -40,7 +44,7 @@ constexpr int MBLOCK = 256;
 
 __global__ void __launch_bounds__(EBLOCK)
 uniform_eval_kernel(NodeC na, TableC tb, CarryC cin, CacheC out, CfgC cfg,
-                    int32_t sig, int32_t tidx, int64_t* static_add,
+                    OvlD ovl, int32_t sig, int32_t tidx, int64_t* static_add,
                     int64_t* keys0, int P0, int32_t* flags) {
   __shared__ BlockScratch<EBLOCK> sh;
   __shared__ int64_t num_with[KT_MAX_IC];
@@ -48,7 +52,7 @@ uniform_eval_kernel(NodeC na, TableC tb, CarryC cin, CacheC out, CfgC cfg,
   const bool use_fast = sig != 0 && sig == *cin.cache.sig;
   int64_t tmax, namax;
   block_eval_parts<EBLOCK>(cfg, na, tb, cin, p, use_fast, cin.cache, out,
-                           sh, num_with, &tmax, &namax);
+                           sh, num_with, &tmax, &namax, nullptr, ovl);
   const int N = na.N;
   for (int n = threadIdx.x; n < P0; n += EBLOCK) {
     if (n >= N) {
@@ -75,7 +79,7 @@ uniform_eval_kernel(NodeC na, TableC tb, CarryC cin, CacheC out, CfgC cfg,
 
 __global__ void __launch_bounds__(MBLOCK)
 uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
-                      CfgC cfg, int32_t tidx, const int64_t* keys0,
+                      CfgC cfg, OvlD ovl, int32_t tidx, const int64_t* keys0,
                       const int64_t* static_add, int K, int J,
                       int32_t* cand, int64_t* keys1, uint8_t* fit_kj,
                       int64_t* sfit_kj, int64_t* sbal_kj, int32_t* flags) {
@@ -91,13 +95,16 @@ uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
   const int64_t* used = cin.used + (int64_t)node * na.R;
   const int64_t* nz = cin.nonzero_used + (int64_t)node * 2;
   const int64_t npods = cin.npods[node];
+  const int64_t* ovl_row =
+      ovl.used ? ovl.used + (int64_t)node * na.R : nullptr;
+  const int64_t ovl_np = ovl.used ? ovl.npods[node] : 0;
   int64_t prev = 0;
   bool mono = true;
   for (int j = 0; j < J; ++j) {
     bool fit;
     int64_t s_fit, s_bal;
     kt_uniform_entry(cfg, na, node, used, nz, npods, p, j + 1, &fit, &s_fit,
-                     &s_bal);
+                     &s_bal, ovl_row, ovl_np);
     const int64_t masked = (sm && fit)
         ? cfg.w_fit * s_fit + cfg.w_balanced * s_bal + sadd : -1;
     if (j > 0 && masked > prev) mono = false;
@@ -170,15 +177,17 @@ extern "C" int ktpu_run_uniform(const NodeC* na, const TableC* tb,
                                 uint8_t* fit_kj, int64_t* sfit_kj,
                                 int64_t* sbal_kj, int32_t* counts,
                                 int32_t* flags, int32_t* packed,
-                                void* stream) {
+                                const int64_t* ovl_used,
+                                const int32_t* ovl_npods, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  const OvlD ovl{ovl_used, ovl_npods};
   uniform_eval_kernel<<<1, EBLOCK, 0, s>>>(*na, *tb, *cin, cout->cache, *cfg,
-                                           sig, tidx, static_add, keys0, P0,
-                                           flags);
+                                           ovl, sig, tidx, static_add, keys0,
+                                           P0, flags);
   kt_sort_desc(keys0, P0, s);
   uniform_matrix_kernel<<<(K + MBLOCK - 1) / MBLOCK, MBLOCK, 0, s>>>(
-      *na, *tb, *cin, cout->cache, *cfg, tidx, keys0, static_add, K, J, cand,
-      keys1, fit_kj, sfit_kj, sbal_kj, flags);
+      *na, *tb, *cin, cout->cache, *cfg, ovl, tidx, keys0, static_add, K, J,
+      cand, keys1, fit_kj, sfit_kj, sbal_kj, flags);
   kt_sort_desc(keys1, P1, s);
   uniform_finalize_kernel<<<1, FBLOCK, 0, s>>>(
       *cout, *tb, tidx, na->N, na->R, keys1, cand, fit_kj, sfit_kj, sbal_kj,

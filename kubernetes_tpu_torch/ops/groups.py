@@ -142,6 +142,85 @@ ALL_FAMILIES = GroupFamilies()
 
 
 # ---------------------------------------------------------------------------
+# preemption dry run: victim count tensors (spread deltas)
+
+
+class DryRunSpread(NamedTuple):
+    """PodTopologySpread victim-delta tensors for the batched preemption
+    dry run (ops/program.py dry_run_select_victims). [C] = candidate
+    nodes, [V] = padded victim slots, [SC] = the preemptor's DoNotSchedule
+    constraints. Built host-side by `spread_dry_run_tensors` from the SAME
+    plugin PreFilter state the host loop seeds."""
+
+    max_skew: object      # i32 [SC]
+    self_match: object    # i32 [SC] — selfMatchNum (filtering.go:338)
+    min_zero: object      # bool [SC] — eligible domains < minDomains
+    tv_ok: object         # bool [C, SC] — candidate has the topology key
+    cnt0: object          # i32 [C, SC] — seeded match count in the
+    #                       candidate's own topology domain
+    other_min: object     # i32 [C, SC] — criticalPaths companion minimum
+    vic_match: object     # bool [C, V, SC] — victim moves constraint count
+
+
+def spread_dry_run_tensors(s, pod, cand_infos, victims, c_pad: int,
+                           v_pad: int) -> DryRunSpread:
+    """Victim count tensors (numpy) for the spread deltas of one
+    preemption dry run. `s` is the preemptor's seeded podtopologyspread
+    _PreFilterState (the plugin's own PreFilter over ALL nodes),
+    `cand_infos` the candidate NodeInfos and `victims[c]` each candidate's
+    potential victims in reprieve order.
+
+    criticalPaths closed form: a dry run only ever moves ONE topology
+    value per candidate (all its victims live on that node), so the
+    two-entry min tracker (filtering.go:97-136) reduces to min(x, other),
+    with x the candidate domain's live count and `other` = n1 when that
+    domain IS the tracked minimum (v0), else n0 — for every update
+    sequence, the untracked → tracked transition included."""
+    from ..plugins.podtopologyspread import (_match_node_inclusion_policies,
+                                             _node_has_all_topology_keys)
+
+    cons = s.constraints
+    SC = len(cons)
+    max_skew = np.array([c.max_skew for c in cons], np.int32)
+    self_match = np.array(
+        [1 if c.selector.matches(pod.metadata.labels) else 0 for c in cons],
+        np.int32)
+    min_zero = np.array(
+        [len(s.tp_value_to_match_num[j]) < c.min_domains
+         for j, c in enumerate(cons)], bool)
+    tv_ok = np.zeros((c_pad, SC), bool)
+    cnt0 = np.zeros((c_pad, SC), np.int32)
+    other_min = np.full((c_pad, SC), INT32_MAX, np.int32)
+    vic_match = np.zeros((c_pad, v_pad, SC), bool)
+    for ci, ni in enumerate(cand_infos):
+        labels = ni.node.metadata.labels
+        for j, c in enumerate(cons):
+            tv = labels.get(c.topology_key)
+            if tv is None:
+                continue
+            tv_ok[ci, j] = True
+            cnt0[ci, j] = s.tp_value_to_match_num[j].get(tv, 0)
+            cp = s.critical_paths[j]
+            other_min[ci, j] = min(cp.n1 if tv == cp.v0 else cp.n0,
+                                   int(INT32_MAX))
+        # the plugin gates EVERY constraint update on the node having all
+        # topology keys (podtopologyspread.py _update_with_pod)
+        if not _node_has_all_topology_keys(labels, cons):
+            continue
+        for j, c in enumerate(cons):
+            if not _match_node_inclusion_policies(c, pod, ni):
+                continue
+            for vi, pi in enumerate(victims[ci]):
+                vp = pi.pod
+                if (vp.namespace == pod.namespace
+                        and c.selector.matches(vp.metadata.labels)):
+                    vic_match[ci, vi, j] = True
+    return DryRunSpread(max_skew=max_skew, self_match=self_match,
+                        min_zero=min_zero, tv_ok=tv_ok, cnt0=cnt0,
+                        other_min=other_min, vic_match=vic_match)
+
+
+# ---------------------------------------------------------------------------
 # device functions (plain PyTorch)
 
 

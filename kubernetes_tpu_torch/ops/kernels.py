@@ -33,11 +33,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
-           "run_wave", "run_plan", "diagnose_row")
+           "run_wave", "run_plan", "diagnose_row", "dry_run")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
-# run_batch counts its lean and its group mode under two keys
-LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",)}
+# run_batch counts its lean mode, its group mode and its overlay variant
+# under three keys, run_uniform its lean and its overlay variant under two
+LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
+                                           "run_batch_ovl",
+                                           "run_uniform_ovl")}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -48,6 +51,8 @@ MAX_SC = 8     # csrc/group_eval.cuh KT_MAX_SC
 MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
 MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
 MAX_PLAN_SLOTS = 32       # csrc/run_plan.cu KT_PLAN_MAX_S
+MAX_DRY_R = 64            # csrc/dry_run.cu KT_DRY_MAX_R
+MAX_DRY_V = 128           # victim slots (Evaluator.MAX_BATCHED_VICTIMS)
 
 
 def reset_launches() -> None:
@@ -240,6 +245,18 @@ class PlanArgsC(ctypes.Structure):
                 + [("packed", _P)])
 
 
+class DryArgsC(ctypes.Structure):
+    _fields_ = ([("na", NodeC), ("tb", TableC)]
+                + [(f, _P) for f in ("used", "npods", "cand", "victim_req",
+                                     "victim_valid", "ovl_used",
+                                     "ovl_npods")]
+                + [(f, _I) for f in ("C", "V", "has_spread")]
+                + [(f, _P) for f in ("max_skew", "self_match", "min_zero",
+                                     "tv_ok", "cnt0", "other_min",
+                                     "vic_match")]
+                + [("SC", _I), ("out", _P)])
+
+
 class DiagArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("used", _P), ("npods", _P),
                 ("ports", _P), ("P", _I), ("tidx", _I), ("has_groups", _I),
@@ -250,12 +267,12 @@ class DiagArgsC(ctypes.Structure):
 def _bind(name: str, lib):
     if name == "run_batch":
         lib.ktpu_run_batch.argtypes = (
-            [_P] * 7 + [_I, ctypes.c_int64, ctypes.c_int64] + [_P] * 6
+            [_P] * 7 + [_I, ctypes.c_int64, ctypes.c_int64] + [_P] * 9
             + [_I, _P, _P])
         lib.ktpu_run_batch.restype = ctypes.c_int
     elif name == "run_uniform":
         lib.ktpu_run_uniform.argtypes = (
-            [_P] * 5 + [_I] * 6 + [_P, _P, _I, _P, _P, _I] + [_P] * 7)
+            [_P] * 5 + [_I] * 6 + [_P, _P, _I, _P, _P, _I] + [_P] * 9)
         lib.ktpu_run_uniform.restype = ctypes.c_int
     elif name == "scatter_rows":
         lib.ktpu_scatter_rows.argtypes = [_P, _P, _P]
@@ -269,6 +286,9 @@ def _bind(name: str, lib):
     elif name == "run_plan":
         lib.ktpu_run_plan.argtypes = [_P, _P]
         lib.ktpu_run_plan.restype = ctypes.c_int
+    elif name == "dry_run":
+        lib.ktpu_dry_run.argtypes = [_P, _P]
+        lib.ktpu_dry_run.restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -528,9 +548,30 @@ def _out_carry(carry, scan: bool):
                  groups=groups)
 
 
-def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None):
+def _overlay_c(overlay, N: int, R: int, device, copy: bool):
+    """(ovl_used, ovl_npods) pointers of a checked overlay (i64 [N, R],
+    i32 [N]); with `copy`, of fresh copies the kernel may consume. Returns
+    (pointers, tensors kept alive until the call returns)."""
+    if overlay is None:
+        return (None, None), ()
+    used, npods = overlay
+    _check(used, "overlay.used", torch.int64, 2, device)
+    _check(npods, "overlay.npods", torch.int32, 1, device)
+    if tuple(used.shape) != (N, R) or npods.shape[0] != N:
+        raise ValueError(f"overlay: {tuple(used.shape)} / "
+                         f"{tuple(npods.shape)}, expected {(N, R)} / {(N,)}")
+    if copy:
+        used, npods = used.clone(), npods.clone()
+    return (used.data_ptr(), npods.data_ptr()), (used, npods)
+
+
+def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
+                   overlay=None):
     """The scan kernel (csrc/run_batch.cu) over pods [B]; same contract as
-    program.run_batch, with the group branch when `groups` is given."""
+    program.run_batch, with the group branch when `groups` is given and
+    the overlay variant when `overlay` is (the kernel consumes a copy of
+    it; `pods.nom_idx`, when not None, holds each pod's own nominated
+    row)."""
     libs = build()
     device = carry.used.device
     node = _node_c(na, device)
@@ -540,6 +581,16 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None):
     tidx = _check(pods.tidx, "pods.tidx", torch.int32, 1, device)
     if pods.sig.shape[0] != B or pods.tidx.shape[0] != B:
         raise ValueError("pods: valid/sig/tidx lengths differ")
+    if overlay is not None and groups is not None:
+        raise ValueError("run_batch: the overlay is a lean-scan input")
+    # the copies stay bound to a name until the call returns
+    ovl_ptrs, _ovl = _overlay_c(overlay, node.N, node.R, device, copy=True)
+    nom = pods.nom_idx
+    nom_ptr = None
+    if overlay is not None and nom is not None:
+        nom_ptr = _check(nom, "pods.nom_idx", torch.int32, 1, device)
+        if nom.shape[0] != B:
+            raise ValueError("pods.nom_idx: wrong length")
     tab = _table_c(table, node.R, device)
     out_carry = _out_carry(carry, scan=True)
     cc = _carry_c(out_carry, node.N, node.R, device)
@@ -565,10 +616,12 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None):
         ctypes.addressof(node), ctypes.addressof(tab), ctypes.addressof(cc),
         ctypes.addressof(cfgc), ctypes.addressof(g), ctypes.addressof(gc),
         ctypes.addressof(famc), int(groups is not None), cfg.w_spread,
-        cfg.w_ipa, *scratch, valid, sig, tidx, B, out.data_ptr(),
-        _stream(device))
+        cfg.w_ipa, *scratch, *ovl_ptrs, nom_ptr, valid, sig, tidx, B,
+        out.data_ptr(), _stream(device))
     _raise_on(rc, "run_batch")
-    LAUNCHES["run_batch" if groups is None else "run_batch_groups"] += 1
+    LAUNCHES["run_batch_groups" if groups is not None
+             else "run_batch_ovl" if overlay is not None
+             else "run_batch"] += 1
     return out_carry, out
 def _pow2(n: int) -> int:
     v = 1
@@ -578,9 +631,10 @@ def _pow2(n: int) -> int:
 
 
 def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
-                     K: int, J: int):
+                     K: int, J: int, overlay=None):
     """The closed-form kernels (csrc/run_uniform.cu) for one same-signature
-    run; same contract as program.run_uniform."""
+    run; same contract as program.run_uniform, with the overlay variant
+    when `overlay` is given (read only)."""
     libs = build()
     device = carry.used.device
     node = _node_c(na, device)
@@ -596,6 +650,7 @@ def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
     if not 0 <= tidx < tab.U:
         raise ValueError(f"run_uniform: row {tidx} outside the table")
     cin = _carry_c(carry, N, node.R, device)
+    ovl_ptrs, _ovl = _overlay_c(overlay, N, node.R, device, copy=False)
 
     def empty(n, dtype):
         return torch.empty((n,), dtype=dtype, device=device)
@@ -621,9 +676,9 @@ def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
         keys0.data_ptr(), P0, cand.data_ptr(), keys1.data_ptr(), P1,
         fit_kj.data_ptr(), sfit.data_ptr(), sbal.data_ptr(),
         counts.data_ptr(), flags.data_ptr(), packed.data_ptr(),
-        _stream(device))
+        *ovl_ptrs, _stream(device))
     _raise_on(rc, "run_uniform")
-    LAUNCHES["run_uniform"] += 1
+    LAUNCHES["run_uniform" if overlay is None else "run_uniform_ovl"] += 1
     return out_carry, packed
 
 
@@ -897,3 +952,73 @@ def diagnose_row_cuda(na, table, tidx: int, gd=None, gc=None, fam=None):
     _raise_on(rc, "diagnose_row")
     LAUNCHES["diagnose_row"] += 1
     return slot, pods_fail, cols_fail
+
+
+def dry_run_select_victims_cuda(na, pod, cand, victim_req, victim_valid,
+                                ovl_used, ovl_npods, spread=None):
+    """The batched preemption dry run (csrc/dry_run.cu), one thread per
+    candidate; same contract as program.dry_run_select_victims. `pod` is
+    a PodRow of device tensors (program.pod_row_from_table)."""
+    libs = build()
+    device = victim_req.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    if R > MAX_DRY_R:
+        raise ValueError(f"dry_run: {R} resource columns > kernel limit "
+                         f"{MAX_DRY_R}")
+    used = _check(na.used, "na.used", torch.int64, 2, device)
+    npods = _check(na.npods, "na.npods", torch.int32, 1, device)
+    if tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N:
+        raise ValueError("dry_run: node state shapes differ from cap")
+    from .program import PodTableDev
+    # the preemptor's row as a one-row table (views, no copies)
+    row = PodTableDev(*(getattr(pod, f).unsqueeze(0)
+                        for f in PodTableDev._fields))
+    tab = _table_c(row, R, device)
+    C = cand.shape[0]
+    cand_p = _check(cand, "cand", torch.int32, 1, device)
+    req_p = _check(victim_req, "victim_req", torch.int64, 3, device)
+    valid_p = _check(victim_valid, "victim_valid", torch.bool, 2, device)
+    V = victim_req.shape[1]
+    if not 1 <= V <= MAX_DRY_V:
+        raise ValueError(f"dry_run: {V} victim slots outside 1..{MAX_DRY_V}")
+    if (tuple(victim_req.shape) != (C, V, R)
+            or tuple(victim_valid.shape) != (C, V)):
+        raise ValueError(f"dry_run: victim tensors {tuple(victim_req.shape)}"
+                         f" / {tuple(victim_valid.shape)}, expected "
+                         f"{(C, V, R)} / {(C, V)}")
+    ou_p = _check(ovl_used, "ovl_used", torch.int64, 2, device)
+    on_p = _check(ovl_npods, "ovl_npods", torch.int32, 1, device)
+    if tuple(ovl_used.shape) != (C, R) or ovl_npods.shape[0] != C:
+        raise ValueError("dry_run: overlay must be [C, R] / [C]")
+    sp = {}
+    SC = 0
+    if spread is not None:
+        SC = spread.max_skew.shape[0]
+        if SC > MAX_SC:
+            raise ValueError(f"dry_run: {SC} spread constraints > kernel "
+                             f"limit {MAX_SC}")
+        want = {"max_skew": (torch.int32, (SC,)),
+                "self_match": (torch.int32, (SC,)),
+                "min_zero": (torch.bool, (SC,)),
+                "tv_ok": (torch.bool, (C, SC)),
+                "cnt0": (torch.int32, (C, SC)),
+                "other_min": (torch.int32, (C, SC)),
+                "vic_match": (torch.bool, (C, V, SC))}
+        for f, (dtype, shape) in want.items():
+            t = getattr(spread, f)
+            sp[f] = _check(t, f"spread.{f}", dtype, len(shape), device)
+            if tuple(t.shape) != shape:
+                raise ValueError(f"spread.{f}: {tuple(t.shape)}, expected "
+                                 f"{shape}")
+    out = torch.empty((C, V + 1), dtype=torch.bool, device=device)
+    # the struct stays bound to a name until the call returns
+    args = DryArgsC(na=node, tb=tab, used=used, npods=npods, cand=cand_p,
+                    victim_req=req_p, victim_valid=valid_p, ovl_used=ou_p,
+                    ovl_npods=on_p, C=C, V=V, has_spread=int(bool(sp)),
+                    SC=SC, out=out.data_ptr(), **sp)
+    rc = libs["dry_run"].ktpu_dry_run(ctypes.addressof(args),
+                                      _stream(device))
+    _raise_on(rc, "dry_run")
+    LAUNCHES["dry_run"] += 1
+    return out

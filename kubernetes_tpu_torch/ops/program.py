@@ -1,12 +1,13 @@
 """The device program: per-pod scan, closed-form uniform run, group waves,
 the multi-signature plan program and the mask diagnosis.
 
-PyTorch counterpart of kubernetes_tpu/ops/program.py without the
-nominated-pod overlay. Every device program here has two implementations:
+PyTorch counterpart of kubernetes_tpu/ops/program.py. Every device
+program here has two implementations:
 
 - a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain`,
   `_wave_statics_plain`, `_run_wave_plain`, `_run_plan_plain`,
-  `_diagnose_plain`, `_scatter_rows_plain` and the filter/score
+  `_diagnose_plain`, `_dry_run_select_victims_plain`,
+  `_scatter_rows_plain` and the filter/score
   functions below), a line-for-line translation of the JAX
   functions with the same dtypes and the same integer and float
   arithmetic — the CPU path and the reference the CUDA kernels are held
@@ -15,7 +16,7 @@ nominated-pod overlay. Every device program here has two implementations:
   inputs lie on a CUDA device.
 
 `run_batch`, `run_uniform`, `wave_statics`, `run_wave`, `run_plan`,
-`diagnose_row` and `scatter_rows` pick by the device of their inputs: CPU
+`diagnose_row`, `dry_run_select_victims` and `scatter_rows` pick by the device of their inputs: CPU
 tensors take the plain version, CUDA tensors launch the kernel, and
 anything else raises. There is no fallback between the two.
 
@@ -129,11 +130,16 @@ class PodTableDev(NamedTuple):
 
 class PodXs(NamedTuple):
     """Per-pod scan inputs: bool/i32 [B] tensors for `run_batch`; Python
-    scalars (the run's one row) for `run_uniform`."""
+    scalars (the run's one row) for `run_uniform`. `nom_idx` (i32 [B],
+    -1 = none; None when no pod of the span is nominated) is the node row
+    of each pod's OWN nomination: under a nominated-pod overlay the scan
+    subtracts the pod's own contribution there (self-exclusion) and
+    consumes it when the pod binds."""
 
     valid: object
     sig: object
     tidx: object
+    nom_idx: object = None
 
 
 class PodRow(NamedTuple):
@@ -165,13 +171,15 @@ class PodRow(NamedTuple):
     skip_balanced: torch.Tensor
     img_ids: torch.Tensor
     img_containers: torch.Tensor
+    nom_idx: object = None     # int, the pod's own nominated row (-1 none)
 
 
 def _gather_row(table: PodTableDev, tidx: int, valid: bool,
-                sig: int) -> PodRow:
+                sig: int, nom_idx=None) -> PodRow:
     fields = {name: getattr(table, name)[tidx]
               for name in PodTableDev._fields}
-    return PodRow(valid=bool(valid), sig=int(sig), **fields)
+    return PodRow(valid=bool(valid), sig=int(sig), nom_idx=nom_idx,
+                  **fields)
 
 
 def table_from_batch(batch, device) -> PodTableDev:
@@ -392,16 +400,26 @@ def _fit_scores(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
 
 
 def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
-                pod: PodRow) -> SigCache:
-    """Everything SigCache caches, freshly computed."""
+                pod: PodRow, overlay=None) -> SigCache:
+    """Everything SigCache caches, freshly computed. `overlay` =
+    (ovl_used [N, R], ovl_npods [N]) or None: nominated pods' resources
+    folded into the FIT check only (the with-nominated pass of
+    RunFilterPluginsWithNominatedPods); scoring stays overlay-free. No
+    per-pod self-exclusion here — the cached fit_ok stays
+    signature-pure, so same-signature pods with different nominations
+    share it; _eval_pod applies the one-row delta on top."""
     m = na.valid.clone()
     m &= (pod.node_name_id == 0) | (na.name_id == pod.node_name_id)
     m &= ~na.unschedulable | pod.tolerates_unsched
     m &= taint_filter_mask(na, pod)
     m &= selector_mask(na, pod)
     m &= ports_mask(carry.ports, pod.port_ids)
-    fit_ok = fit_mask(na.cap, carry.used, carry.npods, na.allowed_pods,
-                      pod.req)
+    if overlay is None:
+        fit_used, fit_npods = carry.used, carry.npods
+    else:
+        fit_used = carry.used + overlay[0]
+        fit_npods = carry.npods + overlay[1]
+    fit_ok = fit_mask(na.cap, fit_used, fit_npods, na.allowed_pods, pod.req)
     s_fit, s_bal = _fit_scores(cfg, na, carry, pod)
     return SigCache(
         sig=torch.tensor(pod.sig, dtype=_I32, device=m.device),
@@ -411,20 +429,44 @@ def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
         s_bal=s_bal)
 
 
+def _own_nomination_fit(na: NodeArrays, carry: Carry, pod: PodRow,
+                        overlay, safe: int):
+    """Fit at the pod's own nominated row `safe` with its own nomination
+    taken back out of the overlay (framework.go:1183 skips the pod's own
+    nomination). The overlay holds the pod's own request and count there,
+    so removing them and adding the pod back leaves `used + ovl_used ≤
+    cap` on the pod's columns and `npods + ovl_npods ≤ allowed`."""
+    used = carry.used[safe] + overlay[0][safe]
+    npods = carry.npods[safe] + overlay[1][safe]
+    return ((npods <= na.allowed_pods[safe])
+            & ((pod.req == 0) | (used <= na.cap[safe])).all())
+
+
 def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow,
-              groups=None, tidx: int = 0, fam=None):
+              groups=None, tidx: int = 0, fam=None, overlay=None):
     """Feasibility + total score for one pod over all nodes → (feasible,
     total, parts), consulting the signature cache. With `groups` (the
     GroupsDev of the table, and `carry.groups`), the group mask folds into
     the feasible set BEFORE normalization and the group scores add to the
-    total; they are carry-coupled, so never cached."""
+    total; they are carry-coupled, so never cached. With an `overlay` and
+    a nominated pod (`pod.nom_idx >= 0`), the fit at the pod's own
+    nominated row is recomputed without its own nomination — in the
+    EFFECTIVE mask only; the returned parts keep the signature-pure
+    fit_ok."""
     cache = carry.cache
     if pod.sig != 0 and pod.sig == int(cache.sig):
         parts = cache._replace(
             sig=torch.tensor(pod.sig, dtype=_I32, device=cache.sig.device))
     else:
-        parts = _slow_parts(cfg, na, carry, pod)
-    feasible = parts.static_mask & parts.fit_ok
+        parts = _slow_parts(cfg, na, carry, pod, overlay=overlay)
+    fit_ok_eff = parts.fit_ok
+    if overlay is not None and pod.nom_idx is not None:
+        nom = int(pod.nom_idx)
+        if nom >= 0:
+            fit_ok_eff = fit_ok_eff.clone()
+            fit_ok_eff[nom] = _own_nomination_fit(na, carry, pod, overlay,
+                                                  nom)
+    feasible = parts.static_mask & fit_ok_eff
     if groups is not None:
         feasible = feasible & group_mask(groups, carry.groups, tidx, fam=fam)
     s_taint = default_normalize(parts.taint_raw, feasible, reverse=True)
@@ -439,14 +481,21 @@ def _eval_pod(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow,
 
 
 def _row_refresh(cfg: ScoreConfig, na: NodeArrays, c2: Carry, pod: PodRow,
-                 best, gate, cache: SigCache) -> SigCache:
+                 best, gate, cache: SigCache, overlay=None) -> SigCache:
     """Recompute fit_ok/s_fit/s_bal for the single row the placement
-    touched (everything else in the cache is carry-independent)."""
+    touched (everything else in the cache is carry-independent); the fit
+    sees the overlay, the scores do not."""
     cols, slots = _cols(cfg)
     cap_row = na.cap[best]
     used_row = c2.used[best]
-    fit_ok_b = ((c2.npods[best] + 1 <= na.allowed_pods[best])
-                & ((pod.req == 0) | (used_row + pod.req <= cap_row)).all())
+    if overlay is None:
+        fit_used_row, fit_npods = used_row, c2.npods[best]
+    else:
+        fit_used_row = used_row + overlay[0][best]
+        fit_npods = c2.npods[best] + overlay[1][best]
+    fit_ok_b = ((fit_npods + 1 <= na.allowed_pods[best])
+                & ((pod.req == 0) | (fit_used_row + pod.req <= cap_row))
+                .all())
     nz = torch.tensor(cfg.col_nonzero, device=cap_row.device)
     cap_r = cap_row[cols][None, :]
     used_nz_r = c2.nonzero_used[best][slots] + pod.nonzero_req[slots]
@@ -492,21 +541,35 @@ def _apply_assignment(carry: Carry, pod: PodRow, best, assigned) -> Carry:
 
 
 def _run_batch_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
-                     pods: PodXs, table: PodTableDev, groups=None, fam=None):
-    """The sequential scan, one pod per step (plain version)."""
+                     pods: PodXs, table: PodTableDev, groups=None, fam=None,
+                     overlay=None):
+    """The sequential scan, one pod per step (plain version). Under an
+    `overlay` with `pods.nom_idx`, a bound nominated pod's nomination is
+    consumed at its NOMINATED row (the commit deletes it), so later pods
+    see the overlay the host sequential path would; the scan carries the
+    overlay forward and never writes the caller's."""
     out = []
     c = carry
-    for v, s, t in zip(pods.valid.tolist(), pods.sig.tolist(),
-                       pods.tidx.tolist()):
-        pod = _gather_row(table, t, v, s)
+    ovl = overlay
+    consume_nom = overlay is not None and pods.nom_idx is not None
+    noms = (pods.nom_idx.tolist() if consume_nom
+            else [None] * len(pods.valid))
+    for v, s, t, nom in zip(pods.valid.tolist(), pods.sig.tolist(),
+                            pods.tidx.tolist(), noms):
+        pod = _gather_row(table, t, v, s, nom_idx=nom)
         mask, score, parts = _eval_pod(cfg, na, c, pod, groups=groups,
-                                       tidx=t, fam=fam)
+                                       tidx=t, fam=fam, overlay=ovl)
         masked = torch.where(mask, score, torch.full_like(score, -1))
         best = torch.argmax(masked)          # first max
         assigned = (masked[best] >= 0) & bool(v)
         c2 = _apply_assignment(c, pod, best, assigned)
+        if consume_nom and bool(assigned) and nom >= 0:
+            ovl_used, ovl_npods = ovl[0].clone(), ovl[1].clone()
+            ovl_used[nom] -= pod.req
+            ovl_npods[nom] -= 1
+            ovl = (ovl_used, ovl_npods)
         c = c2._replace(cache=_row_refresh(cfg, na, c2, pod, best, assigned,
-                                           parts))
+                                           parts, overlay=ovl))
         if groups is not None:
             c = c._replace(groups=group_update(groups, c.groups, t, best,
                                                assigned, fam=fam))
@@ -517,21 +580,28 @@ def _run_batch_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
 
 
 def run_batch(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pods: PodXs,
-              table: PodTableDev, groups=None, fam=None):
+              table: PodTableDev, groups=None, fam=None, overlay=None):
     """Scan the batch; returns (final carry, assignments i32 [B] (-1 =
     none)). `groups` (GroupsDev, with `carry.groups`) turns on the
     PodTopologySpread / InterPodAffinity mask, scores and per-placement
     count update; `fam` (GroupFamilies) skips the inactive families.
-    Never writes into `carry`: the output carry is fresh."""
+    `overlay` = (ovl_used i64 [N, R], ovl_npods i32 [N]) folds the
+    nominated pods into the fit (lean scan only), with `pods.nom_idx`
+    the per-pod self-exclusion and consumption. Never writes into
+    `carry` or `overlay`: the output carry is fresh."""
     dev = carry.used.device
     if (groups is None) != (carry.groups is None):
         raise ValueError("run_batch: groups and carry.groups go together")
+    if overlay is not None and groups is not None:
+        raise ValueError("run_batch: the overlay is a lean-scan input")
     if dev.type == "cuda":
         from .kernels import run_batch_cuda
-        return run_batch_cuda(cfg, na, carry, pods, table, groups, fam)
+        return run_batch_cuda(cfg, na, carry, pods, table, groups, fam,
+                              overlay=overlay)
     if dev.type != "cpu":
         raise RuntimeError(f"run_batch: unsupported device {dev}")
-    return _run_batch_plain(cfg, na, carry, pods, table, groups, fam)
+    return _run_batch_plain(cfg, na, carry, pods, table, groups, fam,
+                            overlay=overlay)
 
 
 # ---------------------------------------------------------------------------
@@ -586,9 +656,10 @@ def _uniform_matrix(cfg: ScoreConfig, na: NodeArrays, fit_used, fit_npods,
 
 def _run_uniform_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
                        x: PodXs, table: PodTableDev, n_actual: int, L: int,
-                       K: int, J: int):
+                       K: int, J: int, overlay=None):
     pod = _gather_row(table, int(x.tidx), True, int(x.sig))
-    feasible0, total0, parts = _eval_pod(cfg, na, carry, pod)
+    feasible0, total0, parts = _eval_pod(cfg, na, carry, pod,
+                                         overlay=overlay)
     masked0 = torch.where(feasible0, total0, torch.full_like(total0, -1))
     N = masked0.shape[0]
     dev = masked0.device
@@ -606,8 +677,13 @@ def _run_uniform_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
     norm_ok = ((torch.where(feasible0, parts.taint_raw, zero_n).max() == 0)
                & (torch.where(feasible0, parts.na_raw, zero_n).max() == 0))
 
+    if overlay is None:
+        fit_used, fit_npods = carry.used, carry.npods
+    else:
+        fit_used = carry.used + overlay[0]
+        fit_npods = carry.npods + overlay[1]
     fit_kj, s_fit_kj, s_bal_kj = _uniform_matrix(
-        cfg, na, carry.used, carry.npods, carry.used, carry.nonzero_used,
+        cfg, na, fit_used, fit_npods, carry.used, carry.nonzero_used,
         cand, pod, J)
     score_kj = (cfg.w_fit * s_fit_kj + cfg.w_balanced * s_bal_kj
                 + static_add[:, None])
@@ -658,21 +734,26 @@ def _run_uniform_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
 
 
 def run_uniform(cfg: ScoreConfig, na: NodeArrays, carry: Carry, x: PodXs,
-                table: PodTableDev, n_actual: int, L: int, K: int, J: int):
+                table: PodTableDev, n_actual: int, L: int, K: int, J: int,
+                overlay=None):
     """Closed-form assignment of a run of `n_actual` same-signature pods
     (row `x.tidx`, signature `x.sig != 0`; see the JAX package's
     `_uniform_core` for the exactness argument). Returns (carry', packed
     i32 [L+2]): assignments, then the exactness flag (monotonicity and
     normalization constancy held) and the depth flag (no candidate used
-    all J entries). Never writes into `carry`: the scheduler keeps it for
-    rewind and replay."""
+    all J entries). `overlay` = (ovl_used [N, R], ovl_npods [N]) folds
+    the nominated pods into the fit of the matrix and of the candidate
+    selection; none of the run's pods is nominated. Never writes into
+    `carry`: the scheduler keeps it for rewind and replay."""
     dev = carry.used.device
     if dev.type == "cuda":
         from .kernels import run_uniform_cuda
-        return run_uniform_cuda(cfg, na, carry, x, table, n_actual, L, K, J)
+        return run_uniform_cuda(cfg, na, carry, x, table, n_actual, L, K, J,
+                                overlay=overlay)
     if dev.type != "cpu":
         raise RuntimeError(f"run_uniform: unsupported device {dev}")
-    return _run_uniform_plain(cfg, na, carry, x, table, n_actual, L, K, J)
+    return _run_uniform_plain(cfg, na, carry, x, table, n_actual, L, K, J,
+                              overlay=overlay)
 
 
 # ---------------------------------------------------------------------------
@@ -1448,3 +1529,113 @@ def diagnose_row(na: NodeArrays, table: PodTableDev, tidx: int, gd=None,
     if dev.type != "cpu":
         raise RuntimeError(f"diagnose_row: unsupported device {dev}")
     return _diagnose_plain(na, table, tidx, gd, gc, fam)
+
+
+# ---------------------------------------------------------------------------
+# preemption dry run (preemption.go:775 DryRunPreemption): the
+# per-candidate-node host loop of select_victims_on_node as one program
+# over the candidate axis
+
+def pod_row_from_table(table, u: int, device, sig: int = 0) -> PodRow:
+    """One signature row of a (numpy) PodTable as the kernels' PodRow, on
+    `device`."""
+    import numpy as np
+    from ..state.convert import POD_TABLE_DTYPES
+    fields = {name: torch.as_tensor(np.array(getattr(table, name)[u]),
+                                    dtype=POD_TABLE_DTYPES[name],
+                                    device=device)
+              for name in PodTableDev._fields}
+    return PodRow(valid=True, sig=int(sig), **fields)
+
+
+def _dry_run_spread_ok(sp, removed):
+    """Spread feasibility of the preemptor on every candidate, given
+    `removed` i32 [C, SC] matching victims currently removed: missing key
+    → infeasible; matchNum + selfMatch − min > maxSkew → infeasible, with
+    the criticalPaths closed form min(x, other) and the minDomains zero
+    floor (ops/groups.py spread_dry_run_tensors)."""
+    x = sp.cnt0 - removed
+    min_eff = torch.where(sp.min_zero[None, :], torch.zeros_like(x),
+                          torch.minimum(x, sp.other_min))
+    ok = x + sp.self_match[None, :] - min_eff <= sp.max_skew[None, :]
+    return (sp.tv_ok & ok).all(dim=1)
+
+
+def _dry_run_select_victims_plain(na: NodeArrays, pod: PodRow, cand,
+                                  victim_req, victim_valid, ovl_used,
+                                  ovl_npods, spread=None):
+    """The JAX package's _dry_run_select_victims_jit, the victim scan a
+    Python loop over V (plain version)."""
+    idx = cand.to(_I64)
+    na_c = NodeArrays(*(x[idx] for x in na))
+    m = na_c.valid.clone()
+    m &= (pod.node_name_id == 0) | (na_c.name_id == pod.node_name_id)
+    m &= ~na_c.unschedulable | pod.tolerates_unsched
+    m &= taint_filter_mask(na_c, pod)
+    m &= selector_mask(na_c, pod)
+    nv = victim_valid.sum(dim=1).to(na_c.npods.dtype)
+    total_req = torch.where(victim_valid[:, :, None], victim_req,
+                            torch.zeros_like(victim_req)).sum(dim=1)
+    base_used = na_c.used + ovl_used - total_req
+    base_npods = na_c.npods + ovl_npods - nv
+    fits = m & fit_mask(na_c.cap, base_used, base_npods, na_c.allowed_pods,
+                        pod.req)
+    C, V = victim_valid.shape
+    if spread is not None:
+        vm = spread.vic_match.to(_I32)                          # [C, V, SC]
+        removed = torch.where(victim_valid[:, :, None], vm,
+                              torch.zeros_like(vm)).sum(dim=1).to(_I32)
+        fits &= _dry_run_spread_ok(spread, removed)
+    else:
+        vm = torch.zeros((C, V, 0), dtype=_I32, device=victim_req.device)
+        removed = torch.zeros((C, 0), dtype=_I32, device=victim_req.device)
+    used, npods = base_used, base_npods
+    reprieved = []
+    for v in range(V):
+        t_used = used + victim_req[:, v]
+        t_npods = npods + 1
+        ok = victim_valid[:, v] & (t_npods + 1 <= na_c.allowed_pods)
+        ok &= ((pod.req[None, :] == 0)
+               | (t_used + pod.req[None, :] <= na_c.cap)).all(dim=1)
+        t_removed = removed - vm[:, v]
+        if spread is not None:
+            ok &= _dry_run_spread_ok(spread, t_removed)
+        used = torch.where(ok[:, None], t_used, used)
+        npods = torch.where(ok, t_npods, npods)
+        removed = torch.where(ok[:, None], t_removed, removed)
+        reprieved.append(ok)
+    return torch.cat([fits[:, None], torch.stack(reprieved, dim=1)], dim=1)
+
+
+def dry_run_select_victims(na: NodeArrays, pod: PodRow, cand, victim_req,
+                           victim_valid, ovl_used, ovl_npods, spread=None):
+    """Batched select_victims_on_node (default_preemption.go:583) over the
+    candidate-node axis; see the JAX package's
+    `_dry_run_select_victims_jit` for the exactness argument.
+
+    cand         i32 [C]      node-row indices into `na` (padding repeats
+                              a real row; the caller ignores its outputs)
+    victim_req   i64 [C,V,R]  potential victims' requests in REPRIEVE
+                              order (PDB-violating first, then priority
+                              desc / creation asc)
+    victim_valid bool [C,V]
+    ovl_used     i64 [C,R]    ≥-priority nominated pods (self excluded)
+    ovl_npods    i32 [C]      folded into the fit
+    spread       ops/groups.py DryRunSpread when the preemptor carries
+                 DoNotSchedule spread constraints
+
+    Returns bool [C, V+1]: column 0 = the preemptor fits with every victim
+    removed; column 1+v = victim v is reprieved (added back, most
+    important first, while the preemptor still fits). Never writes its
+    inputs."""
+    dev = victim_req.device
+    if dev.type == "cuda":
+        from .kernels import dry_run_select_victims_cuda
+        return dry_run_select_victims_cuda(na, pod, cand, victim_req,
+                                           victim_valid, ovl_used, ovl_npods,
+                                           spread)
+    if dev.type != "cpu":
+        raise RuntimeError(f"dry_run_select_victims: unsupported device {dev}")
+    return _dry_run_select_victims_plain(na, pod, cand, victim_req,
+                                         victim_valid, ovl_used, ovl_npods,
+                                         spread)

@@ -3,7 +3,8 @@
 Counterpart of kubernetes_tpu/scheduler.py for the default profile without
 the volume, DRA and gang plugins (NodeUnschedulable, NodeName,
 TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
-BalancedAllocation, PodTopologySpread, InterPodAffinity, ImageLocality).
+BalancedAllocation, PodTopologySpread, InterPodAffinity, ImageLocality,
+and DefaultPreemption as the PostFilter).
 The queue drains in device-sized batches; the drain compiler splits each
 batch into same-signature "uniform" runs (closed-form top-L, ops/program.py
 run_uniform), same-signature group "wave" spans (ops/program.py run_wave),
@@ -13,16 +14,23 @@ branch when the drain needs groups); the carry, group counts included,
 chains on the device from span to span and drain to drain; the commit
 assumes the winners in the host cache and bulk-binds them through the
 dispatcher. A pod no node fits is diagnosed from the device filter masks
-(ops/program.py diagnose_row), as the JAX package does by default.
+(ops/program.py diagnose_row), as the JAX package does by default, then
+runs the PostFilter: DefaultPreemption's Evaluator picks victims through
+the batched device dry run (ops/program.py dry_run_select_victims),
+deletes them and nominates the node. While nominations are pending, the
+drains fold the nominated pods into the fit as a resource overlay of
+run_uniform / run_batch, with per-pod self-exclusion for the nominated
+pods themselves.
 
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
   a build or a launch raises; group drains the JAX package hands to its
-  host greedy run the device scan here;
+  host greedy run the device scan here, and drains the JAX package hands
+  to its host scheduling path (`_schedule_one_host`: nominations the
+  overlay cannot represent) raise NotImplementedError;
 - a pod that needs a feature this port lacks — gangs (Workload), volumes
-  or DRA claims, extenders, nominated-pod overlays, preemption — raises
-  NotImplementedError naming the missing piece, and is never scheduled
-  with a reduced plugin set.
+  or DRA claims, extenders — raises NotImplementedError naming the
+  missing piece, and is never scheduled with a reduced plugin set.
 
 `Scheduler(api, device=None)` runs on "cuda"; without a CUDA device it
 raises unless the caller asks for `device="cpu"` (the plain PyTorch
@@ -57,6 +65,7 @@ from .ops.program import (PodXs, ScoreConfig, WaveXs, diagnose_row,
                           with_cache_sig)
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
+from .plugins.defaultpreemption import DefaultPreemption
 from .plugins.imagelocality import ImageLocality
 from .plugins.node_basics import (NodeName, NodePorts, NodeUnschedulable,
                                   PrioritySort, SchedulingGates,
@@ -169,6 +178,11 @@ class _PendingDrain:
     groups_needed: bool = False
     records: list = field(default_factory=list)
     done: object = None       # CUDA event recorded after the dispatch
+    # nominated-pod resource overlay active at dispatch (None = none) and
+    # the drain pods' own nominated rows (i32 [n], -1 = none): a replay
+    # reproduces the dispatch-time overlay
+    ovl: object = None
+    nom: object = None
 
     def ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -207,11 +221,11 @@ class Scheduler:
         for prof in profiles:
             fwk = prof.framework
             if (fwk.reserve_plugins or fwk.permit_plugins
-                    or fwk.pre_bind_plugins or fwk.post_filter_plugins):
+                    or fwk.pre_bind_plugins):
                 raise NotImplementedError(
-                    f"profile {prof.name!r}: Reserve/Permit/PreBind/"
-                    "PostFilter plugins (volumes, gangs, preemption) are "
-                    "not ported to kubernetes_tpu_torch yet")
+                    f"profile {prof.name!r}: Reserve/Permit/PreBind "
+                    "plugins (volumes, gangs) are not ported to "
+                    "kubernetes_tpu_torch yet")
         self.profiles: dict[str, Profile] = {p.name: p for p in profiles}
 
         self.cache = Cache(clock=clock)
@@ -233,6 +247,7 @@ class Scheduler:
             clock=clock)
         from .compiler.plan import DrainCompiler
         self.compiler = DrainCompiler(builder=self.builder, state=self.state)
+        self._wire_preemption(client)
         self._register_event_handlers()
 
         self.schedule_attempts = 0
@@ -240,6 +255,7 @@ class Scheduler:
         self.unschedulable_count = 0
         self.error_count = 0
         self.device_batches = 0
+        self.preemption_attempts = 0
         # uniform runs whose exactness or depth flag failed (rewound and
         # replayed at commit)
         self.uniform_rewinds = 0
@@ -249,6 +265,11 @@ class Scheduler:
         # outside the device's own placements touches node state
         self._device_carry = None
         self._carry_profile = None   # profile whose cfg filled the sig cache
+        # nominator version the resident carry's SigCache was computed
+        # under (-1 = no nominations): the cached fit_ok holds the
+        # dispatch-time overlay, so any nomination change zeroes the sig
+        # exactly like a profile switch
+        self._carry_ovl_fp = -1
         self._builder_reset_seen = 0
         # dispatched-but-uncommitted drains (async commit pipeline; the
         # JAX package's default with SchedulerAsyncAPICalls on)
@@ -274,6 +295,26 @@ class Scheduler:
                            "first_prefix": deque(maxlen=256)}
 
     # -- wiring ---------------------------------------------------------------
+
+    def _wire_preemption(self, client) -> None:
+        """DefaultPreemption as every profile's PostFilter, with the live
+        handles the Evaluator needs (dispatcher, nominator, snapshot, PDB
+        lister) and the batched device dry run (BatchedPreemptionDryRun
+        is fixed at its default, on)."""
+        from .framework.preemption import DeviceDryRunContext
+        for prof in self.profiles.values():
+            fwk = prof.framework
+            dp = next((p for p in fwk.plugins
+                       if isinstance(p, DefaultPreemption)), None)
+            if dp is None:
+                dp = DefaultPreemption()
+                fwk.plugins.append(dp)
+                fwk.post_filter_plugins.append(dp)
+            dp.wire(fwk, self.dispatcher, self.queue.nominator,
+                    self.snapshot, client.list_pdbs,
+                    DeviceDryRunContext(state=self.state,
+                                        builder=self.builder,
+                                        snapshot=self.snapshot))
 
     @staticmethod
     def _make_pre_enqueue(fwk: Framework):
@@ -310,6 +351,10 @@ class Scheduler:
             on_add=self._on_pod_add, on_update=self._on_pod_update,
             on_delete=self._on_pod_delete,
             on_add_bulk=self._on_pod_add_bulk))
+        if hasattr(self.client, "watch_pdbs"):
+            self.client.watch_pdbs(WatchHandlers(
+                on_add=self._on_pdb_change, on_update=self._on_pdb_change,
+                on_delete=self._on_pdb_change))
 
     def _responsible(self, pod: Pod) -> bool:
         return pod.spec.scheduler_name in self.profiles
@@ -395,6 +440,17 @@ class Scheduler:
         self.cache.remove_node(node)
         self._invalidate_device_state()
 
+    def _on_pdb_change(self, *args) -> None:
+        """A PDB change can alter preemption viability for pods rejected
+        by DefaultPreemption. Their rejectors are the FILTER plugins, whose
+        hints do not cover PDB events, so this is the wildcard event (a
+        conservative requeue)."""
+        old, new = (args[0], args[1]) if len(args) == 2 else (None, args[0])
+        self.queue.move_all_to_active_or_backoff_queue(
+            ClusterEvent(EventResource.WILDCARD, ActionType.ALL,
+                         "PodDisruptionBudgetChange"),
+            old, new)
+
     # -- scheduling: batch path ----------------------------------------------
 
     def schedule_pending(self, max_batches: int = 0,
@@ -464,11 +520,21 @@ class Scheduler:
         self.queue.flush_backoff_completed()
         self.queue.flush_unschedulable_leftover()
 
+    def _refuse_host_path(self, qpis) -> None:
+        """The JAX package schedules a drain whose nominations the overlay
+        cannot represent on its host path, one pod at a time; the port has
+        no host scheduling path."""
+        raise NotImplementedError(
+            f"drain of {len(qpis)} pods under nominations the device "
+            "overlay cannot represent (a lower-priority or host-port "
+            "nominated pod, or group constraints): the host scheduling "
+            "path (_schedule_one_host) is not ported to "
+            "kubernetes_tpu_torch yet")
+
     def _schedule_batch(self, qpis: list[QueuedPodInfo]) -> None:
-        if self.queue.nominator.nominated_pods:
-            raise NotImplementedError(
-                "nominated pods present: the nominated-pod resource overlay "
-                "is not ported to kubernetes_tpu_torch yet")
+        if (self.queue.nominator.nominated_pods
+                and not self._overlay_eligible(qpis)):
+            self._refuse_host_path(qpis)
         # route per profile: each maximal same-profile stretch runs with
         # ITS weights/strategy, in queue order
         i = 0
@@ -503,12 +569,17 @@ class Scheduler:
         """Build + dispatch one drain WITHOUT waiting for the device; the
         commit happens when the drain is resolved."""
         carry = self._device_carry
-        if carry is not None and self._carry_profile != profile.name:
-            # the signature cache was filled under another profile's
-            # ScoreConfig: invalidate it (sig 0 never matches)
+        nominator = self.queue.nominator
+        ovl_fp = nominator.version if nominator.nominated_pods else -1
+        if carry is not None and (self._carry_profile != profile.name
+                                  or self._carry_ovl_fp != ovl_fp):
+            # the signature cache's scores were filled under another
+            # profile's ScoreConfig, or its fit_ok under another
+            # nominated-pod overlay: invalidate it (sig 0 never matches)
             carry = with_cache_sig(carry, 0)
             self._device_carry = carry
         self._carry_profile = profile.name
+        self._carry_ovl_fp = ovl_fp
         if carry is None:
             # reseed device state from the host snapshot; pending commits
             # mutate the cache the snapshot is built from, so they land
@@ -580,8 +651,18 @@ class Scheduler:
             self._table_dev_version = batch.table_version
         table = self._table_dev
         n = len(qpis)
+        ovl = nom = None
+        if self.queue.nominator.nominated_pods:
+            # re-validate at the dispatch site: nominations may have moved
+            # since _schedule_batch's entry check; group counts cannot
+            # take a resource-only overlay
+            if groups_needed or not self._overlay_eligible(qpis):
+                self._refuse_host_path(qpis)
+            ovl = self._build_overlay(na)
+            nom = self._nominated_rows(qpis)
         carry, records = self._dispatch_runs(profile, na, carry, batch,
-                                             table, n, groups_needed)
+                                             table, n, groups_needed,
+                                             ovl=ovl, nom=nom)
         self._device_carry = carry
         self.device_batches += 1
         done = None
@@ -590,7 +671,63 @@ class Scheduler:
             done.record()
         self._pending.append(_PendingDrain(
             qpis=qpis, profile=profile, batch=batch, table=table, na=na,
-            n=n, groups_needed=groups_needed, records=records, done=done))
+            n=n, groups_needed=groups_needed, records=records, done=done,
+            ovl=ovl, nom=nom))
+
+    def _nominated_rows(self, qpis: list[QueuedPodInfo]):
+        """i32 [n] node row of each drain pod's OWN nomination (-1 =
+        none), or None when no drain pod is nominated — the self-exclusion
+        companion of the overlay (PodXs.nom_idx)."""
+        nominated = self.queue.nominator.nominated_pods
+        out = None
+        for i, q in enumerate(qpis):
+            node = nominated.get(q.pod.uid)
+            if node is None:
+                continue
+            idx = self.state.node_index.get(node)
+            if idx is None:
+                continue
+            if out is None:
+                out = np.full((len(qpis),), -1, np.int32)
+            out[i] = idx
+        return out
+
+    def _overlay_eligible(self, qpis: list[QueuedPodInfo]) -> bool:
+        """True when the nominated pods' effect on this drain reduces to a
+        fit-only resource overlay (the reference adds nominated pods of
+        priority >= the incoming pod's to the NodeInfo,
+        runtime/framework.go:1183-1200): every nominated pod outranks or
+        ties every drain pod and none carries host ports. A drain pod that
+        IS nominated takes per-pod self-exclusion (PodXs.nom_idx)."""
+        nom = self.queue.nominator
+        max_prio = max(q.pod.spec.priority for q in qpis)
+        for qlist in nom.nominated_per_node.values():
+            for q in qlist:
+                if q.pod.spec.priority < max_prio:
+                    return False
+                for c in q.pod.spec.containers:
+                    for p in c.ports:
+                        if p.host_port > 0:
+                            return False
+        return True
+
+    def _build_overlay(self, na):
+        """(ovl_used i64 [N, R], ovl_npods i32 [N]) on the device from the
+        current nominations, fresh per dispatch (nominations are few and
+        short-lived)."""
+        N, R = na.used.shape
+        ovl_used = np.zeros((N, R), np.int64)
+        ovl_npods = np.zeros((N,), np.int32)
+        for node_name, qlist in self.queue.nominator.nominated_per_node.items():
+            idx = self.state.node_index.get(node_name)
+            if idx is None or idx >= N:
+                continue
+            for q in qlist:
+                vec = self.state.rtable.vector(q.pod_info.requests)
+                ovl_used[idx, :len(vec)] += vec
+                ovl_npods[idx] += 1
+        return (torch.from_numpy(ovl_used).to(self.device),
+                torch.from_numpy(ovl_npods).to(self.device))
 
     def _cluster_has_prefer_taints(self) -> bool:
         # mask by valid: freed rows of removed nodes keep their taint
@@ -601,15 +738,19 @@ class Scheduler:
              & a.valid[:, None]).any())
 
     def _dispatch_runs(self, profile: Profile, na, carry, batch, table,
-                       n: int, groups_needed: bool = False):
+                       n: int, groups_needed: bool = False, ovl=None,
+                       nom=None):
         """Dispatch the drain's compiled plan with no host synchronization;
         returns (chain carry, [_RunRec])."""
         cfg = profile.score_config
         plan = self.compiler.compile_drain(
-            batch, n, groups_needed=groups_needed, strategy=cfg.strategy,
+            batch, n, groups_needed=groups_needed,
+            overlay=ovl is not None, nominated=nom is not None,
+            strategy=cfg.strategy,
             prefer_taints=self._cluster_has_prefer_taints(),
             uniform_min=self.UNIFORM_RUN_MIN)
-        return self._dispatch_spans(cfg, na, batch, table, plan.spans, carry)
+        return self._dispatch_spans(cfg, na, batch, table, plan.spans, carry,
+                                    ovl=ovl, nom=nom)
 
     def _uniform_shape(self, na) -> tuple[int, int, int]:
         """(L, K, J) for run_uniform, stable across drains: L is the
@@ -627,16 +768,18 @@ class Scheduler:
                      tidx=int(batch.tidx[i]))
 
     def _dispatch_spans(self, cfg: ScoreConfig, na, batch, table, spans,
-                        carry):
+                        carry, ovl=None, nom=None):
         """Dispatch (i, j, kind) spans back to back, chaining the carry on
-        the device. Uniform records keep their input carry for rewind."""
+        the device. Uniform records keep their input carry for rewind.
+        Under an overlay only uniform and scan spans occur (the drain
+        compiler)."""
         records = []
         for (i, j, kind) in spans:
             if kind[0] == "uniform":
                 L, K, J = self._uniform_shape(na)
                 c2, packed = run_uniform(cfg, na, carry,
                                          self._xone(batch, i), table, j - i,
-                                         L, K, J)
+                                         L, K, J, overlay=ovl)
                 records.append(_RunRec("uniform", i, j, carry, packed, L, J,
                                        span=kind))
             elif kind[0] == "wave":
@@ -651,7 +794,7 @@ class Scheduler:
                                        bucket, span=kind))
             else:
                 c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
-                                                  j, table)
+                                                  j, table, ovl=ovl, nom=nom)
                 records.append(_RunRec("scan", i, j, None, assigns,
                                        span=kind))
             carry = c2
@@ -737,10 +880,11 @@ class Scheduler:
         return carry2, packed, bucket
 
     def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
-                       j: int, table):
+                       j: int, table, ovl=None, nom=None):
         """run_batch over pods [i:j) padded to a pow2 bucket (with the
-        group branch when the carry holds group counts); returns (carry,
-        device assignments) without synchronizing."""
+        group branch when the carry holds group counts, the overlay and
+        the pods' own nominated rows when nominations are pending);
+        returns (carry, device assignments) without synchronizing."""
         bucket = pow2_at_least(j - i)
         m = j - i
         valid = np.zeros((bucket,), bool)
@@ -749,13 +893,19 @@ class Scheduler:
         sig[:m] = batch.sig[i:j]
         tidx = np.full((bucket,), batch.tidx[j - 1], np.int32)
         tidx[:m] = batch.tidx[i:j]
-        xs = pod_xs_from_numpy(PodXs(valid=valid, sig=sig, tidx=tidx),
-                               self.device)
+        # self-nominated pods keep their signature: the cached fit_ok is
+        # overlay-pure and the self-exclusion is a one-row delta
+        nom_idx = None
+        if nom is not None:
+            nom_idx = np.full((bucket,), -1, np.int32)
+            nom_idx[:m] = nom[i:j]
+        xs = pod_xs_from_numpy(PodXs(valid=valid, sig=sig, tidx=tidx,
+                                     nom_idx=nom_idx), self.device)
         return run_batch(cfg, na, carry, xs, table, groups=self._gd_dev,
-                         fam=self._gd_fam)
+                         fam=self._gd_fam, overlay=ovl)
 
     def _uniform_escalate(self, cfg: ScoreConfig, na, carry, batch, i: int,
-                          j: int, table, out, j_failed: int):
+                          j: int, table, out, j_failed: int, ovl=None):
         """Depth-J overflow recovery: retry the run with a deeper matrix,
         falling back to the scan if even J = L+1 reports failure."""
         L, K, _ = self._uniform_shape(na)
@@ -763,14 +913,15 @@ class Scheduler:
         while J < L + 1:
             J = min(8 * J, L + 1)
             c2, packed = run_uniform(cfg, na, carry, self._xone(batch, i),
-                                     table, j - i, L, K, J)
+                                     table, j - i, L, K, J, overlay=ovl)
             r = packed.cpu().numpy()
             if r[L] and r[L + 1]:
                 out[i:j] = r[:j - i]
                 return c2
             if not r[L]:
                 break
-        carry, a = self._scan_dispatch(cfg, na, carry, batch, i, j, table)
+        carry, a = self._scan_dispatch(cfg, na, carry, batch, i, j, table,
+                                       ovl=ovl)
         out[i:j] = a.cpu().numpy()[:j - i]
         return carry
 
@@ -836,10 +987,11 @@ class Scheduler:
             if exact:
                 carry = self._uniform_escalate(cfg, pd.na, carry, pd.batch,
                                                rec.i, rec.j, pd.table, out,
-                                               rec.J)
+                                               rec.J, ovl=pd.ovl)
             else:
                 carry, a = self._scan_dispatch(cfg, pd.na, carry, pd.batch,
-                                               rec.i, rec.j, pd.table)
+                                               rec.i, rec.j, pd.table,
+                                               ovl=pd.ovl, nom=pd.nom)
                 out[rec.i:rec.j] = a.cpu().numpy()[:m]
             self._replay_downstream(pd, idx, carry)
             host[idx + 1:] = self._readback(pd.records[idx + 1:])
@@ -848,20 +1000,25 @@ class Scheduler:
     def _replay_downstream(self, pd: _PendingDrain, idx: int, carry) -> None:
         """Re-dispatch everything chained after record `idx`: the rest of
         this drain's spans, then every later pending drain, against the
-        corrected carry."""
+        corrected carry, each under its dispatch-time overlay. A profile
+        or overlay change between drains invalidates the sig cache, as at
+        the dispatch site."""
         cfg = pd.profile.score_config
         spans = [(q.i, q.j, q.span) for q in pd.records[idx + 1:]]
         carry, new_recs = self._dispatch_spans(cfg, pd.na, pd.batch,
-                                               pd.table, spans, carry)
+                                               pd.table, spans, carry,
+                                               ovl=pd.ovl, nom=pd.nom)
         pd.records[idx + 1:] = new_recs
         prev_profile = pd.profile
+        prev_ovl = pd.ovl
         for pd2 in self._pending:
-            if pd2.profile is not prev_profile:
+            if pd2.profile is not prev_profile or pd2.ovl is not prev_ovl:
                 carry = with_cache_sig(carry, 0)
                 prev_profile = pd2.profile
+                prev_ovl = pd2.ovl
             carry, pd2.records = self._dispatch_runs(
                 pd2.profile, pd2.na, carry, pd2.batch, pd2.table, pd2.n,
-                pd2.groups_needed)
+                pd2.groups_needed, ovl=pd2.ovl, nom=pd2.nom)
         if self._device_carry is not None:
             self._device_carry = carry
 
@@ -1139,38 +1296,40 @@ class Scheduler:
                 diagnosis.unschedulable_plugins.add(status.plugin)
         return diagnosis
 
-    def _could_preempt(self, pod: Pod) -> bool:
-        """True when DefaultPreemption might find victims for `pod`: it may
-        preempt, and some pod in the cluster has a lower priority."""
-        if pod.spec.preemption_policy == "Never":
-            return False
-        prio = pod.spec.priority
-        return any(st.pod.spec.priority < prio
-                   for st in self.cache.pod_states.values())
-
     def _handle_failure(self, qpi: QueuedPodInfo, err: FitError,
                         try_preempt: bool = True) -> None:
-        """schedule_one.go:1038 handleSchedulingFailure, without PostFilter:
-        a failure that preemption could resolve raises."""
+        """schedule_one.go:1038 handleSchedulingFailure: a scheduling
+        FitError runs the PostFilter (preemption) first; a success
+        nominates the returned node."""
         self.unschedulable_count += 1
         qpi.unschedulable_plugins = set(err.diagnosis.unschedulable_plugins)
         qpi.pending_plugins = set(err.diagnosis.pending_plugins)
         pod = qpi.pod
-        if try_preempt and err.num_all_nodes > 0:
-            # the reference computes victims only on state that includes
-            # every in-flight drain's assignments
-            self._drain_pending()
-            if self._could_preempt(pod):
-                raise NotImplementedError(
-                    f"pod {pod.uid} failed to schedule and lower-priority "
-                    "pods exist: preemption (DefaultPreemption) is not "
-                    "ported to kubernetes_tpu_torch yet")
+        nominated = pod.status.nominated_node_name
+        profile = self.profiles.get(pod.spec.scheduler_name)
+        if (try_preempt and err.num_all_nodes > 0 and profile is not None
+                and profile.framework.post_filter_plugins):
+            if self._pending:
+                # never compute victims on state that excludes in-flight
+                # drains' assignments: a dispatched drain may be about to
+                # fill the very nodes the Evaluator would evict from. Each
+                # nested commit pops before it handles failures, so the
+                # recursion ends.
+                self._drain_pending()
+            self.cache.update_snapshot(self.snapshot)
+            result, status = profile.framework.run_post_filter_plugins(
+                CycleState(), pod, err.diagnosis.node_to_status)
+            if status.is_success() and result:
+                nominated = result
+                pod.status.nominated_node_name = nominated
+                self.queue.nominator.add(qpi, nominated)
+                self.preemption_attempts += 1
         self.queue.add_unschedulable_if_not_present(qpi)
         self.dispatcher.add(APICall(
             CallType.STATUS_PATCH, qpi.pod,
             condition={"type": "PodScheduled", "status": "False",
                        "reason": "Unschedulable", "message": str(err)},
-            nominated_node_name=pod.status.nominated_node_name))
+            nominated_node_name=nominated))
 
     def _on_bind_error(self, pod: Pod, node_name: str,
                        err: Exception) -> None:

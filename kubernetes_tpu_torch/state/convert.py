@@ -37,7 +37,7 @@ POD_TABLE_DTYPES = {
     "skip_balanced": _B, "img_ids": _I32, "img_containers": _I32,
 }
 
-POD_XS_DTYPES = {"valid": _B, "sig": _I32, "tidx": _I32}
+POD_XS_DTYPES = {"valid": _B, "sig": _I32, "tidx": _I32, "nom_idx": _I32}
 
 CACHE_DTYPES = {
     "sig": _I32, "static_mask": _B, "taint_raw": _I64, "na_raw": _I64,
@@ -86,7 +86,13 @@ def pod_table_from_numpy(src, device) -> PodTableDev:
 
 
 def pod_xs_from_numpy(src, device) -> PodXs:
-    return _convert(PodXs, src, POD_XS_DTYPES, device)
+    """`nom_idx` stays None when `src` has none (no nominated pod)."""
+    nom = getattr(src, "nom_idx", None)
+    return PodXs(*(_tensor(getattr(src, f), POD_XS_DTYPES[f], device)
+                   for f in ("valid", "sig", "tidx")),
+                 nom_idx=(None if nom is None
+                          else _tensor(nom, POD_XS_DTYPES["nom_idx"],
+                                       device)))
 
 
 def groups_dev_from_numpy(src, device) -> GroupsDev:

@@ -365,6 +365,23 @@ class ClusterState:
             self.statics_gen += 1
             self._dirty_rows = None
 
+    def request_vector(self, requests: dict[str, int]):
+        """Dense np.int64 request row at the CURRENT staging width, without
+        interning: None when a resource name is not in the table (or sits
+        past the staged width). The preemption dry run reads victim and
+        nominated-pod vectors through it; a None sends the dry run to the
+        host loop instead of growing the resource axis mid-flight."""
+        a = self.ensure_arrays()
+        width = a.used.shape[1]
+        row = np.zeros((width,), np.int64)
+        index = self.rtable.index
+        for name, v in requests.items():
+            i = index.get(name)
+            if i is None or i >= width:
+                return None
+            row[i] = v
+        return row
+
     # -- device transfer ------------------------------------------------------
 
     def device_arrays(self) -> NodeArrays:

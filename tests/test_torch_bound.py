@@ -78,3 +78,37 @@ def test_out_carry_never_aliases_written_fields(pkg, scan):
         assert (a.dtype, a.shape) == (b.dtype, b.shape)
         if scan:
             assert torch.equal(a, b)
+
+
+def _dry_case(pkg):
+    """PreemptionChurn's dry-run layout on six nodes: eight candidate
+    slots (two pad with row 0), one 4-cpu victim each, the 8-cpu / 1 Gi
+    preemptor (no selector, no toleration)."""
+    args, real, _vec = cs.dry_inputs(torch, pkg, "cpu", 8, 1, False, seed=1,
+                                     n_nodes=6)
+    return args, real
+
+
+def test_dry_bytes_charge_requested_columns_and_read_slots_only(pkg):
+    args, _real = _dry_case(pkg)
+    na, row = args[0], args[1]
+    assert na.cap.shape[1] > 2      # unrequested resource columns exist
+    assert (cs.np_of(na.label_key) != 0).any()   # label slots not read
+    fields = ("req", "tol_op", "tol_key", "tol_val", "tol_eff",
+              "ns_sel_val", "node_name_id", "tolerates_unsched", "aff_has")
+    row_bytes = cs.nbytes(tuple(getattr(row, f) for f in fields))
+    # six distinct node rows: valid (1), npods and allowed (4 + 4), cap and
+    # used on the two requested columns (2 · 16), unschedulable (1); eight
+    # candidates: row index (4), the victim's and the overlay's requested
+    # columns (16 + 16), the overlay count (4), victim_valid (1), output (2)
+    assert cs.dry_bytes(na, row, args) == 6 * 42 + row_bytes + 8 * 43
+
+
+def test_dry_ops_count_requested_columns_and_valid_victims(pkg):
+    args, real = _dry_case(pkg)
+    na, row = args[0], args[1]
+    slots = cs.node_slots(na, initial_carry(na))
+    ops = cs.dry_ops(na, row, args, real, slots)
+    # per real candidate 4 int32 filter tests and 4 · 2 + 2 int64, the
+    # same again per valid victim
+    assert (ops.i32, ops.i64, ops.f64) == (4 * 6, 6 * 10 + 6 * 10, 0)

@@ -463,3 +463,172 @@ def test_diagnose_row_kernel_full_width(cuda):
         _equal(P.diagnose_row(na, table, u, gd=gd, gc=gc, fam=fam),
                P._diagnose_plain(na, table, u, gd, gc, fam))
         _equal(P.diagnose_row(na, table, u), P._diagnose_plain(na, table, u))
+
+
+# ---------------------------------------------------------------------------
+# preemption: the nominated-pod overlay variants and the dry run
+
+
+def _overlay(rng, batch, n_nodes, N, R, device, nominate=True):
+    """(ovl_used, ovl_npods) on `device` and nom_idx (numpy, -1 = none):
+    some pods nominated on random nodes (their own request at that row),
+    plus a few other nominations."""
+    import numpy as np
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_npods = np.zeros((N,), np.int32)
+    B = len(batch.valid)
+    nom_idx = np.full((B,), -1, np.int32)
+    for i in range(B):
+        if nominate and rng.random() < 0.3:
+            row = rng.randrange(n_nodes)
+            nom_idx[i] = row
+            ovl_used[row] += batch.table.req[batch.tidx[i]]
+            ovl_npods[row] += 1
+    for _ in range(rng.randint(1, 6)):
+        row = rng.randrange(n_nodes)
+        ovl_used[row] += batch.table.req[batch.tidx[rng.randrange(B)]]
+        ovl_npods[row] += 1
+    return (torch.from_numpy(ovl_used).to(device),
+            torch.from_numpy(ovl_npods).to(device)), nom_idx
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_run_batch_overlay_kernel_equals_plain(cuda, seed):
+    rng = random.Random(100 + seed)
+    pods = [_pod(rng, i) for i in range(rng.randint(10, 60))]
+    n_nodes = rng.randint(5, 200)
+    na, batch, table = _staged(rng, n_nodes, pods, cuda)
+    N, R = na.cap.shape
+    ovl, nom_idx = _overlay(rng, batch, n_nodes, N, R, cuda)
+    xs = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                           batch.tidx, nom_idx), cuda)
+    carry = P.initial_carry(na)
+    cfg = P.ScoreConfig()
+    before = [t.clone() for t in ovl]
+    _equal(P.run_batch(cfg, na, carry, xs, table, overlay=ovl),
+           P._run_batch_plain(cfg, na, carry, xs, table, overlay=ovl))
+    # the caller's overlay is never written (the kernel consumes a copy)
+    _equal(tuple(ovl), tuple(before))
+    # overlay without nominated pods
+    xs0 = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                            batch.tidx), cuda)
+    _equal(P.run_batch(cfg, na, carry, xs0, table, overlay=ovl),
+           P._run_batch_plain(cfg, na, carry, xs0, table, overlay=ovl))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_run_uniform_overlay_kernel_equals_plain(cuda, seed):
+    rng = random.Random(200 + seed)
+    proto = make_pod("plain").req({"cpu": rng.choice(["250m", "1"]),
+                                   "memory": "512Mi"}).obj()
+    n_nodes = rng.randint(3, 300)
+    na, batch, table = _staged(rng, n_nodes, [proto], cuda)
+    N, R = na.cap.shape
+    ovl, _nom = _overlay(rng, batch, n_nodes, N, R, cuda, nominate=False)
+    L = rng.choice([16, 64, 256])
+    K = min(L, N)
+    J = L + 1
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    carry = P.initial_carry(na)
+    cfg = P.ScoreConfig()
+    n_actual = rng.randint(1, L)
+    kc, kp = P.run_uniform(cfg, na, carry, x, table, n_actual, L, K, J,
+                           overlay=ovl)
+    pc, pp = P._run_uniform_plain(cfg, na, carry, x, table, n_actual, L, K,
+                                  J, overlay=ovl)
+    _equal((kp, kc), (pp, pc))
+    # the no-overlay launch still equals its plain version on the same
+    # inputs
+    _equal(P.run_uniform(cfg, na, carry, x, table, n_actual, L, K, J),
+           P._run_uniform_plain(cfg, na, carry, x, table, n_actual, L, K,
+                                J))
+
+
+def _dry_inputs(rng, C, V, n_nodes, device, spread):
+    """Seeded dry-run inputs: staged nodes, a preemptor row, C candidate
+    rows (padded by repeating row 0), V victim slots with holes, an
+    overlay and, with `spread`, DryRunSpread tensors (SC = 2)."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops.groups import DryRunSpread
+    rs = np.random.RandomState(rng.randrange(1 << 30))
+    proto = make_pod("vip").req({"cpu": "2", "memory": "1Gi"}).obj()
+    na, batch, _table = _staged(rng, n_nodes, [proto], device)
+    N, R = na.cap.shape
+    row = P.pod_row_from_table(batch.table, int(batch.tidx[0]), device)
+    real = min(C, n_nodes)
+    cand = np.zeros((C,), np.int32)
+    cand[:real] = rs.choice(n_nodes, real, replace=False)
+    vreq = np.zeros((C, V, R), np.int64)
+    vreq[:, :, 0] = rs.choice([0, 500, 1000, 2000], (C, V))
+    vreq[:, :, 1] = rs.choice([0, 1 << 29, 1 << 30], (C, V))
+    vvalid = rs.rand(C, V) < 0.7
+    vvalid[real:] = False
+    ovl_used = np.zeros((C, R), np.int64)
+    ovl_used[:, 0] = rs.choice([0, 0, 1000], C)
+    ovl_npods = (ovl_used[:, 0] > 0).astype(np.int32)
+    sp = None
+    if spread:
+        SC = 2
+        other = rs.randint(0, 6, (C, SC)).astype(np.int32)
+        other[rs.rand(C, SC) < 0.2] = np.iinfo(np.int32).max
+        sp = DryRunSpread(
+            max_skew=np.array([1, 2], np.int32),
+            self_match=np.array([1, 0], np.int32),
+            min_zero=np.array([False, True]), tv_ok=rs.rand(C, SC) < 0.9,
+            cnt0=rs.randint(0, 6, (C, SC)).astype(np.int32),
+            other_min=other, vic_match=rs.rand(C, V, SC) < 0.5)
+        sp = DryRunSpread(*(torch.from_numpy(np.asarray(x)).to(device)
+                            for x in sp))
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+    return (na, row, t(cand), t(vreq), t(vvalid), t(ovl_used),
+            t(ovl_npods), sp)
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_dry_run_kernel_equals_plain(cuda, seed, spread):
+    rng = random.Random(300 + seed)
+    args = _dry_inputs(rng, 64, 8, rng.randint(20, 200), cuda, spread)
+    k = P.dry_run_select_victims(*args)
+    p = P._dry_run_select_victims_plain(*args)
+    _equal(k, p)
+    assert k.dtype == torch.bool and k.shape == (64, 9)
+
+
+@pytest.mark.parametrize("spread", [False, True])
+def test_dry_run_kernel_full_width(cuda, spread):
+    """C = 8,192 candidates (the PreemptionChurn shape: V = 1) and V = 8."""
+    rng = random.Random(7)
+    for V in (1, 8):
+        args = _dry_inputs(rng, 8192, V, 5000, cuda, spread)
+        _equal(P.dry_run_select_victims(*args),
+               P._dry_run_select_victims_plain(*args))
+
+
+def test_preemption_kernels_refuse_bad_arguments(cuda):
+    rng = random.Random(9)
+    args = list(_dry_inputs(rng, 16, 4, 20, cuda, False))
+    # more victim slots than the kernel takes
+    too_many = list(args)
+    too_many[3] = torch.zeros((16, 129, args[3].shape[2]),
+                              dtype=torch.int64, device=cuda)
+    too_many[4] = torch.zeros((16, 129), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="victim slots"):
+        P.dry_run_select_victims(*too_many)
+    # an overlay on the wrong device
+    pods = [make_pod("p").req({"cpu": "1"}).obj()]
+    na, batch, table = _staged(rng, 8, pods, cuda)
+    N, R = na.cap.shape
+    xs = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                           batch.tidx), cuda)
+    bad = (torch.zeros((N, R), dtype=torch.int64),
+           torch.zeros((N,), dtype=torch.int32))
+    with pytest.raises(ValueError, match="overlay"):
+        P.run_batch(P.ScoreConfig(), na, P.initial_carry(na), xs, table,
+                    overlay=bad)
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    with pytest.raises(ValueError, match="overlay"):
+        P.run_uniform(P.ScoreConfig(), na, P.initial_carry(na), x, table,
+                      4, 16, min(16, N), 17, overlay=bad)

@@ -4,10 +4,10 @@ Both packages run the same workload — built twice, once from each
 package's own testing wrappers, from the same seed — under a fixed clock,
 and must end with the same bind map and the same set of pending pods
 (exact equality). The port also refuses, with NotImplementedError, the
-pods whose constraints it has no device form for; topology spread and
-inter-pod affinity, refused before the group path was ported, now bind
-as the JAX package binds them (the three test_refuses_* cases below
-that kept their names)."""
+pods whose constraints it has no device form for; topology spread,
+inter-pod affinity and preemption, refused before their slices were
+ported, now behave as in the JAX package (the four test_refuses_* cases
+below that kept their names)."""
 
 
 import pytest
@@ -175,8 +175,28 @@ def test_refuses_volumes_and_gangs():
 
 
 def test_refuses_preemption():
-    low = tw.make_pod("low").req({"cpu": "32"}).node("node-0").obj()
-
-    def big():
-        return tw.make_pod("hi").req({"cpu": "40"}).priority(100).obj()
-    _refuses(big, bound=low, match="preemption")
+    """Now a parity check: preemption is ported, so the port runs the
+    PostFilter exactly as the JAX package does. A 40-cpu preemptor on
+    32-cpu nodes finds no candidate in either package: it stays
+    unschedulable, un-nominated, and no victim is deleted. The name is
+    kept on purpose."""
+    outs = []
+    for pkg in (JAX, TORCH):
+        w, Api = pkg[0], pkg[1]
+        api = Api()
+        sched = make_scheduler(pkg, api, 16)
+        for nd in _basic_nodes(w, 4):
+            api.create_node(nd)
+        api.create_pod(w.make_pod("low").req({"cpu": "32"}).node("node-0")
+                       .obj())
+        api.create_pod(w.make_pod("hi").req({"cpu": "40"}).priority(100)
+                       .obj())
+        sched.schedule_pending()
+        outs.append((_outcome(api, sched), sorted(api.pods),
+                     api.pods["default/hi"].status.nominated_node_name,
+                     sched.preemption_attempts))
+    assert outs[1] == outs[0]
+    (binds, pending), pods, nominated, attempts = outs[1]
+    assert pending == ["default/hi"]
+    assert pods == ["default/hi", "default/low"]
+    assert nominated == "" and attempts == 0
