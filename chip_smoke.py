@@ -17,7 +17,11 @@ Phases, each reported on its own line:
      host-port span; diagnose_row on lean and group rows at 8,192 nodes;
      the overlay variants of run_batch and run_uniform at their lean
      shapes; dry_run at the PreemptionChurn shape (C = 8,192 candidates,
-     V = 1) and at C = 512, V = 8 with and without a spread;
+     V = 1) and at C = 512, V = 8 with and without a spread; run_gang's
+     closed form at GangTraining's shape (L = K = 256, J = 8: accepted,
+     rejected, inexact) and its scan tier at CoLocatedInference's
+     (B = 128, S = 1, w_contig = 2: accepted, rejected) and on an S = 4
+     gang of 60 members;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -40,8 +44,12 @@ Phases, each reported on its own line:
      evict one victim through the batched dry run (dry_run) and take a
      nomination; the measured pods drain under the nominated-pod overlay
      (run_uniform's overlay variant), and the drain that takes the
-     preemptors back runs run_batch's overlay variant.
-Phases 4-11 compare their bind maps (phase 11 also its nominations and
+     preemptors back runs run_batch's overlay variant;
+ 12. GangTraining 5000Nodes: 40 gangs of 256, each one closed-form
+     run_gang launch;
+ 13. CoLocatedInference 5000Nodes: 28 gangs on run_gang's scan tier (the
+     contiguity column on) among 5,000 inference pods.
+Phases 4-13 compare their bind maps (phase 11 also its nominations and
 victims) with a device="cpu" run of the same workload, at full width. Any failure exits non-zero without the final
 line. The line before the last is the card's name and power limit, the
 one before it one JSON object with a row per kernel; the last line is
@@ -52,7 +60,8 @@ the workload parameters are those of
 kubernetes_tpu/perf/configs/performance-config.yaml (SchedulingBasic
 :28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129,
 MixedSchedulingBasePod :195-237, MixedHighSignature :239-284,
-PreemptionChurn :286-329) and the node and pod shapes of
+PreemptionChurn :286-329, GangTraining :331-357, CoLocatedInference
+:359-398) and the node and pod shapes of
 kubernetes_tpu/perf/harness.py:159-200 (nodes 32 cpu — 8 for
 PreemptionChurn —, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
 """
@@ -99,6 +108,11 @@ MBP_SHAPE = (5000, 1000, 500, 5000, 16)
 # pods of 4 cpu / 1 Gi, preemptors of 8 cpu / 1 Gi at priority 100,
 # measured pods of 500m / 256 Mi, zones
 PC_SHAPE = (5000, 5000, 200, 10000, 16)
+# GangTraining 5000Nodes (:331-357): nodes, gangs, gang size, zones;
+# CoLocatedInference 5000Nodes (:359-398): nodes, gangs, gang size,
+# inference pods, preemptor gangs (of 64), zones
+GT_SHAPE = (5000, 40, 256, 16)
+CI_SHAPE = (5000, 24, 128, 5000, 4, 16)
 LABEL_ZONE = "topology.kubernetes.io/zone"
 LABEL_HOSTNAME = "kubernetes.io/hostname"
 BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
@@ -1763,6 +1777,297 @@ def check_dry_run(torch, pkg, device, rows: list) -> None:
         bound_by=bound_by, library_ms=None, device_ms=dev_ms))
 
 
+# ---------------------------------------------------------------------------
+# phase 3, gangs: run_gang's closed-form tier (the gang epilogue of
+# run_uniform.cu) and scan tier (run_gang.cu)
+
+
+def gang_cols(cfg, table, rows) -> list:
+    """The resource columns a gang launch reads: the rows' requested
+    columns and the score columns."""
+    cols = set(int(c) for c in cfg.score_cols)
+    for u in rows:
+        cols |= set(int(c) for c in req_cols(np_of(table.req[u])))
+    return sorted(cols)
+
+
+def gang_bytes(cfg, na, table, rows, B: int, width: int, uniform: bool,
+               w_contig: int = 0, touched: int = 0) -> int:
+    """Bytes run_gang must move on this run's data, each read once, each
+    output written once. Per valid node row: the pod limit, the validity
+    bit, the gang's columns of cap and used and the two nonzero columns
+    (read, and written back: the verdict writes the output carry whole),
+    the pod count in and out. The closed form also evaluates the row's
+    filters over the occupied taint / label / image slots and writes the
+    SigCache (42 bytes a node), and writes the touched candidates' rows;
+    the scan tier reads the rows' hoisted surfaces ([S, N]: the mask and
+    three int64) and, with w_contig, the domain ids. Then the members'
+    inputs, the rows' table entries and the packed output."""
+    nv = int(np_of(na.valid).sum())
+    cols = gang_cols(cfg, table, rows)
+    per = (4 + 1 + len(cols) * 8 * 3 + 2 * 8 * 2 + 4 * 2)
+    moved = per * nv
+    if uniform:
+        eff = np_of(na.taint_eff)[np_of(na.valid)]
+        u = rows[0]
+        moved += int((eff != 0).sum()) * 4
+        if int((np_of(table.tol_op[u]) != 0).sum()):
+            moved += int(((eff == 1) | (eff == 3)).sum()) * 8
+        if (np_of(table.ns_sel_val[u]) != 0).any() or bool(
+                np_of(table.aff_has[u])):
+            moved += int((np_of(na.label_key) != 0).sum()) * 4
+        if (np_of(table.img_ids[u]) != 0).any():
+            moved += int((np_of(na.image_id) != 0).sum()) * 12
+        moved += nv * 42 + touched * (len(cols) * 8 + 16 + 4)
+    else:
+        moved += len(rows) * nv * 25 + (nv * 4 if w_contig else 0)
+        moved += B * 9
+    moved += len(rows) * (len(cols) * 8 + 16 + 8)
+    return moved + (width + 4) * 4
+
+
+def gang_ops(cfg, na, table, rows, widx, valid, out, w_contig: int) -> Ops:
+    """The scan tier's operations on this run's data: the hoisted fit
+    surfaces of the S slots on every valid node; per valid member the
+    slot's feasibility, the normalization maxima, the weighted total and
+    the argmax on every valid node (three more with the contiguity
+    column); per placement the carry update and the S slots' refresh at
+    the touched node."""
+    C = len(cfg.score_cols)
+    nv = int(np_of(na.valid).sum())
+    reqs = [len(req_cols(np_of(table.req[u]))) for u in rows]
+    fit = [score_ops(C, r, True) + Ops(i64=r) for r in reqs]
+    ops = Ops()
+    for f in fit:
+        ops = ops + f * nv
+    step = Ops(i32=2, i64=12 + (4 if w_contig else 0)) * nv
+    for k, best in enumerate(out):
+        if not valid[k]:
+            continue
+        ops = ops + step
+        if best < 0:
+            continue
+        ops = ops + Ops(i64=reqs[widx[k]] + 3)
+        for f in fit:
+            ops = ops + f
+    return ops
+
+
+def gang_nodes(W, lean: bool):
+    """The 5,000 harness nodes (32 cpu / 64 Gi / 110 pods, 16 zones), or
+    the seeded mixed cluster (taints, labels, images)."""
+    if lean:
+        return lean_cluster(np.random.RandomState(77), SB_NODES, W)
+    return harness_nodes(W, SB_NODES, 16)
+
+
+def check_run_gang_uniform(torch, pkg, device, rows: list) -> None:
+    """The closed form at GangTraining's shape: 256 members of 900m / 1 Gi
+    over 5,000 harness nodes padded to 8,192 (L = K = 256, J = 8, the
+    Scheduler's gang shape), held to the plain version when accepted, when
+    rejected (needed above the gang) and when an exactness flag fails
+    (PreferNoSchedule taints the gang does not tolerate)."""
+    from kubernetes_tpu_torch.ops import gang as G
+    P = pkg.program
+    W = pkg.wrappers
+    cfg = P.ScoreConfig()
+    L, J = 256, 8
+    err, times = 0.0, {}
+    proto = W.make_pod("gang-proto").req({"cpu": "900m", "memory": "1Gi"})\
+        .workload("gang").obj()
+    for case, needed, lean in (("accept", 256, False),
+                               ("reject", 257, False),
+                               ("inexact", 256, True)):
+        na, batch, table = staged(gang_nodes(W, lean=lean), (), [proto],
+                                  device, pkg)
+        K = min(L, na.cap.shape[0])
+        x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+        carry = P.initial_carry(na)
+        before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+
+        def kern():
+            return G.run_gang(cfg, na, carry, x, table, needed=needed,
+                              uniform=True, n_actual=256, L=L, K=K, J=J)
+
+        def plain():
+            return G._run_gang_uniform_plain(cfg, na, carry, x, table, 256,
+                                             needed, L, K, J)
+        kc, kp = kern()
+        pc, pp = plain()
+        torch.cuda.synchronize()
+        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
+                                          f"run_gang_uniform[{case}]"))
+        assert_equal_trees(torch, before, list(carry[:4]) + list(carry.cache),
+                           f"run_gang_uniform[{case}] input")
+        accept, placed, exact, depth = kp[L:].tolist()
+        want = {"accept": (1, 256, 1, 1), "reject": (0, 256, 1, 1)}.get(case)
+        if want is not None and (accept, placed, exact, depth) != want:
+            fail(f"run_gang_uniform[{case}]: verdict "
+                 f"{(accept, placed, exact, depth)}, expected {want}")
+        if case == "inexact" and exact:
+            fail("run_gang_uniform[inexact]: the exactness flag held")
+        times[case] = dict(
+            accept=accept, placed=placed, exact=exact, depth=depth,
+            ms=cuda_ms(torch, kern, 10), device_ms=device_ms(torch, kern, 10),
+            plain_ms=cuda_ms(torch, plain, 3))
+        if case == "accept":
+            keys = flat_keys(torch, P, cfg, na, carry, x, table, K, J)
+            times[case]["library_ms"] = cuda_ms(
+                torch, lambda: torch.topk(keys, L), 10)
+            slots = node_slots(na, carry)
+            C = len(cfg.score_cols)
+            pod = P._gather_row(table, x.tidx, True, x.sig)
+            feasible = int(P._eval_pod(cfg, na, carry, pod)[0].sum())
+            nreq = len(req_cols(np_of(table.req[x.tidx])))
+            touched = int(torch.unique(kp[:L][kp[:L] >= 0]).numel())
+            entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
+            ops = (eval_ops(table, x.tidx, slots, C)
+                   + Ops(i64=4) * slots["n_valid"]
+                   + select_ops(slots["n_valid"], K)
+                   + entry * (min(feasible, K) * J)
+                   + select_ops(min(feasible, K) * J, L) + Ops(i32=2 * L)
+                   + Ops(i32=1, i64=2 * nreq + 4) * touched)
+            moved = gang_bytes(cfg, na, table, [x.tidx], 1, L, True,
+                               touched=touched)
+            bound_ms, bound_by = bound_of(moved, ops)
+            times[case].update(bound_ms=bound_ms, bound_by=bound_by,
+                               ops=vars(ops), bytes=moved)
+        log("kernel", name="run_gang_uniform", case=case, L=L, K=K, J=J,
+            exact_match=True, **times[case])
+    acc = times["accept"]
+    rows.append(dict(
+        name="run_gang_uniform", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_uniform.cu",
+        replaces="kubernetes_tpu/ops/gang.py:199", launches=0,
+        max_abs_err=err, ms=acc["ms"], plain_ms=acc["plain_ms"],
+        bound_ms=acc["bound_ms"], bound_by=acc["bound_by"],
+        library_ms=acc["library_ms"], device_ms=acc["device_ms"],
+        by_case={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms")}
+                 for k, v in times.items()}))
+
+
+def gang_scan_inputs(torch, pkg, device, protos: list, m: int, bucket: int,
+                     lean: bool = False, seed: int = 0):
+    """(na, table, carry, GangXs, rows, statics, dom) for a gang of `m`
+    members drawn from `protos` (one per member, seeded) in a `bucket`-slot
+    member axis, laid out as Scheduler._gang_dispatch lays it out; the
+    domain ids are the zone label's, as Scheduler._gang_domains builds
+    them."""
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    P = pkg.program
+    rng = np.random.RandomState(seed)
+    pods = [protos[int(rng.randint(0, len(protos)))] for _ in range(m)]
+    nodes = gang_nodes(pkg.wrappers, lean=lean)
+    state = stage(nodes, (), device, pkg)
+    batch = pkg.BatchBuilder(state).build(pods)
+    na = state.device_arrays()
+    table = pkg.table_from_batch(batch, device)
+    tid = batch.tidx[:m]
+    uniq = list(dict.fromkeys(int(t) for t in tid))
+    S = 1
+    while S < len(uniq):
+        S *= 2
+    wt = (uniq + [uniq[-1]] * S)[:S]
+    slot: dict = {}
+    for s, u in enumerate(wt):
+        slot.setdefault(u, s)
+    widx = np.empty((bucket,), np.int32)
+    widx[:m] = [slot[int(t)] for t in tid]
+    widx[m:] = widx[m - 1]
+    tidx = np.full((bucket,), tid[m - 1], np.int32)
+    tidx[:m] = tid
+    valid = np.zeros((bucket,), bool)
+    valid[:m] = True
+    xs = pkg.convert.gang_xs_from_numpy(GangXs(valid, tidx, widx), device)
+    N = na.cap.shape[0]
+    dom = np.arange(N, dtype=np.int32)
+    ids: dict = {}
+    for nd in nodes:
+        idx = state.node_index[nd.metadata.name]
+        zone = nd.metadata.labels.get(LABEL_ZONE) or f"\x00{idx}"
+        dom[idx] = ids.setdefault(zone, len(ids))
+    statics = P.wave_statics(na, table, wt)
+    return (na, table, P.initial_carry(na), xs, wt, statics,
+            pkg.convert.dom_from_numpy(dom, device))
+
+
+def check_run_gang(torch, pkg, device, rows: list) -> None:
+    """The scan tier at CoLocatedInference's shape: a 128-member gang of
+    1 cpu / 1 Gi (S = 1, w_contig = 2, 16 zones) over 5,000 harness nodes
+    padded to 8,192, accepted and rejected (needed above the gang); then a
+    60-member gang of four signatures (S = 4) on the mixed cluster, padded
+    to a 64-slot member axis."""
+    from kubernetes_tpu_torch.ops import gang as G
+    P = pkg.program
+    W = pkg.wrappers
+    cfg = P.ScoreConfig()
+    train = W.make_pod("train-proto").req({"cpu": "1", "memory": "1Gi"})\
+        .workload("train").obj()
+    mixed = [W.make_pod(f"mix-{k}").req({"cpu": c, "memory": mem})
+             .workload("mix").obj()
+             for k, (c, mem) in enumerate((("900m", "1Gi"), ("2", "4Gi"),
+                                           ("250m", "512Mi"),
+                                           ("4", "16Gi")))]
+    err, times = 0.0, {}
+    for case, protos, m, bucket, needed, lean in (
+            ("accept", [train], 128, 128, 128, False),
+            ("reject", [train], 128, 128, 129, False),
+            ("mixed_s4", mixed, 60, 64, 60, True)):
+        na, table, carry, xs, wt, statics, dom = gang_scan_inputs(
+            torch, pkg, device, protos, m, bucket, lean=lean, seed=m)
+        before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+
+        def kern():
+            return G.run_gang(cfg, na, carry, xs, table, wt=wt,
+                              needed=needed, dom=dom, statics=statics,
+                              w_contig=2)
+
+        def plain():
+            return G._run_gang_scan_plain(cfg, na, carry, xs, table, wt,
+                                          needed, dom, statics, 2)
+        kc, kp = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pc, pp = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
+                                          f"run_gang[{case}]"))
+        assert_equal_trees(torch, before, list(carry[:4]) + list(carry.cache),
+                           f"run_gang[{case}] input")
+        accept, placed, _e, _d = kp[bucket:].tolist()
+        if (accept, placed) != (int(case != "reject"), m):
+            fail(f"run_gang[{case}]: verdict {(accept, placed)}")
+        if case == "reject" and not torch.equal(kc.used, carry.used):
+            fail("run_gang[reject]: the carry moved")
+        out = np_of(kp[:bucket]).tolist()
+        ops = gang_ops(cfg, na, table, wt, np_of(xs.widx).tolist(),
+                       np_of(xs.valid).tolist(), out, 2)
+        moved = gang_bytes(cfg, na, table, wt, bucket, bucket, False,
+                           w_contig=2)
+        bound_ms, bound_by = bound_of(moved, ops)
+        zones_used = len({int(dom[b]) for b in out if b >= 0})
+        times[case] = dict(
+            accept=accept, placed=placed, S=len(wt), B=bucket,
+            zones_used=zones_used, ms=cuda_ms(torch, kern, 5),
+            device_ms=device_ms(torch, kern, 5), plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, ops=vars(ops),
+            bytes=moved)
+        log("kernel", name="run_gang", case=case, exact_match=True,
+            **times[case])
+    acc = times["accept"]
+    rows.append(dict(
+        name="run_gang", route="cuda",
+        source="kubernetes_tpu_torch/csrc/run_gang.cu",
+        replaces="kubernetes_tpu/ops/gang.py:65", launches=0,
+        max_abs_err=err, ms=acc["ms"], plain_ms=acc["plain_ms"],
+        bound_ms=acc["bound_ms"], bound_by=acc["bound_by"],
+        library_ms=None, device_ms=acc["device_ms"],
+        by_case={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "S", "B")}
+                 for k, v in times.items()}))
+
+
 HOST_SPLIT = {"create_s": 0.0, "schedule_s": 0.0}
 
 
@@ -2211,6 +2516,100 @@ def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
     return counts
 
 
+def gang_trace(device: str, pkg, kind: str):
+    """GangTraining 5000Nodes ("train": 40 gangs × 256 members of 900m /
+    1 Gi, minCount = size, priority 0) or CoLocatedInference 5000Nodes
+    ("colo": 24 gangs × 128 members of 1 cpu at priority 10, 5,000
+    inference pods of 250m at priority 100, 4 preemptor gangs × 64
+    members of 2 cpu at priority 200, contiguity weight 2), driven as the
+    harness's gangTrace op drives it (perf/harness.py:391-446): every
+    Workload first, then the pods in 512-pod chunks, each followed by a
+    non-blocking schedule_pending, then the full drain. Returns (api,
+    scheduler, pods/s over the op, seconds)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing.workloads import GangWorkloadGenerator
+    W = pkg.wrappers
+    if kind == "train":
+        n_nodes, gangs, size, zones = GT_SHAPE
+        gang_cpu, prio, n_inf, n_pre, contig = "900m", 0, 0, 0, None
+    else:
+        n_nodes, gangs, size, n_inf, n_pre, zones = CI_SHAPE
+        gang_cpu, prio, contig = "1", 10, 2
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: 1000.0)
+    for nd in harness_nodes(W, n_nodes, zones):
+        api.create_node(nd)
+    sched.prime()
+    gen = GangWorkloadGenerator(seed=0)
+    specs = gen.training_gangs(gangs, size=size, cpu=gang_cpu,
+                               memory="1Gi", priority=prio)
+    pre = gen.training_gangs(n_pre, size=64, cpu="2", memory="1Gi",
+                             priority=200, prefix="preemptor")
+    if contig is not None:
+        sched.gang_contiguity_weight = contig
+    before = sched.scheduled_count
+    t0 = time.perf_counter()
+    for what, obj in gen.trace(specs, inference_count=n_inf,
+                               inference_cpu="250m", inference_priority=100,
+                               preemptor_gangs=pre, chunk=CREATE_BATCH):
+        if what == "workload":
+            api.create_workload(obj)
+            continue
+        api.create_pods(obj)
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+    secs = time.perf_counter() - t0
+    return api, sched, (sched.scheduled_count - before) / secs, secs
+
+
+def gang_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
+    """Phase 12 / 13: one gang workload on the card, checked against its
+    cpu run and its own gates; returns the launch counts."""
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    api, sched, rate, secs = gang_trace(device, pkg, kind)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pkg.kernels.LAUNCHES)
+    if kind == "train":
+        name, phase = "GangTraining", "gang_training"
+        _n, gangs, size, _z = GT_SHAPE
+        total, n_gangs, key = gangs * size, gangs, "run_gang_uniform"
+    else:
+        name, phase = "CoLocatedInference", "colocated_inference"
+        _n, gangs, size, n_inf, n_pre, _z = CI_SHAPE
+        total, n_gangs, key = gangs * size + n_inf + n_pre * 64, \
+            gangs + n_pre, "run_gang"
+    got = outcome(api, sched)
+    if len(got[0]) != total or got[1]:
+        fail(f"{name}: bound {len(got[0])} of {total} pods, "
+             f"{len(got[1])} pending")
+    gd = dict(sched.gang_dispatch)
+    if gd["placed"] != n_gangs or gd["fallback"] or gd["rejected"]:
+        fail(f"{name}: gang drains {gd}, expected {n_gangs} placed")
+    if counts[key] != n_gangs:
+        fail(f"{name}: {key} launched {counts[key]} times, expected "
+             f"{n_gangs} ({counts})")
+    if sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    t1 = time.perf_counter()
+    want = outcome(*gang_trace("cpu", pkg, kind)[:2])
+    if got != want:
+        fail(f"{name}: cuda bind map differs from the cpu run")
+    log(phase, pods=total, bound=len(got[0]), nodes=_n, gangs=n_gangs,
+        pods_per_s=rate, op_s=secs, wall_s=wall, launches=counts,
+        gang_dispatch=gd, gang_replays=sched.gang_replays,
+        uniform_rewinds=sched.uniform_rewinds,
+        drain_readbacks=sched.device_batches,
+        cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True)
+    log(f"{phase}_profile", card=smi, **profile_run(
+        torch, lambda: gang_trace(device, pkg, kind)))
+    return counts
+
+
 def wave_stats(sched) -> dict:
     """The scheduler's summed run_wave and run_plan stats, JSON-ready."""
     st = dict(sched.wave_stats)
@@ -2355,6 +2754,8 @@ def main() -> int:
     check_run_plan(torch, pkg, device, rows)
     check_diagnose_row(torch, pkg, device, rows)
     check_dry_run(torch, pkg, device, rows)
+    check_run_gang_uniform(torch, pkg, device, rows)
+    check_run_gang(torch, pkg, device, rows)
 
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
     # run (the comparisons above do not count)
@@ -2444,13 +2845,18 @@ def main() -> int:
     # phase 11: PreemptionChurn (the dry run, the overlay variants)
     pc_counts = preemption_phase(torch, pkg, device, smi)
 
+    # phases 12 and 13: the gang workloads (run_gang's two tiers)
+    gt_counts = gang_phase(torch, pkg, device, "train", smi)
+    ci_counts = gang_phase(torch, pkg, device, "colo", smi)
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
              "topology_spreading": spread_counts,
              "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts,
              "mixed_high_signature": mhs_counts,
-             "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts}
+             "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts,
+             "gang_training": gt_counts, "colocated_inference": ci_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

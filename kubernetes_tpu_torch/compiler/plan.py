@@ -1,8 +1,11 @@
-"""The drain compiler: "wave", "wavescan", "uniform" and "scan" spans.
+"""The drain compiler: "gang", "wave", "wavescan", "uniform" and "scan"
+spans.
 
-Counterpart of kubernetes_tpu/compiler/plan.py without the gang tier and
-the sharded mesh. A drain's pod mix becomes an ordered list of spans, each
-mapped to the cheapest EXACT program the port has:
+Counterpart of kubernetes_tpu/compiler/plan.py without the sharded mesh.
+A whole-gang drain is one ("gang", needed) span (ops/gang.py run_gang;
+its tier, closed form or scan, is chosen at dispatch). Any other drain's
+pod mix becomes an ordered list of spans, each mapped to the cheapest
+EXACT program the port has:
 
   ("wave", u, anti, merge)    same-signature group wave (run_wave)
   ("wavescan", rows, ports)   the plan program (ops/program.py run_plan):
@@ -69,7 +72,8 @@ class DrainCompiler:
         self.surfaces = SurfaceCache(self.state, self.builder)
 
     def compile_drain(self, batch, n: int, *, groups_needed: bool = False,
-                      overlay: bool = False, nominated: bool = False,
+                      gang_needed=None, overlay: bool = False,
+                      nominated: bool = False,
                       strategy: str = "LeastAllocated",
                       prefer_taints: bool = False,
                       uniform_min: int = 16) -> DrainPlan:
@@ -79,7 +83,10 @@ class DrainCompiler:
         `overlay` no wave or plan program runs: a drain holding a
         `nominated` pod is one scan span (the per-pod self-exclusion is
         outside the closed form), an overlay-only drain keeps its
-        uniform / scan runs."""
+        uniform / scan runs. A whole-gang drain (`gang_needed`, the
+        gang's remaining quorum) is a single span by construction."""
+        if gang_needed is not None:
+            return DrainPlan(spans=[(0, n, ("gang", int(gang_needed)))])
         key = (self.builder.reset_count, self.builder.table_used,
                groups_needed, overlay, nominated, strategy, prefer_taints,
                uniform_min, n, batch.sig[:n].tobytes(),

@@ -33,14 +33,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
-           "run_wave", "run_plan", "diagnose_row", "dry_run")
+           "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean mode, its group mode and its overlay variant
-# under three keys, run_uniform its lean and its overlay variant under two
+# under three keys, run_uniform its lean and its overlay variant under
+# two; run_gang counts its scan tier, and its closed-form tier (built in
+# run_uniform.cu) counts under run_gang_uniform
 LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "run_batch_ovl",
-                                           "run_uniform_ovl")}
+                                           "run_uniform_ovl",
+                                           "run_gang_uniform")}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -257,6 +260,18 @@ class DryArgsC(ctypes.Structure):
                 + [("SC", _I), ("out", _P)])
 
 
+class GangArgsC(ctypes.Structure):
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC)]
+                + [(f, _P) for f in (
+                    "used_in", "nz_in", "npods_in", "sig_in", "used",
+                    "nonzero_used", "npods", "sig_out", "m0", "taint_raw",
+                    "na_raw", "s_img", "valid", "tidx", "widx", "wt",
+                    "dom")]
+                + [(f, _I) for f in ("S", "B", "needed", "w_contig")]
+                + [(f, _P) for f in ("fit_ok", "s_fit", "s_bal", "domcnt",
+                                     "packed")])
+
+
 class DiagArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("used", _P), ("npods", _P),
                 ("ports", _P), ("P", _I), ("tidx", _I), ("has_groups", _I),
@@ -274,6 +289,9 @@ def _bind(name: str, lib):
         lib.ktpu_run_uniform.argtypes = (
             [_P] * 5 + [_I] * 6 + [_P, _P, _I, _P, _P, _I] + [_P] * 9)
         lib.ktpu_run_uniform.restype = ctypes.c_int
+        lib.ktpu_run_gang_uniform.argtypes = (
+            [_P] * 5 + [_I] * 7 + [_P, _P, _I, _P, _P, _I] + [_P] * 8)
+        lib.ktpu_run_gang_uniform.restype = ctypes.c_int
     elif name == "scatter_rows":
         lib.ktpu_scatter_rows.argtypes = [_P, _P, _P]
         lib.ktpu_scatter_rows.restype = ctypes.c_int
@@ -289,6 +307,9 @@ def _bind(name: str, lib):
     elif name == "dry_run":
         lib.ktpu_dry_run.argtypes = [_P, _P]
         lib.ktpu_dry_run.restype = ctypes.c_int
+    elif name == "run_gang":
+        lib.ktpu_run_gang.argtypes = [_P, _P]
+        lib.ktpu_run_gang.restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -630,27 +651,27 @@ def _pow2(n: int) -> int:
     return v
 
 
-def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
-                     K: int, J: int, overlay=None):
-    """The closed-form kernels (csrc/run_uniform.cu) for one same-signature
-    run; same contract as program.run_uniform, with the overlay variant
-    when `overlay` is given (read only)."""
+def _uniform_args(cfg, na, carry, x, table, n_actual: int, L: int,
+                  K: int, J: int, what: str):
+    """The checked arguments and scratch of one closed-form run (shared by
+    run_uniform and the closed-form gang tier): (libs, device, output
+    carry, [NodeC, TableC, in CarryC, out CarryC, CfgC], the scalar and
+    scratch arguments, what must stay alive until the call returns)."""
     libs = build()
     device = carry.used.device
     node = _node_c(na, device)
     N = node.N
     sig, tidx = int(x.sig), int(x.tidx)
     if sig == 0:
-        raise ValueError("run_uniform needs a signature (sig != 0)")
+        raise ValueError(f"{what} needs a signature (sig != 0)")
     if not (1 <= K <= N and J >= 1 and L >= 1 and K * J >= L):
-        raise ValueError(f"run_uniform: bad shape L={L} K={K} J={J} N={N}")
+        raise ValueError(f"{what}: bad shape L={L} K={K} J={J} N={N}")
     if not 0 <= int(n_actual) <= L:
-        raise ValueError(f"run_uniform: n_actual {n_actual} outside [0, {L}]")
+        raise ValueError(f"{what}: n_actual {n_actual} outside [0, {L}]")
     tab = _table_c(table, node.R, device)
     if not 0 <= tidx < tab.U:
-        raise ValueError(f"run_uniform: row {tidx} outside the table")
+        raise ValueError(f"{what}: row {tidx} outside the table")
     cin = _carry_c(carry, N, node.R, device)
-    ovl_ptrs, _ovl = _overlay_c(overlay, N, node.R, device, copy=False)
 
     def empty(n, dtype):
         return torch.empty((n,), dtype=dtype, device=device)
@@ -667,18 +688,51 @@ def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
     fit_kj, sfit, sbal = (empty(K * J, torch.uint8), empty(K * J, i64),
                           empty(K * J, i64))
     counts, flags = empty(N, i32), empty(4, i32)
-    packed = empty(L + 2, i32)
-    cfgc = _cfg_c(cfg, node.R)
+    structs = [node, tab, cin, cout, _cfg_c(cfg, node.R)]
+    keep = (static_add, keys0, cand, keys1, fit_kj, sfit, sbal, counts,
+            flags)
+    head = (sig, tidx, int(n_actual))
+    tail = (L, K, J, static_add.data_ptr(), keys0.data_ptr(), P0,
+            cand.data_ptr(), keys1.data_ptr(), P1, fit_kj.data_ptr(),
+            sfit.data_ptr(), sbal.data_ptr(), counts.data_ptr(),
+            flags.data_ptr())
+    return libs, device, out_carry, structs, head, tail, keep
+
+
+def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
+                     K: int, J: int, overlay=None):
+    """The closed-form kernels (csrc/run_uniform.cu) for one same-signature
+    run; same contract as program.run_uniform, with the overlay variant
+    when `overlay` is given (read only)."""
+    libs, device, out_carry, structs, head, tail, _keep = _uniform_args(
+        cfg, na, carry, x, table, n_actual, L, K, J, "run_uniform")
+    ovl_ptrs, _ovl = _overlay_c(overlay, structs[0].N, structs[0].R, device,
+                                copy=False)
+    packed = torch.empty((L + 2,), dtype=torch.int32, device=device)
+    # every struct stays bound to a name until the call returns
     rc = libs["run_uniform"].ktpu_run_uniform(
-        ctypes.addressof(node), ctypes.addressof(tab), ctypes.addressof(cin),
-        ctypes.addressof(cout), ctypes.addressof(cfgc),
-        sig, tidx, int(n_actual), L, K, J, static_add.data_ptr(),
-        keys0.data_ptr(), P0, cand.data_ptr(), keys1.data_ptr(), P1,
-        fit_kj.data_ptr(), sfit.data_ptr(), sbal.data_ptr(),
-        counts.data_ptr(), flags.data_ptr(), packed.data_ptr(),
-        *ovl_ptrs, _stream(device))
+        *(ctypes.addressof(c) for c in structs), *head, *tail,
+        packed.data_ptr(), *ovl_ptrs, _stream(device))
     _raise_on(rc, "run_uniform")
     LAUNCHES["run_uniform" if overlay is None else "run_uniform_ovl"] += 1
+    return out_carry, packed
+
+
+def run_gang_uniform_cuda(cfg, na, carry, x, table, n_actual: int,
+                          needed: int, L: int, K: int, J: int):
+    """The closed-form gang tier (run_uniform.cu ktpu_run_gang_uniform):
+    run_uniform's launches and the gang epilogue; same contract as
+    gang._run_gang_uniform_plain. The output carry holds fresh copies of
+    every field the epilogue may write; the input is only read."""
+    libs, device, out_carry, structs, head, tail, _keep = _uniform_args(
+        cfg, na, carry, x, table, n_actual, L, K, J, "run_gang")
+    pu = torch.empty((L + 2,), dtype=torch.int32, device=device)
+    packed = torch.empty((L + 4,), dtype=torch.int32, device=device)
+    rc = libs["run_uniform"].ktpu_run_gang_uniform(
+        *(ctypes.addressof(c) for c in structs), *head, int(needed), *tail,
+        pu.data_ptr(), packed.data_ptr(), _stream(device))
+    _raise_on(rc, "run_gang_uniform")
+    LAUNCHES["run_gang_uniform"] += 1
     return out_carry, packed
 
 
@@ -1022,3 +1076,68 @@ def dry_run_select_victims_cuda(na, pod, cand, victim_req, victim_valid,
     _raise_on(rc, "dry_run")
     LAUNCHES["dry_run"] += 1
     return out
+
+
+def run_gang_cuda(cfg, na, carry, xs, table, wt, needed: int, dom, statics,
+                  w_contig: int):
+    """The scan tier of run_gang (csrc/run_gang.cu); same contract as
+    gang._run_gang_scan_plain. The output carry holds fresh used /
+    nonzero_used / npods and a fresh signature scalar; the rest of the
+    SigCache, the ports and the group counts are the input's (the kernel
+    never writes them)."""
+    from .program import Carry
+    libs = build()
+    device = carry.used.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    rows = [int(u) for u in wt]
+    S = len(rows)
+    if S < 1 or any(not 0 <= u < tab.U for u in rows):
+        raise ValueError(f"run_gang: rows {rows} outside the table")
+    B = xs.valid.shape[0]
+    valid_p = _check(xs.valid, "xs.valid", torch.bool, 1, device)
+    tidx_p = _check(xs.tidx, "xs.tidx", torch.int32, 1, device)
+    widx_p = _check(xs.widx, "xs.widx", torch.int32, 1, device)
+    if B < 1 or xs.tidx.shape[0] != B or xs.widx.shape[0] != B:
+        raise ValueError("run_gang: xs.valid / tidx / widx lengths differ")
+    dom_p = _check(dom, "dom", torch.int32, 1, device)
+    if dom.shape[0] != N:
+        raise ValueError(f"run_gang: dom must be [{N}]")
+    stat = [_check(t, f"statics[{k}]", dt, 2, device) for k, (t, dt) in
+            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
+                                    torch.int64)))]
+    if any(tuple(t.shape) != (S, N) for t in statics):
+        raise ValueError(f"run_gang: statics must be [{S}, {N}] each")
+    cin = _carry_c(carry, N, R, device)
+    i32, i64 = torch.int32, torch.int64
+    used = torch.empty_like(carry.used)
+    nz = torch.empty_like(carry.nonzero_used)
+    npods = torch.empty_like(carry.npods)
+    sig = torch.empty_like(carry.cache.sig)
+    wt_t = torch.tensor(rows, dtype=i32).pin_memory().to(device,
+                                                          non_blocking=True)
+    fit_ok = torch.empty((S * N,), dtype=torch.uint8, device=device)
+    s_fit = torch.empty((S * N,), dtype=i64, device=device)
+    s_bal = torch.empty((S * N,), dtype=i64, device=device)
+    domcnt = torch.empty((N,), dtype=i32, device=device)
+    packed = torch.empty((B + 4,), dtype=i32, device=device)
+    # the struct stays bound to a name until the call returns
+    args = GangArgsC(
+        na=node, tb=tab, cfg=_cfg_c(cfg, R), used_in=cin.used,
+        nz_in=cin.nonzero_used, npods_in=cin.npods, sig_in=cin.cache.sig,
+        used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+        npods=npods.data_ptr(), sig_out=sig.data_ptr(), m0=stat[0],
+        taint_raw=stat[1], na_raw=stat[2], s_img=stat[3], valid=valid_p,
+        tidx=tidx_p, widx=widx_p, wt=wt_t.data_ptr(), dom=dom_p, S=S, B=B,
+        needed=int(needed), w_contig=int(w_contig),
+        fit_ok=fit_ok.data_ptr(), s_fit=s_fit.data_ptr(),
+        s_bal=s_bal.data_ptr(), domcnt=domcnt.data_ptr(),
+        packed=packed.data_ptr())
+    rc = libs["run_gang"].ktpu_run_gang(ctypes.addressof(args),
+                                        _stream(device))
+    _raise_on(rc, "run_gang")
+    LAUNCHES["run_gang"] += 1
+    return Carry(used=used, nonzero_used=nz, npods=npods, ports=carry.ports,
+                 cache=carry.cache._replace(sig=sig),
+                 groups=carry.groups), packed

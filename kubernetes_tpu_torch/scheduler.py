@@ -1,10 +1,10 @@
 """The Scheduler: host orchestration around the PyTorch device program.
 
 Counterpart of kubernetes_tpu/scheduler.py for the default profile without
-the volume, DRA and gang plugins (NodeUnschedulable, NodeName,
-TaintToleration, NodeAffinity, NodePorts, NodeResourcesFit,
-BalancedAllocation, PodTopologySpread, InterPodAffinity, ImageLocality,
-and DefaultPreemption as the PostFilter).
+the volume and DRA plugins (SchedulingGates, GangScheduling,
+NodeUnschedulable, NodeName, TaintToleration, NodeAffinity, NodePorts,
+NodeResourcesFit, BalancedAllocation, PodTopologySpread, InterPodAffinity,
+ImageLocality, and DefaultPreemption as the PostFilter).
 The queue drains in device-sized batches; the drain compiler splits each
 batch into same-signature "uniform" runs (closed-form top-L, ops/program.py
 run_uniform), same-signature group "wave" spans (ops/program.py run_wave),
@@ -22,15 +22,34 @@ drains fold the nominated pods into the fit as a resource overlay of
 run_uniform / run_batch, with per-pod self-exclusion for the nominated
 pods themselves.
 
+Gangs (pods with a `workloadRef`) take the JAX package's route: the
+GangScheduling plugin holds a gang's members out of the queue until its
+Workload exists and minCount members are known (PreEnqueue quorum); a
+drain that holds a whole gang's remaining quorum dispatches it first, as
+ONE all-or-nothing `("gang", needed)` span (ops/gang.py run_gang: the
+closed-form tier for a single-signature LeastAllocated gang, else the scan
+tier, with the topology-contiguity column when
+`gang_contiguity_weight` > 0). An accepted gang commits atomically with
+no Reserve / Permit; a rejected gang was unwound on the device and fails
+through `_fail_rejected_gang` (PostFilter on its infeasible members —
+how a gang preempts a gang). A gang the device program does not take
+(host-port members, group constraints, pending nominations, parked
+members, fewer members than its quorum in the drain) rides the generic
+drains and the reference's Permit barrier at commit (Reserve, Permit,
+WaitOnPermit parking, the timeout sweep in `flush_queues`).
+`gang_dispatch` counts gang drains by outcome (placed / rejected /
+fallback), the labels of the JAX package's metric.
+
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
   a build or a launch raises; group drains the JAX package hands to its
   host greedy run the device scan here, and drains the JAX package hands
   to its host scheduling path (`_schedule_one_host`: nominations the
   overlay cannot represent) raise NotImplementedError;
-- a pod that needs a feature this port lacks — gangs (Workload), volumes
-  or DRA claims, extenders — raises NotImplementedError naming the
-  missing piece, and is never scheduled with a reduced plugin set.
+- a pod that needs a feature this port lacks — volumes or DRA claims,
+  extenders, a PreBind plugin, a Reserve / Permit plugin other than
+  GangScheduling — raises NotImplementedError naming the missing piece,
+  and is never scheduled with a reduced plugin set.
 
 `Scheduler(api, device=None)` runs on "cuda"; without a CUDA device it
 raises unless the caller asks for `device="cpu"` (the plain PyTorch
@@ -52,12 +71,15 @@ from .backend.apiserver import APIServer, WatchHandlers
 from .backend.cache import Cache, Snapshot, _PodState
 from .backend.dispatcher import APICall, APIDispatcher, CallType
 from .backend.queue import ClusterEventWithHint, SchedulingQueue
-from .framework.interface import CycleState, Status
+from .backend.workloadmanager import (WorkloadManager, parse_workload_ref,
+                                      pod_group_min_count)
+from .framework.interface import Code, CycleState, Status
 from .framework.runtime import Framework
 from .framework.types import (ActionType, ClusterEvent, Diagnosis,
                               EventResource, FitError, PodInfo,
                               QueuedPodInfo)
 from .ops import program as prog
+from .ops.gang import GangXs, run_gang
 from .ops.groups import GroupFamilies, scatter_new_rows, to_device
 from .ops.program import (PodXs, ScoreConfig, WaveXs, diagnose_row,
                           initial_carry, run_batch, run_plan, run_uniform,
@@ -66,6 +88,7 @@ from .ops.program import (PodXs, ScoreConfig, WaveXs, diagnose_row,
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
 from .plugins.defaultpreemption import DefaultPreemption
+from .plugins.gangscheduling import GangScheduling
 from .plugins.imagelocality import ImageLocality
 from .plugins.node_basics import (NodeName, NodePorts, NodeUnschedulable,
                                   PrioritySort, SchedulingGates,
@@ -74,7 +97,8 @@ from .plugins.interpodaffinity import InterPodAffinity
 from .plugins.nodeaffinity import NodeAffinity
 from .plugins.podtopologyspread import PodTopologySpread
 from .state.batch import BatchBuilder
-from .state.convert import pod_xs_from_numpy
+from .state.convert import (dom_from_numpy, gang_xs_from_numpy,
+                            pod_xs_from_numpy)
 from .state.tensorize import (EFFECT_PREFER_NO_SCHEDULE, ClusterState,
                               pow2_at_least)
 
@@ -130,9 +154,10 @@ def pod_update_action(old: Pod, new: Pod) -> ActionType:
 
 
 def default_plugins(client=None, ns_lister=None) -> list:
-    """The default profile without the volume, DRA and gang plugins, in
-    the reference filter order (apis/config/v1/default_plugins.go:30)."""
-    plugins = [SchedulingGates(), PrioritySort(), NodeUnschedulable(),
+    """The default profile without the volume and DRA plugins, in the
+    reference filter order (apis/config/v1/default_plugins.go:30)."""
+    plugins = [SchedulingGates(), GangScheduling(), PrioritySort(),
+               NodeUnschedulable(),
                NodeName(), TaintToleration(), NodeAffinity(), NodePorts(),
                nr.Fit(), nr.BalancedAllocation(), PodTopologySpread(),
                InterPodAffinity(ns_lister=ns_lister), ImageLocality()]
@@ -148,13 +173,26 @@ class Profile:
     score_config: ScoreConfig = ScoreConfig()
 
 
+def _needs_per_pod_hooks(profile: Profile, spec) -> bool:
+    """True when a pod must run the Reserve / Permit chain in
+    `_assume_and_bind` (kubernetes_tpu/scheduler.py:179-192). The port's
+    only Reserve / Permit plugin is GangScheduling (the JAX package's
+    `gang_only_hooks` is always on) and it refuses PreBind plugins and
+    volume or claim pods, so the chain runs exactly for gang members."""
+    fwk = profile.framework
+    return bool(spec.workload_ref
+                and (fwk.reserve_plugins or fwk.permit_plugins))
+
+
 @dataclass
 class _RunRec:
     """One dispatched device run awaiting readback. `carry_in` is the carry
-    the run read — kept for uniform runs, the kind that can rewind and
-    replay (no kernel writes into its input carry)."""
+    the run read — kept for uniform runs and closed-form gang runs, the
+    kinds that can rewind and replay (no kernel writes into its input
+    carry)."""
 
-    kind: str                 # "uniform" | "scan" | "wave" | "wavescan"
+    # "uniform" | "scan" | "wave" | "wavescan" | "gang"
+    kind: str
     i: int
     j: int
     carry_in: object
@@ -162,6 +200,35 @@ class _RunRec:
     L: int = 0
     J: int = 0
     span: tuple = ("scan",)
+
+
+@dataclass
+class _WaitingPodRec:
+    """A pod parked at Permit (reference runtime/waiting_pods_map.go): its
+    resources stay assumed in the cache, and counted by the device carry,
+    until allowed or rejected."""
+
+    qpi: QueuedPodInfo
+    assumed: Pod
+    node_name: str
+    cycle_state: CycleState
+    deadline: float
+    wait_plugin: str = ""
+
+
+class _WaitingPodHandle:
+    """The WaitingPod the Permit plugins see (framework.WaitingPod). With a
+    single permit plugin per profile, one Allow releases the pod."""
+
+    def __init__(self, scheduler: "Scheduler", uid: str):
+        self._scheduler = scheduler
+        self._uid = uid
+
+    def allow(self, plugin_name: str) -> None:
+        self._scheduler._allow_waiting(self._uid)
+
+    def reject(self, plugin_name: str, reason: str = "") -> None:
+        self._scheduler._reject_waiting(self._uid)
 
 
 @dataclass
@@ -183,6 +250,12 @@ class _PendingDrain:
     # reproduces the dispatch-time overlay
     ovl: object = None
     nom: object = None
+    # whole-gang drain: (workload ref, remaining quorum, minCount), and
+    # its resolved verdict, raw per-member assignments and placed count
+    gang: object = None
+    gang_accepted: bool = False
+    gang_raw: object = None
+    gang_placed: int = 0
 
     def ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -220,17 +293,35 @@ class Scheduler:
             profiles = [Profile(framework=fwk)]
         for prof in profiles:
             fwk = prof.framework
-            if (fwk.reserve_plugins or fwk.permit_plugins
-                    or fwk.pre_bind_plugins):
+            other = [p.name() for p in fwk.reserve_plugins
+                     + fwk.permit_plugins
+                     if not isinstance(p, GangScheduling)]
+            if fwk.pre_bind_plugins or other:
+                names = sorted(set(other) | {p.name() for p in
+                                             fwk.pre_bind_plugins})
                 raise NotImplementedError(
-                    f"profile {prof.name!r}: Reserve/Permit/PreBind "
-                    "plugins (volumes, gangs) are not ported to "
-                    "kubernetes_tpu_torch yet")
+                    f"profile {prof.name!r}: PreBind plugins and Reserve / "
+                    f"Permit plugins other than GangScheduling ({names}: "
+                    "volumes, DRA) are not ported to kubernetes_tpu_torch "
+                    "yet")
+            for p in fwk.plugins:
+                if isinstance(p, GangScheduling):
+                    p.handle = self
         self.profiles: dict[str, Profile] = {p.name: p for p in profiles}
 
         self.cache = Cache(clock=clock)
         self.snapshot = Snapshot()
         self.state = ClusterState(device=str(self.device))
+        self.workload_manager = WorkloadManager()
+        # pods parked at Permit (WaitOnPermit): uid -> _WaitingPodRec
+        self._waiting_pods: dict[str, _WaitingPodRec] = {}
+        # weight of the per-domain member-count column in the gang scan
+        # (0 = off, the JAX package's default; its harness sets it)
+        self.gang_contiguity_weight = 0
+        self._gang_dom = None        # device i32 [N] node → domain ids
+        self._gang_dom_key = None    # (statics_gen, node bucket, need)
+        # gang drains by outcome (the JAX package's gang_dispatch metric)
+        self.gang_dispatch = {"placed": 0, "rejected": 0, "fallback": 0}
         default_list = next(iter(self.profiles.values())).framework.plugins
         self.builder = BatchBuilder(
             self.state,
@@ -259,6 +350,9 @@ class Scheduler:
         # uniform runs whose exactness or depth flag failed (rewound and
         # replayed at commit)
         self.uniform_rewinds = 0
+        # closed-form gang runs whose exactness or depth flag failed
+        # (replayed on the scan tier at commit)
+        self.gang_replays = 0
         # per-pod consecutive bind-error count → escalating error backoff
         self._bind_errors: dict[str, int] = {}
         # device-resident carry, reused across drains while no event
@@ -318,16 +412,19 @@ class Scheduler:
 
     @staticmethod
     def _make_pre_enqueue(fwk: Framework):
-        """PreEnqueue gate with a constant-time fast path for pods with no
-        scheduling gates."""
+        """PreEnqueue gate with a constant-time fast path: when the only
+        PreEnqueue plugins are SchedulingGates and GangScheduling, a pod
+        with neither scheduling gates nor a workloadRef cannot be
+        gated."""
         run = fwk.run_pre_enqueue_plugins
-        if not all(p.name() == "SchedulingGates"
+        if not all(p.name() in ("SchedulingGates", "GangScheduling")
                    for p in fwk.pre_enqueue_plugins):
             return run
         ok = Status.success()
 
         def pre_enqueue(pod: Pod) -> Status:
-            if not pod.spec.scheduling_gates:
+            spec = pod.spec
+            if not spec.scheduling_gates and not spec.workload_ref:
                 return ok
             return run(pod)
         return pre_enqueue
@@ -341,6 +438,56 @@ class Scheduler:
                 hints[p.name()] = list(p.events_to_register())
         return hints
 
+    # -- framework.Handle surface for the Permit plugin -----------------------
+
+    def get_workload(self, namespace: str, name: str):
+        return self.client.get_workload(name)
+
+    def activate(self, pods: list[Pod]) -> None:
+        self.queue.activate(pods)
+
+    def now(self) -> float:
+        return self.clock()
+
+    def get_waiting_pod(self, uid: str):
+        if uid in self._waiting_pods:
+            return _WaitingPodHandle(self, uid)
+        return None
+
+    def _allow_waiting(self, uid: str) -> None:
+        """WaitOnPermit resolved positively: complete the parked pod's
+        binding (schedule_one.go:302 onward; no PreBind plugin runs)."""
+        rec = self._waiting_pods.pop(uid, None)
+        if rec is None:
+            return
+        self.cache.finish_binding(rec.assumed)
+        self.dispatcher.add(APICall(CallType.BIND, rec.assumed,
+                                    node_name=rec.node_name))
+        self.scheduled_count += 1
+        rec.qpi.unschedulable_plugins = set()
+        rec.qpi.consecutive_errors_count = 0
+
+    def _reject_waiting(self, uid: str) -> None:
+        """WaitOnPermit rejection (timeout or plugin): unreserve, release
+        the assumed resources (which the device carry counts, so it
+        reseeds), requeue as unschedulable."""
+        rec = self._waiting_pods.pop(uid, None)
+        if rec is None:
+            return
+        pod = rec.qpi.pod
+        profile = self.profiles.get(pod.spec.scheduler_name)
+        if profile is not None:
+            profile.framework.run_reserve_plugins_unreserve(
+                rec.cycle_state, rec.assumed, rec.node_name)
+        try:
+            self.cache.forget_pod(rec.assumed)
+        except (KeyError, ValueError):
+            pass
+        self._invalidate_device_state()
+        err = FitError(pod, 0)
+        err.diagnosis.unschedulable_plugins = {rec.wait_plugin or "Permit"}
+        self._handle_failure(rec.qpi, err, try_preempt=False)
+
     def _register_event_handlers(self) -> None:
         """eventhandlers.go:499 addAllEventHandlers: nodes replay before
         pods so bound pods land on real cache entries."""
@@ -351,6 +498,9 @@ class Scheduler:
             on_add=self._on_pod_add, on_update=self._on_pod_update,
             on_delete=self._on_pod_delete,
             on_add_bulk=self._on_pod_add_bulk))
+        if hasattr(self.client, "watch_workloads"):
+            self.client.watch_workloads(WatchHandlers(
+                on_add=self._on_workload_add))
         if hasattr(self.client, "watch_pdbs"):
             self.client.watch_pdbs(WatchHandlers(
                 on_add=self._on_pdb_change, on_update=self._on_pdb_change,
@@ -365,6 +515,7 @@ class Scheduler:
         self._device_carry = None
 
     def _on_pod_add(self, pod: Pod) -> None:
+        self.workload_manager.add_pod(pod)
         if pod.spec.node_name:
             self.cache.add_pod(pod)
             self._invalidate_device_state()
@@ -372,20 +523,67 @@ class Scheduler:
                 EVENT_ASSIGNED_POD_ADD, None, pod)
         elif self._responsible(pod):
             self.queue.add(pod)
+            # a new gang member can un-gate ITS group (PreEnqueue quorum),
+            # and only once the group can reach quorum
+            if (pod.spec.workload_ref
+                    and self._gang_quorum_possible(pod)):
+                self.queue.retry_gated(ref=pod.spec.workload_ref)
 
     def _on_pod_add_bulk(self, pods: list[Pod]) -> None:
-        """Batch ingest: plain unbound pods owned by this scheduler take the
-        queue's bulk add; bound or foreign pods take the per-pod path."""
+        """Batch ingest: unbound pods owned by this scheduler take the
+        queue's bulk add; bound or foreign pods take the per-pod path.
+        Gang members register in the WorkloadManager for the whole chunk
+        FIRST, so a gang arriving complete in one chunk passes PreEnqueue
+        at its own add, and the quorum retry runs once per gang."""
         plain: list[Pod] = []
+        gang_pods: list[Pod] = []
         for pod in pods:
             if pod.spec.node_name or not self._responsible(pod):
                 self._on_pod_add(pod)
+            elif pod.spec.workload_ref:
+                self.workload_manager.add_pod(pod)
+                gang_pods.append(pod)
             else:
+                self.workload_manager.add_pod(pod)
                 plain.append(pod)
         if plain:
             self.queue.add_bulk(plain)
+        if gang_pods:
+            self.queue.add_bulk(gang_pods)
+            for ref in dict.fromkeys(p.spec.workload_ref for p in gang_pods):
+                member = next(p for p in gang_pods
+                              if p.spec.workload_ref == ref)
+                if self._gang_quorum_possible(member):
+                    self.queue.retry_gated(ref=ref)
+
+    def _on_workload_add(self, workload) -> None:
+        """A Workload's arrival can un-gate its gang's pods (PreEnqueue)
+        and requeue unschedulable members (gangscheduling.go:100); only the
+        arriving workload's refs are re-evaluated."""
+        name = workload.metadata.name
+        for ref in self.queue.gated_refs():
+            if parse_workload_ref(ref)[0] == name:
+                self.queue.retry_gated(ref=ref)
+        self.queue.move_all_to_active_or_backoff_queue(
+            ClusterEvent(EventResource.WORKLOAD, ActionType.ADD),
+            None, workload)
+
+    def _gang_quorum_possible(self, pod: Pod) -> bool:
+        """True when the pod's group has reached its minCount in KNOWN
+        pods — the only state in which a gated-member retry can move
+        anything (PreEnqueue quorum, gangscheduling.go:120-158)."""
+        name, group = parse_workload_ref(pod.spec.workload_ref)
+        workload = self.client.get_workload(name)
+        if workload is None:
+            return False
+        min_count = pod_group_min_count(workload, group)
+        if min_count is None:
+            return False
+        info = self.workload_manager.pod_group_info(pod)
+        return info is not None and len(info.all_pods) >= min_count
 
     def _on_pod_update(self, old: Pod, new: Pod) -> None:
+        self.workload_manager.update_pod(old, new)
         if new.spec.node_name:
             if old.spec.node_name:
                 self.cache.update_pod(old, new)
@@ -413,6 +611,9 @@ class Scheduler:
                     ClusterEvent(EventResource.POD, flags), old, new)
 
     def _on_pod_delete(self, pod: Pod) -> None:
+        self.workload_manager.delete_pod(pod)
+        if pod.uid in self._waiting_pods:
+            self._reject_waiting(pod.uid)
         self._bind_errors.pop(pod.uid, None)
         if pod.spec.node_name:
             self.cache.remove_pod(pod)
@@ -515,8 +716,13 @@ class Scheduler:
         self.state.ensure_arrays()
 
     def flush_queues(self) -> None:
-        """SchedulingQueue.Run periodic work (scheduling_queue.go:406-413)."""
+        """SchedulingQueue.Run periodic work (scheduling_queue.go:406-413)
+        and the WaitOnPermit timeout sweep (waiting_pods_map.go timers)."""
         self._drain_pending()
+        now = self.clock()
+        for uid, rec in list(self._waiting_pods.items()):
+            if rec.deadline <= now:
+                self._reject_waiting(uid)
         self.queue.flush_backoff_completed()
         self.queue.flush_unschedulable_leftover()
 
@@ -548,16 +754,70 @@ class Scheduler:
                 for q in qpis[i:j]:
                     self.queue.done(q.pod.uid)
             else:
-                self._dispatch_device_drain(qpis[i:j], profile)
+                self._schedule_profile_batch(qpis[i:j], profile)
             i = j
+
+    def _schedule_profile_batch(self, qpis: list[QueuedPodInfo],
+                                profile: Profile) -> None:
+        """One same-profile stretch: each whole gang first, as ONE
+        all-or-nothing device dispatch, then the rest."""
+        gangs, qpis = self._extract_gangs(qpis)
+        for members, ref, needed, min_count in gangs:
+            self._dispatch_device_drain(members, profile,
+                                        gang=(ref, needed, min_count))
+        if qpis:
+            self._dispatch_device_drain(qpis, profile)
+
+    def _extract_gangs(self, qpis: list[QueuedPodInfo]):
+        """Partition a profile stretch into whole-gang drains and the rest
+        (kubernetes_tpu/scheduler.py:1507-1561). A gang is extracted when
+        the drain holds at least its remaining quorum of members and the
+        group is device-eligible (no parked members, no volumes or
+        claims). With nominations pending no gang is extracted. Ineligible
+        gangs stay in the generic flow: per-pod placement with the Permit
+        barrier at commit."""
+        if (self.queue.nominator.nominated_pods
+                or not any(q.pod.spec.workload_ref for q in qpis)):
+            return [], qpis
+        groups: dict[str, list] = {}
+        rest: list[QueuedPodInfo] = []
+        for q in qpis:
+            ref = q.pod.spec.workload_ref
+            if ref:
+                groups.setdefault(ref, []).append(q)
+            else:
+                rest.append(q)
+        out = []
+        for ref, members in groups.items():
+            name, group = parse_workload_ref(ref)
+            workload = self.client.get_workload(name)
+            min_count = (pod_group_min_count(workload, group)
+                         if workload is not None else None)
+            if min_count is None:
+                rest.extend(members)
+                continue
+            info = self.workload_manager.pod_group_info(members[0].pod)
+            assigned = len(info.assigned) if info is not None else 0
+            needed = max(min_count - assigned, 0)
+            if needed == 0:
+                # quorum already met by bound members: the surplus members
+                # schedule individually (Permit passes at once)
+                rest.extend(members)
+                continue
+            if (len(members) < needed
+                    or any(m.pod.uid in self._waiting_pods
+                           for m in members)
+                    or any(m.pod.spec.volumes or m.pod.spec.resource_claims
+                           for m in members)):
+                self.gang_dispatch["fallback"] += 1
+                rest.extend(members)
+                continue
+            out.append((members, ref, needed, min_count))
+        return out, rest
 
     def _refuse_unsupported(self, qpis, batch) -> None:
         for k, q in enumerate(qpis):
             pod = q.pod
-            if pod.spec.workload_ref:
-                raise NotImplementedError(
-                    f"pod {pod.uid}: gang scheduling (workloadRef) is not "
-                    "ported to kubernetes_tpu_torch yet")
             if batch.host_fallback[k]:
                 reason = self.builder.fallback_reason(pod)
                 raise NotImplementedError(
@@ -565,9 +825,11 @@ class Scheduler:
                     "device form for it yet and no host scheduling path")
 
     def _dispatch_device_drain(self, qpis: list[QueuedPodInfo],
-                               profile: Profile) -> None:
+                               profile: Profile, gang=None) -> None:
         """Build + dispatch one drain WITHOUT waiting for the device; the
-        commit happens when the drain is resolved."""
+        commit happens when the drain is resolved. `gang` = (workload
+        ref, remaining quorum, minCount) makes the drain one whole-gang
+        span, unless the gang turns out ineligible here."""
         carry = self._device_carry
         nominator = self.queue.nominator
         ovl_fp = nominator.version if nominator.nominated_pods else -1
@@ -598,6 +860,14 @@ class Scheduler:
             self.builder.groups.any_groups()
             or bool(self.snapshot.have_pods_with_affinity_list)
             or bool(self.snapshot.have_pods_with_required_anti_affinity_list))
+        if gang is not None and (
+                groups_needed or (batch.sig[:len(qpis)] == 0).any()
+                or not batch.valid[:len(qpis)].all()):
+            # group kernels and host-port signatures are outside the gang
+            # program: this gang rides the generic path (per-pod
+            # placement, the Permit barrier at commit)
+            self.gang_dispatch["fallback"] += 1
+            gang = None
         table_reset = self.builder.reset_count != self._builder_reset_seen
         self._builder_reset_seen = self.builder.reset_count
         capacity = (self.builder.groups.device_rows(), na.used.shape[0])
@@ -660,9 +930,13 @@ class Scheduler:
                 self._refuse_host_path(qpis)
             ovl = self._build_overlay(na)
             nom = self._nominated_rows(qpis)
-        carry, records = self._dispatch_runs(profile, na, carry, batch,
-                                             table, n, groups_needed,
-                                             ovl=ovl, nom=nom)
+            if gang is not None:
+                # the overlay is outside the gang program
+                self.gang_dispatch["fallback"] += 1
+                gang = None
+        carry, records = self._dispatch_runs(
+            profile, na, carry, batch, table, n, groups_needed, ovl=ovl,
+            nom=nom, gang=(gang[1] if gang is not None else None))
         self._device_carry = carry
         self.device_batches += 1
         done = None
@@ -672,7 +946,7 @@ class Scheduler:
         self._pending.append(_PendingDrain(
             qpis=qpis, profile=profile, batch=batch, table=table, na=na,
             n=n, groups_needed=groups_needed, records=records, done=done,
-            ovl=ovl, nom=nom))
+            ovl=ovl, nom=nom, gang=gang))
 
     def _nominated_rows(self, qpis: list[QueuedPodInfo]):
         """i32 [n] node row of each drain pod's OWN nomination (-1 =
@@ -739,12 +1013,13 @@ class Scheduler:
 
     def _dispatch_runs(self, profile: Profile, na, carry, batch, table,
                        n: int, groups_needed: bool = False, ovl=None,
-                       nom=None):
+                       nom=None, gang=None):
         """Dispatch the drain's compiled plan with no host synchronization;
-        returns (chain carry, [_RunRec])."""
+        returns (chain carry, [_RunRec]). `gang` is a whole-gang drain's
+        remaining quorum (None otherwise)."""
         cfg = profile.score_config
         plan = self.compiler.compile_drain(
-            batch, n, groups_needed=groups_needed,
+            batch, n, groups_needed=groups_needed, gang_needed=gang,
             overlay=ovl is not None, nominated=nom is not None,
             strategy=cfg.strategy,
             prefer_taints=self._cluster_has_prefer_taints(),
@@ -792,6 +1067,13 @@ class Scheduler:
                     cfg, na, carry, batch, i, j, table, kind)
                 records.append(_RunRec("wavescan", i, j, None, packed,
                                        bucket, span=kind))
+            elif kind[0] == "gang":
+                c2, packed, width, uni = self._gang_dispatch(
+                    cfg, na, carry, batch, i, j, table, kind)
+                # the closed-form tier keeps its input carry (a failed
+                # exactness flag replays the scan tier from it)
+                records.append(_RunRec("gang", i, j, carry if uni else None,
+                                       packed, width, span=kind))
             else:
                 c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
                                                   j, table, ovl=ovl, nom=nom)
@@ -878,6 +1160,82 @@ class Scheduler:
             wt_list, self._gd_dev, statics, fam, norm_live,
             has_groups=has_groups, has_ports=has_ports)
         return carry2, packed, bucket
+
+    # -- gang placement (whole-group all-or-nothing dispatch) ------------------
+
+    def _gang_domains(self, na, need: bool):
+        """Device i32 [N] topology-domain id per node row for the gang
+        contiguity column: the node's zone label, or a unique per-node
+        domain when unlabeled, interned in node_index order. Identity ids
+        when the contiguity weight is off (the kernel never reads them).
+        Cached until the static node columns or the node bucket move."""
+        key = (self.state.statics_gen, na.used.shape[0], need)
+        if self._gang_dom is not None and self._gang_dom_key == key:
+            return self._gang_dom
+        N = na.used.shape[0]
+        dom = np.arange(N, dtype=np.int32)
+        if need:
+            ids: dict[str, int] = {}
+            for name, idx in self.state.node_index.items():
+                if idx >= N:
+                    continue
+                ni = self.snapshot.get(name)
+                labels = (ni.node.metadata.labels if ni is not None else {})
+                zone = (labels.get("topology.kubernetes.io/zone")
+                        or f"\x00{idx}")
+                dom[idx] = ids.setdefault(zone, len(ids))
+        self._gang_dom = dom_from_numpy(dom, self.device)
+        self._gang_dom_key = key
+        return self._gang_dom
+
+    def _gang_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                       j: int, table, span, force_scan: bool = False):
+        """run_gang over members [i:j). Returns (carry', packed, pack
+        width, closed-form tier?). A single-signature gang under
+        LeastAllocated, with no contiguity column, no PreferNoSchedule
+        taint in the cluster and no preferred affinity rides the
+        closed-form tier (one top-L for the whole gang); anything else
+        takes the scan tier with the per-signature surfaces hoisted."""
+        _, needed = span
+        m = j - i
+        w_contig = int(self.gang_contiguity_weight)
+        tid = batch.tidx[i:j]
+        uniq = list(dict.fromkeys(int(t) for t in tid))
+        # a gang-sized matrix, not the batch bucket
+        L = pow2_at_least(m, 16)
+        K = min(L, na.cap.shape[0])
+        n_q = pow2_at_least(max(self.cache.node_count(), 1))
+        J = min(max(pow2_at_least(4 * L // n_q + 4), 8), L + 1)
+        if (not force_scan and len(uniq) == 1 and w_contig == 0
+                and cfg.strategy == "LeastAllocated"
+                and not self._cluster_has_prefer_taints()
+                and not self.builder.table.pref_weight[uniq[0]].any()):
+            c2, packed = run_gang(cfg, na, carry, self._xone(batch, i),
+                                  table, needed=needed, uniform=True,
+                                  n_actual=m, L=L, K=K, J=J)
+            return c2, packed, L, True
+        bucket = pow2_at_least(m)
+        S = pow2_at_least(len(uniq), 1)
+        wt_list = (uniq + [uniq[-1]] * S)[:S]
+        slot: dict = {}
+        for s, u in enumerate(wt_list):
+            slot.setdefault(u, s)
+        widx = np.empty((bucket,), np.int32)
+        widx[:m] = [slot[int(t)] for t in tid]
+        widx[m:] = widx[m - 1]
+        tidx = np.full((bucket,), tid[m - 1], np.int32)
+        tidx[:m] = tid
+        valid = np.zeros((bucket,), bool)
+        valid[:m] = batch.valid[i:j]
+        xs = gang_xs_from_numpy(GangXs(valid=valid, tidx=tidx, widx=widx),
+                                self.device)
+        dom = self._gang_domains(na, need=w_contig > 0)
+        # the same hoisted surfaces as the plan program
+        statics = self.compiler.surfaces.stacked(na, table, tuple(wt_list))
+        c2, packed = run_gang(cfg, na, carry, xs, table, wt=wt_list,
+                              needed=needed, dom=dom, statics=statics,
+                              w_contig=w_contig)
+        return c2, packed, bucket, False
 
     def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
                        j: int, table, ovl=None, nom=None):
@@ -975,6 +1333,30 @@ class Scheduler:
                     self._observe_wave(rec, r)
                 idx += 1
                 continue
+            if rec.kind == "gang":
+                width = rec.L
+                if not (r[width + 2] and r[width + 3]):
+                    # the closed form's exactness preconditions failed on
+                    # the data: replay on the scan tier from the kept
+                    # input carry and re-chain everything downstream
+                    self.gang_replays += 1
+                    carry, packed, width, _ = self._gang_dispatch(
+                        pd.profile.score_config, pd.na, rec.carry_in,
+                        pd.batch, rec.i, rec.j, pd.table, rec.span,
+                        force_scan=True)
+                    r = packed.cpu().numpy()
+                    self._replay_downstream(pd, idx, carry)
+                    host[idx + 1:] = self._readback(pd.records[idx + 1:])
+                accepted = bool(r[width])
+                raw = np.array(r[:m], np.int32)
+                pd.gang_accepted = accepted
+                pd.gang_raw = raw
+                pd.gang_placed = int(r[width + 1])
+                # the all-or-nothing verdict: a rejected gang was unwound
+                # on the device; the host only masks its assignments
+                out[rec.i:rec.j] = raw if accepted else np.int32(-1)
+                idx += 1
+                continue
             exact, depth = bool(r[rec.L]), bool(r[rec.L + 1])
             if exact and depth:
                 out[rec.i:rec.j] = r[:m]
@@ -1018,7 +1400,8 @@ class Scheduler:
                 prev_ovl = pd2.ovl
             carry, pd2.records = self._dispatch_runs(
                 pd2.profile, pd2.na, carry, pd2.batch, pd2.table, pd2.n,
-                pd2.groups_needed, ovl=pd2.ovl, nom=pd2.nom)
+                pd2.groups_needed, ovl=pd2.ovl, nom=pd2.nom,
+                gang=(pd2.gang[1] if pd2.gang is not None else None))
         if self._device_carry is not None:
             self._device_carry = carry
 
@@ -1044,33 +1427,173 @@ class Scheduler:
 
     def _commit_assignments(self, pd: _PendingDrain, out) -> int:
         """Host commit of a resolved drain: bulk assume + bind enqueue for
-        the placed pods, failure handling for the rest."""
+        the hook-free placed pods, the Reserve / Permit chain for gang
+        members outside an accepted gang drain, failure handling for the
+        rest."""
         qpis = pd.qpis
         profile = pd.profile
         n = pd.n
         self.schedule_attempts += n
         names = self.state.node_names
+        # an accepted gang commits atomically: the device verdict already
+        # proved the quorum the Permit barrier would enforce per pod
+        gang_fast = pd.gang is not None and pd.gang_accepted
         fast: list[tuple[QueuedPodInfo, str]] = []
         failures: list[QueuedPodInfo] = []
+        bound = 0
         for i in range(n):
             a = out[i]
+            qpi = qpis[i]
             if a < 0:
-                failures.append(qpis[i])
+                failures.append(qpi)
+            elif not gang_fast and _needs_per_pod_hooks(profile,
+                                                        qpi.pod.spec):
+                self._assume_and_bind(qpi, names[int(a)], profile)
+                bound += 1
             else:
-                fast.append((qpis[i], names[int(a)]))
-        bound = self._fast_commit(fast)
+                fast.append((qpi, names[int(a)]))
+        bound += self._fast_commit(fast)
+        if pd.gang is not None:
+            self.gang_dispatch["placed" if pd.gang_accepted
+                               else "rejected"] += 1
         if failures:
             # diagnosis reads the live snapshot (assumes included)
             self.cache.update_snapshot(self.snapshot)
             diag_cache: dict = {}
-            for qpi in failures:
-                self._handle_failure(
-                    qpi, self._device_fit_error(qpi, profile, diag_cache))
+            if pd.gang is not None and not pd.gang_accepted:
+                self._fail_rejected_gang(pd, qpis, diag_cache)
+            else:
+                for qpi in failures:
+                    self._handle_failure(
+                        qpi, self._device_fit_error(qpi, profile,
+                                                    diag_cache))
         return bound
+
+    def _assume_and_bind(self, qpi: QueuedPodInfo, node_name: str,
+                         profile: Profile) -> None:
+        """Assume, then Reserve → Permit (kubernetes_tpu/scheduler.py
+        :3555-3640): a Permit Wait parks the pod with its resources
+        assumed; a rejection or error unreserves, forgets the pod and
+        requeues it; success binds. No PreBind plugin runs (the port
+        refuses them)."""
+        pod = qpi.pod
+        assumed = pod.with_node_name(node_name)
+        pi = PodInfo(pod=assumed, requests=qpi.pod_info.requests,
+                     cpu_nonzero=qpi.pod_info.cpu_nonzero,
+                     mem_nonzero=qpi.pod_info.mem_nonzero)
+        try:
+            self.cache.assume_pod_info(pi)
+        except KeyError:
+            self.queue.done(pod.uid)
+            return
+        self.queue.nominator.delete(pod)
+        fwk = profile.framework
+        cs = CycleState()
+        status = fwk.run_reserve_plugins_reserve(cs, assumed, node_name)
+        if not status.is_success():
+            fwk.run_reserve_plugins_unreserve(cs, assumed, node_name)
+            self.cache.forget_pod(assumed)
+            self._invalidate_device_state()
+            self._handle_failure(qpi, FitError(pod, 0), try_preempt=False)
+            return
+        status, wait_timeout = fwk.run_permit_plugins(cs, assumed, node_name)
+        if status.code == Code.WAIT and wait_timeout <= 0:
+            # the group's scheduling deadline already expired: reject
+            # instead of parking for another round
+            status = Status.unschedulable("gang scheduling deadline expired",
+                                          plugin=status.plugin)
+        if not status.is_success() and status.code != Code.WAIT:
+            # rejection or plugin error: unreserve, release the assumed
+            # resources, requeue
+            fwk.run_reserve_plugins_unreserve(cs, assumed, node_name)
+            self.cache.forget_pod(assumed)
+            self._invalidate_device_state()
+            if status.code == Code.ERROR:
+                self.error_count += 1
+            self._handle_failure(qpi, FitError(pod, 0), try_preempt=False)
+            return
+        if status.code == Code.WAIT:
+            # WaitOnPermit (schedule_one.go:302): park with the resources
+            # assumed; a later member's Permit or the timeout sweep in
+            # flush_queues resolves it
+            self.queue.done(pod.uid)
+            self._waiting_pods[pod.uid] = _WaitingPodRec(
+                qpi=qpi, assumed=assumed, node_name=node_name,
+                cycle_state=cs, deadline=self.clock() + wait_timeout,
+                wait_plugin=status.plugin)
+            return
+        self.queue.done(pod.uid)
+        self.cache.finish_binding(assumed)
+        self.dispatcher.add(APICall(CallType.BIND, assumed,
+                                    node_name=node_name))
+        self.scheduled_count += 1
+        qpi.unschedulable_plugins = set()
+        qpi.consecutive_errors_count = 0
+
+    def _fail_rejected_gang(self, pd: _PendingDrain, qpis: list,
+                            diag_cache: dict) -> None:
+        """All-or-nothing rejection commit (kubernetes_tpu/scheduler.py
+        :3038-3111): no member binds and none was ever reserved. Members
+        with NO feasible node fail with the device mask diagnosis and run
+        the PostFilter (how a higher-priority gang preempts a lower one);
+        members the quorum verdict unwound fail with the gang reason and
+        no preemption (the analog of a Permit rejection)."""
+        ref, _needed, min_count = pd.gang
+        # the infeasible members' rejector plugins become the whole gang's
+        # requeue triggers
+        plugins: set = {"GangScheduling"}
+        infeasible: list = []
+        unwound: list = []
+        names = self.state.node_names
+        for qpi, a in zip(qpis, pd.gang_raw):
+            if a >= 0:
+                unwound.append((qpi, names[int(a)]))
+            else:
+                infeasible.append(qpi)
+        # Diagnose the infeasible members against the state the serial
+        # Permit barrier would have seen: the unwound members' placements
+        # TEMPORARILY assumed (parked members hold resources there). The
+        # assumes are forgotten before any failure handling — preemption
+        # must never see the phantom members as victims — and the staging
+        # arrays the diagnosis refreshed are restored; the resident
+        # device carry never sees them.
+        errs: list = []
+        if infeasible:
+            temp: list = []
+            for qpi, node_name in unwound:
+                pi = PodInfo(pod=qpi.pod.with_node_name(node_name),
+                             requests=qpi.pod_info.requests,
+                             cpu_nonzero=qpi.pod_info.cpu_nonzero,
+                             mem_nonzero=qpi.pod_info.mem_nonzero)
+                try:
+                    self.cache.assume_pod_info(pi)
+                    temp.append(pi.pod)
+                except KeyError:
+                    pass
+            self.cache.update_snapshot(self.snapshot)
+            for qpi in infeasible:
+                errs.append(self._device_fit_error(qpi, pd.profile,
+                                                   diag_cache))
+            for pod in temp:
+                self.cache.forget_pod(pod)
+            self.cache.update_snapshot(self.snapshot)
+            self.state.apply_snapshot(self.snapshot)
+        for qpi, err in zip(infeasible, errs):
+            plugins |= err.diagnosis.unschedulable_plugins
+            self._handle_failure(qpi, err)
+        n_nodes = len(self.snapshot.node_info_list)
+        msg = (f"gang {ref!r} rejected: {pd.gang_placed} of {min_count} "
+               f"required members placeable")
+        for qpi, _node in unwound:
+            err = FitError(qpi.pod, n_nodes)
+            err.diagnosis = Diagnosis(unschedulable_plugins=set(plugins),
+                                      pre_filter_msg=msg)
+            self._handle_failure(qpi, err, try_preempt=False)
 
     def _fast_commit(self, pairs: list) -> int:
         """Assume (cache.go:369) + FinishBinding + bulk bind enqueue for the
-        hook-free pods (the port has no Reserve/Permit/PreBind plugins)."""
+        hook-free pods: pods outside gangs, and the members of an accepted
+        gang drain."""
         if not pairs:
             return 0
         cache = self.cache

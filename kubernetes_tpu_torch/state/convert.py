@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.gang import GangXs
 from ..ops.groups import GroupCarry, GroupsDev
 from ..ops.program import Carry, PodTableDev, PodXs, SigCache
 from .tensorize import NodeArrays
@@ -38,6 +39,8 @@ POD_TABLE_DTYPES = {
 }
 
 POD_XS_DTYPES = {"valid": _B, "sig": _I32, "tidx": _I32, "nom_idx": _I32}
+
+GANG_XS_DTYPES = {"valid": _B, "tidx": _I32, "widx": _I32}
 
 CACHE_DTYPES = {
     "sig": _I32, "static_mask": _B, "taint_raw": _I64, "na_raw": _I64,
@@ -93,6 +96,16 @@ def pod_xs_from_numpy(src, device) -> PodXs:
                  nom_idx=(None if nom is None
                           else _tensor(nom, POD_XS_DTYPES["nom_idx"],
                                        device)))
+
+
+def gang_xs_from_numpy(src, device) -> GangXs:
+    return _convert(GangXs, src, GANG_XS_DTYPES, device)
+
+
+def dom_from_numpy(dom, device) -> torch.Tensor:
+    """The i32 [N] topology-domain id of every node row (the gang scan
+    tier's contiguity column)."""
+    return _tensor(dom, _I32, device)
 
 
 def groups_dev_from_numpy(src, device) -> GroupsDev:

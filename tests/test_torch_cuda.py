@@ -632,3 +632,141 @@ def test_preemption_kernels_refuse_bad_arguments(cuda):
     with pytest.raises(ValueError, match="overlay"):
         P.run_uniform(P.ScoreConfig(), na, P.initial_carry(na), x, table,
                       4, 16, min(16, N), 17, overlay=bad)
+
+
+# ---------------------------------------------------------------------------
+# gangs: run_gang's scan tier (run_gang.cu) and closed-form tier (the gang
+# epilogue of run_uniform.cu)
+
+
+def _gang_layout(batch, m, bucket, device):
+    """The scheduler's gang layout (Scheduler._gang_dispatch): (GangXs,
+    signature rows)."""
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    from kubernetes_tpu_torch.state.tensorize import pow2_at_least
+    import numpy as np
+    tid = batch.tidx[:m]
+    uniq = list(dict.fromkeys(int(t) for t in tid))
+    S = pow2_at_least(len(uniq), 1)
+    wt = (uniq + [uniq[-1]] * S)[:S]
+    slot = {}
+    for s, u in enumerate(wt):
+        slot.setdefault(u, s)
+    widx = np.empty((bucket,), np.int32)
+    widx[:m] = [slot[int(t)] for t in tid]
+    widx[m:] = widx[m - 1]
+    tidx = np.full((bucket,), tid[m - 1], np.int32)
+    tidx[:m] = tid
+    valid = np.zeros((bucket,), bool)
+    valid[:m] = True
+    return convert.gang_xs_from_numpy(GangXs(valid, tidx, widx), device), wt
+
+
+def _gang_scan_check(na, batch, table, m, bucket, needed, w_contig, zones,
+                     device):
+    from kubernetes_tpu_torch.ops import gang as G
+    xs, wt = _gang_layout(batch, m, bucket, device)
+    N = na.cap.shape[0]
+    dom = torch.tensor([i % zones for i in range(N)], dtype=torch.int32,
+                       device=device)
+    statics = P.wave_statics(na, table, wt)
+    carry = P.initial_carry(na)
+    before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+    got = G.run_gang(P.ScoreConfig(), na, carry, xs, table, wt=wt,
+                     needed=needed, dom=dom, statics=statics,
+                     w_contig=w_contig)
+    want = G._run_gang_scan_plain(P.ScoreConfig(), na, carry, xs, table, wt,
+                                  needed, dom, statics, w_contig)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    # the kernel never writes its input carry
+    _equal(before, list(carry[:4]) + list(carry.cache))
+    return got[1].cpu()
+
+
+@pytest.mark.parametrize("w_contig", [0, 2])
+@pytest.mark.parametrize("seed", range(6))
+def test_run_gang_scan_kernel_equals_plain(cuda, seed, w_contig):
+    rng = random.Random(100 + seed)
+    protos = [_pod(rng, k) for k in range(rng.choice([1, 2, 3]))]
+    protos = [p if not any(q.host_port for c in p.spec.containers
+                           for q in c.ports)
+              else make_pod(f"np{k}").req({"cpu": "1"}).obj()
+              for k, p in enumerate(protos)]
+    m = rng.randint(2, 40)
+    pods = [protos[rng.randrange(len(protos))] for _ in range(m)]
+    na, batch, table = _staged(rng, rng.randint(3, 200), pods, cuda)
+    bucket = rng.choice([1, 2]) * max(16, 1 << (m - 1).bit_length())
+    pk = _gang_scan_check(na, batch, table, m, bucket,
+                          rng.randint(0, m + 2), w_contig, 3, cuda)
+    assert int(pk[bucket + 1]) == int((pk[:m] >= 0).sum())
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_run_gang_uniform_kernel_equals_plain(cuda, seed):
+    from kubernetes_tpu_torch.ops import gang as G
+    rng = random.Random(200 + seed)
+    proto = _pod(rng, 0)
+    if any(p.host_port for c in proto.spec.containers for p in c.ports):
+        proto = make_pod("plain").req({"cpu": "1", "memory": "1Gi"}).obj()
+    na, batch, table = _staged(rng, rng.randint(3, 300), [proto], cuda)
+    N = na.cap.shape[0]
+    L = rng.choice([16, 64, 256])
+    K = min(L, N)
+    J = rng.choice([2, 8, L + 1])
+    if K * J < L:
+        J = L + 1
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    carry = P.initial_carry(na)
+    before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+    n_actual = rng.randint(1, L)
+    needed = rng.randint(0, n_actual + 2)
+    got = G.run_gang(P.ScoreConfig(), na, carry, x, table, needed=needed,
+                     uniform=True, n_actual=n_actual, L=L, K=K, J=J)
+    want = G._run_gang_uniform_plain(P.ScoreConfig(), na, carry, x, table,
+                                     n_actual, needed, L, K, J)
+    torch.cuda.synchronize()
+    _equal(got, want)
+    _equal(before, list(carry[:4]) + list(carry.cache))
+
+
+def test_run_gang_kernels_full_width(cuda):
+    """8,192 node rows: the closed form at GangTraining's shape (L = K =
+    256, J = 8) accepted and rejected; the scan tier at CoLocatedInference's
+    (B = 128, S = 1, w_contig = 2, 16 zones) and an S = 4 gang padded from
+    60 members."""
+    rng = random.Random(5)
+    cache = Cache()
+    for i in range(5000):
+        cache.add_node(make_node(f"node-{i}").capacity(
+            {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % 16}").obj())
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    state = ClusterState(device=cuda)
+    state.apply_snapshot(snap)
+    protos = [make_pod(f"g{k}").req({"cpu": c, "memory": "1Gi"}).obj()
+              for k, c in enumerate(["900m", "1", "2", "3"])]
+    builder = BatchBuilder(state)
+    batch = builder.build([protos[0]])
+    na = state.device_arrays()
+    table = P.table_from_batch(batch, cuda)
+    from kubernetes_tpu_torch.ops import gang as G
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    carry = P.initial_carry(na)
+    for needed in (256, 10 ** 6):
+        _equal(G.run_gang(P.ScoreConfig(), na, carry, x, table,
+                          needed=needed, uniform=True, n_actual=256, L=256,
+                          K=256, J=8),
+               G._run_gang_uniform_plain(P.ScoreConfig(), na, carry, x,
+                                         table, 256, needed, 256, 256, 8))
+    pk = _gang_scan_check(na, batch, table, 1, 128, 1, 2, 16, cuda)
+    del pk
+    batch = builder.build([protos[0]] * 128)
+    table = P.table_from_batch(batch, cuda)
+    _gang_scan_check(na, batch, table, 128, 128, 128, 2, 16, cuda)
+    _gang_scan_check(na, batch, table, 128, 128, 10 ** 6, 2, 16, cuda)
+    mixed = [protos[rng.randrange(4)] for _ in range(60)]
+    batch = builder.build(mixed)
+    table = P.table_from_batch(batch, cuda)
+    _gang_scan_check(na, batch, table, 60, 64, 60, 2, 16, cuda)

@@ -168,10 +168,25 @@ def test_refuses_bound_pods_with_affinity():
 
 
 def test_refuses_volumes_and_gangs():
+    """Volumes are still refused. Gangs are ported, so the gang half is now
+    a parity check: a member whose Workload does not exist stays gated at
+    PreEnqueue in both packages, nothing binds. The name is kept on
+    purpose."""
     _refuses(lambda: tw.make_pod("v").req({"cpu": "1"}).pvc("claim").obj(),
              match="volumes")
-    _refuses(lambda: tw.make_pod("g").req({"cpu": "1"})
-             .workload("train/workers").obj(), match="gang")
+    outs = []
+    for pkg in (JAX, TORCH):
+        w, Api = pkg[0], pkg[1]
+        api = Api()
+        sched = make_scheduler(pkg, api, 16)
+        for nd in _basic_nodes(w, 4):
+            api.create_node(nd)
+        api.create_pod(w.make_pod("g").req({"cpu": "1"})
+                       .workload("train/workers").obj())
+        sched.schedule_pending()
+        outs.append((_outcome(api, sched), sorted(sched.queue.gated_refs())))
+    assert outs[1] == outs[0]
+    assert outs[1] == (({}, ["default/g"]), ["train/workers"])
 
 
 def test_refuses_preemption():
