@@ -21,7 +21,11 @@ Phases, each reported on its own line:
      closed form at GangTraining's shape (L = K = 256, J = 8: accepted,
      rejected, inexact) and its scan tier at CoLocatedInference's
      (B = 128, S = 1, w_contig = 2: accepted, rejected) and on an S = 4
-     gang of 60 members;
+     gang of 60 members; explain_row on lean and group rows at 8,192
+     nodes with k = 16 and k = 5 (some rows with fewer feasible nodes
+     than k); after phase 4, cluster_probe on SchedulingBasic's own
+     post-drain carry with zone, per-node, identity and clipped domain
+     ids;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -48,22 +52,34 @@ Phases, each reported on its own line:
  12. GangTraining 5000Nodes: 40 gangs of 256, each one closed-form
      run_gang launch;
  13. CoLocatedInference 5000Nodes: 28 gangs on run_gang's scan tier (the
-     contiguity column on) among 5,000 inference pods.
-Phases 4-13 compare their bind maps (phase 11 also its nominations and
-victims) with a device="cpu" run of the same workload, at full width. Any failure exits non-zero without the final
-line. The line before the last is the card's name and power limit, the
+     contiguity column on) among 5,000 inference pods;
+ 14. SchedulingNodeAffinity 5000Nodes: 10,000 pods, each pinned to a zone
+     by its nodeSelector;
+ 15. gang rejection and gang-preempts-gang at 5,000 nodes of 8 cpu: a
+     gang rejected on run_gang's closed form, one on its scan tier, and
+     a priority-100 gang that is rejected, preempts priority-0 gang
+     members and binds after its requeue.
+Phases 4, 6, 7 and 9-14 run through kubernetes_tpu_torch.perf.harness's
+WorkloadRunner (the reference harness's measured window: pods built
+inside it, the cyclic collector paused) and log the harness's pods/s,
+the window's host split by span name (every drain's Tracer span tree)
+and the device's busy share. Every device drain launches cluster_probe.
+Phases 4-15 compare their bind maps (phase 11 also its nominations and
+victims, 12, 13 and 15 their gang drains by outcome), the final
+cluster-probe snapshot and one explain_pod answer with a device="cpu"
+run of the same workload, at full width. Any failure exits non-zero
+without the final line. The line before the last is the card's name and power limit, the
 one before it one JSON object with a row per kernel; the last line is
 {"ok": true, "device": {...}}.
 
 The script imports neither jax nor kubernetes_tpu, and needs no pyyaml:
-the workload parameters are those of
+the cells (CELLS) are written out from
 kubernetes_tpu/perf/configs/performance-config.yaml (SchedulingBasic
-:28-34, TopologySpreading :63-94, SchedulingPodAntiAffinity :96-129,
-MixedSchedulingBasePod :195-237, MixedHighSignature :239-284,
-PreemptionChurn :286-329, GangTraining :331-357, CoLocatedInference
-:359-398) and the node and pod shapes of
-kubernetes_tpu/perf/harness.py:159-200 (nodes 32 cpu — 8 for
-PreemptionChurn —, 64 Gi, 110 pods, `zones` zones; pods 900m cpu, 1 Gi).
+:28-34, SchedulingNodeAffinity :36-61, TopologySpreading :63-94,
+SchedulingPodAntiAffinity :96-129, MixedSchedulingBasePod :195-237,
+MixedHighSignature :239-284, PreemptionChurn :286-329, GangTraining
+:331-357, CoLocatedInference :359-398), and tests/test_torch_harness.py
+holds them to the parsed file.
 """
 
 from __future__ import annotations
@@ -92,27 +108,123 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4   # 32-bit integer instructions
 F64_OPS_PER_S = 67e12 / 4     # float64 instructions
 
-# SchedulingBasic 5000Nodes_10000Pods (performance-config.yaml:28-34)
-SB_NODES, SB_INIT_PODS, SB_PODS = 5000, 1000, 10000
-# TopologySpreading 5000Nodes_5000Pods (performance-config.yaml:63-94) and
-# SchedulingPodAntiAffinity 5000Nodes_2000Pods (:96-129):
+# The cells, as kubernetes_tpu/perf/configs/performance-config.yaml
+# defines them (the workload template of each test case and the params
+# and threshold of its full-width workload), written out because the card's
+# machine has no pyyaml; tests/test_torch_harness.py holds them to the
+# parsed file.
+_MEASURE = {"opcode": "createPods", "countParam": "$measurePods",
+            "collectMetrics": True}
+_NODES = {"opcode": "createNodes", "countParam": "$initNodes"}
+_INIT = {"opcode": "createPods", "countParam": "$initPods"}
+CELLS = {
+    "SchedulingBasic": dict(
+        workload="5000Nodes_10000Pods", threshold=270,
+        template=[_NODES, _INIT, _MEASURE],
+        params={"initNodes": 5000, "initPods": 1000, "measurePods": 10000}),
+    "SchedulingNodeAffinity": dict(
+        workload="5000Nodes", threshold=220,
+        template=[_NODES, dict(_MEASURE, podTemplate={
+            "cpu": "900m", "memory": "1Gi", "nodeSelectorZone": True})],
+        params={"initNodes": 5000, "measurePods": 10000}),
+    "TopologySpreading": dict(
+        workload="5000Nodes_5000Pods", threshold=85,
+        template=[_NODES, _INIT, dict(_MEASURE, podTemplate={
+            "cpu": "900m", "memory": "1Gi", "labels": {"app": "spread"},
+            "spreadZone": {"app": "spread"}, "maxSkew": 5,
+            "whenUnsatisfiable": "DoNotSchedule"})],
+        params={"initNodes": 5000, "initPods": 1000, "measurePods": 5000}),
+    "SchedulingPodAntiAffinity": dict(
+        workload="5000Nodes_2000Pods", threshold=60,
+        template=[_NODES, _INIT, dict(_MEASURE, podTemplate={
+            "cpu": "900m", "memory": "1Gi", "labels": {"anti": "yes"},
+            "podAntiAffinity": {"anti": "yes"},
+            "topologyKey": "topology.kubernetes.io/zone"})],
+        params={"initNodes": 5000, "initPods": 500, "measurePods": 2000,
+                "zones": 10000}),
+    "MixedSchedulingBasePod": dict(
+        workload="5000Nodes", threshold=140,
+        template=[_NODES, dict(_INIT, podTemplate={
+            "cpu": "900m", "memory": "1Gi", "labels": {"mixed": "base"},
+            "spreadZone": {"mixed": "base"}, "maxSkew": 5,
+            "whenUnsatisfiable": "ScheduleAnyway"}),
+            {"opcode": "createPods", "countParam": "$initAffinityPods",
+             "podTemplate": {"cpu": "500m", "memory": "512Mi",
+                             "labels": {"mixed": "base"},
+                             "podAffinity": {"mixed": "base"}}},
+            _MEASURE],
+        params={"initNodes": 5000, "initPods": 1000,
+                "initAffinityPods": 500, "measurePods": 5000}),
+    "MixedHighSignature": dict(
+        workload="5000Nodes", threshold=85,
+        template=[_NODES, dict(_INIT, podTemplate={
+            "cpu": "900m", "memory": "1Gi", "labels": {"app": "mix"},
+            "spreadZone": {"app": "mix"}, "maxSkew": 5,
+            "whenUnsatisfiable": "DoNotSchedule"}),
+            dict(_MEASURE, podTemplate={
+                "memory": "1Gi", "labels": {"app": "mix"},
+                "spreadZone": {"app": "mix"}, "maxSkew": 5,
+                "whenUnsatisfiable": "DoNotSchedule",
+                "signatureCycle": 8})],
+        params={"initNodes": 5000, "initPods": 1000, "measurePods": 5000}),
+    "PreemptionChurn": dict(
+        workload="5000Nodes_10000Pods", threshold=None,
+        template=[_NODES, dict(_INIT, podTemplate={"cpu": 4,
+                                                    "memory": "1Gi"}),
+                  {"opcode": "createPods", "countParam": "$preemptors",
+                   "podTemplate": {"cpu": 8, "memory": "1Gi",
+                                   "priority": 100}},
+                  dict(_MEASURE, podTemplate={"cpu": "500m",
+                                              "memory": "256Mi"})],
+        params={"nodeCpu": 8, "initNodes": 5000, "initPods": 5000,
+                "preemptors": 200, "measurePods": 10000}),
+    "GangTraining": dict(
+        workload="5000Nodes", threshold=270,
+        template=[_NODES, {"opcode": "gangTrace", "gangsParam": "$gangs",
+                           "gangSizeParam": "$gangSize",
+                           "collectMetrics": True}],
+        params={"initNodes": 5000, "gangs": 40, "gangSize": 256}),
+    "CoLocatedInference": dict(
+        workload="5000Nodes", threshold=270,
+        template=[_NODES, {
+            "opcode": "gangTrace", "gangsParam": "$gangs",
+            "gangSizeParam": "$gangSize", "gangPriority": 10,
+            "gangCpu": "1", "inferencePodsParam": "$inferencePods",
+            "inferencePriority": 100,
+            "preemptorGangsParam": "$preemptorGangs", "preemptorSize": 64,
+            "preemptorCpu": "2", "preemptorPriority": 200,
+            "contiguityWeight": 2, "collectMetrics": True}],
+        params={"initNodes": 5000, "gangs": 24, "gangSize": 128,
+                "inferencePods": 5000, "preemptorGangs": 4}),
+}
+_P = {k: v["params"] for k, v in CELLS.items()}
+# the shapes the phase-3 checks build their inputs at
+SB_NODES = _P["SchedulingBasic"]["initNodes"]
+SB_INIT_PODS = _P["SchedulingBasic"]["initPods"]
+SB_PODS = _P["SchedulingBasic"]["measurePods"]
 # (nodes, init pods, measured pods, zones)
-TS_SHAPE = (5000, 1000, 5000, 16)
-AA_SHAPE = (5000, 500, 2000, 10000)
-# MixedHighSignature 5000Nodes (:239-284): nodes, init pods, measured pods,
-# zones, signatureCycle; MixedSchedulingBasePod 5000Nodes (:195-237):
-# nodes, init pods, init affinity pods, measured pods, zones
-MHS_SHAPE = (5000, 1000, 5000, 16, 8)
-MBP_SHAPE = (5000, 1000, 500, 5000, 16)
-# PreemptionChurn 5000Nodes_10000Pods (:286-329): nodes of 8 cpu, init
-# pods of 4 cpu / 1 Gi, preemptors of 8 cpu / 1 Gi at priority 100,
-# measured pods of 500m / 256 Mi, zones
-PC_SHAPE = (5000, 5000, 200, 10000, 16)
-# GangTraining 5000Nodes (:331-357): nodes, gangs, gang size, zones;
-# CoLocatedInference 5000Nodes (:359-398): nodes, gangs, gang size,
-# inference pods, preemptor gangs (of 64), zones
-GT_SHAPE = (5000, 40, 256, 16)
-CI_SHAPE = (5000, 24, 128, 5000, 4, 16)
+TS_SHAPE = tuple(_P["TopologySpreading"][k] for k in (
+    "initNodes", "initPods", "measurePods")) + (16,)
+AA_SHAPE = tuple(_P["SchedulingPodAntiAffinity"][k] for k in (
+    "initNodes", "initPods", "measurePods", "zones"))
+# MixedHighSignature: nodes, init pods, measured pods, zones,
+# signatureCycle; MixedSchedulingBasePod: nodes, init pods, init affinity
+# pods, measured pods, zones
+MHS_SHAPE = tuple(_P["MixedHighSignature"][k] for k in (
+    "initNodes", "initPods", "measurePods")) + (16, 8)
+MBP_SHAPE = tuple(_P["MixedSchedulingBasePod"][k] for k in (
+    "initNodes", "initPods", "initAffinityPods", "measurePods")) + (16,)
+# PreemptionChurn: nodes of 8 cpu, init pods of 4 cpu / 1 Gi, preemptors
+# of 8 cpu / 1 Gi at priority 100, measured pods of 500m / 256 Mi, zones
+PC_SHAPE = tuple(_P["PreemptionChurn"][k] for k in (
+    "initNodes", "initPods", "preemptors", "measurePods")) + (16,)
+# GangTraining: nodes, gangs, gang size, zones; CoLocatedInference:
+# nodes, gangs, gang size, inference pods, preemptor gangs (of 64), zones
+GT_SHAPE = tuple(_P["GangTraining"][k] for k in (
+    "initNodes", "gangs", "gangSize")) + (16,)
+CI_SHAPE = tuple(_P["CoLocatedInference"][k] for k in (
+    "initNodes", "gangs", "gangSize", "inferencePods",
+    "preemptorGangs")) + (16,)
 LABEL_ZONE = "topology.kubernetes.io/zone"
 LABEL_HOSTNAME = "kubernetes.io/hostname"
 BATCH = 8192              # perf/harness.py:279 WorkloadRunner batch_size
@@ -1514,6 +1626,263 @@ def check_diagnose_row(torch, pkg, device, rows: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3, observability: the cluster probe and the score decomposition
+
+
+def probe_equal(torch, got, want, what: str) -> float:
+    """Bit equality of the probe's outputs (float32 through their int32
+    view) with the plain version's on the CPU."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        a = a.cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{what}[{i}]: {a.dtype}{tuple(a.shape)} vs "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        if not torch.equal(a, b):
+            fail(f"{what}[{i}]: kernel and plain version differ")
+    return 0.0
+
+
+def probe_bytes(na, carry, dom, out) -> int:
+    """Bytes the probe must move on this run's data, each read once: every
+    row's validity bit; per valid row its cap columns (the participation
+    test), pod count and domain id; `used` of the participating cells
+    only; the outputs."""
+    valid = np_of(na.valid)
+    nv = int(valid.sum())
+    part = int((np_of(na.cap)[valid] > 0).sum())
+    R = na.cap.shape[1]
+    return (na.valid.numel() * na.valid.element_size()
+            + nv * (R * na.cap.element_size() + carry.npods.element_size()
+                    + dom.element_size())
+            + part * carry.used.element_size() + nbytes(out))
+
+
+def probe_ops(na) -> Ops:
+    """The probe's operations on this run's data: per row the validity
+    test; per valid row the domain clip and its two adds, and per cell the
+    participation test; per participating cell the free units, the four
+    exact sums and the max, and one comparison for each of the four order
+    statistics."""
+    valid = np_of(na.valid)
+    nv = int(valid.sum())
+    part = int((np_of(na.cap)[valid] > 0).sum())
+    return Ops(i32=len(valid) + nv + 4 * part,
+               i64=2 * nv + nv * na.cap.shape[1] + 6 * part)
+
+
+def explain_bytes(cfg, na, carry, table, u: int, out) -> int:
+    """Bytes a lean explain_row must move on this run's data, each read
+    once: every row's validity bit; per row that is valid or returned
+    (past the feasible count the lowest infeasible rows carry their
+    columns) the pod count and limit, the requested and scored columns of
+    cap and used (used of a scored column only where BalancedAllocation
+    or a plain-request column reads it), the nonzero columns, the
+    unschedulable bit unless the row tolerates it, the name id when it
+    names a node, the occupied taint slots' effects and, where its
+    tolerations apply, the hard and PreferNoSchedule slots' keys and
+    values, the occupied label slots when it selects or has (preferred)
+    affinity terms, the occupied image slots when it names images, the
+    occupied host-port slots when it asks for ports; the fields of its
+    row the filters and scores read; the outputs."""
+    t = {f: np_of(getattr(table, f)[u]) for f in table._fields}
+    valid = np_of(na.valid)
+    keep = valid.copy()
+    keep[np_of(out[0]).astype(np.int64)] = True
+    nreq = set(req_cols(t["req"]).tolist())
+    scored = list(cfg.score_cols)
+    balanced = not bool(t["skip_balanced"])
+    used_cols = nreq | {c for c, nz in zip(scored, cfg.col_nonzero)
+                        if balanced or not nz}
+    per_row = (na.allowed_pods.element_size() + carry.npods.element_size()
+               + len(nreq | set(scored)) * na.cap.element_size()
+               + len(used_cols) * carry.used.element_size()
+               + sum(cfg.col_nonzero) * carry.nonzero_used.element_size()
+               + (0 if bool(t["tolerates_unsched"])
+                  else na.unschedulable.element_size())
+               + (na.name_id.element_size() if int(t["node_name_id"])
+                  else 0))
+    moved = (na.valid.numel() * na.valid.element_size()
+             + per_row * int(keep.sum()))
+    eff = np_of(na.taint_eff)[keep]
+    moved += int((eff != 0).sum()) * na.taint_eff.element_size()
+    live = t["tol_op"] != 0
+    kv = na.taint_key.element_size() + na.taint_val.element_size()
+    if live.any():
+        moved += int(((eff == 1) | (eff == 3)).sum()) * kv
+    if (live & ((t["tol_eff"] == 0) | (t["tol_eff"] == 2))).any():
+        moved += int((eff == 2).sum()) * kv
+    labels = int((np_of(na.label_key)[keep] != 0).sum())
+    terms = bool(t["aff_has"]) or bool((t["pref_weight"] != 0).any())
+    if terms or bool((t["ns_sel_val"] != 0).any()):
+        moved += labels * na.label_kv.element_size()
+    if terms:
+        moved += labels * (na.label_key.element_size()
+                           + na.label_num.element_size())
+    if (t["img_ids"] != 0).any():
+        moved += int((np_of(na.image_id)[keep] != 0).sum()) * (
+            na.image_id.element_size() + na.image_size.element_size())
+    if (t["port_ids"] != 0).any():
+        moved += int((np_of(carry.ports)[keep] != 0).sum()) * (
+            carry.ports.element_size())
+    fields = ["req", "nonzero_req", "node_name_id", "tolerates_unsched",
+              "tol_op", "tol_key", "tol_val", "tol_eff", "ns_sel_val",
+              "port_ids", "skip_balanced", "img_ids", "img_containers",
+              "aff_has", "pref_weight"]
+    if t["aff_has"]:
+        fields += ["aff_term_valid", "aff_key", "aff_op", "aff_num",
+                   "aff_val"]
+    if (t["pref_weight"] != 0).any():
+        fields += ["pref_key", "pref_op", "pref_num", "pref_val"]
+    moved += nbytes(tuple(getattr(table, f)[u] for f in fields))
+    return moved + nbytes(out)
+
+
+def check_cluster_probe(torch, pkg, sched, rows: list) -> None:
+    """The probe on SchedulingBasic's post-drain carry (the main path's
+    own inputs, N = 8,192): its zone domain ids, identity ids (what the
+    SchedulingPodAntiAffinity labelling, one zone per node, interns to),
+    and the identity ids clipped at ndom = 5,000."""
+    P = pkg.program
+    na = sched.state.device_arrays()
+    carry = sched._device_carry
+    if carry is None:
+        fail("cluster_probe: SchedulingBasic left no resident carry")
+    N, R = na.cap.shape
+    zone = sched._gang_domains(na, need=True)
+    ndom_zone = sched._gang_ndom
+    ident = torch.arange(N, dtype=torch.int32, device=na.cap.device)
+    cases = {"zones": (zone, ndom_zone), "identity": (ident, N),
+             "clipped": (ident, 5000)}
+    cpu = [x.cpu() for x in (na.cap, na.valid, carry.used, carry.npods)]
+    err = 0.0
+    for what, (dom, ndom) in cases.items():
+        got = P.cluster_probe(na, carry, dom, ndom)
+        err = max(err, probe_equal(torch, got, P._probe_plain(
+            *cpu, dom.cpu(), ndom), f"cluster_probe[{what}]"))
+    dom, ndom = cases["zones"]
+    k_ms = cuda_ms(torch, lambda: P.cluster_probe(na, carry, dom, ndom), 50)
+    dev_ms = device_ms(torch, lambda: P.cluster_probe(na, carry, dom, ndom),
+                       50)
+    plain_ms = cuda_ms(torch, lambda: P._probe_plain(
+        na.cap, na.valid, carry.used, carry.npods, dom, ndom), 10)
+    part = na.valid[:, None] & (na.cap > 0)
+    util = torch.where(part, P._f32_ratio(carry.used, na.cap),
+                       torch.full_like(carry.used, -1, dtype=torch.float32))
+    lib_ms = cuda_ms(torch, lambda: torch.sort(util, dim=0), 50)
+    moved = probe_bytes(na, carry, dom, P._probe_plain(*cpu, dom.cpu(), ndom))
+    ops = probe_ops(na)
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="cluster_probe", exact=True, max_abs_err=err,
+        ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="torch.sort(util, dim=0)", bound_ms=bound_ms,
+        bound_by=bound_by, ops=vars(ops), bytes=moved, N=N, R=R,
+        ndom={k: v[1] for k, v in cases.items()})
+    rows.append(dict(
+        name="cluster_probe", route="cuda",
+        source="kubernetes_tpu_torch/csrc/cluster_probe.cu",
+        replaces="kubernetes_tpu/ops/program.py:893", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms))
+
+
+def to_cpu(tree):
+    import torch
+    if tree is None or isinstance(tree, (bool, int)):
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    if type(tree) in (tuple, list):
+        return type(tree)(to_cpu(x) for x in tree)
+    return type(tree)(*(to_cpu(x) for x in tree))
+
+
+def check_explain_row(torch, pkg, device, rows: list) -> None:
+    """explain_row at N = 8,192 on the lean rows of the mixed 5,000-node
+    cluster (with a pod pinned to one node and a pod no node fits, so k
+    runs past the feasible count) and on the group rows of the harness
+    cluster, with k = 16 and k = 5, against the plain version on the
+    CPU."""
+    P = pkg.program
+    W = pkg.wrappers
+    cfg = P.ScoreConfig()
+    nodes = lean_cluster(np.random.RandomState(81), SB_NODES, W)
+    bound = [W.make_pod(f"b{i}").req({"cpu": "6", "memory": "8Gi"})
+             .node(f"node-{7 * i % SB_NODES}").obj() for i in range(1500)]
+    lean = lean_pods(np.random.RandomState(82), 16, W, "expl")
+    lean.append(W.make_pod("pinned").req({"cpu": "1"}).node_selector(
+        {LABEL_HOSTNAME: "node-3"}).obj())
+    lean.append(W.make_pod("huge").req({"cpu": "100"}).obj())
+    na, batch, table = staged(nodes, bound, lean, device, pkg)
+    carry = P.initial_carry(na)
+    gnodes = harness_nodes(W, SB_NODES, 16)
+    gbound = [W.make_pod(f"s{i}").req({"cpu": "900m", "memory": "1Gi"})
+              .label("app", "mix").node(f"node-{i % 8}").obj()
+              for i in range(160)]
+    gpods = [mhs_pod(W, "m0", 0),
+             W.make_pod("sa").req({"cpu": "1"}).label("app", "mix")
+             .spread_constraint(1, LABEL_ZONE, "ScheduleAnyway",
+                                {"app": "mix"}).obj(),
+             W.make_pod("near").req({"cpu": "1"}).pod_affinity(
+                 LABEL_ZONE, {"app": "mix"}).obj()]
+    gna, gbatch, gtable, gd, gc, fam, _b, _s = group_staged(
+        pkg, device, gnodes, gbound, gpods)
+    gcarry = P.initial_carry(gna, gc)
+    err, short = 0.0, 0
+    cases = [(na, carry, table, u, None, None)
+             for u in sorted(set(int(t) for t in batch.tidx[:len(lean)]))]
+    cases += [(gna, gcarry, gtable, u, gd, fam)
+              for u in sorted(set(int(t) for t in gbatch.tidx[:len(gpods)]))]
+    for a_na, a_carry, a_table, u, a_gd, a_fam in cases:
+        for k in (16, 5):
+            got = P.explain_row(cfg, a_na, a_carry, a_table, u, k=k,
+                                gd=a_gd, fam=a_fam)
+            want = P._explain_plain(cfg, to_cpu(a_na), to_cpu(a_carry),
+                                    to_cpu(a_table), u, k, to_cpu(a_gd),
+                                    a_fam)
+            err = max(err, assert_equal_trees(
+                torch, to_cpu(got), want,
+                f"explain_row[{'group' if a_gd is not None else 'lean'} "
+                f"{u} k={k}]"))
+            short += int(got[3]) < k
+    if not short:
+        fail("explain_row: no row with fewer feasible nodes than k")
+    u0 = int(batch.tidx[0])
+    k_ms = cuda_ms(torch, lambda: P.explain_row(cfg, na, carry, table, u0,
+                                                k=16), 20)
+    dev_ms = device_ms(torch, lambda: P.explain_row(
+        cfg, na, carry, table, u0, k=16), 20)
+    plain_ms = cuda_ms(torch, lambda: P._explain_plain(
+        cfg, na, carry, table, u0, 16), 5)
+    g0 = int(gbatch.tidx[0])
+    gk_ms = cuda_ms(torch, lambda: P.explain_row(
+        cfg, gna, gcarry, gtable, g0, k=16, gd=gd, fam=fam), 20)
+    pod = P._gather_row(table, u0, True, 0)
+    feas, total, _parts = P._eval_pod(cfg, na, carry, pod)
+    keys = torch.where(feas, total, torch.full_like(total, -1)).to(
+        torch.int32)
+    lib_ms = cuda_ms(torch, lambda: torch.topk(keys, 16), 50)
+    N = na.cap.shape[0]
+    slots = node_slots(na, carry)
+    ops = eval_ops(table, u0, slots, len(cfg.score_cols)) + select_ops(N, 16)
+    moved = explain_bytes(cfg, na, carry, table, u0,
+                          P._explain_plain(cfg, na, carry, table, u0, 16))
+    bound_ms, bound_by = bound_of(moved, ops)
+    log("kernel", name="explain_row", exact=True, max_abs_err=err,
+        ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, group_ms=gk_ms,
+        library_ms=lib_ms, library="torch.topk(keys_int32, 16)",
+        bound_ms=bound_ms, bound_by=bound_by, ops=vars(ops), bytes=moved,
+        rows=len(cases), rows_past_feasible=short)
+    rows.append(dict(
+        name="explain_row", route="cuda",
+        source="kubernetes_tpu_torch/csrc/explain_row.cu",
+        replaces="kubernetes_tpu/ops/program.py:700", launches=0,
+        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms))
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: the scheduler end to end
 
 
@@ -2068,76 +2437,242 @@ def check_run_gang(torch, pkg, device, rows: list) -> None:
                  for k, v in times.items()}))
 
 
-HOST_SPLIT = {"create_s": 0.0, "schedule_s": 0.0}
-
-
 def create_pods(api, sched, pods, chunk: int = CREATE_BATCH) -> None:
     """perf/harness.py createPods: chunks, each followed by a non-blocking
-    schedule_pending, then the full drain. HOST_SPLIT accumulates the wall
-    spent creating (API server + watch fan-out + queue add) and scheduling
-    (drain, device dispatch, commit, bind)."""
+    schedule_pending, then the full drain."""
     for k in range(0, len(pods), chunk):
-        t0 = time.perf_counter()
         api.create_pods(pods[k:k + chunk])
-        t1 = time.perf_counter()
         sched.schedule_pending(wait=False)
-        HOST_SPLIT["create_s"] += t1 - t0
-        HOST_SPLIT["schedule_s"] += time.perf_counter() - t1
-    t0 = time.perf_counter()
     sched.schedule_pending()
-    HOST_SPLIT["schedule_s"] += time.perf_counter() - t0
 
 
-def device_share(torch, pkg) -> dict:
-    """One more SchedulingBasic run under torch.profiler: device time per
-    kernel and the device's busy share of the run's wall."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        scheduling_basic("cuda", pkg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    per_kernel = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if us > 0:
-            per_kernel[ev.key] = us / 1e3
-    busy_ms = sum(per_kernel.values())
-    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8])
-    return {"wall_s": wall, "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / 1e3 / wall if busy_ms else None,
-            "top_device_ms": top}
+# ---------------------------------------------------------------------------
+# the cells through the port's perf harness
 
 
-def scheduling_basic(device: str, pkg):
-    """SchedulingBasic 5000Nodes_10000Pods: returns (api, scheduler,
-    measured pods/s)."""
-    from kubernetes_tpu_torch.backend.apiserver import APIServer
+HOST_SPANS = ("scheduling_cycle", "schedule_batch", "host_build",
+              "host_snapshot", "host_tensorize", "host_group_seed",
+              "host_cache", "device_dispatch", "cluster_probe",
+              "dispatcher_flush")
+
+
+def cell_run(device: str, pkg, name: str, clock=None):
+    """One cell of CELLS through kubernetes_tpu_torch.perf.harness's
+    WorkloadRunner at full width: the harness's measured window (pods
+    built inside it, the cyclic collector paused), a Tracer keeping every
+    drain's span tree, and a clock that stands still unless the caller
+    moves it. Returns a namespace of the API server, the scheduler, the
+    runner, the measured DataItem and its pods/s."""
+    from kubernetes_tpu_torch.perf.harness import (TestCase, Workload,
+                                                   WorkloadRunner)
     from kubernetes_tpu_torch.scheduler import Scheduler
-    W = pkg.wrappers
-    api = APIServer()
-    sched = Scheduler(api, batch_size=BATCH, device=device,
-                      clock=lambda: 1000.0)
-    for i in range(SB_NODES):
-        api.create_node(W.make_node(f"node-{i}").capacity(
-            {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
-            f"zone-{i % 16}").label("kubernetes.io/hostname",
-                                    f"node-{i}").obj())
-    sched.prime()
-    seq, rate = 0, 0.0
-    for count, measured in ((SB_INIT_PODS, False), (SB_PODS, True)):
-        pods = [W.make_pod(f"pod-{seq + i}").req(
-            {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(count)]
-        seq += count
-        before = sched.scheduled_count
-        t0 = time.perf_counter()
-        create_pods(api, sched, pods)
-        if measured:
-            rate = (sched.scheduled_count - before) / (
-                time.perf_counter() - t0)
-    return api, sched, rate
+    cell = CELLS[name]
+    clock = clock or SimpleNamespace(t=1000.0)
+
+    def factory(api):
+        return Scheduler(api, batch_size=BATCH, device=device,
+                         clock=lambda: clock.t)
+
+    runner = WorkloadRunner(scheduler_factory=factory, batch_size=BATCH,
+                            create_batch=CREATE_BATCH, trace=True)
+    tc = TestCase(name=name, workload_template=cell["template"],
+                  workloads=[])
+    items = runner.run(tc, Workload(name=cell["workload"],
+                                    params=dict(cell["params"]),
+                                    threshold=cell["threshold"] or 0.0))
+    sched = runner.last_scheduler
+    return SimpleNamespace(api=sched.client, sched=sched, runner=runner,
+                           item=items[0], rate=items[0].average, clock=clock)
+
+
+def window_spans(run) -> list:
+    """The root spans that opened inside the measured window."""
+    t0 = run.item.start
+    return [sp for sp in run.runner.last_tracer.recent
+            if t0 <= sp.start <= t0 + run.item.duration_s]
+
+
+def host_split(run) -> dict:
+    """Where the measured window's host seconds went: the summed span
+    seconds by name of the drains that opened in the window; the host
+    commits that started in the window (`commit_s`, nested commits inside
+    their outer one), split into those
+    inside a scheduling cycle and those outside (commit_ready and the
+    final wait); the rest of the window outside the cycles
+    (`create_other_s`: pod creation, the watch fan-out and queue adds,
+    the dispatcher flush after the last drain); their shares of the
+    window; the probe's seconds a drain; and the whole run's drain-phase
+    sums."""
+    from kubernetes_tpu_torch.utils.tracing import span_seconds
+    spans = window_spans(run)
+    by_name = span_seconds(spans)
+    out = {k: by_name.get(k, 0.0) for k in HOST_SPANS}
+    t0, t1 = run.item.start, run.item.start + run.item.duration_s
+    cycles = [(sp.start, sp.start + sp.duration_s) for sp in spans]
+    inside = outside = 0.0
+    # every drain's commit, timed onto its device_dispatch span; a commit
+    # whose failure handling drains the in-flight drains (PostFilter)
+    # runs theirs inside its own, so only the outermost count
+    commits = sorted((sp.attributes["commit_start"], sp.attributes["commit_s"])
+                     for sp in dispatch_spans(run))
+    outer_end = float("-inf")
+    for c0, secs in commits:
+        if c0 < outer_end:
+            continue
+        outer_end = c0 + secs
+        if not t0 <= c0 <= t1:
+            continue
+        if any(a <= c0 <= b for a, b in cycles):
+            inside += secs
+        else:
+            outside += secs
+    out["window_s"] = run.item.duration_s
+    out["commit_s"] = inside + outside
+    out["commit_in_cycles_s"] = inside
+    out["outside_cycles_s"] = run.item.duration_s - out["scheduling_cycle"]
+    out["create_other_s"] = out["outside_cycles_s"] - outside
+    out["window_drains"] = sum(1 for sp in spans for c in sp.children
+                               for d in c.children
+                               if d.name == "device_dispatch")
+    # the shares of the window, and the probe's host seconds a drain
+    out["share"] = {k: out[k] / out["window_s"] for k in (
+        "create_other_s", "commit_s", "host_build", "device_dispatch",
+        "host_tensorize", "host_group_seed")}
+    out["probe_s_per_drain"] = (out["cluster_probe"]
+                                / max(out["window_drains"], 1))
+    ph = run.sched.drain_phase_seconds
+    out["run_phase_s"] = {k: ph.get(k, 0.0) for k in (
+        "host_build", "device_dispatch", "device_wait", "commit")}
+    out["op_seconds"] = dict(run.runner.last_op_seconds)
+    return out
+
+
+def dispatch_spans(run) -> list:
+    """Every device_dispatch span of the run (attributes: groups, runs)."""
+    out, stack = [], list(run.runner.last_tracer.recent)
+    while stack:
+        sp = stack.pop()
+        if sp.name == "device_dispatch":
+            out.append(sp)
+        stack.extend(sp.children)
+    return out
+
+
+def probe_state(sched) -> str:
+    """The last resolved cluster-probe snapshot as JSON, without its drain
+    id: on the card a drain commits when its event has fired, so the
+    harness's non-blocking chunks can cut the drains at other pods than
+    the cpu run does (the bind map does not move, the drain count can).
+    The snapshot of the state after the last drain must not move."""
+    snap = dict(sched._last_probe)
+    snap.pop("drainId")
+    return json.dumps(snap, sort_keys=True)
+
+
+def explain_uid(run) -> str:
+    """The pod whose decision each cell explains: the last measured pod
+    the cell bound."""
+    bound = [uid for uid, p in run.api.pods.items() if p.spec.node_name]
+    return max(bound, key=lambda u: (len(u), u))
+
+
+def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
+    """One cell on the card and on the CPU. The launch counts cover the
+    card's run, its explain_pod call and `post(run)` (a step after the
+    harness the cell needs); the bind map, the pending pods, the final
+    cluster-probe snapshot and one explain_pod answer must equal the cpu
+    run's. Returns (card run, cpu run, counts, log fields)."""
+    from kubernetes_tpu_torch.obs.explain import explain_pod
+    pkg.kernels.reset_launches()
+    t0 = time.perf_counter()
+    run = cell_run(device, pkg, name)
+    if post is not None:
+        post(run)
+    uid = explain_uid(run)
+    expl = explain_pod(run.sched, uid, k=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pkg.kernels.LAUNCHES)
+    if counts["cluster_probe"] != run.sched.device_batches:
+        fail(f"{name}: {counts['cluster_probe']} probes for "
+             f"{run.sched.device_batches} device drains")
+    if counts["explain_row"] != 1 or "error" in expl:
+        fail(f"{name}: explain_pod({uid}) gave {expl}")
+    if run.sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    t1 = time.perf_counter()
+    cpu = cell_run("cpu", pkg, name)
+    if post is not None:
+        post(cpu)
+    if outcome(run.api, run.sched) != outcome(cpu.api, cpu.sched):
+        fail(f"{name}: cuda bind map differs from the cpu run")
+    if probe_state(run.sched) != probe_state(cpu.sched):
+        fail(f"{name}: the final cluster probe differs from the cpu run: "
+             f"{run.sched._last_probe} vs {cpu.sched._last_probe}")
+    if expl != explain_pod(cpu.sched, uid, k=5):
+        fail(f"{name}: explain_pod({uid}) differs from the cpu run")
+    fields = dict(
+        pods_per_s=run.rate, window_s=run.item.duration_s,
+        threshold=CELLS[name]["threshold"], host_split=host_split(run),
+        wall_s=wall, launches=counts, drain_readbacks=run.sched.device_batches,
+        uniform_rewinds=run.sched.uniform_rewinds,
+        cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True, last_probe_equals_cpu=True,
+        explain_equals_cpu=True, explained=uid,
+        explain_winner=(expl["winner"] or {}).get("node"),
+        last_probe=run.sched._last_probe,
+        drains_cuda_cpu=(run.sched.device_batches,
+                         cpu.sched.device_batches))
+    return run, cpu, counts, fields
+
+
+def cell_profile(torch, pkg, device: str, name: str, post=None) -> dict:
+    """One more run of the cell under torch.profiler: device time per
+    kernel and the device's busy share of the run's wall."""
+    def once():
+        run = cell_run(device, pkg, name)
+        if post is not None:
+            post(run)
+    return profile_run(torch, once)
+
+
+def basic_phase(torch, pkg, device: str, smi: str):
+    """Phase 4: SchedulingBasic 5000Nodes_10000Pods; returns the counts
+    and the card's run (its post-drain carry feeds the probe check)."""
+    name = "SchedulingBasic"
+    run, _cpu, counts, fields = cell_phase(torch, pkg, device, name, smi)
+    got = outcome(run.api, run.sched)
+    if len(got[0]) != SB_INIT_PODS + SB_PODS:
+        fail(f"{name} bound {len(got[0])} of {SB_INIT_PODS + SB_PODS} pods")
+    if counts["run_uniform"] <= 0:
+        fail(f"{name} never launched the run_uniform kernel")
+    log("scheduling_basic", pods=SB_INIT_PODS + SB_PODS, nodes=SB_NODES,
+        **fields)
+    log("scheduling_basic_profile", card=smi,
+        **cell_profile(torch, pkg, device, name))
+    return counts, run
+
+
+def node_affinity_phase(torch, pkg, device: str, smi: str) -> dict:
+    """Phase 14: SchedulingNodeAffinity 5000Nodes: every measured pod
+    pins a zone through its nodeSelector (zone seq mod 16)."""
+    name = "SchedulingNodeAffinity"
+    p = CELLS[name]["params"]
+    run, _cpu, counts, fields = cell_phase(torch, pkg, device, name, smi)
+    got = outcome(run.api, run.sched)
+    if len(got[0]) != p["measurePods"] or got[1]:
+        fail(f"{name}: bound {len(got[0])} of {p['measurePods']} pods")
+    zone_of = {n.metadata.name: n.metadata.labels.get(LABEL_ZONE)
+               for n in run.api.nodes.values()}
+    for uid, node in got[0].items():
+        seq = int(uid.rsplit("-", 1)[1])
+        if zone_of[node] != f"zone-{seq % 16}":
+            fail(f"{name}: {uid} on {node} in {zone_of[node]}")
+    log("node_affinity", pods=p["measurePods"], nodes=p["initNodes"],
+        **fields)
+    log("node_affinity_profile", card=smi,
+        **cell_profile(torch, pkg, device, name))
+    return counts
 
 
 def mixed_workload(device: str, pkg, n_nodes: int = 500):
@@ -2219,32 +2754,6 @@ def mixed_workload(device: str, pkg, n_nodes: int = 500):
     return api, sched
 
 
-def group_workload(device: str, pkg, kind: str):
-    """TopologySpreading 5000Nodes_5000Pods ("spread") or
-    SchedulingPodAntiAffinity 5000Nodes_2000Pods ("anti"): createNodes,
-    the plain init pods, then the measured group pods in 512-pod chunks.
-    Returns (api, scheduler, measured pods/s, measured-op dict)."""
-    from kubernetes_tpu_torch.backend.apiserver import APIServer
-    from kubernetes_tpu_torch.scheduler import Scheduler
-    W = pkg.wrappers
-    n_nodes, n_init, n_meas, zones = TS_SHAPE if kind == "spread" else AA_SHAPE
-    api = APIServer()
-    sched = Scheduler(api, batch_size=BATCH, device=device,
-                      clock=lambda: 1000.0)
-    for nd in harness_nodes(W, n_nodes, zones):
-        api.create_node(nd)
-    sched.prime()
-    create_pods(api, sched, [W.make_pod(f"pod-{i}").req(
-        {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(n_init)])
-    pods = [group_pod(W, f"pod-{n_init + i}", kind) for i in range(n_meas)]
-    before = (sched.scheduled_count, sched.device_batches, sched.wave_runs)
-    t0 = time.perf_counter()
-    create_pods(api, sched, pods)
-    rate = (sched.scheduled_count - before[0]) / (time.perf_counter() - t0)
-    measured = {"drains": sched.device_batches - before[1],
-                "wave_runs": sched.wave_runs - before[2]}
-    return api, sched, rate, measured
-
 
 def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
     """Group drains on every group route of the port: ScheduleAnyway
@@ -2314,66 +2823,11 @@ def mixed_group_workload(device: str, pkg, n_nodes: int = 500):
     return api, sched
 
 
-def plan_workload(device: str, pkg, kind: str):
-    """MixedHighSignature 5000Nodes ("mhs": 1,000 zone-spread init pods,
-    then 5,000 measured pods of eight rotating signatures under the same
-    DoNotSchedule spread) or MixedSchedulingBasePod 5000Nodes ("mbp":
-    1,000 ScheduleAnyway-spread init pods, 500 self-matching required
-    zone-affinity pods, then 5,000 plain measured pods), in the harness's
-    512-pod create chunks. Returns (api, scheduler, measured pods/s,
-    measured-op dict)."""
-    from kubernetes_tpu_torch.backend.apiserver import APIServer
-    from kubernetes_tpu_torch.scheduler import Scheduler
-    W = pkg.wrappers
-    api = APIServer()
-    sched = Scheduler(api, batch_size=BATCH, device=device,
-                      clock=lambda: 1000.0)
-    if kind == "mhs":
-        n_nodes, n_init, n_meas, zones, _cyc = MHS_SHAPE
-        mix = {"app": "mix"}
-        init_ops = [[mix_pod(W, f"pod-{i}", "900m", mix, "DoNotSchedule")
-                     for i in range(n_init)]]
-        seq = n_init
-        measured = [mhs_pod(W, f"pod-{seq + i}", seq + i)
-                    for i in range(n_meas)]
-    else:
-        n_nodes, n_init, n_aff, n_meas, zones = MBP_SHAPE
-        base = {"mixed": "base"}
-        init_ops = [
-            [mix_pod(W, f"pod-{i}", "900m", base, "ScheduleAnyway")
-             for i in range(n_init)],
-            [W.make_pod(f"pod-{n_init + i}").req(
-                {"cpu": "500m", "memory": "512Mi"}).label("mixed", "base")
-             .pod_affinity(LABEL_ZONE, base).obj() for i in range(n_aff)]]
-        seq = n_init + n_aff
-        measured = [W.make_pod(f"pod-{seq + i}").req(
-            {"cpu": "900m", "memory": "1Gi"}).obj() for i in range(n_meas)]
-    for nd in harness_nodes(W, n_nodes, zones):
-        api.create_node(nd)
-    sched.prime()
-    for pods in init_ops:
-        create_pods(api, sched, pods)
-    before = (sched.scheduled_count, sched.device_batches, sched.plan_runs,
-              sched.wave_runs)
-    t0 = time.perf_counter()
-    create_pods(api, sched, measured)
-    rate = (sched.scheduled_count - before[0]) / (time.perf_counter() - t0)
-    return api, sched, rate, {
-        "drains": sched.device_batches - before[1],
-        "plan_runs": sched.plan_runs - before[2],
-        "wave_runs": sched.wave_runs - before[3]}
-
 
 def plan_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
     """Phase 9 / 10: one plan-program workload on the card, checked
     against its cpu run and its own constraint; returns the launch
     counts."""
-    pkg.kernels.reset_launches()
-    t0 = time.perf_counter()
-    api, sched, rate, measured = plan_workload(device, pkg, kind)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(pkg.kernels.LAUNCHES)
     if kind == "mhs":
         name, phase = "MixedHighSignature", "mixed_high_signature"
         n_nodes, n_init, n_meas, zones, _cyc = MHS_SHAPE
@@ -2382,101 +2836,52 @@ def plan_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
         name, phase = "MixedSchedulingBasePod", "mixed_base_pod"
         n_nodes, n_init, n_aff, n_meas, zones = MBP_SHAPE
         total, min_plans = n_init + n_aff + n_meas, 2
-    got = outcome(api, sched)
+    run, _cpu, counts, fields = cell_phase(torch, pkg, device, name, smi)
+    sched = run.sched
+    got = outcome(run.api, sched)
     if len(got[0]) != total:
         fail(f"{name}: bound {len(got[0])} of {total} pods")
     if counts["run_plan"] < min_plans:
         fail(f"{name}: run_plan launched {counts['run_plan']} times, "
              f"expected at least {min_plans}")
-    if sched.reconcile() != []:
-        fail(f"{name}: device carry diverges from the host cache")
     check = {}
     if kind == "mhs":
-        per_zone = zone_counts(api, ("app", "mix"))
+        per_zone = zone_counts(run.api, ("app", "mix"))
         skew = max(per_zone.values()) - min(per_zone.values())
         if len(per_zone) != zones or skew > 5:
             fail(f"{name}: zone skew {skew} over {len(per_zone)} zones")
         check = {"zone_skew": skew}
-    t1 = time.perf_counter()
-    want = outcome(*plan_workload("cpu", pkg, kind)[:2])
-    if got != want:
-        fail(f"{name}: cuda bind map differs from the cpu run")
     log(phase, pods=total, bound=len(got[0]), nodes=n_nodes,
-        pods_per_s=rate, wall_s=wall, launches=counts, measured=measured,
         plan_runs=sched.plan_runs, wave_runs=sched.wave_runs,
-        wave_stats=wave_stats(sched), drain_readbacks=sched.device_batches,
-        cpu_run_s=time.perf_counter() - t1, card=smi,
-        bind_map_equals_cpu=True, **check)
-    log(f"{phase}_profile", card=smi, **profile_run(
-        torch, lambda: plan_workload(device, pkg, kind)))
+        wave_stats=wave_stats(sched), **fields, **check)
+    log(f"{phase}_profile", card=smi,
+        **cell_profile(torch, pkg, device, name))
     return counts
 
 
-def preemption_churn(device: str, pkg):
-    """PreemptionChurn 5000Nodes_10000Pods: createNodes; the init pods
-    (one 4-cpu pod per 8-cpu node); the preemptor wave (each preemptor
-    fails, DefaultPreemption evicts one victim and nominates its node);
-    then the measured pods in 512-pod chunks, every drain dispatched
-    while the nominations are pending (the overlay). The scheduler's
-    clock stands still, so the preemptors wait out their requeue backoff
-    until it moves 15 s forward, just before the measured op's final
-    drain: that drain takes them with the last measured pods, as one scan
-    span. Returns (api, scheduler, measured pods/s, dict)."""
-    from kubernetes_tpu_torch.backend.apiserver import APIServer
-    from kubernetes_tpu_torch.scheduler import Scheduler
-    W = pkg.wrappers
-    n_nodes, n_init, n_pre, n_meas, zones = PC_SHAPE
-    api = APIServer()
-    clock = SimpleNamespace(t=1000.0)
-    sched = Scheduler(api, batch_size=BATCH, device=device,
-                      clock=lambda: clock.t)
-    for nd in pc_nodes(W, n_nodes, zones):
-        api.create_node(nd)
-    sched.prime()
-
-    def pods(seq, count, req, prio=0):
-        out = []
-        for i in range(count):
-            w = W.make_pod(f"pod-{seq + i}").req(req)
-            out.append((w.priority(prio) if prio else w).obj())
-        return out
-
-    create_pods(api, sched, pods(0, n_init, {"cpu": "4", "memory": "1Gi"}))
-    init_uids = set(api.pods)
-    t0 = time.perf_counter()
-    create_pods(api, sched, pods(n_init, n_pre,
-                                 {"cpu": "8", "memory": "1Gi"}, prio=100))
-    wave_s = time.perf_counter() - t0
-    noms = dict(sched.queue.nominator.nominated_pods)
-    victims = sorted(init_uids - set(api.pods))
-    measured = pods(n_init + n_pre, n_meas,
-                    {"cpu": "500m", "memory": "256Mi"})
-    before = sched.scheduled_count
-    t0 = time.perf_counter()
-    for k in range(0, n_meas, CREATE_BATCH):
-        api.create_pods(measured[k:k + CREATE_BATCH])
-        sched.schedule_pending(wait=False)
-    clock.t += 15.0
-    sched.schedule_pending()
-    measured_s = time.perf_counter() - t0
-    rate = (sched.scheduled_count - before) / measured_s
-    return api, sched, rate, {"noms": noms, "victims": victims,
-                              "wave_s": wave_s, "measured_s": measured_s}
+def _take_back_preemptors(run) -> None:
+    """After PreemptionChurn's measured op: record the nominations and
+    the victims, then move the clock past the preemptors' requeue
+    backoff and drain them (under their own nominations: run_batch's
+    overlay variant)."""
+    n_nodes, n_init, n_pre, n_meas, _zones = PC_SHAPE
+    run.noms = dict(run.sched.queue.nominator.nominated_pods)
+    run.victims = sorted(f"default/pod-{i}" for i in range(n_init)
+                         if f"default/pod-{i}" not in run.api.pods)
+    run.clock.t += 15.0
+    run.sched.schedule_pending()
 
 
 def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
     """Phase 11: PreemptionChurn on the card, checked against its cpu run
     and its own constraints; returns the launch counts."""
-    pkg.kernels.reset_launches()
-    t0 = time.perf_counter()
-    api, sched, rate, info = preemption_churn(device, pkg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(pkg.kernels.LAUNCHES)
-    n_nodes, n_init, n_pre, n_meas, _zones = PC_SHAPE
     name = "PreemptionChurn"
-    got = outcome(api, sched)
-    noms, victims = info["noms"], info["victims"]
+    n_nodes, n_init, n_pre, n_meas, _zones = PC_SHAPE
+    run, cpu, counts, fields = cell_phase(torch, pkg, device, name, smi,
+                                          post=_take_back_preemptors)
+    sched = run.sched
+    got = outcome(run.api, sched)
+    noms, victims = run.noms, run.victims
     if len(victims) != n_pre:
         fail(f"{name}: {len(victims)} victims deleted, expected {n_pre}")
     if len(noms) != n_pre or any(got[0].get(uid) != node
@@ -2492,87 +2897,21 @@ def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
     for k in ("run_batch_ovl", "run_uniform_ovl"):
         if counts[k] < 1:
             fail(f"{name}: {k} never launched ({counts})")
-    if sched.reconcile() != []:
-        fail(f"{name}: device carry diverges from the host cache")
-    t1 = time.perf_counter()
-    api_c, sched_c, _rate, info_c = preemption_churn("cpu", pkg)
-    if outcome(api_c, sched_c) != got:
-        fail(f"{name}: cuda bind map differs from the cpu run")
-    if info_c["noms"] != noms or info_c["victims"] != victims:
+    if cpu.noms != noms or cpu.victims != victims:
         fail(f"{name}: nominations or victims differ from the cpu run")
     log("preemption_churn", pods=n_init + n_pre + n_meas, bound=len(got[0]),
         nodes=n_nodes, victims=len(victims), nominations=len(noms),
-        pods_per_s=rate, measured_s=info["measured_s"],
-        preemptor_wave_s=info["wave_s"], wall_s=wall, launches=counts,
         batched_dry_runs=ev.batched_dry_runs, host_dry_runs=ev.host_dry_runs,
         preemption_attempts=sched.preemption_attempts,
-        uniform_rewinds=sched.uniform_rewinds,
-        drain_readbacks=sched.device_batches,
-        cpu_run_s=time.perf_counter() - t1, card=smi,
-        bind_map_equals_cpu=True, nominations_equal_cpu=True,
-        victims_equal_cpu=True)
-    log("preemption_churn_profile", card=smi, **profile_run(
-        torch, lambda: preemption_churn(device, pkg)))
+        nominations_equal_cpu=True, victims_equal_cpu=True, **fields)
+    log("preemption_churn_profile", card=smi, **cell_profile(
+        torch, pkg, device, name, post=_take_back_preemptors))
     return counts
-
-
-def gang_trace(device: str, pkg, kind: str):
-    """GangTraining 5000Nodes ("train": 40 gangs × 256 members of 900m /
-    1 Gi, minCount = size, priority 0) or CoLocatedInference 5000Nodes
-    ("colo": 24 gangs × 128 members of 1 cpu at priority 10, 5,000
-    inference pods of 250m at priority 100, 4 preemptor gangs × 64
-    members of 2 cpu at priority 200, contiguity weight 2), driven as the
-    harness's gangTrace op drives it (perf/harness.py:391-446): every
-    Workload first, then the pods in 512-pod chunks, each followed by a
-    non-blocking schedule_pending, then the full drain. Returns (api,
-    scheduler, pods/s over the op, seconds)."""
-    from kubernetes_tpu_torch.backend.apiserver import APIServer
-    from kubernetes_tpu_torch.scheduler import Scheduler
-    from kubernetes_tpu_torch.testing.workloads import GangWorkloadGenerator
-    W = pkg.wrappers
-    if kind == "train":
-        n_nodes, gangs, size, zones = GT_SHAPE
-        gang_cpu, prio, n_inf, n_pre, contig = "900m", 0, 0, 0, None
-    else:
-        n_nodes, gangs, size, n_inf, n_pre, zones = CI_SHAPE
-        gang_cpu, prio, contig = "1", 10, 2
-    api = APIServer()
-    sched = Scheduler(api, batch_size=BATCH, device=device,
-                      clock=lambda: 1000.0)
-    for nd in harness_nodes(W, n_nodes, zones):
-        api.create_node(nd)
-    sched.prime()
-    gen = GangWorkloadGenerator(seed=0)
-    specs = gen.training_gangs(gangs, size=size, cpu=gang_cpu,
-                               memory="1Gi", priority=prio)
-    pre = gen.training_gangs(n_pre, size=64, cpu="2", memory="1Gi",
-                             priority=200, prefix="preemptor")
-    if contig is not None:
-        sched.gang_contiguity_weight = contig
-    before = sched.scheduled_count
-    t0 = time.perf_counter()
-    for what, obj in gen.trace(specs, inference_count=n_inf,
-                               inference_cpu="250m", inference_priority=100,
-                               preemptor_gangs=pre, chunk=CREATE_BATCH):
-        if what == "workload":
-            api.create_workload(obj)
-            continue
-        api.create_pods(obj)
-        sched.schedule_pending(wait=False)
-    sched.schedule_pending()
-    secs = time.perf_counter() - t0
-    return api, sched, (sched.scheduled_count - before) / secs, secs
 
 
 def gang_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
     """Phase 12 / 13: one gang workload on the card, checked against its
     cpu run and its own gates; returns the launch counts."""
-    pkg.kernels.reset_launches()
-    t0 = time.perf_counter()
-    api, sched, rate, secs = gang_trace(device, pkg, kind)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(pkg.kernels.LAUNCHES)
     if kind == "train":
         name, phase = "GangTraining", "gang_training"
         _n, gangs, size, _z = GT_SHAPE
@@ -2582,31 +2921,156 @@ def gang_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
         _n, gangs, size, n_inf, n_pre, _z = CI_SHAPE
         total, n_gangs, key = gangs * size + n_inf + n_pre * 64, \
             gangs + n_pre, "run_gang"
-    got = outcome(api, sched)
+    run, cpu, counts, fields = cell_phase(torch, pkg, device, name, smi)
+    sched = run.sched
+    got = outcome(run.api, sched)
     if len(got[0]) != total or got[1]:
         fail(f"{name}: bound {len(got[0])} of {total} pods, "
              f"{len(got[1])} pending")
     gd = dict(sched.gang_dispatch)
     if gd["placed"] != n_gangs or gd["fallback"] or gd["rejected"]:
         fail(f"{name}: gang drains {gd}, expected {n_gangs} placed")
+    if cpu.sched.gang_dispatch != gd:
+        fail(f"{name}: gang drains {gd} differ from the cpu run's "
+             f"{cpu.sched.gang_dispatch}")
     if counts[key] != n_gangs:
         fail(f"{name}: {key} launched {counts[key]} times, expected "
              f"{n_gangs} ({counts})")
+    log(phase, pods=total, bound=len(got[0]), nodes=_n, gangs=n_gangs,
+        gang_dispatch=gd, gang_replays=sched.gang_replays, **fields)
+    log(f"{phase}_profile", card=smi,
+        **cell_profile(torch, pkg, device, name))
+    return counts
+
+
+def gang_reject_run(device: str, pkg, n_nodes: int = SB_NODES,
+                    size: int = 256):
+    """Gang rejection and gang-preempts-gang at full width: 5,000 nodes
+    of 8 cpu. Step 1: 2·n/size + 1 = 40 priority-0 gangs of 256 four-cpu
+    members (the closed form: 39 fit, two per node, the last finds 16
+    slots and is rejected). Step 2: a two-cpu gang of 64 at contiguity weight 2 (the
+    scan tier) finds 64 free cpu for its 128 and is rejected. Step 3: a
+    priority-100 gang of 16 whole-node members at weight 0 finds eight
+    empty nodes: rejected, its members' PostFilter evicts priority-0
+    members and nominates, and after the requeue backoff the gang binds.
+    Returns (api, scheduler, per-step {gang_dispatch, launches} deltas,
+    nominations before the requeue, victims, seconds)."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup, Workload
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing.workloads import GangWorkloadGenerator
+    W = pkg.wrappers
+    K = pkg.kernels.LAUNCHES
+    api = APIServer()
+    clock = SimpleNamespace(t=1000.0)
+    sched = Scheduler(api, batch_size=BATCH, device=device,
+                      clock=lambda: clock.t)
+    for nd in pc_nodes(W, n_nodes, 16):
+        api.create_node(nd)
+    sched.prime()
+    steps = {}
+
+    def step(label, fn):
+        g0, k0 = dict(sched.gang_dispatch), dict(K)
+        fn()
+        steps[label] = {
+            "gang_dispatch": {k: sched.gang_dispatch[k] - g0[k]
+                              for k in g0},
+            "launches": {k: K[k] - k0[k] for k in K if K[k] != k0[k]}}
+
+    def gang(name, size, cpu, prio):
+        api.create_workload(Workload(metadata=ObjectMeta(name=name),
+                                     pod_groups=[PodGroup(
+                                         name="workers", min_count=size)]))
+        create_pods(api, sched, [W.make_pod(f"{name}-{i}").req(
+            {"cpu": cpu, "memory": "1Gi"}).workload(name).priority(prio)
+            .obj() for i in range(size)])
+
+    t0 = time.perf_counter()
+    gen = GangWorkloadGenerator(seed=0)
+    specs = gen.training_gangs(2 * n_nodes // size + 1, size=size,
+                               cpu="4", memory="1Gi", priority=0)
+
+    members: list = []
+
+    def fill():
+        for what, obj in gen.trace(specs, chunk=CREATE_BATCH):
+            if what == "workload":
+                api.create_workload(obj)
+                continue
+            members.extend(p.uid for p in obj)
+            api.create_pods(obj)
+            sched.schedule_pending(wait=False)
+        sched.schedule_pending()
+
+    def scan_reject():
+        sched.gang_contiguity_weight = 2
+        gang("wide", 64, "2", 0)
+        sched.gang_contiguity_weight = 0
+
+    step("closed_form_reject", fill)
+    step("scan_reject", scan_reject)
+    step("preempt", lambda: gang("high", 16, "8", 100))
+    noms = dict(sched.queue.nominator.nominated_pods)
+    victims = sorted(uid for uid in members if uid not in api.pods)
+
+    def requeue():
+        for _ in range(3):
+            clock.t += 15.0
+            sched.flush_queues()
+            sched.schedule_pending()
+    step("requeue", requeue)
+    return api, sched, steps, noms, victims, time.perf_counter() - t0
+
+
+def gang_reject_phase(torch, pkg, device: str, smi: str) -> dict:
+    """Phase 15: gang rejection on both run_gang tiers and a gang that
+    preempts a gang, on the card, held to a full-width cpu run."""
+    from kubernetes_tpu_torch.obs.explain import explain_pod
+    name = "gang reject / preempt"
+    pkg.kernels.reset_launches()
+    api, sched, steps, noms, victims, secs = gang_reject_run(device, pkg)
+    uid = "default/high-0"
+    expl = explain_pod(sched, uid, k=5)
+    torch.cuda.synchronize()
+    counts = dict(pkg.kernels.LAUNCHES)
+    got = outcome(api, sched)
+    if steps["closed_form_reject"]["gang_dispatch"]["rejected"] < 1 or \
+            steps["closed_form_reject"]["launches"].get(
+                "run_gang_uniform", 0) < 1:
+        fail(f"{name}: no closed-form rejection ({steps})")
+    if steps["scan_reject"]["gang_dispatch"]["rejected"] < 1 or \
+            steps["scan_reject"]["launches"].get("run_gang", 0) < 1:
+        fail(f"{name}: no scan-tier rejection ({steps})")
+    high = [u for u in got[0] if u.startswith("default/high-")]
+    if len(high) != 16 or not victims or not noms:
+        fail(f"{name}: {len(high)} of 16 high members bound, "
+             f"{len(victims)} victims, {len(noms)} nominations")
     if sched.reconcile() != []:
         fail(f"{name}: device carry diverges from the host cache")
     t1 = time.perf_counter()
-    want = outcome(*gang_trace("cpu", pkg, kind)[:2])
-    if got != want:
+    api_c, sched_c, steps_c, noms_c, victims_c, _s = gang_reject_run(
+        "cpu", pkg)
+    if outcome(api_c, sched_c) != got:
         fail(f"{name}: cuda bind map differs from the cpu run")
-    log(phase, pods=total, bound=len(got[0]), nodes=_n, gangs=n_gangs,
-        pods_per_s=rate, op_s=secs, wall_s=wall, launches=counts,
-        gang_dispatch=gd, gang_replays=sched.gang_replays,
-        uniform_rewinds=sched.uniform_rewinds,
-        drain_readbacks=sched.device_batches,
-        cpu_run_s=time.perf_counter() - t1, card=smi,
-        bind_map_equals_cpu=True)
-    log(f"{phase}_profile", card=smi, **profile_run(
-        torch, lambda: gang_trace(device, pkg, kind)))
+    if (noms_c, victims_c) != (noms, victims):
+        fail(f"{name}: nominations or victims differ from the cpu run")
+    gd_of = {k: v["gang_dispatch"] for k, v in steps.items()}
+    if {k: v["gang_dispatch"] for k, v in steps_c.items()} != gd_of:
+        fail(f"{name}: gang drains differ from the cpu run")
+    if probe_state(sched) != probe_state(sched_c):
+        fail(f"{name}: the final cluster probe differs from the cpu run")
+    if expl != explain_pod(sched_c, uid, k=5):
+        fail(f"{name}: explain_pod({uid}) differs from the cpu run")
+    log("gang_reject_preempt", nodes=SB_NODES, bound=len(got[0]),
+        pending=len(got[1]), victims=len(victims), nominations=len(noms),
+        steps=steps, gang_dispatch=dict(sched.gang_dispatch),
+        gang_replays=sched.gang_replays,
+        preemption_attempts=sched.preemption_attempts, seconds=secs,
+        launches=counts, cpu_run_s=time.perf_counter() - t1, card=smi,
+        bind_map_equals_cpu=True, nominations_equal_cpu=True,
+        victims_equal_cpu=True, gang_dispatch_equals_cpu=True,
+        last_probe_equals_cpu=True, explain_equals_cpu=True)
     return counts
 
 
@@ -2652,28 +3116,26 @@ def profile_run(torch, fn) -> dict:
             "device_busy_share": busy_ms / 1e3 / wall if busy_ms else None,
             "top_device_ms": top}
 
-
 def group_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
     """Phase 6 / 7: one group workload on the card, checked against its
     cpu run and its own constraint; returns the launch counts."""
-    pkg.kernels.reset_launches()
-    t0 = time.perf_counter()
-    api, sched, rate, measured = group_workload(device, pkg, kind)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(pkg.kernels.LAUNCHES)
     n_nodes, n_init, n_meas, zones = TS_SHAPE if kind == "spread" else AA_SHAPE
     name = ("TopologySpreading" if kind == "spread"
             else "SchedulingPodAntiAffinity")
-    got = outcome(api, sched)
+    run, _cpu, counts, fields = cell_phase(torch, pkg, device, name, smi)
+    sched = run.sched
+    got = outcome(run.api, sched)
     if len(got[0]) != n_init + n_meas:
         fail(f"{name}: bound {len(got[0])} of {n_init + n_meas} pods")
-    if counts["run_wave"] <= 0 or measured["wave_runs"] != measured["drains"]:
-        fail(f"{name}: run_wave ran on {measured['wave_runs']} of "
-             f"{measured['drains']} measured drains")
-    if sched.reconcile() != []:
-        fail(f"{name}: device carry diverges from the host cache")
-    per_zone = zone_counts(api, ("app", "spread") if kind == "spread"
+    group_drains = [sp for sp in dispatch_spans(run)
+                    if sp.attributes.get("groups")]
+    waves = [sp for sp in group_drains
+             if sp.attributes.get("runs") == "wave"]
+    if counts["run_wave"] <= 0 or not group_drains \
+            or len(waves) != len(group_drains):
+        fail(f"{name}: run_wave ran on {len(waves)} of "
+             f"{len(group_drains)} group drains")
+    per_zone = zone_counts(run.api, ("app", "spread") if kind == "spread"
                            else ("anti", "yes"))
     if kind == "spread":
         skew = max(per_zone.values()) - min(per_zone.values())
@@ -2684,20 +3146,13 @@ def group_phase(torch, pkg, device: str, kind: str, smi: str) -> dict:
         if max(per_zone.values()) > 1:
             fail(f"{name}: a zone holds more than one anti pod")
         check = {"max_anti_pods_per_zone": max(per_zone.values())}
-    t1 = time.perf_counter()
-    want = outcome(*group_workload("cpu", pkg, kind)[:2])
-    if got != want:
-        fail(f"{name}: cuda bind map differs from the cpu run")
     log(kind == "spread" and "topology_spreading" or "pod_anti_affinity",
         pods=n_init + n_meas, bound=len(got[0]), nodes=n_nodes,
-        pods_per_s=rate, wall_s=wall,
-        launches=counts, measured_drains=measured["drains"],
-        wave_runs=sched.wave_runs, wave_stats=wave_stats(sched),
-        merge_loop_readbacks=0, drain_readbacks=sched.device_batches,
-        cpu_run_s=time.perf_counter() - t1, card=smi,
-        bind_map_equals_cpu=True, **check)
-    log(f"{kind}_profile", **profile_run(
-        torch, lambda: group_workload(device, pkg, kind)))
+        group_drains=len(group_drains), wave_runs=sched.wave_runs,
+        wave_stats=wave_stats(sched), merge_loop_readbacks=0, **fields,
+        **check)
+    log(f"{kind}_profile", card=smi,
+        **cell_profile(torch, pkg, device, name))
     return counts
 
 
@@ -2741,7 +3196,6 @@ def main() -> int:
              for k, v in info.get("ptxas", {}).items()}
     log("build", seconds=time.perf_counter() - t0, built=info.get("built"),
         ptxas=ptxas)
-
     rows: list = []
     check_run_batch(torch, pkg, device, rows)
     check_run_batch_churn(torch, pkg, device)
@@ -2757,33 +3211,14 @@ def main() -> int:
     check_run_gang_uniform(torch, pkg, device, rows)
     check_run_gang(torch, pkg, device, rows)
 
+    check_explain_row(torch, pkg, device, rows)
+
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
-    # run (the comparisons above do not count)
-    pkg.kernels.reset_launches()
-    HOST_SPLIT.update(create_s=0.0, schedule_s=0.0)
-    t0 = time.perf_counter()
-    api, sched, rate = scheduling_basic(device, pkg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    sb_counts = dict(pkg.kernels.LAUNCHES)
-    host_split = dict(HOST_SPLIT)
-    got = outcome(api, sched)
-    if len(got[0]) != SB_INIT_PODS + SB_PODS:
-        fail(f"SchedulingBasic bound {len(got[0])} of "
-             f"{SB_INIT_PODS + SB_PODS} pods")
-    if sb_counts["run_uniform"] <= 0:
-        fail("SchedulingBasic never launched the run_uniform kernel")
-    if sched.reconcile() != []:
-        fail("SchedulingBasic: device carry diverges from the host cache")
-    t1 = time.perf_counter()
-    want = outcome(*scheduling_basic("cpu", pkg)[:2])
-    if got != want:
-        fail("SchedulingBasic: cuda bind map differs from the cpu run")
-    log("scheduling_basic", pods=SB_INIT_PODS + SB_PODS, nodes=SB_NODES,
-        pods_per_s=rate, wall_s=wall, launches=sb_counts,
-        uniform_rewinds=sched.uniform_rewinds, cpu_run_s=time.perf_counter()
-        - t1, card=smi, bind_map_equals_cpu=True, host_split=host_split)
-    log("scheduling_basic_profile", **device_share(torch, pkg))
+    # run (the comparisons above do not count); then the probe kernel
+    # against its plain version on this run's own post-drain carry
+    sb_counts, sb_run = basic_phase(torch, pkg, device, smi)
+    check_cluster_probe(torch, pkg, sb_run.sched, rows)
+    del sb_run
 
     # phase 5: the mixed lean workload (plan and scan spans, rewinds,
     # diagnosis)
@@ -2849,6 +3284,11 @@ def main() -> int:
     gt_counts = gang_phase(torch, pkg, device, "train", smi)
     ci_counts = gang_phase(torch, pkg, device, "colo", smi)
 
+    # phase 14: SchedulingNodeAffinity; phase 15: gang rejection on both
+    # tiers and a gang that preempts a gang
+    sna_counts = node_affinity_phase(torch, pkg, device, smi)
+    gr_counts = gang_reject_phase(torch, pkg, device, smi)
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
@@ -2856,7 +3296,8 @@ def main() -> int:
              "pod_anti_affinity": anti_counts, "mixed_groups": mg_counts,
              "mixed_high_signature": mhs_counts,
              "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts,
-             "gang_training": gt_counts, "colocated_inference": ci_counts}
+             "gang_training": gt_counts, "colocated_inference": ci_counts,
+             "node_affinity": sna_counts, "gang_reject_preempt": gr_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

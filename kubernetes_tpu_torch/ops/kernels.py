@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--fmad=false",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
-           "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang")
+           "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang",
+           "cluster_probe", "explain_row")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean mode, its group mode and its overlay variant
@@ -279,6 +280,23 @@ class DiagArgsC(ctypes.Structure):
                 ("slot", _P), ("pods_fail", _P), ("cols_fail", _P)]
 
 
+class ProbeArgsC(ctypes.Structure):
+    _fields_ = ([(f, _P) for f in ("cap", "valid", "used", "npods", "dom")]
+                + [(f, _I) for f in ("N", "R", "ndom")]
+                + [(f, _P) for f in ("tight", "dom_pods", "dom_nodes",
+                                     "per_res", "dom_stats",
+                                     "valid_count")])
+
+
+class ExplainArgsC(ctypes.Structure):
+    _fields_ = [("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
+                ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
+                ("has_groups", _I), ("tidx", _I), ("k", _I),
+                ("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)] + [
+        (f, _P) for f in ("gmask", "flags", "gsc", "masked", "idx", "totals",
+                          "cols", "feasible")]
+
+
 def _bind(name: str, lib):
     if name == "run_batch":
         lib.ktpu_run_batch.argtypes = (
@@ -310,6 +328,12 @@ def _bind(name: str, lib):
     elif name == "run_gang":
         lib.ktpu_run_gang.argtypes = [_P, _P]
         lib.ktpu_run_gang.restype = ctypes.c_int
+    elif name == "cluster_probe":
+        lib.ktpu_cluster_probe.argtypes = [_P, _P]
+        lib.ktpu_cluster_probe.restype = ctypes.c_int
+    elif name == "explain_row":
+        lib.ktpu_explain_row.argtypes = [_P, _P]
+        lib.ktpu_explain_row.restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -1141,3 +1165,91 @@ def run_gang_cuda(cfg, na, carry, xs, table, wt, needed: int, dom, statics,
     return Carry(used=used, nonzero_used=nz, npods=npods, ports=carry.ports,
                  cache=carry.cache._replace(sig=sig),
                  groups=carry.groups), packed
+
+
+def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):
+    """The cluster probe (csrc/cluster_probe.cu); same contract as
+    program.cluster_probe on (na.cap, na.valid, carry.used, carry.npods,
+    dom). Three launches on the current stream; reads its inputs only."""
+    libs = build()
+    device = used.device
+    N, R = cap.shape
+    ptrs = {"cap": _check(cap, "cap", torch.int64, 2, device),
+            "valid": _check(valid, "valid", torch.bool, 1, device),
+            "used": _check(used, "used", torch.int64, 2, device),
+            "npods": _check(npods, "npods", torch.int32, 1, device),
+            "dom": _check(dom, "dom", torch.int32, 1, device)}
+    if (tuple(used.shape) != (N, R) or valid.shape[0] != N
+            or npods.shape[0] != N or dom.shape[0] != N):
+        raise ValueError("cluster_probe: node axis or resource width differ")
+    ndom = int(ndom)
+    if not 1 <= ndom < 2 ** 31:
+        raise ValueError(f"cluster_probe: ndom = {ndom}")
+    tight = torch.empty((N,), dtype=torch.uint8, device=device)
+    dom_cnt = torch.zeros((2, ndom), dtype=torch.int64, device=device)
+    per_res = torch.empty((R, 7), dtype=torch.float32, device=device)
+    dom_stats = torch.empty((4,), dtype=torch.float32, device=device)
+    valid_count = torch.empty((), dtype=torch.int32, device=device)
+    args = ProbeArgsC(**ptrs, N=N, R=R, ndom=ndom, tight=tight.data_ptr(),
+                      dom_pods=dom_cnt[0].data_ptr(),
+                      dom_nodes=dom_cnt[1].data_ptr(),
+                      per_res=per_res.data_ptr(),
+                      dom_stats=dom_stats.data_ptr(),
+                      valid_count=valid_count.data_ptr())
+    rc = libs["cluster_probe"].ktpu_cluster_probe(ctypes.addressof(args),
+                                                  _stream(device))
+    _raise_on(rc, "cluster_probe")
+    LAUNCHES["cluster_probe"] += 1
+    return per_res, dom_stats, valid_count
+
+
+def explain_row_cuda(cfg, na, carry, table, tidx: int, k: int, gd=None,
+                     fam=None):
+    """The score decomposition (csrc/explain_row.cu) of table row `tidx`
+    at `carry`; same contract as program.explain_row. The row's parts go
+    to scratch; the caller's carry is never written."""
+    from .program import EXPLAIN_MAX_K, SigCache
+    libs = build()
+    device = carry.used.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    tidx, k = int(tidx), int(k)
+    if not 0 <= tidx < tab.U:
+        raise ValueError(f"explain_row: row {tidx} outside the table")
+    if not 1 <= k <= min(EXPLAIN_MAX_K, N):
+        raise ValueError(f"explain_row: k = {k} outside 1..min(16, N)")
+    # the carry's rows with a scratch SigCache the kernel fills
+    scratch = SigCache(*(torch.empty_like(t) for t in carry.cache))
+    cc = _carry_c(carry._replace(cache=scratch), N, R, device)
+    if gd is not None:
+        g = _groups_c(gd, N, device)
+        gcc = _gcarry_c(carry.groups, g, device)
+        if tidx >= g.U:
+            raise ValueError(f"explain_row: row {tidx} outside the group "
+                             "tables")
+        famc = _fam_c(fam if fam is not None else (1,) * 5)
+        SC = g.SC
+    else:
+        g, gcc, famc, SC = GroupsC(), GCarryC(), FamC(), 0
+    i64 = torch.int64
+    gmask = torch.empty((N,), dtype=torch.uint8, device=device)
+    flags = torch.empty((max(SC, 1) * N,), dtype=torch.int32, device=device)
+    gsc = torch.empty((N,), dtype=i64, device=device)
+    masked = torch.empty((N,), dtype=i64, device=device)
+    idx = torch.empty((k,), dtype=torch.int32, device=device)
+    totals = torch.empty((k,), dtype=i64, device=device)
+    cols = torch.empty((k, 6), dtype=i64, device=device)
+    feasible = torch.empty((), dtype=torch.int32, device=device)
+    args = ExplainArgsC(
+        na=node, tb=tab, c=cc, cfg=_cfg_c(cfg, R), g=g, gc=gcc, fam=famc,
+        has_groups=int(gd is not None), tidx=tidx, k=k,
+        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, gmask=gmask.data_ptr(),
+        flags=flags.data_ptr(), gsc=gsc.data_ptr(), masked=masked.data_ptr(),
+        idx=idx.data_ptr(), totals=totals.data_ptr(), cols=cols.data_ptr(),
+        feasible=feasible.data_ptr())
+    rc = libs["explain_row"].ktpu_explain_row(ctypes.addressof(args),
+                                              _stream(device))
+    _raise_on(rc, "explain_row")
+    LAUNCHES["explain_row"] += 1
+    return idx, totals, cols, feasible

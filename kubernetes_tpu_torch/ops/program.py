@@ -1639,3 +1639,192 @@ def dry_run_select_victims(na: NodeArrays, pod: PodRow, cand, victim_req,
     return _dry_run_select_victims_plain(na, pod, cand, victim_req,
                                          victim_valid, ovl_used, ovl_npods,
                                          spread)
+
+
+# ---------------------------------------------------------------------------
+# decision provenance: per-plugin score decomposition of one row
+#
+# diagnose_row answers "why did every node reject this pod"; explain_row
+# answers the complement, "why did the winning node win": the per-plugin
+# score columns of the top-k nodes, evaluated through the scan's own
+# formula (_eval_pod), so the reported winner is the argmax the scan
+# takes for this row at this carry.
+
+# explain column order: weighted Fit, BalancedAllocation,
+# TaintToleration, NodeAffinity, ImageLocality, and the combined group
+# contribution (PodTopologySpread + InterPodAffinity: group_scores
+# returns their sum)
+EXPLAIN_COLUMNS = ("NodeResourcesFit", "NodeResourcesBalancedAllocation",
+                   "TaintToleration", "NodeAffinity", "ImageLocality",
+                   "PodTopologySpread+InterPodAffinity")
+EXPLAIN_MAX_K = 16
+
+
+def _explain_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                   table: PodTableDev, tidx: int, k: int, gd=None,
+                   fam=None):
+    """The JAX package's _explain_masks (plain version): sig 0, so the
+    SigCache is never consulted; no overlay."""
+    pod = _gather_row(table, int(tidx), True, 0)
+    feasible, total, parts = _eval_pod(cfg, na, carry, pod, groups=gd,
+                                       tidx=int(tidx), fam=fam)
+    masked = torch.where(feasible, total, torch.full_like(total, -1))
+    s_taint = default_normalize(parts.taint_raw, feasible, reverse=True)
+    s_na = default_normalize(parts.na_raw, feasible, reverse=False)
+    base = (cfg.w_fit * parts.s_fit + cfg.w_balanced * parts.s_bal
+            + cfg.w_taint * s_taint + cfg.w_node_affinity * s_na
+            + cfg.w_image * parts.s_img)
+    cols = torch.stack([cfg.w_fit * parts.s_fit,
+                        cfg.w_balanced * parts.s_bal,
+                        cfg.w_taint * s_taint,
+                        cfg.w_node_affinity * s_na,
+                        cfg.w_image * parts.s_img,
+                        total - base], dim=1)                  # [N, 6]
+    # scores are bounded by 100·Σweights: the int32 top-k (ties to the
+    # lowest index) reproduces the scan's first-max argmax tie-break
+    idx = _topk_lowest_index(masked.to(_I32).to(_I64), k).to(_I32)
+    return (idx, masked[idx.to(_I64)], cols[idx.to(_I64)],
+            feasible.sum().to(_I32))
+
+
+def explain_row(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                table: PodTableDev, tidx: int, k: int = 8, gd=None,
+                fam=None):
+    """Score decomposition of signature row `tidx` against `carry`:
+    (topk_idx i32 [k], topk_total i64 [k] (-1 = infeasible slot),
+    topk_cols i64 [k, 6] per-plugin weighted contributions in
+    EXPLAIN_COLUMNS order, feasible_count i32). topk_idx[0] is the argmax
+    the scan takes for this row at this carry (same _eval_pod formula,
+    same tie-break); the win margin is topk_total[0] - topk_total[1].
+    With `gd` (and `carry.groups`, families `fam`) the group mask and
+    scores take part. k ≤ 16 and k ≤ N. Never writes its inputs."""
+    k = int(k)
+    if not 1 <= k <= min(EXPLAIN_MAX_K, na.valid.shape[0]):
+        raise ValueError(f"explain_row: k = {k} outside 1..min(16, N)")
+    if (gd is None) != (carry.groups is None):
+        raise ValueError("explain_row: gd and carry.groups go together")
+    dev = carry.used.device
+    if dev.type == "cuda":
+        from .kernels import explain_row_cuda
+        return explain_row_cuda(cfg, na, carry, table, tidx, k, gd, fam)
+    if dev.type != "cpu":
+        raise RuntimeError(f"explain_row: unsupported device {dev}")
+    return _explain_plain(cfg, na, carry, table, tidx, k, gd, fam)
+
+
+# ---------------------------------------------------------------------------
+# cluster analytics: the state probe over the resident carry
+#
+# The carry resident on the device after every drain IS the cluster
+# state: one reduction over it yields utilization, fragmentation and
+# domain-imbalance signals at no extra host-to-device copy. Every
+# cross-node reduction is exact int64 arithmetic; floats appear only in
+# elementwise division and compare, the order statistics and gathers, so
+# the probe is bit-reproducible between the plain version, the kernel
+# and the JAX package.
+
+# per-resource stat columns of the probe's first output, in order
+PROBE_STATS = ("p50", "p90", "p99", "max", "mean", "frag", "stranded")
+# nearest-rank percentile ranks (idx = floor(q·(m-1) + 0.5) over the m
+# nodes advertising the resource)
+_PROBE_QS = (0.5, 0.9, 0.99)
+# a node whose bottleneck-resource utilization reaches this is "tight":
+# its remaining free capacity in OTHER resources counts as stranded
+PROBE_TIGHT = 0.95
+# the domain stat columns of the probe's second output
+PROBE_DOM_STATS = ("domains", "max", "min", "spread")
+
+_F32 = torch.float32
+
+
+def _f32_ratio(num, den):
+    """num / max(den, 1), both int64 cast to float32 first (the JAX
+    package's `a.astype(f32) / jnp.maximum(b, 1).astype(f32)`)."""
+    return num.to(_F32) / den.clamp(min=1).to(_F32)
+
+
+def _probe_plain(cap_in, valid, used_in, npods, dom, ndom: int):
+    """The JAX package's _probe_math (plain version) on cap i64 [N, R],
+    valid bool [N], used i64 [N, R], npods i32 [N], dom i32 [N]."""
+    zero_f = torch.zeros((), dtype=_F32, device=cap_in.device)
+    # a (node, resource) cell participates when the node is valid and
+    # advertises capacity for the resource
+    part = valid[:, None] & (cap_in > 0)                        # [N, R]
+    used = torch.where(part, used_in, torch.zeros_like(used_in))
+    cap = torch.where(part, cap_in, torch.zeros_like(cap_in))
+    util = torch.where(part, _f32_ratio(used, cap),
+                       torch.full(cap.shape, -1.0, dtype=_F32,
+                                  device=cap.device))           # f32 [N, R]
+    m = part.sum(dim=0).to(_I32)                                # [R]
+    n_total = util.shape[0]
+    # percentiles: non-participants sort to the front as -1, so the m
+    # participants occupy [N-m, N) of each sorted column; nearest rank at
+    # N-m+idx, the index math in float64
+    srt = torch.sort(util, dim=0).values
+    mf = m.to(torch.float64)
+    qcols = []
+    for q in _PROBE_QS + (1.0,):
+        idx = torch.floor(q * (mf - 1.0) + 0.5).to(_I32)
+        at = (n_total - m + idx).clamp(0, n_total - 1).to(_I64)
+        got = torch.gather(srt, 0, at[None, :])[0]
+        qcols.append(torch.where(m > 0, got, zero_f))
+    # aggregate mean utilization: exact int64 sums, one float division
+    sum_used = used.sum(dim=0)
+    sum_cap = cap.sum(dim=0)
+    mean = torch.where(sum_cap > 0, _f32_ratio(sum_used, sum_cap), zero_f)
+    # fragmentation: 1 - (largest single free block / total free)
+    free = cap - used
+    tot_free = free.sum(dim=0)
+    max_free = free.max(dim=0).values
+    frag = torch.where(tot_free > 0, 1.0 - _f32_ratio(max_free, tot_free),
+                       zero_f)
+    # stranded capacity: free units on nodes whose bottleneck resource is
+    # already >= PROBE_TIGHT utilized (compared in float32)
+    bottleneck = torch.where(part, util, zero_f).max(dim=1).values  # [N]
+    tight = valid & (bottleneck >= torch.tensor(PROBE_TIGHT, dtype=_F32,
+                                                 device=cap_in.device))
+    stranded_free = torch.where(tight[:, None], free,
+                                torch.zeros_like(free)).sum(dim=0)
+    stranded = torch.where(tot_free > 0, _f32_ratio(stranded_free, tot_free),
+                           zero_f)
+    per_res = torch.stack(qcols + [mean, frag, stranded], dim=1)  # [R, 7]
+    # per-domain pod density over the gang engine's dom-id column: exact
+    # int64 scatter-adds; spread = max - min over populated domains
+    dclip = dom.to(_I64).clamp(0, ndom - 1)
+    dom_pods = torch.zeros((ndom,), dtype=_I64, device=dom.device)
+    dom_pods.index_add_(0, dclip, torch.where(
+        valid, npods, torch.zeros_like(npods)).to(_I64))
+    dom_nodes = torch.zeros((ndom,), dtype=_I64, device=dom.device)
+    dom_nodes.index_add_(0, dclip, valid.to(_I64))
+    has = dom_nodes > 0
+    load = torch.where(has, _f32_ratio(dom_pods, dom_nodes), zero_f)
+    any_dom = has.any()
+    inf = torch.tensor(float("inf"), dtype=_F32, device=dom.device)
+    dmax = torch.where(has, load, -inf).max()
+    dmin = torch.where(has, load, inf).min()
+    dom_stats = torch.stack([
+        has.sum().to(_F32),
+        torch.where(any_dom, dmax, zero_f),
+        torch.where(any_dom, dmin, zero_f),
+        torch.where(any_dom, dmax - dmin, zero_f)])             # f32 [4]
+    return per_res, dom_stats, valid.sum().to(_I32)
+
+
+def cluster_probe(na: NodeArrays, carry: Carry, dom, ndom: int):
+    """Cluster-state reduction over the resident carry: (per_res f32
+    [R, 7] — PROBE_STATS columns per resource, dom_stats f32 [4] —
+    (populated domains, max, min, spread) of per-domain pod density,
+    valid_count i32). `dom` is the gang engine's topology dom-id column
+    (i32 [N]), `ndom` its domain count. Reads the carry, never writes
+    it."""
+    ndom = int(ndom)
+    if ndom < 1:
+        raise ValueError(f"cluster_probe: ndom = {ndom} < 1")
+    dev = carry.used.device
+    if dev.type == "cuda":
+        from .kernels import cluster_probe_cuda
+        return cluster_probe_cuda(na.cap, na.valid, carry.used, carry.npods,
+                                  dom, ndom)
+    if dev.type != "cpu":
+        raise RuntimeError(f"cluster_probe: unsupported device {dev}")
+    return _probe_plain(na.cap, na.valid, carry.used, carry.npods, dom, ndom)

@@ -40,6 +40,15 @@ WaitOnPermit parking, the timeout sweep in `flush_queues`).
 `gang_dispatch` counts gang drains by outcome (placed / rejected /
 fallback), the labels of the JAX package's metric.
 
+Every device drain opens the JAX package's host spans on `tracer`
+(scheduling_cycle → schedule_batch → host_build with host_snapshot /
+host_tensorize / host_group_seed / host_cache, device_dispatch,
+cluster_probe) and keeps its phase seconds on the pending drain; after
+the dispatch it launches `cluster_probe` (ops/program.py) on the
+post-drain carry, and the commit resolves that result into
+`_last_probe` — the probe copy rides the drain's event, which the commit
+has already waited on.
+
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
   a build or a launch raises; group drains the JAX package hands to its
@@ -60,6 +69,7 @@ from __future__ import annotations
 
 import time as _time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -81,7 +91,8 @@ from .framework.types import (ActionType, ClusterEvent, Diagnosis,
 from .ops import program as prog
 from .ops.gang import GangXs, run_gang
 from .ops.groups import GroupFamilies, scatter_new_rows, to_device
-from .ops.program import (PodXs, ScoreConfig, WaveXs, diagnose_row,
+from .ops.program import (PROBE_DOM_STATS, PROBE_STATS, PodXs,
+                          ScoreConfig, WaveXs, cluster_probe, diagnose_row,
                           initial_carry, run_batch, run_plan, run_uniform,
                           run_wave, static_norm_ok, table_from_batch,
                           with_cache_sig)
@@ -101,6 +112,7 @@ from .state.convert import (dom_from_numpy, gang_xs_from_numpy,
                             pod_xs_from_numpy)
 from .state.tensorize import (EFFECT_PREFER_NO_SCHEDULE, ClusterState,
                               pow2_at_least)
+from .utils.tracing import NOOP_TRACER, PhaseTrack
 
 EVENT_NODE_ADD = ClusterEvent(EventResource.NODE, ActionType.ADD)
 EVENT_ASSIGNED_POD_DELETE = ClusterEvent(EventResource.ASSIGNED_POD,
@@ -256,6 +268,18 @@ class _PendingDrain:
     gang_accepted: bool = False
     gang_raw: object = None
     gang_placed: int = 0
+    # monotonic drain id (the spans' `drain` attribute, the probe
+    # snapshot's drainId)
+    drain_id: int = 0
+    # per-phase wall seconds, accumulated from dispatch through commit
+    phases: dict = field(default_factory=dict)
+    # in-flight cluster_probe result (device tensors): launched right
+    # after the drain over the post-drain carry, resolved to a snapshot
+    # dict when this drain commits
+    probe: object = None
+    # the drain's device_dispatch span: its commit adds `commit_start`
+    # (time.perf_counter) and `commit_s`
+    span: object = None
 
     def ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -282,7 +306,10 @@ class Scheduler:
                  profiles: Optional[list[Profile]] = None,
                  batch_size: Optional[int] = None,
                  clock: Callable[[], float] = _time.monotonic,
-                 device=None):
+                 device=None, tracer=None):
+        """`tracer` (utils/tracing.py Tracer) records the drain's span
+        tree — scheduling_cycle, host_build with its host_* phases,
+        device_dispatch, cluster_probe; NOOP_TRACER when None."""
         self.device = _resolve_device(device)
         self.client = client
         self.clock = clock
@@ -319,7 +346,8 @@ class Scheduler:
         # (0 = off, the JAX package's default; its harness sets it)
         self.gang_contiguity_weight = 0
         self._gang_dom = None        # device i32 [N] node → domain ids
-        self._gang_dom_key = None    # (statics_gen, node bucket, need)
+        self._gang_dom_key = None    # (statics_gen, node bucket)
+        self._gang_ndom = 1          # domain count of the cached ids
         # gang drains by outcome (the JAX package's gang_dispatch metric)
         self.gang_dispatch = {"placed": 0, "rejected": 0, "fallback": 0}
         default_list = next(iter(self.profiles.values())).framework.plugins
@@ -387,6 +415,17 @@ class Scheduler:
         self.plan_runs = 0
         self.wave_stats = {"waves": 0, "conflicts": 0, "serial_steps": 0,
                            "first_prefix": deque(maxlen=256)}
+        self.tracer = tracer or NOOP_TRACER
+        # the open phase's name, readable from any thread
+        self.phase_track = PhaseTrack()
+        self._drain_seq = 0          # monotonic drain id (0: none)
+        # every committed drain's phase seconds summed by phase name (the
+        # JAX package's drain_phase histogram sums)
+        self.drain_phase_seconds: dict[str, float] = {}
+        # on-device cluster analytics (ClusterStateProbe, on as in the JAX
+        # package): one cluster_probe per device drain, resolved at commit
+        # into the latest snapshot dict
+        self._last_probe = None
 
     # -- wiring ---------------------------------------------------------------
 
@@ -678,10 +717,16 @@ class Scheduler:
             qpis = self.queue.drain(self.batch_size)
             if not qpis:
                 break
-            self._schedule_batch(qpis)
-            while len(self._pending) > self.max_inflight_drains:
-                self._commit_next()
-            self.dispatcher.flush()
+            with self.tracer.span("scheduling_cycle",
+                                  pods=len(qpis)) as cycle:
+                before = self.scheduled_count
+                with self.tracer.span("schedule_batch"):
+                    self._schedule_batch(qpis)
+                while len(self._pending) > self.max_inflight_drains:
+                    self._commit_next()
+                with self.tracer.span("dispatcher_flush"):
+                    self.dispatcher.flush()
+                cycle.set(bound=self.scheduled_count - before)
             batches += 1
             if max_batches and batches >= max_batches:
                 break
@@ -830,115 +875,150 @@ class Scheduler:
         commit happens when the drain is resolved. `gang` = (workload
         ref, remaining quorum, minCount) makes the drain one whole-gang
         span, unless the gang turns out ineligible here."""
-        carry = self._device_carry
-        nominator = self.queue.nominator
-        ovl_fp = nominator.version if nominator.nominated_pods else -1
-        if carry is not None and (self._carry_profile != profile.name
-                                  or self._carry_ovl_fp != ovl_fp):
-            # the signature cache's scores were filled under another
-            # profile's ScoreConfig, or its fit_ok under another
-            # nominated-pod overlay: invalidate it (sig 0 never matches)
-            carry = with_cache_sig(carry, 0)
-            self._device_carry = carry
-        self._carry_profile = profile.name
-        self._carry_ovl_fp = ovl_fp
-        if carry is None:
-            # reseed device state from the host snapshot; pending commits
-            # mutate the cache the snapshot is built from, so they land
-            # first
-            self._drain_pending()
-            self.cache.update_snapshot(self.snapshot)
-            self.state.apply_snapshot(self.snapshot)
-        batch = self.builder.build([q.pod for q in qpis],
-                                   pad_to=self.batch_size)
-        self._refuse_unsupported(qpis, batch)
-        na = self.state.device_arrays()
-        # group kernels are needed when any signature row carries spread or
-        # inter-pod affinity constraints, or when existing cluster pods do
-        # (affinity is symmetric: they veto/score any incoming pod)
-        groups_needed = (
-            self.builder.groups.any_groups()
-            or bool(self.snapshot.have_pods_with_affinity_list)
-            or bool(self.snapshot.have_pods_with_required_anti_affinity_list))
-        if gang is not None and (
-                groups_needed or (batch.sig[:len(qpis)] == 0).any()
-                or not batch.valid[:len(qpis)].all()):
-            # group kernels and host-port signatures are outside the gang
-            # program: this gang rides the generic path (per-pod
-            # placement, the Permit barrier at commit)
-            self.gang_dispatch["fallback"] += 1
-            gang = None
-        table_reset = self.builder.reset_count != self._builder_reset_seen
-        self._builder_reset_seen = self.builder.reset_count
-        capacity = (self.builder.groups.device_rows(), na.used.shape[0])
-        if carry is not None and (
-                table_reset or carry.used.shape != na.used.shape
-                or groups_needed != (carry.groups is not None)
-                or (groups_needed and capacity != self._gd_capacity)):
-            # structural change (every signature id / group row
-            # invalidated, the node bucket or the group-row capacity
-            # moved): reseed from the host snapshot
-            carry = None
-            self._drain_pending()
-            self.cache.update_snapshot(self.snapshot)
-            self.state.apply_snapshot(self.snapshot)
-            na = self.state.device_arrays()
-        if carry is None:
-            gcarry = None
-            self._gd_dev = self._gd_fam = None
-            if groups_needed:
-                gd_np, gc_np = self.builder.groups.build_dev(self.snapshot)
-                self._gd_dev = to_device(gd_np, self.device)
-                gcarry = to_device(gc_np, self.device)
-                self._gd_fam = self.builder.groups.families(self.snapshot)
-            self._gd_capacity = capacity
-            self._seeded_rows = self.builder.table_used
-            carry = initial_carry(na, gcarry)
-        elif groups_needed and self.builder.table_used > self._seeded_rows:
-            # new signature rows while the carry is resident: seed just
-            # those rows from the live snapshot (assumes included) and
-            # scatter them in. Pending commits land first: the seeds count
-            # them.
-            self._drain_pending()
+        t_entry = _time.perf_counter()
+        did = self._drain_seq = self._drain_seq + 1
+        ph: dict[str, float] = {}
+        with self.tracer.span("host_build", pods=len(qpis), drain=did), \
+                self.phase_track.scope("host_build"):
             carry = self._device_carry
-            if carry is None or ((self.builder.groups.device_rows(),
-                                  na.used.shape[0]) != self._gd_capacity):
-                # a bind error invalidated the carry, or the commits
-                # interned rows past the pow2 capacity of the resident
-                # group tensors: restart against reseeded state
-                self._invalidate_device_state()
-                return self._dispatch_device_drain(qpis, profile)
-            self.cache.update_snapshot(self.snapshot)
-            self._gd_dev, gcarry = scatter_new_rows(
-                self._gd_dev, carry.groups, self.builder.groups,
-                self.snapshot, self._seeded_rows, self.builder.table_used)
-            self._gd_fam = self.builder.groups.families(self.snapshot)
-            carry = carry._replace(groups=gcarry)
-            self._seeded_rows = self.builder.table_used
-        if (self._table_dev is None
-                or self._table_dev_version != batch.table_version):
-            self._table_dev = table_from_batch(batch, self.device)
-            self._table_dev_version = batch.table_version
-        table = self._table_dev
-        n = len(qpis)
-        ovl = nom = None
-        if self.queue.nominator.nominated_pods:
-            # re-validate at the dispatch site: nominations may have moved
-            # since _schedule_batch's entry check; group counts cannot
-            # take a resource-only overlay
-            if groups_needed or not self._overlay_eligible(qpis):
-                self._refuse_host_path(qpis)
-            ovl = self._build_overlay(na)
-            nom = self._nominated_rows(qpis)
-            if gang is not None:
-                # the overlay is outside the gang program
+            nominator = self.queue.nominator
+            ovl_fp = nominator.version if nominator.nominated_pods else -1
+            if carry is not None and (self._carry_profile != profile.name
+                                      or self._carry_ovl_fp != ovl_fp):
+                # the signature cache's scores were filled under another
+                # profile's ScoreConfig, or its fit_ok under another
+                # nominated-pod overlay: invalidate it (sig 0 never
+                # matches)
+                carry = with_cache_sig(carry, 0)
+                self._device_carry = carry
+            self._carry_profile = profile.name
+            self._carry_ovl_fp = ovl_fp
+            if carry is None:
+                # reseed device state from the host snapshot; pending
+                # commits mutate the cache the snapshot is built from, so
+                # they land first
+                with self._phase("host_snapshot", ph):
+                    self._drain_pending()
+                    self.cache.update_snapshot(self.snapshot)
+                    self.state.apply_snapshot(self.snapshot)
+            with self._phase("host_tensorize", ph):
+                batch = self.builder.build([q.pod for q in qpis],
+                                           pad_to=self.batch_size)
+            self._refuse_unsupported(qpis, batch)
+            na = self.state.device_arrays()
+            # group kernels are needed when any signature row carries
+            # spread or inter-pod affinity constraints, or when existing
+            # cluster pods do (affinity is symmetric: they veto/score any
+            # incoming pod)
+            groups_needed = (
+                self.builder.groups.any_groups()
+                or bool(self.snapshot.have_pods_with_affinity_list)
+                or bool(self.snapshot
+                        .have_pods_with_required_anti_affinity_list))
+            if gang is not None and (
+                    groups_needed or (batch.sig[:len(qpis)] == 0).any()
+                    or not batch.valid[:len(qpis)].all()):
+                # group kernels and host-port signatures are outside the
+                # gang program: this gang rides the generic path (per-pod
+                # placement, the Permit barrier at commit)
                 self.gang_dispatch["fallback"] += 1
                 gang = None
-        carry, records = self._dispatch_runs(
-            profile, na, carry, batch, table, n, groups_needed, ovl=ovl,
-            nom=nom, gang=(gang[1] if gang is not None else None))
+            table_reset = self.builder.reset_count != self._builder_reset_seen
+            self._builder_reset_seen = self.builder.reset_count
+            capacity = (self.builder.groups.device_rows(), na.used.shape[0])
+            if carry is not None and (
+                    table_reset or carry.used.shape != na.used.shape
+                    or groups_needed != (carry.groups is not None)
+                    or (groups_needed and capacity != self._gd_capacity)):
+                # structural change (every signature id / group row
+                # invalidated, the node bucket or the group-row capacity
+                # moved): reseed from the host snapshot
+                carry = None
+                with self._phase("host_snapshot", ph):
+                    self._drain_pending()
+                    self.cache.update_snapshot(self.snapshot)
+                    self.state.apply_snapshot(self.snapshot)
+                na = self.state.device_arrays()
+            with self._phase("host_group_seed", ph, groups=groups_needed):
+                if carry is None:
+                    gcarry = None
+                    self._gd_dev = self._gd_fam = None
+                    if groups_needed:
+                        gd_np, gc_np = self.builder.groups.build_dev(
+                            self.snapshot)
+                        self._gd_dev = to_device(gd_np, self.device)
+                        gcarry = to_device(gc_np, self.device)
+                        self._gd_fam = self.builder.groups.families(
+                            self.snapshot)
+                    self._gd_capacity = capacity
+                    self._seeded_rows = self.builder.table_used
+                    carry = initial_carry(na, gcarry)
+                elif (groups_needed
+                      and self.builder.table_used > self._seeded_rows):
+                    # new signature rows while the carry is resident: seed
+                    # just those rows from the live snapshot (assumes
+                    # included) and scatter them in. Pending commits land
+                    # first: the seeds count them.
+                    self._drain_pending()
+                    carry = self._device_carry
+                    if carry is None or (
+                            (self.builder.groups.device_rows(),
+                             na.used.shape[0]) != self._gd_capacity):
+                        # a bind error invalidated the carry, or the
+                        # commits interned rows past the pow2 capacity of
+                        # the resident group tensors: restart against
+                        # reseeded state
+                        self._invalidate_device_state()
+                        return self._dispatch_device_drain(qpis, profile)
+                    self.cache.update_snapshot(self.snapshot)
+                    self._gd_dev, gcarry = scatter_new_rows(
+                        self._gd_dev, carry.groups, self.builder.groups,
+                        self.snapshot, self._seeded_rows,
+                        self.builder.table_used)
+                    self._gd_fam = self.builder.groups.families(
+                        self.snapshot)
+                    carry = carry._replace(groups=gcarry)
+                    self._seeded_rows = self.builder.table_used
+            with self._phase("host_cache", ph):
+                if (self._table_dev is None
+                        or self._table_dev_version != batch.table_version):
+                    self._table_dev = table_from_batch(batch, self.device)
+                    self._table_dev_version = batch.table_version
+                table = self._table_dev
+                n = len(qpis)
+                ovl = nom = None
+                if self.queue.nominator.nominated_pods:
+                    # re-validate at the dispatch site: nominations may
+                    # have moved since _schedule_batch's entry check;
+                    # group counts cannot take a resource-only overlay
+                    if groups_needed or not self._overlay_eligible(qpis):
+                        self._refuse_host_path(qpis)
+                    ovl = self._build_overlay(na)
+                    nom = self._nominated_rows(qpis)
+                    if gang is not None:
+                        # the overlay is outside the gang program
+                        self.gang_dispatch["fallback"] += 1
+                        gang = None
+        t0 = _time.perf_counter()
+        ph["host_build"] = t0 - t_entry
+        with self.tracer.span("device_dispatch", pods=n,
+                              groups=groups_needed, drain=did,
+                              batch_bucket=len(batch.valid)) as ds:
+            with self.phase_track.scope("device"):
+                carry, records = self._dispatch_runs(
+                    profile, na, carry, batch, table, n, groups_needed,
+                    ovl=ovl, nom=nom,
+                    gang=(gang[1] if gang is not None else None))
+            ds.set(runs=",".join(r.kind for r in records))
+        ph["device_dispatch"] = _time.perf_counter() - t0
         self._device_carry = carry
         self.device_batches += 1
+        # on-device cluster analytics over the post-drain carry: every
+        # input is already on the device; the result rides the drain's
+        # event and resolves at commit
+        with self.tracer.span("cluster_probe", drain=did):
+            dom = self._gang_domains(na, need=True)
+            probe = cluster_probe(na, carry, dom, self._gang_ndom)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -946,7 +1026,21 @@ class Scheduler:
         self._pending.append(_PendingDrain(
             qpis=qpis, profile=profile, batch=batch, table=table, na=na,
             n=n, groups_needed=groups_needed, records=records, done=done,
-            ovl=ovl, nom=nom, gang=gang))
+            ovl=ovl, nom=nom, gang=gang, drain_id=did, phases=ph,
+            probe=probe, span=ds))
+
+    @contextmanager
+    def _phase(self, name: str, ph: dict, **attrs):
+        """Time one host-build sub-phase: a tracer child span, an entry in
+        `ph` (the drain's phase seconds) and the PhaseTrack mark."""
+        t0 = _time.perf_counter()
+        self.phase_track.push(name)
+        try:
+            with self.tracer.span(name, **attrs):
+                yield
+        finally:
+            self.phase_track.pop()
+            ph[name] = ph.get(name, 0.0) + (_time.perf_counter() - t0)
 
     def _nominated_rows(self, qpis: list[QueuedPodInfo]):
         """i32 [n] node row of each drain pod's OWN nomination (-1 =
@@ -1165,11 +1259,15 @@ class Scheduler:
 
     def _gang_domains(self, na, need: bool):
         """Device i32 [N] topology-domain id per node row for the gang
-        contiguity column: the node's zone label, or a unique per-node
-        domain when unlabeled, interned in node_index order. Identity ids
-        when the contiguity weight is off (the kernel never reads them).
-        Cached until the static node columns or the node bucket move."""
-        key = (self.state.statics_gen, na.used.shape[0], need)
+        contiguity column and the cluster probe: the node's zone label,
+        or a unique per-node domain when unlabeled, interned in
+        node_index order. Identity ids when the contiguity weight is off
+        (the kernel never reads them). Cached until the static node
+        columns or the node bucket move: the key is the JAX package's
+        (statics_gen, N), so ids first built without `need` (a gang
+        scan at contiguity weight 0) stay identity ids for the probe
+        too, as they do there."""
+        key = (self.state.statics_gen, na.used.shape[0])
         if self._gang_dom is not None and self._gang_dom_key == key:
             return self._gang_dom
         N = na.used.shape[0]
@@ -1186,6 +1284,9 @@ class Scheduler:
                 dom[idx] = ids.setdefault(zone, len(ids))
         self._gang_dom = dom_from_numpy(dom, self.device)
         self._gang_dom_key = key
+        # the probe's domain count: stable per topology (changes only
+        # when the id mapping is rebuilt)
+        self._gang_ndom = int(dom.max()) + 1 if N else 1
         return self._gang_dom
 
     def _gang_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,
@@ -1296,7 +1397,11 @@ class Scheduler:
         then the host commit."""
         pd = self._pending.popleft()
         out = np.full((pd.n,), -1, np.int32)
-        self._resolve_records(pd, out)
+        t0 = _time.perf_counter()
+        with self.phase_track.scope("device"):
+            self._resolve_records(pd, out)
+        # readback wait (near zero when the drain's event had fired)
+        pd.phases["device_wait"] = _time.perf_counter() - t0
         names = self.state.node_names
         assigned = out[out >= 0]
         if ((out < -1).any() or (out >= len(names)).any()
@@ -1426,10 +1531,50 @@ class Scheduler:
         st["first_prefix"].append(prefix)
 
     def _commit_assignments(self, pd: _PendingDrain, out) -> int:
-        """Host commit of a resolved drain: bulk assume + bind enqueue for
-        the hook-free placed pods, the Reserve / Permit chain for gang
-        members outside an accepted gang drain, failure handling for the
-        rest."""
+        """Host commit of a resolved drain under the `commit` phase mark,
+        timed into the drain's phases and its device_dispatch span; then
+        the drain's cluster probe resolves into `_last_probe`."""
+        t0 = _time.perf_counter()
+        with self.phase_track.scope("commit"):
+            bound = self._commit_assignments_inner(pd, out)
+        commit_s = _time.perf_counter() - t0
+        pd.phases["commit"] = pd.phases.get("commit", 0.0) + commit_s
+        pd.span.set(commit_start=t0, commit_s=commit_s)
+        totals = self.drain_phase_seconds
+        for name, secs in pd.phases.items():
+            totals[name] = totals.get(name, 0.0) + secs
+        probe_snap = self._resolve_probe(pd)
+        if probe_snap:
+            self._last_probe = probe_snap
+        return bound
+
+    def _resolve_probe(self, pd: _PendingDrain) -> dict:
+        """A drain's cluster_probe result as the snapshot dict the JAX
+        package serves at /debug/cluster. The tensors were launched before
+        the drain's event, which the commit has waited on, so the copy
+        does not stall."""
+        if pd.probe is None:
+            return {}
+        per_res = pd.probe[0].cpu().numpy()
+        dom = pd.probe[1].cpu().numpy()
+        valid = int(pd.probe[2])
+        rnames = self.state.rtable.names
+        resources: dict = {}
+        for r in range(min(len(rnames), per_res.shape[0])):
+            row = per_res[r]
+            resources[rnames[r]] = {
+                stat: round(float(row[i]), 6)
+                for i, stat in enumerate(PROBE_STATS)}
+        domains = {stat: round(float(dom[i]), 6)
+                   for i, stat in enumerate(PROBE_DOM_STATS)}
+        return {"t": round(self.clock(), 6), "drainId": pd.drain_id,
+                "validNodes": valid, "resources": resources,
+                "domains": domains}
+
+    def _commit_assignments_inner(self, pd: _PendingDrain, out) -> int:
+        """Bulk assume + bind enqueue for the hook-free placed pods, the
+        Reserve / Permit chain for gang members outside an accepted gang
+        drain, failure handling for the rest."""
         qpis = pd.qpis
         profile = pd.profile
         n = pd.n

@@ -104,8 +104,15 @@ def gang_xs_from_numpy(src, device) -> GangXs:
 
 def dom_from_numpy(dom, device) -> torch.Tensor:
     """The i32 [N] topology-domain id of every node row (the gang scan
-    tier's contiguity column)."""
-    return _tensor(dom, _I32, device)
+    tier's contiguity column and the cluster probe's domains). On a CUDA
+    device the copy goes through pinned memory without blocking: the
+    probe asks for the ids right after the drain's launches, and a
+    pageable copy would wait for them."""
+    arr = np.ascontiguousarray(np.asarray(dom, dtype=np.int32))
+    t = torch.from_numpy(arr)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def groups_dev_from_numpy(src, device) -> GroupsDev:

@@ -36,12 +36,21 @@ torch.set_num_threads(1)
 def private_jax_compiles():
     """Keep the port's parity tests out of the persistent JAX compilation
     cache the suite shares: they neither seed nor consume the entries the
-    reference package's own timing tests compile."""
+    reference package's own timing tests compile.
+
+    JAX decides once, at its first compile, whether it uses the
+    persistent cache, and remembers the answer; toggling the config alone
+    changes nothing after that. So the decision is reset on the way in
+    (the module's compiles see the cache off) and on the way out (the
+    next module's compiles see the setting it had before)."""
     import jax
+    from jax._src import compilation_cache
     before = jax.config.jax_enable_compilation_cache
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     yield
     jax.config.update("jax_enable_compilation_cache", before)
+    compilation_cache.reset_cache()
 
 
 def staged(nodes, bound=(), pods=(), n_bucket=32, pad_to=64):

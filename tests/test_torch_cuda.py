@@ -7,9 +7,11 @@ hold the kernels to the plain versions). On a machine with the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerance: exact equality of assignments, packed flags, every carry field
-and the whole SigCache."""
+and the whole SigCache; the cluster probe's float32 outputs bit for bit
+against the plain version on the CPU."""
 
 import random
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -770,3 +772,65 @@ def test_run_gang_kernels_full_width(cuda):
     batch = builder.build(mixed)
     table = P.table_from_batch(batch, cuda)
     _gang_scan_check(na, batch, table, 60, 64, 60, 2, 16, cuda)
+
+
+# ---------------------------------------------------------------------------
+# observability: the cluster probe and the score decomposition
+
+
+def _cpu(tree):
+    if tree is None or isinstance(tree, (bool, int)):
+        return tree
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    return type(tree)(*(_cpu(x) for x in tree))
+
+
+def _probe_inputs(rng, N, R, ndom, device):
+    import numpy as np
+    cap = (rng.randint(0, 6, (N, R)) * rng.choice([1, 1000, 2 ** 33 + 5])
+           ).astype(np.int64)
+    used = (cap * rng.rand(N, R)).astype(np.int64)
+    used[::5] = cap[::5]                      # some saturated nodes
+    valid = rng.rand(N) < 0.9
+    npods = rng.randint(0, 110, N).astype(np.int32)
+    dom = rng.randint(-1, ndom + 1, N).astype(np.int32)
+    return [torch.from_numpy(x).to(device)
+            for x in (cap, valid, used, npods, dom)]
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (37, 3, 5), (8192, 4, 16),
+                                   (8192, 4, 5000), (65536, 2, 65536)])
+def test_cluster_probe_kernel_equals_plain(cuda, shape):
+    import numpy as np
+    N, R, ndom = shape
+    cap, valid, used, npods, dom = _probe_inputs(
+        np.random.RandomState(N + R), N, R, ndom, cuda)
+    got = P.cluster_probe(SimpleNamespace(cap=cap, valid=valid),
+                          SimpleNamespace(used=used, npods=npods), dom,
+                          ndom)
+    want = P._probe_plain(cap.cpu(), valid.cpu(), used.cpu(), npods.cpu(),
+                          dom.cpu(), ndom)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.cpu().view(torch.int32) if a.dtype ==
+                           torch.float32 else a.cpu(),
+                           b.view(torch.int32) if b.dtype == torch.float32
+                           else b)
+
+
+@pytest.mark.parametrize("groups", [False, True])
+@pytest.mark.parametrize("k", [1, 5, 16])
+def test_explain_row_kernel_equals_plain(cuda, groups, k):
+    nodes, existing, pods = _diag_cases()
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    carry = P.initial_carry(na, gc if groups else None)
+    kw = dict(gd=gd, fam=fam) if groups else {}
+    cfg = P.ScoreConfig()
+    for u in sorted(set(int(t) for t in batch.tidx[:len(pods)])):
+        got = P.explain_row(cfg, na, carry, table, u, k=k, **kw)
+        want = P._explain_plain(cfg, _cpu(na), _cpu(carry), _cpu(table), u,
+                                k, _cpu(gd) if groups else None,
+                                fam if groups else None)
+        _equal(got, want)

@@ -25,6 +25,10 @@ def test_import_pulls_in_no_jax():
             "import kubernetes_tpu_torch.scheduler\n"
             "import kubernetes_tpu_torch.ops.kernels\n"
             "import kubernetes_tpu_torch.state.convert\n"
+            "import kubernetes_tpu_torch.obs.explain\n"
+            "import kubernetes_tpu_torch.perf.harness\n"
+            "import kubernetes_tpu_torch.utils.runtime\n"
+            "import kubernetes_tpu_torch.utils.tracing\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'kubernetes_tpu' "
             "or m.startswith('kubernetes_tpu.'))\n"
@@ -74,3 +78,33 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
     with pytest.raises(RuntimeError, match="unsupported device"):
         program.run_batch(program.ScoreConfig(), na, carry,
                           program.PodXs(None, None, None), None)
+
+
+def test_harness_import_needs_no_yaml():
+    """The card's machine has no pyyaml: importing the harness (as
+    chip_smoke does) must not import it; only load_test_cases does."""
+    code = ("import sys\n"
+            "import kubernetes_tpu_torch.perf.harness\n"
+            "assert 'yaml' not in sys.modules\n"
+            "print('clean')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+@pytest.mark.parametrize("wrapper,args", [
+    ("cluster_probe", lambda P, na, carry: (na, carry, None, 1)),
+    ("explain_row", lambda P, na, carry: (P.ScoreConfig(), na, carry, None,
+                                          0, 1)),
+])
+def test_new_kernel_wrappers_refuse_non_cuda_devices(wrapper, args):
+    from kubernetes_tpu_torch.ops import program
+    from kubernetes_tpu_torch.state.convert import node_arrays_from_numpy
+    from kubernetes_tpu_torch.state.tensorize import Dims, _zero_arrays
+    na = node_arrays_from_numpy(_zero_arrays(Dims()), "meta")
+    carry = program.initial_carry(na)
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        getattr(program, wrapper)(*args(program, na, carry))
