@@ -25,7 +25,9 @@ Phases, each reported on its own line:
      nodes with k = 16 and k = 5 (some rows with fewer feasible nodes
      than k); after phase 4, cluster_probe on SchedulingBasic's own
      post-drain carry with zone, per-node, identity and clipped domain
-     ids;
+     ids, and score_probe (the sanitizer rails' NaN probe) on every
+     table row of that carry, bit for bit through its float32 outputs'
+     int32 view;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -58,7 +60,17 @@ Phases, each reported on its own line:
  15. gang rejection and gang-preempts-gang at 5,000 nodes of 8 cpu: a
      gang rejected on run_gang's closed form, one on its scan tier, and
      a priority-100 gang that is rejected, preempts priority-0 gang
-     members and binds after its requeue.
+     members and binds after its requeue;
+ 16. the sanitizer rails (KubeSchedulerConfiguration(feature_gates=
+     {"SanitizerRails": True})) on SchedulingBasic, TopologySpreading,
+     MixedHighSignature, PreemptionChurn, GangTraining and
+     CoLocatedInference at full width: each bind map equal to the cell's
+     rails-off card run, one score_probe launch and one armed sync guard
+     per device drain, reconcile() == []; then an `.item()` inside the
+     guard must raise, and a write through `.data` into a held carry
+     must fail the held-carry checksum. Each cell logs its rails-on
+     pods/s beside its rails-off figure (the rails' cost, not a
+     benchmark figure).
 Phases 4, 6, 7 and 9-14 run through kubernetes_tpu_torch.perf.harness's
 WorkloadRunner (the reference harness's measured window: pods built
 inside it, the cyclic collector paused) and log the harness's pods/s,
@@ -1787,6 +1799,66 @@ def check_cluster_probe(torch, pkg, sched, rows: list) -> None:
         bound_by=bound_by, library_ms=lib_ms, device_ms=dev_ms))
 
 
+def score_probe_bytes(cfg, na, carry, table, u: int, out) -> int:
+    """Bytes score_probe must move on this run's data, each read once:
+    per valid row the scored columns of cap and used and the nonzero
+    slots the fit reads; the row's request, nonzero request and
+    skip_balanced bit; the two outputs over every row (padded rows get
+    their constants written)."""
+    nv = int(np_of(na.valid).sum())
+    C = len(cfg.score_cols)
+    slots = {s for s, nz in zip(cfg.nonzero_slot, cfg.col_nonzero) if nz}
+    per_row = (C * (na.cap.element_size() + carry.used.element_size())
+               + len(slots) * carry.nonzero_used.element_size())
+    return (nv * per_row + nbytes(table.req[u], table.nonzero_req[u],
+                                  table.skip_balanced[u]) + nbytes(out))
+
+
+def check_score_probe(torch, pkg, sched, rows: list) -> None:
+    """score_probe (the sanitizer rails' NaN probe) on SchedulingBasic's
+    post-drain carry (N = 8,192): every table row the run used against
+    the plain version on the CPU, bit for bit through the float32
+    outputs' int32 view; timed on row 0, the first row of every one of
+    its drains."""
+    P = pkg.program
+    na = sched.state.device_arrays()
+    carry, table = sched._device_carry, sched._table_dev
+    if carry is None or table is None:
+        fail("score_probe: SchedulingBasic left no resident carry or table")
+    cfg = sched.profiles["default-scheduler"].score_config
+    cpu = [to_cpu(x) for x in (na, carry, table)]
+    used_rows = int(sched.builder.table_used)
+    for u in range(used_rows):
+        probe_equal(torch, P.score_probe(cfg, na, carry, table, u),
+                    P._score_probe_plain(cfg, *cpu, u), f"score_probe[{u}]")
+    u = 0
+    out = P.score_probe(cfg, na, carry, table, u)
+    for what, t in zip(("total", "std"), out):
+        if not bool(torch.isfinite(t).all()):
+            fail(f"score_probe: non-finite {what} on a healthy carry")
+    k_ms = cuda_ms(torch, lambda: P.score_probe(cfg, na, carry, table, u), 50)
+    dev_ms = device_ms(torch, lambda: P.score_probe(cfg, na, carry, table,
+                                                    u), 50)
+    plain_ms = cuda_ms(torch, lambda: P._score_probe_plain(
+        cfg, na, carry, table, u), 10)
+    moved = score_probe_bytes(cfg, na, carry, table, u, out)
+    nv = int(np_of(na.valid).sum())
+    ops = score_ops(len(cfg.score_cols), 0, True) * nv
+    bound_ms, bound_by = bound_of(moved, ops)
+    N, R = na.cap.shape
+    log("kernel", name="score_probe", exact=True, max_abs_err=0.0,
+        ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=None,
+        library="none (no single PyTorch call)", bound_ms=bound_ms,
+        bound_by=bound_by, ops=vars(ops), bytes=moved, N=N, R=R,
+        rows_checked=used_rows, tidx=u)
+    rows.append(dict(
+        name="score_probe", route="cuda",
+        source="kubernetes_tpu_torch/csrc/score_probe.cu",
+        replaces="kubernetes_tpu/ops/program.py:767", launches=0,
+        max_abs_err=0.0, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, device_ms=dev_ms))
+
+
 def to_cpu(tree):
     import torch
     if tree is None or isinstance(tree, (bool, int)):
@@ -2456,22 +2528,26 @@ HOST_SPANS = ("scheduling_cycle", "schedule_batch", "host_build",
               "dispatcher_flush")
 
 
-def cell_run(device: str, pkg, name: str, clock=None):
+def cell_run(device: str, pkg, name: str, clock=None, rails=False):
     """One cell of CELLS through kubernetes_tpu_torch.perf.harness's
     WorkloadRunner at full width: the harness's measured window (pods
     built inside it, the cyclic collector paused), a Tracer keeping every
     drain's span tree, and a clock that stands still unless the caller
-    moves it. Returns a namespace of the API server, the scheduler, the
-    runner, the measured DataItem and its pods/s."""
+    moves it; with `rails`, the Scheduler's config turns the
+    SanitizerRails gate on. Returns a namespace of the API server, the
+    scheduler, the runner, the measured DataItem and its pods/s."""
+    from kubernetes_tpu_torch.config import KubeSchedulerConfiguration
     from kubernetes_tpu_torch.perf.harness import (TestCase, Workload,
                                                    WorkloadRunner)
     from kubernetes_tpu_torch.scheduler import Scheduler
     cell = CELLS[name]
     clock = clock or SimpleNamespace(t=1000.0)
+    config = (KubeSchedulerConfiguration(
+        feature_gates={"SanitizerRails": True}) if rails else None)
 
     def factory(api):
         return Scheduler(api, batch_size=BATCH, device=device,
-                         clock=lambda: clock.t)
+                         clock=lambda: clock.t, config=config)
 
     runner = WorkloadRunner(scheduler_factory=factory, batch_size=BATCH,
                             create_batch=CREATE_BATCH, trace=True)
@@ -2576,6 +2652,11 @@ def explain_uid(run) -> str:
     return max(bound, key=lambda u: (len(u), u))
 
 
+# each cell's rails-off card run: (bind map and pending pods, pods/s),
+# what phase 16 holds its rails-on run to
+RAILS_OFF: dict = {}
+
+
 def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
     """One cell on the card and on the CPU. The launch counts cover the
     card's run, its explain_pod call and `post(run)` (a step after the
@@ -2604,7 +2685,8 @@ def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
     cpu = cell_run("cpu", pkg, name)
     if post is not None:
         post(cpu)
-    if outcome(run.api, run.sched) != outcome(cpu.api, cpu.sched):
+    RAILS_OFF[name] = (outcome(run.api, run.sched), run.rate)
+    if RAILS_OFF[name][0] != outcome(cpu.api, cpu.sched):
         fail(f"{name}: cuda bind map differs from the cpu run")
     if probe_state(run.sched) != probe_state(cpu.sched):
         fail(f"{name}: the final cluster probe differs from the cpu run: "
@@ -3074,6 +3156,98 @@ def gang_reject_phase(torch, pkg, device: str, smi: str) -> dict:
     return counts
 
 
+# phase 16: the sanitizer rails on the card. GangTraining joins the five
+# cells the rails cover for its closed-form gangs, the other carry a
+# dispatched run holds
+RAILS_CELLS = ("SchedulingBasic", "TopologySpreading", "MixedHighSignature",
+               "PreemptionChurn", "GangTraining", "CoLocatedInference")
+
+
+def rails_phase(torch, pkg, device: str, smi: str) -> dict:
+    """Phase 16: each of RAILS_CELLS at full width with the SanitizerRails
+    gate on (the sync guard armed on every dispatch, one score_probe per
+    device drain, the held-carry check at every commit of a run that
+    kept its carry), its bind map held to its rails-off card run; then
+    the guard's and the held-carry checksum's negative checks. Returns
+    the launch counts summed over the cells."""
+    from kubernetes_tpu_torch.analysis.rails import (GLOBAL as RAILS,
+                                                     SanitizerError)
+    total = {k: 0 for k in pkg.kernels.LAUNCHES}
+    try:
+        for name in RAILS_CELLS:
+            post = _take_back_preemptors if name == "PreemptionChurn" \
+                else None
+            pkg.kernels.reset_launches()
+            guarded0, held0 = RAILS.guarded_dispatches, RAILS.held_checks
+            staged0 = RAILS.staged_bytes
+            run = cell_run(device, pkg, name, rails=True)
+            if post is not None:
+                post(run)
+            torch.cuda.synchronize()
+            counts = dict(pkg.kernels.LAUNCHES)
+            sched = run.sched
+            guarded = RAILS.guarded_dispatches - guarded0
+            if not RAILS.active or sched.device_batches <= 0:
+                fail(f"rails {name}: the gate did not arm the rails")
+            if outcome(run.api, sched) != RAILS_OFF[name][0]:
+                fail(f"rails {name}: bind map differs from the rails-off "
+                     "card run")
+            if counts["score_probe"] != sched.device_batches:
+                fail(f"rails {name}: {counts['score_probe']} score probes "
+                     f"for {sched.device_batches} device drains")
+            if guarded != sched.device_batches:
+                fail(f"rails {name}: the sync guard armed {guarded} times "
+                     f"for {sched.device_batches} device drains")
+            if sched.reconcile() != []:
+                fail(f"rails {name}: device carry diverges from the host "
+                     "cache")
+            log("sanitizer_rails", cell=name, card=smi,
+                pods_per_s=run.rate, rails_off_pods_per_s=RAILS_OFF[name][1],
+                window_s=run.item.duration_s,
+                device_batches=sched.device_batches,
+                guarded_dispatches=guarded,
+                held_checks=RAILS.held_checks - held0,
+                staged_bytes=RAILS.staged_bytes - staged0,
+                uniform_rewinds=sched.uniform_rewinds,
+                gang_replays=sched.gang_replays, launches=counts,
+                bind_map_equals_rails_off=True)
+            for k, v in counts.items():
+                total[k] += v
+        # an undeclared synchronizing call inside the guard raises, and
+        # the guard restores the sync debug mode it found
+        x = torch.ones(4, device=device)
+        with RAILS.enabled(True):
+            try:
+                with RAILS.guard_dispatch(device):
+                    x.sum().item()
+            except RuntimeError as e:
+                tripped = str(e).splitlines()[0]
+            else:
+                fail("rails: .item() inside guard_dispatch did not raise")
+        if torch.cuda.get_sync_debug_mode() != 0:
+            fail("rails: the guard left the sync debug mode armed")
+        # a write through `.data` moves no version counter: only the
+        # device checksum of the held carry sees it
+        carry = pkg.program.initial_carry(sched.state.device_arrays())
+        with RAILS.enabled(True):
+            held = RAILS.hold(carry)
+            version = carry.used._version
+            carry.used.data.add_(1)
+            if carry.used._version != version:
+                fail("rails: .data write moved the version counter")
+            try:
+                RAILS.check_held(held, "negative check")
+            except SanitizerError:
+                pass
+            else:
+                fail("rails: the held-carry checksum missed a device write")
+        log("sanitizer_rails_checks", guard_trips_on_item=tripped,
+            checksum_sees_data_write=True, card=smi)
+    finally:
+        RAILS.enable(False)
+    return total
+
+
 def wave_stats(sched) -> dict:
     """The scheduler's summed run_wave and run_plan stats, JSON-ready."""
     st = dict(sched.wave_stats)
@@ -3218,6 +3392,7 @@ def main() -> int:
     # against its plain version on this run's own post-drain carry
     sb_counts, sb_run = basic_phase(torch, pkg, device, smi)
     check_cluster_probe(torch, pkg, sb_run.sched, rows)
+    check_score_probe(torch, pkg, sb_run.sched, rows)
     del sb_run
 
     # phase 5: the mixed lean workload (plan and scan spans, rewinds,
@@ -3289,6 +3464,9 @@ def main() -> int:
     sna_counts = node_affinity_phase(torch, pkg, device, smi)
     gr_counts = gang_reject_phase(torch, pkg, device, smi)
 
+    # phase 16: the sanitizer rails on six cells at full width
+    rails_counts = rails_phase(torch, pkg, device, smi)
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
@@ -3297,7 +3475,8 @@ def main() -> int:
              "mixed_high_signature": mhs_counts,
              "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts,
              "gang_training": gt_counts, "colocated_inference": ci_counts,
-             "node_affinity": sna_counts, "gang_reject_preempt": gr_counts}
+             "node_affinity": sna_counts, "gang_reject_preempt": gr_counts,
+             "sanitizer_rails": rails_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -40,6 +40,7 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 
 from ..ops.program import PLAN_MAX_SIGS
+from ..state.batch import PodBatch
 from .surfaces import SurfaceCache
 
 # plan cache bound (structural keys are small; drains repeat heavily)
@@ -71,7 +72,7 @@ class DrainCompiler:
     def __post_init__(self):
         self.surfaces = SurfaceCache(self.state, self.builder)
 
-    def compile_drain(self, batch, n: int, *, groups_needed: bool = False,
+    def compile_drain(self, batch: PodBatch, n: int, *, groups_needed: bool = False,
                       gang_needed=None, overlay: bool = False,
                       nominated: bool = False,
                       strategy: str = "LeastAllocated",
@@ -121,7 +122,7 @@ class DrainCompiler:
             self._plans.popitem(last=False)
         return plan
 
-    def _classify_runs(self, batch, n: int, uniform_min: int):
+    def _classify_runs(self, batch: PodBatch, n: int, uniform_min: int):
         """Split [0, n) into maximal same-signature runs; mark each
         uniform (closed-form eligible) or not; merge adjacent non-uniform
         stretches so they cost one dispatch instead of many."""
@@ -142,7 +143,7 @@ class DrainCompiler:
             i = j
         return runs
 
-    def _classify_wave(self, batch, n: int):
+    def _classify_wave(self, batch: PodBatch, n: int):
         """Whole-drain program for a group drain, or None (the scan):
         ("wave", u, anti_term, merge) for a same-signature port-free drain
         whose row the same-signature program covers; otherwise
@@ -161,7 +162,7 @@ class DrainCompiler:
             return ("wavescan", tuple(int(u) for u in uniq), has_ports)
         return None
 
-    def _lean_span(self, batch, span):
+    def _lean_span(self, batch: PodBatch, span):
         """Upgrade an eligible scan span of a group-free drain to the lean
         plan program; anything ineligible keeps its kind."""
         i, j, kind = span

@@ -443,9 +443,10 @@ __device__ __forceinline__ int64_t kt_least_allocated(const CfgC& cfg,
   return w_sum > 0 ? floordiv(score_sum, w_sum) : 0;
 }
 
-// balanced_allocation (:278): 100·(1 − population std of the fractions)
-__device__ __forceinline__ int64_t kt_balanced(int C, const int64_t* cap,
-                                               const int64_t* used) {
+// the population std (float64) of the utilization fractions of
+// balanced_allocation (:278), before its int floor (score_probe reads it)
+__device__ __forceinline__ double kt_balanced_std(int C, const int64_t* cap,
+                                                  const int64_t* used) {
   double frac[KT_MAX_C];
   bool ok[KT_MAX_C];
   int64_t cnt = 0;
@@ -466,7 +467,13 @@ __device__ __forceinline__ int64_t kt_balanced(int C, const int64_t* cap,
     const double sq = ok[c] ? __dmul_rn(d, d) : 0.0;
     var = c == 0 ? sq : __dadd_rn(var, sq);
   }
-  const double stdv = __dsqrt_rn(__ddiv_rn(var, cntf));
+  return __dsqrt_rn(__ddiv_rn(var, cntf));
+}
+
+// balanced_allocation (:278): 100·(1 − population std of the fractions)
+__device__ __forceinline__ int64_t kt_balanced(int C, const int64_t* cap,
+                                               const int64_t* used) {
+  const double stdv = kt_balanced_std(C, cap, used);
   const double x = __dadd_rn(__dmul_rn(__dsub_rn(1.0, stdv), 100.0), 1e-9);
   return (int64_t)floor(x);
 }

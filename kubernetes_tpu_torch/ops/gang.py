@@ -40,9 +40,9 @@ from typing import NamedTuple
 
 import torch
 
-from .program import (Carry, _fit_scores, _gather_row, _run_uniform_plain,
-                      balanced_allocation, default_normalize, fit_mask,
-                      least_allocated)
+from .program import (RAILS, Carry, _fit_scores, _gather_row,
+                      _run_uniform_plain, balanced_allocation,
+                      default_normalize, fit_mask, least_allocated)
 
 _I64, _I32 = torch.int64, torch.int32
 
@@ -178,6 +178,9 @@ def run_gang(cfg, na, carry: Carry, xs, table, wt=None, needed: int = 0,
     closed form. Never writes into `carry`: the scheduler keeps it to
     replay a failed closed form on the scan tier."""
     dev = carry.used.device
+    # the rails' declared staging of host inputs (ops/program.py)
+    na, carry, xs, table, dom, statics = RAILS.stage(
+        (na, carry, xs, table, dom, statics), dev)
     if dev.type == "cuda":
         from .kernels import run_gang_cuda, run_gang_uniform_cuda
         if uniform:

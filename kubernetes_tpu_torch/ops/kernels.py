@@ -34,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
            "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang",
-           "cluster_probe", "explain_row")
+           "cluster_probe", "explain_row", "score_probe")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean mode, its group mode and its overlay variant
@@ -48,6 +48,9 @@ LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
+# fresh nvcc builds plus library loads per source in this process (the
+# sanitizer rails' retrace budget; a warm process adds none)
+BUILDS = {name: 0 for name in SOURCES}
 
 MAX_C = 8      # csrc/lean_eval.cuh KT_MAX_C
 MAX_IC = 16    # csrc/lean_eval.cuh KT_MAX_IC
@@ -107,11 +110,13 @@ def build() -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
         os.replace(tmp, lib)
+        BUILDS[name] += 1
     BUILD_INFO.update(seconds=time.perf_counter() - t0, tag=tag,
                       built=sorted(procs), ptxas=report)
     for name in SOURCES:
         _LIBS[name] = _bind(name, ctypes.CDLL(
             str(BUILD_DIR / f"lib{name}_{tag}.so")))
+        BUILDS[name] += 1
     return _LIBS
 
 
@@ -288,6 +293,12 @@ class ProbeArgsC(ctypes.Structure):
                                      "valid_count")])
 
 
+class ScoreProbeArgsC(ctypes.Structure):
+    _fields_ = [("na", NodeC), ("tb", TableC), ("cfg", CfgC),
+                ("used", _P), ("nonzero_used", _P), ("tidx", _I),
+                ("total", _P), ("std", _P)]
+
+
 class ExplainArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
@@ -334,6 +345,9 @@ def _bind(name: str, lib):
     elif name == "explain_row":
         lib.ktpu_explain_row.argtypes = [_P, _P]
         lib.ktpu_explain_row.restype = ctypes.c_int
+    elif name == "score_probe":
+        lib.ktpu_score_probe.argtypes = [_P, _P]
+        lib.ktpu_score_probe.restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -763,12 +777,12 @@ def run_gang_uniform_cuda(cfg, na, carry, x, table, n_actual: int,
 def scatter_rows_cuda(dev, idx, rows):
     """The row scatter (csrc/scatter_rows.cu); same contract as
     program.scatter_rows: fresh tensors, dev untouched. `idx` is a host
-    array or tensor; the row map the kernel reads is built from it on the
-    host and copied from pinned memory without blocking."""
+    array or CPU tensor; the row map the kernel reads is built from it on
+    the host and copied from pinned memory without blocking."""
     from ..state.tensorize import NodeArrays
     libs = build()
     device = dev.used.device
-    index = torch.as_tensor(idx, dtype=torch.int64).cpu().numpy()
+    index = np.asarray(idx, dtype=np.int64)
     if index.ndim != 1:
         raise ValueError("scatter_rows: idx must be 1-D")
     D = index.shape[0]
@@ -1253,3 +1267,33 @@ def explain_row_cuda(cfg, na, carry, table, tidx: int, k: int, gd=None,
     _raise_on(rc, "explain_row")
     LAUNCHES["explain_row"] += 1
     return idx, totals, cols, feasible
+
+
+def score_probe_cuda(cfg, na, carry, table, tidx: int):
+    """The score probe (csrc/score_probe.cu) of table row `tidx` at
+    `carry`; same contract as program.score_probe: (total f32 [N], std
+    f32 [N]). One launch on the current stream; reads its inputs only."""
+    libs = build()
+    device = carry.used.device
+    node = _node_c(na, device)
+    N, R = node.N, node.R
+    tab = _table_c(table, R, device)
+    tidx = int(tidx)
+    if not 0 <= tidx < tab.U:
+        raise ValueError(f"score_probe: row {tidx} outside the table")
+    used = _check(carry.used, "carry.used", torch.int64, 2, device)
+    nz = _check(carry.nonzero_used, "carry.nonzero_used", torch.int64, 2,
+                device)
+    if (tuple(carry.used.shape) != (N, R)
+            or tuple(carry.nonzero_used.shape) != (N, 2)):
+        raise ValueError("score_probe: carry.used / nonzero_used shapes")
+    total = torch.empty((N,), dtype=torch.float32, device=device)
+    std = torch.empty((N,), dtype=torch.float32, device=device)
+    args = ScoreProbeArgsC(na=node, tb=tab, cfg=_cfg_c(cfg, R), used=used,
+                           nonzero_used=nz, tidx=tidx,
+                           total=total.data_ptr(), std=std.data_ptr())
+    rc = libs["score_probe"].ktpu_score_probe(ctypes.addressof(args),
+                                              _stream(device))
+    _raise_on(rc, "score_probe")
+    LAUNCHES["score_probe"] += 1
+    return total, std

@@ -7,7 +7,7 @@ program here has two implementations:
 - a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain`,
   `_wave_statics_plain`, `_run_wave_plain`, `_run_plan_plain`,
   `_diagnose_plain`, `_dry_run_select_victims_plain`,
-  `_scatter_rows_plain` and the filter/score
+  `_scatter_rows_plain`, `_score_probe_plain` and the filter/score
   functions below), a line-for-line translation of the JAX
   functions with the same dtypes and the same integer and float
   arithmetic — the CPU path and the reference the CUDA kernels are held
@@ -16,7 +16,9 @@ program here has two implementations:
   inputs lie on a CUDA device.
 
 `run_batch`, `run_uniform`, `wave_statics`, `run_wave`, `run_plan`,
-`diagnose_row`, `dry_run_select_victims` and `scatter_rows` pick by the device of their inputs: CPU
+`diagnose_row`, `dry_run_select_victims`, `scatter_rows`,
+`explain_row`, `cluster_probe` and `score_probe` pick by the device of
+their inputs: CPU
 tensors take the plain version, CUDA tensors launch the kernel, and
 anything else raises. There is no fallback between the two.
 
@@ -41,6 +43,11 @@ from typing import NamedTuple
 import torch
 
 from .groups import group_mask, group_scores, group_update
+# sanitizer rails (analysis/rails.py, `SanitizerRails` gate): with the
+# rails on, every entry stages the host arrays among its inputs (pinned,
+# non-blocking copies, the declared way host values reach the card), and
+# score_probe / cluster_probe report their float outputs to nan_guard
+from ..analysis.rails import GLOBAL as RAILS
 from ..plugins.imagelocality import (MAX_CONTAINER_THRESHOLD as
                                      IMG_MAX_CONTAINER_THRESHOLD,
                                      MIN_THRESHOLD as IMG_MIN_THRESHOLD)
@@ -328,10 +335,10 @@ def least_allocated(cfg: ScoreConfig, cap, used_cols):
                        torch.zeros_like(score_sum))
 
 
-def _balanced_from_fracs(fracs: list, oks: list):
-    """100·(1 − population std of the utilization fractions), the sums taken
-    left to right over the columns; shared by the scan and the closed form
-    so both compute the same bits."""
+def _balanced_std(fracs: list, oks: list):
+    """Population std (float64) of the utilization fractions, the sums
+    taken left to right over the columns; the float surface of
+    BalancedAllocation before its int floor (score_probe reads it)."""
     cnt = oks[0].to(_I64)
     total = fracs[0]
     for ok, f in zip(oks[1:], fracs[1:]):
@@ -344,7 +351,13 @@ def _balanced_from_fracs(fracs: list, oks: list):
         d = f - mean
         sq = torch.where(ok, d * d, torch.zeros_like(d))
         var = sq if var is None else var + sq
-    std = torch.sqrt(var / cntf)
+    return torch.sqrt(var / cntf)
+
+
+def _balanced_from_fracs(fracs: list, oks: list):
+    """100·(1 − population std of the utilization fractions); shared by the
+    scan and the closed form so both compute the same bits."""
+    std = _balanced_std(fracs, oks)
     return torch.floor((1.0 - std) * MAX_SCORE + 1e-9).to(_I64)
 
 
@@ -356,14 +369,18 @@ def _frac(cap, used):
     return ok, torch.where(ok, f, torch.zeros_like(f))
 
 
-def balanced_allocation(cap, used_cols):
-    """balanced_allocation.go:195-237 over [N, C] columns."""
+def _fracs(cap, used_cols):
     oks, fracs = [], []
     for c in range(cap.shape[-1]):
         ok, f = _frac(cap[..., c], used_cols[..., c])
         oks.append(ok)
         fracs.append(f)
-    return _balanced_from_fracs(fracs, oks)
+    return fracs, oks
+
+
+def balanced_allocation(cap, used_cols):
+    """balanced_allocation.go:195-237 over [N, C] columns."""
+    return _balanced_from_fracs(*_fracs(cap, used_cols))
 
 
 def default_normalize(scores, feasible, reverse: bool):
@@ -594,6 +611,8 @@ def run_batch(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pods: PodXs,
         raise ValueError("run_batch: groups and carry.groups go together")
     if overlay is not None and groups is not None:
         raise ValueError("run_batch: the overlay is a lean-scan input")
+    na, carry, pods, table, groups, overlay = RAILS.stage(
+        (na, carry, pods, table, groups, overlay), dev)
     if dev.type == "cuda":
         from .kernels import run_batch_cuda
         return run_batch_cuda(cfg, na, carry, pods, table, groups, fam,
@@ -746,6 +765,7 @@ def run_uniform(cfg: ScoreConfig, na: NodeArrays, carry: Carry, x: PodXs,
     selection; none of the run's pods is nominated. Never writes into
     `carry`: the scheduler keeps it for rewind and replay."""
     dev = carry.used.device
+    na, carry, table, overlay = RAILS.stage((na, carry, table, overlay), dev)
     if dev.type == "cuda":
         from .kernels import run_uniform_cuda
         return run_uniform_cuda(cfg, na, carry, x, table, n_actual, L, K, J,
@@ -771,6 +791,8 @@ def scatter_rows(dev: NodeArrays, idx, rows: NodeArrays) -> NodeArrays:
     (int [D]). Non-writing: returns fresh tensors, because in-flight drains
     still hold the previous copy."""
     device = dev.used.device
+    # the wrapper reads `idx` on the host: only the rows are staged
+    dev, rows = RAILS.stage((dev, rows), device)
     if device.type == "cuda":
         from .kernels import scatter_rows_cuda
         return scatter_rows_cuda(dev, idx, rows)
@@ -800,9 +822,11 @@ def initial_carry(na: NodeArrays, groups=None) -> Carry:
 
 
 def with_cache_sig(carry: Carry, sig: int) -> Carry:
-    """The carry with its signature cache relabelled (sig 0 = invalid)."""
-    return carry._replace(cache=carry.cache._replace(sig=torch.tensor(
-        sig, dtype=_I32, device=carry.cache.sig.device)))
+    """The carry with its signature cache relabelled (sig 0 = invalid): a
+    fill on the device, not a copy from the host, which would wait for
+    the drains still on the stream."""
+    return carry._replace(cache=carry.cache._replace(sig=torch.full(
+        (), sig, dtype=_I32, device=carry.cache.sig.device)))
 
 
 
@@ -860,6 +884,7 @@ def wave_statics(na: NodeArrays, table: PodTableDev, wt,
     selectors, images): a False skips that family (its outputs are the
     identity: mask bits set, counts zero)."""
     dev = na.valid.device
+    na, table = RAILS.stage((na, table), dev)
     if dev.type == "cuda":
         from .kernels import wave_statics_cuda
         return wave_statics_cuda(na, table, wt, feats)
@@ -1156,6 +1181,8 @@ def run_wave(cfg: ScoreConfig, na: NodeArrays, carry: Carry, valid,
     dev = carry.used.device
     if carry.groups is None:
         raise ValueError("run_wave needs the group carry")
+    na, carry, valid, table, gd, statics = RAILS.stage(
+        (na, carry, valid, table, gd, statics), dev)
     if dev.type == "cuda":
         from .kernels import run_wave_cuda
         return run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics,
@@ -1447,6 +1474,8 @@ def run_plan(cfg: ScoreConfig, na: NodeArrays, carry: Carry, xs: WaveXs,
                          f"{PLAN_MAX_SIGS}")
     if has_groups and (gd is None or carry.groups is None):
         raise ValueError("run_plan: has_groups needs gd and carry.groups")
+    na, carry, xs, table, gd, statics = RAILS.stage(
+        (na, carry, xs, table, gd, statics), dev)
     if dev.type == "cuda":
         from .kernels import run_plan_cuda
         return run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
@@ -1523,6 +1552,7 @@ def diagnose_row(na: NodeArrays, table: PodTableDev, tidx: int, gd=None,
     dev = na.valid.device
     if (gd is None) != (gc is None):
         raise ValueError("diagnose_row: gd and gc go together")
+    na, table, gd, gc = RAILS.stage((na, table, gd, gc), dev)
     if dev.type == "cuda":
         from .kernels import diagnose_row_cuda
         return diagnose_row_cuda(na, table, tidx, gd, gc, fam)
@@ -1629,6 +1659,9 @@ def dry_run_select_victims(na: NodeArrays, pod: PodRow, cand, victim_req,
     important first, while the preemptor still fits). Never writes its
     inputs."""
     dev = victim_req.device
+    (na, pod, cand, victim_req, victim_valid, ovl_used, ovl_npods,
+     spread) = RAILS.stage((na, pod, cand, victim_req, victim_valid,
+                            ovl_used, ovl_npods, spread), dev)
     if dev.type == "cuda":
         from .kernels import dry_run_select_victims_cuda
         return dry_run_select_victims_cuda(na, pod, cand, victim_req,
@@ -1704,6 +1737,7 @@ def explain_row(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
     if (gd is None) != (carry.groups is None):
         raise ValueError("explain_row: gd and carry.groups go together")
     dev = carry.used.device
+    na, carry, table, gd = RAILS.stage((na, carry, table, gd), dev)
     if dev.type == "cuda":
         from .kernels import explain_row_cuda
         return explain_row_cuda(cfg, na, carry, table, tidx, k, gd, fam)
@@ -1821,10 +1855,53 @@ def cluster_probe(na: NodeArrays, carry: Carry, dom, ndom: int):
     if ndom < 1:
         raise ValueError(f"cluster_probe: ndom = {ndom} < 1")
     dev = carry.used.device
+    na, carry, dom = RAILS.stage((na, carry, dom), dev)
     if dev.type == "cuda":
         from .kernels import cluster_probe_cuda
-        return cluster_probe_cuda(na.cap, na.valid, carry.used, carry.npods,
-                                  dom, ndom)
-    if dev.type != "cpu":
+        out = cluster_probe_cuda(na.cap, na.valid, carry.used, carry.npods,
+                                 dom, ndom)
+    elif dev.type != "cpu":
         raise RuntimeError(f"cluster_probe: unsupported device {dev}")
-    return _probe_plain(na.cap, na.valid, carry.used, carry.npods, dom, ndom)
+    else:
+        out = _probe_plain(na.cap, na.valid, carry.used, carry.npods, dom,
+                           ndom)
+    return RAILS.observe("cluster_probe", out)
+
+
+# ---------------------------------------------------------------------------
+# the sanitizer rails' score probe: the float score surface of one row
+#
+# The int64 scores cannot hold a NaN, and BalancedAllocation's int floor
+# would bury one as garbage, so the probe re-derives the float std before
+# the floor. One launch per device drain with the SanitizerRails gate on
+# (analysis/rails.py check_scores), never otherwise.
+
+
+def _score_probe_plain(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                       table: PodTableDev, tidx: int):
+    pod = _gather_row(table, tidx, True, 0)
+    s_fit, s_bal = _fit_scores(cfg, na, carry, pod)
+    cols, _ = _cols(cfg)
+    used_bal = carry.used[:, cols] + pod.req[cols][None, :]
+    std = _balanced_std(*_fracs(na.cap[:, cols], used_bal))
+    total = (cfg.w_fit * s_fit + cfg.w_balanced * s_bal).to(torch.float32)
+    return total, std.to(torch.float32)
+
+
+def score_probe(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
+                table: PodTableDev, tidx: int):
+    """Score surface of signature row `tidx` against `carry`, in float:
+    (the combined fit + balanced score f32 [N], the BalancedAllocation
+    std f32 [N]), padded rows included, as the JAX package's score_probe
+    computes them. Reads its inputs only."""
+    tidx = int(tidx)
+    dev = carry.used.device
+    na, carry, table = RAILS.stage((na, carry, table), dev)
+    if dev.type == "cuda":
+        from .kernels import score_probe_cuda
+        out = score_probe_cuda(cfg, na, carry, table, tidx)
+    elif dev.type != "cpu":
+        raise RuntimeError(f"score_probe: unsupported device {dev}")
+    else:
+        out = _score_probe_plain(cfg, na, carry, table, tidx)
+    return RAILS.observe("score_probe", out)

@@ -21,7 +21,8 @@ default (GangSchedulingArgs are not configurable in the port).
 from __future__ import annotations
 
 from ..api.types import Pod
-from ..backend.workloadmanager import (parse_workload_ref,
+from ..backend.workloadmanager import (DEFAULT_SCHEDULING_TIMEOUT,
+                                       parse_workload_ref,
                                        pod_group_min_count)
 from ..framework.interface import Code, CycleState, Status
 
@@ -30,8 +31,12 @@ WAIT = Status(Code.WAIT, ("waiting for minCount pods from a gang to be "
 
 
 class GangScheduling:
-    def __init__(self):
+    def __init__(self, scheduling_timeout_seconds=None):
         self.handle = None
+        # the Permit barrier's wait (GangSchedulingArgs
+        # schedulingTimeoutSeconds; config pluginArgs set it)
+        self.scheduling_timeout_seconds = (
+            scheduling_timeout_seconds or DEFAULT_SCHEDULING_TIMEOUT)
 
     def name(self) -> str:
         return "GangScheduling"
@@ -101,7 +106,8 @@ class GangScheduling:
             return Status.error("no pod group state", plugin=self.name()), 0.0
         quorum = info.assumed | info.assigned
         if len(quorum) < min_count:
-            timeout = info.scheduling_timeout(self.handle.now())
+            timeout = info.scheduling_timeout(
+                self.handle.now(), self.scheduling_timeout_seconds)
             if timeout <= 0:
                 # the group deadline already expired: reject outright —
                 # waking members of a dead gang would ping-pong them

@@ -62,7 +62,12 @@ Where the JAX package degrades, this one refuses:
 
 `Scheduler(api, device=None)` runs on "cuda"; without a CUDA device it
 raises unless the caller asks for `device="cpu"` (the plain PyTorch
-versions of the kernels — what the tests use).
+versions of the kernels — what the tests use). `config` (config/,
+KubeSchedulerConfiguration) supplies profiles, batch size, backoffs and
+the feature gates; with the SanitizerRails gate on, the dispatch runs
+under the rails' sync guard, `score_probe` checks each drain's first row
+for NaN / inf, and the carries kept for rewind are checked at commit
+(analysis/rails.py).
 """
 
 from __future__ import annotations
@@ -165,17 +170,23 @@ def pod_update_action(old: Pod, new: Pod) -> ActionType:
     return flags
 
 
-def default_plugins(client=None, ns_lister=None) -> list:
-    """The default profile without the volume and DRA plugins, in the
-    reference filter order (apis/config/v1/default_plugins.go:30)."""
-    plugins = [SchedulingGates(), GangScheduling(), PrioritySort(),
-               NodeUnschedulable(),
-               NodeName(), TaintToleration(), NodeAffinity(), NodePorts(),
-               nr.Fit(), nr.BalancedAllocation(), PodTopologySpread(),
-               InterPodAffinity(ns_lister=ns_lister), ImageLocality()]
+def default_plugin_factories(client=None, ns_lister=None) -> list:
+    """Zero-argument factories of the default profile without the volume
+    and DRA plugins, in the reference filter order (apis/config/v1/
+    default_plugins.go:30); each call builds one fresh plugin."""
+    factories = [SchedulingGates, GangScheduling, PrioritySort,
+                 NodeUnschedulable, NodeName, TaintToleration, NodeAffinity,
+                 NodePorts, nr.Fit, nr.BalancedAllocation, PodTopologySpread,
+                 lambda: InterPodAffinity(ns_lister=ns_lister),
+                 ImageLocality]
     if client is not None:
-        plugins.append(DefaultBinder(client))
-    return plugins
+        factories.append(lambda: DefaultBinder(client))
+    return factories
+
+
+def default_plugins(client=None, ns_lister=None) -> list:
+    """The default profile without the volume and DRA plugins."""
+    return [f() for f in default_plugin_factories(client, ns_lister)]
 
 
 @dataclass
@@ -212,6 +223,9 @@ class _RunRec:
     L: int = 0
     J: int = 0
     span: tuple = ("scan",)
+    # the sanitizer rails' record of carry_in (analysis/rails.py hold),
+    # checked when the run resolves; None with the rails off
+    held: object = None
 
 
 @dataclass
@@ -306,13 +320,39 @@ class Scheduler:
                  profiles: Optional[list[Profile]] = None,
                  batch_size: Optional[int] = None,
                  clock: Callable[[], float] = _time.monotonic,
-                 device=None, tracer=None):
+                 device=None, tracer=None, config=None):
         """`tracer` (utils/tracing.py Tracer) records the drain's span
         tree — scheduling_cycle, host_build with its host_* phases,
-        device_dispatch, cluster_probe; NOOP_TRACER when None."""
+        device_dispatch, cluster_probe; NOOP_TRACER when None.
+
+        `config` (config.KubeSchedulerConfiguration) supplies the feature
+        gates, profiles, batch size, queue backoffs and API retry policy,
+        as in the JAX package; explicitly passed arguments win. A field or
+        gate the port has no machinery for, set away from its default,
+        raises NotImplementedError (config.refuse_unported)."""
         self.device = _resolve_device(device)
         self.client = client
         self.clock = clock
+        from .config import build_profiles, refuse_unported
+        from .config.features import default_gate
+        self.feature_gates = default_gate(
+            config.feature_gates if config is not None else None)
+        queue_backoffs = {}
+        # the JAX package's knob, accepted and treated as 100: the device
+        # program filters and scores every node
+        self.percentage_of_nodes_to_score = 100
+        if config is not None:
+            config.validate()
+            refuse_unported(config)
+            if profiles is None:
+                profiles = build_profiles(config, client)
+            if batch_size is None:
+                batch_size = config.batch_size
+            self.percentage_of_nodes_to_score = (
+                config.percentage_of_nodes_to_score)
+            queue_backoffs = dict(
+                pod_initial_backoff=config.pod_initial_backoff_seconds,
+                pod_max_backoff=config.pod_max_backoff_seconds)
         self.batch_size = 512 if batch_size is None else batch_size
         if profiles is None:
             fwk = Framework(DEFAULT_SCHEDULER_NAME, default_plugins(client),
@@ -359,11 +399,14 @@ class Scheduler:
                              if p.name() == "InterPodAffinity"), None))
         self.dispatcher = APIDispatcher(client=client,
                                         on_bind_error=self._on_bind_error)
+        if config is not None:
+            self.dispatcher.retry_max_attempts = config.api_retry_max_attempts
+            self.dispatcher.retry_base_seconds = config.api_retry_base_seconds
         default_fwk = next(iter(self.profiles.values())).framework
         self.queue = SchedulingQueue(
             pre_enqueue=self._make_pre_enqueue(default_fwk),
             queueing_hints=self._build_queueing_hints(default_fwk),
-            clock=clock)
+            clock=clock, **queue_backoffs)
         from .compiler.plan import DrainCompiler
         self.compiler = DrainCompiler(builder=self.builder, state=self.state)
         self._wire_preemption(client)
@@ -426,6 +469,12 @@ class Scheduler:
         # package): one cluster_probe per device drain, resolved at commit
         # into the latest snapshot dict
         self._last_probe = None
+        # runtime sanitizer rails (analysis/rails.py): process-global, like
+        # the sync debug mode they drive — the gate of the most recently
+        # constructed Scheduler wins
+        from .analysis.rails import GLOBAL as _rails
+        self.rails = _rails
+        self.rails.enable(self.feature_gates.enabled("SanitizerRails"))
 
     # -- wiring ---------------------------------------------------------------
 
@@ -1004,11 +1053,20 @@ class Scheduler:
         with self.tracer.span("device_dispatch", pods=n,
                               groups=groups_needed, drain=did,
                               batch_bucket=len(batch.valid)) as ds:
-            with self.phase_track.scope("device"):
+            # rails: the dispatch region only enqueues — with the
+            # SanitizerRails gate on, a synchronizing call there raises
+            # (and propagates: there is no host path to fall back to)
+            with self.phase_track.scope("device"), \
+                    self.rails.guard_dispatch(self.device):
                 carry, records = self._dispatch_runs(
                     profile, na, carry, batch, table, n, groups_needed,
                     ovl=ovl, nom=nom,
                     gang=(gang[1] if gang is not None else None))
+            if self.rails.active and n > 0:
+                # NaN/inf probe of the drain's first signature row against
+                # the post-dispatch carry
+                self.rails.check_scores(profile.score_config, na, carry,
+                                        table, int(batch.tidx[0]))
             ds.set(runs=",".join(r.kind for r in records))
         ph["device_dispatch"] = _time.perf_counter() - t0
         self._device_carry = carry
@@ -1036,7 +1094,11 @@ class Scheduler:
         t0 = _time.perf_counter()
         self.phase_track.push(name)
         try:
-            with self.tracer.span(name, **attrs):
+            # rails.declared restores the default sync mode in the phases
+            # whose copies are part of the drain contract (a no-op with
+            # the SanitizerRails gate off)
+            with self.tracer.span(name, **attrs), \
+                    self.rails.declared(name, self.device):
                 yield
         finally:
             self.phase_track.pop()
@@ -1101,6 +1163,7 @@ class Scheduler:
         # mask by valid: freed rows of removed nodes keep their taint
         # columns until the slot is rewritten
         a = self.state.arrays
+        # torchsan: waive[host-sync] state.arrays is the numpy staging copy
         return a is not None and bool(
             ((a.taint_eff == EFFECT_PREFER_NO_SCHEDULE)
              & a.valid[:, None]).any())
@@ -1146,11 +1209,12 @@ class Scheduler:
         for (i, j, kind) in spans:
             if kind[0] == "uniform":
                 L, K, J = self._uniform_shape(na)
+                held = self.rails.hold(carry)
                 c2, packed = run_uniform(cfg, na, carry,
                                          self._xone(batch, i), table, j - i,
                                          L, K, J, overlay=ovl)
                 records.append(_RunRec("uniform", i, j, carry, packed, L, J,
-                                       span=kind))
+                                       span=kind, held=held))
             elif kind[0] == "wave":
                 c2, packed, bucket = self._wave_dispatch(
                     cfg, na, carry, batch, i, j, table, kind)
@@ -1162,12 +1226,14 @@ class Scheduler:
                 records.append(_RunRec("wavescan", i, j, None, packed,
                                        bucket, span=kind))
             elif kind[0] == "gang":
+                held = self.rails.hold(carry)
                 c2, packed, width, uni = self._gang_dispatch(
                     cfg, na, carry, batch, i, j, table, kind)
                 # the closed-form tier keeps its input carry (a failed
                 # exactness flag replays the scan tier from it)
                 records.append(_RunRec("gang", i, j, carry if uni else None,
-                                       packed, width, span=kind))
+                                       packed, width, span=kind,
+                                       held=held if uni else None))
             else:
                 c2, assigns = self._scan_dispatch(cfg, na, carry, batch, i,
                                                   j, table, ovl=ovl, nom=nom)
@@ -1440,7 +1506,10 @@ class Scheduler:
                 continue
             if rec.kind == "gang":
                 width = rec.L
-                if not (r[width + 2] and r[width + 3]):
+                replay = not (r[width + 2] and r[width + 3])
+                self.rails.check_held(rec.held,
+                                      "gang replay" if replay else "commit")
+                if replay:
                     # the closed form's exactness preconditions failed on
                     # the data: replay on the scan tier from the kept
                     # input carry and re-chain everything downstream
@@ -1463,6 +1532,8 @@ class Scheduler:
                 idx += 1
                 continue
             exact, depth = bool(r[rec.L]), bool(r[rec.L + 1])
+            self.rails.check_held(
+                rec.held, "commit" if exact and depth else "uniform rewind")
             if exact and depth:
                 out[rec.i:rec.j] = r[:m]
                 idx += 1

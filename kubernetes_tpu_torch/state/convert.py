@@ -70,9 +70,27 @@ GROUP_CARRY_DTYPES = {
 }
 
 
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`: on a CUDA device through pinned memory
+    without blocking (a pageable copy waits for every kernel already on
+    the stream, and the span converters run between a drain's launches);
+    elsewhere a plain move (none on the CPU)."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)  # torchsan: waive[pageable-h2d] not a CUDA device
+
+
 def _tensor(x, dtype, device) -> torch.Tensor:
+    """A plain copy: the whole-state uploads run in the declared host
+    phases, before the drain's launches."""
     arr = np.ascontiguousarray(np.asarray(x))
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def _span_tensor(x, dtype, device) -> torch.Tensor:
+    """The span converters' copy: they run inside the dispatch region."""
+    arr = np.ascontiguousarray(np.asarray(x))
+    return upload(torch.from_numpy(arr).to(dtype=dtype), device)
 
 
 def _convert(cls, src, dtypes: dict, device):
@@ -91,15 +109,16 @@ def pod_table_from_numpy(src, device) -> PodTableDev:
 def pod_xs_from_numpy(src, device) -> PodXs:
     """`nom_idx` stays None when `src` has none (no nominated pod)."""
     nom = getattr(src, "nom_idx", None)
-    return PodXs(*(_tensor(getattr(src, f), POD_XS_DTYPES[f], device)
+    return PodXs(*(_span_tensor(getattr(src, f), POD_XS_DTYPES[f], device)
                    for f in ("valid", "sig", "tidx")),
                  nom_idx=(None if nom is None
-                          else _tensor(nom, POD_XS_DTYPES["nom_idx"],
-                                       device)))
+                          else _span_tensor(nom, POD_XS_DTYPES["nom_idx"],
+                                            device)))
 
 
 def gang_xs_from_numpy(src, device) -> GangXs:
-    return _convert(GangXs, src, GANG_XS_DTYPES, device)
+    return GangXs(*(_span_tensor(getattr(src, f), GANG_XS_DTYPES[f], device)
+                    for f in GangXs._fields))
 
 
 def dom_from_numpy(dom, device) -> torch.Tensor:
@@ -109,10 +128,7 @@ def dom_from_numpy(dom, device) -> torch.Tensor:
     probe asks for the ids right after the drain's launches, and a
     pageable copy would wait for them."""
     arr = np.ascontiguousarray(np.asarray(dom, dtype=np.int32))
-    t = torch.from_numpy(arr)
-    if torch.device(device).type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return upload(torch.from_numpy(arr), device)
 
 
 def groups_dev_from_numpy(src, device) -> GroupsDev:

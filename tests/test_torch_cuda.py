@@ -7,8 +7,10 @@ hold the kernels to the plain versions). On a machine with the card:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerance: exact equality of assignments, packed flags, every carry field
-and the whole SigCache; the cluster probe's float32 outputs bit for bit
-against the plain version on the CPU."""
+and the whole SigCache; the cluster probe's and the score probe's float32
+outputs bit for bit against the plain version on the CPU. The sanitizer
+rails' card halves: the sync guard raises on `.item()`, and the held-carry
+checksum sees a device write no version counter records."""
 
 import random
 from types import SimpleNamespace
@@ -834,3 +836,92 @@ def test_explain_row_kernel_equals_plain(cuda, groups, k):
                                 k, _cpu(gd) if groups else None,
                                 fam if groups else None)
         _equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the sanitizer rails: the score probe, the sync guard, the held carry
+
+
+def _bits(t):
+    t = t.cpu()
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_score_probe_kernel_equals_plain(cuda, seed):
+    """Random clusters (zero-capacity columns, saturated and padded rows)
+    and pods (zero requests, skip_balanced rows), every table row, after a
+    scan has filled the carry."""
+    rng = random.Random(seed)
+    pods = [_pod(rng, i) for i in range(rng.randint(10, 60))]
+    na, batch, table = _staged(rng, rng.randint(5, 300), pods, cuda)
+    xs = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                           batch.tidx), cuda)
+    cfg = P.ScoreConfig(strategy=rng.choice(["LeastAllocated",
+                                             "MostAllocated"]))
+    carry, _ = P.run_batch(cfg, na, P.initial_carry(na), xs, table)
+    for u in sorted(set(int(t) for t in batch.tidx[:len(pods)])):
+        got = P.score_probe(cfg, na, carry, table, u)
+        want = P._score_probe_plain(cfg, _cpu(na), _cpu(carry),
+                                    _cpu(table), u)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == torch.float32
+            assert a.shape == b.shape
+            assert torch.equal(_bits(a), _bits(b))
+
+
+def test_sync_guard_trips_on_item(cuda):
+    from kubernetes_tpu_torch.analysis.rails import SanitizerRails
+    rails = SanitizerRails(enabled=True)
+    x = torch.ones(8, device=cuda)
+    with pytest.raises(RuntimeError):
+        with rails.guard_dispatch(cuda):
+            x.sum().item()
+    assert torch.cuda.get_sync_debug_mode() == 0
+    assert rails.guarded_dispatches == 1
+    # a declared phase inside the guard allows it
+    with rails.guard_dispatch(cuda), rails.declared("host_cache", cuda):
+        assert x.sum().item() == 8.0
+    # the enqueue-only work of a dispatch passes
+    with rails.guard_dispatch(cuda):
+        y = convert.upload(torch.arange(4), cuda) + x[:4].long()
+    assert y.tolist() == [1, 2, 3, 4]
+
+
+def test_span_converters_do_not_synchronize(cuda):
+    """The converters a span calls between a drain's launches copy
+    through pinned memory without blocking (state/convert.py upload): the
+    armed guard lets them pass, while the pageable copy they replaced
+    trips it."""
+    import numpy as np
+    from kubernetes_tpu_torch.analysis.rails import SanitizerRails
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    rails = SanitizerRails(enabled=True)
+    torch.ones(1, device=cuda)              # the context exists
+    valid, idx = np.ones(64, bool), np.arange(64, dtype=np.int32)
+    with rails.guard_dispatch(cuda):
+        xs = convert.pod_xs_from_numpy(
+            P.PodXs(valid, idx, idx, nom_idx=idx), cuda)
+        gx = convert.gang_xs_from_numpy(GangXs(valid, idx, idx), cuda)
+        dom = convert.dom_from_numpy(idx, cuda)
+    assert xs.tidx.is_cuda and gx.widx.is_cuda and dom.is_cuda
+    assert torch.equal(xs.nom_idx.cpu(), torch.from_numpy(idx))
+    with pytest.raises(RuntimeError):
+        with rails.guard_dispatch(cuda):
+            torch.from_numpy(idx).to(cuda)
+
+
+def test_held_carry_checksum_sees_device_write(cuda):
+    from kubernetes_tpu_torch.analysis.rails import (SanitizerError,
+                                                     SanitizerRails)
+    rng = random.Random(3)
+    na, _batch, _table = _staged(rng, 40, [_pod(rng, 0)], cuda)
+    carry = P.initial_carry(na)
+    rails = SanitizerRails(enabled=True)
+    held = rails.hold(carry)
+    rails.check_held(held, "clean")
+    version = carry.npods._version
+    carry.npods.data.add_(1)       # moves no version counter
+    assert carry.npods._version == version
+    with pytest.raises(SanitizerError, match="on the device"):
+        rails.check_held(held, "commit")

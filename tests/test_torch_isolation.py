@@ -29,6 +29,10 @@ def test_import_pulls_in_no_jax():
             "import kubernetes_tpu_torch.perf.harness\n"
             "import kubernetes_tpu_torch.utils.runtime\n"
             "import kubernetes_tpu_torch.utils.tracing\n"
+            "import kubernetes_tpu_torch.config\n"
+            "import kubernetes_tpu_torch.config.features\n"
+            "import kubernetes_tpu_torch.analysis\n"
+            "import kubernetes_tpu_torch.analysis.__main__\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'kubernetes_tpu' "
             "or m.startswith('kubernetes_tpu.'))\n"
