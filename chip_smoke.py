@@ -27,7 +27,15 @@ Phases, each reported on its own line:
      post-drain carry with zone, per-node, identity and clipped domain
      ids, and score_probe (the sanitizer rails' NaN probe) on every
      table row of that carry, bit for bit through its float32 outputs'
-     int32 view;
+     int32 view; and on SchedulingBasic's post-drain state the
+     node-sharded programs (kubernetes_tpu_torch/parallel/sharding.py) on
+     D = 2 and 4 shards of cuda:0, each against its plain version over
+     the same shards and against the single-device kernel:
+     run_batch_sharded on a 1,024-pod lean span, run_uniform_sharded at
+     L = K = 8,192, J = 8 (and its fast path), scatter_rows_sharded with
+     1,000 rows including every shard boundary, cluster_probe_sharded bit
+     for bit; each logs its timed and device ms per mesh, the bytes it
+     exchanged, and the single-device row's bound at the same shape;
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -70,7 +78,17 @@ Phases, each reported on its own line:
      guard must raise, and a write through `.data` into a held carry
      must fail the held-carry checksum. Each cell logs its rails-on
      pods/s beside its rails-off figure (the rails' cost, not a
-     benchmark figure).
+     benchmark figure);
+ 17. the node-sharded mesh: SchedulingBasic 5000Nodes_10000Pods through
+     the harness with `Scheduler(api, mesh=make_mesh(D))` for D = 2 and
+     4 (shards of cuda:0 on a one-card machine), held to phase 4's bind
+     map and final probe snapshot, one cluster_probe_sharded a device
+     drain, and no single-device lean kernel launched; then the
+     beyond-lattice check (5,000 nodes, 2,048 pods over 40 request
+     shapes, so every drain rides the scan, with a node update between
+     two waves, so the reseed rides the dirty-row upload) on make_mesh(2)
+     against the single-device card run. Each logs pods/s beside the
+     single-device figure, with the card's name and power limit.
 Phases 4, 6, 7 and 9-14 run through kubernetes_tpu_torch.perf.harness's
 WorkloadRunner (the reference harness's measured window: pods built
 inside it, the cyclic collector paused) and log the harness's pods/s,
@@ -551,12 +569,14 @@ class _Pkg:
     def __init__(self):
         from kubernetes_tpu_torch.backend.cache import Cache, Snapshot
         from kubernetes_tpu_torch.ops import kernels, program
+        from kubernetes_tpu_torch.parallel import sharding
         from kubernetes_tpu_torch.state import convert
         from kubernetes_tpu_torch.state.batch import BatchBuilder
         from kubernetes_tpu_torch.state.tensorize import ClusterState
         from kubernetes_tpu_torch.testing import wrappers
         self.Cache, self.Snapshot = Cache, Snapshot
         self.kernels, self.program, self.convert = kernels, program, convert
+        self.sharding = sharding
         self.BatchBuilder, self.ClusterState = BatchBuilder, ClusterState
         self.wrappers = wrappers
         self.table_from_batch = program.table_from_batch
@@ -808,8 +828,7 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
         log("kernel", name="run_uniform", n_actual=n_actual, exact=True,
             flags=flags)
         if n_actual == BATCH:
-            placed = pp[:L][pp[:L] >= 0]
-            kp_full = kp
+            kc_full, kp_full = kc, kp
     # depth overflow and the fast path (cache hit) on the same inputs
     kc2, kp2 = P.run_uniform(cfg, na, kc, x, table, 900, L, K, 2)
     pc2, pp2 = P._run_uniform_plain(cfg, na, pc, x, table, 900, L, K, 2)
@@ -843,27 +862,10 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
     # the library yardstick: torch.topk over the same K·J flat keys
     keys = flat_keys(torch, P, cfg, na, carry0, x, table, K, J)
     lib_ms = cuda_ms(torch, lambda: torch.topk(keys, L), 10)
-    moved = (nbytes(na.cap, na.allowed_pods, na.valid, na.unschedulable,
-                    na.name_id, na.taint_key, na.taint_val, na.taint_eff,
-                    na.label_key, na.label_kv, na.label_num, na.image_id,
-                    na.image_size, carry0) + nbytes(kc.used, kc.nonzero_used,
-                                                    kc.npods, kc.cache, kp))
-    # the run's row over the valid nodes at carry0 (an empty SigCache: the
-    # full evaluation) and its candidate keys; the top-K of those keys;
-    # the [K, J] entries of the feasible candidates (fit, scores, key,
-    # monotonicity); the top-L of those entries; per touched node the
-    # carry update
-    slots = node_slots(na, carry0)
-    C = len(cfg.score_cols)
-    pod = P._gather_row(table, x.tidx, True, x.sig)
-    feasible = int(P._eval_pod(cfg, na, carry0, pod)[0].sum())
-    nreq = int((np_of(table.req[x.tidx]) != 0).sum())
-    touched = int(torch.unique(placed).numel())
-    entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
-    ops = (eval_ops(table, x.tidx, slots, C) + Ops(i64=4) * slots["n_valid"]
-           + select_ops(slots["n_valid"], K) + entry * (feasible * J)
-           + select_ops(feasible * J, L) + Ops(i32=L)
-           + Ops(i32=1, i64=2 * nreq + 4) * touched)
+    w = uniform_work(torch, P, cfg, na, carry0, x, table, L, K, J,
+                     (kc_full, kp_full))
+    moved, ops, entry, feasible, pod, nreq, slots = (
+        w.moved, w.ops, w.entry, w.feasible, w.pod, w.nreq, w.slots)
     bound_ms, bound_by = bound_of(moved, ops)
     log("kernel", name="run_uniform", ms=k_ms, plain_ms=plain_ms,
         library_ms=lib_ms, L=L, K=K, J=J, max_abs_err=err,
@@ -917,6 +919,36 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
         replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
         max_abs_err=err_o, ms=k_ms_o, plain_ms=plain_ms_o,
         bound_ms=bound_o, bound_by=by_o, library_ms=None))
+
+
+def uniform_work(torch, P, cfg, na, carry0, x, table, L, K, J, out):
+    """The bytes and operations one closed-form run needs, from its
+    output `out` = (carry', packed): the run's row over the valid nodes
+    at carry0 (an empty SigCache: the full evaluation) and its candidate
+    keys; the top-K of those keys; the [K, J] entries of the feasible
+    candidates (fit, scores, key, monotonicity); the top-L of those
+    entries; per touched node the carry update."""
+    kc, kp = out
+    moved = (nbytes(na.cap, na.allowed_pods, na.valid, na.unschedulable,
+                    na.name_id, na.taint_key, na.taint_val, na.taint_eff,
+                    na.label_key, na.label_kv, na.label_num, na.image_id,
+                    na.image_size, carry0) + nbytes(kc.used, kc.nonzero_used,
+                                                    kc.npods, kc.cache, kp))
+    slots = node_slots(na, carry0)
+    C = len(cfg.score_cols)
+    pod = P._gather_row(table, x.tidx, True, x.sig)
+    feasible = int(P._eval_pod(cfg, na, carry0, pod)[0].sum())
+    nreq = int((np_of(table.req[x.tidx]) != 0).sum())
+    placed = kp[:L][kp[:L] >= 0]
+    touched = int(torch.unique(placed).numel())
+    entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
+    ops = (eval_ops(table, x.tidx, slots, C) + Ops(i64=4) * slots["n_valid"]
+           + select_ops(slots["n_valid"], K) + entry * (feasible * J)
+           + select_ops(feasible * J, L) + Ops(i32=L)
+           + Ops(i32=1, i64=2 * nreq + 4) * touched)
+    return SimpleNamespace(moved=moved, ops=ops, entry=entry,
+                           feasible=feasible, pod=pod, nreq=nreq,
+                           slots=slots)
 
 
 def flat_keys(torch, P, cfg, na, carry, x, table, K, J):
@@ -1959,6 +1991,215 @@ def check_explain_row(torch, pkg, device, rows: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 on the mesh: the node-sharded programs (parallel/sharding.py) on
+# D shards of cuda:0, each against its plain version over the same shards
+# and against the single-device kernel at the same inputs; the bound is
+# the single-device row's at the same shape (the same work)
+
+MESH_SIZES = (2, 4)
+
+
+def mesh_row(name: str, source: str, replaces: str, err: float,
+             per_d: dict, bound: tuple, library_ms) -> dict:
+    """The kernel line's row of a sharded program: its D = 2 figures,
+    both meshes' in `by_mesh`."""
+    d2 = per_d[2]
+    return dict(name=name, route="cuda",
+                source=f"kubernetes_tpu_torch/csrc/{source}",
+                replaces=f"kubernetes_tpu/parallel/sharding.py:{replaces}",
+                launches=0, max_abs_err=err, ms=d2["ms"],
+                plain_ms=d2["plain_ms"], device_ms=d2["device_ms"],
+                bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+                by_mesh=per_d)
+
+
+def check_mesh_kernels(torch, pkg, sched, rows: list) -> None:
+    """SchedulingBasic's post-drain state (N = 8,192 rows, 5,000 valid)
+    on D = 2 and 4 shards of cuda:0: run_batch_sharded on a 1,024-pod
+    lean span, run_uniform_sharded at L = K = 8,192, J = 8 (and its fast
+    path), scatter_rows_sharded with 1,000 rows including every shard
+    boundary, cluster_probe_sharded bit for bit. The carry's signature
+    cache is relabelled 0 (the spans' rows come from a fresh builder)."""
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    cfg = P.ScoreConfig()
+    if sched._device_carry is None:
+        fail("mesh kernels: SchedulingBasic left no resident carry")
+    na = sched.state.device_arrays()
+    carry = P.with_cache_sig(sched._device_carry, 0)
+    N = na.cap.shape[0]
+    span = 1024
+    pods = lean_pods(np.random.RandomState(17), span, W, "mesh")
+    uni = W.make_pod("mesh-uni").req({"cpu": "900m", "memory": "1Gi"}).obj()
+    batch = pkg.BatchBuilder(sched.state).build(pods + [uni])
+    if batch.host_fallback[:span + 1].any():
+        fail("mesh kernels: a host-fallback signature")
+    table = pkg.table_from_batch(batch, "cuda")
+    xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:span], sig=batch.sig[:span],
+        tidx=batch.tidx[:span]), "cuda")
+    x = P.PodXs(True, int(batch.sig[span]), int(batch.tidx[span]))
+    L, K, J = BATCH, min(BATCH, N), 8
+    # the single-device kernels at the same inputs
+    sc, sa = P.run_batch(cfg, na, carry, xs, table)
+    su = P.run_uniform(cfg, na, carry, x, table, BATCH, L, K, J)
+    dom, ndom = sched._gang_domains(na, need=True), sched._gang_ndom
+    sp = P.cluster_probe(na, carry, dom, ndom)
+    rng = np.random.RandomState(19)
+    edges = [N // 4 * k + e for k in (1, 2, 3) for e in (-1, 0)]
+    rest = [r for r in rng.permutation(N) if r not in edges][:1000 - 6]
+    real = np.sort(np.array(edges + rest, np.int64))
+    idx = np.full((1024,), real[0], np.int64)
+    idx[:1000] = real
+    src = np.array([(7 * r + 1) % N for r in idx], np.int64)
+    rows_h = type(na)(*(np_of(x_)[src] for x_ in na))
+    rows_d = type(na)(*(x_[torch.from_numpy(src).to("cuda")].contiguous()
+                        for x_ in na))
+    ss = P.scatter_rows(na, idx, rows_d)
+    torch.cuda.synchronize()
+    per = {k: {} for k in ("run_batch_sharded", "run_uniform_sharded",
+                           "scatter_rows_sharded", "cluster_probe_sharded")}
+    err = {k: 0.0 for k in per}
+    # the bytes each program's exchange carries, worked out from its
+    # shapes (on one card no byte crosses between devices): logged on
+    # the kernel's log line, never in the kernels line
+    payload = {k: {} for k in per}
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=["cuda:0"] * D)
+        gna, gc = S.shard_node_arrays(mesh, na), S.shard_carry(mesh, carry)
+        n_local = N // D
+
+        # run_batch_sharded: the kernel, its plain version, run_batch's
+        kc, ka = S.run_batch_sharded(cfg, mesh, gna, gc, xs, table)
+        t0 = time.perf_counter()
+        pc, pa = S._run_batch_sharded_plain(cfg, mesh, gna, gc, xs, table)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        k = "run_batch_sharded"
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (ka, S.unshard(kc)), (pa, S.unshard(pc)), f"{k}[D={D}]"))
+        assert_equal_trees(torch, ka, sa, f"{k}[D={D}] vs run_batch")
+        assert_equal_trees(torch, S.unshard(kc)[:4], sc[:4],
+                           f"{k}[D={D}] carry vs run_batch")
+        per[k][D] = dict(
+            ms=cuda_ms(torch, lambda: S.run_batch_sharded(
+                cfg, mesh, gna, gc, xs, table), 2),
+            device_ms=device_ms(torch, lambda: S.run_batch_sharded(
+                cfg, mesh, gna, gc, xs, table), 1),
+            plain_ms=plain_ms, placed=int((np_of(ka) >= 0).sum()))
+        payload[k][D] = span * D * (pkg.kernels.MAX_IC + 3 + 1) * 8
+
+        # run_uniform_sharded (and its fast path on the output carry)
+        kc, kp = S.run_uniform_sharded(cfg, mesh, gna, gc, x, table, BATCH,
+                                       L, K, J)
+        pc, pp = S._run_uniform_sharded_plain(cfg, mesh, gna, gc, x, table,
+                                              BATCH, L, K, J)
+        k = "run_uniform_sharded"
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)), f"{k}[D={D}]"))
+        err[k] = max(err[k], assert_equal_trees(
+            torch, S.run_uniform_sharded(cfg, mesh, gna, kc, x, table, 4096,
+                                         L, K, J)[1],
+            S._run_uniform_sharded_plain(cfg, mesh, gna, pc, x, table, 4096,
+                                         L, K, J)[1], f"{k}[D={D}, fast]"))
+        flags, sflags = np_of(kp[L:]).tolist(), np_of(su[1][L:]).tolist()
+        if all(flags) and all(sflags):
+            assert_equal_trees(torch, kp[:L], su[1][:L],
+                               f"{k}[D={D}] vs run_uniform")
+        _K_loc, L_loc, _M = S.uniform_shape(mesh, n_local, L, K, J)
+        per[k][D] = dict(
+            ms=cuda_ms(torch, lambda: S.run_uniform_sharded(
+                cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 10),
+            device_ms=device_ms(torch, lambda: S.run_uniform_sharded(
+                cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 10),
+            plain_ms=cuda_ms(torch, lambda: S._run_uniform_sharded_plain(
+                cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 3),
+            flags=flags, single_device_flags=sflags)
+        payload[k][D] = D * ((pkg.kernels.MAX_IC + 3) * 8 + L_loc * 8
+                             + 2 * 4)
+
+        # scatter_rows_sharded: 1,000 rows, every shard boundary among them
+        k = "scatter_rows_sharded"
+        got = S.scatter_rows_sharded(mesh, gna, idx, rows_h)
+        want = S._scatter_rows_sharded_plain(
+            gna, S.stage_rows(mesh, gna, idx, rows_h))
+        err[k] = max(err[k], assert_equal_trees(
+            torch, S.unshard(got), S.unshard(want), f"{k}[D={D}]"))
+        assert_equal_trees(torch, S.unshard(got), ss,
+                           f"{k}[D={D}] vs scatter_rows")
+        assert_equal_trees(torch, S.unshard(gna), na, f"{k}[D={D}] input")
+        per[k][D] = dict(
+            ms=cuda_ms(torch, lambda: S.scatter_rows_sharded(
+                mesh, gna, idx, rows_h), 20),
+            device_ms=device_ms(torch, lambda: S.scatter_rows_sharded(
+                mesh, gna, idx, rows_h), 20),
+            plain_ms=cuda_ms(torch, lambda: S._scatter_rows_sharded_plain(
+                gna, S.stage_rows(mesh, gna, idx, rows_h)), 20))
+        # no exchange: each shard receives its own rows from the host
+        payload[k][D] = 0
+
+        # cluster_probe_sharded: bit for bit against the single-device
+        # kernel and the plain version
+        k = "cluster_probe_sharded"
+        got = S.cluster_probe_sharded(mesh, gna, gc, dom, ndom)
+        cpu = [x_.cpu() for x_ in (na.cap, na.valid, carry.used,
+                                   carry.npods)]
+        err[k] = max(err[k], probe_equal(torch, got, P._probe_plain(
+            *cpu, dom.cpu(), ndom), f"{k}[D={D}]"))
+        probe_equal(torch, got, tuple(t.cpu() for t in sp),
+                    f"{k}[D={D}] vs cluster_probe")
+        per[k][D] = dict(
+            ms=cuda_ms(torch, lambda: S.cluster_probe_sharded(
+                mesh, gna, gc, dom, ndom), 50),
+            device_ms=device_ms(torch, lambda: S.cluster_probe_sharded(
+                mesh, gna, gc, dom, ndom), 50),
+            plain_ms=cuda_ms(torch, lambda: P._probe_plain(
+                S.gather_rows(mesh, [t.cap for t in gna], "cuda:0"),
+                S.gather_rows(mesh, [t.valid for t in gna], "cuda:0"),
+                S.gather_rows(mesh, [t.used for t in gc], "cuda:0"),
+                S.gather_rows(mesh, [t.npods for t in gc], "cuda:0"),
+                dom, ndom), 10))
+        payload[k][D] = nbytes(na.cap, na.valid, carry.used, carry.npods)
+        del gna, gc, kc, pc, got, want
+
+    # the bounds: the single-device rows' at the same shapes
+    slots = node_slots(na, carry)
+    moved = (nbytes(na, carry, xs, table) + nbytes(carry)
+             + xs.sig.numel() * 4)
+    ops = scan_ops(table, batch.sig[:span].tolist(),
+                   batch.tidx[:span].tolist(), np_of(sa).tolist(), 0, slots,
+                   len(cfg.score_cols))
+    bounds = {"run_batch_sharded": bound_of(moved, ops)}
+    w = uniform_work(torch, P, cfg, na, carry, x, table, L, K, J, su)
+    bounds["run_uniform_sharded"] = bound_of(w.moved, w.ops)
+    bounds["scatter_rows_sharded"] = bound_of(
+        2 * nbytes(na) + nbytes(rows_d) + idx.nbytes, Ops())
+    bounds["cluster_probe_sharded"] = bound_of(
+        probe_bytes(na, carry, dom, sp), probe_ops(na))
+    # the library yardsticks of the single-device rows
+    keys = flat_keys(torch, P, cfg, na, carry, x, table, K, J)
+    part = na.valid[:, None] & (na.cap > 0)
+    util = torch.where(part, P._f32_ratio(carry.used, na.cap),
+                       torch.full_like(carry.used, -1, dtype=torch.float32))
+    library = {"run_batch_sharded": None,
+               "run_uniform_sharded": cuda_ms(
+                   torch, lambda: torch.topk(keys, L), 10),
+               "scatter_rows_sharded": None,
+               "cluster_probe_sharded": cuda_ms(
+                   torch, lambda: torch.sort(util, dim=0), 50)}
+    sources = {"run_batch_sharded": ("run_batch_sharded.cu", 158),
+               "run_uniform_sharded": ("run_uniform_sharded.cu", 519),
+               "scatter_rows_sharded": ("scatter_rows.cu", 1107),
+               "cluster_probe_sharded": ("cluster_probe.cu", 1157)}
+    for k, (src_f, line) in sources.items():
+        log("kernel", name=k, exact=True, max_abs_err=err[k], nodes=N,
+            by_mesh=per[k], exchange_payload_bytes=payload[k],
+            bound_ms=bounds[k][0], bound_by=bounds[k][1],
+            library_ms=library[k])
+        rows.append(mesh_row(k, src_f, line, err[k], per[k], bounds[k],
+                             library[k]))
+
+
+# ---------------------------------------------------------------------------
 # phase 3, preemption: the batched dry run
 
 
@@ -2528,14 +2769,16 @@ HOST_SPANS = ("scheduling_cycle", "schedule_batch", "host_build",
               "dispatcher_flush")
 
 
-def cell_run(device: str, pkg, name: str, clock=None, rails=False):
+def cell_run(device: str, pkg, name: str, clock=None, rails=False,
+             mesh=None):
     """One cell of CELLS through kubernetes_tpu_torch.perf.harness's
     WorkloadRunner at full width: the harness's measured window (pods
     built inside it, the cyclic collector paused), a Tracer keeping every
     drain's span tree, and a clock that stands still unless the caller
     moves it; with `rails`, the Scheduler's config turns the
-    SanitizerRails gate on. Returns a namespace of the API server, the
-    scheduler, the runner, the measured DataItem and its pods/s."""
+    SanitizerRails gate on; with `mesh` the Scheduler runs node-sharded
+    on it. Returns a namespace of the API server, the scheduler, the
+    runner, the measured DataItem and its pods/s."""
     from kubernetes_tpu_torch.config import KubeSchedulerConfiguration
     from kubernetes_tpu_torch.perf.harness import (TestCase, Workload,
                                                    WorkloadRunner)
@@ -2546,8 +2789,9 @@ def cell_run(device: str, pkg, name: str, clock=None, rails=False):
         feature_gates={"SanitizerRails": True}) if rails else None)
 
     def factory(api):
-        return Scheduler(api, batch_size=BATCH, device=device,
-                         clock=lambda: clock.t, config=config)
+        return Scheduler(api, batch_size=BATCH,
+                         device=None if mesh is not None else device,
+                         clock=lambda: clock.t, config=config, mesh=mesh)
 
     runner = WorkloadRunner(scheduler_factory=factory, batch_size=BATCH,
                             create_batch=CREATE_BATCH, trace=True)
@@ -3248,6 +3492,143 @@ def rails_phase(torch, pkg, device: str, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the mesh on the card
+
+
+# single-device kernels of the lean path, none of which a mesh run may
+# launch in place of its sharded twin
+SINGLE_LEAN = ("run_batch", "run_uniform", "scatter_rows", "cluster_probe")
+
+
+def beyond_lattice_run(torch, pkg, mesh=None):
+    """5,000 harness nodes and 2,048 pods whose cpu / memory requests
+    rotate over 40 shapes, so every drain holds more signatures than the
+    plan program's lattice (PLAN_MAX_SIGS = 32) and rides the scan; two
+    waves (800 pods, then 1,248) with one node update between them, so
+    the reseed's dirty rows (at most 801 of 8,192) ride the dirty-row
+    upload. Returns (api, scheduler, pods/s over both waves)."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    W = pkg.wrappers
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH,
+                      device=None if mesh is not None else "cuda",
+                      clock=lambda: 1000.0, mesh=mesh)
+
+    def node(i, extra=None):
+        w = W.make_node(f"node-{i}").capacity(
+            {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % 16}").label(LABEL_HOSTNAME, f"node-{i}")
+        return (w.label(*extra) if extra else w).obj()
+
+    for i in range(SB_NODES):
+        api.create_node(node(i))
+    sched.prime()
+    pods = [W.make_pod(f"bl-{i}").req(
+        {"cpu": f"{100 + 50 * (i % 40)}m",
+         "memory": f"{256 + 128 * (i % 40)}Mi"}).obj() for i in range(2048)]
+    t0 = time.perf_counter()
+    api.create_pods(pods[:800])
+    sched.schedule_pending()
+    api.update_node(node(7, ("maintenance", "soon")))
+    api.create_pods(pods[800:])
+    sched.schedule_pending()
+    torch.cuda.synchronize()
+    return api, sched, len(pods) / (time.perf_counter() - t0)
+
+
+def mesh_checks(name: str, sched, counts: dict, sharded: tuple) -> None:
+    if sched.reconcile() != []:
+        fail(f"{name}: device carry diverges from the host cache")
+    if counts["cluster_probe_sharded"] != sched.device_batches:
+        fail(f"{name}: {counts['cluster_probe_sharded']} sharded probes "
+             f"for {sched.device_batches} device drains")
+    for k in sharded:
+        if counts[k] <= 0:
+            fail(f"{name} launches {counts}: {k} never ran")
+    for k in SINGLE_LEAN:
+        if counts[k] != 0:
+            fail(f"{name} launches {counts}: the single-device {k} ran on "
+                 "the mesh")
+
+
+def mesh_phase(torch, pkg, smi: str, sb_probe: str) -> dict:
+    """SchedulingBasic 5000Nodes_10000Pods through the harness on
+    make_mesh(2) and make_mesh(4): every pod bound, the bind map and the
+    final probe snapshot of phase 4's single-device card run, one
+    cluster_probe_sharded a device drain, the sharded kernels launched and
+    the single-device lean kernels not. Then the beyond-lattice check on
+    make_mesh(2) against the single-device card run. Returns the launch
+    counts by path."""
+    S = pkg.sharding
+    name = "SchedulingBasic"
+    paths = {}
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(D)
+        pkg.kernels.reset_launches()
+        t0 = time.perf_counter()
+        run = cell_run("cuda", pkg, name, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(pkg.kernels.LAUNCHES)
+        got = outcome(run.api, run.sched)
+        what = f"{name} on make_mesh({D})"
+        if len(got[0]) != SB_INIT_PODS + SB_PODS:
+            fail(f"{what} bound {len(got[0])} of "
+                 f"{SB_INIT_PODS + SB_PODS} pods")
+        if got != RAILS_OFF[name][0]:
+            fail(f"{what}: the bind map differs from phase 4's card run")
+        if probe_state(run.sched) != sb_probe:
+            fail(f"{what}: the final cluster probe differs from phase 4's")
+        mesh_checks(what, run.sched, counts, ("run_uniform_sharded",))
+        paths[f"mesh{D}_scheduling_basic"] = counts
+        log("mesh_scheduling_basic", shards=D, mesh=repr(mesh),
+            pods=SB_INIT_PODS + SB_PODS, pods_per_s=run.rate,
+            single_device_pods_per_s=RAILS_OFF[name][1],
+            window_s=run.item.duration_s, host_split=host_split(run),
+            wall_s=wall, launches=counts,
+            drain_readbacks=run.sched.device_batches,
+            uniform_rewinds=run.sched.uniform_rewinds,
+            uploads={k: getattr(run.sched.state, k) for k in (
+                "full_uploads_total", "rows_scattered_total")},
+            card=smi, bind_map_equals_phase4=True,
+            last_probe_equals_phase4=True)
+        del run
+    # the beyond-lattice check: the single-device card run, then the mesh
+    pkg.kernels.reset_launches()
+    api1, s1, rate1 = beyond_lattice_run(torch, pkg)
+    single = dict(pkg.kernels.LAUNCHES)
+    want = outcome(api1, s1)
+    if s1.reconcile() != [] or single["run_batch"] <= 0 \
+            or single["scatter_rows"] <= 0:
+        fail(f"beyond-lattice single-device run: launches {single}")
+    mesh = S.make_mesh(2)
+    pkg.kernels.reset_launches()
+    api2, s2, rate2 = beyond_lattice_run(torch, pkg, mesh)
+    counts = dict(pkg.kernels.LAUNCHES)
+    if outcome(api2, s2) != want:
+        fail("beyond-lattice on make_mesh(2): the bind map differs from "
+             "the single-device card run")
+    if probe_state(s2) != probe_state(s1):
+        fail("beyond-lattice on make_mesh(2): the final cluster probe "
+             "differs from the single-device card run")
+    mesh_checks("beyond-lattice on make_mesh(2)", s2, counts,
+                ("run_batch_sharded", "scatter_rows_sharded"))
+    paths["beyond_lattice_single"] = single
+    paths["mesh2_beyond_lattice"] = counts
+    log("mesh_beyond_lattice", shards=2, pods=2048, nodes=SB_NODES,
+        bound=len(want[0]), pending=len(want[1]), signatures=40,
+        pods_per_s=rate2, single_device_pods_per_s=rate1,
+        launches=counts, single_device_launches=single,
+        drains=(s2.device_batches, s1.device_batches),
+        uploads={k: (getattr(s2.state, k), getattr(s1.state, k)) for k in (
+            "full_uploads_total", "rows_scattered_total")},
+        card=smi, bind_map_equals_single_device=True,
+        last_probe_equals_single_device=True)
+    return paths
+
+
 def wave_stats(sched) -> dict:
     """The scheduler's summed run_wave and run_plan stats, JSON-ready."""
     st = dict(sched.wave_stats)
@@ -3393,6 +3774,9 @@ def main() -> int:
     sb_counts, sb_run = basic_phase(torch, pkg, device, smi)
     check_cluster_probe(torch, pkg, sb_run.sched, rows)
     check_score_probe(torch, pkg, sb_run.sched, rows)
+    # phase 3 on the mesh, on the same post-drain state
+    check_mesh_kernels(torch, pkg, sb_run.sched, rows)
+    sb_probe = probe_state(sb_run.sched)
     del sb_run
 
     # phase 5: the mixed lean workload (plan and scan spans, rewinds,
@@ -3467,6 +3851,10 @@ def main() -> int:
     # phase 16: the sanitizer rails on six cells at full width
     rails_counts = rails_phase(torch, pkg, device, smi)
 
+    # phase 17: the node-sharded mesh (SchedulingBasic on two meshes, the
+    # beyond-lattice check)
+    mesh_counts = mesh_phase(torch, pkg, smi, sb_probe)
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
@@ -3476,7 +3864,7 @@ def main() -> int:
              "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts,
              "gang_training": gt_counts, "colocated_inference": ci_counts,
              "node_affinity": sna_counts, "gang_reject_preempt": gr_counts,
-             "sanitizer_rails": rails_counts}
+             "sanitizer_rails": rails_counts, **mesh_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

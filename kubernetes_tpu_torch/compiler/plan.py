@@ -1,8 +1,7 @@
 """The drain compiler: "gang", "wave", "wavescan", "uniform" and "scan"
 spans.
 
-Counterpart of kubernetes_tpu/compiler/plan.py without the sharded mesh.
-A whole-gang drain is one ("gang", needed) span (ops/gang.py run_gang;
+Counterpart of kubernetes_tpu/compiler/plan.py. A whole-gang drain is one ("gang", needed) span (ops/gang.py run_gang;
 its tier, closed form or scan, is chosen at dispatch). Any other drain's
 pod mix becomes an ordered list of spans, each mapped to the cheapest
 EXACT program the port has:
@@ -27,6 +26,12 @@ Routing differences from the JAX package, all exact sequential greedy
   node axis (K·J < Lw) raises in the JAX package's `lax.top_k`, which
   degrades the drain to its host path; the port narrows the wave
   (Scheduler._wave_dispatch).
+
+On the node-sharded mesh (`mesh=True`) the same-signature merge wave,
+single-device only, is never emitted: such a group drain compiles to the
+plan program ("wavescan"), as in the JAX package (the scheduler's mesh
+runs the lean tiers; its wavescan spans wait for the sharded plan
+program).
 
 The wave and plan tiers take spans of `WAVE_MIN_SPAN` pods or more;
 below it a group drain runs the scan in both packages.
@@ -74,7 +79,7 @@ class DrainCompiler:
 
     def compile_drain(self, batch: PodBatch, n: int, *, groups_needed: bool = False,
                       gang_needed=None, overlay: bool = False,
-                      nominated: bool = False,
+                      nominated: bool = False, mesh: bool = False,
                       strategy: str = "LeastAllocated",
                       prefer_taints: bool = False,
                       uniform_min: int = 16) -> DrainPlan:
@@ -85,12 +90,13 @@ class DrainCompiler:
         `nominated` pod is one scan span (the per-pod self-exclusion is
         outside the closed form), an overlay-only drain keeps its
         uniform / scan runs. A whole-gang drain (`gang_needed`, the
-        gang's remaining quorum) is a single span by construction."""
+        gang's remaining quorum) is a single span by construction.
+        `mesh`: the drain runs on the node-sharded mesh."""
         if gang_needed is not None:
             return DrainPlan(spans=[(0, n, ("gang", int(gang_needed)))])
         key = (self.builder.reset_count, self.builder.table_used,
-               groups_needed, overlay, nominated, strategy, prefer_taints,
-               uniform_min, n, batch.sig[:n].tobytes(),
+               groups_needed, overlay, nominated, mesh, strategy,
+               prefer_taints, uniform_min, n, batch.sig[:n].tobytes(),
                batch.tidx[:n].tobytes(), bool(batch.valid[:n].all()))
         plan = self._plans.get(key)
         if plan is not None:
@@ -98,7 +104,7 @@ class DrainCompiler:
             return plan
         spans = None
         if groups_needed and not overlay and not nominated:
-            wave = self._classify_wave(batch, n)
+            wave = self._classify_wave(batch, n, mesh)
             if wave is not None:
                 spans = [(0, n, wave)]
         if spans is None:
@@ -143,18 +149,19 @@ class DrainCompiler:
             i = j
         return runs
 
-    def _classify_wave(self, batch: PodBatch, n: int):
+    def _classify_wave(self, batch: PodBatch, n: int, mesh: bool = False):
         """Whole-drain program for a group drain, or None (the scan):
         ("wave", u, anti_term, merge) for a same-signature port-free drain
         whose row the same-signature program covers; otherwise
         ("wavescan", rows, has_ports) for up to PLAN_MAX_SIGS distinct
         signatures, host-port rows included. Both need at least
-        WAVE_MIN_SPAN pods, all valid."""
+        WAVE_MIN_SPAN pods, all valid. On the mesh the same-signature
+        wave is never chosen."""
         if n < WAVE_MIN_SPAN or not batch.valid[:n].all():
             return None
         has_ports = bool((batch.sig[:n] == 0).any())
         uniq = list(dict.fromkeys(batch.tidx[:n].tolist()))
-        if len(uniq) == 1 and not has_ports:
+        if len(uniq) == 1 and not has_ports and not mesh:
             mode, anti = wave_same_mode(self.builder.groups, int(uniq[0]))
             if mode is not None:
                 return ("wave", int(uniq[0]), anti, mode == "merge")

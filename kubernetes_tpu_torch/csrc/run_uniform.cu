@@ -37,14 +37,13 @@
 // memory. Keys are int64 throughout (the JAX program narrows them to
 // int32 where the range allows; values and order are the same).
 
-#include "lean_eval.cuh"
 #include "sort.cuh"
+#include "uniform_matrix.cuh"
 
 namespace {
 
 constexpr int EBLOCK = 512;
 constexpr int FBLOCK = 1024;
-constexpr int MBLOCK = 256;
 
 __global__ void __launch_bounds__(EBLOCK)
 uniform_eval_kernel(NodeC na, TableC tb, CarryC cin, CacheC out, CfgC cfg,
@@ -79,47 +78,6 @@ uniform_eval_kernel(NodeC na, TableC tb, CarryC cin, CacheC out, CfgC cfg,
     flags[0] = 1;                             // monotonicity held
     flags[1] = tmax == 0 && namax == 0;       // normalization constant
   }
-}
-
-__global__ void __launch_bounds__(MBLOCK)
-uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
-                      CfgC cfg, OvlD ovl, int32_t tidx, const int64_t* keys0,
-                      const int64_t* static_add, int K, int J,
-                      int32_t* cand, int64_t* keys1, uint8_t* fit_kj,
-                      int64_t* sfit_kj, int64_t* sbal_kj, int32_t* flags) {
-  const int k = blockIdx.x * MBLOCK + threadIdx.x;
-  if (k >= K) return;
-  const PodRowD p = pod_row(tb, tidx);
-  const int N = na.N;
-  const int node = N - 1 - (int)(keys0[k] % N);
-  cand[k] = node;
-  const int64_t M = (int64_t)N * J;
-  const bool sm = out.static_mask[node] != 0;
-  const int64_t sadd = static_add[node];
-  const int64_t* used = cin.used + (int64_t)node * na.R;
-  const int64_t* nz = cin.nonzero_used + (int64_t)node * 2;
-  const int64_t npods = cin.npods[node];
-  const int64_t* ovl_row =
-      ovl.used ? ovl.used + (int64_t)node * na.R : nullptr;
-  const int64_t ovl_np = ovl.used ? ovl.npods[node] : 0;
-  int64_t prev = 0;
-  bool mono = true;
-  for (int j = 0; j < J; ++j) {
-    bool fit;
-    int64_t s_fit, s_bal;
-    kt_uniform_entry(cfg, na, node, used, nz, npods, p, j + 1, &fit, &s_fit,
-                     &s_bal, ovl_row, ovl_np);
-    const int64_t masked = (sm && fit)
-        ? cfg.w_fit * s_fit + cfg.w_balanced * s_bal + sadd : -1;
-    if (j > 0 && masked > prev) mono = false;
-    prev = masked;
-    const int64_t idx = (int64_t)k * J + j;
-    keys1[idx] = masked * M - ((int64_t)node * J + j);
-    fit_kj[idx] = fit;
-    sfit_kj[idx] = s_fit;
-    sbal_kj[idx] = s_bal;
-  }
-  if (!mono) flags[0] = 0;
 }
 
 __global__ void __launch_bounds__(FBLOCK)
@@ -232,7 +190,7 @@ void launch_uniform(const NodeC* na, const TableC* tb, const CarryC* cin,
   kt_sort_desc(keys0, P0, s);
   uniform_matrix_kernel<<<(K + MBLOCK - 1) / MBLOCK, MBLOCK, 0, s>>>(
       *na, *tb, *cin, cout->cache, *cfg, ovl, tidx, keys0, static_add, K, J,
-      cand, keys1, fit_kj, sfit_kj, sbal_kj, flags);
+      (int64_t)na->N * J, 0, cand, keys1, fit_kj, sfit_kj, sbal_kj, flags);
   kt_sort_desc(keys1, P1, s);
   uniform_finalize_kernel<<<1, FBLOCK, 0, s>>>(
       *cout, *tb, tidx, na->N, na->R, keys1, cand, fit_kj, sfit_kj, sbal_kj,

@@ -1,8 +1,7 @@
 """Preemption Evaluator: the PostFilter path.
 
 Counterpart of kubernetes_tpu/framework/preemption.py (which mirrors
-pkg/scheduler/framework/preemption/preemption.go) without the node-sharded
-mesh:
+pkg/scheduler/framework/preemption/preemption.go):
 - `Evaluator.preempt` (:268) — eligibility → candidates → pick; the
   plugin (plugins/defaultpreemption.py) then prepares the candidate.
 - `pod_eligible_to_preempt_others` (:431) — preemptionPolicy Never, and
@@ -22,6 +21,12 @@ mesh:
 - `pick_one_node` (:658) — the five-step order, step 1 fed by the
   PDB-violating victim partition; victim start times map to
   `creation_index`.
+
+On the node-sharded mesh (`DeviceDryRunContext.mesh`) the batched dry
+run gathers the candidate rows out of the host staging arrays into one
+block on the mesh's first device and runs the same kernel on that block
+(it is row-local over the candidates), as the JAX package does; the
+resident shards and their dirty-row tracking are never touched.
 
 The candidate count follows default_preemption.go:174 with a
 deterministic offset of 0, as in the JAX package.
@@ -64,6 +69,8 @@ class DeviceDryRunContext:
     state: object
     builder: object
     snapshot: object
+    # parallel/sharding.py Mesh when the scheduler runs node-sharded
+    mesh: object = None
 
 
 @dataclass
@@ -89,6 +96,10 @@ class _DryRunPlan:
     # overlay-free results for every candidate (numpy bool [Cp, Vp+1]),
     # computed once per plan
     base_packed: object = None
+    # mesh only: the candidate rows gathered from the staging arrays into
+    # one NodeArrays[Cp] block on the mesh's first device; cand_idx then
+    # holds positions into this block, not node rows
+    cand_na: object = None
 
 
 class Evaluator:
@@ -320,7 +331,7 @@ class Evaluator:
                 other_min=spread.other_min[sub_t],
                 vic_match=spread.vic_match[sub_t])
         packed = dry_run_select_victims(
-            ctx.state.device_arrays(), plan.prow, plan.cand_idx[sub_t],
+            self._dry_run_rows(plan, ctx), plan.prow, plan.cand_idx[sub_t],
             plan.victim_req[sub_t], plan.victim_valid[sub_t],
             torch.from_numpy(ovl_used).to(dev),
             torch.from_numpy(ovl_npods).to(dev), spread).cpu().numpy()
@@ -416,6 +427,13 @@ class Evaluator:
         def up(x):
             return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
 
+        cand_na = None
+        if ctx.mesh is not None:
+            from ..state.convert import node_arrays_from_numpy
+            a = ctx.state.ensure_arrays()
+            cand_na = node_arrays_from_numpy(
+                type(a)(*(x[cand_idx] for x in a)), dev)
+            cand_idx = np.arange(c_pad, dtype=np.int32)
         plan = _DryRunPlan(
             key=key, cands=cands, cand_idx=up(cand_idx),
             cand_pos={ni.name: c for c, (ni, _o, _n) in enumerate(cands)},
@@ -423,15 +441,23 @@ class Evaluator:
             spread=(None if spread is None
                     else type(spread)(*(up(x) for x in spread))),
             constraints=constraints,
-            prow=pod_row_from_table(ctx.builder.table, u, dev))
+            prow=pod_row_from_table(ctx.builder.table, u, dev),
+            cand_na=cand_na)
         plan.base_packed = dry_run_select_victims(
-            ctx.state.device_arrays(), plan.prow, plan.cand_idx,
+            self._dry_run_rows(plan, ctx), plan.prow, plan.cand_idx,
             plan.victim_req, plan.victim_valid,
             torch.zeros((c_pad, R), dtype=torch.int64, device=dev),
             torch.zeros((c_pad,), dtype=torch.int32, device=dev),
             plan.spread).cpu().numpy()
         self._plan_cache = plan
         return plan
+
+    @staticmethod
+    def _dry_run_rows(plan: _DryRunPlan, ctx):
+        """The node rows the dry run reads: the resident device copy, or
+        on the mesh the plan's gathered candidate block."""
+        return (plan.cand_na if plan.cand_na is not None
+                else ctx.state.device_arrays())
 
     def _dry_run_overlay(self, pod: Pod, plan: _DryRunPlan, ctx):
         """Nominated-pod overlay of the with-nominated filter pass

@@ -109,7 +109,7 @@ def _explain_current(scheduler, pod, uid: str, k: int) -> dict:
     tidx = ent[2]
     builder = scheduler.builder
     device = scheduler.device
-    na = scheduler.state.device_arrays()
+    na = scheduler.diagnosis_arrays()
     table = pod_table_from_numpy(builder.table, device)
     gd = fam = gcarry = None
     groups_needed = (

@@ -23,6 +23,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -34,17 +35,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v"]
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
            "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang",
-           "cluster_probe", "explain_row", "score_probe")
+           "cluster_probe", "explain_row", "score_probe",
+           "run_batch_sharded", "run_uniform_sharded")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean mode, its group mode and its overlay variant
 # under three keys, run_uniform its lean and its overlay variant under
 # two; run_gang counts its scan tier, and its closed-form tier (built in
-# run_uniform.cu) counts under run_gang_uniform
+# run_uniform.cu) counts under run_gang_uniform; the mesh's programs
+# count once per sharded call (their launches on every shard), the scatter
+# and the probe on the mesh under their own keys
 LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "run_batch_ovl",
                                            "run_uniform_ovl",
-                                           "run_gang_uniform")}
+                                           "run_gang_uniform",
+                                           "scatter_rows_sharded",
+                                           "cluster_probe_sharded")}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -293,6 +299,25 @@ class ProbeArgsC(ctypes.Structure):
                                      "valid_count")])
 
 
+class ShardStepC(ctypes.Structure):
+    """csrc/run_batch_sharded.cu ShardStepC."""
+    _fields_ = [("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
+                ("valid", _P), ("sig", _P), ("tidx", _P), ("offset", _I),
+                ("loc", _P), ("key", _P), ("out", _P)]
+
+
+class UniShardC(ctypes.Structure):
+    """csrc/run_uniform_sharded.cu UniShardC."""
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cin", CarryC),
+                 ("cout", CarryC), ("cfg", CfgC)]
+                + [(f, _I) for f in ("sig", "tidx", "offset", "n_global",
+                                     "K", "J", "L", "n_actual")]
+                + [("loc", _P), ("static_add", _P), ("keys0", _P),
+                   ("P0", _I), ("cand", _P), ("keys1", _P), ("P1", _I)]
+                + [(f, _P) for f in ("fit_kj", "sfit_kj", "sbal_kj",
+                                     "counts", "flags", "packed")])
+
+
 class ScoreProbeArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("cfg", CfgC),
                 ("used", _P), ("nonzero_used", _P), ("tidx", _I),
@@ -348,6 +373,20 @@ def _bind(name: str, lib):
     elif name == "score_probe":
         lib.ktpu_score_probe.argtypes = [_P, _P]
         lib.ktpu_score_probe.restype = ctypes.c_int
+    elif name == "run_batch_sharded":
+        lib.ktpu_shard_eval.argtypes = [_P, _I, _P]
+        lib.ktpu_shard_select.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_shard_apply.argtypes = [_P, _I, _P, _P]
+        for f in ("ktpu_shard_eval", "ktpu_shard_select", "ktpu_shard_apply"):
+            getattr(lib, f).restype = ctypes.c_int
+    elif name == "run_uniform_sharded":
+        lib.ktpu_uniform_shard_parts.argtypes = [_P, _P]
+        lib.ktpu_uniform_shard_topk.argtypes = [_P, _P, _P]
+        lib.ktpu_uniform_merge.argtypes = [_P, _I, _P, _I, _P]
+        lib.ktpu_uniform_shard_finalize.argtypes = [_P, _P, _P]
+        for f in ("ktpu_uniform_shard_parts", "ktpu_uniform_shard_topk",
+                  "ktpu_uniform_merge", "ktpu_uniform_shard_finalize"):
+            getattr(lib, f).restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -779,6 +818,12 @@ def scatter_rows_cuda(dev, idx, rows):
     program.scatter_rows: fresh tensors, dev untouched. `idx` is a host
     array or CPU tensor; the row map the kernel reads is built from it on
     the host and copied from pinned memory without blocking."""
+    out = _scatter_rows_launch(dev, idx, rows)
+    LAUNCHES["scatter_rows"] += 1
+    return out
+
+
+def _scatter_rows_launch(dev, idx, rows):
     from ..state.tensorize import NodeArrays
     libs = build()
     device = dev.used.device
@@ -817,7 +862,6 @@ def scatter_rows_cuda(dev, idx, rows):
     rc = libs["scatter_rows"].ktpu_scatter_rows(
         ctypes.addressof(sc), map_t.data_ptr(), _stream(device))
     _raise_on(rc, "scatter_rows")
-    LAUNCHES["scatter_rows"] += 1
     return NodeArrays(*outs)
 
 
@@ -1185,6 +1229,12 @@ def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):
     """The cluster probe (csrc/cluster_probe.cu); same contract as
     program.cluster_probe on (na.cap, na.valid, carry.used, carry.npods,
     dom). Three launches on the current stream; reads its inputs only."""
+    out = _cluster_probe_launch(cap, valid, used, npods, dom, ndom)
+    LAUNCHES["cluster_probe"] += 1
+    return out
+
+
+def _cluster_probe_launch(cap, valid, used, npods, dom, ndom: int):
     libs = build()
     device = used.device
     N, R = cap.shape
@@ -1213,7 +1263,6 @@ def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):
     rc = libs["cluster_probe"].ktpu_cluster_probe(ctypes.addressof(args),
                                                   _stream(device))
     _raise_on(rc, "cluster_probe")
-    LAUNCHES["cluster_probe"] += 1
     return per_res, dom_stats, valid_count
 
 
@@ -1297,3 +1346,174 @@ def score_probe_cuda(cfg, na, carry, table, tidx: int):
     _raise_on(rc, "score_probe")
     LAUNCHES["score_probe"] += 1
     return total, std
+
+
+# ---------------------------------------------------------------------------
+# the node-sharded mesh (parallel/sharding.py): per-shard launches with the
+# exchange between them, driven from the host without a readback
+
+
+def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table):
+    """The lean scan over node shards (csrc/run_batch_sharded.cu); same
+    contract as parallel/sharding.py run_batch_sharded: per pod, every
+    shard's shard_eval, the exchange of the image counts and maxima,
+    every shard's shard_select, the max of the packed keys, every
+    shard's shard_apply. Output carries are fresh copies."""
+    from ..parallel.sharding import Shards, lean_exchange, pmax, replicate
+    lib = build()["run_batch_sharded"]
+    B = pods.valid.shape[0]
+    pods_r, tabs = replicate(mesh, pods), replicate(mesh, table)
+    n_local = na[0].cap.shape[0]
+    outs, args, locs, keys = [], [], [], []
+    out = None
+    for d, dev in enumerate(mesh.devices):
+        node = _node_c(na[d], dev)
+        if node.N != n_local:
+            raise ValueError("run_batch_sharded: shards of unequal size")
+        ptrs = [_check(getattr(pods_r[d], f), f"pods.{f}", dt, 1, dev)
+                for f, dt in (("valid", torch.bool), ("sig", torch.int32),
+                              ("tidx", torch.int32))]
+        if pods_r[d].sig.shape[0] != B or pods_r[d].tidx.shape[0] != B:
+            raise ValueError("pods: valid/sig/tidx lengths differ")
+        oc = _out_carry(carry[d], scan=True)
+        outs.append(oc)
+        locs.append(torch.empty((MAX_IC + 3,), dtype=torch.int64,
+                                device=dev))
+        keys.append(torch.empty((1,), dtype=torch.int64, device=dev))
+        if d == 0:
+            out = torch.empty((B,), dtype=torch.int32, device=dev)
+        args.append(ShardStepC(
+            na=node, tb=_table_c(tabs[d], node.R, dev),
+            c=_carry_c(oc, node.N, node.R, dev), cfg=_cfg_c(cfg, node.R),
+            valid=ptrs[0], sig=ptrs[1], tidx=ptrs[2], offset=d * n_local,
+            loc=locs[d].data_ptr(), key=keys[d].data_ptr(),
+            out=out.data_ptr() if d == 0 else None))
+    # every struct stays bound to a name until the last launch returns
+    shards = [(ctypes.addressof(a), _stream(dev), dev)
+              for a, dev in zip(args, mesh.devices)]
+    for i in range(B):
+        rc = 0
+        for a, st, dev in shards:
+            with torch.cuda.device(dev):
+                rc |= lib.ktpu_shard_eval(a, i, st)
+        glob = lean_exchange(mesh, locs)
+        for (a, st, dev), g in zip(shards, glob):
+            with torch.cuda.device(dev):
+                rc |= lib.ktpu_shard_select(a, i, g.data_ptr(), st)
+        gkey = pmax(mesh, keys)
+        for (a, st, dev), g in zip(shards, gkey):
+            with torch.cuda.device(dev):
+                rc |= lib.ktpu_shard_apply(a, i, g.data_ptr(), st)
+        _raise_on(rc, "run_batch_sharded")
+    LAUNCHES["run_batch_sharded"] += 1
+    return Shards(outs), out
+
+
+def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
+                             L: int, K: int, J: int):
+    """The closed form over node shards (csrc/run_uniform_sharded.cu);
+    same contract as parallel/sharding.py run_uniform_sharded: every
+    shard's parts, the exchange of the counts and maxima, every shard's
+    top-K_loc / matrix / top-L_loc, the all-gather of the keys, one merge
+    a device, every shard's finalize, the min of the flags."""
+    from ..parallel.sharding import (Shards, all_gather, lean_exchange, pmin,
+                                     replicate, uniform_shape)
+    lib = build()["run_uniform_sharded"]
+    D = mesh.size
+    n_local = na[0].cap.shape[0]
+    if not (K >= 1 and J >= 1 and L >= 1):
+        raise ValueError(f"run_uniform_sharded: bad shape L={L} K={K} J={J}")
+    K_loc, L_loc, _M = uniform_shape(mesh, n_local, L, K, J)
+    sig, tidx = int(x.sig), int(x.tidx)
+    tabs = replicate(mesh, table)
+    i64, i32 = torch.int64, torch.int32
+    P0, P1 = _pow2(n_local), _pow2(K_loc * J)
+    outs, args, bufs = [], [], []
+    for d, dev in enumerate(mesh.devices):
+        node = _node_c(na[d], dev)
+        if node.N != n_local:
+            raise ValueError("run_uniform_sharded: shards of unequal size")
+        tab = _table_c(tabs[d], node.R, dev)
+        if not 0 <= tidx < tab.U:
+            raise ValueError(f"run_uniform_sharded: row {tidx} outside the "
+                             "table")
+
+        def empty(n, dtype, dev=dev):
+            return torch.empty((n,), dtype=dtype, device=dev)
+
+        oc = _out_carry(carry[d], scan=False)
+        outs.append(oc)
+        b = SimpleNamespace(
+            loc=empty(MAX_IC + 3, i64), static_add=empty(n_local, i64),
+            keys0=empty(P0, i64), cand=empty(K_loc, i32),
+            keys1=(empty(P1, i64) if P1 == K_loc * J else torch.full(
+                (P1,), torch.iinfo(i64).min, dtype=i64, device=dev)),
+            fit_kj=empty(K_loc * J, torch.uint8),
+            sfit_kj=empty(K_loc * J, i64), sbal_kj=empty(K_loc * J, i64),
+            counts=empty(n_local, i32), flags=empty(2, i32),
+            packed=empty(L + 2, i32))
+        bufs.append(b)
+        args.append(UniShardC(
+            na=node, tb=tab, cin=_carry_c(carry[d], node.N, node.R, dev),
+            cout=_carry_c(oc, node.N, node.R, dev), cfg=_cfg_c(cfg, node.R),
+            sig=sig, tidx=tidx, offset=d * n_local, n_global=D * n_local,
+            K=K_loc, J=J, L=L, n_actual=int(n_actual), P0=P0, P1=P1,
+            **{k: t.data_ptr() for k, t in vars(b).items()}))
+    # every struct stays bound to a name until the last launch returns
+    shards = [(ctypes.addressof(a), _stream(dev), dev)
+              for a, dev in zip(args, mesh.devices)]
+    rc = 0
+    for a, st, dev in shards:
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_uniform_shard_parts(a, st)
+    glob = lean_exchange(mesh, [b.loc for b in bufs])
+    for (a, st, dev), g in zip(shards, glob):
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_uniform_shard_topk(a, g.data_ptr(), st)
+    gathered = all_gather(mesh, [b.keys1[:L_loc] for b in bufs])
+    n = D * L_loc
+    P = _pow2(max(n, L))
+    merged = {}
+    for dev in mesh.distinct:
+        g = gathered[mesh.devices.index(dev)]
+        merged[dev] = torch.empty((P,), dtype=i64, device=dev)
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_uniform_merge(g.data_ptr(), n,
+                                         merged[dev].data_ptr(), P,
+                                         _stream(dev))
+    for a, st, dev in shards:
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_uniform_shard_finalize(a, merged[dev].data_ptr(),
+                                                  st)
+    _raise_on(rc, "run_uniform_sharded")
+    packed = bufs[0].packed
+    packed[L:].copy_(pmin(mesh, [b.packed[L:] for b in bufs])[0])
+    LAUNCHES["run_uniform_sharded"] += 1
+    return Shards(outs), packed
+
+
+def scatter_rows_sharded_cuda(mesh, dev, staged):
+    """The dirty-row upload onto the resident shards: the scatter_rows
+    kernel once per shard that has rows (`staged[d]` = (local row ids,
+    the shard's rows on its device) or None); a shard without rows keeps
+    its arrays."""
+    from ..parallel.sharding import Shards
+    out = []
+    for d, (s, p) in enumerate(zip(dev, staged)):
+        if p is None:
+            out.append(s)
+            continue
+        with torch.cuda.device(mesh.devices[d]):
+            out.append(_scatter_rows_launch(s, p[0], p[1]))
+    if any(p is not None for p in staged):
+        LAUNCHES["scatter_rows_sharded"] += 1
+    return Shards(out)
+
+
+def cluster_probe_sharded_cuda(cap, valid, used, npods, dom, ndom: int):
+    """The cluster probe on the mesh: the probe kernels on the node
+    columns the wrapper gathered onto the first shard's device."""
+    with torch.cuda.device(cap.device):
+        out = _cluster_probe_launch(cap, valid, used, npods, dom, ndom)
+    LAUNCHES["cluster_probe_sharded"] += 1
+    return out

@@ -295,17 +295,32 @@ def ports_mask(ports, pod_port_ids):
 # score functions
 
 
-def image_locality_score(na: NodeArrays, pod):
+def _image_match(na: NodeArrays, pod):
+    ids = pod.img_ids[None, None, :]
+    return (na.image_id[:, :, None] == ids) & (ids != 0)     # [N, I, IC]
+
+
+def image_counts(na: NodeArrays, pod):
+    """ImageLocality's cluster-wide counts over these rows: (nodes holding
+    each container image i64 [IC], valid nodes i64). On a node shard they
+    are the shard's part of the sum the JAX package psums
+    (kubernetes_tpu/ops/program.py:244-248)."""
+    present_c = _image_match(na, pod).any(dim=1)              # [N, IC]
+    return (present_c & na.valid[:, None]).sum(dim=0), na.valid.sum()
+
+
+def image_locality_score(na: NodeArrays, pod, counts=None):
     """image_locality.go:95-131: per container image, the node's stored
     size scaled by the image's cluster spread (float64, truncated), summed,
-    clamped, mapped to [0, 100]."""
-    ids = pod.img_ids[None, None, :]
-    match = (na.image_id[:, :, None] == ids) & (ids != 0)    # [N, I, IC]
+    clamped, mapped to [0, 100]. `counts` = the cluster-wide
+    (num_with, total) of `image_counts` when `na` is one node shard;
+    None counts over `na` itself."""
+    match = _image_match(na, pod)
     size = na.image_size[:, :, None]
     size_c = torch.where(match, size, torch.zeros_like(size)).sum(dim=1)
-    present_c = match.any(dim=1)                              # [N, IC]
-    num_with = (present_c & na.valid[:, None]).sum(dim=0)     # [IC]
-    total = na.valid.sum().clamp(min=1)
+    num_with, total = counts if counts is not None else image_counts(na,
+                                                                     pod)
+    total = total.clamp(min=1)
     spread = num_with.to(torch.float64) / total.to(torch.float64)
     scaled = (size_c.to(torch.float64) * spread[None, :]).to(_I64)
     sum_scores = scaled.sum(dim=1)
@@ -383,9 +398,18 @@ def balanced_allocation(cap, used_cols):
     return _balanced_from_fracs(*_fracs(cap, used_cols))
 
 
-def default_normalize(scores, feasible, reverse: bool):
-    """DefaultNormalizeScore over the feasible set."""
-    maxc = torch.where(feasible, scores, torch.zeros_like(scores)).max()
+def feasible_max(scores, feasible):
+    """The DefaultNormalizeScore denominator over these rows: on a node
+    shard, the shard's part of the max the JAX package pmaxes
+    (kubernetes_tpu/ops/program.py:293-301)."""
+    return torch.where(feasible, scores, torch.zeros_like(scores)).max()
+
+
+def default_normalize(scores, feasible, reverse: bool, maxc=None):
+    """DefaultNormalizeScore over the feasible set; `maxc` = the
+    cluster-wide `feasible_max` when the rows are one node shard."""
+    if maxc is None:
+        maxc = feasible_max(scores, feasible)
     scaled = torch.where(maxc > 0, scores * MAX_SCORE // maxc.clamp(min=1),
                          torch.full_like(scores, MAX_SCORE) if reverse
                          else scores)
@@ -417,14 +441,15 @@ def _fit_scores(cfg: ScoreConfig, na: NodeArrays, carry: Carry, pod: PodRow):
 
 
 def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
-                pod: PodRow, overlay=None) -> SigCache:
+                pod: PodRow, overlay=None, img_counts=None) -> SigCache:
     """Everything SigCache caches, freshly computed. `overlay` =
     (ovl_used [N, R], ovl_npods [N]) or None: nominated pods' resources
     folded into the FIT check only (the with-nominated pass of
     RunFilterPluginsWithNominatedPods); scoring stays overlay-free. No
     per-pod self-exclusion here — the cached fit_ok stays
     signature-pure, so same-signature pods with different nominations
-    share it; _eval_pod applies the one-row delta on top."""
+    share it; _eval_pod applies the one-row delta on top. `img_counts`:
+    see image_locality_score."""
     m = na.valid.clone()
     m &= (pod.node_name_id == 0) | (na.name_id == pod.node_name_id)
     m &= ~na.unschedulable | pod.tolerates_unsched
@@ -442,7 +467,8 @@ def _slow_parts(cfg: ScoreConfig, na: NodeArrays, carry: Carry,
         sig=torch.tensor(pod.sig, dtype=_I32, device=m.device),
         static_mask=m, taint_raw=taint_prefer_count(na, pod),
         na_raw=preferred_affinity_score(na, pod),
-        s_img=image_locality_score(na, pod), fit_ok=fit_ok, s_fit=s_fit,
+        s_img=image_locality_score(na, pod, img_counts), fit_ok=fit_ok,
+        s_fit=s_fit,
         s_bal=s_bal)
 
 

@@ -49,6 +49,19 @@ post-drain carry, and the commit resolves that result into
 `_last_probe` — the probe copy rides the drain's event, which the commit
 has already waited on.
 
+`Scheduler(api, mesh=make_mesh(D))` (parallel/sharding.py) splits the
+node axis over D shards with one controller, as the JAX package's mesh
+does: every uniform run, scan span, dirty-row upload and drain probe runs
+its node-sharded program (run_uniform_sharded, run_batch_sharded,
+scatter_rows_sharded, cluster_probe_sharded), with bind maps equal to the
+single-device Scheduler's. The mesh takes the lean tiers only; a drain
+that needs a program the mesh does not have yet raises
+NotImplementedError naming it (group drains and plan spans:
+run_plan_sharded; gangs: run_gang_sharded; pending nominations: the host
+path; the SanitizerRails gate). FitError diagnosis, the dry run and
+explain_pod read single-device blocks of the staging arrays on the
+mesh's first device.
+
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
   a build or a launch raises; group drains the JAX package hands to its
@@ -101,6 +114,10 @@ from .ops.program import (PROBE_DOM_STATS, PROBE_STATS, PodXs,
                           initial_carry, run_batch, run_plan, run_uniform,
                           run_wave, static_norm_ok, table_from_batch,
                           with_cache_sig)
+from .parallel.sharding import (Shards, cluster_probe_sharded,
+                                initial_carry_sharded, norm_device,
+                                run_batch_sharded, run_uniform_sharded,
+                                with_cache_sig_sharded)
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
 from .plugins.defaultpreemption import DefaultPreemption
@@ -299,7 +316,13 @@ class _PendingDrain:
         return self.done is None or self.done.query()
 
 
-def _resolve_device(device) -> torch.device:
+def _resolve_device(device, mesh=None) -> torch.device:
+    if mesh is not None:
+        first = mesh.devices[0]
+        if device is not None and norm_device(device) != first:
+            raise ValueError(f"device {device} differs from the mesh's "
+                             f"first device {first}")
+        device = first
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -320,7 +343,7 @@ class Scheduler:
                  profiles: Optional[list[Profile]] = None,
                  batch_size: Optional[int] = None,
                  clock: Callable[[], float] = _time.monotonic,
-                 device=None, tracer=None, config=None):
+                 device=None, tracer=None, config=None, mesh=None):
         """`tracer` (utils/tracing.py Tracer) records the drain's span
         tree — scheduling_cycle, host_build with its host_* phases,
         device_dispatch, cluster_probe; NOOP_TRACER when None.
@@ -329,8 +352,18 @@ class Scheduler:
         gates, profiles, batch size, queue backoffs and API retry policy,
         as in the JAX package; explicitly passed arguments win. A field or
         gate the port has no machinery for, set away from its default,
-        raises NotImplementedError (config.refuse_unported)."""
-        self.device = _resolve_device(device)
+        raises NotImplementedError (config.refuse_unported).
+
+        `mesh` (parallel/sharding.py Mesh, a power of two of shards)
+        runs the lean tiers node-sharded; `device` is then the mesh's
+        first device (a different one raises ValueError)."""
+        if mesh is not None and mesh.size & (mesh.size - 1):
+            raise ValueError(
+                f"mesh size {mesh.size} must be a power of two: the pow2 "
+                "node-bucket padding guarantees shard divisibility only "
+                "then (run_batch_sharded precondition)")
+        self.mesh = mesh
+        self.device = _resolve_device(device, mesh)
         self.client = client
         self.clock = clock
         from .config import build_profiles, refuse_unported
@@ -379,6 +412,9 @@ class Scheduler:
         self.cache = Cache(clock=clock)
         self.snapshot = Snapshot()
         self.state = ClusterState(device=str(self.device))
+        if mesh is not None:
+            # the node bucket must never be smaller than the mesh
+            self.state.dims.nodes = max(self.state.dims.nodes, mesh.size)
         self.workload_manager = WorkloadManager()
         # pods parked at Permit (WaitOnPermit): uid -> _WaitingPodRec
         self._waiting_pods: dict[str, _WaitingPodRec] = {}
@@ -474,7 +510,13 @@ class Scheduler:
         # constructed Scheduler wins
         from .analysis.rails import GLOBAL as _rails
         self.rails = _rails
-        self.rails.enable(self.feature_gates.enabled("SanitizerRails"))
+        rails_on = self.feature_gates.enabled("SanitizerRails")
+        if rails_on and mesh is not None:
+            raise NotImplementedError(
+                "the SanitizerRails gate on a node-sharded mesh (the rails' "
+                "sync guard and score probe over the shards) is not ported "
+                "to kubernetes_tpu_torch yet")
+        self.rails.enable(rails_on)
 
     # -- wiring ---------------------------------------------------------------
 
@@ -496,7 +538,8 @@ class Scheduler:
                     self.snapshot, client.list_pdbs,
                     DeviceDryRunContext(state=self.state,
                                         builder=self.builder,
-                                        snapshot=self.snapshot))
+                                        snapshot=self.snapshot,
+                                        mesh=self.mesh))
 
     @staticmethod
     def _make_pre_enqueue(fwk: Framework):
@@ -824,10 +867,13 @@ class Scheduler:
         """The JAX package schedules a drain whose nominations the overlay
         cannot represent on its host path, one pod at a time; the port has
         no host scheduling path."""
+        why = ("pending nominations on the node-sharded mesh, where the "
+               "overlay is single-device only" if self.mesh is not None
+               else "nominations the device overlay cannot represent (a "
+               "lower-priority or host-port nominated pod, or group "
+               "constraints)")
         raise NotImplementedError(
-            f"drain of {len(qpis)} pods under nominations the device "
-            "overlay cannot represent (a lower-priority or host-port "
-            "nominated pod, or group constraints): the host scheduling "
+            f"drain of {len(qpis)} pods under {why}: the host scheduling "
             "path (_schedule_one_host) is not ported to "
             "kubernetes_tpu_torch yet")
 
@@ -938,7 +984,7 @@ class Scheduler:
                 # profile's ScoreConfig, or its fit_ok under another
                 # nominated-pod overlay: invalidate it (sig 0 never
                 # matches)
-                carry = with_cache_sig(carry, 0)
+                carry = self._relabel(carry, 0)
                 self._device_carry = carry
             self._carry_profile = profile.name
             self._carry_ovl_fp = ovl_fp
@@ -954,7 +1000,7 @@ class Scheduler:
                 batch = self.builder.build([q.pod for q in qpis],
                                            pad_to=self.batch_size)
             self._refuse_unsupported(qpis, batch)
-            na = self.state.device_arrays()
+            na = self._node_arrays(ph)
             # group kernels are needed when any signature row carries
             # spread or inter-pod affinity constraints, or when existing
             # cluster pods do (affinity is symmetric: they veto/score any
@@ -972,12 +1018,15 @@ class Scheduler:
                 # placement, the Permit barrier at commit)
                 self.gang_dispatch["fallback"] += 1
                 gang = None
+            if self.mesh is not None:
+                self._refuse_on_mesh(groups_needed, gang)
             table_reset = self.builder.reset_count != self._builder_reset_seen
             self._builder_reset_seen = self.builder.reset_count
-            capacity = (self.builder.groups.device_rows(), na.used.shape[0])
+            capacity = (self.builder.groups.device_rows(),
+                        self._node_rows(na))
             if carry is not None and (
-                    table_reset or carry.used.shape != na.used.shape
-                    or groups_needed != (carry.groups is not None)
+                    table_reset or self._shape(carry) != self._shape(na)
+                    or groups_needed != self._has_groups(carry)
                     or (groups_needed and capacity != self._gd_capacity)):
                 # structural change (every signature id / group row
                 # invalidated, the node bucket or the group-row capacity
@@ -987,7 +1036,7 @@ class Scheduler:
                     self._drain_pending()
                     self.cache.update_snapshot(self.snapshot)
                     self.state.apply_snapshot(self.snapshot)
-                na = self.state.device_arrays()
+                na = self._node_arrays(ph)
             with self._phase("host_group_seed", ph, groups=groups_needed):
                 if carry is None:
                     gcarry = None
@@ -1001,7 +1050,8 @@ class Scheduler:
                             self.snapshot)
                     self._gd_capacity = capacity
                     self._seeded_rows = self.builder.table_used
-                    carry = initial_carry(na, gcarry)
+                    carry = (initial_carry_sharded(na) if self.mesh
+                             is not None else initial_carry(na, gcarry))
                 elif (groups_needed
                       and self.builder.table_used > self._seeded_rows):
                     # new signature rows while the carry is resident: seed
@@ -1076,7 +1126,11 @@ class Scheduler:
         # event and resolves at commit
         with self.tracer.span("cluster_probe", drain=did):
             dom = self._gang_domains(na, need=True)
-            probe = cluster_probe(na, carry, dom, self._gang_ndom)
+            if self.mesh is not None:
+                probe = cluster_probe_sharded(self.mesh, na, carry, dom,
+                                              self._gang_ndom)
+            else:
+                probe = cluster_probe(na, carry, dom, self._gang_ndom)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -1086,6 +1140,57 @@ class Scheduler:
             n=n, groups_needed=groups_needed, records=records, done=done,
             ovl=ovl, nom=nom, gang=gang, drain_id=did, phases=ph,
             probe=probe, span=ds))
+
+    # -- the node-sharded mesh ------------------------------------------------
+
+    def _node_arrays(self, ph: dict):
+        """The resident node arrays: single-device, or the mesh's shards,
+        whose upload (rows or the whole matrices) is timed as the JAX
+        package times it, in the host_snapshot phase."""
+        if self.mesh is None:
+            return self.state.device_arrays()
+        if not self.state.sharded_upload_due():
+            return self.state.device_arrays_sharded(self.mesh)
+        with self._phase("host_snapshot", ph):
+            return self.state.device_arrays_sharded(self.mesh)
+
+    @staticmethod
+    def _node_rows(na) -> int:
+        return na.rows if isinstance(na, Shards) else int(na.used.shape[0])
+
+    @staticmethod
+    def _shape(tree) -> tuple:
+        """(global rows, shard count, resource width) of node arrays or a
+        carry, single-device or sharded."""
+        if isinstance(tree, Shards):
+            return (tree.rows, len(tree), int(tree[0].used.shape[1]))
+        return (int(tree.used.shape[0]), 1, int(tree.used.shape[1]))
+
+    @staticmethod
+    def _has_groups(carry) -> bool:
+        """Whether the carry holds group counts (never on the lean
+        mesh)."""
+        return not isinstance(carry, Shards) and carry.groups is not None
+
+    def _relabel(self, carry, sig: int):
+        if isinstance(carry, Shards):
+            return with_cache_sig_sharded(carry, sig)
+        return with_cache_sig(carry, sig)
+
+    def _refuse_on_mesh(self, groups_needed: bool, gang) -> None:
+        """The mesh runs the lean tiers only; the JAX package's other
+        sharded programs are not ported yet, and no drain takes a
+        single-device program in their place."""
+        if groups_needed:
+            raise NotImplementedError(
+                "a group drain on the node-sharded mesh needs "
+                "run_plan_sharded and run_batch_sharded's group mode, "
+                "which are not ported to kubernetes_tpu_torch yet")
+        if gang is not None:
+            raise NotImplementedError(
+                "a gang drain on the node-sharded mesh needs "
+                "run_gang_sharded, which is not ported to "
+                "kubernetes_tpu_torch yet")
 
     @contextmanager
     def _phase(self, name: str, ph: dict, **attrs):
@@ -1128,7 +1233,10 @@ class Scheduler:
         priority >= the incoming pod's to the NodeInfo,
         runtime/framework.go:1183-1200): every nominated pod outranks or
         ties every drain pod and none carries host ports. A drain pod that
-        IS nominated takes per-pod self-exclusion (PodXs.nom_idx)."""
+        IS nominated takes per-pod self-exclusion (PodXs.nom_idx). Never
+        on the mesh: the overlay is single-device only."""
+        if self.mesh is not None:
+            return False
         nom = self.queue.nominator
         max_prio = max(q.pod.spec.priority for q in qpis)
         for qlist in nom.nominated_per_node.values():
@@ -1178,7 +1286,7 @@ class Scheduler:
         plan = self.compiler.compile_drain(
             batch, n, groups_needed=groups_needed, gang_needed=gang,
             overlay=ovl is not None, nominated=nom is not None,
-            strategy=cfg.strategy,
+            mesh=self.mesh is not None, strategy=cfg.strategy,
             prefer_taints=self._cluster_has_prefer_taints(),
             uniform_min=self.UNIFORM_RUN_MIN)
         return self._dispatch_spans(cfg, na, batch, table, plan.spans, carry,
@@ -1189,7 +1297,7 @@ class Scheduler:
         standing batch bucket, J quantizes the node count to its pow2
         bucket."""
         L = pow2_at_least(self.batch_size)
-        K = min(L, na.cap.shape[0])
+        K = min(L, self._node_rows(na))
         n_q = pow2_at_least(max(self.cache.node_count(), 1))
         J = min(max(pow2_at_least(4 * L // n_q + 4), 8), L + 1)
         return L, K, J
@@ -1210,9 +1318,8 @@ class Scheduler:
             if kind[0] == "uniform":
                 L, K, J = self._uniform_shape(na)
                 held = self.rails.hold(carry)
-                c2, packed = run_uniform(cfg, na, carry,
-                                         self._xone(batch, i), table, j - i,
-                                         L, K, J, overlay=ovl)
+                c2, packed = self._run_uniform(cfg, na, carry, batch, i, j,
+                                               table, L, K, J, ovl)
                 records.append(_RunRec("uniform", i, j, carry, packed, L, J,
                                        span=kind, held=held))
             elif kind[0] == "wave":
@@ -1221,6 +1328,11 @@ class Scheduler:
                 records.append(_RunRec("wave", i, j, None, packed, bucket,
                                        span=kind))
             elif kind[0] == "wavescan":
+                if self.mesh is not None:
+                    raise NotImplementedError(
+                        "a plan span (\"wavescan\") on the node-sharded "
+                        "mesh needs run_plan_sharded, which is not ported "
+                        "to kubernetes_tpu_torch yet")
                 c2, packed, bucket = self._wavescan_dispatch(
                     cfg, na, carry, batch, i, j, table, kind)
                 records.append(_RunRec("wavescan", i, j, None, packed,
@@ -1241,6 +1353,17 @@ class Scheduler:
                                        span=kind))
             carry = c2
         return carry, records
+
+    def _run_uniform(self, cfg: ScoreConfig, na, carry, batch, i: int,
+                     j: int, table, L: int, K: int, J: int, ovl):
+        """run_uniform over pods [i:j), or its sharded twin on the mesh
+        (where no overlay occurs)."""
+        if self.mesh is not None:
+            return run_uniform_sharded(cfg, self.mesh, na, carry,
+                                       self._xone(batch, i), table, j - i,
+                                       L, K, J)
+        return run_uniform(cfg, na, carry, self._xone(batch, i), table,
+                           j - i, L, K, J, overlay=ovl)
 
     def _wave_norm_static(self, rows: tuple) -> bool:
         pref_w = self.builder.table.pref_weight
@@ -1333,10 +1456,10 @@ class Scheduler:
         (statics_gen, N), so ids first built without `need` (a gang
         scan at contiguity weight 0) stay identity ids for the probe
         too, as they do there."""
-        key = (self.state.statics_gen, na.used.shape[0])
+        N = self._node_rows(na)
+        key = (self.state.statics_gen, N)
         if self._gang_dom is not None and self._gang_dom_key == key:
             return self._gang_dom
-        N = na.used.shape[0]
         dom = np.arange(N, dtype=np.int32)
         if need:
             ids: dict[str, int] = {}
@@ -1426,6 +1549,9 @@ class Scheduler:
             nom_idx[:m] = nom[i:j]
         xs = pod_xs_from_numpy(PodXs(valid=valid, sig=sig, tidx=tidx,
                                      nom_idx=nom_idx), self.device)
+        if self.mesh is not None:
+            return run_batch_sharded(cfg, self.mesh, na, carry, xs, table,
+                                     groups=self._gd_dev, fam=self._gd_fam)
         return run_batch(cfg, na, carry, xs, table, groups=self._gd_dev,
                          fam=self._gd_fam, overlay=ovl)
 
@@ -1437,8 +1563,8 @@ class Scheduler:
         J = j_failed
         while J < L + 1:
             J = min(8 * J, L + 1)
-            c2, packed = run_uniform(cfg, na, carry, self._xone(batch, i),
-                                     table, j - i, L, K, J, overlay=ovl)
+            c2, packed = self._run_uniform(cfg, na, carry, batch, i, j,
+                                           table, L, K, J, ovl)
             r = packed.cpu().numpy()
             if r[L] and r[L + 1]:
                 out[i:j] = r[:j - i]
@@ -1571,7 +1697,7 @@ class Scheduler:
         prev_ovl = pd.ovl
         for pd2 in self._pending:
             if pd2.profile is not prev_profile or pd2.ovl is not prev_ovl:
-                carry = with_cache_sig(carry, 0)
+                carry = self._relabel(carry, 0)
                 prev_profile = pd2.profile
                 prev_ovl = pd2.ovl
             carry, pd2.records = self._dispatch_runs(
@@ -1915,8 +2041,7 @@ class Scheduler:
         signature table, and — when group constraints are live — fresh
         group tensors."""
         self.state.apply_snapshot(self.snapshot)
-        self.state.ensure_arrays()
-        na = self.state.device_arrays()
+        na = self.diagnosis_arrays()
         if (self._table_dev is not None
                 and self._table_dev_version == self.builder.table_version):
             table = self._table_dev
@@ -1933,6 +2058,18 @@ class Scheduler:
             gc = to_device(gc_np, self.device)
             fam = self.builder.groups.families(self.snapshot)
         return na, table, gd, gc, fam
+
+    def diagnosis_arrays(self):
+        """Single-device node arrays for the row reductions outside a
+        drain (diagnose_row, explain_row): the resident copy, or on the
+        mesh a fresh block of the staging arrays on its first device (the
+        JAX package's diagnosis reads the staging arrays too), which
+        leaves the shards and their dirty-row tracking alone."""
+        a = self.state.ensure_arrays()
+        if self.mesh is None:
+            return self.state.device_arrays()
+        from .state.convert import node_arrays_from_numpy
+        return node_arrays_from_numpy(a, self.device)
 
     def _assemble_diagnosis(self, qpi: QueuedPodInfo, tidx: int, slot,
                             pods_fail, cols_fail) -> Diagnosis:
@@ -2103,7 +2240,12 @@ class Scheduler:
             c = self._device_carry
             gens = {ni.name: ni.generation
                     for ni in self.snapshot.node_info_list}
-            self.state.adopt_carry(c.used, c.nonzero_used, c.npods, c.ports,
-                                   touched=gens)
+            if isinstance(c, Shards):
+                self.state.adopt_carry(*([getattr(s, f) for s in c] for f in
+                                         ("used", "nonzero_used", "npods",
+                                          "ports")), touched=gens)
+            else:
+                self.state.adopt_carry(c.used, c.nonzero_used, c.npods,
+                                       c.ports, touched=gens)
         return self.state.reconcile(self.snapshot)
 

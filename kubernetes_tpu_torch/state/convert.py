@@ -82,8 +82,10 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
 
 def _tensor(x, dtype, device) -> torch.Tensor:
     """A plain copy: the whole-state uploads run in the declared host
-    phases, before the drain's launches."""
-    arr = np.ascontiguousarray(np.asarray(x))
+    phases, before the drain's launches. A scalar stays a scalar (the
+    SigCache's sig)."""
+    arr = np.asarray(x)
+    arr = np.ascontiguousarray(arr) if arr.ndim else arr.copy()
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
@@ -149,3 +151,58 @@ def carry_from_numpy(src, device) -> Carry:
     return Carry(*(_tensor(getattr(src, f), CARRY_DTYPES[f], device)
                    for f in ("used", "nonzero_used", "npods", "ports")),
                  cache=cache, groups=groups)
+
+
+def node_rows_from_numpy(src, device) -> NodeArrays:
+    """A block of node rows (a dirty-row upload): on a CUDA device through
+    pinned memory without blocking."""
+    return NodeArrays(*(_span_tensor(getattr(src, f), NODE_DTYPES[f], device)
+                        for f in NodeArrays._fields))
+
+
+def _numpy_tree(src, cls):
+    """`src` (anything `np.asarray` takes per leaf, e.g. the JAX package's
+    mesh-placed arrays, whose np.asarray is the whole global array) as a
+    `cls` NamedTuple of numpy copies; a `cache` leaf becomes a SigCache."""
+    out = {}
+    for f in cls._fields:
+        x = getattr(src, f, None)
+        if f == "cache":
+            out[f] = _numpy_tree(x, SigCache)
+        elif f == "groups":
+            out[f] = x
+        else:
+            out[f] = np.array(x)
+    return cls(**out)
+
+
+def node_arrays_to_shards(src, mesh):
+    """NodeArrays from any package (numpy, or the JAX package's arrays
+    placed on its mesh) → the port's node shards on `mesh`, through
+    numpy."""
+    from ..parallel.sharding import shard_node_arrays
+    return shard_node_arrays(mesh, _numpy_tree(src, NodeArrays))
+
+
+def carry_to_shards(src, mesh):
+    """A lean Carry from any package → the port's carry shards on `mesh`,
+    through numpy (cache.sig replicated)."""
+    from ..parallel.sharding import shard_carry
+    return shard_carry(mesh, _numpy_tree(src, Carry))
+
+
+def shards_to_numpy(shards):
+    """The port's shards → one NamedTuple of global numpy arrays (node
+    axis concatenated in shard order; replicated scalars from shard 0):
+    what the JAX package's mesh-placed arrays read as through
+    np.asarray."""
+    from ..parallel.sharding import unshard
+
+    def host(tree):
+        if tree is None:
+            return None
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(host(x) for x in tree))
+        return tree.cpu().numpy()
+
+    return host(unshard(shards))

@@ -113,6 +113,9 @@ class ClusterState:
     _free: list[int] = field(default_factory=list)
     arrays: Optional[NodeArrays] = None  # numpy staging
     _device: Optional[NodeArrays] = None  # torch device copy (lazy)
+    # the node-sharded mesh's copy (parallel/sharding.py Shards); a
+    # scheduler uses one of the two, so they share the dirty-row tracking
+    _device_sharded: Optional[tuple] = None
     _device_dirty: bool = True
     # torch device the resident copy lives on ("cuda" or "cpu")
     device: str = "cuda"
@@ -423,6 +426,48 @@ class ClusterState:
             self._dirty_rows = set()
         return self._device
 
+    def sharded_upload_due(self) -> bool:
+        """True when `device_arrays_sharded` would upload (rows or the
+        whole matrices) instead of returning its resident shards."""
+        return self._device_sharded is None or self._device_dirty
+
+    def device_arrays_sharded(self, mesh):
+        """The staging arrays on the node-sharded mesh (parallel/
+        sharding.py Shards), with the generation-diff policy of
+        `device_arrays` (the JAX package's device_arrays_sharded): a small
+        dirty set, padded to a power of two by repeating its first row,
+        rides `scatter_rows_sharded`, each shard taking only its own rows;
+        anything else re-shards the full matrices."""
+        if self._device_sharded is None or self._device_dirty:
+            a = self.ensure_arrays()
+            from ..parallel.sharding import (scatter_rows_sharded,
+                                             shard_node_arrays)
+            dirty = self._dirty_rows
+            N = a.used.shape[0]
+            dev = self._device_sharded
+            if (dev is not None and dirty and len(dev) == mesh.size
+                    and dev.rows == N
+                    and tuple(dev[0].used.shape[1:]) == a.used.shape[1:]
+                    and tuple(dev[0].label_key.shape[1:])
+                    == a.label_key.shape[1:]
+                    and tuple(dev[0].image_id.shape[1:])
+                    == a.image_id.shape[1:]
+                    and len(dirty) <= max(N >> self.scatter_shift, 32)):
+                idx = np.fromiter(dirty, np.int64, len(dirty))
+                idx.sort()
+                pidx = np.full((pow2_at_least(len(idx)),), idx[0], np.int64)
+                pidx[:len(idx)] = idx
+                rows = NodeArrays(*(x[pidx] for x in a))
+                self._device_sharded = scatter_rows_sharded(mesh, dev, pidx,
+                                                            rows)
+                self.rows_scattered_total += len(idx)
+            else:
+                self._device_sharded = shard_node_arrays(mesh, a)
+                self.full_uploads_total += 1
+            self._device_dirty = False
+            self._dirty_rows = set()
+        return self._device_sharded
+
     def adopt_carry(self, used, nonzero_used, npods, ports,
                     touched: Optional[dict[str, int]] = None) -> None:
         """After a batch, the scan's carry IS the new truth for the mutable
@@ -432,15 +477,29 @@ class ClusterState:
         `touched` maps node name → the cache generation reached by the
         parallel assume bookkeeping; recording it marks those rows current,
         which is what lets `reconcile` compare scan-carry content against
-        cache content instead of writing the rows off as lagging."""
+        cache content instead of writing the rows off as lagging.
+
+        On the mesh each argument is a tuple of the shards' tensors: the
+        staging arrays take them in shard order and the resident shards
+        adopt them in place, with no re-upload."""
         a = self.ensure_arrays()
-        np.copyto(a.used, used.cpu().numpy())
-        np.copyto(a.nonzero_used, nonzero_used.cpu().numpy())
-        np.copyto(a.npods, npods.cpu().numpy())
-        np.copyto(a.ports, ports.cpu().numpy())
+        cols = (used, nonzero_used, npods, ports)
+        sharded = isinstance(used, (tuple, list))
+
+        def host(x):
+            parts = x if sharded else (x,)
+            return np.concatenate([t.cpu().numpy() for t in parts])
+
+        for dst, x in zip((a.used, a.nonzero_used, a.npods, a.ports), cols):
+            np.copyto(dst, host(x))
         if touched:
             self.row_gen.update(touched)
-        if self._device is not None:
+        if sharded:
+            if self._device_sharded is not None:
+                self._device_sharded = type(self._device_sharded)(
+                    s._replace(used=u, nonzero_used=z, npods=n, ports=p)
+                    for s, u, z, n, p in zip(self._device_sharded, *cols))
+        elif self._device is not None:
             self._device = self._device._replace(
                 used=used, nonzero_used=nonzero_used, npods=npods, ports=ports)
 

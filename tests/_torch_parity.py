@@ -162,3 +162,36 @@ def lean_pod(rng: random.Random, name: str, ports: bool = True):
         w = w.container({"cpu": "100m"},
                         image=rng.choice(["nginx:1", "redis:7", "busybox:1"]))
     return w.obj()
+
+
+# ---------------------------------------------------------------------------
+# the node-sharded mesh: state handed to both packages through numpy
+
+
+def jax_mesh_state(jmesh, arrays):
+    """(NodeArrays placed on the JAX package's mesh, its initial carry)."""
+    from kubernetes_tpu.parallel import sharding as js
+    na = js.shard_node_arrays(jmesh, jax_na(arrays))
+    return na, jp.initial_carry(na)
+
+
+def torch_mesh_state(tmesh, arrays):
+    """(the port's node shards on `tmesh`, their initial carry)."""
+    from kubernetes_tpu_torch.parallel.sharding import initial_carry_sharded
+    na = convert.node_arrays_to_shards(arrays, tmesh)
+    return na, initial_carry_sharded(na)
+
+
+def shards_from_jax(tree, tmesh, carry: bool = False):
+    """A JAX mesh-placed NodeArrays (or lean Carry, with `carry`) as the
+    port's shards on `tmesh`, through numpy."""
+    if carry:
+        return convert.carry_to_shards(tree, tmesh)
+    return convert.node_arrays_to_shards(tree, tmesh)
+
+
+def assert_sharded_carry_equal(jc, tc_shards, cache: bool = True):
+    """A JAX (mesh-placed) carry against the port's carry shards, through
+    numpy (node axis concatenated in shard order)."""
+    assert_carry_equal(jc, convert.carry_from_numpy(
+        convert.shards_to_numpy(tc_shards), CPU), cache=cache)

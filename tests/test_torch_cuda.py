@@ -925,3 +925,188 @@ def test_held_carry_checksum_sees_device_write(cuda):
     assert carry.npods._version == version
     with pytest.raises(SanitizerError, match="on the device"):
         rails.check_held(held, "commit")
+
+
+# ---------------------------------------------------------------------------
+# the node-sharded mesh: D shards of cuda:0 ("one"), or shard d on cuda:d
+# ("cards", on a machine with D cards), against the plain versions over D
+# CPU shards (kubernetes_tpu_torch/parallel/sharding.py)
+
+MESHES = [(1, "one"), (2, "one"), (4, "one"), (2, "cards"), (4, "cards")]
+
+
+def _mesh_pair(D, place):
+    from kubernetes_tpu_torch.parallel import sharding as S
+    if place == "one":
+        devices = ["cuda:0"] * D
+    else:
+        if torch.cuda.device_count() < D:
+            pytest.skip(f"needs {D} cards (one shard on each)")
+        devices = [f"cuda:{d}" for d in range(D)]
+    return (S, S.make_mesh(devices=devices),
+            S.make_mesh(devices=["cpu"] * D))
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("seed", range(3))
+def test_run_batch_sharded_kernel_equals_plain(cuda, seed, D, place):
+    S, gm, cm = _mesh_pair(D, place)
+    rng = random.Random(seed)
+    pods = [_pod(rng, i) for i in range(rng.randint(10, 40))]
+    na, batch, table = _staged(rng, rng.randint(5, 120), pods, cuda)
+    xs = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                           batch.tidx), cuda)
+    gna = S.shard_node_arrays(gm, na)
+    cna = S.shard_node_arrays(cm, na)
+    gc, ga = S.run_batch_sharded(P.ScoreConfig(), gm, gna,
+                                 S.initial_carry_sharded(gna), xs, table)
+    cc, ca = S.run_batch_sharded(P.ScoreConfig(), cm, cna,
+                                 S.initial_carry_sharded(cna),
+                                 convert.pod_xs_from_numpy(
+                                     P.PodXs(batch.valid, batch.sig,
+                                             batch.tidx), "cpu"),
+                                 P.table_from_batch(batch, "cpu"))
+    _equal((ga, S.unshard(gc)), (ca, S.unshard(cc)))
+    # the single-device kernel's assignments
+    _, sa = P.run_batch(P.ScoreConfig(), na, P.initial_carry(na), xs, table)
+    _equal(ga, sa)
+    # the lane probe: row 1's kernel on every shard's slice, on its card
+    prof = S.profile_shard_lanes(P.ScoreConfig(), gm, gna,
+                                 S.initial_carry_sharded(gna), xs, table)
+    assert len(prof["laneSeconds"]) == D
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("seed", range(3))
+def test_run_uniform_sharded_kernel_equals_plain(cuda, seed, D, place):
+    S, gm, cm = _mesh_pair(D, place)
+    rng = random.Random(seed)
+    proto = make_pod("plain").req({"cpu": rng.choice(["250m", "1"]),
+                                   "memory": "1Gi"}).obj()
+    na, batch, table = _staged(rng, rng.randint(8, 200), [proto], cuda)
+    N = na.cap.shape[0]
+    L = rng.choice([16, 64, 256])
+    K = min(L, N)
+    J = rng.choice([2, 8, L + 1])
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    n_actual = rng.randint(1, L)
+    gna = S.shard_node_arrays(gm, na)
+    cna = S.shard_node_arrays(cm, na)
+    ctab = P.table_from_batch(batch, "cpu")
+    gc0, cc0 = S.initial_carry_sharded(gna), S.initial_carry_sharded(cna)
+    gc, gp = S.run_uniform_sharded(P.ScoreConfig(), gm, gna, gc0, x, table,
+                                   n_actual, L, K, J)
+    cc, cp = S.run_uniform_sharded(P.ScoreConfig(), cm, cna, cc0, x, ctab,
+                                   n_actual, L, K, J)
+    _equal((gp, S.unshard(gc)), (cp, S.unshard(cc)))
+    # the fast path on the output carry
+    _equal(S.run_uniform_sharded(P.ScoreConfig(), gm, gna, gc, x, table,
+                                 n_actual, L, K, J)[1],
+           S.run_uniform_sharded(P.ScoreConfig(), cm, cna, cc, x, ctab,
+                                 n_actual, L, K, J)[1])
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+def test_scatter_rows_sharded_kernel_equals_plain(cuda, D, place):
+    import numpy as np
+    S, gm, cm = _mesh_pair(D, place)
+    rng = random.Random(5)
+    na, _, _ = _staged(rng, 100, [_pod(rng, 0)], cuda)
+    na2, _, _ = _staged(random.Random(6), 100, [_pod(rng, 1)], cuda)
+    N = na.cap.shape[0]
+    idx = np.array([0, N // 4 - 1, N // 4, N // 2 - 1, N // 2, N - 1, 0, 0])
+    rows = type(na)(*(x.cpu()[torch.from_numpy(idx)].numpy() for x in na2))
+    gdev = S.shard_node_arrays(gm, na)
+    got = S.scatter_rows_sharded(gm, gdev, idx, rows)
+    want = S.scatter_rows_sharded(cm, S.shard_node_arrays(cm, na), idx, rows)
+    _equal(S.unshard(got), S.unshard(want))
+    _equal(S.unshard(gdev), na)
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+def test_cluster_probe_sharded_kernel_bit_equal(cuda, D, place):
+    import numpy as np
+    S, gm, _cm = _mesh_pair(D, place)
+    cap, valid, used, npods, dom = _probe_inputs(
+        np.random.RandomState(9), 8192, 4, 16, cuda)
+    na = SimpleNamespace(cap=cap, valid=valid, used=used)
+    carry = SimpleNamespace(used=used, npods=npods)
+    n = 8192 // D
+
+    def shards(tree, fields):
+        return S.Shards(SimpleNamespace(**{
+            f: getattr(tree, f)[d * n:(d + 1) * n].to(gm.devices[d])
+            for f in fields}) for d in range(D))
+
+    got = S.cluster_probe_sharded(gm, shards(na, ("cap", "valid", "used")),
+                                  shards(carry, ("used", "npods")), dom, 16)
+    want = P._probe_plain(cap.cpu(), valid.cpu(), used.cpu(), npods.cpu(),
+                          dom.cpu(), 16)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32) if a.dtype ==
+                           torch.float32 else a.cpu(),
+                           b.view(torch.int32) if b.dtype == torch.float32
+                           else b)
+
+
+def _mesh_drain(mesh, n_nodes=40, n_pods=160):
+    """A SchedulingBasic-like drain (uniform runs, a node update between
+    two waves), then pods over 40 request shapes (beyond the plan
+    lattice: the scan), on the port's Scheduler; returns its bind map and
+    pending pods."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    api = APIServer()
+    sched = Scheduler(api, batch_size=64, clock=lambda: 1000.0, mesh=mesh)
+    sched.state.scatter_shift = 0
+
+    def node(i, cpu):
+        w = make_node(f"n{i}").capacity({
+            "cpu": cpu, "memory": f"{8 + (i * 5) % 24}Gi",
+            "pods": 110}).zone(f"z{i % 3}")
+        if i % 4 == 1:
+            w = w.label("disk", "ssd")
+        if i % 5 == 0:
+            w = w.image("nginx:1", (100 + 50 * (i % 7)) << 20)
+        return w.obj()
+
+    for i in range(n_nodes):
+        api.create_node(node(i, 4 + (i * 7) % 13))
+    sched.prime()
+    pods = [make_pod(f"p{i}").req({"cpu": "900m", "memory": "1Gi"})
+            .container({"cpu": "100m"}, image="nginx:1").obj()
+            for i in range(n_pods // 2)]
+    for k in range(0, len(pods), 32):
+        api.create_pods(pods[k:k + 32])
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+    api.update_node(node(3, 2))
+    api.create_pods([make_pod(f"b{i}").req({
+        "cpu": f"{100 + 25 * (i % 40)}m",
+        "memory": f"{128 + 64 * (i % 7)}Mi"}).obj()
+        for i in range(n_pods // 2)])
+    sched.schedule_pending()
+    assert sched.reconcile() == []
+    binds = {uid: p.spec.node_name for uid, p in api.pods.items()
+             if p.spec.node_name}
+    return binds, sorted(p.uid for p in sched.queue.pending_pods()[0])
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_scheduler_binds_as_single_device(cuda, D):
+    """Scheduler(mesh=make_mesh(D)) on its default placement (shard d on
+    cuda:d where D cards are visible, else every shard on cuda:0): the
+    single-device Scheduler's bind map, through the sharded kernels
+    only."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    want = _mesh_drain(None)
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    got = _mesh_drain(S.make_mesh(D))
+    assert got == want and len(got[0]) > 100
+    for k in ("run_uniform_sharded", "run_batch_sharded",
+              "scatter_rows_sharded", "cluster_probe_sharded"):
+        assert K.LAUNCHES[k] > 0, k
+    for k in ("run_uniform", "run_batch", "scatter_rows", "cluster_probe"):
+        assert K.LAUNCHES[k] == 0, k

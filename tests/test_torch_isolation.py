@@ -24,6 +24,7 @@ def test_import_pulls_in_no_jax():
     code = ("import sys\n"
             "import kubernetes_tpu_torch.scheduler\n"
             "import kubernetes_tpu_torch.ops.kernels\n"
+            "import kubernetes_tpu_torch.parallel.sharding\n"
             "import kubernetes_tpu_torch.state.convert\n"
             "import kubernetes_tpu_torch.obs.explain\n"
             "import kubernetes_tpu_torch.perf.harness\n"
