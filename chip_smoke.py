@@ -36,6 +36,16 @@ Phases, each reported on its own line:
      1,000 rows including every shard boundary, cluster_probe_sharded bit
      for bit; each logs its timed and device ms per mesh, the bytes it
      exchanged, and the single-device row's bound at the same shape;
+     then the mesh's group and gang programs on D = 2 and 4 shards of
+     cuda:0: run_batch_sharded's group mode (against its plain version
+     on 256 pods of phase 8's mix, against run_batch's group mode on row
+     1g's 1,024-pod span), run_plan_sharded (plain: a 1,024-pod span of
+     MixedHighSignature's state and row 7's lean ports span; kernel:
+     MixedHighSignature's full drain, S = 8, W = 4,096),
+     run_gang_sharded's scan tier (B = 128, S = 1, w_contig = 2,
+     accepted and rejected; S = 4, 60 members in 64 slots) and closed
+     form (L = K = 256, J = 8: accepted, rejected, inexact), and the
+     per-shard surfaces (wave_statics_sharded, the image counts psum'd);
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
   5. a mixed lean workload (taints, selectors, host ports, images, four
@@ -88,7 +98,20 @@ Phases, each reported on its own line:
      shapes, so every drain rides the scan, with a node update between
      two waves, so the reseed rides the dirty-row upload) on make_mesh(2)
      against the single-device card run. Each logs pods/s beside the
-     single-device figure, with the card's name and power limit.
+     single-device figure, with the card's name and power limit;
+ 18. the mesh's group and gang paths: TopologySpreading,
+     SchedulingPodAntiAffinity, MixedSchedulingBasePod,
+     MixedHighSignature, GangTraining and CoLocatedInference at full
+     width on make_mesh(2), TopologySpreading and CoLocatedInference on
+     make_mesh(4), each held to its single-device card run's bind map and
+     final probe snapshot (phases 6, 7, 10, 9, 12, 13), one
+     cluster_probe_sharded a device drain, the sharded group and gang
+     programs launched and no single-device program; then on
+     make_mesh(2) the beyond-lattice drain set with a zone spread on
+     every shape (group-mode scans) against its single-device card run,
+     and a gang rejected on each run_gang_sharded tier with the whole
+     carry unchanged. Each logs pods/s and its host split beside the
+     single-device figure. Every phase logs its seconds.
 Phases 4, 6, 7 and 9-14 run through kubernetes_tpu_torch.perf.harness's
 WorkloadRunner (the reference harness's measured window: pods built
 inside it, the cyclic collector paused) and log the harness's pods/s,
@@ -1253,17 +1276,16 @@ def check_run_wave(torch, pkg, device, rows: list) -> None:
                   for k, v in times.items()}))
 
 
-def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
-    """run_batch's group mode at full width: a 1,024-pod scan over the
-    5,000-node harness cluster in 16 zones, rotating four group
-    signatures (zone spread, hostname ScheduleAnyway spread, zone
-    anti-affinity, preferred pod affinity) plus plain pods. The scheduler
-    compiles a drain of this mix to run_plan; group drains below
-    WAVE_MIN_SPAN keep this mode, so it is held at full width here."""
+def groups_span_inputs(pkg, device, span: int = 1024, seed: int = 51):
+    """Row 1g's span: `span` pods over the 5,000-node harness cluster in 16
+    zones (500 bound spread pods), rotating four group signatures (zone
+    spread, hostname ScheduleAnyway spread, zone anti-affinity, preferred
+    pod affinity) plus plain pods. Returns (na, batch, table, gd, gc,
+    fam, xs)."""
     P = pkg.program
     W = pkg.wrappers
     nodes = harness_nodes(W, SB_NODES, 16)
-    rng = np.random.RandomState(51)
+    rng = np.random.RandomState(seed)
     bound = [W.make_pod(f"init-{i}").req({"cpu": "900m", "memory": "1Gi"})
              .label("app", "spread")
              .node(f"node-{int(rng.randint(0, SB_NODES))}").obj()
@@ -1278,13 +1300,59 @@ def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
         .preferred_pod_affinity(LABEL_ZONE, {"app": "spread"}, 5).obj(),
         lambda k: W.make_pod(k).req({"cpu": "900m", "memory": "1Gi"}).obj(),
     ]
-    span = 1024
     pods = [shapes[int(rng.randint(0, 5))](f"q{i}") for i in range(span)]
     na, batch, table, gd, gc, fam, _b, _s = group_staged(
         pkg, device, nodes, bound, pods)
     xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
         valid=batch.valid[:span], sig=batch.sig[:span],
         tidx=batch.tidx[:span]), device)
+    return na, batch, table, gd, gc, fam, xs
+
+
+def groups_scan_work(pkg, na, carry, batch, table, gd, fam, xs, span: int,
+                     out, kc) -> tuple:
+    """(bound_ms, bound_by, ops, bytes) of run_batch's group mode over the
+    span: per pod the lean evaluation (or its fast path), the group mask
+    and scores on every valid node (spread minima, the domain flags and
+    the score ranges; log and rint per scored node), and per placement
+    the count update over every consumer row."""
+    cfg = pkg.program.ScoreConfig()
+    slots = node_slots(na, carry)
+    C = len(cfg.score_cols)
+    U, SC = gd.spr_f_active.shape
+    TA, TAA = gd.ipa_ra_active.shape[1], gd.ipa_raa_active.shape[1]
+    CT, PT = gd.ipa_stc_tv.shape[1], gd.ipa_stp_tv.shape[1]
+    nv = slots["n_valid"]
+    group_eval = Ops(i32=nv * (4 * SC + 3 * TAA + 3 * TA + 2 * SC),
+                     i64=nv * 6, f64=nv * SC * 3 if fam.spr_s else 0)
+    update = Ops(i32=nv * U * (2 * SC * 4 + TAA * 4 + TA * 3),
+                 i64=nv * U * (CT + PT))
+    ops, prev, per_row = Ops(), int(carry.cache.sig), {}
+    for s_, u, best in zip(batch.sig[:span].tolist(),
+                           batch.tidx[:span].tolist(), np_of(out).tolist()):
+        if u not in per_row:
+            per_row[u] = eval_ops(table, u, slots, C)
+        ops = ops + (fast_ops(slots) if s_ != 0 and s_ == prev
+                     else per_row[u]) + group_eval
+        if best >= 0:
+            ops = ops + update
+        prev = s_
+    moved = (nbytes(na, carry, xs, table, gd)
+             + nbytes(kc.used, kc.nonzero_used, kc.npods, kc.ports,
+                      kc.cache, kc.groups, out))
+    bound_ms, bound_by = bound_of(moved, ops)
+    return bound_ms, bound_by, ops, moved
+
+
+def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
+    """run_batch's group mode at full width on row 1g's 1,024-pod span
+    (groups_span_inputs). The scheduler compiles a drain of this mix to
+    run_plan; group drains below WAVE_MIN_SPAN keep this mode, so it is
+    held at full width here."""
+    P = pkg.program
+    span = 1024
+    na, batch, table, gd, gc, fam, xs = groups_span_inputs(pkg, device,
+                                                           span)
     carry = P.initial_carry(na, gc)
     cfg = P.ScoreConfig()
     kc, ka = P.run_batch(cfg, na, carry, xs, table, groups=gd, fam=fam)
@@ -1295,34 +1363,8 @@ def check_run_batch_groups(torch, pkg, device, rows: list) -> None:
                                               groups=gd, fam=fam), 2)
     plain_ms = cuda_ms(torch, lambda: P._run_batch_plain(
         cfg, na, carry, xs, table, gd, fam), 1, warmup=0)
-    slots = node_slots(na, carry)
-    C = len(cfg.score_cols)
-    U, SC = gd.spr_f_active.shape
-    TA, TAA = gd.ipa_ra_active.shape[1], gd.ipa_raa_active.shape[1]
-    CT, PT = gd.ipa_stc_tv.shape[1], gd.ipa_stp_tv.shape[1]
-    nv = slots["n_valid"]
-    # per pod: the lean evaluation (or its fast path), the group mask and
-    # scores on every valid node (spread minima, the domain flags and the
-    # score ranges; log and rint per scored node), and per placement the
-    # count update over every consumer row
-    group_eval = Ops(i32=nv * (4 * SC + 3 * TAA + 3 * TA + 2 * SC),
-                     i64=nv * 6, f64=nv * SC * 3 if fam.spr_s else 0)
-    update = Ops(i32=nv * U * (2 * SC * 4 + TAA * 4 + TA * 3),
-                 i64=nv * U * (CT + PT))
-    ops, prev, per_row = Ops(), int(carry.cache.sig), {}
-    for s_, u, best in zip(batch.sig[:span].tolist(),
-                           batch.tidx[:span].tolist(), np_of(ka).tolist()):
-        if u not in per_row:
-            per_row[u] = eval_ops(table, u, slots, C)
-        ops = ops + (fast_ops(slots) if s_ != 0 and s_ == prev
-                     else per_row[u]) + group_eval
-        if best >= 0:
-            ops = ops + update
-        prev = s_
-    moved = (nbytes(na, carry, xs, table, gd)
-             + nbytes(kc.used, kc.nonzero_used, kc.npods, kc.ports,
-                      kc.cache, kc.groups, ka))
-    bound_ms, bound_by = bound_of(moved, ops)
+    bound_ms, bound_by, ops, moved = groups_scan_work(
+        pkg, na, carry, batch, table, gd, fam, xs, span, ka, kc)
     log("kernel", name="run_batch_groups", pods=span, nodes=SB_NODES,
         families=list(fam), exact=True, max_abs_err=err, ms=k_ms,
         plain_ms=plain_ms, bound_ms=bound_ms, ops=vars(ops), bytes=moved)
@@ -1506,6 +1548,31 @@ def plan_inputs(torch, pkg, device, kind: str):
                          norm_live=norm_live)
 
 
+def plan_work(P, args, kc, kp, out) -> tuple:
+    """(bound_ms, bound_by, ops, bytes) of one run_plan call on these
+    inputs: plan_ops, and each input read once, each output written once
+    — the node columns, the S rows' surfaces and their active families'
+    group rows, the carry (the whole group carry: the fold writes every
+    consumer row from it)."""
+    cfg, na, carry, xs, table, wt, gd, statics, fam, norm_live, \
+        has_groups, has_ports = args
+    ops = plan_ops(P, args, out, node_slots(na, carry))
+    rows_g = []
+    if has_groups:
+        distinct = sorted(set(wt))
+        rows_g = [getattr(gd, f)[distinct]
+                  for fam_name, fields in PLAN_ROW_FIELDS.items()
+                  if getattr(fam, fam_name) for f in fields]
+    moved = (nbytes(na.cap, na.allowed_pods, statics, carry.used,
+                    carry.nonzero_used, carry.npods, xs, table.req,
+                    table.nonzero_req, rows_g)
+             + (nbytes(carry.ports, kc.ports) if has_ports else 0)
+             + (nbytes(carry.groups, kc.groups) if has_groups else 0)
+             + nbytes(kc.used, kc.nonzero_used, kc.npods, kp))
+    bound_ms, bound_by = bound_of(moved, ops)
+    return bound_ms, bound_by, ops, moved
+
+
 def check_run_plan(torch, pkg, device, rows: list) -> None:
     P = pkg.program
     err = 0.0
@@ -1529,25 +1596,7 @@ def check_run_plan(torch, pkg, device, rows: list) -> None:
         out = np_of(kp[:Wb]).tolist()
         k_ms = cuda_ms(torch, lambda: P.run_plan(*args), 3)
         dev_ms = device_ms(torch, lambda: P.run_plan(*args), 3)
-        slots = node_slots(na, carry)
-        ops = plan_ops(P, args, out, slots)
-        # each input read once, each output written once: the node
-        # columns, the S rows' surfaces and their active families' group
-        # rows, the carry (the whole group carry: the fold writes every
-        # consumer row from it)
-        rows_g = []
-        if has_groups:
-            distinct = sorted(set(wt))
-            rows_g = [getattr(gd, f)[distinct]
-                      for fam_name, fields in PLAN_ROW_FIELDS.items()
-                      if getattr(fam, fam_name) for f in fields]
-        moved = (nbytes(na.cap, na.allowed_pods, statics, carry.used,
-                        carry.nonzero_used, carry.npods, xs, table.req,
-                        table.nonzero_req, rows_g)
-                 + (nbytes(carry.ports, kc.ports) if has_ports else 0)
-                 + (nbytes(carry.groups, kc.groups) if has_groups else 0)
-                 + nbytes(kc.used, kc.nonzero_used, kc.npods, kp))
-        bound_ms, bound_by = bound_of(moved, ops)
+        bound_ms, bound_by, ops, moved = plan_work(P, args, kc, kp, out)
         placed = sum(1 for x in out[:m] if x >= 0)
         times[kind] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
@@ -2200,6 +2249,370 @@ def check_mesh_kernels(torch, pkg, sched, rows: list) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 3 on the mesh, the group and gang programs: run_batch_sharded's
+# group mode, run_plan_sharded, run_gang_sharded (both tiers) and the
+# per-shard surfaces, on D shards of cuda:0. Each equals its plain version
+# over the same shards (at a cut shape: the plain versions repeat every
+# step's arithmetic in small PyTorch calls) and the single-device kernel
+# at the same state (at the full shape); the bound is the single-device
+# row's at that shape (the same work)
+
+
+def phase8_span(pkg, device, n: int = 256):
+    """256 pods of phase 8's mix (ScheduleAnyway zone spread, self-matching
+    required zone affinity to 20 bound seeds, two self-matching anti
+    terms, a DoNotSchedule zone spread, preferred affinity, plain pods)
+    over its 500 nodes (10 zones, a PreferNoSchedule taint on every 11th
+    node). Returns (na, batch, table, gd, gc, fam, xs)."""
+    P = pkg.program
+    W = pkg.wrappers
+    nodes = []
+    for i in range(500):
+        w = W.make_node(f"m{i}").capacity(
+            {"cpu": 16, "memory": "64Gi", "pods": 110}).zone(
+            f"zone-{i % 10}").label(LABEL_HOSTNAME, f"m{i}")
+        if i % 11 == 3:
+            w = w.taint("spot", "", effect="PreferNoSchedule")
+        nodes.append(w.obj())
+    seeds = [W.make_pod(f"seed-{i}").req({"cpu": "500m", "memory": "1Gi"})
+             .label("app", "db").node(f"m{i * 7}").obj() for i in range(20)]
+    kinds = [
+        lambda w: w.label("app", "web").spread_constraint(
+            3, LABEL_ZONE, "ScheduleAnyway", {"app": "web"}),
+        lambda w: w.label("app", "db").pod_affinity(LABEL_ZONE,
+                                                    {"app": "db"}),
+        lambda w: w.label("anti", "x").label("side", "x")
+        .pod_affinity(LABEL_ZONE, {"anti": "x"}, anti=True)
+        .pod_affinity(LABEL_HOSTNAME, {"side": "x"}, anti=True),
+        lambda w: w.label("app", "s").spread_constraint(
+            1, LABEL_ZONE, "DoNotSchedule", {"app": "s"}),
+        lambda w: w.preferred_pod_affinity(LABEL_ZONE, {"app": "web"}, 7),
+        lambda w: w,
+    ]
+    pods = [kinds[i % 6](W.make_pod(f"p8-{i}").req(
+        {"cpu": "500m", "memory": "1Gi"})).obj() for i in range(n)]
+    na, batch, table, gd, gc, fam, _b, _s = group_staged(
+        pkg, device, nodes, seeds, pods)
+    xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:n], sig=batch.sig[:n], tidx=batch.tidx[:n]),
+        device)
+    return na, batch, table, gd, gc, fam, xs
+
+
+def timed(torch, fn) -> tuple:
+    """(result, ms) of one call, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_state(S, mesh, na, carry, gd=None):
+    """(node shards, carry shards, group shards) of single-device state."""
+    return (S.shard_node_arrays(mesh, na), S.shard_carry(mesh, carry),
+            S.shard_groups(mesh, gd) if gd is not None else None)
+
+
+def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
+    from kubernetes_tpu_torch.ops import gang as G
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    cfg = P.ScoreConfig()
+    names = ("run_batch_sharded_groups", "run_plan_sharded",
+             "run_gang_sharded", "run_gang_uniform_sharded",
+             "wave_statics_sharded")
+    per = {k: {} for k in names}
+    err = {k: 0.0 for k in names}
+
+    # the inputs, and the single-device kernels at the full shapes
+    g_span = 1024
+    g_in = groups_span_inputs(pkg, device, g_span)
+    na1, b1, t1, gd1, gc1, fam1, xs1 = g_in
+    c1 = P.initial_carry(na1, gc1)
+    s1c, s1a = P.run_batch(cfg, na1, c1, xs1, t1, groups=gd1, fam=fam1)
+    p8 = phase8_span(pkg, device)
+    na8, b8, t8, gd8, gc8, fam8, xs8 = p8
+    c8 = P.initial_carry(na8, gc8)
+    full, _m, full_shape = plan_inputs(torch, pkg, device, "mhs")
+    sfc, sfp = P.run_plan(*full)
+    # the plain versions' cut: the drain's first 1,024 pods (the same
+    # state and slots), and row 7's lean ports span
+    fxs = full[3]
+    cut = {"mhs": full[:3] + (P.WaveXs(valid=fxs.valid[:1024],
+                                       widx=fxs.widx[:1024]),) + full[4:],
+           "lean_ports": plan_inputs(torch, pkg, device, "lean_ports")[0]}
+    train = W.make_pod("train-proto").req({"cpu": "1", "memory": "1Gi"})\
+        .workload("train").obj()
+    mixed = [W.make_pod(f"mix-{k}").req({"cpu": c, "memory": mem})
+             .workload("mix").obj()
+             for k, (c, mem) in enumerate((("900m", "1Gi"), ("2", "4Gi"),
+                                           ("250m", "512Mi"),
+                                           ("4", "16Gi")))]
+    scan_cases, staged_in = {}, {}
+    for case, protos, m, bucket, needed, lean in (
+            ("accept", [train], 128, 128, 128, False),
+            ("reject", [train], 128, 128, 129, False),
+            ("mixed_s4", mixed, 60, 64, 60, True)):
+        if (m, lean) not in staged_in:    # accept and reject share them
+            staged_in[m, lean] = gang_scan_inputs(
+                torch, pkg, device, protos, m, bucket, lean=lean, seed=m)
+        na, table, carry, xs, wt, statics, dom = staged_in[m, lean]
+        carry = P.with_cache_sig(carry, 5)
+        single = G.run_gang(cfg, na, carry, xs, table, wt=wt,
+                            needed=needed, dom=dom, statics=statics,
+                            w_contig=2)
+        scan_cases[case] = (na, table, carry, xs, wt, statics, dom, m,
+                            bucket, needed, single)
+    proto = W.make_pod("gang-proto").req({"cpu": "900m", "memory": "1Gi"})\
+        .workload("gang").obj()
+    L, J = 256, 8
+    uni_cases, uni_in = {}, {}
+    for case, needed, lean in (("accept", 256, False), ("reject", 257, False),
+                               ("inexact", 256, True)):
+        if lean not in uni_in:            # accept and reject share them
+            uni_in[lean] = staged(gang_nodes(W, lean=lean), (), [proto],
+                                  device, pkg)
+        na, batch, table = uni_in[lean]
+        K = min(L, na.cap.shape[0])
+        x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+        carry = P.initial_carry(na)
+        single = G.run_gang(cfg, na, carry, x, table, needed=needed,
+                            uniform=True, n_actual=256, L=L, K=K, J=J)
+        uni_cases[case] = (na, table, carry, x, K, needed, single)
+    ws_in = []
+    nodes_ws = harness_nodes(W, TS_SHAPE[0], TS_SHAPE[3])
+    na_w, b_w, t_w = staged(nodes_ws, (), [group_pod(W, "s", "spread")],
+                            device, pkg)
+    ws_in.append((na_w, t_w, [int(b_w.tidx[0])], (False, False, False)))
+    pods_m = lean_pods(np.random.RandomState(32), 8, W, "ws", ports=False)
+    na_m, b_m, t_m = staged(lean_cluster(np.random.RandomState(31),
+                                         SB_NODES, W), (), pods_m, device,
+                            pkg)
+    ws_in.append((na_m, t_m, sorted(set(int(t) for t in b_m.tidx[:8]))[:4],
+                  (True, True, True)))
+    torch.cuda.synchronize()
+
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=["cuda:0"] * D)
+        n_of = {}
+
+        # run_batch_sharded's group mode: the plain version on phase 8's
+        # mix, the single-device kernel on row 1g's span
+        k = "run_batch_sharded_groups"
+        gna, gc0, ggd = sharded_state(S, mesh, na8, c8, gd8)
+        (kc, ka), k8_ms = timed(torch, lambda: S.run_batch_sharded(
+            cfg, mesh, gna, gc0, xs8, t8, groups=ggd, fam=fam8))
+        (pc, pa), plain_ms = timed(torch, lambda: S._run_batch_sharded_plain(
+            cfg, mesh, gna, gc0, xs8, t8, ggd, fam8))
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (ka, S.unshard(kc)), (pa, S.unshard(pc)), f"{k}[D={D}]"))
+        gna, gc0, ggd = sharded_state(S, mesh, na1, c1, gd1)
+
+        def kern_g():
+            return S.run_batch_sharded(cfg, mesh, gna, gc0, xs1, t1,
+                                       groups=ggd, fam=fam1)
+        kc, ka = kern_g()
+        assert_equal_trees(torch, (ka, S.unshard(kc)), (s1a, s1c),
+                           f"{k}[D={D}] vs run_batch[groups]")
+        per[k][D] = dict(ms=cuda_ms(torch, kern_g, 1),
+                         device_ms=device_ms(torch, kern_g, 1),
+                         plain_ms=plain_ms, cut_ms=k8_ms, pods=g_span,
+                         cut_pods=int(xs8.valid.shape[0]))
+        n_of[k] = g_span
+        del gna, gc0, ggd, kc, pc
+
+        # the per-shard surfaces: the main path's call and four mixed rows
+        # (every family on: the image counts cross the shards)
+        k = "wave_statics_sharded"
+        for na_, t_, wt_, feats in ws_in:
+            gna = S.shard_node_arrays(mesh, na_)
+            got = S.wave_statics_sharded(mesh, gna, t_, wt_, feats)
+            want = S._wave_statics_sharded_plain(mesh, gna, t_, wt_, feats)
+            err[k] = max(err[k], assert_equal_trees(
+                torch, got, want, f"{k}[D={D}, {feats}]"))
+            single = P.wave_statics(na_, t_, wt_, feats)
+            assert_equal_trees(
+                torch, [torch.cat([g[f] for g in got], dim=1)
+                        for f in range(4)], list(single),
+                f"{k}[D={D}, {feats}] vs wave_statics")
+        na_, t_, wt_, feats = ws_in[0]
+        gna = S.shard_node_arrays(mesh, na_)
+
+        def kern_w():
+            return S.wave_statics_sharded(mesh, gna, t_, wt_, feats)
+        per[k][D] = dict(
+            ms=cuda_ms(torch, kern_w, 20), device_ms=device_ms(
+                torch, kern_w, 20),
+            plain_ms=cuda_ms(torch, lambda: S._wave_statics_sharded_plain(
+                mesh, gna, t_, wt_, feats), 5))
+        del gna
+
+        # run_plan_sharded: the plain version on a 1,024-pod span of
+        # MixedHighSignature's state and on row 7's lean ports span; the
+        # single-device kernel on MixedHighSignature's full drain
+        k = "run_plan_sharded"
+        plain_by, kern_by = {}, {}
+        for kind, args in cut.items():
+            cfg_, na_, carry_, xs_, table_, wt_, gd_, _st, fam_, nl_, hg_, \
+                hp_ = args
+            gna, gc0, ggd = sharded_state(S, mesh, na_, carry_, gd_)
+            gst = S.wave_statics_sharded(mesh, gna, table_, wt_)
+            sargs = (cfg_, mesh, gna, gc0, xs_, table_, wt_, ggd, gst, fam_,
+                     nl_, hg_, hp_)
+            kc, kp = S.run_plan_sharded(*sargs)
+            kern_by[kind] = cuda_ms(torch, lambda: S.run_plan_sharded(
+                *sargs), 1)
+            (pc, pp), plain_by[kind] = timed(
+                torch, lambda: S._run_plan_sharded_plain(*sargs))
+            err[k] = max(err[k], assert_equal_trees(
+                torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)),
+                f"{k}[D={D}, {kind}]"))
+            del gna, gc0, ggd, gst, kc, pc
+        cfg_, na_, carry_, xs_, table_, wt_, gd_, _st, fam_, nl_, hg_, hp_ \
+            = full
+        gna, gc0, ggd = sharded_state(S, mesh, na_, carry_, gd_)
+        gst = S.wave_statics_sharded(mesh, gna, table_, wt_)
+
+        def kern_p():
+            return S.run_plan_sharded(cfg_, mesh, gna, gc0, xs_, table_, wt_,
+                                      ggd, gst, fam_, nl_, hg_, hp_)
+        kc, kp = kern_p()
+        assert_equal_trees(torch, (kp, S.unshard(kc)), (sfp, sfc),
+                           f"{k}[D={D}] vs run_plan")
+        per[k][D] = dict(ms=cuda_ms(torch, kern_p, 1),
+                         device_ms=device_ms(torch, kern_p, 1),
+                         plain_ms=plain_by["mhs"],
+                         plain_lean_ports_ms=plain_by["lean_ports"],
+                         cut_ms=kern_by["mhs"],
+                         lean_ports_ms=kern_by["lean_ports"],
+                         S=len(wt_), W=int(xs_.valid.shape[0]))
+        del gna, gc0, ggd, gst, kc
+
+        # run_gang_sharded's scan tier: accepted, rejected (the carry
+        # untouched, sig included), four signatures in 64 slots
+        k = "run_gang_sharded"
+        per[k][D] = {}
+        for case, (na, table, carry, xs, wt, statics, dom, m, bucket,
+                   needed, single) in scan_cases.items():
+            gna, gc0, _g = sharded_state(S, mesh, na, carry)
+            n_local = na.cap.shape[0] // D
+            gdom = [dom[d * n_local:(d + 1) * n_local].contiguous()
+                    for d in range(D)]
+            gst = S.wave_statics_sharded(mesh, gna, table, wt)
+
+            def kern_s():
+                return S.run_gang_sharded(cfg, mesh, gna, gc0, xs, table,
+                                          wt=wt, needed=needed, dom=gdom,
+                                          statics=gst, w_contig=2)
+            kc, kp = kern_s()
+            (pc, pp), plain_ms = timed(
+                torch, lambda: S._run_gang_scan_sharded_plain(
+                    cfg, mesh, gna, gc0, xs, table, wt, needed, gdom, gst,
+                    2))
+            err[k] = max(err[k], assert_equal_trees(
+                torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)),
+                f"{k}[D={D}, {case}]"))
+            assert_equal_trees(torch, (S.unshard(kc), kp), single,
+                               f"{k}[D={D}, {case}] vs run_gang")
+            if case == "reject":
+                assert_equal_trees(torch, S.unshard(kc), carry,
+                                   f"{k}[D={D}, reject] carry")
+            per[k][D][case] = dict(
+                ms=cuda_ms(torch, kern_s, 2),
+                device_ms=device_ms(torch, kern_s, 2), plain_ms=plain_ms,
+                accept=int(kp[bucket]), placed=int(kp[bucket + 1]),
+                S=len(wt), B=bucket)
+            del gna, gc0, gst, kc, pc
+
+        # run_gang_sharded's closed form: accepted, rejected, inexact
+        k = "run_gang_uniform_sharded"
+        per[k][D] = {}
+        for case, (na, table, carry, x, K, needed, single) in \
+                uni_cases.items():
+            gna, gc0, _g = sharded_state(S, mesh, na, carry)
+
+            def kern_u():
+                return S.run_gang_sharded(cfg, mesh, gna, gc0, x, table,
+                                          needed=needed, uniform=True,
+                                          n_actual=256, L=L, K=K, J=J)
+            kc, kp = kern_u()
+            (pc, pp), plain_ms = timed(
+                torch, lambda: S._run_gang_uniform_sharded_plain(
+                    cfg, mesh, gna, gc0, x, table, 256, needed, L, K, J))
+            err[k] = max(err[k], assert_equal_trees(
+                torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)),
+                f"{k}[D={D}, {case}]"))
+            verdict = np_of(kp[L:]).tolist()
+            if verdict[2] and verdict[3] and bool(single[1][L + 2]):
+                assert_equal_trees(torch, (S.unshard(kc), kp), single,
+                                   f"{k}[D={D}, {case}] vs run_gang")
+            if not (verdict[0] and verdict[2] and verdict[3]):
+                assert_equal_trees(torch, S.unshard(kc)[:4], carry[:4],
+                                   f"{k}[D={D}, {case}] carry")
+            if case == "inexact" and verdict[2]:
+                fail(f"{k}[D={D}, inexact]: the exactness flag held")
+            per[k][D][case] = dict(
+                ms=cuda_ms(torch, kern_u, 10),
+                device_ms=device_ms(torch, kern_u, 10), plain_ms=plain_ms,
+                verdict=verdict)
+            del gna, gc0, kc, pc
+
+    # the bounds: the single-device rows' at the same shapes
+    bounds = {"run_batch_sharded_groups": groups_scan_work(
+        pkg, na1, c1, b1, t1, gd1, fam1, xs1, g_span, s1a, s1c)}
+    Wb = full[3].valid.shape[0]
+    bounds["run_plan_sharded"] = plan_work(P, full, sfc, sfp,
+                                           np_of(sfp[:Wb]).tolist())
+    na, table, carry, xs, wt, statics, dom, m, bucket, needed, single = \
+        scan_cases["accept"]
+    ops = gang_ops(cfg, na, table, wt, np_of(xs.widx).tolist(),
+                   np_of(xs.valid).tolist(), np_of(single[1][:bucket])
+                   .tolist(), 2)
+    moved = gang_bytes(cfg, na, table, wt, bucket, bucket, False,
+                       w_contig=2)
+    bounds["run_gang_sharded"] = bound_of(moved, ops) + (ops, moved)
+    na, table, carry, x, K, needed, single = uni_cases["accept"]
+    bounds["run_gang_uniform_sharded"] = gang_uniform_work(
+        torch, P, cfg, na, carry, x, table, L, K, J, single[1])
+    keys = flat_keys(torch, P, cfg, na, carry, x, table, K, J)
+    library = dict.fromkeys(names)
+    library["run_gang_uniform_sharded"] = cuda_ms(
+        torch, lambda: torch.topk(keys, L), 10)
+    na_, t_, wt_, feats = ws_in[0]
+    N = na_.valid.shape[0]
+    ws_moved = nbytes(na_.valid, na_.name_id, na_.unschedulable) + N * 25
+    bounds["wave_statics_sharded"] = bound_of(ws_moved, Ops(i32=4 * N)) + (
+        Ops(i32=4 * N), ws_moved)
+    sources = {"run_batch_sharded_groups": ("run_batch_sharded.cu",
+                                            "kubernetes_tpu/parallel/"
+                                            "sharding.py:113"),
+               "run_plan_sharded": ("run_plan_sharded.cu", "kubernetes_tpu/"
+                                    "parallel/sharding.py:563"),
+               "run_gang_sharded": ("run_gang_sharded.cu", "kubernetes_tpu/"
+                                    "parallel/sharding.py:890"),
+               "run_gang_uniform_sharded": ("run_uniform_sharded.cu",
+                                            "kubernetes_tpu/parallel/"
+                                            "sharding.py:1042"),
+               "wave_statics_sharded": ("wave_statics.cu", "kubernetes_tpu/"
+                                        "ops/program.py:1635")}
+    for k in names:
+        bound_ms, bound_by, ops, moved = bounds[k]
+        log("kernel", name=k, exact=True, max_abs_err=err[k],
+            by_mesh=per[k], bound_ms=bound_ms, bound_by=bound_by,
+            ops=vars(ops), bytes=moved, library_ms=library[k], card_shards=
+            "cuda:0")
+        d2 = per[k][2]
+        head = d2.get("accept", d2)
+        src, repl = sources[k]
+        rows.append(dict(
+            name=k, route="cuda", source=f"kubernetes_tpu_torch/csrc/{src}",
+            replaces=repl, launches=0, max_abs_err=err[k], ms=head["ms"],
+            plain_ms=head["plain_ms"], device_ms=head["device_ms"],
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library[k],
+            by_mesh=per[k]))
+
+
+# ---------------------------------------------------------------------------
 # phase 3, preemption: the batched dry run
 
 
@@ -2543,6 +2956,31 @@ def gang_nodes(W, lean: bool):
     return harness_nodes(W, SB_NODES, 16)
 
 
+def gang_uniform_work(torch, P, cfg, na, carry, x, table, L: int, K: int,
+                      J: int, kp) -> tuple:
+    """(bound_ms, bound_by, ops, bytes) of the closed-form gang tier on
+    these inputs: the row's evaluation and its top-K, the [K, J] matrix
+    of the feasible candidates, the top-L, the touched candidates'
+    updates (gang_bytes for the bytes)."""
+    slots = node_slots(na, carry)
+    C = len(cfg.score_cols)
+    pod = P._gather_row(table, x.tidx, True, x.sig)
+    feasible = int(P._eval_pod(cfg, na, carry, pod)[0].sum())
+    nreq = len(req_cols(np_of(table.req[x.tidx])))
+    touched = int(torch.unique(kp[:L][kp[:L] >= 0]).numel())
+    entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
+    ops = (eval_ops(table, x.tidx, slots, C)
+           + Ops(i64=4) * slots["n_valid"]
+           + select_ops(slots["n_valid"], K)
+           + entry * (min(feasible, K) * J)
+           + select_ops(min(feasible, K) * J, L) + Ops(i32=2 * L)
+           + Ops(i32=1, i64=2 * nreq + 4) * touched)
+    moved = gang_bytes(cfg, na, table, [x.tidx], 1, L, True,
+                       touched=touched)
+    bound_ms, bound_by = bound_of(moved, ops)
+    return bound_ms, bound_by, ops, moved
+
+
 def check_run_gang_uniform(torch, pkg, device, rows: list) -> None:
     """The closed form at GangTraining's shape: 256 members of 900m / 1 Gi
     over 5,000 harness nodes padded to 8,192 (L = K = 256, J = 8, the
@@ -2596,22 +3034,8 @@ def check_run_gang_uniform(torch, pkg, device, rows: list) -> None:
             keys = flat_keys(torch, P, cfg, na, carry, x, table, K, J)
             times[case]["library_ms"] = cuda_ms(
                 torch, lambda: torch.topk(keys, L), 10)
-            slots = node_slots(na, carry)
-            C = len(cfg.score_cols)
-            pod = P._gather_row(table, x.tidx, True, x.sig)
-            feasible = int(P._eval_pod(cfg, na, carry, pod)[0].sum())
-            nreq = len(req_cols(np_of(table.req[x.tidx])))
-            touched = int(torch.unique(kp[:L][kp[:L] >= 0]).numel())
-            entry = score_ops(C, nreq, True) + Ops(i64=nreq + 4 + 3 + 1)
-            ops = (eval_ops(table, x.tidx, slots, C)
-                   + Ops(i64=4) * slots["n_valid"]
-                   + select_ops(slots["n_valid"], K)
-                   + entry * (min(feasible, K) * J)
-                   + select_ops(min(feasible, K) * J, L) + Ops(i32=2 * L)
-                   + Ops(i32=1, i64=2 * nreq + 4) * touched)
-            moved = gang_bytes(cfg, na, table, [x.tidx], 1, L, True,
-                               touched=touched)
-            bound_ms, bound_by = bound_of(moved, ops)
+            bound_ms, bound_by, ops, moved = gang_uniform_work(
+                torch, P, cfg, na, carry, x, table, L, K, J, kp)
             times[case].update(bound_ms=bound_ms, bound_by=bound_by,
                                ops=vars(ops), bytes=moved)
         log("kernel", name="run_gang_uniform", case=case, L=L, K=K, J=J,
@@ -2897,8 +3321,10 @@ def explain_uid(run) -> str:
 
 
 # each cell's rails-off card run: (bind map and pending pods, pods/s),
-# what phase 16 holds its rails-on run to
+# what phase 16 holds its rails-on run to, and its final probe snapshot,
+# what phase 18 holds its mesh runs to
 RAILS_OFF: dict = {}
+CARD_PROBE: dict = {}
 
 
 def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
@@ -2930,6 +3356,7 @@ def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
     if post is not None:
         post(cpu)
     RAILS_OFF[name] = (outcome(run.api, run.sched), run.rate)
+    CARD_PROBE[name] = probe_state(run.sched)
     if RAILS_OFF[name][0] != outcome(cpu.api, cpu.sched):
         fail(f"{name}: cuda bind map differs from the cpu run")
     if probe_state(run.sched) != probe_state(cpu.sched):
@@ -3496,18 +3923,22 @@ def rails_phase(torch, pkg, device: str, smi: str) -> dict:
 # phase 17: the mesh on the card
 
 
-# single-device kernels of the lean path, none of which a mesh run may
-# launch in place of its sharded twin
-SINGLE_LEAN = ("run_batch", "run_uniform", "scatter_rows", "cluster_probe")
+# the single-device programs, none of which a mesh run may launch in
+# place of its sharded twin
+SINGLE_DEVICE = ("run_batch", "run_batch_groups", "run_uniform", "run_plan",
+                 "run_wave", "run_gang", "run_gang_uniform", "wave_statics",
+                 "scatter_rows", "cluster_probe")
 
 
-def beyond_lattice_run(torch, pkg, mesh=None):
+def beyond_lattice_run(torch, pkg, mesh=None, spread: bool = False):
     """5,000 harness nodes and 2,048 pods whose cpu / memory requests
     rotate over 40 shapes, so every drain holds more signatures than the
     plan program's lattice (PLAN_MAX_SIGS = 32) and rides the scan; two
     waves (800 pods, then 1,248) with one node update between them, so
     the reseed's dirty rows (at most 801 of 8,192) ride the dirty-row
-    upload. Returns (api, scheduler, pods/s over both waves)."""
+    upload. With `spread` every shape also carries a zone spread
+    (DoNotSchedule, maxSkew 5), so every drain scans in group mode.
+    Returns (api, scheduler, pods/s over both waves)."""
     from kubernetes_tpu_torch.backend.apiserver import APIServer
     from kubernetes_tpu_torch.scheduler import Scheduler
     W = pkg.wrappers
@@ -3527,7 +3958,11 @@ def beyond_lattice_run(torch, pkg, mesh=None):
     sched.prime()
     pods = [W.make_pod(f"bl-{i}").req(
         {"cpu": f"{100 + 50 * (i % 40)}m",
-         "memory": f"{256 + 128 * (i % 40)}Mi"}).obj() for i in range(2048)]
+         "memory": f"{256 + 128 * (i % 40)}Mi"}) for i in range(2048)]
+    if spread:
+        pods = [p.label("app", "bl").spread_constraint(
+            5, LABEL_ZONE, "DoNotSchedule", {"app": "bl"}) for p in pods]
+    pods = [p.obj() for p in pods]
     t0 = time.perf_counter()
     api.create_pods(pods[:800])
     sched.schedule_pending()
@@ -3547,7 +3982,7 @@ def mesh_checks(name: str, sched, counts: dict, sharded: tuple) -> None:
     for k in sharded:
         if counts[k] <= 0:
             fail(f"{name} launches {counts}: {k} never ran")
-    for k in SINGLE_LEAN:
+    for k in SINGLE_DEVICE:
         if counts[k] != 0:
             fail(f"{name} launches {counts}: the single-device {k} ran on "
                  "the mesh")
@@ -3626,6 +4061,215 @@ def mesh_phase(torch, pkg, smi: str, sb_probe: str) -> dict:
             "full_uploads_total", "rows_scattered_total")},
         card=smi, bind_map_equals_single_device=True,
         last_probe_equals_single_device=True)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the mesh's group and gang paths on the card
+
+# (cell, mesh size, the sharded programs it must launch)
+MESH_GROUP_CELLS = (
+    ("TopologySpreading", 2, ("run_plan_sharded", "wave_statics_sharded")),
+    ("SchedulingPodAntiAffinity", 2, ("run_plan_sharded",
+                                      "wave_statics_sharded")),
+    ("MixedSchedulingBasePod", 2, ("run_plan_sharded",
+                                   "wave_statics_sharded")),
+    ("MixedHighSignature", 2, ("run_plan_sharded", "wave_statics_sharded")),
+    ("GangTraining", 2, ("run_gang_uniform_sharded",)),
+    ("CoLocatedInference", 2, ("run_gang_sharded", "wave_statics_sharded")),
+    ("TopologySpreading", 4, ("run_plan_sharded", "wave_statics_sharded")),
+    ("CoLocatedInference", 4, ("run_gang_sharded", "wave_statics_sharded")),
+)
+
+
+def mesh_gang_reject_run(torch, pkg, mesh=None):
+    """Phase 15's reject half on 5,000 nodes of 8 cpu: 40 priority-0 gangs
+    of 256 four-cpu members (the closed form: 39 fit, the last is
+    rejected), then a closed-form gang of 32 four-cpu members and a
+    scan-tier gang of 64 two-cpu members (contiguity weight 2), each
+    finding 64 free cpu for its 128: both rejected. Returns (api,
+    scheduler, the carry before and after each of the last two gangs,
+    the launches of each)."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup, Workload
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing.workloads import GangWorkloadGenerator
+    S, W, K = pkg.sharding, pkg.wrappers, pkg.kernels.LAUNCHES
+    api = APIServer()
+    sched = Scheduler(api, batch_size=BATCH,
+                      device=None if mesh is not None else "cuda",
+                      clock=lambda: 1000.0, mesh=mesh)
+    for nd in pc_nodes(W, SB_NODES, 16):
+        api.create_node(nd)
+    sched.prime()
+    gen = GangWorkloadGenerator(seed=0)
+    specs = gen.training_gangs(2 * SB_NODES // 256 + 1, size=256, cpu="4",
+                               memory="1Gi", priority=0)
+    for what, obj in gen.trace(specs, chunk=CREATE_BATCH):
+        if what == "workload":
+            api.create_workload(obj)
+            continue
+        api.create_pods(obj)
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+
+    def carry_now():
+        c = sched._device_carry
+        whole = S.unshard(c) if isinstance(c, S.Shards) else c
+        return [t.clone() for t in list(whole[:4]) + list(whole.cache)]
+
+    steps = {}
+    for tier, name, size, cpu, contig in (("closed_form", "late", 32, "4", 0),
+                                          ("scan", "wide", 64, "2", 2)):
+        sched.gang_contiguity_weight = contig
+        before, k0 = carry_now(), dict(K)
+        g0 = dict(sched.gang_dispatch)
+        api.create_workload(Workload(metadata=ObjectMeta(name=name),
+                                     pod_groups=[PodGroup(
+                                         name="workers", min_count=size)]))
+        create_pods(api, sched, [W.make_pod(f"{name}-{i}").req(
+            {"cpu": cpu, "memory": "1Gi"}).workload(name).obj()
+            for i in range(size)])
+        torch.cuda.synchronize()
+        steps[tier] = dict(
+            before=before, after=carry_now(),
+            launches={k: K[k] - k0[k] for k in K if K[k] != k0[k]},
+            gang_dispatch={k: sched.gang_dispatch[k] - g0[k] for k in g0})
+    sched.gang_contiguity_weight = 0
+    return api, sched, steps
+
+
+def mesh_group_phase(torch, pkg, smi: str) -> dict:
+    """Phase 18: TopologySpreading, SchedulingPodAntiAffinity,
+    MixedSchedulingBasePod, MixedHighSignature, GangTraining and
+    CoLocatedInference through the harness on make_mesh(2), and
+    TopologySpreading and CoLocatedInference on make_mesh(4): every pod
+    bound, the bind map and the final probe snapshot of the cell's
+    single-device card run (phases 6, 7, 10, 9, 12, 13), reconcile() ==
+    [], one cluster_probe_sharded a device drain, the sharded programs
+    launched and no single-device program, each cell's own checks. Then on
+    make_mesh(2) the beyond-lattice group drain set against its
+    single-device card run, and a gang rejected on each run_gang_sharded
+    tier leaving the whole carry as it was. Returns the launch counts by
+    path."""
+    S = pkg.sharding
+    paths = {}
+    for name, D, sharded in MESH_GROUP_CELLS:
+        what = f"{name} on make_mesh({D})"
+        mesh = S.make_mesh(D)
+        pkg.kernels.reset_launches()
+        t0 = time.perf_counter()
+        run = cell_run("cuda", pkg, name, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(pkg.kernels.LAUNCHES)
+        got = outcome(run.api, run.sched)
+        want = RAILS_OFF[name][0]
+        if got[1] or len(got[0]) != len(want[0]):
+            fail(f"{what}: bound {len(got[0])} of {len(want[0])} pods, "
+                 f"{len(got[1])} pending")
+        if got != want:
+            fail(f"{what}: the bind map differs from the single-device "
+                 "card run")
+        if probe_state(run.sched) != CARD_PROBE[name]:
+            fail(f"{what}: the final cluster probe differs from the "
+                 "single-device card run")
+        mesh_checks(what, run.sched, counts, sharded)
+        check = {}
+        if name == "TopologySpreading":
+            per_zone = zone_counts(run.api, ("app", "spread"))
+            check["zone_skew"] = max(per_zone.values()) - min(
+                per_zone.values())
+            if check["zone_skew"] > 5:
+                fail(f"{what}: zone skew {check['zone_skew']}")
+        elif name == "SchedulingPodAntiAffinity":
+            per_zone = zone_counts(run.api, ("anti", "yes"))
+            check["max_anti_pods_per_zone"] = max(per_zone.values())
+            if check["max_anti_pods_per_zone"] > 1:
+                fail(f"{what}: a zone holds more than one anti pod")
+        elif name in ("GangTraining", "CoLocatedInference"):
+            n_gangs = (GT_SHAPE[1] if name == "GangTraining"
+                       else CI_SHAPE[1] + CI_SHAPE[4])
+            key = ("run_gang_uniform_sharded" if name == "GangTraining"
+                   else "run_gang_sharded")
+            gd = dict(run.sched.gang_dispatch)
+            if gd["placed"] != n_gangs or gd["fallback"] or gd["rejected"]:
+                fail(f"{what}: gang drains {gd}, expected {n_gangs} placed")
+            if counts[key] != n_gangs:
+                fail(f"{what}: {key} launched {counts[key]} times, "
+                     f"expected one a gang ({n_gangs})")
+            check.update(gang_dispatch=gd, gangs=n_gangs)
+        paths[f"mesh{D}_{name}"] = counts
+        log("mesh_group_cell", cell=name, shards=D, mesh=repr(mesh),
+            pods=len(got[0]), pods_per_s=run.rate,
+            single_device_pods_per_s=RAILS_OFF[name][1],
+            window_s=run.item.duration_s, host_split=host_split(run),
+            wall_s=wall, launches=counts,
+            drain_readbacks=run.sched.device_batches, card=smi,
+            bind_map_equals_single_device=True,
+            last_probe_equals_single_device=True, **check)
+        del run
+
+    # the beyond-lattice group drain set: the single-device card run,
+    # then the mesh
+    pkg.kernels.reset_launches()
+    api1, s1, rate1 = beyond_lattice_run(torch, pkg, spread=True)
+    single = dict(pkg.kernels.LAUNCHES)
+    want = outcome(api1, s1)
+    if s1.reconcile() != [] or single["run_batch_groups"] <= 0:
+        fail(f"beyond-lattice group single-device run: launches {single}")
+    mesh = S.make_mesh(2)
+    pkg.kernels.reset_launches()
+    api2, s2, rate2 = beyond_lattice_run(torch, pkg, mesh, spread=True)
+    counts = dict(pkg.kernels.LAUNCHES)
+    what = "beyond-lattice group drains on make_mesh(2)"
+    if outcome(api2, s2) != want:
+        fail(f"{what}: the bind map differs from the single-device card "
+             "run")
+    if probe_state(s2) != probe_state(s1):
+        fail(f"{what}: the final cluster probe differs from the "
+             "single-device card run")
+    mesh_checks(what, s2, counts, ("run_batch_sharded_groups",))
+    paths["mesh2_beyond_lattice_groups"] = counts
+    log("mesh_beyond_lattice_groups", shards=2, pods=2048, nodes=SB_NODES,
+        bound=len(want[0]), pending=len(want[1]), signatures=40,
+        pods_per_s=rate2, single_device_pods_per_s=rate1, launches=counts,
+        single_device_launches=single,
+        drains=(s2.device_batches, s1.device_batches), card=smi,
+        bind_map_equals_single_device=True,
+        last_probe_equals_single_device=True)
+
+    # a gang rejected on each tier: the whole carry unchanged
+    pkg.kernels.reset_launches()
+    api1, s1, steps1 = mesh_gang_reject_run(torch, pkg)
+    pkg.kernels.reset_launches()
+    api2, s2, steps2 = mesh_gang_reject_run(torch, pkg, mesh)
+    counts = dict(pkg.kernels.LAUNCHES)
+    what = "gang rejection on make_mesh(2)"
+    if outcome(api2, s2) != outcome(api1, s1):
+        fail(f"{what}: the bind map differs from the single-device card "
+             "run")
+    for tier, key in (("closed_form", "run_gang_uniform_sharded"),
+                      ("scan", "run_gang_sharded")):
+        st = steps2[tier]
+        if st["gang_dispatch"]["rejected"] != 1 or \
+                st["launches"].get(key, 0) < 1:
+            fail(f"{what}: no {tier} rejection ({st['gang_dispatch']}, "
+                 f"{st['launches']})")
+        if steps1[tier]["gang_dispatch"] != st["gang_dispatch"]:
+            fail(f"{what}: {tier} gang drains differ from the single-device "
+                 "run")
+        assert_equal_trees(torch, st["after"], st["before"],
+                           f"{what}: the carry across the {tier} rejection")
+    mesh_checks(what, s2, counts, ("run_gang_uniform_sharded",
+                                   "run_gang_sharded"))
+    paths["mesh2_gang_reject"] = counts
+    log("mesh_gang_reject", shards=2, nodes=SB_NODES, launches=counts,
+        steps={t: {k: v for k, v in st.items()
+                   if k in ("launches", "gang_dispatch")}
+               for t, st in steps2.items()},
+        gang_dispatch=dict(s2.gang_dispatch), card=smi,
+        bind_map_equals_single_device=True, carry_unchanged=True)
     return paths
 
 
@@ -3743,6 +4387,14 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
 
     pkg = _Pkg()
+    last = [time.perf_counter()]
+
+    def mark(phase: str) -> None:
+        # the seconds each phase took, on its own line
+        now = time.perf_counter()
+        log("phase_seconds", of=phase, seconds=now - last[0])
+        last[0] = now
+
     t0 = time.perf_counter()
     pkg.kernels.build()
     info = pkg.kernels.BUILD_INFO
@@ -3751,6 +4403,7 @@ def main() -> int:
              for k, v in info.get("ptxas", {}).items()}
     log("build", seconds=time.perf_counter() - t0, built=info.get("built"),
         ptxas=ptxas)
+    mark("build")
     rows: list = []
     check_run_batch(torch, pkg, device, rows)
     check_run_batch_churn(torch, pkg, device)
@@ -3767,15 +4420,21 @@ def main() -> int:
     check_run_gang(torch, pkg, device, rows)
 
     check_explain_row(torch, pkg, device, rows)
+    mark("3 (single-device kernels)")
 
     # phase 4: SchedulingBasic on the card — the counts cover exactly this
     # run (the comparisons above do not count); then the probe kernel
     # against its plain version on this run's own post-drain carry
     sb_counts, sb_run = basic_phase(torch, pkg, device, smi)
+    mark("4")
     check_cluster_probe(torch, pkg, sb_run.sched, rows)
     check_score_probe(torch, pkg, sb_run.sched, rows)
-    # phase 3 on the mesh, on the same post-drain state
+    # phase 3 on the mesh, on the same post-drain state; then the mesh's
+    # group and gang programs
     check_mesh_kernels(torch, pkg, sb_run.sched, rows)
+    mark("3 (probes, lean mesh kernels)")
+    check_mesh_group_kernels(torch, pkg, device, rows)
+    mark("3 (mesh group and gang kernels)")
     sb_probe = probe_state(sb_run.sched)
     del sb_run
 
@@ -3806,10 +4465,12 @@ def main() -> int:
         uploads_cuda_cpu=uploads,
         preemption_attempts=sched.preemption_attempts,
         bind_map_equals_cpu=True)
+    mark("5")
 
     # phases 6 and 7: the two group workloads at full width
     spread_counts = group_phase(torch, pkg, device, "spread", smi)
     anti_counts = group_phase(torch, pkg, device, "anti", smi)
+    mark("6, 7")
 
     # phase 8: the mixed group workload (run_batch's group mode, the
     # serial and renormalizing wave tiers)
@@ -3831,29 +4492,42 @@ def main() -> int:
         launches=mg_counts, wave_runs=sched.wave_runs,
         plan_runs=sched.plan_runs, wave_stats=wave_stats(sched),
         bind_map_equals_cpu=True)
+    mark("8")
 
     # phases 9 and 10: the plan program's workloads at full width
     mhs_counts = plan_phase(torch, pkg, device, "mhs", smi)
     mbp_counts = plan_phase(torch, pkg, device, "mbp", smi)
+    mark("9, 10")
 
     # phase 11: PreemptionChurn (the dry run, the overlay variants)
     pc_counts = preemption_phase(torch, pkg, device, smi)
+    mark("11")
 
     # phases 12 and 13: the gang workloads (run_gang's two tiers)
     gt_counts = gang_phase(torch, pkg, device, "train", smi)
     ci_counts = gang_phase(torch, pkg, device, "colo", smi)
+    mark("12, 13")
 
     # phase 14: SchedulingNodeAffinity; phase 15: gang rejection on both
     # tiers and a gang that preempts a gang
     sna_counts = node_affinity_phase(torch, pkg, device, smi)
     gr_counts = gang_reject_phase(torch, pkg, device, smi)
+    mark("14, 15")
 
     # phase 16: the sanitizer rails on six cells at full width
     rails_counts = rails_phase(torch, pkg, device, smi)
+    mark("16")
 
     # phase 17: the node-sharded mesh (SchedulingBasic on two meshes, the
     # beyond-lattice check)
     mesh_counts = mesh_phase(torch, pkg, smi, sb_probe)
+    mark("17")
+
+    # phase 18: the mesh's group and gang paths (six cells on
+    # make_mesh(2), two on make_mesh(4), the beyond-lattice group drains,
+    # a gang rejected on each tier)
+    mesh_group_counts = mesh_group_phase(torch, pkg, smi)
+    mark("18")
 
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
@@ -3864,7 +4538,8 @@ def main() -> int:
              "mixed_base_pod": mbp_counts, "preemption_churn": pc_counts,
              "gang_training": gt_counts, "colocated_inference": ci_counts,
              "node_affinity": sna_counts, "gang_reject_preempt": gr_counts,
-             "sanitizer_rails": rails_counts, **mesh_counts}
+             "sanitizer_rails": rails_counts, **mesh_counts,
+             **mesh_group_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

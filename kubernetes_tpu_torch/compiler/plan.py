@@ -29,9 +29,8 @@ Routing differences from the JAX package, all exact sequential greedy
 
 On the node-sharded mesh (`mesh=True`) the same-signature merge wave,
 single-device only, is never emitted: such a group drain compiles to the
-plan program ("wavescan"), as in the JAX package (the scheduler's mesh
-runs the lean tiers; its wavescan spans wait for the sharded plan
-program).
+plan program ("wavescan", run_plan_sharded on the mesh), as in the JAX
+package.
 
 The wave and plan tiers take spans of `WAVE_MIN_SPAN` pods or more;
 below it a group drain runs the scan in both packages.

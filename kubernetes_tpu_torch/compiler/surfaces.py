@@ -11,6 +11,12 @@ columns (used/npods/ports). The cache keys on `ClusterState.statics_gen`
 (bumped only by full row writes, row invalidations and shape growth) and
 the builder's `reset_count`, so surfaces are retained across the
 steady-state drain cycle.
+
+On the node-sharded mesh (`na` the node shards) each surface is a list
+of per-shard [n] slices, computed by parallel/sharding.py
+wave_statics_sharded (ImageLocality's counts psum'd over the shards), and
+`stacked` returns one ([S, n], ...) tuple per shard — the layout
+run_plan_sharded and run_gang_sharded consume.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ class SurfaceCache:
         duplicates allowed), computing only the missing ones. `na` /
         `table` must reflect the current statics generation."""
         from ..ops.program import wave_statics
+        from ..parallel.sharding import Mesh, Shards, wave_statics_sharded
 
+        sharded = isinstance(na, Shards)
         key = (self.state.statics_gen, self.builder.reset_count)
         if self._key != key:
             # reset_count remaps every row id; statics_gen means some
@@ -64,6 +72,13 @@ class SurfaceCache:
                      any(bool(t.ns_sel_val[u].any()) or bool(t.aff_has[u])
                          or bool(t.pref_weight[u].any()) for u in chunk),
                      any(bool(t.img_containers[u]) for u in chunk))
+            if sharded:
+                mesh = Mesh([s.cap.device for s in na])
+                per = wave_statics_sharded(mesh, na, table, wts, feats)
+                for k, u in enumerate(chunk):
+                    self._rows[u] = tuple([x[f][k] for x in per]
+                                          for f in range(4))
+                continue
             m_, tr, nr, si = wave_statics(na, table, wts, feats)
             for k, u in enumerate(chunk):
                 self._rows[u] = (m_[k], tr[k], nr[k], si[k])
@@ -73,4 +88,8 @@ class SurfaceCache:
         """Surfaces for `rows` stacked into ([S, N], ...) — the layout
         run_plan consumes."""
         per_row = self.get(na, table, rows)
+        if isinstance(per_row[0][0], list):
+            return [tuple(torch.stack([r[f][d] for r in per_row])
+                          for f in range(4))
+                    for d in range(len(per_row[0][0]))]
         return tuple(torch.stack([r[f] for r in per_row]) for f in range(4))

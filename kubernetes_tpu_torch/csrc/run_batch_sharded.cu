@@ -1,17 +1,19 @@
-// run_batch_sharded: the lean scan over the node-sharded mesh.
+// run_batch_sharded: the sequential scan over the node-sharded mesh, lean
+// and group mode.
 //
 // Replaces kubernetes_tpu/parallel/sharding.py _run_batch_sharded_jit
-// (:158) in lean mode: its _sharded_step (:113-155), one pod placement
-// on a node shard with _eval_pod under `axis` (kubernetes_tpu/ops/
-// program.py :495), the pmax of the best score and the pmin of the global
-// index among the shards holding it, then _apply_assignment (:906) and
-// _row_refresh (:458) on the owning shard.
+// (:158): its _sharded_step (:113-155), one pod placement on a node shard
+// with _eval_pod under `axis` (kubernetes_tpu/ops/program.py :495, the
+// group branch :544-555), the pmax of the best score and the pmin of the
+// global index among the shards holding it, then _apply_assignment (:906)
+// and _row_refresh (:458) on the owning shard and, in group mode,
+// group_update with the chosen node's values psum'd (`pick`, :142-155).
 //
 // A persistent kernel cannot wait on another shard's kernel, so each pod
 // step is a short chain of launches per shard, with the exchange
 // (kubernetes_tpu_torch/parallel/sharding.py) between them; the wrapper
 // (ops/kernels.py run_batch_sharded_cuda) drives the pods from the host
-// without reading anything back:
+// without reading anything back. Lean mode:
 //   1. shard_eval (one block a shard): the mask, the raw scores and the
 //      SigCache fast or slow path into the shard's cache, and the
 //      exchanged vector of shard_eval.cuh — image counts on a miss, the
@@ -26,12 +28,33 @@
 //   5. shard_apply (one thread a shard): the placement on the owning
 //      shard and the refresh of the placed row; every shard stores the
 //      pod's signature; shard 0 writes the assignment.
+// Group mode (group_eval.cuh's phases, with the cluster-wide values as
+// arguments):
+//   1. shard_eval, which also sends the shard's DoNotSchedule minima
+//      (negated, maxed);
+//   2. exchange: the sums, the maxima and the minima;
+//   3. shard_geval: ImageLocality on a miss, the group mask with the
+//      global minima, the feasible set, its normalization maxima, and the
+//      score partials — the scored-node count and the [SC, n_global]
+//      domain flags (summed; the domain ids are global), the symmetric
+//      score surface's range (maxed, the minimum negated);
+//   4. exchange; 5. shard_graw (ScheduleAnyway rows only): the weights
+//      from the summed count and flags, the raw spread scores, their
+//      range; 6. exchange (max);
+//   7. shard_gselect: the totals with the group scores, the packed key;
+//   8. exchange (max);
+//   9. shard_gapply: shard_apply's placement, and the chosen node's
+//      topology values into the `own` vector (zeros off the owner);
+//  10. exchange: the sum of the own vectors;
+//  11. shard_gupdate: every shard's slice of the group counts.
 // `sig` is replicated, so every shard takes the same branch.
 //
 // What bounds it on an H100: as run_batch.cu, the dependent chain of B
-// steps; here each step is 3·D launches plus the exchange's small
-// copies and reductions, so launch latency, not bytes or operations.
+// steps; here each step is 3·D launches (lean) or 6·D (group) plus the
+// exchange's small copies and reductions, so launch latency, not bytes
+// or operations.
 
+#include "group_eval.cuh"
 #include "shard_eval.cuh"
 
 struct ShardStepC {       // one shard's arguments, fixed for a span
@@ -46,6 +69,18 @@ struct ShardStepC {       // one shard's arguments, fixed for a span
   int64_t* loc;           // [KT_SHARD_LOC] the shard's exchanged parts
   int64_t* key;           // [1] the shard's packed first max
   int32_t* out;           // [B] assignments (shard 0), else nullptr
+  // group mode (has_groups = 0: lean; loc then holds KT_SHARD_LOC + SC)
+  int32_t has_groups;
+  GroupsC g;              // the shard's GroupsDev (node-last fields cut)
+  GCarryC gc;             // the output group counts, written in place
+  FamC fam;
+  int64_t w_spread, w_ipa;
+  int32_t n_global;       // rows over all shards (the flags' width)
+  uint8_t* feas;          // [N] the feasible set of the step
+  int64_t* gsc;           // [N] the raw spread scores of the step
+  int64_t* loc2;          // [1 + SC·n_global + 4] score partials
+  int64_t* loc3;          // [2] the raw spread range (min negated)
+  int64_t* own;           // [_own_len] the chosen node's values
 };
 
 namespace {
@@ -53,7 +88,7 @@ namespace {
 constexpr int BLOCK = 512;
 
 __device__ __forceinline__ bool row_ok(const ShardStepC& a, int u) {
-  return u >= 0 && u < a.tb.U;
+  return u >= 0 && u < a.tb.U && (!a.has_groups || u < a.g.U);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -63,13 +98,17 @@ shard_eval_kernel(ShardStepC a, int i) {
   if (!row_ok(a, u)) {
     // a row outside the table: shard_apply reports it
     if (threadIdx.x == 0)
-      for (int k = 0; k < KT_SHARD_LOC; ++k) a.loc[k] = 0;
+      for (int k = 0; k < KT_SHARD_LOC + (a.has_groups ? a.g.SC : 0); ++k)
+        a.loc[k] = 0;
     return;
   }
   const PodRowD p = pod_row(a.tb, u);
   const bool use_fast = a.sig[i] != 0 && a.sig[i] == *a.c.cache.sig;
   shard_parts<BLOCK>(a.cfg, a.na, a.tb, a.c, p, use_fast, a.c.cache,
                      a.c.cache, sh, a.loc);
+  if (a.has_groups && a.fam.spr_f)
+    block_spread_min_local<BLOCK>(view_of(a.g, a.gc, u),
+                                  a.loc + KT_SHARD_LOC, true, sh);
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -143,7 +182,187 @@ __global__ void shard_apply_kernel(ShardStepC a, int i, const int64_t* gkey) {
   if (a.out) a.out[i] = assigned ? gbest : -1;
 }
 
+// ---- group mode
+
+// 3. ImageLocality on a miss; the feasible set (the cached static mask and
+// fit, the group mask with the global minima glob1[KT_SHARD_LOC + c],
+// negated); its normalization maxima; the score partials. loc2 =
+// [npart, flags (SC · n_global) | tmax, namax, -lo, hi].
+__global__ void __launch_bounds__(BLOCK)
+shard_geval_kernel(ShardStepC a, int i, const int64_t* glob1) {
+  __shared__ BlockScratch<BLOCK> sh;
+  __shared__ int32_t minv[KT_MAX_SC];
+  const int u = a.tidx[i];
+  const int64_t W = 1 + (int64_t)a.g.SC * a.n_global;
+  if (!row_ok(a, u)) {
+    for (int64_t e = threadIdx.x; e < W + 4; e += BLOCK) a.loc2[e] = 0;
+    return;
+  }
+  const PodRowD p = pod_row(a.tb, u);
+  const bool use_fast = a.sig[i] != 0 && a.sig[i] == *a.c.cache.sig;
+  const CacheC& cc = a.c.cache;
+  const GViewD v = view_of(a.g, a.gc, u);
+  if (threadIdx.x < v.SC) {
+    const int c = threadIdx.x;
+    minv[c] = v.f_minz[c] ? 0 : (int32_t)(-glob1[KT_SHARD_LOC + c]);
+  }
+  __syncthreads();
+  int64_t tm = 0, nm = 0;
+  for (int n = threadIdx.x; n < a.na.N; n += BLOCK) {
+    if (!use_fast) shard_s_img(a.na, a.tb, p, n, glob1, cc);
+    const bool f = cc.static_mask[n] && cc.fit_ok[n]
+                   && kt_group_mask(v, a.fam, n, minv);
+    a.feas[n] = f;
+    if (f) {
+      tm = cc.taint_raw[n] > tm ? cc.taint_raw[n] : tm;
+      nm = cc.na_raw[n] > nm ? cc.na_raw[n] : nm;
+    }
+  }
+  const int64_t tmax = block_max<BLOCK>(tm, sh);
+  const int64_t namax = block_max<BLOCK>(nm, sh);
+  int64_t npart = 0, lo = KT_I64_MAX, hi = -KT_I64_MAX;
+  block_score_partials<BLOCK>(v, a.fam, a.feas, a.loc2 + 1, a.n_global,
+                              &npart, &lo, &hi, sh);
+  if (threadIdx.x == 0) {
+    a.loc2[0] = npart;
+    a.loc2[W] = tmax;
+    a.loc2[W + 1] = namax;
+    a.loc2[W + 2] = -lo;
+    a.loc2[W + 3] = hi;
+  }
+}
+
+// 5. the raw spread scores from the summed count and flags (glob2), and
+// their range over the scored rows: loc3 = [-rmin, rmax]
+__global__ void __launch_bounds__(BLOCK)
+shard_graw_kernel(ShardStepC a, int i, const int64_t* glob2) {
+  __shared__ BlockScratch<BLOCK> sh;
+  const int u = a.tidx[i];
+  if (!row_ok(a, u)) {
+    if (threadIdx.x == 0) a.loc3[0] = a.loc3[1] = 0;
+    return;
+  }
+  const GViewD v = view_of(a.g, a.gc, u);
+  double weight[KT_MAX_SC];
+  block_spread_weights<BLOCK>(v, glob2[0], glob2 + 1, a.n_global, weight,
+                              sh);
+  int64_t rmin, rmax;
+  block_spread_raw<BLOCK>(v, a.feas, weight, a.gsc, &rmin, &rmax, sh);
+  if (threadIdx.x == 0) {
+    a.loc3[0] = -rmin;
+    a.loc3[1] = rmax;
+  }
+}
+
+// 7. the totals over the feasible set with the cluster-wide maxima and
+// group score ranges (glob2, glob3), the packed key
+__global__ void __launch_bounds__(BLOCK)
+shard_gselect_kernel(ShardStepC a, int i, const int64_t* glob2,
+                     const int64_t* glob3) {
+  __shared__ BlockScratch<BLOCK> sh;
+  const int u = a.tidx[i];
+  if (!row_ok(a, u)) {
+    if (threadIdx.x == 0) *a.key = 0;
+    return;
+  }
+  const int64_t W = 1 + (int64_t)a.g.SC * a.n_global;
+  const int64_t tmax = glob2[W], namax = glob2[W + 1];
+  const int64_t lo = -glob2[W + 2], hi = glob2[W + 3];
+  const bool spr = a.fam.spr_s != 0;
+  const int64_t rmin = spr ? -glob3[0] : 0, rmax = spr ? glob3[1] : 0;
+  const GViewD v = view_of(a.g, a.gc, u);
+  const bool has_s = spr && kt_has_s(v);
+  const bool gs = a.fam.spr_s || a.fam.ipa_score;
+  const CacheC& cc = a.c.cache;
+  int64_t bv = KT_I64_MIN;
+  int32_t bi = 0x7fffffff;
+  for (int n = threadIdx.x; n < a.na.N; n += BLOCK) {
+    int64_t val = -1;
+    if (a.feas[n]) {
+      val = kt_total(a.cfg, cc, n, tmax, namax);
+      if (gs)
+        val += kt_group_score(v, a.fam, n, true, a.gsc[n], a.w_spread,
+                              a.w_ipa, has_s, rmin, rmax, lo, hi);
+    }
+    argmax_merge(bv, bi, val, n);
+  }
+  block_argmax<BLOCK>(bv, bi, sh);
+  if (threadIdx.x == 0)
+    *a.key = ((bv + 1) << 32) | (int64_t)(0x7fffffff - (a.offset + bi));
+}
+
+// 9. the placement on the owning shard and the own vector (one block)
+__global__ void __launch_bounds__(BLOCK)
+shard_gapply_kernel(ShardStepC a, int i, const int64_t* gkey) {
+  const int u = a.tidx[i];
+  if (!row_ok(a, u)) {
+    if (a.out && threadIdx.x == 0) a.out[i] = -2;
+    block_own_write<BLOCK>(a.g, -1, a.own);
+    return;
+  }
+  const int64_t k = *gkey;
+  const int64_t gscore = (k >> 32) - 1;
+  const int32_t gbest = 0x7fffffff - (int32_t)(k & 0xffffffffLL);
+  const bool assigned = gscore >= 0 && a.valid[i];
+  const int lidx = gbest - a.offset;
+  const bool mine = assigned && lidx >= 0 && lidx < a.na.N;
+  if (threadIdx.x == 0) {
+    if (mine) place_lean(a, pod_row(a.tb, u), lidx);
+    *a.c.cache.sig = a.sig[i];
+    if (a.out) a.out[i] = assigned ? gbest : -1;
+  }
+  block_own_write<BLOCK>(a.g, mine ? lidx : -1, a.own);
+}
+
+// 11. every shard's slice of the group counts, from the summed own vector
+__global__ void __launch_bounds__(BLOCK)
+shard_gupdate_kernel(ShardStepC a, int i, const int64_t* gkey,
+                     const int64_t* gown) {
+  const int u = a.tidx[i];
+  if (!row_ok(a, u)) return;
+  const int64_t k = *gkey;
+  const int32_t gbest = 0x7fffffff - (int32_t)(k & 0xffffffffLL);
+  if (!((k >> 32) - 1 >= 0 && a.valid[i])) return;
+  const int lidx = gbest - a.offset;
+  block_group_update_own<BLOCK>(a.g, a.gc, a.fam, u, gown,
+                                lidx >= 0 && lidx < a.na.N ? lidx : -1);
+}
+
 }  // namespace
+
+extern "C" int ktpu_shard_geval(const ShardStepC* a, int i,
+                                const int64_t* glob1, void* stream) {
+  shard_geval_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i, glob1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_shard_graw(const ShardStepC* a, int i,
+                               const int64_t* glob2, void* stream) {
+  shard_graw_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i, glob2);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_shard_gselect(const ShardStepC* a, int i,
+                                  const int64_t* glob2, const int64_t* glob3,
+                                  void* stream) {
+  shard_gselect_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i, glob2,
+                                                               glob3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_shard_gapply(const ShardStepC* a, int i,
+                                 const int64_t* gkey, void* stream) {
+  shard_gapply_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i, gkey);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_shard_gupdate(const ShardStepC* a, int i,
+                                  const int64_t* gkey, const int64_t* gown,
+                                  void* stream) {
+  shard_gupdate_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i, gkey,
+                                                               gown);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int ktpu_shard_eval(const ShardStepC* a, int i, void* stream) {
   shard_eval_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, i);

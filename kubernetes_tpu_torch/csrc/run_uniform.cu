@@ -128,54 +128,6 @@ uniform_finalize_kernel(CarryC cout, TableC tb, int32_t tidx, int N, int R,
   }
 }
 
-// the gang verdict over run_uniform's result (kubernetes_tpu/ops/gang.py
-// _run_gang_uniform_jit :198-218): placed counts the selections (even
-// when an exactness flag failed), accept = placed >= needed, and the
-// output carry keeps run_uniform's result only when the gang is accepted
-// and both flags held — otherwise it receives the input carry's values,
-// SigCache included, on the device. packed [L + 4] = [assignments;
-// accept; placed; exact; depth].
-__global__ void __launch_bounds__(FBLOCK)
-gang_uniform_epilogue_kernel(CarryC cin, CarryC cout, int N, int R, int L,
-                             int needed, const int32_t* pu,
-                             int32_t* packed) {
-  __shared__ BlockScratch<FBLOCK> sh;
-  int64_t cnt = 0;
-  for (int i = threadIdx.x; i < L; i += FBLOCK) {
-    packed[i] = pu[i];
-    cnt += pu[i] >= 0;
-  }
-  const int64_t placed = block_sum<FBLOCK>(cnt, sh);
-  const bool exact = pu[L] != 0, depth = pu[L + 1] != 0;
-  const bool accept = placed >= needed;
-  if (!(accept && exact && depth)) {
-    const int64_t NN = N;
-    for (int64_t e = threadIdx.x; e < NN * R; e += FBLOCK)
-      cout.used[e] = cin.used[e];
-    for (int64_t e = threadIdx.x; e < NN * 2; e += FBLOCK)
-      cout.nonzero_used[e] = cin.nonzero_used[e];
-    const CacheC& a = cin.cache;
-    const CacheC& b = cout.cache;
-    for (int n = threadIdx.x; n < N; n += FBLOCK) {
-      cout.npods[n] = cin.npods[n];
-      b.static_mask[n] = a.static_mask[n];
-      b.taint_raw[n] = a.taint_raw[n];
-      b.na_raw[n] = a.na_raw[n];
-      b.s_img[n] = a.s_img[n];
-      b.fit_ok[n] = a.fit_ok[n];
-      b.s_fit[n] = a.s_fit[n];
-      b.s_bal[n] = a.s_bal[n];
-    }
-    if (threadIdx.x == 0) *b.sig = *a.sig;
-  }
-  if (threadIdx.x == 0) {
-    packed[L] = accept;
-    packed[L + 1] = (int32_t)placed;
-    packed[L + 2] = exact;
-    packed[L + 3] = depth;
-  }
-}
-
 // the five launches of one closed-form run (see the header)
 void launch_uniform(const NodeC* na, const TableC* tb, const CarryC* cin,
                     const CarryC* cout, const CfgC* cfg, int sig, int tidx,
@@ -235,7 +187,7 @@ extern "C" int ktpu_run_gang_uniform(const NodeC* na, const TableC* tb,
   launch_uniform(na, tb, cin, cout, cfg, sig, tidx, n_actual, L, K, J,
                  static_add, keys0, P0, cand, keys1, P1, fit_kj, sfit_kj,
                  sbal_kj, counts, flags, pu, ovl, s);
-  gang_uniform_epilogue_kernel<<<1, FBLOCK, 0, s>>>(
+  gang_uniform_epilogue_kernel<FBLOCK><<<1, FBLOCK, 0, s>>>(
       *cin, *cout, na->N, na->R, L, needed, pu, packed);
   return (int)cudaGetLastError();
 }

@@ -33,8 +33,18 @@
 // replays on the scan); the assignments equal run_uniform's wherever both
 // report exact.
 //
+// The closed-form gang tier on the mesh (kubernetes_tpu/parallel/
+// sharding.py _run_gang_uniform_sharded_jit :1042-1071, entry
+// ktpu_uniform_shard_gang) runs the same launches and exchanges, then a
+// one-block gang epilogue per shard (uniform_matrix.cuh, as run_uniform.cu
+// runs it): placed from the replicated assignments, accept = placed >=
+// needed, apply = accept & exact & depth with the flags min'd over the
+// shards; without apply the shard's output carry gets its input back,
+// SigCache included. Shard 0's packed [L + 4] is run_gang's layout.
+//
 // What bounds it on an H100: as run_uniform.cu, latency — the sorts and
-// the dependent launches — now 4·D + 1 of them plus the exchange.
+// the dependent launches — now 4·D + 1 of them plus the exchange (5·D + 1
+// with the gang epilogue).
 
 #include "shard_eval.cuh"
 #include "sort.cuh"
@@ -196,5 +206,14 @@ extern "C" int ktpu_uniform_shard_finalize(const UniShardC* a,
                                            void* stream) {
   uniform_shard_finalize_kernel<<<1, FBLOCK, 0, (cudaStream_t)stream>>>(
       *a, merged);
+  return (int)cudaGetLastError();
+}
+
+// the gang epilogue on one shard: `pu` = the shard's packed [L + 2] with
+// the flags already min'd over the shards
+extern "C" int ktpu_uniform_shard_gang(const UniShardC* a, int needed,
+                                       int32_t* packed, void* stream) {
+  gang_uniform_epilogue_kernel<FBLOCK><<<1, FBLOCK, 0, (cudaStream_t)stream>>>(
+      a->cin, a->cout, a->na.N, a->na.R, a->L, needed, a->packed, packed);
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,11 @@
 // row's images, and the valid-node total); statics (one thread per
 // (s, n)) evaluates the lean device functions of lean_eval.cuh — the same
 // code run_batch and run_uniform run — and writes the four surfaces.
+//
+// On the node-sharded mesh (kubernetes_tpu/ops/program.py :1635 under
+// XLA's partitioning) the two launches run apart, per shard, with the psum
+// of the image counts between them (ktpu_wave_image_counts,
+// ktpu_wave_statics_counted): ImageLocality's spread is cluster-wide.
 
 #include "lean_eval.cuh"
 
@@ -115,5 +120,36 @@ extern "C" int ktpu_wave_statics(const NodeC* na, const TableC* tb,
   statics_kernel<<<(unsigned)((total + SBLOCK - 1) / SBLOCK), SBLOCK, 0,
                    st>>>(*na, *tb, *wt, S, has_taints, has_sel, has_img,
                          img_cnt, mask, taint_raw, na_raw, s_img);
+  return (int)cudaGetLastError();
+}
+
+// the two launches apart, for the node-sharded mesh (ops/kernels.py
+// wave_statics_sharded_cuda): each shard's image counts, the psum of the
+// counts over the shards, then each shard's statics from the cluster-wide
+// counts
+extern "C" int ktpu_wave_image_counts(const NodeC* na, const TableC* tb,
+                                      const WaveRows* wt, int S,
+                                      int64_t* img_cnt, void* stream) {
+  if (S <= 0) return 0;
+  if (S > KT_WS_MAX_S) return (int)cudaErrorInvalidValue;
+  image_counts_kernel<<<S, CBLOCK, 0, (cudaStream_t)stream>>>(*na, *tb, *wt,
+                                                               img_cnt);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_wave_statics_counted(const NodeC* na, const TableC* tb,
+                                         const WaveRows* wt, int S,
+                                         int has_taints, int has_sel,
+                                         int has_img, const int64_t* img_cnt,
+                                         uint8_t* mask, int64_t* taint_raw,
+                                         int64_t* na_raw, int64_t* s_img,
+                                         void* stream) {
+  if (S <= 0) return 0;
+  if (S > KT_WS_MAX_S) return (int)cudaErrorInvalidValue;
+  const int64_t total = (int64_t)S * na->N;
+  statics_kernel<<<(unsigned)((total + SBLOCK - 1) / SBLOCK), SBLOCK, 0,
+                   (cudaStream_t)stream>>>(*na, *tb, *wt, S, has_taints,
+                                           has_sel, has_img, img_cnt, mask,
+                                           taint_raw, na_raw, s_img);
   return (int)cudaGetLastError();
 }

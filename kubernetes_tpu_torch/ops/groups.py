@@ -274,22 +274,32 @@ def view_of(gd: GroupsDev, gc: GroupCarry, tidx) -> GroupView:
         iscore=gc.ipa_score[tidx])
 
 
-def spread_min(v: GroupView):
+def spread_min_local(v: GroupView):
+    """Per-constraint minimum of the DoNotSchedule counts over these
+    count-eligible rows (INT32_MAX where none) → i32 [SC]. On a node
+    shard it is the shard's part of the minimum the JAX package pmins
+    (kubernetes_tpu/ops/groups.py:298-299)."""
+    return torch.where(v.f_elig, v.f_cnt,
+                       torch.full_like(v.f_cnt, int(INT32_MAX))).amin(dim=-1)
+
+
+def spread_min(v: GroupView, gmin=None):
     """Per-constraint global minimum of the DoNotSchedule counts over the
     count-eligible nodes, 0 when fewer eligible domains than minDomains
-    (filtering.go:66-77) → i32 [SC]."""
-    minv = torch.where(v.f_elig, v.f_cnt,
-                       torch.full_like(v.f_cnt, int(INT32_MAX))).amin(dim=-1)
+    (filtering.go:66-77) → i32 [SC]. `gmin`: the cluster-wide
+    `spread_min_local` when the rows are one node shard."""
+    minv = spread_min_local(v) if gmin is None else gmin
     return torch.where(v.f_minz, torch.zeros_like(minv), minv)
 
 
-def group_mask_view(v: GroupView, fam: GroupFamilies):
+def group_mask_view(v: GroupView, fam: GroupFamilies, gmin=None):
+    """`gmin`: see spread_min."""
     n = v.veto.shape[-1]
     mask = torch.ones((n,), dtype=torch.bool, device=v.veto.device)
 
     if fam.spr_f:
         # spread skew (DoNotSchedule)
-        minv = spread_min(v)
+        minv = spread_min(v, gmin)
         ok = (v.f_cnt + v.f_self[:, None] - minv[:, None]
               <= v.f_skew[:, None])
         # node missing the topology key ⇒ UnschedulableAndUnresolvable
@@ -365,17 +375,22 @@ def group_reason_masks(gd: GroupsDev, gc: GroupCarry, tidx,
     return spr_missing, spr_skew, aff_fail, anti_fail, exist_fail
 
 
-def _spread_scores(v: GroupView, feasible):
-    """PodTopologySpread score (scoring.go:199-271), normalized
-    (MAX·(max+min−s)//max); 0 on missing-keys and infeasible nodes."""
-    has_s = v.s_act.any()
-    scored = feasible & v.s_keys_ok
-    npart = scored.sum()
-    # per-constraint count of distinct domains among the scored nodes
+def spread_flags(v: GroupView, scored, n_seg=None):
+    """i32 [SC, n_seg]: 1 at the dense domain id of every scored row, per
+    ScheduleAnyway constraint (n_seg defaults to the row count). On a
+    node shard the ids are global and n_seg the global node count: the
+    shard's part of the flags the JAX package psums (:414-422)."""
     dom = v.s_dom.long()                                # [SC, N]
-    flags = torch.zeros(dom.shape, dtype=_I32, device=dom.device)
+    flags = torch.zeros((dom.shape[0], n_seg or dom.shape[1]), dtype=_I32,
+                        device=dom.device)
     flags.scatter_reduce_(1, dom, scored.to(_I32).expand_as(dom).contiguous(),
                           reduce="amax")
+    return flags
+
+
+def spread_raw(v: GroupView, npart, flags):
+    """The raw PodTopologySpread score of every row (scoring.go:199-250),
+    from the (cluster-wide) count of scored nodes and the domain flags."""
     distinct = (flags > 0).sum(dim=1)                   # [SC]
     size = torch.where(v.s_is_host, npart, distinct)
     weight = torch.log(size.to(torch.float64) + 2.0)    # [SC]
@@ -383,23 +398,53 @@ def _spread_scores(v: GroupView, feasible):
         v.s_act[:, None] & (v.s_tv != 0),
         v.s_cnt.to(torch.float64) * weight[:, None]
         + (v.s_skew[:, None] - 1).to(torch.float64),
-        torch.zeros((), dtype=torch.float64, device=dom.device))
-    raw = torch.round(contrib.sum(dim=0)).to(_I64)      # [N]
-    minv = torch.where(scored, raw,
-                       torch.full_like(raw, int(INT32_MAX))).min()
-    maxv = torch.where(scored, raw, torch.zeros_like(raw)).max()
+        torch.zeros((), dtype=torch.float64, device=flags.device))
+    return torch.round(contrib.sum(dim=0)).to(_I64)     # [N]
+
+
+def spread_range(raw, scored):
+    """(min, max) of the raw spread scores over the scored rows (INT32_MAX
+    and 0 when none): on a node shard the shard's part of the pmin and
+    pmax."""
+    return (torch.where(scored, raw, torch.full_like(raw, int(INT32_MAX))).min(),
+            torch.where(scored, raw, torch.zeros_like(raw)).max())
+
+
+def _spread_scores(v: GroupView, feasible, npart=None, flags=None,
+                   rng=None):
+    """PodTopologySpread score (scoring.go:199-271), normalized
+    (MAX·(max+min−s)//max); 0 on missing-keys and infeasible nodes. On a
+    node shard `npart` (the psum of the scored rows), `flags` (the psum'd
+    spread_flags) and `rng` (the pmin / pmax of spread_range) are the
+    cluster-wide values; None takes them over these rows."""
+    has_s = v.s_act.any()
+    scored = feasible & v.s_keys_ok
+    if npart is None:
+        npart = scored.sum()
+    if flags is None:
+        flags = spread_flags(v, scored)
+    raw = spread_raw(v, npart, flags)
+    minv, maxv = spread_range(raw, scored) if rng is None else rng
     norm = torch.where(maxv == 0, torch.full_like(raw, MAX_NODE_SCORE),
                        MAX_NODE_SCORE * (maxv + minv - raw)
                        // maxv.clamp(min=1))
     return torch.where(has_s & scored, norm, torch.zeros_like(norm))
 
 
-def _ipa_norm_scores(s, feasible):
+def ipa_range(s, feasible):
+    """(min, max) of the symmetric score surface over the feasible rows
+    (I64_MAX and -I64_MAX when none): on a node shard the shard's part of
+    the pmin and pmax."""
+    return (torch.where(feasible, s, torch.full_like(s, I64_MAX)).min(),
+            torch.where(feasible, s, torch.full_like(s, -I64_MAX)).max())
+
+
+def _ipa_norm_scores(s, feasible, rng=None):
     """InterPodAffinity normalized score surface (scoring.go:263-293).
-    `s`: the gathered i64 [N] symmetric topology score surface. The
-    feasible-set range is taken in wrapping int64 arithmetic, as XLA's."""
-    minv2 = torch.where(feasible, s, torch.full_like(s, I64_MAX)).min()
-    maxv2 = torch.where(feasible, s, torch.full_like(s, -I64_MAX)).max()
+    `s`: the gathered i64 [N] symmetric topology score surface; `rng` the
+    cluster-wide ipa_range on a node shard. The feasible-set range is
+    taken in wrapping int64 arithmetic, as XLA's."""
+    minv2, maxv2 = ipa_range(s, feasible) if rng is None else rng
     diff = maxv2 - minv2
     val = (MAX_NODE_SCORE * (s - minv2).to(torch.float64)
            / diff.clamp(min=1).to(torch.float64))
@@ -407,16 +452,29 @@ def _ipa_norm_scores(s, feasible):
                        torch.zeros_like(val)).to(_I64)
 
 
+class ScoreGlobals(NamedTuple):
+    """The cluster-wide values group_scores_view takes on a node shard
+    (the JAX package's _gsum / _gmin / _gmax points, :398-422)."""
+
+    npart: object        # i64: scored nodes
+    flags: object        # i32 [SC, n_global]: spread domain flags
+    spread: object       # (min, max) of the raw spread scores
+    ipa: object          # (min, max) of the symmetric score surface
+
+
 def group_scores_view(w_spread: int, w_ipa: int, v: GroupView, feasible,
-                      fam: GroupFamilies):
+                      fam: GroupFamilies, glob: Optional[ScoreGlobals] = None):
+    """`glob`: the cluster-wide values when the rows are one node shard
+    (None: over these rows)."""
     N = feasible.shape[0]
+    g = glob or ScoreGlobals(None, None, None, None)
     if not fam.spr_s and not fam.ipa_score:
         return torch.zeros((N,), dtype=_I64, device=feasible.device)
     if not fam.spr_s:
-        return w_ipa * _ipa_norm_scores(v.iscore, feasible)
-    out = w_spread * _spread_scores(v, feasible)
+        return w_ipa * _ipa_norm_scores(v.iscore, feasible, g.ipa)
+    out = w_spread * _spread_scores(v, feasible, g.npart, g.flags, g.spread)
     if fam.ipa_score:
-        out = out + w_ipa * _ipa_norm_scores(v.iscore, feasible)
+        out = out + w_ipa * _ipa_norm_scores(v.iscore, feasible, g.ipa)
     return out
 
 
@@ -431,17 +489,26 @@ def group_scores(w_spread: int, w_ipa: int, gd: GroupsDev, gc: GroupCarry,
 
 
 def group_update(gd: GroupsDev, gc: GroupCarry, tidx: int, best, gate,
-                 fam: Optional[GroupFamilies] = None) -> GroupCarry:
+                 fam: Optional[GroupFamilies] = None, *, pick=None,
+                 is_chosen=None) -> GroupCarry:
     """Carry update after placing a pod of signature `tidx` on node `best`
-    (gated by the bool scalar `gate`). Counts are additive over pods and
-    node labels static, so the incremental broadcast equals the
-    reference's per-cycle rebuild. Returns fresh tensors."""
+    (gated by the bool scalar `gate`). On a node shard `best` is None and
+    the JAX package's `pick` / `is_chosen` (:475) come in: `pick(name)` is
+    the chosen node's values of the GroupsDev field `name`, broadcast
+    from the owning shard, and `is_chosen` bool [N] marks the chosen row
+    among these rows (all False on the other shards). Counts are additive
+    over pods and node labels static, so the incremental broadcast equals
+    the reference's per-cycle rebuild. Returns fresh tensors."""
+    if pick is None:
+        best = torch.as_tensor(best).long()
+        is_chosen = torch.arange(gd.spr_f_tv.shape[-1],
+                                 device=gd.spr_f_tv.device) == best
+
+        def pick(name):
+            return getattr(gd, name)[..., best]
     fam = fam or ALL_FAMILIES
     u = int(tidx)
-    best = torch.as_tensor(best).long()
-    n = gc.ipa_veto.shape[-1]
     gate_i = gate.to(_I32)
-    is_chosen = torch.arange(n, device=gc.ipa_veto.device) == best
     spr_f_cnt, spr_s_cnt = gc.spr_f_cnt, gc.spr_s_cnt
     ipa_veto, ipa_a_cnt = gc.ipa_veto, gc.ipa_a_cnt
     ipa_a_total, ipa_aa_cnt = gc.ipa_a_total, gc.ipa_aa_cnt
@@ -454,16 +521,16 @@ def group_update(gd: GroupsDev, gc: GroupCarry, tidx: int, best, gate,
         # +1 at every node sharing the chosen node's topology value, per
         # consumer constraint the placed pod matches, iff the chosen node
         # is count-eligible for that constraint
-        tvb = gd.spr_f_tv[..., best]                    # [U, SC]
-        eligb = gd.spr_f_elig[..., best]
+        tvb = pick("spr_f_tv")                          # [U, SC]
+        eligb = pick("spr_f_elig")
         inc = (gd.m_spr_f[u] & eligb)[:, :, None] & same_tv(gd.spr_f_tv, tvb)
         spr_f_cnt = gc.spr_f_cnt + gate_i * inc.to(_I32)
 
     if fam.spr_s:
         # hostname constraints count the node's own pods; other keys share
         # by topology value
-        tvb = gd.spr_s_tv[..., best]
-        eligb = gd.spr_s_elig[..., best]
+        tvb = pick("spr_s_tv")
+        eligb = pick("spr_s_elig")
         share = torch.where(gd.spr_s_is_host[:, :, None],
                             is_chosen[None, None, :],
                             same_tv(gd.spr_s_tv, tvb))
@@ -475,20 +542,20 @@ def group_update(gd: GroupsDev, gc: GroupCarry, tidx: int, best, gate,
     if fam.ipa_anti:
         # existing-anti veto: the placed pod's own required anti terms add
         # a (term.key, tv(b)) pair for every consumer signature they match
-        tvb_p = gd.ipa_raa_tv[u][:, best]               # [TAA]
+        tvb_p = pick("ipa_raa_tv")[u]                   # [TAA]
         share_p = same_tv(gd.ipa_raa_tv[u], tvb_p)      # [TAA, N]
         delta = (gd.m_ipa_exist[u][:, :, None]
                  & share_p[None]).sum(dim=1).to(_I32)   # [U, N]
         ipa_veto = gc.ipa_veto + gate_i * delta
         # incoming-anti counts (per consumer term)
-        tvb = gd.ipa_raa_tv[..., best]                  # [U, TAA]
+        tvb = pick("ipa_raa_tv")                        # [U, TAA]
         inc = gd.m_ipa_aa[u][:, :, None] & same_tv(gd.ipa_raa_tv, tvb)
         ipa_aa_cnt = gc.ipa_aa_cnt + gate_i * inc.to(_I32)
 
     if fam.ipa_req:
         # a placed pod matching ALL of a consumer's required terms bumps
         # each term's (key, tv(b)) pair
-        tvb = gd.ipa_ra_tv[..., best]                   # [U, TA]
+        tvb = pick("ipa_ra_tv")                         # [U, TA]
         inc = ((gd.m_ipa_a[u][:, None] & gd.ipa_ra_active)[:, :, None]
                & same_tv(gd.ipa_ra_tv, tvb))
         ipa_a_cnt = gc.ipa_a_cnt + gate_i * inc.to(_I32)
@@ -500,10 +567,10 @@ def group_update(gd: GroupsDev, gc: GroupCarry, tidx: int, best, gate,
         # consumer-side preferred terms matching the placed pod, plus
         # placed-side (req×hardWeight + preferred) terms matching the
         # consumer (scoring.go:81-124)
-        tvb_c = gd.ipa_stc_tv[..., best]                # [U, CT]
+        tvb_c = pick("ipa_stc_tv")                      # [U, CT]
         d_cons = (gd.w_stc[u][:, :, None]
                   * same_tv(gd.ipa_stc_tv, tvb_c)).sum(dim=1)     # [U, N]
-        tvb_p = gd.ipa_stp_tv[u][:, best]               # [PT]
+        tvb_p = pick("ipa_stp_tv")[u]                   # [PT]
         share_p = same_tv(gd.ipa_stp_tv[u], tvb_p)      # [PT, N]
         d_plcd = (gd.w_stp[u][:, :, None] * share_p[None]).sum(dim=1)
         ipa_score = gc.ipa_score + gate.to(_I64) * (d_cons + d_plcd)
@@ -1200,22 +1267,45 @@ def to_device(tree, device):
 
 
 def scatter_new_rows(gd_dev: GroupsDev, gc_dev: GroupCarry,
-                     mgr: GroupManager, snapshot, lo: int, hi: int):
+                     mgr: GroupManager, snapshot, lo: int, hi: int,
+                     mesh=None):
     """Seed rows [lo, hi) into resident device group state: node-dependent
     tensors and counts go into the row slice; the small per-row scalars and
     pairwise matrices (which gained entries against OLD rows too) are
     re-uploaded whole. Returns fresh tensors: in-flight drains may still
-    hold the previous ones."""
+    hold the previous ones. With `mesh`, `gd_dev` / `gc_dev` are the
+    shards of shard_groups / shard_group_carry: each shard receives its
+    slice of the new rows' node-last fields, written in place of the row
+    slice, and the replicated fields whole (the JAX package's
+    scatter_new_rows(mesh=…), kubernetes_tpu/ops/groups.py:1137-1182).
+    Returns the shards then."""
     rows = range(lo, hi)
-    U = gd_dev.spr_f_active.shape[0]   # device row axis (compact, pow2)
-    device = gd_dev.spr_f_active.device
+    first = gd_dev[0] if mesh is not None else gd_dev
+    U = first.spr_f_active.shape[0]   # device row axis (compact, pow2)
     nis = mgr._node_rows(snapshot)
     nd = mgr.node_data(snapshot, rows, nis=nis)
     seeds = mgr.seed_counts(snapshot, rows, nis=nis)
+    if mesh is None:
+        return _scatter_rows_into(gd_dev, gc_dev, mgr, nd, seeds, lo, hi, U,
+                                  slice(None))
+    from ..parallel.sharding import Shards
+    n_local = first.spr_f_tv.shape[-1]
+    out = [_scatter_rows_into(g, c, mgr, nd, seeds, lo, hi, U,
+                              slice(d * n_local, (d + 1) * n_local))
+           for d, (g, c) in enumerate(zip(gd_dev, gc_dev))]
+    return Shards(g for g, _ in out), Shards(c for _, c in out)
 
-    def put_rows(old, new):
+
+def _scatter_rows_into(gd_dev, gc_dev, mgr, nd: dict, seeds: dict, lo: int,
+                       hi: int, U: int, nodes: slice):
+    """One device's (or shard's) part of scatter_new_rows: `nodes` is the
+    node slice of the node-last fields it holds."""
+    device = gd_dev.spr_f_active.device
+
+    def put_rows(old, new, name):
         out = old.clone()
-        out[lo:hi] = torch.from_numpy(np.ascontiguousarray(new)).to(
+        part = new if name in _ROW_SEEDS else new[..., nodes]
+        out[lo:hi] = torch.from_numpy(np.ascontiguousarray(part)).to(
             device=device, dtype=old.dtype)
         return out
 
@@ -1223,15 +1313,20 @@ def scatter_new_rows(gd_dev: GroupsDev, gc_dev: GroupCarry,
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=like.dtype)
 
-    gd_kw = {name: put_rows(getattr(gd_dev, name), nd[name]) for name in nd}
+    gd_kw = {name: put_rows(getattr(gd_dev, name), nd[name], name)
+             for name in nd}
     for name in GroupManager._ROW_FIELDS:
         gd_kw[name] = whole(getattr(mgr, name)[:U], getattr(gd_dev, name))
     for name in GroupManager._PAIRWISE_FIELDS:
         gd_kw[name] = whole(getattr(mgr, name)[:U, :U],
                             getattr(gd_dev, name))
-    gc_kw = {name: put_rows(getattr(gc_dev, name), seeds[name])
+    gc_kw = {name: put_rows(getattr(gc_dev, name), seeds[name], name)
              for name in seeds}
     return gd_dev._replace(**gd_kw), gc_dev._replace(**gc_kw)
+
+
+# the seeded count fields without a node axis (replicated on the mesh)
+_ROW_SEEDS = frozenset({"spr_f_min_zero", "ipa_a_total"})
 
 
 # ---------------------------------------------------------------------------
@@ -1241,32 +1336,58 @@ def scatter_new_rows(gd_dev: GroupsDev, gc_dev: GroupCarry,
 # the carry with one scatter/gather pass per family.
 
 
-def _dom_share(tv, dom, w):
-    """Σ_m w[m] over nodes m sharing n's topology value (tv ≠ 0 both
-    sides), via the dense domain ids. tv/dom: int [..., N]; w: int
-    [..., N] (broadcastable); returns w's dtype [..., N]."""
+def _dom_seg(tv, dom, w, n_seg=None):
+    """The domain segment sums of _dom_share: seg[..., d] = Σ w[m] over
+    the rows m with tv ≠ 0 and dense domain id d → w's dtype [..., n_seg]
+    (n_seg defaults to the row count). On a node shard the ids are global
+    and n_seg the global node count: the shard's part of the segments the
+    JAX package psums (:1185-1213)."""
     w = w.expand(tv.shape) if w.shape != tv.shape else w
     lead = tv.shape[:-1]
     n = tv.shape[-1]
-    tv2 = tv.reshape(-1, n)
-    dom2 = dom.reshape(-1, n).long()
     w2 = w.reshape(-1, n)
-    has = tv2 != 0
-    seg = torch.zeros(w2.shape, dtype=w2.dtype, device=w2.device)
-    seg.scatter_add_(1, dom2, torch.where(has, w2, torch.zeros_like(w2)))
-    out = torch.where(has, torch.gather(seg, 1, dom2),
-                      torch.zeros_like(w2))
+    has = tv.reshape(-1, n) != 0
+    seg = torch.zeros((w2.shape[0], n_seg or n), dtype=w2.dtype,
+                      device=w2.device)
+    seg.scatter_add_(1, dom.reshape(-1, n).long(),
+                     torch.where(has, w2, torch.zeros_like(w2)))
+    return seg.reshape(*lead, n_seg or n)
+
+
+def _dom_share(tv, dom, w, n_seg=None, seg_sum=None):
+    """Σ_m w[m] over nodes m sharing n's topology value (tv ≠ 0 both
+    sides), via the dense domain ids. tv/dom: int [..., N]; w: int
+    [..., N] (broadcastable); returns w's dtype [..., N]. On a node shard,
+    `seg_sum` maps the shard's _dom_seg (width `n_seg`) to the summed
+    segments of all shards."""
+    lead = tv.shape[:-1]
+    n = tv.shape[-1]
+    seg = _dom_seg(tv, dom, w, n_seg)
+    if seg_sum is not None:
+        seg = seg_sum(seg)
+    seg2 = seg.reshape(-1, seg.shape[-1])
+    tv2 = tv.reshape(-1, n)
+    got = torch.gather(seg2, 1, dom.reshape(-1, n).long())
+    out = torch.where(tv2 != 0, got, torch.zeros_like(got))
     return out.reshape(*lead, n)
 
 
 def wave_fold(gd: GroupsDev, gc: GroupCarry, wt, cnt_sn,
-              fam: Optional[GroupFamilies] = None) -> GroupCarry:
+              fam: Optional[GroupFamilies] = None, n_seg=None,
+              seg_sum=None) -> GroupCarry:
     """GroupCarry after a wave: `wt` (sequence of int) are the wave's table
     rows and `cnt_sn` i32 [S, N] the accepted placement counts of each
     wave row per node. Exactly equals folding the placements through
     group_update one by one, in any order (additivity; node labels
     static). The JAX einsums are written as broadcast products summed over
-    the wave axis (integer einsum has no CUDA matmul)."""
+    the wave axis (integer einsum has no CUDA matmul). On a node shard
+    (the JAX package's `axis`, :1215-1311) `n_seg` is the global node
+    count and `seg_sum` maps each of the shard's partial sums, in call
+    order — every _dom_seg and the a_total add — to the sum over all
+    shards."""
+    def share(tv, dom, w):
+        return _dom_share(tv, dom, w, n_seg, seg_sum)
+
     fam = fam or ALL_FAMILIES
     wt = torch.as_tensor(list(wt), dtype=torch.long, device=cnt_sn.device)
     spr_f_cnt, spr_s_cnt = gc.spr_f_cnt, gc.spr_s_cnt
@@ -1283,12 +1404,12 @@ def wave_fold(gd: GroupsDev, gc: GroupCarry, wt, cnt_sn,
 
     if fam.spr_f:
         w_ucn = per_consumer(gd.m_spr_f[wt], cnt32)
-        spr_f_cnt = gc.spr_f_cnt + _dom_share(
+        spr_f_cnt = gc.spr_f_cnt + share(
             gd.spr_f_tv, gd.spr_f_dom, w_ucn * gd.spr_f_elig)
 
     if fam.spr_s:
         w_ucn = per_consumer(gd.m_spr_s[wt], cnt32)
-        topo = _dom_share(gd.spr_s_tv, gd.spr_s_dom, w_ucn * gd.spr_s_elig)
+        topo = share(gd.spr_s_tv, gd.spr_s_dom, w_ucn * gd.spr_s_elig)
         # hostname constraints count the chosen node's own pods, no
         # eligibility gate (group_update's is_host branch)
         spr_s_cnt = gc.spr_s_cnt + torch.where(
@@ -1297,20 +1418,19 @@ def wave_fold(gd: GroupsDev, gc: GroupCarry, wt, cnt_sn,
     if fam.ipa_anti:
         # existing-anti veto: shared along the PLACED row's term topology
         raa_tv_w = gd.ipa_raa_tv[wt]                    # [S, TAA, N]
-        shared_st = _dom_share(raa_tv_w, gd.ipa_raa_dom[wt],
-                               cnt32[:, None, :])
+        shared_st = share(raa_tv_w, gd.ipa_raa_dom[wt], cnt32[:, None, :])
         ipa_veto = gc.ipa_veto + (
             gd.m_ipa_exist[wt].to(_I32)[:, :, :, None]
             * shared_st[:, None, :, :]).sum(dim=(0, 2)).to(_I32)
         # incoming-anti counts: shared along the CONSUMER's term topology
         w_utn = per_consumer(gd.m_ipa_aa[wt], cnt32)
-        ipa_aa_cnt = gc.ipa_aa_cnt + _dom_share(
+        ipa_aa_cnt = gc.ipa_aa_cnt + share(
             gd.ipa_raa_tv, gd.ipa_raa_dom, w_utn)
 
     if fam.ipa_req:
         w_un = (gd.m_ipa_a[wt].to(_I32)[:, :, None]
                 * cnt32[:, None, :]).sum(dim=0).to(_I32)          # [U, N]
-        ipa_a_cnt = gc.ipa_a_cnt + _dom_share(
+        ipa_a_cnt = gc.ipa_a_cnt + share(
             gd.ipa_ra_tv, gd.ipa_ra_dom,
             w_un[:, None, :] * gd.ipa_ra_active[:, :, None])
         # a_total: each placement adds (# active consumer terms whose
@@ -1318,18 +1438,20 @@ def wave_fold(gd: GroupsDev, gc: GroupCarry, wt, cnt_sn,
         # the consumer's terms (group_update's tvb_a != 0 gate)
         k_un = (gd.ipa_ra_active[:, :, None]
                 & (gd.ipa_ra_tv != 0)).sum(dim=1)                 # [U, N]
-        ipa_a_total = gc.ipa_a_total + (w_un.to(_I64) * k_un).sum(dim=1)
+        a_add = (w_un.to(_I64) * k_un).sum(dim=1)
+        if seg_sum is not None:
+            a_add = seg_sum(a_add)
+        ipa_a_total = gc.ipa_a_total + a_add
 
     if fam.ipa_score:
         # consumer-side preferred terms matching the placed pod
         wc_utn = per_consumer(gd.w_stc[wt], cnt64)
-        cons_add = _dom_share(gd.ipa_stc_tv, gd.ipa_stc_dom,
-                              wc_utn).sum(dim=1)                  # [U, N]
+        cons_add = share(gd.ipa_stc_tv, gd.ipa_stc_dom,
+                         wc_utn).sum(dim=1)                       # [U, N]
         # placed-side terms: share counts along the placed row's term
         # topology, then weight per consumer
         stp_tv_w = gd.ipa_stp_tv[wt]                    # [S, PT, N]
-        shared_p = _dom_share(stp_tv_w, gd.ipa_stp_dom[wt],
-                              cnt64[:, None, :])
+        shared_p = share(stp_tv_w, gd.ipa_stp_dom[wt], cnt64[:, None, :])
         plcd_add = (gd.w_stp[wt][:, :, :, None]
                     * shared_p[:, None, :, :]).sum(dim=(0, 2))
         ipa_score = gc.ipa_score + cons_add + plcd_add

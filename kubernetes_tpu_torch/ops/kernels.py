@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
            "run_wave", "run_plan", "diagnose_row", "dry_run", "run_gang",
            "cluster_probe", "explain_row", "score_probe",
-           "run_batch_sharded", "run_uniform_sharded")
+           "run_batch_sharded", "run_uniform_sharded", "run_plan_sharded",
+           "run_gang_sharded")
 
 # launches per wrapper since the last reset (one per kernel-wrapper call);
 # run_batch counts its lean mode, its group mode and its overlay variant
@@ -44,13 +45,19 @@ SOURCES = ("run_batch", "run_uniform", "scatter_rows", "wave_statics",
 # two; run_gang counts its scan tier, and its closed-form tier (built in
 # run_uniform.cu) counts under run_gang_uniform; the mesh's programs
 # count once per sharded call (their launches on every shard), the scatter
-# and the probe on the mesh under their own keys
+# and the probe on the mesh under their own keys, run_batch_sharded's
+# group mode under run_batch_sharded_groups, the per-shard statics under
+# wave_statics_sharded and the mesh's closed-form gang tier (built in
+# run_uniform_sharded.cu) under run_gang_uniform_sharded
 LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "run_batch_ovl",
                                            "run_uniform_ovl",
                                            "run_gang_uniform",
                                            "scatter_rows_sharded",
-                                           "cluster_probe_sharded")}
+                                           "cluster_probe_sharded",
+                                           "run_batch_sharded_groups",
+                                           "wave_statics_sharded",
+                                           "run_gang_uniform_sharded")}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -303,7 +310,11 @@ class ShardStepC(ctypes.Structure):
     """csrc/run_batch_sharded.cu ShardStepC."""
     _fields_ = [("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
                 ("valid", _P), ("sig", _P), ("tidx", _P), ("offset", _I),
-                ("loc", _P), ("key", _P), ("out", _P)]
+                ("loc", _P), ("key", _P), ("out", _P), ("has_groups", _I),
+                ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
+                ("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64),
+                ("n_global", _I)] + [
+        (f, _P) for f in ("feas", "gsc", "loc2", "loc3", "own")]
 
 
 class UniShardC(ctypes.Structure):
@@ -316,6 +327,39 @@ class UniShardC(ctypes.Structure):
                    ("P0", _I), ("cand", _P), ("keys1", _P), ("P1", _I)]
                 + [(f, _P) for f in ("fit_kj", "sfit_kj", "sbal_kj",
                                      "counts", "flags", "packed")])
+
+
+class PlanShardC(ctypes.Structure):
+    """csrc/run_plan_sharded.cu PlanShardC."""
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
+                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC)]
+                + [(f, _P) for f in ("used", "nonzero_used", "npods",
+                                     "ports")]
+                + [("P", _I)]
+                + [(f, _P) for f in ("m0", "taint_raw", "na_raw", "s_img",
+                                     "valid", "widx")]
+                + [("wt", _I * MAX_PLAN_SLOTS)]
+                + [(f, _I) for f in ("S", "W", "norm_live", "has_groups",
+                                     "has_ports")]
+                + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64),
+                   ("offset", _I), ("n_global", _I)]
+                + [(f, _P) for f in ("fit_ok", "s_fit", "s_bal", "feas",
+                                     "gsc", "loc1", "loc2", "loc3", "key",
+                                     "own", "ctl", "packed")])
+
+
+class GangShardC(ctypes.Structure):
+    """csrc/run_gang_sharded.cu GangShardC."""
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC)]
+                + [(f, _P) for f in (
+                    "used_in", "nz_in", "npods_in", "sig_in", "used",
+                    "nonzero_used", "npods", "sig_out", "m0", "taint_raw",
+                    "na_raw", "s_img", "valid", "tidx", "widx", "wt", "dom")]
+                + [(f, _I) for f in ("S", "B", "needed", "w_contig",
+                                     "offset", "n_global")]
+                + [(f, _P) for f in ("fit_ok", "s_fit", "s_bal", "domcnt",
+                                     "placed", "loc", "key", "own",
+                                     "packed")])
 
 
 class ScoreProbeArgsC(ctypes.Structure):
@@ -351,7 +395,12 @@ def _bind(name: str, lib):
         lib.ktpu_scatter_rows.restype = ctypes.c_int
     elif name == "wave_statics":
         lib.ktpu_wave_statics.argtypes = [_P, _P, _P] + [_I] * 4 + [_P] * 6
-        lib.ktpu_wave_statics.restype = ctypes.c_int
+        lib.ktpu_wave_image_counts.argtypes = [_P, _P, _P, _I, _P, _P]
+        lib.ktpu_wave_statics_counted.argtypes = ([_P, _P, _P] + [_I] * 4
+                                                  + [_P] * 6)
+        for f in ("ktpu_wave_statics", "ktpu_wave_image_counts",
+                  "ktpu_wave_statics_counted"):
+            getattr(lib, f).restype = ctypes.c_int
     elif name == "run_wave":
         lib.ktpu_run_wave.argtypes = [_P, _P]
         lib.ktpu_run_wave.restype = ctypes.c_int
@@ -377,16 +426,44 @@ def _bind(name: str, lib):
         lib.ktpu_shard_eval.argtypes = [_P, _I, _P]
         lib.ktpu_shard_select.argtypes = [_P, _I, _P, _P]
         lib.ktpu_shard_apply.argtypes = [_P, _I, _P, _P]
-        for f in ("ktpu_shard_eval", "ktpu_shard_select", "ktpu_shard_apply"):
+        lib.ktpu_shard_geval.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_shard_graw.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_shard_gselect.argtypes = [_P, _I, _P, _P, _P]
+        lib.ktpu_shard_gapply.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_shard_gupdate.argtypes = [_P, _I, _P, _P, _P]
+        for f in ("ktpu_shard_eval", "ktpu_shard_select", "ktpu_shard_apply",
+                  "ktpu_shard_geval", "ktpu_shard_graw", "ktpu_shard_gselect",
+                  "ktpu_shard_gapply", "ktpu_shard_gupdate"):
             getattr(lib, f).restype = ctypes.c_int
     elif name == "run_uniform_sharded":
         lib.ktpu_uniform_shard_parts.argtypes = [_P, _P]
         lib.ktpu_uniform_shard_topk.argtypes = [_P, _P, _P]
         lib.ktpu_uniform_merge.argtypes = [_P, _I, _P, _I, _P]
         lib.ktpu_uniform_shard_finalize.argtypes = [_P, _P, _P]
+        lib.ktpu_uniform_shard_gang.argtypes = [_P, _I, _P, _P]
         for f in ("ktpu_uniform_shard_parts", "ktpu_uniform_shard_topk",
-                  "ktpu_uniform_merge", "ktpu_uniform_shard_finalize"):
+                  "ktpu_uniform_merge", "ktpu_uniform_shard_finalize",
+                  "ktpu_uniform_shard_gang"):
             getattr(lib, f).restype = ctypes.c_int
+    elif name == "run_plan_sharded":
+        lib.ktpu_plan_shard_init.argtypes = [_P, _P]
+        lib.ktpu_plan_shard_min.argtypes = [_P, _I, _I, _P]
+        lib.ktpu_plan_shard_eval.argtypes = [_P, _I, _I, _P, _P]
+        lib.ktpu_plan_shard_raw.argtypes = [_P, _I, _I, _P, _P]
+        lib.ktpu_plan_shard_select.argtypes = [_P, _I, _I, _P, _P, _P]
+        lib.ktpu_plan_shard_apply.argtypes = [_P, _I, _I, _P, _P]
+        lib.ktpu_plan_shard_update.argtypes = [_P, _I, _P, _P, _P]
+        for f in ("init", "min", "eval", "raw", "select", "apply", "update"):
+            getattr(lib, f"ktpu_plan_shard_{f}").restype = ctypes.c_int
+    elif name == "run_gang_sharded":
+        lib.ktpu_gang_shard_init.argtypes = [_P, _P]
+        lib.ktpu_gang_shard_eval.argtypes = [_P, _I, _P]
+        lib.ktpu_gang_shard_select.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_gang_shard_apply.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_gang_shard_update.argtypes = [_P, _I, _P, _P, _P]
+        lib.ktpu_gang_shard_verdict.argtypes = [_P, _P]
+        for f in ("init", "eval", "select", "apply", "update", "verdict"):
+            getattr(lib, f"ktpu_gang_shard_{f}").restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -1353,19 +1430,34 @@ def score_probe_cuda(cfg, na, carry, table, tidx: int):
 # exchange between them, driven from the host without a readback
 
 
-def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table):
-    """The lean scan over node shards (csrc/run_batch_sharded.cu); same
-    contract as parallel/sharding.py run_batch_sharded: per pod, every
-    shard's shard_eval, the exchange of the image counts and maxima,
-    every shard's shard_select, the max of the packed keys, every
-    shard's shard_apply. Output carries are fresh copies."""
-    from ..parallel.sharding import Shards, lean_exchange, pmax, replicate
+def _own_len(g: GroupsC) -> int:
+    """The own vector's length (csrc/group_eval.cuh block_own_write)."""
+    return g.U * (4 * g.SC + g.TAA + g.TA + g.CT + g.PT)
+
+
+def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table, groups=None,
+                           fam=None):
+    """The scan over node shards (csrc/run_batch_sharded.cu); same
+    contract as parallel/sharding.py run_batch_sharded. Lean mode, per
+    pod: every shard's shard_eval, the exchange of the image counts and
+    maxima, every shard's shard_select, the max of the packed keys, every
+    shard's shard_apply. Group mode (`groups`, the shard_groups of the
+    GroupsDev; the counts ride the carry shards), per pod: shard_eval
+    with the spread minima, the exchange, shard_geval, the exchange of
+    the score partials, shard_graw and its exchange (ScheduleAnyway
+    rows), shard_gselect, the max of the keys, shard_gapply, the sum of
+    the own vectors, shard_gupdate. Output carries are fresh copies."""
+    from ..parallel.sharding import (Shards, exchange, lean_exchange, pmax,
+                                     psum, replicate)
     lib = build()["run_batch_sharded"]
     B = pods.valid.shape[0]
     pods_r, tabs = replicate(mesh, pods), replicate(mesh, table)
     n_local = na[0].cap.shape[0]
-    outs, args, locs, keys = [], [], [], []
+    n_global = n_local * mesh.size
+    grp = groups is not None
+    outs, args, locs, keys, bufs = [], [], [], [], []
     out = None
+    i64 = torch.int64
     for d, dev in enumerate(mesh.devices):
         node = _node_c(na[d], dev)
         if node.N != n_local:
@@ -1377,48 +1469,80 @@ def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table):
             raise ValueError("pods: valid/sig/tidx lengths differ")
         oc = _out_carry(carry[d], scan=True)
         outs.append(oc)
-        locs.append(torch.empty((MAX_IC + 3,), dtype=torch.int64,
-                                device=dev))
-        keys.append(torch.empty((1,), dtype=torch.int64, device=dev))
+        tab = _table_c(tabs[d], node.R, dev)
+        gkw = {}
+        if grp:
+            g = _groups_c(groups[d], node.N, dev)
+            if g.U > tab.U:
+                raise ValueError("run_batch_sharded: more group rows than "
+                                 "table rows")
+            b = SimpleNamespace(
+                feas=torch.empty((node.N,), dtype=torch.uint8, device=dev),
+                gsc=torch.empty((node.N,), dtype=i64, device=dev),
+                loc2=torch.zeros((1 + g.SC * n_global + 4,), dtype=i64,
+                                 device=dev),
+                loc3=torch.zeros((2,), dtype=i64, device=dev),
+                own=torch.empty((_own_len(g),), dtype=i64, device=dev))
+            bufs.append(b)
+            gkw = dict(has_groups=1, g=g, gc=_gcarry_c(oc.groups, g, dev),
+                       fam=_fam_c(fam), w_spread=cfg.w_spread,
+                       w_ipa=cfg.w_ipa, n_global=n_global,
+                       **{k: t.data_ptr() for k, t in vars(b).items()})
+        locs.append(torch.zeros((MAX_IC + 3 + (gkw["g"].SC if grp else 0),),
+                                dtype=i64, device=dev))
+        keys.append(torch.empty((1,), dtype=i64, device=dev))
         if d == 0:
             out = torch.empty((B,), dtype=torch.int32, device=dev)
         args.append(ShardStepC(
-            na=node, tb=_table_c(tabs[d], node.R, dev),
-            c=_carry_c(oc, node.N, node.R, dev), cfg=_cfg_c(cfg, node.R),
-            valid=ptrs[0], sig=ptrs[1], tidx=ptrs[2], offset=d * n_local,
-            loc=locs[d].data_ptr(), key=keys[d].data_ptr(),
-            out=out.data_ptr() if d == 0 else None))
+            na=node, tb=tab, c=_carry_c(oc, node.N, node.R, dev),
+            cfg=_cfg_c(cfg, node.R), valid=ptrs[0], sig=ptrs[1],
+            tidx=ptrs[2], offset=d * n_local, loc=locs[d].data_ptr(),
+            key=keys[d].data_ptr(),
+            out=out.data_ptr() if d == 0 else None, **gkw))
     # every struct stays bound to a name until the last launch returns
     shards = [(ctypes.addressof(a), _stream(dev), dev)
               for a, dev in zip(args, mesh.devices)]
     for i in range(B):
-        rc = 0
-        for a, st, dev in shards:
-            with torch.cuda.device(dev):
-                rc |= lib.ktpu_shard_eval(a, i, st)
-        glob = lean_exchange(mesh, locs)
-        for (a, st, dev), g in zip(shards, glob):
-            with torch.cuda.device(dev):
-                rc |= lib.ktpu_shard_select(a, i, g.data_ptr(), st)
-        gkey = pmax(mesh, keys)
-        for (a, st, dev), g in zip(shards, gkey):
-            with torch.cuda.device(dev):
-                rc |= lib.ktpu_shard_apply(a, i, g.data_ptr(), st)
+        ii = [i] * mesh.size
+        rc = _each(shards, lib.ktpu_shard_eval, ii)
+        if not grp:
+            glob = lean_exchange(mesh, locs)
+            rc |= _each(shards, lib.ktpu_shard_select, ii, _ptrs(glob))
+            gkey = pmax(mesh, keys)
+            rc |= _each(shards, lib.ktpu_shard_apply, ii, _ptrs(gkey))
+        else:
+            g1 = exchange(mesh, locs, MAX_IC + 1)
+            rc |= _each(shards, lib.ktpu_shard_geval, ii, _ptrs(g1))
+            g2 = exchange(mesh, [b.loc2 for b in bufs],
+                          int(bufs[0].loc2.shape[0]) - 4)
+            g3 = g2
+            if fam.spr_s:
+                rc |= _each(shards, lib.ktpu_shard_graw, ii, _ptrs(g2))
+                g3 = pmax(mesh, [b.loc3 for b in bufs])
+            rc |= _each(shards, lib.ktpu_shard_gselect, ii, _ptrs(g2),
+                        _ptrs(g3))
+            gkey = pmax(mesh, keys)
+            rc |= _each(shards, lib.ktpu_shard_gapply, ii, _ptrs(gkey))
+            gown = psum(mesh, [b.own for b in bufs])
+            rc |= _each(shards, lib.ktpu_shard_gupdate, ii, _ptrs(gkey),
+                        _ptrs(gown))
         _raise_on(rc, "run_batch_sharded")
-    LAUNCHES["run_batch_sharded"] += 1
+    LAUNCHES["run_batch_sharded_groups" if grp
+             else "run_batch_sharded"] += 1
     return Shards(outs), out
 
 
-def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
-                             L: int, K: int, J: int):
-    """The closed form over node shards (csrc/run_uniform_sharded.cu);
-    same contract as parallel/sharding.py run_uniform_sharded: every
-    shard's parts, the exchange of the counts and maxima, every shard's
-    top-K_loc / matrix / top-L_loc, the all-gather of the keys, one merge
-    a device, every shard's finalize, the min of the flags."""
-    from ..parallel.sharding import (Shards, all_gather, lean_exchange, pmin,
-                                     replicate, uniform_shape)
-    lib = build()["run_uniform_sharded"]
+def _uniform_sharded_launches(lib, cfg, mesh, na, carry, x, table,
+                              n_actual: int, L: int, K: int, J: int):
+    """The launches and exchanges of one sharded closed-form run up to the
+    shards' finalize: every shard's parts, the exchange of the counts and
+    maxima, every shard's top-K_loc / matrix / top-L_loc, the all-gather
+    of the keys, one merge a device, every shard's finalize. Returns (the
+    output carries, the per-shard buffers — `packed` [L + 2] each, its
+    flags still the shard's own — and the (struct, stream, device) of
+    every shard, the structs alive with it)."""
+    from ..parallel.sharding import (all_gather, lean_exchange, replicate,
+                                     uniform_shape)
     D = mesh.size
     n_local = na[0].cap.shape[0]
     if not (K >= 1 and J >= 1 and L >= 1):
@@ -1459,17 +1583,13 @@ def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
             sig=sig, tidx=tidx, offset=d * n_local, n_global=D * n_local,
             K=K_loc, J=J, L=L, n_actual=int(n_actual), P0=P0, P1=P1,
             **{k: t.data_ptr() for k, t in vars(b).items()}))
-    # every struct stays bound to a name until the last launch returns
+    # the structs ride along with the shards, alive until the caller's
+    # last launch returns
     shards = [(ctypes.addressof(a), _stream(dev), dev)
               for a, dev in zip(args, mesh.devices)]
-    rc = 0
-    for a, st, dev in shards:
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_uniform_shard_parts(a, st)
+    rc = _each(shards, lib.ktpu_uniform_shard_parts)
     glob = lean_exchange(mesh, [b.loc for b in bufs])
-    for (a, st, dev), g in zip(shards, glob):
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_uniform_shard_topk(a, g.data_ptr(), st)
+    rc |= _each(shards, lib.ktpu_uniform_shard_topk, _ptrs(glob))
     gathered = all_gather(mesh, [b.keys1[:L_loc] for b in bufs])
     n = D * L_loc
     P = _pow2(max(n, L))
@@ -1481,11 +1601,24 @@ def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
             rc |= lib.ktpu_uniform_merge(g.data_ptr(), n,
                                          merged[dev].data_ptr(), P,
                                          _stream(dev))
-    for a, st, dev in shards:
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_uniform_shard_finalize(a, merged[dev].data_ptr(),
-                                                  st)
+    rc |= _each(shards, lib.ktpu_uniform_shard_finalize,
+                [merged[dev].data_ptr() for dev in mesh.devices])
     _raise_on(rc, "run_uniform_sharded")
+    bufs[0].structs = args
+    return outs, bufs, shards
+
+
+def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
+                             L: int, K: int, J: int):
+    """The closed form over node shards (csrc/run_uniform_sharded.cu);
+    same contract as parallel/sharding.py run_uniform_sharded: every
+    shard's parts, the exchange of the counts and maxima, every shard's
+    top-K_loc / matrix / top-L_loc, the all-gather of the keys, one merge
+    a device, every shard's finalize, the min of the flags."""
+    from ..parallel.sharding import Shards, pmin
+    lib = build()["run_uniform_sharded"]
+    outs, bufs, _shards = _uniform_sharded_launches(
+        lib, cfg, mesh, na, carry, x, table, n_actual, L, K, J)
     packed = bufs[0].packed
     packed[L:].copy_(pmin(mesh, [b.packed[L:] for b in bufs])[0])
     LAUNCHES["run_uniform_sharded"] += 1
@@ -1517,3 +1650,337 @@ def cluster_probe_sharded_cuda(cap, valid, used, npods, dom, ndom: int):
         out = _cluster_probe_launch(cap, valid, used, npods, dom, ndom)
     LAUNCHES["cluster_probe_sharded"] += 1
     return out
+
+
+def wave_statics_sharded_cuda(mesh, na, table, wt, feats=(True, True, True)):
+    """The per-signature surfaces on the node shards (csrc/wave_statics.cu
+    launches apart): each shard's image counts, their psum, each shard's
+    statics with the cluster-wide counts; same contract as parallel/
+    sharding.py wave_statics_sharded."""
+    from ..parallel.sharding import psum, replicate
+    lib = build()["wave_statics"]
+    rows = [int(u) for u in wt]
+    if len(rows) > MAX_WAVE_ROWS:
+        raise ValueError(f"wave_statics_sharded: {len(rows)} rows, at most "
+                         f"{MAX_WAVE_ROWS} per call")
+    S = len(rows)
+    wt_c = WaveRowsC()
+    wt_c.u[:S] = rows
+    has_taints, has_sel, has_img = (int(bool(f)) for f in feats)
+    tabs = replicate(mesh, table)
+    shards, cnts = [], []
+    rc = 0
+    for d, dev in enumerate(mesh.devices):
+        node = _node_c(na[d], dev)
+        tab = _table_c(tabs[d], node.R, dev)
+        if not rows or any(not 0 <= u < tab.U for u in rows):
+            raise ValueError(f"wave_statics_sharded: rows {rows} outside "
+                             "the table")
+        cnt = torch.zeros((S * (tab.IC + 1),), dtype=torch.int64, device=dev)
+        if has_img:
+            with torch.cuda.device(dev):
+                rc |= lib.ktpu_wave_image_counts(
+                    ctypes.addressof(node), ctypes.addressof(tab),
+                    ctypes.addressof(wt_c), S, cnt.data_ptr(), _stream(dev))
+        shards.append((node, tab))
+        cnts.append(cnt)
+    glob = psum(mesh, cnts) if has_img else cnts
+    out = []
+    for d, dev in enumerate(mesh.devices):
+        node, tab = shards[d]
+        mask = torch.empty((S, node.N), dtype=torch.bool, device=dev)
+        traw, nraw, simg = (torch.empty((S, node.N), dtype=torch.int64,
+                                        device=dev) for _ in range(3))
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_wave_statics_counted(
+                ctypes.addressof(node), ctypes.addressof(tab),
+                ctypes.addressof(wt_c), S, has_taints, has_sel, has_img,
+                glob[d].data_ptr(), mask.data_ptr(), traw.data_ptr(),
+                nraw.data_ptr(), simg.data_ptr(), _stream(dev))
+        out.append((mask, traw, nraw, simg))
+    _raise_on(rc, "wave_statics_sharded")
+    LAUNCHES["wave_statics_sharded"] += 1
+    return out
+
+
+def _check_statics(statics, S: int, N: int, dev, what: str) -> list:
+    stat = [_check(t, f"statics[{k}]", dt, 2, dev) for k, (t, dt) in
+            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
+                                    torch.int64)))]
+    if any(tuple(t.shape) != (S, N) for t in statics):
+        raise ValueError(f"{what}: statics must be [{S}, {N}] each")
+    return stat
+
+
+def _each(shards, fn, *per) -> int:
+    """fn(struct, *per-shard args, stream) on every shard, each under its
+    device; the OR of the return codes."""
+    rc = 0
+    for k, (a, st, dev) in enumerate(shards):
+        with torch.cuda.device(dev):
+            rc |= fn(a, *(x[k] for x in per), st)
+    return rc
+
+
+def _ptrs(xs) -> list:
+    return [x.data_ptr() for x in xs]
+
+
+def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
+                          fam, norm_live: bool, has_groups: bool,
+                          has_ports: bool):
+    """The plan program over node shards (csrc/run_plan_sharded.cu); same
+    contract as parallel/sharding.py run_plan_sharded. Per shard: init;
+    per evaluation (the S speculative choices, then each pod): the spread
+    minima and their exchange (DoNotSchedule rows), eval and the exchange
+    of the maxima and score partials, the raw spread pass and its exchange
+    (ScheduleAnyway rows), select and the max of the keys, apply, and on
+    a group span the sum of the own vectors and the update. The output
+    carries hold fresh copies of every field the kernels write."""
+    from ..parallel.sharding import (Shards, exchange, pmax, psum,
+                                     replicate)
+    from .program import Carry
+    lib = build()["run_plan_sharded"]
+    rows = [int(u) for u in wt]
+    S = len(rows)
+    if not 1 <= S <= MAX_PLAN_SLOTS:
+        raise ValueError(f"run_plan_sharded: {S} signature slots, kernel "
+                         f"takes 1..{MAX_PLAN_SLOTS}")
+    W = xs.valid.shape[0]
+    if xs.widx.shape[0] != W or W < 1:
+        raise ValueError("run_plan_sharded: xs.valid / xs.widx lengths "
+                         "differ")
+    xs_r, tabs = replicate(mesh, xs), replicate(mesh, table)
+    n_local = na[0].cap.shape[0]
+    n_global = n_local * mesh.size
+    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
+    famc = _fam_c(fam) if has_groups else FamC()
+    wt_c = (_I * MAX_PLAN_SLOTS)(*(rows + [0] * (MAX_PLAN_SLOTS - S)))
+    args, bufs, outs = [], [], []
+    packed = None
+    for d, dev in enumerate(mesh.devices):
+        node = _node_c(na[d], dev)
+        N, R = node.N, node.R
+        if N != n_local:
+            raise ValueError("run_plan_sharded: shards of unequal size")
+        tab = _table_c(tabs[d], R, dev)
+        if any(not 0 <= u < tab.U for u in rows):
+            raise ValueError(f"run_plan_sharded: rows {rows} outside the "
+                             "table")
+        valid_p = _check(xs_r[d].valid, "xs.valid", torch.bool, 1, dev)
+        widx_p = _check(xs_r[d].widx, "xs.widx", torch.int32, 1, dev)
+        stat = _check_statics(statics[d], S, N, dev, "run_plan_sharded")
+        c = carry[d]
+        _carry_c(c, N, R, dev)
+        if has_groups:
+            g = _groups_c(gd[d], N, dev)
+            if any(u >= g.U for u in rows) or g.U > tab.U:
+                raise ValueError(f"run_plan_sharded: rows {rows} outside "
+                                 "the group tables")
+            gout_t = _clone_groups(c.groups)
+            gout = _gcarry_c(gout_t, g, dev)
+            SC, own_n = g.SC, _own_len(g)
+        else:
+            g, gout, gout_t, SC, own_n = GroupsC(), GCarryC(), c.groups, 0, 1
+        used, nz, npods = (c.used.clone(), c.nonzero_used.clone(),
+                           c.npods.clone())
+        ports = c.ports.clone() if has_ports else c.ports
+        b = SimpleNamespace(
+            fit_ok=torch.empty((S * N,), dtype=u8, device=dev),
+            s_fit=torch.empty((S * N,), dtype=i64, device=dev),
+            s_bal=torch.empty((S * N,), dtype=i64, device=dev),
+            feas=torch.empty((N,), dtype=u8, device=dev),
+            gsc=torch.empty((N,), dtype=i64, device=dev),
+            loc1=torch.zeros((max(SC, 1),), dtype=i64, device=dev),
+            loc2=torch.zeros((1 + SC * n_global + 4,), dtype=i64,
+                             device=dev),
+            loc3=torch.zeros((2,), dtype=i64, device=dev),
+            key=torch.empty((1,), dtype=i64, device=dev),
+            own=torch.zeros((own_n,), dtype=i64, device=dev),
+            ctl=torch.empty((MAX_PLAN_SLOTS + 3,), dtype=i32, device=dev))
+        if d == 0:
+            packed = torch.empty((W + 2,), dtype=i32, device=dev)
+        bufs.append(b)
+        args.append(PlanShardC(
+            na=node, tb=tab, cfg=_cfg_c(cfg, R), g=g, gc=gout, fam=famc,
+            used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+            npods=npods.data_ptr(), ports=ports.data_ptr(),
+            P=c.ports.shape[1], m0=stat[0], taint_raw=stat[1],
+            na_raw=stat[2], s_img=stat[3], valid=valid_p, widx=widx_p,
+            wt=wt_c, S=S, W=W, norm_live=int(bool(norm_live)),
+            has_groups=int(bool(has_groups)),
+            has_ports=int(bool(has_ports)), w_spread=cfg.w_spread,
+            w_ipa=cfg.w_ipa, offset=d * n_local, n_global=n_global,
+            packed=packed.data_ptr() if d == 0 else None,
+            **{k: t.data_ptr() for k, t in vars(b).items()}))
+        outs.append(Carry(used=used, nonzero_used=nz, npods=npods,
+                          ports=ports, cache=c.cache._replace(
+                              sig=torch.zeros((), dtype=i32, device=dev)),
+                          groups=gout_t))
+    # every struct stays bound to a name until the last launch returns
+    shards = [(ctypes.addressof(a), _stream(dev), dev)
+              for a, dev in zip(args, mesh.devices)]
+    D = mesh.size
+    n_sum = int(bufs[0].loc2.shape[0]) - 4
+    spr_f = has_groups and fam.spr_f
+    spr_s = has_groups and fam.spr_s
+
+    def evaluate(k: int, spec: int) -> tuple:
+        # (k, spec): the speculative choice of slot `spec`, or (spec = -1)
+        # pod k's step, its slot read from widx on the device
+        ks = ([k] * D, [spec] * D)
+        rc = 0
+        g1 = [b.loc1 for b in bufs]
+        if spr_f:
+            rc |= _each(shards, lib.ktpu_plan_shard_min, *ks)
+            g1 = pmax(mesh, g1)
+        rc |= _each(shards, lib.ktpu_plan_shard_eval, *ks, _ptrs(g1))
+        g2 = exchange(mesh, [b.loc2 for b in bufs], n_sum)
+        g3 = g2
+        if spr_s:
+            rc |= _each(shards, lib.ktpu_plan_shard_raw, *ks, _ptrs(g2))
+            g3 = pmax(mesh, [b.loc3 for b in bufs])
+        rc |= _each(shards, lib.ktpu_plan_shard_select, *ks, _ptrs(g2),
+                    _ptrs(g3))
+        gkey = pmax(mesh, [b.key for b in bufs])
+        return rc | _each(shards, lib.ktpu_plan_shard_apply, *ks,
+                          _ptrs(gkey)), gkey
+
+    rc = _each(shards, lib.ktpu_plan_shard_init)
+    for s in range(S):
+        rc |= evaluate(0, s)[0]
+    for k in range(W):
+        r, gkey = evaluate(k, -1)
+        rc |= r
+        if has_groups:
+            gown = psum(mesh, [b.own for b in bufs])
+            rc |= _each(shards, lib.ktpu_plan_shard_update, [k] * D,
+                        _ptrs(gkey), _ptrs(gown))
+        _raise_on(rc, "run_plan_sharded")
+    _raise_on(rc, "run_plan_sharded")
+    LAUNCHES["run_plan_sharded"] += 1
+    return Shards(outs), packed
+
+
+def run_gang_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, needed: int,
+                          dom, statics, w_contig: int):
+    """The gang scan tier over node shards (csrc/run_gang_sharded.cu); same
+    contract as parallel/sharding.py run_gang_sharded (scan tier). Per
+    shard: init; per member: eval and the max of the maxima, select and
+    the max of the keys, apply, and with w_contig the sum of the chosen
+    domain ids and the update; then the verdict. The output carries hold
+    fresh used / nonzero_used / npods and a fresh signature scalar; the
+    rest of the SigCache, the ports and the group counts are the input's
+    (the kernels never write them)."""
+    from ..parallel.sharding import Shards, pmax, psum, replicate
+    from .program import Carry
+    lib = build()["run_gang_sharded"]
+    rows = [int(u) for u in wt]
+    S = len(rows)
+    B = xs.valid.shape[0]
+    if S < 1 or B < 1:
+        raise ValueError("run_gang_sharded: an empty gang or signature set")
+    xs_r, tabs = replicate(mesh, xs), replicate(mesh, table)
+    n_local = na[0].cap.shape[0]
+    n_global = n_local * mesh.size
+    i32, i64 = torch.int32, torch.int64
+    args, bufs, outs = [], [], []
+    packed = None
+    for d, dev in enumerate(mesh.devices):
+        node = _node_c(na[d], dev)
+        N, R = node.N, node.R
+        if N != n_local:
+            raise ValueError("run_gang_sharded: shards of unequal size")
+        tab = _table_c(tabs[d], R, dev)
+        if any(not 0 <= u < tab.U for u in rows):
+            raise ValueError(f"run_gang_sharded: rows {rows} outside the "
+                             "table")
+        ptrs = {f: _check(getattr(xs_r[d], f), f"xs.{f}", dt, 1, dev)
+                for f, dt in (("valid", torch.bool), ("tidx", i32),
+                              ("widx", i32))}
+        if xs_r[d].tidx.shape[0] != B or xs_r[d].widx.shape[0] != B:
+            raise ValueError("run_gang_sharded: xs.valid / tidx / widx "
+                             "lengths differ")
+        dom_p = _check(dom[d], "dom", i32, 1, dev)
+        if dom[d].shape[0] != N:
+            raise ValueError(f"run_gang_sharded: dom shards must be [{N}]")
+        stat = _check_statics(statics[d], S, N, dev, "run_gang_sharded")
+        c = carry[d]
+        cin = _carry_c(c, N, R, dev)
+        used, nz = torch.empty_like(c.used), torch.empty_like(c.nonzero_used)
+        npods, sig = torch.empty_like(c.npods), torch.empty_like(c.cache.sig)
+        b = SimpleNamespace(
+            wt=torch.tensor(rows, dtype=i32).pin_memory().to(
+                dev, non_blocking=True),
+            fit_ok=torch.empty((S * N,), dtype=torch.uint8, device=dev),
+            s_fit=torch.empty((S * N,), dtype=i64, device=dev),
+            s_bal=torch.empty((S * N,), dtype=i64, device=dev),
+            domcnt=torch.empty((n_global,), dtype=i32, device=dev),
+            placed=torch.empty((1,), dtype=i32, device=dev),
+            loc=torch.empty((3,), dtype=i64, device=dev),
+            key=torch.empty((1,), dtype=i64, device=dev),
+            own=torch.zeros((1,), dtype=i64, device=dev))
+        if d == 0:
+            packed = torch.empty((B + 4,), dtype=i32, device=dev)
+        bufs.append(b)
+        args.append(GangShardC(
+            na=node, tb=tab, cfg=_cfg_c(cfg, R), used_in=cin.used,
+            nz_in=cin.nonzero_used, npods_in=cin.npods, sig_in=cin.cache.sig,
+            used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+            npods=npods.data_ptr(), sig_out=sig.data_ptr(), m0=stat[0],
+            taint_raw=stat[1], na_raw=stat[2], s_img=stat[3], dom=dom_p,
+            S=S, B=B, needed=int(needed), w_contig=int(w_contig),
+            offset=d * n_local, n_global=n_global,
+            packed=packed.data_ptr() if d == 0 else None, **ptrs,
+            **{k: t.data_ptr() for k, t in vars(b).items()}))
+        outs.append(Carry(used=used, nonzero_used=nz, npods=npods,
+                          ports=c.ports, cache=c.cache._replace(sig=sig),
+                          groups=c.groups))
+    # every struct stays bound to a name until the last launch returns
+    shards = [(ctypes.addressof(a), _stream(dev), dev)
+              for a, dev in zip(args, mesh.devices)]
+    D = mesh.size
+    rc = _each(shards, lib.ktpu_gang_shard_init)
+    for k in range(B):
+        rc |= _each(shards, lib.ktpu_gang_shard_eval, [k] * D)
+        glob = pmax(mesh, [b.loc for b in bufs])
+        rc |= _each(shards, lib.ktpu_gang_shard_select, [k] * D, _ptrs(glob))
+        gkey = pmax(mesh, [b.key for b in bufs])
+        rc |= _each(shards, lib.ktpu_gang_shard_apply, [k] * D, _ptrs(gkey))
+        if w_contig:
+            gown = psum(mesh, [b.own for b in bufs])
+            rc |= _each(shards, lib.ktpu_gang_shard_update, [k] * D,
+                        _ptrs(gkey), _ptrs(gown))
+        _raise_on(rc, "run_gang_sharded")
+    rc |= _each(shards, lib.ktpu_gang_shard_verdict)
+    _raise_on(rc, "run_gang_sharded")
+    LAUNCHES["run_gang_sharded"] += 1
+    return Shards(outs), packed
+
+
+def run_gang_uniform_sharded_cuda(cfg, mesh, na, carry, x, table,
+                                  n_actual: int, needed: int, L: int, K: int,
+                                  J: int):
+    """The closed-form gang tier over node shards: run_uniform_sharded's
+    launches and exchanges (the flags min'd onto every shard), then each
+    shard's gang epilogue (run_uniform_sharded.cu ktpu_uniform_shard_gang);
+    same contract as parallel/sharding.py run_gang_sharded(uniform=True).
+    Shard 0's packed [L + 4] is returned."""
+    from ..parallel.sharding import pmin
+    lib = build()["run_uniform_sharded"]
+    outs, bufs, shards = _uniform_sharded_launches(
+        lib, cfg, mesh, na, carry, x, table, n_actual, L, K, J)
+    flags = pmin(mesh, [b.packed[L:] for b in bufs])
+    rc = 0
+    packs = []
+    for (a, st, dev), b, f in zip(shards, bufs, flags):
+        b.packed[L:].copy_(f)
+        p = torch.empty((L + 4,), dtype=torch.int32, device=dev)
+        packs.append(p)
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_uniform_shard_gang(a, int(needed), p.data_ptr(),
+                                              st)
+    _raise_on(rc, "run_gang_uniform_sharded")
+    LAUNCHES["run_gang_uniform_sharded"] += 1
+    from ..parallel.sharding import Shards
+    return Shards(outs), packs[0]

@@ -875,12 +875,14 @@ def static_norm_ok(arrays, pref_weight) -> bool:
 
 
 def _wave_statics_plain(na: NodeArrays, table: PodTableDev, wt,
-                        feats: tuple = (True, True, True)):
+                        feats: tuple = (True, True, True), img_counts=None):
+    """`img_counts`: per row of `wt`, the cluster-wide image_counts when
+    `na` is one node shard (None: over these rows)."""
     has_taints, has_sel, has_img = feats
     n = na.valid.shape[0]
     dev = na.valid.device
     out = ([], [], [], [])
-    for u in [int(x) for x in wt]:
+    for k, u in enumerate(int(x) for x in wt):
         row = _gather_row(table, u, True, 1)
         m = na.valid.clone()
         m &= (row.node_name_id == 0) | (na.name_id == row.node_name_id)
@@ -894,7 +896,8 @@ def _wave_statics_plain(na: NodeArrays, table: PodTableDev, wt,
             m &= selector_mask(na, row)
             naraw = preferred_affinity_score(na, row)
         if has_img:
-            simg = image_locality_score(na, row)
+            simg = image_locality_score(
+                na, row, None if img_counts is None else img_counts[k])
         for lst, x in zip(out, (m, traw, naraw, simg)):
             lst.append(x)
     return tuple(torch.stack(lst) for lst in out)

@@ -51,16 +51,18 @@ has already waited on.
 
 `Scheduler(api, mesh=make_mesh(D))` (parallel/sharding.py) splits the
 node axis over D shards with one controller, as the JAX package's mesh
-does: every uniform run, scan span, dirty-row upload and drain probe runs
-its node-sharded program (run_uniform_sharded, run_batch_sharded,
-scatter_rows_sharded, cluster_probe_sharded), with bind maps equal to the
-single-device Scheduler's. The mesh takes the lean tiers only; a drain
-that needs a program the mesh does not have yet raises
-NotImplementedError naming it (group drains and plan spans:
-run_plan_sharded; gangs: run_gang_sharded; pending nominations: the host
-path; the SanitizerRails gate). FitError diagnosis, the dry run and
-explain_pod read single-device blocks of the staging arrays on the
-mesh's first device.
+does: every uniform run, scan span (lean or group mode), plan span
+("wavescan"; on the mesh a same-signature group drain compiles to one
+too), gang drain on either tier, dirty-row upload, group-row seed and
+drain probe runs its node-sharded program (run_uniform_sharded,
+run_batch_sharded, run_plan_sharded, run_gang_sharded,
+scatter_rows_sharded, scatter_new_rows(mesh=…), cluster_probe_sharded;
+the plan and gang spans' surfaces come from wave_statics_sharded), with
+bind maps equal to the single-device Scheduler's. Two drains still raise
+NotImplementedError on the mesh, naming the missing piece: pending
+nominations (the host path) and the SanitizerRails gate. FitError
+diagnosis, the dry run and explain_pod read single-device blocks of the
+staging arrays on the mesh's first device.
 
 Where the JAX package degrades, this one refuses:
 - no device-fault circuit breaker and no host scheduling path: a fault in
@@ -116,7 +118,9 @@ from .ops.program import (PROBE_DOM_STATS, PROBE_STATS, PodXs,
                           with_cache_sig)
 from .parallel.sharding import (Shards, cluster_probe_sharded,
                                 initial_carry_sharded, norm_device,
-                                run_batch_sharded, run_uniform_sharded,
+                                run_batch_sharded, run_gang_sharded,
+                                run_plan_sharded, run_uniform_sharded,
+                                shard_group_carry, shard_groups,
                                 with_cache_sig_sharded)
 from .plugins import noderesources as nr
 from .plugins.defaultbinder import DefaultBinder
@@ -355,8 +359,9 @@ class Scheduler:
         raises NotImplementedError (config.refuse_unported).
 
         `mesh` (parallel/sharding.py Mesh, a power of two of shards)
-        runs the lean tiers node-sharded; `device` is then the mesh's
-        first device (a different one raises ValueError)."""
+        runs every drain node-sharded (pending nominations and the
+        SanitizerRails gate excepted); `device` is then the mesh's first
+        device (a different one raises ValueError)."""
         if mesh is not None and mesh.size & (mesh.size - 1):
             raise ValueError(
                 f"mesh size {mesh.size} must be a power of two: the pow2 "
@@ -423,6 +428,7 @@ class Scheduler:
         self.gang_contiguity_weight = 0
         self._gang_dom = None        # device i32 [N] node → domain ids
         self._gang_dom_key = None    # (statics_gen, node bucket)
+        self._gang_dom_shards = None  # on the mesh: its per-shard slices
         self._gang_ndom = 1          # domain count of the cached ids
         # gang drains by outcome (the JAX package's gang_dispatch metric)
         self.gang_dispatch = {"placed": 0, "rejected": 0, "fallback": 0}
@@ -1018,8 +1024,6 @@ class Scheduler:
                 # placement, the Permit barrier at commit)
                 self.gang_dispatch["fallback"] += 1
                 gang = None
-            if self.mesh is not None:
-                self._refuse_on_mesh(groups_needed, gang)
             table_reset = self.builder.reset_count != self._builder_reset_seen
             self._builder_reset_seen = self.builder.reset_count
             capacity = (self.builder.groups.device_rows(),
@@ -1044,13 +1048,18 @@ class Scheduler:
                     if groups_needed:
                         gd_np, gc_np = self.builder.groups.build_dev(
                             self.snapshot)
-                        self._gd_dev = to_device(gd_np, self.device)
-                        gcarry = to_device(gc_np, self.device)
+                        if self.mesh is not None:
+                            # node-last fields split, the rest replicated
+                            self._gd_dev = shard_groups(self.mesh, gd_np)
+                            gcarry = shard_group_carry(self.mesh, gc_np)
+                        else:
+                            self._gd_dev = to_device(gd_np, self.device)
+                            gcarry = to_device(gc_np, self.device)
                         self._gd_fam = self.builder.groups.families(
                             self.snapshot)
                     self._gd_capacity = capacity
                     self._seeded_rows = self.builder.table_used
-                    carry = (initial_carry_sharded(na) if self.mesh
+                    carry = (initial_carry_sharded(na, gcarry) if self.mesh
                              is not None else initial_carry(na, gcarry))
                 elif (groups_needed
                       and self.builder.table_used > self._seeded_rows):
@@ -1062,7 +1071,7 @@ class Scheduler:
                     carry = self._device_carry
                     if carry is None or (
                             (self.builder.groups.device_rows(),
-                             na.used.shape[0]) != self._gd_capacity):
+                             self._node_rows(na)) != self._gd_capacity):
                         # a bind error invalidated the carry, or the
                         # commits interned rows past the pow2 capacity of
                         # the resident group tensors: restart against
@@ -1070,13 +1079,22 @@ class Scheduler:
                         self._invalidate_device_state()
                         return self._dispatch_device_drain(qpis, profile)
                     self.cache.update_snapshot(self.snapshot)
-                    self._gd_dev, gcarry = scatter_new_rows(
-                        self._gd_dev, carry.groups, self.builder.groups,
-                        self.snapshot, self._seeded_rows,
-                        self.builder.table_used)
+                    if self.mesh is not None:
+                        self._gd_dev, gcarry = scatter_new_rows(
+                            self._gd_dev, [c.groups for c in carry],
+                            self.builder.groups, self.snapshot,
+                            self._seeded_rows, self.builder.table_used,
+                            mesh=self.mesh)
+                        carry = Shards(c._replace(groups=g)
+                                       for c, g in zip(carry, gcarry))
+                    else:
+                        self._gd_dev, gcarry = scatter_new_rows(
+                            self._gd_dev, carry.groups, self.builder.groups,
+                            self.snapshot, self._seeded_rows,
+                            self.builder.table_used)
+                        carry = carry._replace(groups=gcarry)
                     self._gd_fam = self.builder.groups.families(
                         self.snapshot)
-                    carry = carry._replace(groups=gcarry)
                     self._seeded_rows = self.builder.table_used
             with self._phase("host_cache", ph):
                 if (self._table_dev is None
@@ -1168,29 +1186,16 @@ class Scheduler:
 
     @staticmethod
     def _has_groups(carry) -> bool:
-        """Whether the carry holds group counts (never on the lean
-        mesh)."""
-        return not isinstance(carry, Shards) and carry.groups is not None
+        """Whether the carry (single-device or sharded) holds group
+        counts."""
+        if isinstance(carry, Shards):
+            return carry[0].groups is not None
+        return carry.groups is not None
 
     def _relabel(self, carry, sig: int):
         if isinstance(carry, Shards):
             return with_cache_sig_sharded(carry, sig)
         return with_cache_sig(carry, sig)
-
-    def _refuse_on_mesh(self, groups_needed: bool, gang) -> None:
-        """The mesh runs the lean tiers only; the JAX package's other
-        sharded programs are not ported yet, and no drain takes a
-        single-device program in their place."""
-        if groups_needed:
-            raise NotImplementedError(
-                "a group drain on the node-sharded mesh needs "
-                "run_plan_sharded and run_batch_sharded's group mode, "
-                "which are not ported to kubernetes_tpu_torch yet")
-        if gang is not None:
-            raise NotImplementedError(
-                "a gang drain on the node-sharded mesh needs "
-                "run_gang_sharded, which is not ported to "
-                "kubernetes_tpu_torch yet")
 
     @contextmanager
     def _phase(self, name: str, ph: dict, **attrs):
@@ -1328,11 +1333,6 @@ class Scheduler:
                 records.append(_RunRec("wave", i, j, None, packed, bucket,
                                        span=kind))
             elif kind[0] == "wavescan":
-                if self.mesh is not None:
-                    raise NotImplementedError(
-                        "a plan span (\"wavescan\") on the node-sharded "
-                        "mesh needs run_plan_sharded, which is not ported "
-                        "to kubernetes_tpu_torch yet")
                 c2, packed, bucket = self._wavescan_dispatch(
                     cfg, na, carry, batch, i, j, table, kind)
                 records.append(_RunRec("wavescan", i, j, None, packed,
@@ -1438,10 +1438,16 @@ class Scheduler:
         has_groups = self._gd_dev is not None
         fam = (self._gd_fam if has_groups
                else GroupFamilies(False, False, False, False, False))
-        carry2, packed = run_plan(
-            cfg, na, carry, WaveXs(valid=valid, widx=widx_t), table,
-            wt_list, self._gd_dev, statics, fam, norm_live,
-            has_groups=has_groups, has_ports=has_ports)
+        xs = WaveXs(valid=valid, widx=widx_t)
+        if self.mesh is not None:
+            carry2, packed = run_plan_sharded(
+                cfg, self.mesh, na, carry, xs, table, wt_list, self._gd_dev,
+                statics, fam, norm_live, has_groups=has_groups,
+                has_ports=has_ports)
+        else:
+            carry2, packed = run_plan(
+                cfg, na, carry, xs, table, wt_list, self._gd_dev, statics,
+                fam, norm_live, has_groups=has_groups, has_ports=has_ports)
         return carry2, packed, bucket
 
     # -- gang placement (whole-group all-or-nothing dispatch) ------------------
@@ -1473,6 +1479,13 @@ class Scheduler:
                 dom[idx] = ids.setdefault(zone, len(ids))
         self._gang_dom = dom_from_numpy(dom, self.device)
         self._gang_dom_key = key
+        if self.mesh is not None:
+            # the gang scan's per-shard slices of the GLOBAL ids; the full
+            # copy above is the sharded probe's
+            n_local = N // self.mesh.size
+            self._gang_dom_shards = [
+                dom_from_numpy(dom[d * n_local:(d + 1) * n_local], dev)
+                for d, dev in enumerate(self.mesh.devices)]
         # the probe's domain count: stable per topology (changes only
         # when the id mapping is rebuilt)
         self._gang_ndom = int(dom.max()) + 1 if N else 1
@@ -1493,16 +1506,20 @@ class Scheduler:
         uniq = list(dict.fromkeys(int(t) for t in tid))
         # a gang-sized matrix, not the batch bucket
         L = pow2_at_least(m, 16)
-        K = min(L, na.cap.shape[0])
+        K = min(L, self._node_rows(na))
         n_q = pow2_at_least(max(self.cache.node_count(), 1))
         J = min(max(pow2_at_least(4 * L // n_q + 4), 8), L + 1)
         if (not force_scan and len(uniq) == 1 and w_contig == 0
                 and cfg.strategy == "LeastAllocated"
                 and not self._cluster_has_prefer_taints()
                 and not self.builder.table.pref_weight[uniq[0]].any()):
-            c2, packed = run_gang(cfg, na, carry, self._xone(batch, i),
-                                  table, needed=needed, uniform=True,
-                                  n_actual=m, L=L, K=K, J=J)
+            args = (na, carry, self._xone(batch, i), table)
+            c2, packed = (run_gang(cfg, *args, needed=needed, uniform=True,
+                                   n_actual=m, L=L, K=K, J=J)
+                          if self.mesh is None else
+                          run_gang_sharded(cfg, self.mesh, *args,
+                                           needed=needed, uniform=True,
+                                           n_actual=m, L=L, K=K, J=J))
             return c2, packed, L, True
         bucket = pow2_at_least(m)
         S = pow2_at_least(len(uniq), 1)
@@ -1522,9 +1539,15 @@ class Scheduler:
         dom = self._gang_domains(na, need=w_contig > 0)
         # the same hoisted surfaces as the plan program
         statics = self.compiler.surfaces.stacked(na, table, tuple(wt_list))
-        c2, packed = run_gang(cfg, na, carry, xs, table, wt=wt_list,
-                              needed=needed, dom=dom, statics=statics,
-                              w_contig=w_contig)
+        if self.mesh is not None:
+            c2, packed = run_gang_sharded(
+                cfg, self.mesh, na, carry, xs, table, wt=wt_list,
+                needed=needed, dom=self._gang_dom_shards, statics=statics,
+                w_contig=w_contig)
+        else:
+            c2, packed = run_gang(cfg, na, carry, xs, table, wt=wt_list,
+                                  needed=needed, dom=dom, statics=statics,
+                                  w_contig=w_contig)
         return c2, packed, bucket, False
 
     def _scan_dispatch(self, cfg: ScoreConfig, na, carry, batch, i: int,

@@ -170,7 +170,8 @@ def _numpy_tree(src, cls):
         if f == "cache":
             out[f] = _numpy_tree(x, SigCache)
         elif f == "groups":
-            out[f] = x
+            out[f] = (None if x is None else type(x)(
+                *(np.array(y) for y in x)))
         else:
             out[f] = np.array(x)
     return cls(**out)
@@ -185,10 +186,19 @@ def node_arrays_to_shards(src, mesh):
 
 
 def carry_to_shards(src, mesh):
-    """A lean Carry from any package → the port's carry shards on `mesh`,
-    through numpy (cache.sig replicated)."""
+    """A Carry from any package → the port's carry shards on `mesh`,
+    through numpy (cache.sig replicated; the group counts, when present,
+    split along their last axis)."""
     from ..parallel.sharding import shard_carry
     return shard_carry(mesh, _numpy_tree(src, Carry))
+
+
+def groups_to_shards(src, mesh):
+    """A GroupsDev from any package (numpy, or the JAX package's
+    shard_groups arrays) → the port's group shards on `mesh`, through
+    numpy: node-last fields split, the rest replicated."""
+    from ..parallel.sharding import shard_groups
+    return shard_groups(mesh, type(src)(*(np.array(x) for x in src)))
 
 
 def shards_to_numpy(shards):

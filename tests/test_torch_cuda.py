@@ -319,12 +319,12 @@ def _plan_span(batch, m, device):
         widx, dtype=torch.int32, device=device))
 
 
-def _mixed_pods(n, sigs, ports=False, kinds=("spread",)):
+def _mixed_pods(n, sigs, ports=False, kinds=("spread",), prefix="m"):
     out = []
     for i in range(n):
         k = i % sigs
         kind = kinds[i % len(kinds)]
-        w = make_pod(f"m{i}").req({"cpu": f"{250 + 50 * k}m",
+        w = make_pod(f"{prefix}{i}").req({"cpu": f"{250 + 50 * k}m",
                                    "memory": "1Gi"}).label("app", "mix")
         if kind == "spread":
             w = w.spread_constraint(5, ZONE, "DoNotSchedule", {"app": "mix"})
@@ -1109,4 +1109,233 @@ def test_mesh_scheduler_binds_as_single_device(cuda, D):
               "scatter_rows_sharded", "cluster_probe_sharded"):
         assert K.LAUNCHES[k] > 0, k
     for k in ("run_uniform", "run_batch", "scatter_rows", "cluster_probe"):
+        assert K.LAUNCHES[k] == 0, k
+
+
+# ---------------------------------------------------------------------------
+# the mesh's group and gang programs: run_batch_sharded's group mode,
+# run_plan_sharded, run_gang_sharded (both tiers) and the sharded statics,
+# on D shards of cuda:0 or shard d on cuda:d, against the plain versions
+# over D CPU shards and against the single-device kernels
+
+
+GROUP_SCAN_KINDS = [("spread", "anti", "score"),
+                    ("anyway", "affinity", "anti")]
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("kinds", range(len(GROUP_SCAN_KINDS)))
+def test_run_batch_sharded_groups_kernel_equals_plain(cuda, kinds, D,
+                                                      place):
+    S, gm, cm = _mesh_pair(D, place)
+    pods = _mixed_pods(40, 3, kinds=GROUP_SCAN_KINDS[kinds])
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        _zone_nodes(40, 5), [], pods, cuda)
+    xs = convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                           batch.tidx), cuda)
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    ggd, cgd = S.shard_groups(gm, gd), S.shard_groups(cm, gd)
+    gc0 = S.initial_carry_sharded(gna, S.shard_group_carry(gm, gc))
+    cc0 = S.initial_carry_sharded(cna, S.shard_group_carry(cm, gc))
+    before = S.unshard(gc0)
+    got = S.run_batch_sharded(P.ScoreConfig(), gm, gna, gc0, xs, table,
+                              groups=ggd, fam=fam)
+    want = S.run_batch_sharded(
+        P.ScoreConfig(), cm, cna, cc0,
+        convert.pod_xs_from_numpy(P.PodXs(batch.valid, batch.sig,
+                                          batch.tidx), "cpu"),
+        P.table_from_batch(batch, "cpu"), groups=cgd, fam=fam)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    _equal(before, S.unshard(gc0))        # the input carry is untouched
+    # the single-device kernel at the same state
+    sc, sa = P.run_batch(P.ScoreConfig(), na, P.initial_carry(na, gc), xs,
+                         table, groups=gd, fam=fam)
+    _equal((got[1], S.unshard(got[0])), (sa, sc))
+
+
+SHARDED_PLAN_CASES = ("lean_8sigs", "lean_ports", "lean_prefer_taints",
+                      "spread_8sigs", "schedule_anyway", "mixed_terms_ports",
+                      "capacity_tail")
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("case", SHARDED_PLAN_CASES)
+def test_run_plan_sharded_kernel_equals_plain(cuda, case, D, place):
+    S, gm, cm = _mesh_pair(D, place)
+    mk_nodes, mk_pods, lean = PLAN_CASES[case]
+    pods = mk_pods()
+    na, batch, table, gd, gc, fam, builder, state = _group_setup(
+        mk_nodes(), [], pods, cuda)
+    m = len(pods)
+    wt, xs = _plan_span(batch, m, cuda)
+    has_ports = bool((batch.sig[:m] == 0).any())
+    norm_live = not all(P.static_norm_ok(state.ensure_arrays(),
+                                         builder.table.pref_weight[u])
+                        for u in wt)
+    if lean:
+        from kubernetes_tpu_torch.ops.groups import GroupFamilies
+        gd = gc = None
+        fam = GroupFamilies(False, False, False, False, False)
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    ctab = P.table_from_batch(batch, "cpu")
+    gst = S.wave_statics_sharded(gm, gna, table, wt)
+    cst = S.wave_statics_sharded(cm, cna, ctab, wt)
+    _equal(gst, cst)
+    gargs = [None, S.initial_carry_sharded(gna)]
+    cargs = [None, S.initial_carry_sharded(cna)]
+    if not lean:
+        gargs = [S.shard_groups(gm, gd), S.initial_carry_sharded(
+            gna, S.shard_group_carry(gm, gc))]
+        cargs = [S.shard_groups(cm, gd), S.initial_carry_sharded(
+            cna, S.shard_group_carry(cm, gc))]
+    cfg = P.ScoreConfig()
+    got = S.run_plan_sharded(cfg, gm, gna, gargs[1], xs, table, wt,
+                             gargs[0], gst, fam, norm_live,
+                             has_groups=not lean, has_ports=has_ports)
+    want = S.run_plan_sharded(
+        cfg, cm, cna, cargs[1], P.WaveXs(xs.valid.cpu(), xs.widx.cpu()),
+        ctab, wt, cargs[0], cst, fam, norm_live, has_groups=not lean,
+        has_ports=has_ports)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    # the single-device kernel at the same state
+    sgot = P.run_plan(cfg, na, P.initial_carry(na, gc), xs, table, wt, gd,
+                      P.wave_statics(na, table, wt), fam, norm_live,
+                      has_groups=not lean, has_ports=has_ports)
+    _equal((got[1], S.unshard(got[0])), (sgot[1], sgot[0]))
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("verdict", ["accept", "reject"])
+@pytest.mark.parametrize("w_contig", [0, 2])
+def test_run_gang_sharded_scan_kernel_equals_plain(cuda, w_contig, verdict,
+                                                   D, place):
+    from kubernetes_tpu_torch.ops import gang as G
+    S, gm, cm = _mesh_pair(D, place)
+    rng = random.Random(7)
+    protos = [make_pod(f"g{k}").req({"cpu": c, "memory": "1Gi"}).obj()
+              for k, c in enumerate(["1", "2", "3"])]
+    m = 40
+    pods = [protos[rng.randrange(3)] for _ in range(m)]
+    na, batch, table = _staged(rng, 60, pods, cuda)
+    xs, wt = _gang_layout(batch, m, 64, cuda)
+    N = na.cap.shape[0]
+    n = N // D
+    dom = torch.tensor([i % 3 for i in range(N)], dtype=torch.int32)
+    needed = m if verdict == "accept" else 10 ** 6
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    ctab = P.table_from_batch(batch, "cpu")
+    gc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(gna), 99)
+    cc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(cna), 99)
+    before = S.unshard(gc0)
+    got = S.run_gang_sharded(
+        P.ScoreConfig(), gm, gna, gc0, xs, table, wt=wt, needed=needed,
+        dom=[dom[d * n:(d + 1) * n].to(gm.devices[d]) for d in range(D)],
+        statics=S.wave_statics_sharded(gm, gna, table, wt),
+        w_contig=w_contig)
+    want = S.run_gang_sharded(
+        P.ScoreConfig(), cm, cna, cc0, _cpu(xs), ctab, wt=wt, needed=needed,
+        dom=[dom[d * n:(d + 1) * n] for d in range(D)],
+        statics=S.wave_statics_sharded(cm, cna, ctab, wt),
+        w_contig=w_contig)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    _equal(before, S.unshard(gc0))
+    assert bool(got[1][64].cpu()) == (verdict == "accept")
+    if verdict == "reject":
+        _equal(S.unshard(got[0]), before)
+    # the single-device kernel at the same state
+    sc, sp = G.run_gang(P.ScoreConfig(), na,
+                        P.with_cache_sig(P.initial_carry(na), 99), xs,
+                        table, wt=wt, needed=needed, dom=dom.to(cuda),
+                        statics=P.wave_statics(na, table, wt),
+                        w_contig=w_contig)
+    _equal((got[1], S.unshard(got[0])), (sp, sc))
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("verdict", ["accept", "reject", "inexact"])
+def test_run_gang_uniform_sharded_kernel_equals_plain(cuda, verdict, D,
+                                                      place):
+    from kubernetes_tpu_torch.ops import gang as G
+    S, gm, cm = _mesh_pair(D, place)
+    rng = random.Random(3)
+    proto = make_pod("plain").req({"cpu": "1", "memory": "1Gi"}).obj()
+    na, batch, table = _staged(rng, 150, [proto], cuda)
+    L, K = 64, 64
+    J = 2 if verdict == "inexact" else 8
+    needed = 64 if verdict != "reject" else 10 ** 6
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    gc0, cc0 = S.initial_carry_sharded(gna), S.initial_carry_sharded(cna)
+    before = S.unshard(gc0)
+    got = S.run_gang_sharded(P.ScoreConfig(), gm, gna, gc0, x, table,
+                             needed=needed, uniform=True, n_actual=64, L=L,
+                             K=K, J=J)
+    want = S.run_gang_sharded(P.ScoreConfig(), cm, cna, cc0, x,
+                              P.table_from_batch(batch, "cpu"),
+                              needed=needed, uniform=True, n_actual=64, L=L,
+                              K=K, J=J)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    _equal(before, S.unshard(gc0))
+    # where both report exact, the single-device kernel agrees
+    sc, sp = G.run_gang(P.ScoreConfig(), na, P.initial_carry(na), x, table,
+                        needed=needed, uniform=True, n_actual=64, L=L, K=K,
+                        J=J)
+    if bool(sp[L + 2].cpu()) and bool(got[1][L + 2].cpu()):
+        _equal((got[1], S.unshard(got[0])), (sp, sc))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_mesh_scheduler_group_and_gang_drains(cuda, D):
+    """Scheduler(mesh=make_mesh(D)) binds two gangs (the closed form, and
+    the scan tier with contiguity), a zone-spread drain (plan spans) and a
+    ScheduleAnyway + anti-affinity scan as the single-device Scheduler,
+    through the sharded kernels only."""
+    from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup, Workload
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    def drain(mesh):
+        api = APIServer()
+        sched = Scheduler(api, batch_size=64, clock=lambda: 1000.0,
+                          mesh=mesh)
+        for nd in _zone_nodes(48, 6, cpu=32):
+            api.create_node(nd)
+        sched.prime()
+        # the gangs first: once group rows exist, a gang rides the generic
+        # path (the gang program has no group terms)
+        for g, contig in (("a", 0), ("b", 2)):
+            sched.gang_contiguity_weight = contig
+            api.create_workload(Workload(metadata=ObjectMeta(name=g),
+                                         pod_groups=[PodGroup(
+                                             name="w", min_count=16)]))
+            api.create_pods([make_pod(f"{g}{i}").req({"cpu": "1"})
+                             .workload(g).obj() for i in range(16)])
+            sched.schedule_pending()
+        api.create_pods(_mixed_pods(96, 4))
+        sched.schedule_pending()
+        api.create_pods(_mixed_pods(12, 2, kinds=("anyway", "anti"),
+                                    prefix="x"))
+        sched.schedule_pending()
+        assert sched.reconcile() == []
+        assert sched.gang_dispatch["placed"] == 2
+        return {u: p.spec.node_name for u, p in api.pods.items()}
+
+    want = drain(None)
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
+    got = drain(S.make_mesh(D))
+    assert got == want and all(got.values())
+    for k in ("run_plan_sharded", "run_batch_sharded_groups",
+              "run_gang_sharded", "run_gang_uniform_sharded",
+              "wave_statics_sharded", "cluster_probe_sharded"):
+        assert K.LAUNCHES[k] > 0, k
+    for k in ("run_batch", "run_batch_groups", "run_uniform", "run_plan",
+              "run_wave", "run_gang", "run_gang_uniform", "wave_statics",
+              "scatter_rows", "cluster_probe"):
         assert K.LAUNCHES[k] == 0, k

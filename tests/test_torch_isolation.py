@@ -113,3 +113,21 @@ def test_new_kernel_wrappers_refuse_non_cuda_devices(wrapper, args):
     carry = program.initial_carry(na)
     with pytest.raises(RuntimeError, match="unsupported device"):
         getattr(program, wrapper)(*args(program, na, carry))
+
+
+CSRC = os.path.join(PORT, "csrc")
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(CSRC)
+                                        if f.endswith(".cu")))
+def test_kernel_source_stands_alone(name):
+    """Every kernel source is one the wrappers build (ops/kernels.py
+    SOURCES), has a plain C interface and no PyTorch header, and names
+    the JAX program it replaces and what bounds it on an H100."""
+    from kubernetes_tpu_torch.ops.kernels import SOURCES
+    text = open(os.path.join(CSRC, name)).read()
+    assert name[:-3] in SOURCES
+    assert 'extern "C"' in text
+    assert "#include <torch" not in text and "#include <ATen" not in text
+    assert "kubernetes_tpu/" in text
+    assert "What bounds it on an H100" in text

@@ -19,8 +19,10 @@ import kubernetes_tpu  # noqa: F401  (x64 before any jnp array)
 from kubernetes_tpu.parallel.sharding import make_mesh as jmake_mesh
 
 from _torch_parity import private_jax_compiles  # noqa: F401
+from kubernetes_tpu.api import types as jtypes
+from kubernetes_tpu.testing import wrappers as jw
 from kubernetes_tpu_torch import scheduler as tsched_mod
-from kubernetes_tpu_torch.api.types import ObjectMeta, PodGroup, Workload
+from kubernetes_tpu_torch.api import types as ttypes
 from kubernetes_tpu_torch.backend.apiserver import APIServer as TApi
 from kubernetes_tpu_torch.config import KubeSchedulerConfiguration
 from kubernetes_tpu_torch.parallel import sharding as ts
@@ -33,8 +35,9 @@ torch.set_num_threads(1)
 
 ZONE = "topology.kubernetes.io/zone"
 SHARDED = ("run_uniform_sharded", "run_batch_sharded",
-           "cluster_probe_sharded")
-SINGLE = ("run_uniform", "run_batch", "cluster_probe")
+           "cluster_probe_sharded", "run_plan_sharded", "run_gang_sharded")
+SINGLE = ("run_uniform", "run_batch", "cluster_probe", "run_plan",
+          "run_wave", "run_gang")
 
 
 def _pkg(base, D):
@@ -201,32 +204,82 @@ def test_mesh_size_and_device_checks():
     assert sched.state.dims.nodes >= 4
 
 
-def test_mesh_refuses_a_group_drain():
-    api, sched = _mesh_sched()
-    api.create_pod(tw.make_pod("s").req({"cpu": "100m"}).label("app", "a")
-                   .spread_constraint(1, ZONE, "DoNotSchedule",
-                                      {"app": "a"}).obj())
-    with pytest.raises(NotImplementedError, match="run_plan_sharded"):
+def _mesh_run(pkg, scenario):
+    """`scenario(w, api, sched)` on a fresh 8-node cluster of `pkg`."""
+    w, Api = pkg[0], pkg[1]
+    api = Api()
+    sched = _sched(pkg, api, 32)
+    for nd in _nodes(w, 8):
+        api.create_node(nd)
+    sched.prime()
+    scenario(w, api, sched)
+    return api, sched
+
+
+def _three_ways(scenario, spies, D=2):
+    """(JAX mesh outcome, the port's single-device outcome, the port's
+    mesh (api, sched)) of one scenario; the spies count the mesh run
+    only."""
+    want = _outcome(*_mesh_run(_pkg(JAX, D), scenario))
+    single = _outcome(*_mesh_run(_pkg(TORCH, 0), scenario))
+    for k in spies:
+        spies[k] = 0
+    return want, single, _mesh_run(_pkg(TORCH, D), scenario)
+
+
+def test_mesh_refuses_a_group_drain(spies):
+    """Once refused: a one-pod group drain (the scan's group mode) on the
+    mesh binds as the JAX mesh Scheduler and the single-device port."""
+    def sc(w, api, sched):
+        api.create_pod(w.make_pod("s").req({"cpu": "100m"})
+                       .label("app", "a")
+                       .spread_constraint(1, ZONE, "DoNotSchedule",
+                                          {"app": "a"}).obj())
         sched.schedule_pending()
 
+    want, single, (api, sched) = _three_ways(sc, spies)
+    assert _outcome(api, sched) == want == single
+    assert len(want[0]) == 1
+    assert spies["run_batch_sharded"] == 1
+    assert all(spies[k] == 0 for k in SINGLE)
+    assert sched.reconcile() == []
 
-def test_mesh_refuses_a_plan_span():
-    api, sched = _mesh_sched(batch=64)
-    api.create_pods([tw.make_pod(f"m{i}").req(
-        {"cpu": f"{100 + 100 * (i % 4)}m"}).obj() for i in range(32)])
-    with pytest.raises(NotImplementedError, match="run_plan_sharded"):
+
+def test_mesh_refuses_a_plan_span(spies):
+    """Once refused: a lean mixed span of 32 pods rides run_plan_sharded
+    and binds as the JAX mesh Scheduler and the single-device port."""
+    def sc(w, api, sched):
+        api.create_pods([w.make_pod(f"m{i}").req(
+            {"cpu": f"{100 + 100 * (i % 4)}m"}).obj() for i in range(32)])
         sched.schedule_pending()
 
+    want, single, (api, sched) = _three_ways(sc, spies)
+    assert _outcome(api, sched) == want == single
+    assert len(want[0]) == 32
+    assert spies["run_plan_sharded"] == 1
+    assert all(spies[k] == 0 for k in SINGLE)
+    assert sched.reconcile() == []
 
-def test_mesh_refuses_a_gang_drain():
-    api, sched = _mesh_sched()
-    api.create_workload(Workload(metadata=ObjectMeta(name="train"),
-                                 pod_groups=[PodGroup(name="workers",
-                                                      min_count=4)]))
-    api.create_pods([tw.make_pod(f"t{i}").req({"cpu": "100m"})
-                     .workload("train").obj() for i in range(4)])
-    with pytest.raises(NotImplementedError, match="run_gang_sharded"):
+
+def test_mesh_refuses_a_gang_drain(spies):
+    """Once refused: a 4-member gang rides run_gang_sharded's closed form
+    and binds as the JAX mesh Scheduler and the single-device port."""
+    def sc(w, api, sched):
+        types = jtypes if w is jw else ttypes
+        api.create_workload(types.Workload(
+            metadata=types.ObjectMeta(name="train"),
+            pod_groups=[types.PodGroup(name="workers", min_count=4)]))
+        api.create_pods([w.make_pod(f"t{i}").req({"cpu": "100m"})
+                         .workload("train").obj() for i in range(4)])
         sched.schedule_pending()
+
+    want, single, (api, sched) = _three_ways(sc, spies)
+    assert _outcome(api, sched) == want == single
+    assert len(want[0]) == 4
+    assert spies["run_gang_sharded"] == 1
+    assert sched.gang_dispatch["placed"] == 1
+    assert all(spies[k] == 0 for k in SINGLE)
+    assert sched.reconcile() == []
 
 
 def test_mesh_refuses_the_rails_gate():
@@ -270,3 +323,134 @@ def test_mesh_dry_run_picks_the_jax_victims():
     sched.flush_queues()
     with pytest.raises(NotImplementedError, match="host scheduling path"):
         sched.schedule_pending()
+
+
+# ---------------------------------------------------------------------------
+# the slice as a whole: small group and gang workloads on the mesh
+# (kubernetes_tpu/perf/configs/performance-config.yaml's shapes, cut to a
+# few dozen nodes), the pattern of tests/test_sharded_mesh_parity.py
+
+
+def _group_cluster(w, api, n_nodes, zones):
+    for i in range(n_nodes):
+        api.create_node(w.make_node(f"node-{i}").capacity(
+            {"cpu": 32, "memory": "64Gi", "pods": 110})
+            .zone(f"zone-{i % zones}")
+            .label("kubernetes.io/hostname", f"node-{i}").obj())
+
+
+def _chunks(api, sched, pods, chunk=64):
+    for k in range(0, len(pods), chunk):
+        api.create_pods(pods[k:k + chunk])
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+
+
+def _plain(w, name, cpu="900m"):
+    return w.make_pod(name).req({"cpu": cpu, "memory": "1Gi"}).obj()
+
+
+def _spreading(w, api, sched):
+    """TopologySpreading: plain init pods, then zone-spread pods
+    (DoNotSchedule, maxSkew 5)."""
+    _group_cluster(w, api, 32, 8)
+    _chunks(api, sched, [_plain(w, f"init-{i}") for i in range(32)])
+    _chunks(api, sched, [
+        w.make_pod(f"pod-{i}").req({"cpu": "900m", "memory": "1Gi"})
+        .label("app", "spread")
+        .spread_constraint(5, ZONE, "DoNotSchedule", {"app": "spread"})
+        .obj() for i in range(128)])
+
+
+def _anti(w, api, sched):
+    """SchedulingPodAntiAffinity: one pod per zone (every node its own)."""
+    _group_cluster(w, api, 32, 10000)
+    _chunks(api, sched, [_plain(w, f"init-{i}") for i in range(10)])
+    _chunks(api, sched, [
+        w.make_pod(f"pod-{i}").req({"cpu": "900m", "memory": "1Gi"})
+        .label("anti", "yes").pod_affinity(ZONE, {"anti": "yes"}, anti=True)
+        .obj() for i in range(30)])
+
+
+def _high_signature(w, api, sched):
+    """MixedHighSignature: zone-spread pods whose cpu rotates over eight
+    values (a plan span of eight signatures)."""
+    _group_cluster(w, api, 32, 8)
+
+    def pod(name, cpu):
+        return (w.make_pod(name).req({"cpu": cpu, "memory": "1Gi"})
+                .label("app", "mix")
+                .spread_constraint(5, ZONE, "DoNotSchedule", {"app": "mix"})
+                .obj())
+
+    _chunks(api, sched, [pod(f"init-{i}", "900m") for i in range(32)])
+    _chunks(api, sched, [pod(f"pod-{i}", f"{250 + 50 * (i % 8)}m")
+                         for i in range(128)])
+
+
+def _gang_trace(w, api, sched, inference: bool):
+    """GangTraining (training gangs) or CoLocatedInference (training
+    gangs, inference pods and a preemptor gang), contiguity on."""
+    types = jtypes if w is jw else ttypes
+    from kubernetes_tpu.testing import workloads as jwl
+    from kubernetes_tpu_torch.testing import workloads as twl
+    sched.gang_contiguity_weight = 2
+    for i in range(24):
+        api.create_node(w.make_node(f"n{i}").capacity(
+            {"cpu": 32, "memory": "64Gi", "pods": 110})
+            .zone(f"z{i % 4}").obj())
+    sched.prime()
+    gen = (jwl if types is jtypes else twl).GangWorkloadGenerator(seed=0)
+    specs = gen.training_gangs(3, size=16, cpu="1", priority=10)
+    pre = (gen.training_gangs(1, size=8, cpu="2", priority=200,
+                              prefix="preemptor") if inference else [])
+    for kind, obj in gen.trace(specs, inference_count=40 if inference
+                               else 0, inference_cpu="250m",
+                               inference_priority=100, preemptor_gangs=pre,
+                               chunk=64):
+        if kind == "workload":
+            api.create_workload(obj)
+            continue
+        api.create_pods(obj)
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+
+
+WORKLOADS = {
+    "TopologySpreading": (_spreading, 160, "run_plan_sharded"),
+    "SchedulingPodAntiAffinity": (_anti, 40, "run_plan_sharded"),
+    "MixedHighSignature": (_high_signature, 160, "run_plan_sharded"),
+    "GangTraining": (lambda w, a, s: _gang_trace(w, a, s, False), 48,
+                     "run_gang_sharded"),
+    "CoLocatedInference": (lambda w, a, s: _gang_trace(w, a, s, True), 96,
+                           "run_gang_sharded"),
+}
+
+
+def _workload_run(pkg, scenario):
+    w, Api = pkg[0], pkg[1]
+    api = Api()
+    sched = _sched(pkg, api, 64)
+    scenario(w, api, sched)
+    return api, sched
+
+
+@pytest.mark.parametrize("name", sorted(WORKLOADS))
+def test_group_and_gang_workloads_on_the_mesh(name, spies):
+    scenario, n_bound, entry = WORKLOADS[name]
+    want = _outcome(*_workload_run(_pkg(JAX, 2), scenario))
+    s_api, s_sched = _workload_run(_pkg(TORCH, 0), scenario)
+    for k in spies:
+        spies[k] = 0
+    api, sched = _workload_run(_pkg(TORCH, 2), scenario)
+    got = _outcome(api, sched)
+    assert len(got[0]) == n_bound and not got[1]
+    assert got == want == _outcome(s_api, s_sched)
+    assert sched.reconcile() == []
+    assert spies[entry] > 0
+    assert spies["cluster_probe_sharded"] == sched.device_batches
+    assert all(spies[k] == 0 for k in SINGLE)
+    # the last drain's probe snapshot equals the single-device one
+    a, b = dict(sched._last_probe), dict(s_sched._last_probe)
+    a.pop("drainId"), b.pop("drainId")
+    assert a == b

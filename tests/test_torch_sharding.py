@@ -9,7 +9,10 @@ PreferNoSchedule taints, an ssd label band, images on nodes of every
 shard, a band of identical nodes whose score tie straddles the middle
 shard boundary, and padding rows (with D = 8 whole shards are padding);
 the scan also runs on a cluster of identical nodes, where every step's
-best score is tied on every shard.
+best score is tied on every shard. run_gang_sharded runs both tiers,
+accepted and rejected (the scan with w_contig 0 and 2; a rejected gang
+leaves every shard's carry as it came, its SigCache sig included), also
+against the port's single-device run_gang.
 Tolerance: exact. Assignments, the packed uniform output with its flags,
 the unsharded carry (SigCache included) and the scattered arrays are
 int64 / int32 / bool equal; the probe's float32 outputs are compared
@@ -20,6 +23,8 @@ import random
 import numpy as np
 import pytest
 import torch
+
+import jax.numpy as jnp
 
 from _torch_parity import (private_jax_compiles,  # noqa: F401
                            assert_carry_equal, assert_sharded_carry_equal,
@@ -413,3 +418,141 @@ def test_state_carried_over_from_jax(D):
                                      32, 8)
     _eq(jpk, tpk)
     assert_sharded_carry_equal(jc, tc)
+
+
+# ---------------------------------------------------------------------------
+# run_gang_sharded: both tiers, accepted and rejected
+
+
+def _gang_dom(arrays):
+    """Topology domain ids in the scheduler's form: dense GLOBAL ids (the
+    three zones of mesh_nodes, interleaved over every shard)."""
+    return np.arange(arrays.used.shape[0], dtype=np.int32) % 3
+
+
+def _gang_case(big: bool, two_sigs: bool):
+    """Members of a gang over mesh_nodes: 1 cpu each (accepted), or 12
+    cpu each, which only a few nodes hold (rejected, some placed)."""
+    cpu = "12" if big else "1"
+    pods = []
+    for i in range(20):
+        w = make_pod(f"t{i}").req({"cpu": cpu, "memory": "1Gi"})
+        if two_sigs and i % 2:
+            w = w.req({"cpu": cpu, "memory": "2Gi"})
+        pods.append(w.workload("train").obj())
+    return pods
+
+
+def _sig_carry(carry, sig):
+    return carry._replace(cache=carry.cache._replace(sig=sig))
+
+
+@pytest.mark.parametrize("verdict", ["accept", "reject"])
+@pytest.mark.parametrize("w_contig", [0, 2])
+@pytest.mark.parametrize("D", DS)
+def test_run_gang_sharded_scan(D, w_contig, verdict):
+    from kubernetes_tpu.ops.gang import GangXs as JGangXs
+    from kubernetes_tpu_torch.ops import gang as tgang
+    pods = _gang_case(verdict == "reject", two_sigs=True)
+    arrays, batch = staged(mesh_nodes(), (), pods, n_bucket=N_BUCKET)
+    m = len(pods)
+    tid = batch.tidx[:m]
+    uniq = list(dict.fromkeys(int(t) for t in tid))
+    S = pow2_at_least(len(uniq), 1)
+    wt = (uniq + [uniq[-1]] * S)[:S]
+    slot = {u: s for s, u in reversed(list(enumerate(wt)))}
+    width = pow2_at_least(m)
+    widx = np.full((width,), slot[int(tid[-1])], np.int32)
+    widx[:m] = [slot[int(t)] for t in tid]
+    tidx = np.full((width,), tid[-1], np.int32)
+    tidx[:m] = tid
+    valid = np.zeros((width,), bool)
+    valid[:m] = True
+    dom = _gang_dom(arrays)
+    jmesh, tmesh = meshes(D)
+    jna, jc0 = jax_mesh_state(jmesh, arrays)
+    tna, tc0 = torch_mesh_state(tmesh, arrays)
+    jc0 = _sig_carry(jc0, js.jax.device_put(np.int32(777)))
+    tc0 = ts.with_cache_sig_sharded(tc0, 777)
+    jt, tt = jax_table(batch.table), torch_table(batch.table)
+    jwt = jnp.asarray(np.array(wt, np.int32))
+    jst = tuple(js.jax.device_put(x, js.NamedSharding(
+        jmesh, js.P(None, js.NODE_AXIS)))
+        for x in jp.wave_statics(jax_na(arrays), jt, jwt))
+    jdom = js.jax.device_put(dom, js.NamedSharding(jmesh, js.P(js.NODE_AXIS)))
+    needed = m
+    jc, jpk = js.run_gang_sharded(
+        jp.ScoreConfig(), jmesh, jna, jc0,
+        JGangXs(*(jnp.asarray(x) for x in (valid, tidx, widx))), jt,
+        wt=jwt, needed=np.int32(needed), dom=jdom, statics=jst,
+        w_contig=w_contig)
+    n_local = N_BUCKET // D
+    tdom = [torch.from_numpy(dom[d * n_local:(d + 1) * n_local].copy())
+            for d in range(D)]
+    tst = ts.wave_statics_sharded(tmesh, tna, tt, wt)
+    txs = convert.gang_xs_from_numpy(tgang.GangXs(valid, tidx, widx), "cpu")
+    before = convert.shards_to_numpy(tc0)
+    tc, tpk = ts.run_gang_sharded(tp.ScoreConfig(), tmesh, tna, tc0, txs,
+                                  tt, wt=wt, needed=needed, dom=tdom,
+                                  statics=tst, w_contig=w_contig)
+    _eq(jpk, tpk)
+    assert_sharded_carry_equal(jc, tc)
+    accept, placed = bool(tpk[width]), int(tpk[width + 1])
+    assert accept == (verdict == "accept")
+    assert 0 < placed and (accept or placed < needed)
+    after = convert.shards_to_numpy(tc)
+    if not accept:
+        # a rejected gang leaves every shard's carry as it came
+        for f in ("used", "nonzero_used", "npods"):
+            np.testing.assert_array_equal(getattr(before, f),
+                                          getattr(after, f))
+        assert int(after.cache.sig) == 777
+    else:
+        assert int(after.cache.sig) == 0
+    # the port's single-device scan tier
+    sna = torch_na(arrays)
+    sc, spk = tgang.run_gang(
+        tp.ScoreConfig(), sna, tp.with_cache_sig(tp.initial_carry(sna), 777),
+        txs, tt, wt=wt, needed=needed,
+        dom=convert.dom_from_numpy(dom, "cpu"),
+        statics=tp.wave_statics(sna, tt, wt), w_contig=w_contig)
+    assert torch.equal(spk, tpk)
+    assert_carry_equal(sc, convert.carry_from_numpy(after, "cpu"),
+                       cache=False)
+
+
+@pytest.mark.parametrize("verdict", ["accept", "reject"])
+@pytest.mark.parametrize("D", DS)
+def test_run_gang_sharded_uniform(D, verdict):
+    from kubernetes_tpu_torch.ops import gang as tgang
+    pods = _gang_case(verdict == "reject", two_sigs=False)
+    arrays, batch = staged(mesh_nodes(soft_taints=False), (), pods,
+                           n_bucket=N_BUCKET)
+    m = len(pods)
+    L, K, J = 32, 32, 8
+    sig, tidx = int(batch.sig[0]), int(batch.tidx[0])
+    jmesh, tmesh = meshes(D)
+    jna, jc0 = jax_mesh_state(jmesh, arrays)
+    tna, tc0 = torch_mesh_state(tmesh, arrays)
+    jt, tt = jax_table(batch.table), torch_table(batch.table)
+    jc, jpk = js.run_gang_sharded(
+        jp.ScoreConfig(), jmesh, jna, jc0,
+        jp.PodXs(valid=np.bool_(True), sig=np.int32(sig),
+                 tidx=np.int32(tidx)), jt, needed=np.int32(m),
+        uniform=True, n_actual=np.int32(m), L=L, K=K, J=J)
+    x = tp.PodXs(True, sig, tidx)
+    tc, tpk = ts.run_gang_sharded(tp.ScoreConfig(), tmesh, tna, tc0, x, tt,
+                                  needed=m, uniform=True, n_actual=m, L=L,
+                                  K=K, J=J)
+    _eq(jpk, tpk)
+    assert_sharded_carry_equal(jc, tc)
+    assert bool(tpk[L]) == (verdict == "accept")
+    sna = torch_na(arrays)
+    sc, spk = tgang.run_gang(tp.ScoreConfig(), sna, tp.initial_carry(sna),
+                             x, tt, needed=m, uniform=True, n_actual=m, L=L,
+                             K=K, J=J)
+    if bool(spk[L + 2]):
+        # where both report exact, the single-device closed form agrees
+        assert torch.equal(spk[:L + 2], tpk[:L + 2])
+        assert_carry_equal(sc, convert.carry_from_numpy(
+            convert.shards_to_numpy(tc), "cpu"))
