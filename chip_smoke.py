@@ -23,7 +23,8 @@ Phases, each reported on its own line:
      (B = 128, S = 1, w_contig = 2: accepted, rejected) and on an S = 4
      gang of 60 members; explain_row on lean and group rows at 8,192
      nodes with k = 16 and k = 5 (some rows with fewer feasible nodes
-     than k); after phase 4, cluster_probe on SchedulingBasic's own
+     than k; its device time beside the same run's torch.topk of the
+     row's keys); after phase 4, cluster_probe on SchedulingBasic's own
      post-drain carry with zone, per-node, identity and clipped domain
      ids, and score_probe (the sanitizer rails' NaN probe) on every
      table row of that carry, bit for bit through its float32 outputs'
@@ -32,7 +33,8 @@ Phases, each reported on its own line:
      D = 2 and 4 shards of cuda:0, each against its plain version over
      the same shards and against the single-device kernel:
      run_batch_sharded on a 1,024-pod lean span, run_uniform_sharded at
-     L = K = 8,192, J = 8 (and its fast path), scatter_rows_sharded with
+     L = K = 8,192, J = 8 (and its fast path; its selection launch as the
+     multi-block chain), scatter_rows_sharded with
      1,000 rows including every shard boundary, cluster_probe_sharded bit
      for bit; each logs its timed and device ms per mesh, the bytes it
      exchanged, and the single-device row's bound at the same shape;
@@ -44,7 +46,8 @@ Phases, each reported on its own line:
      MixedHighSignature's full drain, S = 8, W = 4,096),
      run_gang_sharded's scan tier (B = 128, S = 1, w_contig = 2,
      accepted and rejected; S = 4, 60 members in 64 slots) and closed
-     form (L = K = 256, J = 8: accepted, rejected, inexact), and the
+     form (L = K = 256, J = 8: accepted, rejected, inexact; its selection
+     launch as one block), and the
      per-shard surfaces (wave_statics_sharded, the image counts psum'd);
   4. SchedulingBasic 5000Nodes_10000Pods end to end through
      kubernetes_tpu_torch.scheduler.Scheduler on the card;
@@ -102,8 +105,9 @@ Phases, each reported on its own line:
  18. the mesh's group and gang paths: TopologySpreading,
      SchedulingPodAntiAffinity, MixedSchedulingBasePod,
      MixedHighSignature, GangTraining and CoLocatedInference at full
-     width on make_mesh(2), TopologySpreading and CoLocatedInference on
-     make_mesh(4), each held to its single-device card run's bind map and
+     width on make_mesh(2), TopologySpreading, GangTraining and
+     CoLocatedInference on make_mesh(4), each held to its single-device
+     card run's bind map and
      final probe snapshot (phases 6, 7, 10, 9, 12, 13), one
      cluster_probe_sharded a device drain, the sharded group and gang
      programs launched and no single-device program; then on
@@ -319,6 +323,16 @@ def device_ms(torch, fn, reps: int) -> float:
     torch.cuda.synchronize()
     return profile_run(torch, lambda: [fn() for _ in range(reps)])[
         "device_busy_ms"] / reps
+
+
+def device_split(torch, fn, reps: int) -> dict:
+    """Device ms per call of `fn` by kernel name (torch.profiler's
+    largest eight): where a kernel's device time goes."""
+    fn()
+    torch.cuda.synchronize()
+    top = profile_run(torch, lambda: [fn() for _ in range(reps)])[
+        "top_device_ms"]
+    return {k: v / reps for k, v in top.items()}
 
 
 def nbytes(*trees) -> int:
@@ -2011,6 +2025,10 @@ def check_explain_row(torch, pkg, device, rows: list) -> None:
     g0 = int(gbatch.tidx[0])
     gk_ms = cuda_ms(torch, lambda: P.explain_row(
         cfg, gna, gcarry, gtable, g0, k=16, gd=gd, fam=fam), 20)
+    g_dev_ms = device_ms(torch, lambda: P.explain_row(
+        cfg, gna, gcarry, gtable, g0, k=16, gd=gd, fam=fam), 20)
+    split = device_split(torch, lambda: P.explain_row(
+        cfg, na, carry, table, u0, k=16), 20)
     pod = P._gather_row(table, u0, True, 0)
     feas, total, _parts = P._eval_pod(cfg, na, carry, pod)
     keys = torch.where(feas, total, torch.full_like(total, -1)).to(
@@ -2024,6 +2042,8 @@ def check_explain_row(torch, pkg, device, rows: list) -> None:
     bound_ms, bound_by = bound_of(moved, ops)
     log("kernel", name="explain_row", exact=True, max_abs_err=err,
         ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, group_ms=gk_ms,
+        group_device_ms=g_dev_ms, under_library=dev_ms < lib_ms,
+        device_split=split,
         library_ms=lib_ms, library="torch.topk(keys_int32, 16)",
         bound_ms=bound_ms, bound_by=bound_by, ops=vars(ops), bytes=moved,
         rows=len(cases), rows_past_feasible=short)
@@ -2162,9 +2182,15 @@ def check_mesh_kernels(torch, pkg, sched, rows: list) -> None:
                 cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 10),
             plain_ms=cuda_ms(torch, lambda: S._run_uniform_sharded_plain(
                 cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 3),
-            flags=flags, single_device_flags=sflags)
-        payload[k][D] = D * ((pkg.kernels.MAX_IC + 3) * 8 + L_loc * 8
-                             + 2 * 4)
+            flags=flags, single_device_flags=sflags,
+            select_launch=("one block" if pkg.kernels.uniform_sharded_fused(
+                n_local, _K_loc, J) else "multi-block chain"),
+            device_split=device_split(torch, lambda: S.run_uniform_sharded(
+                cfg, mesh, gna, gc, x, table, BATCH, L, K, J), 5))
+        # each shard's block partials, then its keys and two flags
+        payload[k][D] = D * (-(-n_local // pkg.kernels.USH_BLOCK)
+                             * (pkg.kernels.MAX_IC + 3) * 8
+                             + (L_loc + 2) * 8)
 
         # scatter_rows_sharded: 1,000 rows, every shard boundary among them
         k = "scatter_rows_sharded"
@@ -2551,10 +2577,15 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
                                    f"{k}[D={D}, {case}] carry")
             if case == "inexact" and verdict[2]:
                 fail(f"{k}[D={D}, inexact]: the exactness flag held")
+            K_loc = S.uniform_shape(mesh, na.cap.shape[0] // D, L, K, J)[0]
             per[k][D][case] = dict(
                 ms=cuda_ms(torch, kern_u, 10),
                 device_ms=device_ms(torch, kern_u, 10), plain_ms=plain_ms,
-                verdict=verdict)
+                verdict=verdict, select_launch=(
+                    "one block" if pkg.kernels.uniform_sharded_fused(
+                        na.cap.shape[0] // D, K_loc, J)
+                    else "multi-block chain"),
+                device_split=device_split(torch, kern_u, 10))
             del gna, gc0, kc, pc
 
     # the bounds: the single-device rows' at the same shapes
@@ -4077,6 +4108,7 @@ MESH_GROUP_CELLS = (
     ("MixedHighSignature", 2, ("run_plan_sharded", "wave_statics_sharded")),
     ("GangTraining", 2, ("run_gang_uniform_sharded",)),
     ("CoLocatedInference", 2, ("run_gang_sharded", "wave_statics_sharded")),
+    ("GangTraining", 4, ("run_gang_uniform_sharded",)),
     ("TopologySpreading", 4, ("run_plan_sharded", "wave_statics_sharded")),
     ("CoLocatedInference", 4, ("run_gang_sharded", "wave_statics_sharded")),
 )
@@ -4143,7 +4175,8 @@ def mesh_group_phase(torch, pkg, smi: str) -> dict:
     """Phase 18: TopologySpreading, SchedulingPodAntiAffinity,
     MixedSchedulingBasePod, MixedHighSignature, GangTraining and
     CoLocatedInference through the harness on make_mesh(2), and
-    TopologySpreading and CoLocatedInference on make_mesh(4): every pod
+    TopologySpreading, GangTraining and CoLocatedInference on
+    make_mesh(4): every pod
     bound, the bind map and the final probe snapshot of the cell's
     single-device card run (phases 6, 7, 10, 9, 12, 13), reconcile() ==
     [], one cluster_probe_sharded a device drain, the sharded programs

@@ -686,6 +686,53 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
   *namax = block_max<BLOCK>(nm, sh);
 }
 
+// block_eval_parts' slow path for the one row n, for kernels that run a
+// thread a row (explain_row.cu, run_uniform_sharded.cu): every SigCache
+// part but s_img into `out`. Returns the image-presence bits of a valid
+// row (0 for an invalid one): its share of ImageLocality's counts.
+__device__ __forceinline__ uint32_t kt_row_parts(const CfgC& cfg,
+                                                 const NodeC& na,
+                                                 const TableC& tb,
+                                                 const CarryC& carry,
+                                                 const PodRowD& p, int n,
+                                                 const CacheC& out) {
+  const int64_t* used_row = carry.used + (int64_t)n * na.R;
+  const int32_t* port_row = carry.ports + (int64_t)n * carry.P;
+  // every filter reads only row n and the pod's row, so all of them are
+  // evaluated (no short circuit): their loads overlap instead of waiting
+  // on the previous filter's answer
+  const bool m = (na.valid[n] != 0)
+      & (p.node_name_id == 0 || na.name_id[n] == p.node_name_id)
+      & (!na.unschedulable[n] || p.tolerates_unsched)
+      & kt_taints_ok(na, n, p, tb.TT)
+      & kt_selector_ok(na, n, p, tb.Q, tb.TM, tb.V)
+      & kt_ports_ok(port_row, carry.P, p.port_ids, tb.PP);
+  int64_t s_fit, s_bal;
+  kt_fit_scores(cfg, na, n, used_row, carry.nonzero_used + (int64_t)n * 2, p,
+                &s_fit, &s_bal);
+  out.static_mask[n] = m;
+  out.taint_raw[n] = kt_taint_prefer(na, n, p, tb.TT);
+  out.na_raw[n] = kt_pref_score(na, n, p, tb.PT, tb.Q, tb.V);
+  out.fit_ok[n] = kt_fit(na, n, used_row, carry.npods[n], p);
+  out.s_fit[n] = s_fit;
+  out.s_bal[n] = s_bal;
+  if (!na.valid[n]) return 0;
+  int64_t size_c[KT_MAX_IC];
+  return kt_image_presence(na, n, p, tb.IC, size_c);
+}
+
+// ImageLocality of row n from the cluster-wide counts (num_with[IC],
+// total valid rows)
+__device__ __forceinline__ int64_t kt_row_s_img(const NodeC& na,
+                                                const TableC& tb,
+                                                const PodRowD& p, int n,
+                                                const int64_t* num_with,
+                                                int64_t total) {
+  int64_t size_c[KT_MAX_IC];
+  kt_image_presence(na, n, p, tb.IC, size_c);
+  return kt_image_score(p, tb.IC, size_c, num_with, total);
+}
+
 // the weighted total of _eval_pod (:539) for node n from its parts
 __device__ __forceinline__ int64_t kt_total(const CfgC& cfg, const CacheC& c,
                                             int n, int64_t tmax,

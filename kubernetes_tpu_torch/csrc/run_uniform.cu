@@ -142,7 +142,7 @@ void launch_uniform(const NodeC* na, const TableC* tb, const CarryC* cin,
   kt_sort_desc(keys0, P0, s);
   uniform_matrix_kernel<<<(K + MBLOCK - 1) / MBLOCK, MBLOCK, 0, s>>>(
       *na, *tb, *cin, cout->cache, *cfg, ovl, tidx, keys0, static_add, K, J,
-      (int64_t)na->N * J, 0, cand, keys1, fit_kj, sfit_kj, sbal_kj, flags);
+      (int64_t)na->N * J, cand, keys1, fit_kj, sfit_kj, sbal_kj, flags);
   kt_sort_desc(keys1, P1, s);
   uniform_finalize_kernel<<<1, FBLOCK, 0, s>>>(
       *cout, *tb, tidx, na->N, na->R, keys1, cand, fit_kj, sfit_kj, sbal_kj,

@@ -1,219 +1,495 @@
-// run_uniform_sharded: the closed-form same-signature run on the mesh.
+// run_uniform_sharded: the closed-form same-signature run on the mesh,
+// and with the gang verdict the mesh's closed-form gang tier.
 //
 // Replaces kubernetes_tpu/parallel/sharding.py _run_uniform_sharded_jit
-// (:519) over _uniform_local_core (:416-516). Each shard evaluates the
+// (:519) over _uniform_local_core (:416-516), and
+// _run_gang_uniform_sharded_jit (:1042-1071). Each shard evaluates the
 // run's row over its N rows, takes its local top-K_loc candidates
 // (K_loc = min(K, N); every member of the global top-K ranks inside its
-// own shard's top-K_loc), builds their [K_loc, J] matrix with GLOBAL
-// entry ids, and takes its local top-L_loc keys; the all-gathered keys
-// merge into the run's top-L. Launches per shard, on the shard's stream,
-// with the exchange (kubernetes_tpu_torch/parallel/sharding.py) between
-// them; the wrapper is ops/kernels.py run_uniform_sharded_cuda:
-//   1. ktpu_uniform_shard_parts (one block): the run's row over the shard,
-//      as run_uniform.cu launch 1 does, into the fresh SigCache, with the
-//      image counts and the feasible maxima sent out (shard_eval.cuh);
-//   2. exchange: the sums and maxima;
-//   3. ktpu_uniform_shard_topk: ImageLocality on a miss and the static
-//      scores with the cluster-wide maxima, then the row keys (one block);
-//      the local top-K_loc, ties to the lowest index (a bitonic sort,
-//      sort.cuh); the [K_loc, J] matrix with entry ids (offset + cand)·J
-//      + j (uniform_matrix.cuh); the local top-L_loc (a second sort).
-//      Keys stay int64, as in run_uniform.cu;
-//   4. exchange: the all-gather of the D·L_loc keys. A key decodes to its
-//      global node, so no node list rides along;
-//   5. ktpu_uniform_merge, once per device: the hand-written merge top-L,
-//      the gathered keys padded to a power of two and sorted (sort.cuh);
-//   6. ktpu_uniform_shard_finalize (one block): the assignments, the
-//      shard's counts, carry update and cache refresh at its candidates,
-//      and its flags: exact (monotonicity on its candidates and the
-//      normalization constancy) and depth;
-//   7. exchange: the min of the flags (the JAX program's pmin).
-// The flags are checked over a superset of the single-device candidates,
-// so they may be False where run_uniform's are True (the scheduler then
-// replays on the scan); the assignments equal run_uniform's wherever both
-// report exact.
+// own shard's top-K_loc), builds their [K_loc, J] matrix of
+// post-placement scores with GLOBAL entry ids, and sends its local
+// top-L_loc keys; the gathered keys give the run's top-L.
 //
-// The closed-form gang tier on the mesh (kubernetes_tpu/parallel/
-// sharding.py _run_gang_uniform_sharded_jit :1042-1071, entry
-// ktpu_uniform_shard_gang) runs the same launches and exchanges, then a
-// one-block gang epilogue per shard (uniform_matrix.cuh, as run_uniform.cu
-// runs it): placed from the replicated assignments, accept = placed >=
-// needed, apply = accept & exact & depth with the flags min'd over the
-// shards; without apply the shard's output carry gets its input back,
-// SigCache included. Shard 0's packed [L + 4] is run_gang's layout.
+// What only the set decides. The matrix reads its candidates as a set:
+// an entry's key folds in its node and column, not the candidate's rank,
+// and the monotonicity flag, the deep count and the cache refresh are
+// per candidate. The local top-L_loc is read only by the merge, which
+// orders it again. So both are a SELECTION (select.cuh's radix select on
+// the unique keys, no sort), and only the merged top-L, which orders the
+// assignments, is sorted (in shared memory where it fits). With
+// K_loc = N every row is a candidate and nothing is selected.
 //
-// What bounds it on an H100: as run_uniform.cu, latency — the sorts and
-// the dependent launches — now 4·D + 1 of them plus the exchange (5·D + 1
-// with the gang epilogue).
+// The steps of every shard, on its device's stream, with the exchange
+// (kubernetes_tpu_torch/parallel/sharding.py) between them; the wrapper
+// is ops/kernels.py _uniform_sharded_run:
+//   1. ush_parts_kernel, a grid over the shard's rows (one thread a row):
+//      the run's row parts into the fresh SigCache, the carry rows copied
+//      into the output carry, and each block's image counts, valid rows
+//      and feasible maxima (shard_eval.cuh's layout) as partials;
+//   2. exchange: the blocks' and shards' partials summed and maxed in one
+//      reduction (lean_exchange);
+//   3. ush_fused_kernel, one block, when the shard's row keys and its
+//      K_loc·J matrix keys fit in shared memory: the row keys (with
+//      ImageLocality on a miss), the top-K_loc selection, the matrix (one
+//      thread an entry), the monotonicity check, the top-L_loc
+//      selection, and the shard's two flags beside its keys. Otherwise
+//      (row 14c's 32,768 keys a shard) the same steps as a multi-block
+//      chain: ush_keys_kernel (a grid over the rows), ush_rowsel_kernel
+//      (one block; only when K_loc < N), ush_matrix_kernel (a grid over
+//      the entries) and ush_select_kernel (one block);
+//   4. exchange: the all-gather of every shard's [L_loc keys, 2 flags];
+//   5. ush_finalize_kernel, one block: the top-L of the gathered keys,
+//      sorted; the assignments; the selections per global node; the
+//      verdict from what every shard holds — exact (every shard's flags),
+//      depth (no node with J or more of the selected entries), placed and
+//      accept — BEFORE anything is written: the placement and the cache
+//      refresh at the shard's candidates only when the run applies (the
+//      gang: accept ∧ exact ∧ depth; a plain run: always), else the fresh
+//      SigCache takes the input's back (the only part of the output
+//      carry the run wrote). Shard 0 writes the packed result.
+// Each launch serves every shard of one device (up to four, then another
+// launch): the grid kernels take the shard from blockIdx.y, the one-block
+// kernels run one block a shard, so the shards of a card run side by side
+// and each merges the gathered keys in its own block. Three launches a
+// device and two exchanges a run where launch 3 fits one block.
+//
+// What bounds it on an H100: latency — the dependent launches, the
+// exchanges between them, and each one-block step's barriers; the bytes
+// (the node rows once, the matrix) are tens of microseconds of HBM time
+// at most.
 
+#include "select.cuh"
 #include "shard_eval.cuh"
 #include "sort.cuh"
-#include "uniform_matrix.cuh"
 
 struct UniShardC {        // one shard's arguments for one run
   NodeC na;
   TableC tb;
   CarryC cin;             // read only
-  CarryC cout;            // fresh copies, written
+  CarryC cout;            // fresh tensors, written in full
   CfgC cfg;
   int32_t sig, tidx;
   int32_t offset;         // global index of the shard's row 0
   int32_t n_global;       // rows over all shards
-  int32_t K, J, L, n_actual;   // K = the local K_loc
-  int64_t* loc;           // [KT_SHARD_LOC] the shard's exchanged parts
-  int64_t* static_add;    // [N]
-  int64_t* keys0;         // [P0]
-  int32_t P0;
-  int32_t* cand;          // [K_loc]
-  int64_t* keys1;         // [P1]
-  int32_t P1;
+  int32_t K, J, L, L_loc, n_actual;   // K = the local K_loc
+  int32_t fused;          // launch 3 in one block
+  int64_t* loc;           // [blocks, KT_SHARD_LOC] launch 1's partials
+  int64_t* keys0;         // [N] the row keys (multi-block chain)
+  int32_t* cand;          // [K_loc] the candidates' rows, in no order
+  int64_t* keys1;         // [K_loc·J] the matrix keys (multi-block chain)
   uint8_t* fit_kj;        // [K_loc·J]
   int64_t* sfit_kj;
   int64_t* sbal_kj;
-  int32_t* counts;        // [N]
-  int32_t* flags;         // [2]: monotonicity, normalization constancy
-  int32_t* packed;        // [L + 2]: assignments, exact, depth
+  int64_t* send;          // [L_loc + 2] top-L_loc keys, monotone, norm
+  int32_t* gcount;        // [n_global] selections per global node
+  int64_t* top;           // [pow2(min(D·L_loc, L))] the sorted top-L when
+                          // it does not fit in shared memory, else null
+};
+
+// the shards of one device that one launch serves, blockIdx.y (grid
+// kernels) or blockIdx.x (one-block kernels) picking the shard; four
+// keep the launch's parameters under 4 KB
+#define KT_USH_MAX_SHARDS 4
+struct UniBatchC {
+  UniShardC s[KT_USH_MAX_SHARDS];
 };
 
 namespace {
 
-constexpr int EBLOCK = 512;
-constexpr int FBLOCK = 1024;
+constexpr int PBLOCK = 256;     // the grid kernels
+constexpr int SBLOCK = 1024;    // the one-block kernels
 
-__global__ void __launch_bounds__(EBLOCK) uniform_parts_kernel(UniShardC a) {
-  __shared__ BlockScratch<EBLOCK> sh;
-  const PodRowD p = pod_row(a.tb, a.tidx);
-  const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
-  shard_parts<EBLOCK>(a.cfg, a.na, a.tb, a.cin, p, use_fast, a.cin.cache,
-                      a.cout.cache, sh, a.loc);
+__device__ __forceinline__ int64_t static_add(const CfgC& cfg,
+                                              const CacheC& out, int n,
+                                              int64_t tmax, int64_t namax) {
+  return cfg.w_taint * kt_normalize(out.taint_raw[n], tmax, true)
+       + cfg.w_node_affinity * kt_normalize(out.na_raw[n], namax, false)
+       + cfg.w_image * out.s_img[n];
 }
 
-__global__ void __launch_bounds__(EBLOCK)
-uniform_keys_kernel(UniShardC a, const int64_t* glob) {
-  const PodRowD p = pod_row(a.tb, a.tidx);
-  const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
+// the row key of row n (ImageLocality first on a miss): masked score,
+// ties to the lowest row
+__device__ __forceinline__ int64_t row_key(const UniShardC& a,
+                                           const PodRowD& p, int n,
+                                           bool use_fast,
+                                           const int64_t* glob) {
   const CacheC& out = a.cout.cache;
-  const int64_t tmax = glob[KT_MAX_IC + 1], namax = glob[KT_MAX_IC + 2];
+  if (!use_fast) shard_s_img(a.na, a.tb, p, n, glob, out);
   const int N = a.na.N;
-  for (int n = threadIdx.x; n < a.P0; n += EBLOCK) {
-    if (n >= N) {
-      a.keys0[n] = KT_I64_MIN;
-      continue;
-    }
-    if (!use_fast) shard_s_img(a.na, a.tb, p, n, glob, out);
-    const int64_t add =
-        a.cfg.w_taint * kt_normalize(out.taint_raw[n], tmax, true)
-        + a.cfg.w_node_affinity * kt_normalize(out.na_raw[n], namax, false)
-        + a.cfg.w_image * out.s_img[n];
-    a.static_add[n] = add;
-    const bool feas = out.static_mask[n] && out.fit_ok[n];
-    const int64_t masked =
-        feas ? a.cfg.w_fit * out.s_fit[n] + a.cfg.w_balanced * out.s_bal[n]
-                   + add
-             : -1;
-    a.keys0[n] = (masked + 1) * N + (N - 1 - n);
-  }
+  const bool feas = out.static_mask[n] && out.fit_ok[n];
+  const int64_t masked =
+      feas ? a.cfg.w_fit * out.s_fit[n] + a.cfg.w_balanced * out.s_bal[n]
+                 + static_add(a.cfg, out, n, glob[KT_MAX_IC + 1],
+                              glob[KT_MAX_IC + 2])
+           : -1;
+  return (masked + 1) * N + (N - 1 - n);
+}
+
+// matrix entry (k, j) at candidate row `node` (_uniform_matrix :1007):
+// its fit and scores to the shard's scratch; returns its flat key
+// masked · M − ((offset + node) · J + j)
+__device__ __forceinline__ int64_t matrix_entry(const UniShardC& a,
+                                                const PodRowD& p,
+                                                const int64_t* glob, int k,
+                                                int j, int node) {
+  const CacheC& out = a.cout.cache;
+  const int64_t* used = a.cin.used + (int64_t)node * a.na.R;
+  const int64_t* nz = a.cin.nonzero_used + (int64_t)node * 2;
+  bool fit;
+  int64_t s_fit, s_bal;
+  kt_uniform_entry(a.cfg, a.na, node, used, nz, a.cin.npods[node], p, j + 1,
+                   &fit, &s_fit, &s_bal);
+  const int64_t masked = (out.static_mask[node] && fit)
+      ? a.cfg.w_fit * s_fit + a.cfg.w_balanced * s_bal
+            + static_add(a.cfg, out, node, glob[KT_MAX_IC + 1],
+                         glob[KT_MAX_IC + 2])
+      : -1;
+  const int64_t e = (int64_t)k * a.J + j;
+  a.fit_kj[e] = fit;
+  a.sfit_kj[e] = s_fit;
+  a.sbal_kj[e] = s_bal;
+  const int64_t M = (int64_t)a.n_global * a.J;
+  return masked * M - ((int64_t)(a.offset + node) * a.J + j);
+}
+
+// an entry's masked score from its key (the key's floor division by M)
+__device__ __forceinline__ int64_t key_score(int64_t key, int64_t M) {
+  return floordiv(key + M - 1, M);
+}
+
+// the monotonicity check over the matrix keys and the top-L_loc
+// selection into a.send, with the shard's flags after the keys (one
+// block; `keys1` in shared or global memory)
+template <int BLOCK>
+__device__ __forceinline__ void send_top(const UniShardC& a,
+                                         const int64_t* keys1,
+                         const int64_t* glob, SelScratch<BLOCK>& ss) {
+  const int KJ = a.K * a.J;
+  const int64_t M = (int64_t)a.n_global * a.J;
+  bool mono = true;
+  for (int e = threadIdx.x; e < KJ; e += BLOCK)
+    if (e % a.J != 0 && key_score(keys1[e], M) > key_score(keys1[e - 1], M))
+      mono = false;
+  mono = __syncthreads_and(mono);
+  const auto key = [keys1](int i) { return keys1[i]; };
+  const int64_t T = a.L_loc < KJ
+      ? block_select_kth<BLOCK>(key, KJ, a.L_loc, ss) : KT_I64_MIN;
+  block_compact_ge<BLOCK>(key, KJ, T, a.send, nullptr, ss);
   if (threadIdx.x == 0) {
-    *out.sig = a.sig;
-    a.flags[0] = 1;                             // monotonicity held
-    a.flags[1] = tmax == 0 && namax == 0;       // normalization constant
+    a.send[a.L_loc] = mono;
+    a.send[a.L_loc + 1] = glob[KT_MAX_IC + 1] == 0 && glob[KT_MAX_IC + 2] == 0;
   }
 }
 
-__global__ void merge_pad_kernel(const int64_t* gathered, int n,
-                                 int64_t* merged, int P) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < P) merged[t] = t < n ? gathered[t] : KT_I64_MIN;
-}
-
-__global__ void __launch_bounds__(FBLOCK)
-uniform_shard_finalize_kernel(UniShardC a, const int64_t* merged) {
-  __shared__ BlockScratch<FBLOCK> sh;
+// 1. the parts of every row, the carry rows copied, the block partials
+__global__ void __launch_bounds__(PBLOCK) ush_parts_kernel(UniBatchC b) {
+  __shared__ int64_t acc[KT_SHARD_LOC];
+  const UniShardC& a = b.s[blockIdx.y];
+  const int N = a.na.N, R = a.na.R, IC = a.tb.IC;
   const PodRowD p = pod_row(a.tb, a.tidx);
-  const int N = a.na.N, R = a.na.R, J = a.J, L = a.L;
-  for (int n = threadIdx.x; n < N; n += FBLOCK) a.counts[n] = 0;
+  const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
+  const CacheC& in = a.cin.cache;
+  const CacheC& out = a.cout.cache;
+  if (threadIdx.x < KT_SHARD_LOC) acc[threadIdx.x] = 0;
   __syncthreads();
+  int64_t cnt[KT_MAX_IC];
+  for (int c = 0; c < IC; ++c) cnt[c] = 0;
+  int64_t nvalid = 0, tm = 0, nm = 0;
+  for (int n = blockIdx.x * PBLOCK + threadIdx.x; n < N;
+       n += gridDim.x * PBLOCK) {
+    for (int r = 0; r < R; ++r)
+      a.cout.used[(int64_t)n * R + r] = a.cin.used[(int64_t)n * R + r];
+    a.cout.nonzero_used[(int64_t)n * 2] = a.cin.nonzero_used[(int64_t)n * 2];
+    a.cout.nonzero_used[(int64_t)n * 2 + 1] =
+        a.cin.nonzero_used[(int64_t)n * 2 + 1];
+    a.cout.npods[n] = a.cin.npods[n];
+    if (!use_fast) {
+      const uint32_t bits = kt_row_parts(a.cfg, a.na, a.tb, a.cin, p, n,
+                                         out);
+      nvalid += a.na.valid[n] != 0;
+      for (int c = 0; c < IC; ++c) cnt[c] += (bits >> c) & 1u;
+    } else {
+      out.static_mask[n] = in.static_mask[n];
+      out.taint_raw[n] = in.taint_raw[n];
+      out.na_raw[n] = in.na_raw[n];
+      out.s_img[n] = in.s_img[n];
+      out.fit_ok[n] = in.fit_ok[n];
+      out.s_fit[n] = in.s_fit[n];
+      out.s_bal[n] = in.s_bal[n];
+    }
+    if (out.static_mask[n] && out.fit_ok[n]) {
+      tm = out.taint_raw[n] > tm ? out.taint_raw[n] : tm;
+      nm = out.na_raw[n] > nm ? out.na_raw[n] : nm;
+    }
+  }
+  // on the fast path the counts stay zero: s_img is cached
+  for (int c = 0; c < IC; ++c) acc_add(&acc[c], cnt[c]);
+  acc_add(&acc[KT_MAX_IC], nvalid);
+  acc_max(&acc[KT_MAX_IC + 1], tm);
+  acc_max(&acc[KT_MAX_IC + 2], nm);
+  __syncthreads();
+  if (threadIdx.x < KT_SHARD_LOC)
+    a.loc[(int64_t)blockIdx.x * KT_SHARD_LOC + threadIdx.x] =
+        acc[threadIdx.x];
+}
+
+// 3, fused: keys, top-K_loc, the matrix, top-L_loc in one block
+__global__ void __launch_bounds__(SBLOCK)
+ush_fused_kernel(UniBatchC b, const int64_t* glob) {
+  extern __shared__ int64_t keys_sh[];      // the row keys, then the matrix's
+  __shared__ SelScratch<SBLOCK> ss;
+  const UniShardC& a = b.s[blockIdx.x];
+  const int N = a.na.N, K = a.K, J = a.J;
+  int32_t* cand_sh = (int32_t*)(keys_sh + (N > K * J ? N : K * J));
+  const PodRowD p = pod_row(a.tb, a.tidx);
+  const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
+  for (int n = threadIdx.x; n < N; n += SBLOCK)
+    keys_sh[n] = row_key(a, p, n, use_fast, glob);
+  __syncthreads();
+  if (K < N) {
+    const int64_t* ks = keys_sh;
+    const auto key = [ks](int i) { return ks[i]; };
+    const int64_t T = block_select_kth<SBLOCK>(key, N, K, ss);
+    block_compact_ge<SBLOCK>(key, N, T, nullptr, cand_sh, ss);
+  } else {
+    for (int k = threadIdx.x; k < K; k += SBLOCK) cand_sh[k] = k;
+    __syncthreads();
+  }
+  for (int k = threadIdx.x; k < K; k += SBLOCK) a.cand[k] = cand_sh[k];
+  // the keys region now holds the matrix: one thread an entry
+  for (int e = threadIdx.x; e < K * J; e += SBLOCK)
+    keys_sh[e] = matrix_entry(a, p, glob, e / J, e % J, cand_sh[e / J]);
+  __syncthreads();
+  send_top<SBLOCK>(a, keys_sh, glob, ss);
+  if (threadIdx.x == 0) *a.cout.cache.sig = a.sig;
+}
+
+// 3, the multi-block chain: the row keys over the grid
+__global__ void __launch_bounds__(PBLOCK)
+ush_keys_kernel(UniBatchC b, const int64_t* glob) {
+  const UniShardC& a = b.s[blockIdx.y];
+  const PodRowD p = pod_row(a.tb, a.tidx);
+  const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
+  const int n = blockIdx.x * PBLOCK + threadIdx.x;
+  if (n < a.na.N) a.keys0[n] = row_key(a, p, n, use_fast, glob);
+  if (n == 0) *a.cout.cache.sig = a.sig;
+}
+
+// the top-K_loc rows (only when K_loc < N)
+__global__ void __launch_bounds__(SBLOCK) ush_rowsel_kernel(UniBatchC b) {
+  __shared__ SelScratch<SBLOCK> ss;
+  const UniShardC& a = b.s[blockIdx.x];
+  const int64_t* keys0 = a.keys0;
+  const auto key = [keys0](int i) { return keys0[i]; };
+  const int64_t T = block_select_kth<SBLOCK>(key, a.na.N, a.K, ss);
+  block_compact_ge<SBLOCK>(key, a.na.N, T, nullptr, a.cand, ss);
+}
+
+// the matrix over the grid, one thread an entry (the candidates are the
+// rows themselves when K_loc = N)
+__global__ void __launch_bounds__(PBLOCK)
+ush_matrix_kernel(UniBatchC b, const int64_t* glob) {
+  const UniShardC& a = b.s[blockIdx.y];
+  const int64_t e = (int64_t)blockIdx.x * PBLOCK + threadIdx.x;
+  if (e >= (int64_t)a.K * a.J) return;
+  const int k = (int)(e / a.J), j = (int)(e % a.J);
+  const bool all = a.K == a.na.N;
+  const int node = all ? k : a.cand[k];
+  if (all && j == 0) a.cand[k] = k;
+  const PodRowD p = pod_row(a.tb, a.tidx);
+  a.keys1[e] = matrix_entry(a, p, glob, k, j, node);
+}
+
+__global__ void __launch_bounds__(SBLOCK)
+ush_select_kernel(UniBatchC b, const int64_t* glob) {
+  __shared__ SelScratch<SBLOCK> ss;
+  const UniShardC& a = b.s[blockIdx.x];
+  send_top<SBLOCK>(a, a.keys1, glob, ss);
+}
+
+// the gathered keys sorted in shared memory whole up to this many
+constexpr int SORT_ALL = 4096;
+
+// 5. the merged top-L, the verdict, then the carry (see the header).
+// `gathered` is [D, L_loc + 2]; the block of shard `packed_at` of the
+// launch writes `packed`: [L assignments; exact; depth], or with `gang`
+// [L; accept; placed; exact; depth].
+__global__ void __launch_bounds__(SBLOCK)
+ush_finalize_kernel(UniBatchC b, const int64_t* gathered, int D,
+                    int32_t* packed, int packed_at, int needed, int gang) {
+  extern __shared__ int64_t top_sh[];
+  __shared__ SelScratch<SBLOCK> ss;
+  __shared__ int64_t placed_sh;
+  const UniShardC& a = b.s[blockIdx.x];
+  int32_t* out = (int)blockIdx.x == packed_at ? packed : nullptr;
+  const int t = threadIdx.x;
+  const int N = a.na.N, R = a.na.R, J = a.J, L = a.L, L_loc = a.L_loc;
   const int64_t M = (int64_t)a.n_global * J;
-  for (int i = threadIdx.x; i < L; i += FBLOCK) {
-    const int64_t key = merged[i];
-    int32_t g = -1;
-    if (key > -M && i < a.n_actual) {
-      const int64_t q = floordiv(key + M - 1, M);   // the entry's score
-      const int64_t ent = q * M - key;              // global node · J + j
-      g = (int32_t)(ent / J);
-      const int lid = g - a.offset;
-      if (lid >= 0 && lid < N) atomicAdd(&a.counts[lid], 1);
-    }
-    a.packed[i] = g;
+  int64_t* top = a.top ? a.top : top_sh;
+  for (int g = t; g < a.n_global; g += SBLOCK) a.gcount[g] = 0;
+  if (t == 0) placed_sh = 0;
+  // exact: every shard's monotonicity and the normalization constancy
+  bool ok = true;
+  for (int d = t; d < D; d += SBLOCK) {
+    const int64_t* f = gathered + (int64_t)d * (L_loc + 2) + L_loc;
+    ok = ok && f[0] != 0 && f[1] != 0;
   }
+  const bool exact = __syncthreads_and(ok);
+  // the top-L of the D·L_loc gathered keys, sorted
+  const int n = D * L_loc;
+  const int take = n < L ? n : L;
+  const auto key = [gathered, L_loc](int i) {
+    return gathered[(int64_t)(i / L_loc) * (L_loc + 2) + i % L_loc];
+  };
+  int P = 1;
+  if (n <= SORT_ALL) {
+    while (P < n) P <<= 1;
+    for (int i = t; i < P; i += SBLOCK) top[i] = i < n ? key(i) : KT_I64_MIN;
+  } else {
+    const int64_t T = take < n
+        ? block_select_kth<SBLOCK>(key, n, take, ss) : KT_I64_MIN;
+    block_compact_ge<SBLOCK>(key, n, T, top, nullptr, ss);
+    while (P < take) P <<= 1;
+    for (int i = take + t; i < P; i += SBLOCK) top[i] = KT_I64_MIN;
+  }
+  block_sort_desc<SBLOCK>(top, P);
+  // the assignments and the selections per global node
+  int64_t placed = 0;
+  for (int i = t; i < L; i += SBLOCK) {
+    const int64_t k = i < take ? top[i] : KT_I64_MIN;
+    if (i < take && i < a.n_actual && k > -M) {
+      atomicAdd(&a.gcount[(key_score(k, M) * M - k) / J], 1);
+      ++placed;
+    }
+  }
+  acc_add(&placed_sh, placed);
   __syncthreads();
-  const CarryC& c = a.cout;
-  int64_t deep = 0;
-  for (int k = threadIdx.x; k < a.K; k += FBLOCK) {
-    const int node = a.cand[k];
-    const int64_t cnt = a.counts[node];
-    if (cnt >= J) ++deep;
-    if (cnt > 0) {
-      int64_t* used = c.used + (int64_t)node * R;
-      for (int r = 0; r < R; ++r) used[r] += cnt * p.req[r];
-      c.nonzero_used[(int64_t)node * 2] += cnt * p.nonzero_req[0];
-      c.nonzero_used[(int64_t)node * 2 + 1] += cnt * p.nonzero_req[1];
-      c.npods[node] += (int32_t)cnt;
+  bool deep = false;
+  for (int i = t; i < L; i += SBLOCK) {
+    const int64_t k = i < take ? top[i] : KT_I64_MIN;
+    int32_t g = -1;
+    if (i < take && i < a.n_actual && k > -M) {
+      g = (int32_t)((key_score(k, M) * M - k) / J);     // global node
+      deep = deep || a.gcount[g] >= J;
     }
-    const int64_t jj = (int64_t)k * J + (cnt < J - 1 ? cnt : J - 1);
-    c.cache.fit_ok[node] = a.fit_kj[jj];
-    c.cache.s_fit[node] = a.sfit_kj[jj];
-    c.cache.s_bal[node] = a.sbal_kj[jj];
+    if (out) out[i] = g;
   }
-  deep = block_sum<FBLOCK>(deep, sh);
-  if (threadIdx.x == 0) {
-    a.packed[L] = a.flags[0] && a.flags[1];
-    a.packed[L + 1] = deep == 0;
+  const bool depth = !__syncthreads_or(deep);
+  const int64_t np = placed_sh;
+  const bool accept = np >= needed;
+  const bool apply = !gang || (accept && exact && depth);
+  if (out && t == 0) {
+    if (gang) {
+      out[L] = accept;
+      out[L + 1] = (int32_t)np;
+      out[L + 2] = exact;
+      out[L + 3] = depth;
+    } else {
+      out[L] = exact;
+      out[L + 1] = depth;
+    }
   }
+  const CarryC& c = a.cout;
+  if (apply) {
+    const PodRowD p = pod_row(a.tb, a.tidx);
+    for (int k = t; k < a.K; k += SBLOCK) {
+      const int node = a.cand[k];
+      const int64_t cnt = a.gcount[a.offset + node];
+      if (cnt > 0) {
+        int64_t* used = c.used + (int64_t)node * R;
+        for (int r = 0; r < R; ++r) used[r] += cnt * p.req[r];
+        c.nonzero_used[(int64_t)node * 2] += cnt * p.nonzero_req[0];
+        c.nonzero_used[(int64_t)node * 2 + 1] += cnt * p.nonzero_req[1];
+        c.npods[node] += (int32_t)cnt;
+      }
+      // entry j = cnt IS the next pod's evaluation; an untouched
+      // candidate rewrites its count-0 entry, which equals the parts
+      const int64_t jj = (int64_t)k * J + (cnt < J - 1 ? cnt : J - 1);
+      c.cache.fit_ok[node] = a.fit_kj[jj];
+      c.cache.s_fit[node] = a.sfit_kj[jj];
+      c.cache.s_bal[node] = a.sbal_kj[jj];
+    }
+  } else {
+    const CacheC& in = a.cin.cache;
+    for (int r = t; r < N; r += SBLOCK) {
+      c.cache.static_mask[r] = in.static_mask[r];
+      c.cache.taint_raw[r] = in.taint_raw[r];
+      c.cache.na_raw[r] = in.na_raw[r];
+      c.cache.s_img[r] = in.s_img[r];
+      c.cache.fit_ok[r] = in.fit_ok[r];
+      c.cache.s_fit[r] = in.s_fit[r];
+      c.cache.s_bal[r] = in.s_bal[r];
+    }
+    if (t == 0) *c.cache.sig = *in.sig;
+  }
+}
+
+size_t fused_smem(const UniShardC& a) {
+  const int KJ = a.K * a.J;
+  return (size_t)(a.na.N > KJ ? a.na.N : KJ) * sizeof(int64_t)
+       + (size_t)a.K * sizeof(int32_t);
+}
+
+int set_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
 
-extern "C" int ktpu_uniform_shard_parts(const UniShardC* a, void* stream) {
-  uniform_parts_kernel<<<1, EBLOCK, 0, (cudaStream_t)stream>>>(*a);
+// every entry takes the device's first `S` shards of `b` (S <= 4, one
+// shape): the shard index is blockIdx.y of the grid kernels and blockIdx.x
+// of the one-block kernels
+
+// 1: `blocks` = ceil(N / 256), the partials' rows a shard
+extern "C" int ktpu_ush_parts(const UniBatchC* b, int S, int blocks,
+                              void* stream) {
+  ush_parts_kernel<<<dim3(blocks, S), PBLOCK, 0, (cudaStream_t)stream>>>(
+      *b);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ktpu_uniform_shard_topk(const UniShardC* a,
-                                       const int64_t* glob, void* stream) {
+// 3: the fused kernel, or the multi-block chain
+extern "C" int ktpu_ush_select(const UniBatchC* b, int S, const int64_t* glob,
+                               void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  uniform_keys_kernel<<<1, EBLOCK, 0, s>>>(*a, glob);
-  kt_sort_desc(a->keys0, a->P0, s);
-  const OvlD ovl{nullptr, nullptr};
-  uniform_matrix_kernel<<<(a->K + MBLOCK - 1) / MBLOCK, MBLOCK, 0, s>>>(
-      a->na, a->tb, a->cin, a->cout.cache, a->cfg, ovl, a->tidx, a->keys0,
-      a->static_add, a->K, a->J, (int64_t)a->n_global * a->J, a->offset,
-      a->cand, a->keys1, a->fit_kj, a->sfit_kj, a->sbal_kj, a->flags);
-  kt_sort_desc(a->keys1, a->P1, s);
+  const UniShardC& a = b->s[0];
+  if (a.fused) {
+    const size_t smem = fused_smem(a);
+    const int rc = set_smem((const void*)ush_fused_kernel, smem);
+    if (rc) return rc;
+    ush_fused_kernel<<<S, SBLOCK, smem, s>>>(*b, glob);
+    return (int)cudaGetLastError();
+  }
+  const int N = a.na.N;
+  const int64_t KJ = (int64_t)a.K * a.J;
+  ush_keys_kernel<<<dim3((N + PBLOCK - 1) / PBLOCK, S), PBLOCK, 0, s>>>(
+      *b, glob);
+  if (a.K < N) ush_rowsel_kernel<<<S, SBLOCK, 0, s>>>(*b);
+  ush_matrix_kernel<<<dim3((unsigned)((KJ + PBLOCK - 1) / PBLOCK), S),
+                      PBLOCK, 0, s>>>(*b, glob);
+  ush_select_kernel<<<S, SBLOCK, 0, s>>>(*b, glob);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ktpu_uniform_merge(const int64_t* gathered, int n,
-                                  int64_t* merged, int P, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  merge_pad_kernel<<<(P + 255) / 256, 256, 0, s>>>(gathered, n, merged, P);
-  kt_sort_desc(merged, P, s);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ktpu_uniform_shard_finalize(const UniShardC* a,
-                                           const int64_t* merged,
-                                           void* stream) {
-  uniform_shard_finalize_kernel<<<1, FBLOCK, 0, (cudaStream_t)stream>>>(
-      *a, merged);
-  return (int)cudaGetLastError();
-}
-
-// the gang epilogue on one shard: `pu` = the shard's packed [L + 2] with
-// the flags already min'd over the shards
-extern "C" int ktpu_uniform_shard_gang(const UniShardC* a, int needed,
-                                       int32_t* packed, void* stream) {
-  gang_uniform_epilogue_kernel<FBLOCK><<<1, FBLOCK, 0, (cudaStream_t)stream>>>(
-      a->cin, a->cout, a->na.N, a->na.R, a->L, needed, a->packed, packed);
+// 5: the finalize; `packed` is written by shard `packed_at` of the launch
+// (-1: none of them)
+extern "C" int ktpu_ush_finalize(const UniBatchC* b, int S,
+                                 const int64_t* gathered, int D,
+                                 int32_t* packed, int packed_at, int needed,
+                                 int gang, void* stream) {
+  const UniShardC& a = b->s[0];
+  size_t smem = 0;
+  if (!a.top) {
+    const int n = D * a.L_loc, take = n < a.L ? n : a.L;
+    int P = 1;
+    while (P < (n <= SORT_ALL ? n : take)) P <<= 1;
+    smem = (size_t)P * sizeof(int64_t);
+  }
+  const int rc = set_smem((const void*)ush_finalize_kernel, smem);
+  if (rc) return rc;
+  ush_finalize_kernel<<<S, SBLOCK, smem, (cudaStream_t)stream>>>(
+      *b, gathered, D, packed, packed_at, needed, gang);
   return (int)cudaGetLastError();
 }

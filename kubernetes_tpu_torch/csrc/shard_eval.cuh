@@ -37,10 +37,8 @@ __device__ void shard_parts(const CfgC& cfg, const NodeC& na,
     for (int c = 0; c < IC; ++c) cnt[c] = 0;
     int64_t nvalid = 0;
     for (int n = threadIdx.x; n < N; n += BLOCK) {
-      if (!na.valid[n]) continue;
-      ++nvalid;
-      int64_t size_c[KT_MAX_IC];
-      const uint32_t bits = kt_image_presence(na, n, p, IC, size_c);
+      const uint32_t bits = kt_row_parts(cfg, na, tb, carry, p, n, out);
+      nvalid += na.valid[n] != 0;
       for (int c = 0; c < IC; ++c) cnt[c] += (bits >> c) & 1u;
     }
     for (int c = 0; c < IC; ++c) {
@@ -51,25 +49,6 @@ __device__ void shard_parts(const CfgC& cfg, const NodeC& na,
     if (threadIdx.x == 0) {
       for (int c = IC; c < KT_MAX_IC; ++c) loc[c] = 0;
       loc[KT_MAX_IC] = total;
-    }
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      const int64_t* used_row = carry.used + (int64_t)n * na.R;
-      const int32_t* port_row = carry.ports + (int64_t)n * carry.P;
-      bool m = na.valid[n] != 0;
-      m = m && (p.node_name_id == 0 || na.name_id[n] == p.node_name_id);
-      m = m && (!na.unschedulable[n] || p.tolerates_unsched);
-      m = m && kt_taints_ok(na, n, p, tb.TT);
-      m = m && kt_selector_ok(na, n, p, tb.Q, tb.TM, tb.V);
-      m = m && kt_ports_ok(port_row, carry.P, p.port_ids, tb.PP);
-      int64_t s_fit, s_bal;
-      kt_fit_scores(cfg, na, n, used_row,
-                    carry.nonzero_used + (int64_t)n * 2, p, &s_fit, &s_bal);
-      out.static_mask[n] = m;
-      out.taint_raw[n] = kt_taint_prefer(na, n, p, tb.TT);
-      out.na_raw[n] = kt_pref_score(na, n, p, tb.PT, tb.Q, tb.V);
-      out.fit_ok[n] = kt_fit(na, n, used_row, carry.npods[n], p);
-      out.s_fit[n] = s_fit;
-      out.s_bal[n] = s_bal;
     }
   } else {
     if (threadIdx.x == 0)

@@ -5,7 +5,8 @@
 // sort and merge in shared memory; only the strides of SORT_CHUNK and
 // above go through global memory, one launch per stride. block_sort_desc
 // (device side): the whole network inside one block, for kernels that
-// keep a dependent chain on one SM (run_wave.cu).
+// keep a dependent chain on one SM (run_wave.cu) or sort a block's share
+// in shared memory (explain_row.cu, run_uniform_sharded.cu).
 #pragma once
 
 #include <cstdint>

@@ -1,14 +1,12 @@
 // The closed form's [K, J] matrix (kubernetes_tpu/ops/program.py
-// _uniform_matrix :1007), shared by run_uniform.cu and
-// run_uniform_sharded.cu: one thread per candidate k (the k-th of the
-// sorted row keys `keys0`, whose node index is folded in modulo N) writes
-// its J post-placement entries — fit, LeastAllocated, BalancedAllocation
-// — and their flat keys `masked · M − entry id`, entry id =
-// (offset + node) · J + j with `offset` the global index of row 0 (0 on
-// one device, the shard's first row on the mesh) and M = (global rows) ·
-// J, so keys are unique across shards. A rising score sequence clears the
-// monotonicity flag. `ovl` (null pointers: none) folds the nominated-pod
-// overlay into the fit only.
+// _uniform_matrix :1007) for run_uniform.cu (run_uniform_sharded.cu
+// builds its own, one thread an entry): one thread per candidate k (the
+// k-th of the sorted row keys `keys0`, whose node index is folded in
+// modulo N) writes its J post-placement entries — fit, LeastAllocated,
+// BalancedAllocation — and their flat keys `masked · M − entry id`,
+// entry id = node · J + j and M = N · J, so keys are unique. A rising
+// score sequence clears the monotonicity flag. `ovl` (null pointers: none)
+// folds the nominated-pod overlay into the fit only.
 #pragma once
 
 #include "lean_eval.cuh"
@@ -21,7 +19,7 @@ __global__ void __launch_bounds__(MBLOCK)
 uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
                       CfgC cfg, OvlD ovl, int32_t tidx, const int64_t* keys0,
                       const int64_t* static_add, int K, int J, int64_t M,
-                      int offset, int32_t* cand, int64_t* keys1,
+                      int32_t* cand, int64_t* keys1,
                       uint8_t* fit_kj, int64_t* sfit_kj, int64_t* sbal_kj,
                       int32_t* flags) {
   const int k = blockIdx.x * MBLOCK + threadIdx.x;
@@ -50,7 +48,7 @@ uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
     if (j > 0 && masked > prev) mono = false;
     prev = masked;
     const int64_t idx = (int64_t)k * J + j;
-    keys1[idx] = masked * M - ((int64_t)(offset + node) * J + j);
+    keys1[idx] = masked * M - ((int64_t)node * J + j);
     fit_kj[idx] = fit;
     sfit_kj[idx] = s_fit;
     sbal_kj[idx] = s_bal;
@@ -59,10 +57,7 @@ uniform_matrix_kernel(NodeC na, TableC tb, CarryC cin, CacheC out,
 }
 
 // the gang verdict over a closed-form result (kubernetes_tpu/ops/gang.py
-// _run_gang_uniform_jit :198-218, and on one node shard
-// kubernetes_tpu/parallel/sharding.py _run_gang_uniform_sharded_jit
-// :1042-1071, with `pu` the shard's assignments and the flags min'd over
-// the shards): placed counts the selections (even
+// _run_gang_uniform_jit :198-218): placed counts the selections (even
 // when an exactness flag failed), accept = placed >= needed, and the
 // output carry keeps run_uniform's result only when the gang is accepted
 // and both flags held — otherwise it receives the input carry's values,

@@ -322,11 +322,19 @@ class UniShardC(ctypes.Structure):
     _fields_ = ([("na", NodeC), ("tb", TableC), ("cin", CarryC),
                  ("cout", CarryC), ("cfg", CfgC)]
                 + [(f, _I) for f in ("sig", "tidx", "offset", "n_global",
-                                     "K", "J", "L", "n_actual")]
-                + [("loc", _P), ("static_add", _P), ("keys0", _P),
-                   ("P0", _I), ("cand", _P), ("keys1", _P), ("P1", _I)]
-                + [(f, _P) for f in ("fit_kj", "sfit_kj", "sbal_kj",
-                                     "counts", "flags", "packed")])
+                                     "K", "J", "L", "L_loc", "n_actual",
+                                     "fused")]
+                + [(f, _P) for f in ("loc", "keys0", "cand", "keys1",
+                                     "fit_kj", "sfit_kj", "sbal_kj", "send",
+                                     "gcount", "top")])
+
+
+USH_MAX_SHARDS = 4     # csrc/run_uniform_sharded.cu KT_USH_MAX_SHARDS
+
+
+class UniBatchC(ctypes.Structure):
+    """csrc/run_uniform_sharded.cu UniBatchC: one device's shards."""
+    _fields_ = [("s", UniShardC * USH_MAX_SHARDS)]
 
 
 class PlanShardC(ctypes.Structure):
@@ -373,8 +381,8 @@ class ExplainArgsC(ctypes.Structure):
                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
                 ("has_groups", _I), ("tidx", _I), ("k", _I),
                 ("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)] + [
-        (f, _P) for f in ("gmask", "flags", "gsc", "masked", "idx", "totals",
-                          "cols", "feasible")]
+        (f, _P) for f in ("part", "cand", "masked", "gsc", "feas", "flags",
+                          "idx", "totals", "cols", "feasible")]
 
 
 def _bind(name: str, lib):
@@ -417,8 +425,11 @@ def _bind(name: str, lib):
         lib.ktpu_cluster_probe.argtypes = [_P, _P]
         lib.ktpu_cluster_probe.restype = ctypes.c_int
     elif name == "explain_row":
-        lib.ktpu_explain_row.argtypes = [_P, _P]
+        lib.ktpu_explain_row.argtypes = [_P, _I, _P]
         lib.ktpu_explain_row.restype = ctypes.c_int
+        lib.ktpu_explain_parts.argtypes = []
+        lib.ktpu_explain_parts.restype = ctypes.c_int
+        lib.parts = lib.ktpu_explain_parts()
     elif name == "score_probe":
         lib.ktpu_score_probe.argtypes = [_P, _P]
         lib.ktpu_score_probe.restype = ctypes.c_int
@@ -436,14 +447,11 @@ def _bind(name: str, lib):
                   "ktpu_shard_gapply", "ktpu_shard_gupdate"):
             getattr(lib, f).restype = ctypes.c_int
     elif name == "run_uniform_sharded":
-        lib.ktpu_uniform_shard_parts.argtypes = [_P, _P]
-        lib.ktpu_uniform_shard_topk.argtypes = [_P, _P, _P]
-        lib.ktpu_uniform_merge.argtypes = [_P, _I, _P, _I, _P]
-        lib.ktpu_uniform_shard_finalize.argtypes = [_P, _P, _P]
-        lib.ktpu_uniform_shard_gang.argtypes = [_P, _I, _P, _P]
-        for f in ("ktpu_uniform_shard_parts", "ktpu_uniform_shard_topk",
-                  "ktpu_uniform_merge", "ktpu_uniform_shard_finalize",
-                  "ktpu_uniform_shard_gang"):
+        lib.ktpu_ush_parts.argtypes = [_P, _I, _I, _P]
+        lib.ktpu_ush_select.argtypes = [_P, _I, _P, _P]
+        lib.ktpu_ush_finalize.argtypes = [_P, _I, _P, _I, _P, _I, _I, _I,
+                                          _P]
+        for f in ("ktpu_ush_parts", "ktpu_ush_select", "ktpu_ush_finalize"):
             getattr(lib, f).restype = ctypes.c_int
     elif name == "run_plan_sharded":
         lib.ktpu_plan_shard_init.argtypes = [_P, _P]
@@ -530,7 +538,7 @@ def _cache_c(cache, N: int, device) -> CacheC:
     return CacheC(**ptrs)
 
 
-def _carry_c(carry, N: int, R: int, device) -> CarryC:
+def _carry_c(carry, N: int, R: int, device, cache: CacheC = None) -> CarryC:
     used = _check(carry.used, "carry.used", torch.int64, 2, device)
     nz = _check(carry.nonzero_used, "carry.nonzero_used", torch.int64, 2,
                 device)
@@ -545,7 +553,8 @@ def _carry_c(carry, N: int, R: int, device) -> CarryC:
         raise ValueError("carry.npods / carry.ports: wrong node count")
     return CarryC(used=used, nonzero_used=nz, npods=npods, ports=ports,
                   P=carry.ports.shape[1],
-                  cache=_cache_c(carry.cache, N, device))
+                  cache=(cache if cache is not None
+                         else _cache_c(carry.cache, N, device)))
 
 
 _TABLE_SPEC = {
@@ -1343,13 +1352,53 @@ def _cluster_probe_launch(cap, valid, used, npods, dom, ndom: int):
     return per_res, dom_stats, valid_count
 
 
+_SMS: dict = {}
+EXPLAIN_BLOCK = 256    # csrc/explain_row.cu BLOCK
+
+
+def _sm_count(device) -> int:
+    """The card's streaming multiprocessors (cached per device)."""
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+def _carve(device, parts: list):
+    """One int64 scratch buffer carved into `parts` ([(name, numel,
+    dtype)], in order, each piece 8-byte aligned): (buffer, {name:
+    data_ptr}, {name: offset in the buffer's int64 elements}); a piece of
+    no elements gets a null pointer."""
+    sizes = [-(-n * dt.itemsize // 8) for _name, n, dt in parts]
+    buf = torch.empty((max(sum(sizes), 1),), dtype=torch.int64,
+                      device=device)
+    base, ptrs, offs, at = buf.data_ptr(), {}, {}, 0
+    for (name, n, _dt), w in zip(parts, sizes):
+        ptrs[name] = base + 8 * at if n else None
+        offs[name] = at
+        at += w
+    return buf, ptrs, offs
+
+
+def explain_row_args(N: int, k: int, SC: int, grid: int, parts: int):
+    """The scratch pieces of one explain_row launch, in carve order."""
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    return [("part", grid * parts, i64), ("cand", grid * k, i64),
+            ("masked", N, i64), ("gsc", N, i64), ("taint_raw", N, i64),
+            ("na_raw", N, i64), ("s_img", N, i64), ("s_fit", N, i64),
+            ("s_bal", N, i64), ("flags", max(SC, 1) * N, i32),
+            ("sig", 1, i32), ("feas", N, u8), ("static_mask", N, u8),
+            ("fit_ok", N, u8)]
+
+
 def explain_row_cuda(cfg, na, carry, table, tidx: int, k: int, gd=None,
                      fam=None):
     """The score decomposition (csrc/explain_row.cu) of table row `tidx`
-    at `carry`; same contract as program.explain_row. The row's parts go
-    to scratch; the caller's carry is never written."""
-    from .program import EXPLAIN_MAX_K, SigCache
-    libs = build()
+    at `carry`; same contract as program.explain_row. One cooperative
+    launch; its scratch (the row's parts, the block partials) is one
+    buffer, its outputs views of another. The caller's carry is never
+    written."""
+    from .program import EXPLAIN_MAX_K
     device = carry.used.device
     node = _node_c(na, device)
     N, R = node.N, node.R
@@ -1359,9 +1408,6 @@ def explain_row_cuda(cfg, na, carry, table, tidx: int, k: int, gd=None,
         raise ValueError(f"explain_row: row {tidx} outside the table")
     if not 1 <= k <= min(EXPLAIN_MAX_K, N):
         raise ValueError(f"explain_row: k = {k} outside 1..min(16, N)")
-    # the carry's rows with a scratch SigCache the kernel fills
-    scratch = SigCache(*(torch.empty_like(t) for t in carry.cache))
-    cc = _carry_c(carry._replace(cache=scratch), N, R, device)
     if gd is not None:
         g = _groups_c(gd, N, device)
         gcc = _gcarry_c(carry.groups, g, device)
@@ -1372,24 +1418,29 @@ def explain_row_cuda(cfg, na, carry, table, tidx: int, k: int, gd=None,
         SC = g.SC
     else:
         g, gcc, famc, SC = GroupsC(), GCarryC(), FamC(), 0
-    i64 = torch.int64
-    gmask = torch.empty((N,), dtype=torch.uint8, device=device)
-    flags = torch.empty((max(SC, 1) * N,), dtype=torch.int32, device=device)
-    gsc = torch.empty((N,), dtype=i64, device=device)
-    masked = torch.empty((N,), dtype=i64, device=device)
-    idx = torch.empty((k,), dtype=torch.int32, device=device)
-    totals = torch.empty((k,), dtype=i64, device=device)
-    cols = torch.empty((k, 6), dtype=i64, device=device)
-    feasible = torch.empty((), dtype=torch.int32, device=device)
+    lib = build()["explain_row"]
+    grid = min(-(-N // EXPLAIN_BLOCK), _sm_count(device))
+    _scratch, ptr, _offs = _carve(device, explain_row_args(
+        N, k, SC, grid, lib.parts))
+    cache = CacheC(**{f: ptr[f] for f in _CACHE_FIELDS})
+    cc = _carry_c(carry, N, R, device, cache=cache)
+    # the outputs: totals [k], cols [k, 6], then idx and the count as int32
+    out = torch.empty((7 * k + (k + 2) // 2,), dtype=torch.int64,
+                      device=device)
+    totals, cols = out[:k], out[k:7 * k].view(k, 6)
+    small = out[7 * k:].view(torch.int32)
+    idx, feasible = small[:k], small[k]
     args = ExplainArgsC(
         na=node, tb=tab, c=cc, cfg=_cfg_c(cfg, R), g=g, gc=gcc, fam=famc,
         has_groups=int(gd is not None), tidx=tidx, k=k,
-        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, gmask=gmask.data_ptr(),
-        flags=flags.data_ptr(), gsc=gsc.data_ptr(), masked=masked.data_ptr(),
+        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa,
+        **{f: ptr[f] for f in ("part", "cand", "masked", "gsc", "feas",
+                               "flags")},
         idx=idx.data_ptr(), totals=totals.data_ptr(), cols=cols.data_ptr(),
         feasible=feasible.data_ptr())
-    rc = libs["explain_row"].ktpu_explain_row(ctypes.addressof(args),
-                                              _stream(device))
+    with torch.cuda.device(device):
+        rc = lib.ktpu_explain_row(ctypes.addressof(args), grid,
+                                  _stream(device))
     _raise_on(rc, "explain_row")
     LAUNCHES["explain_row"] += 1
     return idx, totals, cols, feasible
@@ -1532,97 +1583,149 @@ def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table, groups=None,
     return Shards(outs), out
 
 
-def _uniform_sharded_launches(lib, cfg, mesh, na, carry, x, table,
-                              n_actual: int, L: int, K: int, J: int):
-    """The launches and exchanges of one sharded closed-form run up to the
-    shards' finalize: every shard's parts, the exchange of the counts and
-    maxima, every shard's top-K_loc / matrix / top-L_loc, the all-gather
-    of the keys, one merge a device, every shard's finalize. Returns (the
-    output carries, the per-shard buffers — `packed` [L + 2] each, its
-    flags still the shard's own — and the (struct, stream, device) of
-    every shard, the structs alive with it)."""
-    from ..parallel.sharding import (all_gather, lean_exchange, replicate,
-                                     uniform_shape)
+USH_BLOCK = 256                # csrc/run_uniform_sharded.cu PBLOCK
+USH_FUSED_SMEM = 96 * 1024     # launch 3 as one block up to this, and
+USH_FUSED_ENTRIES = 8192       # up to this many matrix entries
+USH_SORT_ALL = 4096            # csrc/run_uniform_sharded.cu SORT_ALL
+USH_TOP_SMEM = 128 * 1024      # the sorted top-L in shared memory up to this
+
+
+def uniform_sharded_fused(n_local: int, K_loc: int, J: int) -> bool:
+    """Whether run_uniform_sharded.cu's launch 3 runs as one block (a
+    shard's row keys, then its K_loc·J matrix keys, and its candidates in
+    shared memory) rather than as the multi-block chain, whose matrix
+    spreads over the card."""
+    return (K_loc * J <= USH_FUSED_ENTRIES
+            and max(n_local, K_loc * J) * 8 + K_loc * 4 <= USH_FUSED_SMEM)
+
+
+def _fresh_carry(carry):
+    """The output carry of a sharded closed-form run: fresh tensors for
+    every field the kernels write (they write each in full), the ports
+    and group counts shared."""
+    from .program import SigCache
+    e = torch.empty_like
+    return carry._replace(used=e(carry.used),
+                          nonzero_used=e(carry.nonzero_used),
+                          npods=e(carry.npods),
+                          cache=SigCache(*(e(t) for t in carry.cache)))
+
+
+def _fresh_carry_c(oc, R: int) -> CarryC:
+    """The CarryC of a `_fresh_carry` output: its tensors are empty_like
+    copies of checked ones, so only their pointers are read."""
+    return CarryC(used=oc.used.data_ptr(),
+                  nonzero_used=oc.nonzero_used.data_ptr(),
+                  npods=oc.npods.data_ptr(), ports=oc.ports.data_ptr(),
+                  P=oc.ports.shape[1],
+                  cache=CacheC(**{f: getattr(oc.cache, f).data_ptr()
+                                  for f in _CACHE_FIELDS}))
+
+
+def _uniform_sharded_run(cfg, mesh, na, carry, x, table, n_actual: int,
+                         L: int, K: int, J: int, needed=None):
+    """One sharded closed-form run (csrc/run_uniform_sharded.cu): the
+    parts, the exchange of the counts and maxima, the selection
+    launch(es), the all-gather of the keys and flags, the finalize with
+    the verdict, each launch serving every shard of a device (up to
+    four); with `needed` the gang tier. Returns (the output carries,
+    shard 0's packed result)."""
+    from ..parallel.sharding import (Shards, all_gather, lean_exchange,
+                                     replicate, uniform_shape)
+    what = "run_gang_sharded" if needed is not None else \
+        "run_uniform_sharded"
     D = mesh.size
     n_local = na[0].cap.shape[0]
     if not (K >= 1 and J >= 1 and L >= 1):
-        raise ValueError(f"run_uniform_sharded: bad shape L={L} K={K} J={J}")
+        raise ValueError(f"{what}: bad shape L={L} K={K} J={J}")
     K_loc, L_loc, _M = uniform_shape(mesh, n_local, L, K, J)
     sig, tidx = int(x.sig), int(x.tidx)
-    tabs = replicate(mesh, table)
-    i64, i32 = torch.int64, torch.int32
-    P0, P1 = _pow2(n_local), _pow2(K_loc * J)
-    outs, args, bufs = [], [], []
+    fused = uniform_sharded_fused(n_local, K_loc, J)
+    top = _pow2(min(D * L_loc, L))
+    top_global = D * L_loc > USH_SORT_ALL and top * 8 > USH_TOP_SMEM
+    blocks = -(-n_local // USH_BLOCK)
+    LOC = MAX_IC + 3
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    R = na[0].cap.shape[1]
+    cfgc = _cfg_c(cfg, R)
+    tabs = {}
+    same = all(dev == table.req.device for dev in mesh.distinct)
+    for dev, tab_d in zip(mesh.devices, [table] * D if same
+                          else replicate(mesh, table)):
+        if dev not in tabs:
+            tabs[dev] = _table_c(tab_d, R, dev)
+            if not 0 <= tidx < tabs[dev].U:
+                raise ValueError(f"{what}: row {tidx} outside the table")
+    packed = torch.empty((L + (2 if needed is None else 4),), dtype=i32,
+                         device=mesh.devices[0])
+    outs, args, keep, locs, sends = [], [], [], [], []
     for d, dev in enumerate(mesh.devices):
         node = _node_c(na[d], dev)
         if node.N != n_local:
-            raise ValueError("run_uniform_sharded: shards of unequal size")
-        tab = _table_c(tabs[d], node.R, dev)
-        if not 0 <= tidx < tab.U:
-            raise ValueError(f"run_uniform_sharded: row {tidx} outside the "
-                             "table")
-
-        def empty(n, dtype, dev=dev):
-            return torch.empty((n,), dtype=dtype, device=dev)
-
-        oc = _out_carry(carry[d], scan=False)
+            raise ValueError(f"{what}: shards of unequal size")
+        oc = _fresh_carry(carry[d])
         outs.append(oc)
-        b = SimpleNamespace(
-            loc=empty(MAX_IC + 3, i64), static_add=empty(n_local, i64),
-            keys0=empty(P0, i64), cand=empty(K_loc, i32),
-            keys1=(empty(P1, i64) if P1 == K_loc * J else torch.full(
-                (P1,), torch.iinfo(i64).min, dtype=i64, device=dev)),
-            fit_kj=empty(K_loc * J, torch.uint8),
-            sfit_kj=empty(K_loc * J, i64), sbal_kj=empty(K_loc * J, i64),
-            counts=empty(n_local, i32), flags=empty(2, i32),
-            packed=empty(L + 2, i32))
-        bufs.append(b)
+        buf, ptr, off = _carve(dev, [
+            ("loc", blocks * LOC, i64), ("send", L_loc + 2, i64),
+            ("keys0", 0 if fused else n_local, i64),
+            ("keys1", 0 if fused else K_loc * J, i64),
+            ("sfit_kj", K_loc * J, i64), ("sbal_kj", K_loc * J, i64),
+            ("top", top if top_global else 0, i64), ("cand", K_loc, i32),
+            ("gcount", D * n_local, i32), ("fit_kj", K_loc * J, u8)])
+        keep.append(buf)
+        locs.append(buf[:blocks * LOC].view(blocks, LOC))
+        sends.append(buf[off["send"]:off["send"] + L_loc + 2])
         args.append(UniShardC(
-            na=node, tb=tab, cin=_carry_c(carry[d], node.N, node.R, dev),
-            cout=_carry_c(oc, node.N, node.R, dev), cfg=_cfg_c(cfg, node.R),
-            sig=sig, tidx=tidx, offset=d * n_local, n_global=D * n_local,
-            K=K_loc, J=J, L=L, n_actual=int(n_actual), P0=P0, P1=P1,
-            **{k: t.data_ptr() for k, t in vars(b).items()}))
-    # the structs ride along with the shards, alive until the caller's
-    # last launch returns
-    shards = [(ctypes.addressof(a), _stream(dev), dev)
-              for a, dev in zip(args, mesh.devices)]
-    rc = _each(shards, lib.ktpu_uniform_shard_parts)
-    glob = lean_exchange(mesh, [b.loc for b in bufs])
-    rc |= _each(shards, lib.ktpu_uniform_shard_topk, _ptrs(glob))
-    gathered = all_gather(mesh, [b.keys1[:L_loc] for b in bufs])
-    n = D * L_loc
-    P = _pow2(max(n, L))
-    merged = {}
+            na=node, tb=tabs[dev],
+            cin=_carry_c(carry[d], n_local, R, dev),
+            cout=_fresh_carry_c(oc, R), cfg=cfgc, sig=sig, tidx=tidx,
+            offset=d * n_local, n_global=D * n_local, K=K_loc, J=J, L=L,
+            L_loc=L_loc, n_actual=int(n_actual), fused=int(fused), **ptr))
+    lib = build()["run_uniform_sharded"]
+    # one launch a device for up to four of its shards: (device, stream,
+    # batch struct, shard count, the first shard's index)
+    groups = []
     for dev in mesh.distinct:
-        g = gathered[mesh.devices.index(dev)]
-        merged[dev] = torch.empty((P,), dtype=i64, device=dev)
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_uniform_merge(g.data_ptr(), n,
-                                         merged[dev].data_ptr(), P,
-                                         _stream(dev))
-    rc |= _each(shards, lib.ktpu_uniform_shard_finalize,
-                [merged[dev].data_ptr() for dev in mesh.devices])
-    _raise_on(rc, "run_uniform_sharded")
-    bufs[0].structs = args
-    return outs, bufs, shards
+        ds = [d for d, dv in enumerate(mesh.devices) if dv == dev]
+        for at in range(0, len(ds), USH_MAX_SHARDS):
+            part = ds[at:at + USH_MAX_SHARDS]
+            b = UniBatchC()
+            for j, d in enumerate(part):
+                b.s[j] = args[d]
+            groups.append((dev, _stream(dev), b, len(part), part[0]))
+
+    def launch(fn, extra):
+        rc = 0
+        for dev, st, b, S, first in groups:
+            with torch.cuda.device(dev):
+                rc |= fn(ctypes.addressof(b), S, *extra(dev, first), st)
+        return rc
+
+    rc = launch(lib.ktpu_ush_parts, lambda dev, first: (blocks,))
+    glob = dict(zip(mesh.devices, lean_exchange(mesh, locs)))
+    rc |= launch(lib.ktpu_ush_select,
+                 lambda dev, first: (glob[dev].data_ptr(),))
+    gathered = dict(zip(mesh.devices, all_gather(mesh, sends)))
+    gang = needed is not None
+    rc |= launch(lib.ktpu_ush_finalize, lambda dev, first: (
+        gathered[dev].data_ptr(), D,
+        packed.data_ptr() if first == 0 else None, 0 if first == 0 else -1,
+        int(needed) if gang else 0, int(gang)))
+    _raise_on(rc, what)
+    return Shards(outs), packed
 
 
 def run_uniform_sharded_cuda(cfg, mesh, na, carry, x, table, n_actual: int,
                              L: int, K: int, J: int):
     """The closed form over node shards (csrc/run_uniform_sharded.cu);
-    same contract as parallel/sharding.py run_uniform_sharded: every
-    shard's parts, the exchange of the counts and maxima, every shard's
-    top-K_loc / matrix / top-L_loc, the all-gather of the keys, one merge
-    a device, every shard's finalize, the min of the flags."""
-    from ..parallel.sharding import Shards, pmin
-    lib = build()["run_uniform_sharded"]
-    outs, bufs, _shards = _uniform_sharded_launches(
-        lib, cfg, mesh, na, carry, x, table, n_actual, L, K, J)
-    packed = bufs[0].packed
-    packed[L:].copy_(pmin(mesh, [b.packed[L:] for b in bufs])[0])
+    same contract as parallel/sharding.py run_uniform_sharded: three
+    launches a shard (more where a shard's keys outgrow one block) and
+    two exchanges, the flags decided on every shard from the gathered
+    keys."""
+    out = _uniform_sharded_run(cfg, mesh, na, carry, x, table, n_actual, L,
+                               K, J)
     LAUNCHES["run_uniform_sharded"] += 1
-    return Shards(outs), packed
+    return out
 
 
 def scatter_rows_sharded_cuda(mesh, dev, staged):
@@ -1962,25 +2065,11 @@ def run_gang_uniform_sharded_cuda(cfg, mesh, na, carry, x, table,
                                   n_actual: int, needed: int, L: int, K: int,
                                   J: int):
     """The closed-form gang tier over node shards: run_uniform_sharded's
-    launches and exchanges (the flags min'd onto every shard), then each
-    shard's gang epilogue (run_uniform_sharded.cu ktpu_uniform_shard_gang);
-    same contract as parallel/sharding.py run_gang_sharded(uniform=True).
-    Shard 0's packed [L + 4] is returned."""
-    from ..parallel.sharding import pmin
-    lib = build()["run_uniform_sharded"]
-    outs, bufs, shards = _uniform_sharded_launches(
-        lib, cfg, mesh, na, carry, x, table, n_actual, L, K, J)
-    flags = pmin(mesh, [b.packed[L:] for b in bufs])
-    rc = 0
-    packs = []
-    for (a, st, dev), b, f in zip(shards, bufs, flags):
-        b.packed[L:].copy_(f)
-        p = torch.empty((L + 4,), dtype=torch.int32, device=dev)
-        packs.append(p)
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_uniform_shard_gang(a, int(needed), p.data_ptr(),
-                                              st)
-    _raise_on(rc, "run_gang_uniform_sharded")
+    launches and exchanges with the verdict inside each shard's finalize,
+    decided before the carry is written (a rejected gang's output carry
+    equals its input); same contract as parallel/sharding.py
+    run_gang_sharded(uniform=True). Shard 0's packed [L + 4] is returned."""
+    out = _uniform_sharded_run(cfg, mesh, na, carry, x, table, n_actual, L,
+                               K, J, needed=int(needed))
     LAUNCHES["run_gang_uniform_sharded"] += 1
-    from ..parallel.sharding import Shards
-    return Shards(outs), packs[0]
+    return out

@@ -358,10 +358,16 @@ def pmin(mesh: Mesh, xs: list) -> list:
 def lean_exchange(mesh: Mesh, locs: list) -> list:
     """The lean step's one exchange of per-shard parts, as the kernels
     write them: [image counts..., valid nodes | max taint_raw, max
-    na_raw] i64, summed before the bar and maxed after it."""
-    n = locs[0].shape[0] - 2
-    return _reduced(mesh, locs, lambda t: torch.cat([t[:, :n].sum(0),
-                                                     t[:, n:].amax(0)]))
+    na_raw] i64, summed before the bar and maxed after it. A shard's
+    parts may be [blocks, ·] rows, a grid kernel's per-block partials:
+    the blocks reduce with the shards, in the same exchange."""
+    n = locs[0].shape[-1] - 2
+
+    def fold(t):
+        t = t.reshape(-1, t.shape[-1])
+        return torch.cat([t[:, :n].sum(0), t[:, n:].amax(0)])
+
+    return _reduced(mesh, locs, fold)
 
 
 def exchange(mesh: Mesh, locs: list, n_sum: int) -> list:

@@ -1339,3 +1339,185 @@ def test_mesh_scheduler_group_and_gang_drains(cuda, D):
               "run_wave", "run_gang", "run_gang_uniform", "wave_statics",
               "scatter_rows", "cluster_probe"):
         assert K.LAUNCHES[k] == 0, k
+
+
+# ---------------------------------------------------------------------------
+# the grid kernels: explain_row over the node axis in one cooperative
+# launch, and the mesh's closed form with set selection (both branches of
+# its selection launch, the top-L in shared or global memory)
+
+
+def _take_rows(tree, idx):
+    """Every node-first tensor of a NamedTuple tree at rows `idx` (a
+    0-dim tensor, the SigCache's sig, stays)."""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree if tree.dim() == 0 else tree[idx.to(tree.device)]
+    return type(tree)(*(_take_rows(x, idx) for x in tree))
+
+
+EXPLAIN_GRID_CASES = {
+    # name: (nodes, rows: None = the staged bucket, else an int taken
+    #        cyclically from it, pod)
+    "rows_777": (300, 777, "plain"),
+    "ties_65536": (40, 65536, "plain"),
+    "none_feasible": (300, None, "huge"),
+    "pinned_one": (300, 1000, "pinned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EXPLAIN_GRID_CASES))
+@pytest.mark.parametrize("k", [1, 16])
+def test_explain_row_grid_shapes(cuda, case, k):
+    n_nodes, rows, kind = EXPLAIN_GRID_CASES[case]
+    rng = random.Random(11)
+    pod = {"plain": make_pod("p").req({"cpu": "250m", "memory": "512Mi"}),
+           "huge": make_pod("p").req({"cpu": "100"}),
+           "pinned": make_pod("p").req({"cpu": "250m"}).node_selector(
+               {HOSTNAME: "n3"})}[kind].obj()
+    na, batch, table = _staged(rng, n_nodes, [pod], cuda)
+    carry = P.initial_carry(na)
+    if rows is not None:
+        idx = torch.arange(rows) % na.cap.shape[0]
+        na, carry = _take_rows(na, idx), _take_rows(carry, idx)
+    u = int(batch.tidx[0])
+    cfg = P.ScoreConfig()
+    got = P.explain_row(cfg, na, carry, table, u, k=k)
+    want = P._explain_plain(cfg, _cpu(na), _cpu(carry), _cpu(table), u, k)
+    _equal(got, want)
+    if kind == "huge":
+        assert int(got[3]) == 0
+
+
+@pytest.mark.parametrize("k", [5, 16])
+def test_explain_row_grid_every_family(cuda, k):
+    nodes = _zone_nodes(600, 6)
+    existing = [make_pod(f"e{i}").req({"cpu": "1"}).label("app", "mix")
+                .node(f"n{7 * i % 600}").obj() for i in range(90)]
+    pods = _mixed_pods(10, 5, kinds=("spread", "anyway", "affinity", "anti",
+                                     "score"))
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    assert all(fam)
+    carry = P.initial_carry(na, gc)
+    cfg = P.ScoreConfig()
+    for u in sorted(set(int(t) for t in batch.tidx[:len(pods)])):
+        got = P.explain_row(cfg, na, carry, table, u, k=k, gd=gd, fam=fam)
+        want = P._explain_plain(cfg, _cpu(na), _cpu(carry), _cpu(table), u,
+                                k, _cpu(gd), fam)
+        _equal(got, want)
+
+
+# name: (nodes, identical nodes, pod cpu, K, L, J, n_actual); which
+# branch each takes at D shards is held by tests/test_torch_kernels_host.py
+USH_CASES = {
+    "fused_select": (150, False, "1", 64, 64, 8, 64),
+    "fused_all_rows": (150, False, "1", 256, 64, 8, 40),
+    "multi_select": (200, False, "250m", 64, 512, 400, 512),
+    "multi_all_rows": (200, False, "250m", 256, 1024, 200, 700),
+    "top_global": (4000, False, "250m", 4096, 32768, 8, 32768),
+    "fewer_feasible": (100, False, "12", 64, 64, 8, 64),
+    "ties": (300, True, "1", 64, 128, 4, 128),
+}
+
+
+def _ush_setup(rng, n_nodes, proto, cuda, identical=False):
+    if not identical:
+        return _staged(rng, n_nodes, [proto], cuda)
+    cache = Cache()
+    for i in range(n_nodes):
+        cache.add_node(make_node(f"n{i}").capacity(
+            {"cpu": 8, "memory": "16Gi", "pods": 110}).obj())
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    state = ClusterState(device=cuda)
+    state.apply_snapshot(snap)
+    batch = BatchBuilder(state).build([proto])
+    return state.device_arrays(), batch, P.table_from_batch(batch, cuda)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(USH_CASES))
+def test_run_uniform_sharded_selection_shapes(cuda, case, D):
+    # D = 8 shards of one card take two launches a step (four a launch)
+    from kubernetes_tpu_torch.ops import kernels as Kr
+    S, gm, cm = _mesh_pair(D, "one")
+    n_nodes, identical, cpu, K, L, J, n_actual = USH_CASES[case]
+    rng = random.Random(5)
+    proto = make_pod("u").req({"cpu": cpu, "memory": "1Gi"}).obj()
+    na, batch, table = _ush_setup(rng, n_nodes, proto, cuda, identical)
+    N = na.cap.shape[0]
+    K = min(K, N)
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    ctab = P.table_from_batch(batch, "cpu")
+    gc0, cc0 = S.initial_carry_sharded(gna), S.initial_carry_sharded(cna)
+    Kr.reset_launches()
+    gc, gp = S.run_uniform_sharded(P.ScoreConfig(), gm, gna, gc0, x, table,
+                                   n_actual, L, K, J)
+    assert Kr.LAUNCHES["run_uniform_sharded"] == 1
+    cc, cp = S.run_uniform_sharded(P.ScoreConfig(), cm, cna, cc0, x, ctab,
+                                   n_actual, L, K, J)
+    _equal((gp, S.unshard(gc)), (cp, S.unshard(cc)))
+    _equal(S.run_uniform_sharded(P.ScoreConfig(), gm, gna, gc, x, table,
+                                 n_actual, L, K, J)[1],
+           S.run_uniform_sharded(P.ScoreConfig(), cm, cna, cc, x, ctab,
+                                 n_actual, L, K, J)[1])
+    sc, sp = P.run_uniform(P.ScoreConfig(), na, P.initial_carry(na), x,
+                           table, n_actual, L, K, J)
+    # a tie across the K-th candidate: each shard's top-K_loc holds tied
+    # rows the single device's top-K leaves out (the JAX package's mesh
+    # semantics), so only one shard matches the single device there
+    comparable = case != "ties" or D == 1
+    if comparable and all(gp[L:].cpu().tolist()) and all(
+            sp[L:].cpu().tolist()):
+        _equal((gp, S.unshard(gc)), (sp, sc))
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("verdict", ["accept", "reject", "inexact",
+                                     "reject_sig"])
+@pytest.mark.parametrize("case", ["fused_select", "multi_select"])
+def test_run_gang_uniform_sharded_verdicts(cuda, case, verdict, D):
+    from kubernetes_tpu_torch.ops import gang as G
+    S, gm, cm = _mesh_pair(D, "one")
+    n_nodes, identical, cpu, K, L, J, n_actual = USH_CASES[case]
+    # MostAllocated raises the score with each placement: not monotone
+    cfg = P.ScoreConfig(strategy="MostAllocated" if verdict == "inexact"
+                        else "LeastAllocated")
+    rng = random.Random(7)
+    proto = make_pod("g").req({"cpu": cpu, "memory": "1Gi"}).obj()
+    na, batch, table = _ush_setup(rng, n_nodes, proto, cuda, identical)
+    K = min(K, na.cap.shape[0])
+    needed = 10 ** 6 if verdict.startswith("reject") else 1
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    gc0, cc0 = S.initial_carry_sharded(gna), S.initial_carry_sharded(cna)
+    if verdict == "reject_sig":
+        gc0 = S.with_cache_sig_sharded(gc0, 7)
+        cc0 = S.with_cache_sig_sharded(cc0, 7)
+    before = S.unshard(gc0)
+    got = S.run_gang_sharded(cfg, gm, gna, gc0, x, table,
+                             needed=needed, uniform=True, n_actual=n_actual,
+                             L=L, K=K, J=J)
+    want = S.run_gang_sharded(cfg, cm, cna, cc0, x,
+                              P.table_from_batch(batch, "cpu"),
+                              needed=needed, uniform=True,
+                              n_actual=n_actual, L=L, K=K, J=J)
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    _equal(before, S.unshard(gc0))
+    verdict_bits = got[1][L:].cpu().tolist()
+    if verdict.startswith("reject"):
+        assert verdict_bits[0] == 0
+        _equal(S.unshard(got[0]), before)
+    if verdict == "inexact":
+        assert verdict_bits[2] == 0
+        _equal(S.unshard(got[0]), before)
+    sc, sp = G.run_gang(cfg, na, P.initial_carry(na) if
+                        verdict != "reject_sig" else P.with_cache_sig(
+                            P.initial_carry(na), 7), x, table,
+                        needed=needed, uniform=True, n_actual=n_actual, L=L,
+                        K=K, J=J)
+    if bool(sp[L + 2].cpu()) and verdict_bits[2]:
+        _equal((got[1], S.unshard(got[0])), (sp, sc))

@@ -1,0 +1,178 @@
+"""The host halves of the grid kernels (kubernetes_tpu_torch/ops/kernels.py)
+on the CPU: the scratch carving, the argument checks that run before any
+build, the exchange that folds per-block partials with the shards, and
+the branch each shape of tests/test_torch_cuda.py's mesh cases takes.
+
+The kernels themselves run only on the card (tests/test_torch_cuda.py,
+marker `cuda`); here no nvcc exists, so a wrapper that got past its checks
+would fail on the build: every refusal below comes first. Tolerance:
+exact."""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from kubernetes_tpu_torch.backend.cache import Cache, Snapshot
+from kubernetes_tpu_torch.ops import kernels as Kr
+from kubernetes_tpu_torch.ops import program as P
+from kubernetes_tpu_torch.parallel import sharding as S
+from kubernetes_tpu_torch.state.batch import BatchBuilder
+from kubernetes_tpu_torch.state.tensorize import ClusterState, pow2_at_least
+from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
+
+from test_torch_cuda import USH_CASES
+
+
+def _branches(n_nodes: int, K: int, L: int, J: int, D: int) -> set:
+    N = pow2_at_least(n_nodes)
+    mesh = S.make_mesh(devices=["cpu"] * D)
+    n_local = N // D
+    K_loc, L_loc, _M = S.uniform_shape(mesh, n_local, L, min(K, N), J)
+    out = {("fused" if Kr.uniform_sharded_fused(n_local, K_loc, J)
+            else "multi") + ("_select" if K_loc < n_local else "_all_rows")}
+    if D * L_loc > Kr.USH_SORT_ALL and \
+            Kr._pow2(min(D * L_loc, L)) * 8 > Kr.USH_TOP_SMEM:
+        out.add("top_global")
+    return out
+
+
+@pytest.mark.parametrize("branch", ["fused_select", "fused_all_rows",
+                                    "multi_select", "multi_all_rows",
+                                    "top_global"])
+def test_mesh_cases_reach_every_branch(branch):
+    """Some case of the card tests, at D = 1, 2 or 4, takes each branch
+    of run_uniform_sharded.cu: launch 3 as one block or as the multi-block
+    chain, with or without the top-K_loc selection, and the merged top-L
+    in global memory."""
+    hit = [(name, D) for name, (n, _i, _c, K, L, J, _a) in USH_CASES.items()
+           for D in (1, 2, 4) if branch in _branches(n, K, L, J, D)]
+    assert hit, branch
+
+
+def test_fused_threshold_is_the_shared_memory_budget():
+    # max(rows, K_loc·J) int64 keys + K_loc int32 candidates, and a matrix
+    # small enough for one block
+    budget, entries = Kr.USH_FUSED_SMEM, Kr.USH_FUSED_ENTRIES
+    assert Kr.uniform_sharded_fused(budget // 8 - 64, 128, 1)
+    assert not Kr.uniform_sharded_fused(budget // 8 - 63, 128, 1)
+    assert Kr.uniform_sharded_fused(64, 64, entries // 64)
+    assert not Kr.uniform_sharded_fused(64, 64, entries // 64 + 1)
+    # the gang shape at D = 1, 2, 4 (8,192 rows, K = 256, J = 8)
+    assert all(Kr.uniform_sharded_fused(8192 // D, 256, 8)
+               for D in (1, 2, 4))
+
+
+@pytest.mark.parametrize("layout", [
+    [("a", 3, torch.uint8), ("b", 5, torch.int64), ("c", 7, torch.int32)],
+    [("a", 0, torch.int64), ("b", 1, torch.uint8), ("c", 0, torch.int32),
+     ("d", 9, torch.int64)],
+    [("a", 1, torch.int32)],
+])
+def test_carve_pieces_are_aligned_and_disjoint(layout):
+    buf, ptrs, offs = Kr._carve("cpu", layout)
+    base, end = buf.data_ptr(), buf.data_ptr() + 8 * buf.numel()
+    spans = []
+    for name, n, dt in layout:
+        if n == 0:
+            assert ptrs[name] is None
+            continue
+        p = ptrs[name]
+        assert p % 8 == 0 and p == base + 8 * offs[name]
+        assert base <= p and p + n * dt.itemsize <= end
+        spans.append((p, p + n * dt.itemsize))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("SC", [0, 3])
+def test_explain_scratch_holds_every_piece(SC):
+    N, k, grid, parts = 777, 16, 4, 41
+    pieces = Kr.explain_row_args(N, k, SC, grid, parts)
+    names = [p[0] for p in pieces]
+    # the scratch SigCache, and every scratch pointer of ExplainArgsC
+    assert set(Kr._CACHE_FIELDS) <= set(names)
+    scratch = {f for f, _t in Kr.ExplainArgsC._fields_
+               if f in ("part", "cand", "masked", "gsc", "feas", "flags")}
+    assert scratch <= set(names) and len(names) == len(set(names))
+    size = dict((p[0], p[1]) for p in pieces)
+    assert size["part"] == grid * parts and size["cand"] == grid * k
+    assert size["flags"] == max(SC, 1) * N
+    _buf, ptrs, _offs = Kr._carve("cpu", pieces)
+    assert len(set(ptrs.values())) == len(pieces)
+
+
+@pytest.mark.parametrize("D", [1, 2, 4])
+def test_lean_exchange_folds_block_partials_with_the_shards(D):
+    """A grid kernel's [blocks, LOC] partials reduce with the shards in
+    the one exchange: the sums of the counts, the maxima of the last two,
+    as if each shard had sent one reduced row."""
+    rng = np.random.RandomState(D)
+    mesh = S.make_mesh(devices=["cpu"] * D)
+    LOC = Kr.MAX_IC + 3
+    locs = [torch.from_numpy(rng.randint(-50, 2 ** 40, (5, LOC)))
+            for _ in range(D)]
+    got = S.lean_exchange(mesh, locs)
+    rows = torch.cat(locs)
+    want = torch.cat([rows[:, :LOC - 2].sum(0), rows[:, LOC - 2:].amax(0)])
+    flat = S.lean_exchange(mesh, [torch.cat([x[:, :LOC - 2].sum(0),
+                                             x[:, LOC - 2:].amax(0)])
+                                  for x in locs])
+    for g, f in zip(got, flat):
+        assert torch.equal(g, want) and torch.equal(f, want)
+
+
+def _cpu_state(n_nodes=20):
+    rng = random.Random(3)
+    cache = Cache()
+    for i in range(n_nodes):
+        cache.add_node(make_node(f"n{i}").capacity(
+            {"cpu": rng.choice([2, 4, 8]), "memory": "8Gi"}).obj())
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    state = ClusterState(device="cpu")
+    state.apply_snapshot(snap)
+    batch = BatchBuilder(state).build(
+        [make_pod("p").req({"cpu": "1", "memory": "1Gi"}).obj()])
+    return state.device_arrays(), batch, P.table_from_batch(batch, "cpu")
+
+
+@pytest.mark.parametrize("bad", ["tidx", "k_zero", "k_over_16", "k_over_n"])
+def test_explain_row_cuda_checks_before_building(bad):
+    na, batch, table = _cpu_state(6)           # N = 8 rows
+    carry = P.initial_carry(na)
+    u, k = int(batch.tidx[0]), 4
+    if bad == "tidx":
+        u = table.req.shape[0]
+    else:
+        k = {"k_zero": 0, "k_over_16": 17, "k_over_n": 9}[bad]
+    with pytest.raises(ValueError, match="explain_row"):
+        Kr.explain_row_cuda(P.ScoreConfig(), na, carry, table, u, k)
+
+
+@pytest.mark.parametrize("bad", ["K", "J", "L", "tidx", "unequal"])
+@pytest.mark.parametrize("gang", [False, True])
+def test_uniform_sharded_cuda_checks_before_building(bad, gang):
+    na, batch, table = _cpu_state(20)          # N = 32 rows
+    mesh = S.make_mesh(devices=["cpu"] * 2)
+    gna = S.shard_node_arrays(mesh, na)
+    gc = S.initial_carry_sharded(gna)
+    L, K, J = 16, 16, 4
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    if bad in ("K", "J", "L"):
+        L, K, J = (0 if bad == "L" else L, 0 if bad == "K" else K,
+                   0 if bad == "J" else J)
+    elif bad == "tidx":
+        x = P.PodXs(True, int(batch.sig[0]), table.req.shape[0])
+    else:
+        cut = type(gna[1])(*(t[:8] if t.dim() else t for t in gna[1]))
+        gna = S.Shards([gna[0], cut])
+    what = "run_gang_sharded" if gang else "run_uniform_sharded"
+    with pytest.raises(ValueError, match=what):
+        if gang:
+            Kr.run_gang_uniform_sharded_cuda(P.ScoreConfig(), mesh, gna, gc,
+                                             x, table, 8, 8, L, K, J)
+        else:
+            Kr.run_uniform_sharded_cuda(P.ScoreConfig(), mesh, gna, gc, x,
+                                        table, 8, L, K, J)

@@ -240,6 +240,99 @@ def test_run_uniform_sharded_equals_jax(D, case):
         np.testing.assert_array_equal(s[:L], got[:L])
 
 
+def identical_nodes(n=24):
+    """Nodes of one shape: every row key ties but for its index, so the
+    selections' top digits all tie."""
+    return [make_node(f"n{i}").capacity({"cpu": 8, "memory": "16Gi",
+                                         "pods": 110}).zone(f"z{i % 3}")
+            .obj() for i in range(n)]
+
+
+UNIFORM_EDGE_CASES = {
+    # name: (identical nodes, pod cpu, pods, n_actual, L, K, J)
+    "k_below_rows": (False, "250m", 16, 16, 16, 4, 8),
+    "fewer_feasible_than_k": (False, "9", 20, 20, 32, 32, 8),
+    "ties_in_top_digits": (True, "1", 24, 24, 32, 8, 4),
+    "n_actual_below_l": (False, "250m", 10, 10, 32, 32, 8),
+}
+
+
+@pytest.mark.parametrize("case", sorted(UNIFORM_EDGE_CASES))
+@pytest.mark.parametrize("D", DS)
+def test_run_uniform_sharded_edges_equal_jax(D, case):
+    """The selection's edge cases (the kernel selects where the plain
+    version sorts; both are held to the JAX program): fewer candidates
+    than rows, fewer feasible nodes than K, rows whose keys tie in every
+    top digit, fewer pods than L."""
+    ident, cpu, n, n_actual, L, K, J = UNIFORM_EDGE_CASES[case]
+    pods = [make_pod(f"u{i}").req({"cpu": cpu, "memory": "512Mi"}).obj()
+            for i in range(n)]
+    nodes = identical_nodes() if ident else mesh_nodes(soft_taints=False)
+    arrays, batch = staged(nodes, (), pods, n_bucket=N_BUCKET)
+    sig, tidx = int(batch.sig[0]), int(batch.tidx[0])
+    jmesh, tmesh = meshes(D)
+    jna, jc0 = jax_mesh_state(jmesh, arrays)
+    tna, tc0 = torch_mesh_state(tmesh, arrays)
+    jc, jpk = js.run_uniform_sharded(
+        jp.ScoreConfig(), jmesh, jna, jc0,
+        jp.PodXs(valid=np.bool_(True), sig=np.int32(sig),
+                 tidx=np.int32(tidx)),
+        jax_table(batch.table), np.int32(n_actual), L, K, J)
+    tc, tpk = ts.run_uniform_sharded(
+        tp.ScoreConfig(), tmesh, tna, tc0, tp.PodXs(True, sig, tidx),
+        torch_table(batch.table), n_actual, L, K, J)
+    _eq(jpk, tpk)
+    assert_carry_equal(jc, ts.unshard(tc))
+    assert (tpk.numpy()[n_actual:L] == -1).all()
+
+
+GANG_EDGE_CASES = {
+    # name: (soft taints, member cpu, input SigCache sig)
+    "inexact_rejected": (True, "1", 0),
+    "rejected_with_a_cached_sig": (False, "12", 777),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GANG_EDGE_CASES))
+@pytest.mark.parametrize("D", DS)
+def test_run_gang_sharded_uniform_edges(D, case):
+    """A closed-form gang the verdict refuses — inexact (the
+    normalization is not constant), or short of its minimum with a
+    SigCache labelled for another signature — leaves every shard's carry
+    as it came, the sig included, as the JAX program does."""
+    soft, cpu, sig0 = GANG_EDGE_CASES[case]
+    pods = [make_pod(f"t{i}").req({"cpu": cpu, "memory": "1Gi"})
+            .workload("train").obj() for i in range(20)]
+    arrays, batch = staged(mesh_nodes(soft_taints=soft), (), pods,
+                           n_bucket=N_BUCKET)
+    m, L, K, J = len(pods), 32, 32, 8
+    sig, tidx = int(batch.sig[0]), int(batch.tidx[0])
+    jmesh, tmesh = meshes(D)
+    jna, jc0 = jax_mesh_state(jmesh, arrays)
+    tna, tc0 = torch_mesh_state(tmesh, arrays)
+    jc0 = _sig_carry(jc0, js.jax.device_put(np.int32(sig0)))
+    tc0 = ts.with_cache_sig_sharded(tc0, sig0)
+    before = convert.shards_to_numpy(tc0)
+    jc, jpk = js.run_gang_sharded(
+        jp.ScoreConfig(), jmesh, jna, jc0,
+        jp.PodXs(valid=np.bool_(True), sig=np.int32(sig),
+                 tidx=np.int32(tidx)), jax_table(batch.table),
+        needed=np.int32(m), uniform=True, n_actual=np.int32(m), L=L, K=K,
+        J=J)
+    tc, tpk = ts.run_gang_sharded(
+        tp.ScoreConfig(), tmesh, tna, tc0, tp.PodXs(True, sig, tidx),
+        torch_table(batch.table), needed=m, uniform=True, n_actual=m, L=L,
+        K=K, J=J)
+    _eq(jpk, tpk)
+    assert_sharded_carry_equal(jc, tc)
+    accept, exact = bool(tpk[L]), bool(tpk[L + 2])
+    assert not (accept and exact)
+    after = convert.shards_to_numpy(tc)
+    for f in ("used", "nonzero_used", "npods"):
+        np.testing.assert_array_equal(getattr(before, f), getattr(after, f))
+    assert int(after.cache.sig) == sig0
+
+
 def test_run_uniform_sharded_fast_path_after_a_scan():
     """A uniform run after a scan of the same signature reuses the
     replicated SigCache (the fast path) on every shard."""
