@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch port (kubernetes_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, on cuda:0
+    python3 chip_smoke.py --closed-form-times [ROOT]
+        # only the single-device closed form of the port in checkout ROOT
+        # (default: this one), timed in a fresh process: one JSON line
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -832,12 +835,13 @@ def check_run_batch_churn(torch, pkg, device) -> None:
         bound_by=bound_by, ops=vars(ops), bytes=moved)
 
 
-def check_run_uniform(torch, pkg, device, rows: list) -> None:
+def sb_uniform_inputs(pkg, device):
+    """SchedulingBasic's closed-form shape: 5,000 harness nodes holding
+    its init pods, one 900m / 1 Gi signature, L = K = 8,192, J = 8
+    (scheduler._uniform_shape at batch 8,192 over 5,000 nodes): (cfg, na,
+    carry0, x, table, L, K, J)."""
     P = pkg.program
     W = pkg.wrappers
-    # the SchedulingBasic shape: 5,000 harness nodes, one 900m / 1Gi
-    # signature, L = K = 8192, J = 8 (scheduler._uniform_shape at batch
-    # 8192 over 5,000 nodes)
     nodes = [W.make_node(f"node-{i}").capacity(
         {"cpu": 32, "memory": "64Gi", "pods": 110}).zone(
         f"zone-{i % 16}").label("kubernetes.io/hostname", f"node-{i}").obj()
@@ -851,26 +855,133 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
     na, batch, table = staged(nodes, bound, pods, device, pkg)
     L, K, J = BATCH, min(BATCH, na.cap.shape[0]), 8
     x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
-    carry0 = P.initial_carry(na)
-    cfg = P.ScoreConfig()
-    err = 0.0
-    for n_actual in (BATCH, 5000):
-        kc, kp = P.run_uniform(cfg, na, carry0, x, table, n_actual, L, K, J)
-        pc, pp = P._run_uniform_plain(cfg, na, carry0, x, table, n_actual,
-                                      L, K, J)
+    return P.ScoreConfig(), na, P.initial_carry(na), x, table, L, K, J
+
+
+def sb_overlay(torch, na, device):
+    """The nominated-pod overlay at SchedulingBasic's shape: 200 nodes
+    each reserved by nominations of 31 cpu / 1 Gi (room for one run pod
+    at most)."""
+    N, R = na.cap.shape
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_np = np.zeros((N,), np.int32)
+    rows_n = (17 * np.arange(200) + 5) % SB_NODES
+    ovl_used[rows_n, 0] = 31000
+    ovl_used[rows_n, 1] = 1 << 30
+    ovl_np[rows_n] = 1
+    return (torch.from_numpy(ovl_used).to(device),
+            torch.from_numpy(ovl_np).to(device))
+
+
+def gang_uniform_inputs(pkg, device, lean: bool):
+    """GangTraining's closed form: one 900m / 1 Gi gang signature over
+    gang_nodes(lean) padded to 8,192 rows (L = K = 256, J = 8, the
+    Scheduler's gang shape): (na, x, table, K)."""
+    P = pkg.program
+    W = pkg.wrappers
+    proto = W.make_pod("gang-proto").req({"cpu": "900m", "memory": "1Gi"})\
+        .workload("gang").obj()
+    na, batch, table = staged(gang_nodes(W, lean=lean), (), [proto], device,
+                              pkg)
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    return na, x, table, min(256, na.cap.shape[0])
+
+
+def closed_form_times(torch, pkg, device, reps: int = 10) -> dict:
+    """The single-device closed form at its main-path shapes: timed ms
+    (CUDA events over `reps` calls), device ms and its split by kernel
+    (torch.profiler), and torch.topk of the same flat keys (the library
+    yardstick) — run_uniform lean and with the overlay at
+    SchedulingBasic's shape (n_actual = 8,192), run_gang's closed form
+    accepted at GangTraining's. Only the port's public entries are
+    called, so an older checkout is timed the same way
+    (`--closed-form-times ROOT`)."""
+    from kubernetes_tpu_torch.ops import gang as G
+    P = pkg.program
+    cfg, na, carry0, x, table, L, K, J = sb_uniform_inputs(pkg, device)
+    ovl = sb_overlay(torch, na, device)
+    gna, gx, gtable, gK = gang_uniform_inputs(pkg, device, lean=False)
+    gcarry = P.initial_carry(gna)
+    runs = {
+        "run_uniform": (lambda: P.run_uniform(
+            cfg, na, carry0, x, table, BATCH, L, K, J),
+            flat_keys(torch, P, cfg, na, carry0, x, table, K, J), L),
+        "run_uniform_ovl": (lambda: P.run_uniform(
+            cfg, na, carry0, x, table, BATCH, L, K, J, overlay=ovl),
+            flat_keys(torch, P, cfg, na, carry0, x, table, K, J,
+                      overlay=ovl), L),
+        "run_gang_uniform": (lambda: G.run_gang(
+            cfg, gna, gcarry, gx, gtable, needed=256, uniform=True,
+            n_actual=256, L=256, K=gK, J=8),
+            flat_keys(torch, P, cfg, gna, gcarry, gx, gtable, gK, 8), 256),
+    }
+    out = {}
+    for name, (fn, keys, k) in runs.items():
+        out[name] = dict(
+            ms=cuda_ms(torch, fn, reps), device_ms=device_ms(torch, fn, reps),
+            device_split=device_split(torch, fn, reps),
+            library_ms=cuda_ms(torch, lambda: torch.topk(keys, k), reps))
+    return out
+
+
+def check_run_uniform(torch, pkg, device, rows: list) -> None:
+    """run_uniform and its overlay variant held bit for bit to their
+    plain versions at SchedulingBasic's shape (K = N = 8,192: every row
+    a candidate; n_actual 8,192 and 5,000; J = 2 from the output carry,
+    the SigCache fast path) and in every branch of csrc/run_uniform.cu
+    at full width: the top K rows selected (K = 256 over 8,192 rows, and
+    K = 64 over a 512-row cluster), n_actual far below L, both strategies
+    on a mixed cluster, the overlay in each; then timed beside
+    torch.topk."""
+    P = pkg.program
+    W = pkg.wrappers
+    cfg, na, carry0, x, table, L, K, J = sb_uniform_inputs(pkg, device)
+    ovl = sb_overlay(torch, na, device)
+    err = err_o = 0.0
+
+    def held(what, cfg_, na_, c_, x_, t_, n_, L_, K_, J_, ovl_=None):
+        kc, kp = P.run_uniform(cfg_, na_, c_, x_, t_, n_, L_, K_, J_,
+                               overlay=ovl_)
+        pc, pp = P._run_uniform_plain(cfg_, na_, c_, x_, t_, n_, L_, K_,
+                                      J_, overlay=ovl_)
         torch.cuda.synchronize()
-        err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
-                                          f"run_uniform[n={n_actual}]"))
-        flags = kp[L:].tolist()
+        e = assert_equal_trees(torch, (kp, kc), (pp, pc), what)
+        return kc, kp, pc, e
+
+    for n_actual in (BATCH, 5000):
+        kc, kp, pc, e = held(f"run_uniform[n={n_actual}]", cfg, na, carry0,
+                             x, table, n_actual, L, K, J)
+        err = max(err, e)
         log("kernel", name="run_uniform", n_actual=n_actual, exact=True,
-            flags=flags)
+            flags=kp[L:].tolist())
         if n_actual == BATCH:
-            kc_full, kp_full = kc, kp
+            kc_full, kp_full, pc_full = kc, kp, pc
     # depth overflow and the fast path (cache hit) on the same inputs
-    kc2, kp2 = P.run_uniform(cfg, na, kc, x, table, 900, L, K, 2)
-    pc2, pp2 = P._run_uniform_plain(cfg, na, pc, x, table, 900, L, K, 2)
+    kc2, kp2 = P.run_uniform(cfg, na, kc_full, x, table, 900, L, K, 2)
+    pc2, pp2 = P._run_uniform_plain(cfg, na, pc_full, x, table, 900, L, K,
+                                    2)
     err = max(err, assert_equal_trees(torch, (kp2, kc2), (pp2, pc2),
                                       "run_uniform[J=2]"))
+    # the branches: (what, K, L, J, n_actual), lean and with the overlay
+    for what, K_b, L_b, J_b, n_b in (("select K=256", 256, 256, 8, 256),
+                                     ("select K=256 n=100", 256, 256, 8,
+                                      100),
+                                     ("all rows n=100", K, L, J, 100)):
+        err = max(err, held(f"run_uniform[{what}]", cfg, na, carry0, x,
+                            table, n_b, L_b, K_b, J_b)[3])
+        err_o = max(err_o, held(f"run_uniform[ovl, {what}]", cfg, na,
+                                carry0, x, table, n_b, L_b, K_b, J_b,
+                                ovl)[3])
+    small = lean_cluster(np.random.RandomState(4), 500, W)
+    for s, proto in enumerate(lean_pods(np.random.RandomState(3), 8, W,
+                                        "uni", ports=False)[:4]):
+        na_m, b_m, t_m = staged(small, (), [proto], device, pkg)
+        if b_m.sig[0] == 0:
+            continue
+        xm = P.PodXs(True, int(b_m.sig[0]), int(b_m.tidx[0]))
+        err = max(err, held(f"run_uniform[500 nodes {s}, K=64]", cfg, na_m,
+                            P.initial_carry(na_m), xm, t_m, 128, 128, 64,
+                            4)[3])
     # a mixed cluster: taints, images, selectors, both strategies
     mixed = lean_cluster(np.random.RandomState(9), SB_NODES, W)
     for s, proto in enumerate(lean_pods(np.random.RandomState(3), 8, W,
@@ -882,59 +993,37 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
         cm = P.initial_carry(na_m)
         km = min(4096, na_m.cap.shape[0])
         for strategy in ("LeastAllocated", "MostAllocated"):
-            cfg_m = P.ScoreConfig(strategy=strategy)
-            kc3, kp3 = P.run_uniform(cfg_m, na_m, cm, xm, t_m, 3000, 4096,
-                                     km, 8)
-            pc3, pp3 = P._run_uniform_plain(cfg_m, na_m, cm, xm, t_m, 3000,
-                                            4096, km, 8)
-            err = max(err, assert_equal_trees(
-                torch, (kp3, kc3), (pp3, pc3),
-                f"run_uniform[mixed{s},{strategy}]"))
-    log("kernel", name="run_uniform", mixed=True, exact=True)
+            err = max(err, held(f"run_uniform[mixed{s},{strategy}]",
+                                P.ScoreConfig(strategy=strategy), na_m, cm,
+                                xm, t_m, 3000, 4096, km, 8)[3])
+    log("kernel", name="run_uniform", branches=True, exact=True)
 
-    k_ms = cuda_ms(torch, lambda: P.run_uniform(
-        cfg, na, carry0, x, table, BATCH, L, K, J), 10)
+    times = closed_form_times(torch, pkg, device)
+    t = times["run_uniform"]
     plain_ms = cuda_ms(torch, lambda: P._run_uniform_plain(
         cfg, na, carry0, x, table, BATCH, L, K, J), 3)
-    # the library yardstick: torch.topk over the same K·J flat keys
-    keys = flat_keys(torch, P, cfg, na, carry0, x, table, K, J)
-    lib_ms = cuda_ms(torch, lambda: torch.topk(keys, L), 10)
     w = uniform_work(torch, P, cfg, na, carry0, x, table, L, K, J,
                      (kc_full, kp_full))
     moved, ops, entry, feasible, pod, nreq, slots = (
         w.moved, w.ops, w.entry, w.feasible, w.pod, w.nreq, w.slots)
     bound_ms, bound_by = bound_of(moved, ops)
-    log("kernel", name="run_uniform", ms=k_ms, plain_ms=plain_ms,
-        library_ms=lib_ms, L=L, K=K, J=J, max_abs_err=err,
-        bound_ms=bound_ms, ops=vars(ops), bytes=moved)
+    log("kernel", name="run_uniform", plain_ms=plain_ms, L=L, K=K, J=J,
+        max_abs_err=err, bound_ms=bound_ms, ops=vars(ops), bytes=moved,
+        under_library=t["device_ms"] < t["library_ms"], **t)
     rows.append(dict(
         name="run_uniform", route="cuda",
         source="kubernetes_tpu_torch/csrc/run_uniform.cu",
         replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
-        max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=lib_ms))
+        max_abs_err=err, ms=t["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=t["library_ms"],
+        device_ms=t["device_ms"]))
 
-    # the overlay variant at the same shape: 200 nodes each reserved by
-    # nominations of 31 cpu / 1 Gi (room for one run pod at most)
-    N, R = na.cap.shape
-    ovl_used = np.zeros((N, R), np.int64)
-    ovl_np = np.zeros((N,), np.int32)
-    rows_n = (17 * np.arange(200) + 5) % SB_NODES
-    ovl_used[rows_n, 0] = 31000
-    ovl_used[rows_n, 1] = 1 << 30
-    ovl_np[rows_n] = 1
-    ovl = (torch.from_numpy(ovl_used).to(device),
-           torch.from_numpy(ovl_np).to(device))
-    kco, kpo = P.run_uniform(cfg, na, carry0, x, table, BATCH, L, K, J,
-                             overlay=ovl)
-    pco, ppo = P._run_uniform_plain(cfg, na, carry0, x, table, BATCH, L, K,
-                                    J, overlay=ovl)
-    torch.cuda.synchronize()
-    err_o = assert_equal_trees(torch, (kpo, kco), (ppo, pco),
-                               "run_uniform[ovl]")
+    # the overlay variant at the same shape
+    kco, kpo, _pco, e = held("run_uniform[ovl]", cfg, na, carry0, x, table,
+                             BATCH, L, K, J, ovl)
+    err_o = max(err_o, e)
     changed = int((kpo[:L] != kp_full[:L]).sum())
-    k_ms_o = cuda_ms(torch, lambda: P.run_uniform(
-        cfg, na, carry0, x, table, BATCH, L, K, J, overlay=ovl), 10)
+    t_o = times["run_uniform_ovl"]
     plain_ms_o = cuda_ms(torch, lambda: P._run_uniform_plain(
         cfg, na, carry0, x, table, BATCH, L, K, J, overlay=ovl), 3)
     # the lean count plus the overlay's adds on every fit (one per
@@ -946,16 +1035,20 @@ def check_run_uniform(torch, pkg, device, rows: list) -> None:
              + Ops(i64=nreq + 1) * (slots["n_valid"] + feasible_o * J))
     moved_o = moved + ovl_bytes(ovl, table, [x.tidx])
     bound_o, by_o = bound_of(moved_o, ops_o)
-    log("kernel", name="run_uniform_ovl", ms=k_ms_o, plain_ms=plain_ms_o,
-        L=L, K=K, J=J, nominated_nodes=200, assignments_changed=changed,
-        flags=kpo[L:].tolist(), max_abs_err=err_o,
-        bound_ms=bound_o, ops=vars(ops_o), bytes=moved_o)
+    log("kernel", name="run_uniform_ovl", plain_ms=plain_ms_o, L=L, K=K,
+        J=J, nominated_nodes=200, assignments_changed=changed,
+        flags=kpo[L:].tolist(), max_abs_err=err_o, bound_ms=bound_o,
+        ops=vars(ops_o), bytes=moved_o,
+        under_library=t_o["device_ms"] < t_o["library_ms"], **t_o)
+    log("kernel", name="run_gang_uniform", closed_form_times=True,
+        **times["run_gang_uniform"])
     rows.append(dict(
         name="run_uniform_ovl", route="cuda",
         source="kubernetes_tpu_torch/csrc/run_uniform.cu",
         replaces="kubernetes_tpu/ops/program.py:1207", launches=0,
-        max_abs_err=err_o, ms=k_ms_o, plain_ms=plain_ms_o,
-        bound_ms=bound_o, bound_by=by_o, library_ms=None))
+        max_abs_err=err_o, ms=t_o["ms"], plain_ms=plain_ms_o,
+        bound_ms=bound_o, bound_by=by_o, library_ms=t_o["library_ms"],
+        device_ms=t_o["device_ms"]))
 
 
 def uniform_work(torch, P, cfg, na, carry0, x, table, L, K, J, out):
@@ -988,17 +1081,20 @@ def uniform_work(torch, P, cfg, na, carry0, x, table, L, K, J, out):
                            slots=slots)
 
 
-def flat_keys(torch, P, cfg, na, carry, x, table, K, J):
+def flat_keys(torch, P, cfg, na, carry, x, table, K, J, overlay=None):
     """The [K·J] flat keys run_uniform selects its top-L from (plain
-    version), for the torch.topk yardstick."""
+    version, the overlay in the fit), for the torch.topk yardstick."""
     pod = P._gather_row(table, x.tidx, True, x.sig)
-    feas, total, parts = P._eval_pod(cfg, na, carry, pod)
+    feas, total, parts = P._eval_pod(cfg, na, carry, pod, overlay=overlay)
     masked0 = torch.where(feas, total, torch.full_like(total, -1))
     N = masked0.shape[0]
     ar = torch.arange(N, device=masked0.device)
     cand = N - 1 - torch.sort((masked0 + 1) * N + (N - 1 - ar),
                               descending=True).values[:K] % N
-    fit, s_fit, s_bal = P._uniform_matrix(cfg, na, carry.used, carry.npods,
+    fit_used, fit_npods = carry.used, carry.npods
+    if overlay is not None:
+        fit_used, fit_npods = carry.used + overlay[0], carry.npods + overlay[1]
+    fit, s_fit, s_bal = P._uniform_matrix(cfg, na, fit_used, fit_npods,
                                           carry.used, carry.nonzero_used,
                                           cand, pod, J)
     score = cfg.w_fit * s_fit + cfg.w_balanced * s_bal
@@ -2904,8 +3000,8 @@ def check_dry_run(torch, pkg, device, rows: list) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 3, gangs: run_gang's closed-form tier (the gang epilogue of
-# run_uniform.cu) and scan tier (run_gang.cu)
+# phase 3, gangs: run_gang's closed-form tier (run_uniform.cu with the
+# gang verdict) and scan tier (run_gang.cu)
 
 
 def gang_cols(cfg, table, rows) -> list:
@@ -3020,19 +3116,13 @@ def check_run_gang_uniform(torch, pkg, device, rows: list) -> None:
     (PreferNoSchedule taints the gang does not tolerate)."""
     from kubernetes_tpu_torch.ops import gang as G
     P = pkg.program
-    W = pkg.wrappers
     cfg = P.ScoreConfig()
     L, J = 256, 8
     err, times = 0.0, {}
-    proto = W.make_pod("gang-proto").req({"cpu": "900m", "memory": "1Gi"})\
-        .workload("gang").obj()
     for case, needed, lean in (("accept", 256, False),
                                ("reject", 257, False),
                                ("inexact", 256, True)):
-        na, batch, table = staged(gang_nodes(W, lean=lean), (), [proto],
-                                  device, pkg)
-        K = min(L, na.cap.shape[0])
-        x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+        na, x, table, K = gang_uniform_inputs(pkg, device, lean)
         carry = P.initial_carry(na)
         before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
 
@@ -3065,6 +3155,7 @@ def check_run_gang_uniform(torch, pkg, device, rows: list) -> None:
             keys = flat_keys(torch, P, cfg, na, carry, x, table, K, J)
             times[case]["library_ms"] = cuda_ms(
                 torch, lambda: torch.topk(keys, L), 10)
+            times[case]["device_split"] = device_split(torch, kern, 10)
             bound_ms, bound_by, ops, moved = gang_uniform_work(
                 torch, P, cfg, na, carry, x, table, L, K, J, kp)
             times[case].update(bound_ms=bound_ms, bound_by=bound_by,
@@ -4398,24 +4489,50 @@ def outcome(api, sched):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
+def closed_form_main(torch, root: str, smi: str) -> int:
+    """`--closed-form-times ROOT`: the closed-form rows (2, 2o, 13u) of
+    the port in checkout ROOT, its kernels built under ROOT/build, as one
+    JSON line. Two checkouts compare on one card in one call: run each in
+    its own process, in turns (parent, change, change, parent)."""
+    pkg = _Pkg()
+    if not os.path.abspath(pkg.kernels.__file__).startswith(root + os.sep):
+        print(f"chip_smoke: the port came from {pkg.kernels.__file__}, not "
+              f"{root}", file=sys.stderr)
+        return 2
+    pkg.kernels.build()
+    print(json.dumps({"root": root, "nvidia_smi": smi,
+                      "device": torch.cuda.get_device_name(0),
+                      "rows": closed_form_times(torch, pkg, "cuda")}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--closed-form-times", nargs="?", const=HERE,
+                    metavar="ROOT", help="only time the closed form of the "
+                    "port in checkout ROOT (default: this one)")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.closed_form_times or HERE)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); the port's smoke run needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(HERE, "kubernetes_tpu_torch")):
+    if not os.path.isdir(os.path.join(root, "kubernetes_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository (no "
-              "kubernetes_tpu_torch/ beside this script)", file=sys.stderr)
+              f"kubernetes_tpu_torch/ in {root})", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, root)
     device = "cuda"
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.closed_form_times:
+        return closed_form_main(torch, root, smi)
     log("device", name=name, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
 

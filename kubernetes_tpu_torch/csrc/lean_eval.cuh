@@ -687,15 +687,15 @@ __device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
 }
 
 // block_eval_parts' slow path for the one row n, for kernels that run a
-// thread a row (explain_row.cu, run_uniform_sharded.cu): every SigCache
-// part but s_img into `out`. Returns the image-presence bits of a valid
-// row (0 for an invalid one): its share of ImageLocality's counts.
-__device__ __forceinline__ uint32_t kt_row_parts(const CfgC& cfg,
-                                                 const NodeC& na,
-                                                 const TableC& tb,
-                                                 const CarryC& carry,
-                                                 const PodRowD& p, int n,
-                                                 const CacheC& out) {
+// thread a row (explain_row.cu, run_uniform.cu, run_uniform_sharded.cu):
+// every SigCache part but s_img into `out`, the overlay `ovl` (null
+// pointers: none, the default) in the fit only. Returns the
+// image-presence bits of a valid row (0 for an invalid one): its share of
+// ImageLocality's counts.
+__device__ __forceinline__ uint32_t kt_row_parts(
+    const CfgC& cfg, const NodeC& na, const TableC& tb, const CarryC& carry,
+    const PodRowD& p, int n, const CacheC& out,
+    const OvlD& ovl = OvlD{nullptr, nullptr}) {
   const int64_t* used_row = carry.used + (int64_t)n * na.R;
   const int32_t* port_row = carry.ports + (int64_t)n * carry.P;
   // every filter reads only row n and the pod's row, so all of them are
@@ -713,7 +713,7 @@ __device__ __forceinline__ uint32_t kt_row_parts(const CfgC& cfg,
   out.static_mask[n] = m;
   out.taint_raw[n] = kt_taint_prefer(na, n, p, tb.TT);
   out.na_raw[n] = kt_pref_score(na, n, p, tb.PT, tb.Q, tb.V);
-  out.fit_ok[n] = kt_fit(na, n, used_row, carry.npods[n], p);
+  out.fit_ok[n] = kt_fit_ovl(na, n, used_row, carry.npods[n], p, ovl);
   out.s_fit[n] = s_fit;
   out.s_bal[n] = s_bal;
   if (!na.valid[n]) return 0;

@@ -2,7 +2,7 @@
 //
 // Replaces kubernetes_tpu/ops/gang.py run_gang (:221) on its scan tier,
 // _run_gang_scan_impl (:65-188; the jit _run_gang_scan_fn :192). The
-// closed-form tier is the gang epilogue of run_uniform.cu.
+// closed-form tier is run_uniform.cu with the gang verdict.
 //
 // Two launches on the caller's stream:
 //   1. gang_hoist_kernel (grid-wide, one thread per element): the fit

@@ -58,8 +58,8 @@
 // (the node rows once, the matrix) are tens of microseconds of HBM time
 // at most.
 
+#include "closed_form.cuh"
 #include "select.cuh"
-#include "shard_eval.cuh"
 #include "sort.cuh"
 
 struct UniShardC {        // one shard's arguments for one run
@@ -99,62 +99,27 @@ namespace {
 constexpr int PBLOCK = 256;     // the grid kernels
 constexpr int SBLOCK = 1024;    // the one-block kernels
 
-__device__ __forceinline__ int64_t static_add(const CfgC& cfg,
-                                              const CacheC& out, int n,
-                                              int64_t tmax, int64_t namax) {
-  return cfg.w_taint * kt_normalize(out.taint_raw[n], tmax, true)
-       + cfg.w_node_affinity * kt_normalize(out.na_raw[n], namax, false)
-       + cfg.w_image * out.s_img[n];
-}
-
 // the row key of row n (ImageLocality first on a miss): masked score,
 // ties to the lowest row
 __device__ __forceinline__ int64_t row_key(const UniShardC& a,
                                            const PodRowD& p, int n,
                                            bool use_fast,
                                            const int64_t* glob) {
-  const CacheC& out = a.cout.cache;
-  if (!use_fast) shard_s_img(a.na, a.tb, p, n, glob, out);
-  const int N = a.na.N;
-  const bool feas = out.static_mask[n] && out.fit_ok[n];
-  const int64_t masked =
-      feas ? a.cfg.w_fit * out.s_fit[n] + a.cfg.w_balanced * out.s_bal[n]
-                 + static_add(a.cfg, out, n, glob[KT_MAX_IC + 1],
-                              glob[KT_MAX_IC + 2])
-           : -1;
-  return (masked + 1) * N + (N - 1 - n);
+  if (!use_fast) shard_s_img(a.na, a.tb, p, n, glob, a.cout.cache);
+  return kt_row_key(a.cfg, a.cout.cache, n, a.na.N, glob);
 }
 
-// matrix entry (k, j) at candidate row `node` (_uniform_matrix :1007):
-// its fit and scores to the shard's scratch; returns its flat key
+// matrix entry (k, j) at candidate row `node`: its flat key
 // masked · M − ((offset + node) · J + j)
 __device__ __forceinline__ int64_t matrix_entry(const UniShardC& a,
                                                 const PodRowD& p,
                                                 const int64_t* glob, int k,
                                                 int j, int node) {
-  const CacheC& out = a.cout.cache;
-  const int64_t* used = a.cin.used + (int64_t)node * a.na.R;
-  const int64_t* nz = a.cin.nonzero_used + (int64_t)node * 2;
-  bool fit;
-  int64_t s_fit, s_bal;
-  kt_uniform_entry(a.cfg, a.na, node, used, nz, a.cin.npods[node], p, j + 1,
-                   &fit, &s_fit, &s_bal);
-  const int64_t masked = (out.static_mask[node] && fit)
-      ? a.cfg.w_fit * s_fit + a.cfg.w_balanced * s_bal
-            + static_add(a.cfg, out, node, glob[KT_MAX_IC + 1],
-                         glob[KT_MAX_IC + 2])
-      : -1;
-  const int64_t e = (int64_t)k * a.J + j;
-  a.fit_kj[e] = fit;
-  a.sfit_kj[e] = s_fit;
-  a.sbal_kj[e] = s_bal;
-  const int64_t M = (int64_t)a.n_global * a.J;
-  return masked * M - ((int64_t)(a.offset + node) * a.J + j);
-}
-
-// an entry's masked score from its key (the key's floor division by M)
-__device__ __forceinline__ int64_t key_score(int64_t key, int64_t M) {
-  return floordiv(key + M - 1, M);
+  return kt_matrix_entry(a.cfg, a.na, a.cin, a.cout.cache, p, glob,
+                         OvlD{nullptr, nullptr}, node,
+                         (int64_t)a.offset + node, j, a.J,
+                         (int64_t)a.n_global * a.J, (int64_t)k * a.J + j,
+                         a.fit_kj, a.sfit_kj, a.sbal_kj);
 }
 
 // the monotonicity check over the matrix keys and the top-L_loc
@@ -168,7 +133,8 @@ __device__ __forceinline__ void send_top(const UniShardC& a,
   const int64_t M = (int64_t)a.n_global * a.J;
   bool mono = true;
   for (int e = threadIdx.x; e < KJ; e += BLOCK)
-    if (e % a.J != 0 && key_score(keys1[e], M) > key_score(keys1[e - 1], M))
+    if (e % a.J != 0
+        && kt_key_score(keys1[e], M) > kt_key_score(keys1[e - 1], M))
       mono = false;
   mono = __syncthreads_and(mono);
   const auto key = [keys1](int i) { return keys1[i]; };
@@ -185,11 +151,9 @@ __device__ __forceinline__ void send_top(const UniShardC& a,
 __global__ void __launch_bounds__(PBLOCK) ush_parts_kernel(UniBatchC b) {
   __shared__ int64_t acc[KT_SHARD_LOC];
   const UniShardC& a = b.s[blockIdx.y];
-  const int N = a.na.N, R = a.na.R, IC = a.tb.IC;
+  const int N = a.na.N, IC = a.tb.IC;
   const PodRowD p = pod_row(a.tb, a.tidx);
   const bool use_fast = a.sig != 0 && a.sig == *a.cin.cache.sig;
-  const CacheC& in = a.cin.cache;
-  const CacheC& out = a.cout.cache;
   if (threadIdx.x < KT_SHARD_LOC) acc[threadIdx.x] = 0;
   __syncthreads();
   int64_t cnt[KT_MAX_IC];
@@ -197,30 +161,9 @@ __global__ void __launch_bounds__(PBLOCK) ush_parts_kernel(UniBatchC b) {
   int64_t nvalid = 0, tm = 0, nm = 0;
   for (int n = blockIdx.x * PBLOCK + threadIdx.x; n < N;
        n += gridDim.x * PBLOCK) {
-    for (int r = 0; r < R; ++r)
-      a.cout.used[(int64_t)n * R + r] = a.cin.used[(int64_t)n * R + r];
-    a.cout.nonzero_used[(int64_t)n * 2] = a.cin.nonzero_used[(int64_t)n * 2];
-    a.cout.nonzero_used[(int64_t)n * 2 + 1] =
-        a.cin.nonzero_used[(int64_t)n * 2 + 1];
-    a.cout.npods[n] = a.cin.npods[n];
-    if (!use_fast) {
-      const uint32_t bits = kt_row_parts(a.cfg, a.na, a.tb, a.cin, p, n,
-                                         out);
-      nvalid += a.na.valid[n] != 0;
-      for (int c = 0; c < IC; ++c) cnt[c] += (bits >> c) & 1u;
-    } else {
-      out.static_mask[n] = in.static_mask[n];
-      out.taint_raw[n] = in.taint_raw[n];
-      out.na_raw[n] = in.na_raw[n];
-      out.s_img[n] = in.s_img[n];
-      out.fit_ok[n] = in.fit_ok[n];
-      out.s_fit[n] = in.s_fit[n];
-      out.s_bal[n] = in.s_bal[n];
-    }
-    if (out.static_mask[n] && out.fit_ok[n]) {
-      tm = out.taint_raw[n] > tm ? out.taint_raw[n] : tm;
-      nm = out.na_raw[n] > nm ? out.na_raw[n] : nm;
-    }
+    kt_carry_row_copy(a.cin, a.cout, n, a.na.R);
+    kt_closed_row(a.cfg, a.na, a.tb, a.cin, a.cout, p, n, use_fast,
+                  OvlD{nullptr, nullptr}, cnt, nvalid, tm, nm);
   }
   // on the fast path the counts stay zero: s_img is cached
   for (int c = 0; c < IC; ++c) acc_add(&acc[c], cnt[c]);
@@ -358,7 +301,7 @@ ush_finalize_kernel(UniBatchC b, const int64_t* gathered, int D,
   for (int i = t; i < L; i += SBLOCK) {
     const int64_t k = i < take ? top[i] : KT_I64_MIN;
     if (i < take && i < a.n_actual && k > -M) {
-      atomicAdd(&a.gcount[(key_score(k, M) * M - k) / J], 1);
+      atomicAdd(&a.gcount[(kt_key_score(k, M) * M - k) / J], 1);
       ++placed;
     }
   }
@@ -369,7 +312,7 @@ ush_finalize_kernel(UniBatchC b, const int64_t* gathered, int D,
     const int64_t k = i < take ? top[i] : KT_I64_MIN;
     int32_t g = -1;
     if (i < take && i < a.n_actual && k > -M) {
-      g = (int32_t)((key_score(k, M) * M - k) / J);     // global node
+      g = (int32_t)((kt_key_score(k, M) * M - k) / J);     // global node
       deep = deep || a.gcount[g] >= J;
     }
     if (out) out[i] = g;
@@ -394,33 +337,12 @@ ush_finalize_kernel(UniBatchC b, const int64_t* gathered, int D,
     const PodRowD p = pod_row(a.tb, a.tidx);
     for (int k = t; k < a.K; k += SBLOCK) {
       const int node = a.cand[k];
-      const int64_t cnt = a.gcount[a.offset + node];
-      if (cnt > 0) {
-        int64_t* used = c.used + (int64_t)node * R;
-        for (int r = 0; r < R; ++r) used[r] += cnt * p.req[r];
-        c.nonzero_used[(int64_t)node * 2] += cnt * p.nonzero_req[0];
-        c.nonzero_used[(int64_t)node * 2 + 1] += cnt * p.nonzero_req[1];
-        c.npods[node] += (int32_t)cnt;
-      }
-      // entry j = cnt IS the next pod's evaluation; an untouched
-      // candidate rewrites its count-0 entry, which equals the parts
-      const int64_t jj = (int64_t)k * J + (cnt < J - 1 ? cnt : J - 1);
-      c.cache.fit_ok[node] = a.fit_kj[jj];
-      c.cache.s_fit[node] = a.sfit_kj[jj];
-      c.cache.s_bal[node] = a.sbal_kj[jj];
+      kt_closed_apply(c, p, R, node, a.gcount[a.offset + node], J,
+                      (int64_t)k * J, a.fit_kj, a.sfit_kj, a.sbal_kj);
     }
   } else {
-    const CacheC& in = a.cin.cache;
-    for (int r = t; r < N; r += SBLOCK) {
-      c.cache.static_mask[r] = in.static_mask[r];
-      c.cache.taint_raw[r] = in.taint_raw[r];
-      c.cache.na_raw[r] = in.na_raw[r];
-      c.cache.s_img[r] = in.s_img[r];
-      c.cache.fit_ok[r] = in.fit_ok[r];
-      c.cache.s_fit[r] = in.s_fit[r];
-      c.cache.s_bal[r] = in.s_bal[r];
-    }
-    if (t == 0) *c.cache.sig = *in.sig;
+    for (int r = t; r < N; r += SBLOCK) kt_cache_copy(a.cin.cache, c.cache, r);
+    if (t == 0) *c.cache.sig = *a.cin.cache.sig;
   }
 }
 

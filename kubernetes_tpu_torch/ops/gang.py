@@ -28,10 +28,10 @@ Two tiers behind the one `run_gang` entry:
 
 Each tier has a plain PyTorch version (`_run_gang_scan_plain`,
 `_run_gang_uniform_plain`), a line-for-line translation of the JAX
-program, and a hand-written CUDA kernel (csrc/run_gang.cu, the gang
-epilogue of csrc/run_uniform.cu). `run_gang` takes the plain version for
-CPU tensors, launches the kernel for CUDA tensors and raises on any other
-device.
+program, and a hand-written CUDA kernel (csrc/run_gang.cu; for the closed
+form csrc/run_uniform.cu with the gang verdict). `run_gang` takes the
+plain version for CPU tensors, launches the kernel for CUDA tensors and
+raises on any other device.
 """
 
 from __future__ import annotations

@@ -376,6 +376,19 @@ class ScoreProbeArgsC(ctypes.Structure):
                 ("total", _P), ("std", _P)]
 
 
+class UniformArgsC(ctypes.Structure):
+    """csrc/run_uniform.cu UniformArgs."""
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("cin", CarryC),
+                 ("cout", CarryC), ("cfg", CfgC), ("ovl_used", _P),
+                 ("ovl_npods", _P)]
+                + [(f, _I) for f in ("sig", "tidx", "K", "J", "L",
+                                     "n_actual", "gang", "needed", "tile",
+                                     "rank_smem")]
+                + [(f, _P) for f in ("part", "slots", "hist", "keys0",
+                                     "cand", "keys1", "fit_kj", "sfit_kj",
+                                     "sbal_kj", "counts", "sel", "packed")])
+
+
 class ExplainArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
@@ -392,12 +405,8 @@ def _bind(name: str, lib):
             + [_I, _P, _P])
         lib.ktpu_run_batch.restype = ctypes.c_int
     elif name == "run_uniform":
-        lib.ktpu_run_uniform.argtypes = (
-            [_P] * 5 + [_I] * 6 + [_P, _P, _I, _P, _P, _I] + [_P] * 9)
+        lib.ktpu_run_uniform.argtypes = [_P, _I, _P]
         lib.ktpu_run_uniform.restype = ctypes.c_int
-        lib.ktpu_run_gang_uniform.argtypes = (
-            [_P] * 5 + [_I] * 7 + [_P, _P, _I, _P, _P, _I] + [_P] * 8)
-        lib.ktpu_run_gang_uniform.restype = ctypes.c_int
     elif name == "scatter_rows":
         lib.ktpu_scatter_rows.argtypes = [_P, _P, _P]
         lib.ktpu_scatter_rows.restype = ctypes.c_int
@@ -712,23 +721,19 @@ def _clone_groups(gc):
     return type(gc)(*(t.clone() for t in gc))
 
 
-def _out_carry(carry, scan: bool):
-    """The carry a kernel writes in place: copies of the fields it
-    updates, because the input carry may still be held for rewind. The
-    scan (run_batch) writes port ids, group counts and starts from the
-    input SigCache, so all are copied; run_uniform never writes ports or
-    group counts, which stay shared, and writes its SigCache in full,
-    which starts uninitialised."""
+def _out_carry(carry):
+    """The carry the scan (run_batch) writes in place: copies of every
+    field, because the input carry may still be held for rewind (the scan
+    writes port ids and group counts and starts from the input
+    SigCache)."""
     from .program import Carry, SigCache
-    fresh = torch.Tensor.clone if scan else torch.empty_like
     groups = carry.groups
-    if scan and groups is not None:
+    if groups is not None:
         groups = _clone_groups(groups)
     return Carry(used=carry.used.clone(),
                  nonzero_used=carry.nonzero_used.clone(),
-                 npods=carry.npods.clone(),
-                 ports=carry.ports.clone() if scan else carry.ports,
-                 cache=SigCache(*(fresh(t) for t in carry.cache)),
+                 npods=carry.npods.clone(), ports=carry.ports.clone(),
+                 cache=SigCache(*(t.clone() for t in carry.cache)),
                  groups=groups)
 
 
@@ -776,7 +781,7 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
         if nom.shape[0] != B:
             raise ValueError("pods.nom_idx: wrong length")
     tab = _table_c(table, node.R, device)
-    out_carry = _out_carry(carry, scan=True)
+    out_carry = _out_carry(carry)
     cc = _carry_c(out_carry, node.N, node.R, device)
     out = torch.empty((B,), dtype=torch.int32, device=device)
     if groups is not None:
@@ -807,6 +812,8 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
              else "run_batch_ovl" if overlay is not None
              else "run_batch"] += 1
     return out_carry, out
+
+
 def _pow2(n: int) -> int:
     v = 1
     while v < n:
@@ -814,89 +821,136 @@ def _pow2(n: int) -> int:
     return v
 
 
-def _uniform_args(cfg, na, carry, x, table, n_actual: int, L: int,
-                  K: int, J: int, what: str):
-    """The checked arguments and scratch of one closed-form run (shared by
-    run_uniform and the closed-form gang tier): (libs, device, output
-    carry, [NodeC, TableC, in CarryC, out CarryC, CfgC], the scalar and
-    scratch arguments, what must stay alive until the call returns)."""
-    libs = build()
+UNI_BLOCK = 256            # csrc/run_uniform.cu BLOCK
+UNI_SLOTS = 9              # csrc/run_uniform.cu NSLOT
+UNI_HIST = 2 * 8 * 256     # two grid selects of up to eight 8-bit digits
+UNI_TILE = 512             # keys a block orders in shared memory
+UNI_RANK_SMEM = 8192       # selected keys staged for the rank search
+
+
+def uniform_layout(N: int, K: int, J: int, n_actual: int):
+    """How csrc/run_uniform.cu runs one closed form: `rows` is "all" (K =
+    N: every row a candidate) or "grid" (the grid's digit passes select
+    the top K rows); `keys` likewise for the top n_actual of the K·J
+    entries ("none" and "all" need no selection); `tile` the keys a block
+    orders in shared memory, `tiles` how many; `rank` the order's branch:
+    "one_tile", or with more tiles the rank search over the tiles staged
+    in shared memory ("smem") or in place ("global"); `blocks` the grid
+    before the card's cap."""
+    KJ = K * J
+    tile = min(UNI_TILE, _pow2(max(n_actual, 1)))
+    return SimpleNamespace(
+        rows="all" if K == N else "grid",
+        keys=("none" if n_actual == 0 else "all" if n_actual >= KJ
+              else "grid"),
+        tile=tile, tiles=-(-n_actual // tile),
+        rank=("one_tile" if n_actual <= tile else "smem"
+              if n_actual <= UNI_RANK_SMEM else "global"),
+        blocks=max(-(-N // UNI_BLOCK), -(-KJ // UNI_BLOCK), 1))
+
+
+def uniform_scratch(N: int, K: int, J: int, n_actual: int, grid: int):
+    """The scratch pieces of one run_uniform launch, in carve order (the
+    row keys and the candidates only when K < N)."""
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    KJ, sel_rows = K * J, K < N
+    return [("part", grid * (MAX_IC + 3), i64), ("slots", UNI_SLOTS, i64),
+            ("keys0", N if sel_rows else 0, i64), ("keys1", KJ, i64),
+            ("sfit_kj", KJ, i64), ("sbal_kj", KJ, i64),
+            ("sel", n_actual, i64), ("hist", UNI_HIST, i32),
+            ("cand", K if sel_rows else 0, i32), ("counts", N, i32),
+            ("fit_kj", KJ, u8)]
+
+
+def _fresh_carry(carry):
+    """The output carry of a closed-form run: fresh tensors for every
+    field the kernels write (they write each in full), the ports and
+    group counts shared."""
+    from .program import SigCache
+    e = torch.empty_like
+    return carry._replace(used=e(carry.used),
+                          nonzero_used=e(carry.nonzero_used),
+                          npods=e(carry.npods),
+                          cache=SigCache(*(e(t) for t in carry.cache)))
+
+
+def _fresh_carry_c(oc, R: int) -> CarryC:
+    """The CarryC of a `_fresh_carry` output: its tensors are empty_like
+    copies of checked ones, so only their pointers are read."""
+    return CarryC(used=oc.used.data_ptr(),
+                  nonzero_used=oc.nonzero_used.data_ptr(),
+                  npods=oc.npods.data_ptr(), ports=oc.ports.data_ptr(),
+                  P=oc.ports.shape[1],
+                  cache=CacheC(**{f: getattr(oc.cache, f).data_ptr()
+                                  for f in _CACHE_FIELDS}))
+
+
+def _uniform_run(cfg, na, carry, x, table, n_actual: int, L: int, K: int,
+                 J: int, what: str, overlay=None, needed=None):
+    """One closed-form run (csrc/run_uniform.cu): every check first, then
+    one cooperative launch into a fresh output carry, one scratch buffer
+    and the packed result ([L + 2], with `needed` the gang tier's
+    [L + 4])."""
     device = carry.used.device
     node = _node_c(na, device)
-    N = node.N
-    sig, tidx = int(x.sig), int(x.tidx)
+    N, R = node.N, node.R
+    sig, tidx, n_actual = int(x.sig), int(x.tidx), int(n_actual)
     if sig == 0:
         raise ValueError(f"{what} needs a signature (sig != 0)")
-    if not (1 <= K <= N and J >= 1 and L >= 1 and K * J >= L):
+    if not (1 <= K <= N and J >= 1 and 1 <= L <= K * J < 2 ** 31
+            and N * R < 2 ** 31):
         raise ValueError(f"{what}: bad shape L={L} K={K} J={J} N={N}")
-    if not 0 <= int(n_actual) <= L:
+    if not 0 <= n_actual <= L:
         raise ValueError(f"{what}: n_actual {n_actual} outside [0, {L}]")
-    tab = _table_c(table, node.R, device)
+    tab = _table_c(table, R, device)
     if not 0 <= tidx < tab.U:
         raise ValueError(f"{what}: row {tidx} outside the table")
-    cin = _carry_c(carry, N, node.R, device)
-
-    def empty(n, dtype):
-        return torch.empty((n,), dtype=dtype, device=device)
-
-    i64, i32 = torch.int64, torch.int32
-    out_carry = _out_carry(carry, scan=False)
-    cout = _carry_c(out_carry, N, node.R, device)
-    P0, P1 = _pow2(N), _pow2(K * J)
-    static_add, keys0 = empty(N, i64), empty(P0, i64)
-    cand = empty(K, i32)
-    keys1 = (empty(P1, i64) if P1 == K * J
-             else torch.full((P1,), torch.iinfo(i64).min, dtype=i64,
-                             device=device))
-    fit_kj, sfit, sbal = (empty(K * J, torch.uint8), empty(K * J, i64),
-                          empty(K * J, i64))
-    counts, flags = empty(N, i32), empty(4, i32)
-    structs = [node, tab, cin, cout, _cfg_c(cfg, node.R)]
-    keep = (static_add, keys0, cand, keys1, fit_kj, sfit, sbal, counts,
-            flags)
-    head = (sig, tidx, int(n_actual))
-    tail = (L, K, J, static_add.data_ptr(), keys0.data_ptr(), P0,
-            cand.data_ptr(), keys1.data_ptr(), P1, fit_kj.data_ptr(),
-            sfit.data_ptr(), sbal.data_ptr(), counts.data_ptr(),
-            flags.data_ptr())
-    return libs, device, out_carry, structs, head, tail, keep
+    cin = _carry_c(carry, N, R, device)
+    (ovl_used, ovl_npods), _ovl = _overlay_c(overlay, N, R, device,
+                                             copy=False)
+    lay = uniform_layout(N, K, J, n_actual)
+    lib = build()["run_uniform"]
+    grid = min(lay.blocks, _sm_count(device))
+    _scratch, ptr, _offs = _carve(device, uniform_scratch(N, K, J, n_actual,
+                                                          grid))
+    oc = _fresh_carry(carry)
+    packed = torch.empty((L + (2 if needed is None else 4),),
+                         dtype=torch.int32, device=device)
+    args = UniformArgsC(
+        na=node, tb=tab, cin=cin, cout=_fresh_carry_c(oc, R),
+        cfg=_cfg_c(cfg, R), ovl_used=ovl_used, ovl_npods=ovl_npods,
+        sig=sig, tidx=tidx, K=K, J=J, L=L, n_actual=n_actual,
+        gang=int(needed is not None), needed=int(needed or 0),
+        tile=lay.tile, rank_smem=int(lay.rank == "smem"),
+        packed=packed.data_ptr(), **ptr)
+    with torch.cuda.device(device):
+        rc = lib.ktpu_run_uniform(ctypes.addressof(args), grid,
+                                  _stream(device))
+    _raise_on(rc, what)
+    return oc, packed
 
 
 def run_uniform_cuda(cfg, na, carry, x, table, n_actual: int, L: int,
                      K: int, J: int, overlay=None):
-    """The closed-form kernels (csrc/run_uniform.cu) for one same-signature
-    run; same contract as program.run_uniform, with the overlay variant
-    when `overlay` is given (read only)."""
-    libs, device, out_carry, structs, head, tail, _keep = _uniform_args(
-        cfg, na, carry, x, table, n_actual, L, K, J, "run_uniform")
-    ovl_ptrs, _ovl = _overlay_c(overlay, structs[0].N, structs[0].R, device,
-                                copy=False)
-    packed = torch.empty((L + 2,), dtype=torch.int32, device=device)
-    # every struct stays bound to a name until the call returns
-    rc = libs["run_uniform"].ktpu_run_uniform(
-        *(ctypes.addressof(c) for c in structs), *head, *tail,
-        packed.data_ptr(), *ovl_ptrs, _stream(device))
-    _raise_on(rc, "run_uniform")
+    """The closed form (csrc/run_uniform.cu) for one same-signature run;
+    same contract as program.run_uniform, with the overlay variant when
+    `overlay` is given (read only)."""
+    out = _uniform_run(cfg, na, carry, x, table, n_actual, L, K, J,
+                       "run_uniform", overlay=overlay)
     LAUNCHES["run_uniform" if overlay is None else "run_uniform_ovl"] += 1
-    return out_carry, packed
+    return out
 
 
 def run_gang_uniform_cuda(cfg, na, carry, x, table, n_actual: int,
                           needed: int, L: int, K: int, J: int):
-    """The closed-form gang tier (run_uniform.cu ktpu_run_gang_uniform):
-    run_uniform's launches and the gang epilogue; same contract as
-    gang._run_gang_uniform_plain. The output carry holds fresh copies of
-    every field the epilogue may write; the input is only read."""
-    libs, device, out_carry, structs, head, tail, _keep = _uniform_args(
-        cfg, na, carry, x, table, n_actual, L, K, J, "run_gang")
-    pu = torch.empty((L + 2,), dtype=torch.int32, device=device)
-    packed = torch.empty((L + 4,), dtype=torch.int32, device=device)
-    rc = libs["run_uniform"].ktpu_run_gang_uniform(
-        *(ctypes.addressof(c) for c in structs), *head, int(needed), *tail,
-        pu.data_ptr(), packed.data_ptr(), _stream(device))
-    _raise_on(rc, "run_gang_uniform")
+    """The closed-form gang tier (csrc/run_uniform.cu with the verdict,
+    decided before the carry is written: a rejected or inexact gang's
+    output carry equals its input); same contract as
+    gang._run_gang_uniform_plain. The input is only read."""
+    out = _uniform_run(cfg, na, carry, x, table, n_actual, L, K, J,
+                       "run_gang", needed=int(needed))
     LAUNCHES["run_gang_uniform"] += 1
-    return out_carry, packed
+    return out
 
 
 def scatter_rows_cuda(dev, idx, rows):
@@ -1518,7 +1572,7 @@ def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table, groups=None,
                               ("tidx", torch.int32))]
         if pods_r[d].sig.shape[0] != B or pods_r[d].tidx.shape[0] != B:
             raise ValueError("pods: valid/sig/tidx lengths differ")
-        oc = _out_carry(carry[d], scan=True)
+        oc = _out_carry(carry[d])
         outs.append(oc)
         tab = _table_c(tabs[d], node.R, dev)
         gkw = {}
@@ -1597,29 +1651,6 @@ def uniform_sharded_fused(n_local: int, K_loc: int, J: int) -> bool:
     spreads over the card."""
     return (K_loc * J <= USH_FUSED_ENTRIES
             and max(n_local, K_loc * J) * 8 + K_loc * 4 <= USH_FUSED_SMEM)
-
-
-def _fresh_carry(carry):
-    """The output carry of a sharded closed-form run: fresh tensors for
-    every field the kernels write (they write each in full), the ports
-    and group counts shared."""
-    from .program import SigCache
-    e = torch.empty_like
-    return carry._replace(used=e(carry.used),
-                          nonzero_used=e(carry.nonzero_used),
-                          npods=e(carry.npods),
-                          cache=SigCache(*(e(t) for t in carry.cache)))
-
-
-def _fresh_carry_c(oc, R: int) -> CarryC:
-    """The CarryC of a `_fresh_carry` output: its tensors are empty_like
-    copies of checked ones, so only their pointers are read."""
-    return CarryC(used=oc.used.data_ptr(),
-                  nonzero_used=oc.nonzero_used.data_ptr(),
-                  npods=oc.npods.data_ptr(), ports=oc.ports.data_ptr(),
-                  P=oc.ports.shape[1],
-                  cache=CacheC(**{f: getattr(oc.cache, f).data_ptr()
-                                  for f in _CACHE_FIELDS}))
 
 
 def _uniform_sharded_run(cfg, mesh, na, carry, x, table, n_actual: int,

@@ -639,8 +639,8 @@ def test_preemption_kernels_refuse_bad_arguments(cuda):
 
 
 # ---------------------------------------------------------------------------
-# gangs: run_gang's scan tier (run_gang.cu) and closed-form tier (the gang
-# epilogue of run_uniform.cu)
+# gangs: run_gang's scan tier (run_gang.cu) and closed-form tier
+# (run_uniform.cu with the gang verdict)
 
 
 def _gang_layout(batch, m, bucket, device):
@@ -732,6 +732,89 @@ def test_run_gang_uniform_kernel_equals_plain(cuda, seed):
     torch.cuda.synchronize()
     _equal(got, want)
     _equal(before, list(carry[:4]) + list(carry.cache))
+
+
+# run_uniform.cu's branches: name → (nodes, identical nodes, pod cpu, K,
+# L, J, n_actual), K cut to the padded rows N; which branch each takes
+# (every row a candidate or the top K selected by the grid, the counted
+# entries likewise, one shared-memory tile or the tiled ordering, its
+# rank search in shared memory or in place) is held by
+# tests/test_torch_kernels_host.py
+UNI_CASES = {
+    "all_rows_one_tile": (150, False, "1", 256, 256, 8, 200),
+    "all_rows_grid_tiled": (5000, False, "900m", 8192, 8192, 8, 8192),
+    "all_rows_few_pods": (4000, False, "1", 4096, 4096, 8, 100),
+    "small_rows": (300, False, "1", 64, 128, 4, 128),
+    "grid_rows": (5000, False, "900m", 256, 256, 8, 256),
+    "grid_rows_grid_keys": (5000, False, "250m", 1024, 8192, 16, 8192),
+    "rank_in_place": (5000, False, "250m", 4096, 16384, 8, 16384),
+    "every_entry": (20, False, "1", 32, 256, 8, 256),
+    "no_pods": (300, False, "1", 64, 128, 4, 0),
+    "fewer_feasible": (100, False, "12", 64, 64, 8, 64),
+    "ties": (300, True, "1", 64, 128, 4, 128),
+    "j2_depth": (200, False, "250m", 128, 256, 2, 256),
+}
+UNI_TIERS = ["plain", "most_allocated", "overlay", "gang_accept",
+             "gang_reject", "gang_inexact"]
+
+
+@pytest.mark.parametrize("tier", UNI_TIERS)
+@pytest.mark.parametrize("case", sorted(UNI_CASES))
+def test_run_uniform_branch_shapes(cuda, case, tier):
+    """The closed form's one launch equals its plain version bit for bit
+    in every branch: run_uniform lean (both strategies) and with the
+    overlay, and the gang tier accepted, rejected and inexact, each also
+    from its output carry (the SigCache fast path); the input carry is
+    never written, and a rejected or inexact gang's output is its input."""
+    from kubernetes_tpu_torch.ops import gang as G
+    from kubernetes_tpu_torch.ops import kernels as Kr
+    n_nodes, identical, cpu, K, L, J, n_actual = UNI_CASES[case]
+    rng = random.Random(11)
+    proto = make_pod("u").req({"cpu": cpu, "memory": "1Gi"}).obj()
+    na, batch, table = _ush_setup(rng, n_nodes, proto, cuda, identical)
+    N, R = na.cap.shape
+    K = min(K, N)
+    x = P.PodXs(True, int(batch.sig[0]), int(batch.tidx[0]))
+    cfg = P.ScoreConfig(strategy="MostAllocated"
+                        if tier in ("most_allocated", "gang_inexact")
+                        else "LeastAllocated")
+    ovl = None
+    if tier == "overlay":
+        ovl, _nom = _overlay(rng, batch, n_nodes, N, R, cuda,
+                             nominate=False)
+    carry = P.initial_carry(na)
+    before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+    if tier.startswith("gang"):
+        needed = 10 ** 6 if tier == "gang_reject" else 1
+
+        def kern(c):
+            return G.run_gang(cfg, na, c, x, table, needed=needed,
+                              uniform=True, n_actual=n_actual, L=L, K=K,
+                              J=J)
+
+        def plain(c):
+            return G._run_gang_uniform_plain(cfg, na, c, x, table, n_actual,
+                                             needed, L, K, J)
+    else:
+        def kern(c):
+            return P.run_uniform(cfg, na, c, x, table, n_actual, L, K, J,
+                                 overlay=ovl)
+
+        def plain(c):
+            return P._run_uniform_plain(cfg, na, c, x, table, n_actual, L,
+                                        K, J, overlay=ovl)
+    Kr.reset_launches()
+    kc, kp = kern(carry)
+    assert sum(Kr.LAUNCHES.values()) == 1
+    pc, pp = plain(carry)
+    _equal((kp, kc), (pp, pc))
+    _equal(before, list(carry[:4]) + list(carry.cache))
+    if tier.startswith("gang"):
+        accept, _placed, exact, depth = kp[L:].tolist()
+        assert accept == 0 or tier != "gang_reject"
+        if not (accept and exact and depth):
+            _equal(before, list(kc[:4]) + list(kc.cache))
+    _equal(kern(kc), plain(pc))
 
 
 def test_run_gang_kernels_full_width(cuda):

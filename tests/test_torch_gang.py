@@ -428,6 +428,30 @@ def test_uniform_fuzz():
                     uniform=True, seed=seed)
 
 
+@pytest.mark.parametrize("verdict", ["accept", "reject", "inexact"])
+@pytest.mark.parametrize("rows", ["select", "all"])
+def test_uniform_verdict_branch_shapes(rows, verdict):
+    """csrc/run_uniform.cu's gang branches at 32 node rows: a gang of 12
+    (L = K = 16: the top 16 rows selected) or of 24 (L = K = 32: every row
+    a candidate), accepted, rejected (needed above the gang) and inexact
+    (PreferNoSchedule taints: the normalization is not constant); a gang
+    that does not apply returns its input carry."""
+    size = 12 if rows == "select" else 24
+    nodes = _nodes(20, cpu=4, zoned=False, prefer=verdict == "inexact")
+    pk, m, L, tc, tin = gang_parity(
+        nodes, [], _members("g", size), uniform=True,
+        needed=size + 1 if verdict == "reject" else size)
+    assert (L < N_BUCKET) == (rows == "select")
+    accept, placed, exact, depth = _verdict(pk, L)
+    assert placed == size and depth
+    assert accept == (verdict != "reject")
+    assert exact == (verdict != "inexact")
+    if verdict == "accept":
+        assert int(tc.cache.sig) != int(tin.cache.sig)
+    else:
+        _assert_same_values(tc, tin)
+
+
 def test_run_gang_refuses_other_devices():
     from kubernetes_tpu_torch.state.tensorize import Dims, _zero_arrays
     na = convert.node_arrays_from_numpy(_zero_arrays(Dims()), "meta")

@@ -1,7 +1,8 @@
 """The host halves of the grid kernels (kubernetes_tpu_torch/ops/kernels.py)
 on the CPU: the scratch carving, the argument checks that run before any
 build, the exchange that folds per-block partials with the shards, and
-the branch each shape of tests/test_torch_cuda.py's mesh cases takes.
+the branch each shape of tests/test_torch_cuda.py's closed-form and mesh
+cases takes.
 
 The kernels themselves run only on the card (tests/test_torch_cuda.py,
 marker `cuda`); here no nvcc exists, so a wrapper that got past its checks
@@ -22,7 +23,7 @@ from kubernetes_tpu_torch.state.batch import BatchBuilder
 from kubernetes_tpu_torch.state.tensorize import ClusterState, pow2_at_least
 from kubernetes_tpu_torch.testing.wrappers import make_node, make_pod
 
-from test_torch_cuda import USH_CASES
+from test_torch_cuda import UNI_CASES, USH_CASES
 
 
 def _branches(n_nodes: int, K: int, L: int, J: int, D: int) -> set:
@@ -176,3 +177,108 @@ def test_uniform_sharded_cuda_checks_before_building(bad, gang):
         else:
             Kr.run_uniform_sharded_cuda(P.ScoreConfig(), mesh, gna, gc, x,
                                         table, 8, L, K, J)
+
+
+def _uniform_branches(n_nodes: int, K: int, L: int, J: int,
+                      n_actual: int) -> set:
+    N = pow2_at_least(n_nodes)
+    lay = Kr.uniform_layout(N, min(K, N), J, n_actual)
+    return {f"rows_{lay.rows}", f"keys_{lay.keys}", f"rank_{lay.rank}"}
+
+
+@pytest.mark.parametrize("branch", ["rows_all", "rows_grid", "keys_none",
+                                    "keys_all", "keys_grid", "rank_one_tile",
+                                    "rank_smem", "rank_global"])
+def test_uniform_cases_reach_every_branch(branch):
+    """Some case of the card tests takes each branch of run_uniform.cu:
+    every row a candidate, or the top K rows selected by the grid; no
+    entry counted, every entry, or the top n_actual selected by the grid;
+    the order in one shared-memory tile, or tiled with the rank search
+    over tiles staged in shared memory or in place."""
+    hit = [name for name, (n, _i, _c, K, L, J, a) in UNI_CASES.items()
+           if branch in _uniform_branches(n, K, L, J, a)]
+    assert hit, branch
+
+
+def test_uniform_layout_at_the_main_path_shapes():
+    # SchedulingBasic (L = K = N = 8,192, J = 8): every row, the grid's
+    # selection, 16 tiles ranked in shared memory; GangTraining (L = K =
+    # 256): the grid over the rows and over the 2,048 entries, one tile
+    sb = Kr.uniform_layout(8192, 8192, 8, 8192)
+    assert (sb.rows, sb.keys, sb.tiles, sb.rank, sb.blocks) == (
+        "all", "grid", 16, "smem", 256)
+    gt = Kr.uniform_layout(8192, 256, 8, 256)
+    assert (gt.rows, gt.keys, gt.tiles, gt.tile, gt.rank) == (
+        "grid", "grid", 1, 256, "one_tile")
+
+
+@pytest.mark.parametrize("shape", [(32, 16, 4, 8), (512, 64, 4, 128),
+                                   (512, 256, 8, 300), (8192, 1024, 16, 8192)])
+def test_uniform_layout_selects_by_the_grid_at_every_size(shape):
+    # one select path at any count of keys: the grid's digit passes, on a
+    # one-block grid too
+    N, K, J, n_actual = shape
+    lay = Kr.uniform_layout(N, K, J, n_actual)
+    assert (lay.rows, lay.keys) == ("grid", "grid")
+    assert lay.blocks == max(-(-N // Kr.UNI_BLOCK), -(-K * J // Kr.UNI_BLOCK))
+
+
+@pytest.mark.parametrize("shape", [(64, 64, 8, 40, 3), (512, 64, 4, 128, 8),
+                                   (8192, 8192, 8, 0, 132)])
+def test_uniform_scratch_holds_every_piece(shape):
+    N, K, J, n_actual, grid = shape
+    pieces = Kr.uniform_scratch(N, K, J, n_actual, grid)
+    names = [p[0] for p in pieces]
+    ptrs = {f for f, t in Kr.UniformArgsC._fields_ if t is Kr._P}
+    # every scratch pointer of UniformArgsC, the outputs and the overlay
+    # apart
+    assert set(names) == ptrs - {"ovl_used", "ovl_npods", "packed"}
+    assert len(names) == len(set(names))
+    size = {p[0]: p[1] for p in pieces}
+    assert size["part"] == grid * (Kr.MAX_IC + 3)
+    assert size["keys1"] == size["fit_kj"] == K * J
+    assert size["keys0"] == (N if K < N else 0)
+    assert size["sel"] == n_actual
+    buf, ptr, offs = Kr._carve("cpu", pieces)
+    base, end = buf.data_ptr(), buf.data_ptr() + 8 * buf.numel()
+    spans = sorted((ptr[n], ptr[n] + c * dt.itemsize)
+                   for n, c, dt in pieces if c)
+    assert all(p % 8 == 0 and base <= p and q <= end for p, q in spans)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+
+
+# the gang tier has no overlay
+@pytest.mark.parametrize("bad,gang", [
+    (b, g) for b in ("L", "K", "J", "L_over_KJ", "tidx", "sig", "n_actual",
+                     "overlay") for g in (False, True)
+    if not (g and b == "overlay")])
+def test_uniform_cuda_checks_before_building(bad, gang):
+    na, batch, table = _cpu_state(20)          # N = 32 rows
+    carry = P.initial_carry(na)
+    N, R = na.cap.shape
+    L, K, J, n_actual = 16, 16, 4, 8
+    sig, tidx = int(batch.sig[0]), int(batch.tidx[0])
+    overlay = None
+    if bad in ("L", "K", "J"):
+        L, K, J = (0 if bad == "L" else L, 0 if bad == "K" else K,
+                   0 if bad == "J" else J)
+    elif bad == "L_over_KJ":
+        L, K, J = 65, 16, 4
+    elif bad == "tidx":
+        tidx = table.req.shape[0]
+    elif bad == "sig":
+        sig = 0
+    elif bad == "n_actual":
+        n_actual = L + 1
+    else:
+        overlay = (torch.zeros((N, R + 1), dtype=torch.int64),
+                   torch.zeros((N,), dtype=torch.int32))
+    x = P.PodXs(True, sig, tidx)
+    what = "run_gang" if gang else "run_uniform"
+    with pytest.raises(ValueError, match=bad if bad == "overlay" else what):
+        if gang:
+            Kr.run_gang_uniform_cuda(P.ScoreConfig(), na, carry, x, table,
+                                     n_actual, 4, L, K, J)
+        else:
+            Kr.run_uniform_cuda(P.ScoreConfig(), na, carry, x, table,
+                                n_actual, L, K, J, overlay=overlay)

@@ -238,6 +238,31 @@ def test_run_uniform_overlay_fuzz(seed):
                   "memory": f"{rng.randint(0, 4)}Gi"})
 
 
+# csrc/run_uniform.cu's branches under the overlay at 32 node rows:
+# name → (nodes, L, K, J, pods, pod cpu)
+OVERLAY_SHAPES = {
+    "select_rows": (20, 32, 8, 8, 24, "1"),
+    "all_rows": (20, 64, 32, 8, 50, "1"),
+    "fewer_feasible": (20, 64, 32, 4, 60, "3"),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(OVERLAY_SHAPES))
+def test_run_uniform_overlay_branch_shapes(shape):
+    n, L, K, J, n_pods, cpu = OVERLAY_SHAPES[shape]
+    rng = random.Random(7)
+    nodes = [make_node(f"n{i}").capacity(
+        {"cpu": rng.randint(2, 8), "memory": "32Gi", "pods": 110}).obj()
+        for i in range(n)]
+    # a third of the nodes hold nominations of 1-4 cpu
+    ovl_rows = [(r, [rng.randint(1, 4) * 1000, 1 << 30], 1)
+                for r in range(0, n, 3)]
+    packed = uniform_both(nodes, (), n_pods, L, K, J, ovl_rows,
+                          {"cpu": cpu, "memory": "1Gi"})
+    if shape == "fewer_feasible":
+        assert (packed[:n_pods] == -1).any()
+
+
 def test_run_uniform_overlay_reserves_the_nominated_node():
     """n1 is empty and the best score, but an 8-cpu nomination reserves
     it whole: the run goes to n0 only."""

@@ -10,6 +10,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import (private_jax_compiles,  # noqa: F401
                            assert_carry_equal, jax_na, jax_table,
@@ -27,25 +28,30 @@ def _eq(a, b):
     np.testing.assert_array_equal(a, b)
 
 
-def _both_uniform(nodes, bound, n_pods, L, K, J, req=None, pod=None):
+def _both_uniform(nodes, bound, n_pods, L, K, J, req=None, pod=None,
+                  strategy="LeastAllocated"):
     pods = [pod or make_pod(f"p{i}").req(req or {"cpu": "1",
                                                  "memory": "1Gi"}).obj()
-            for i in range(n_pods)]
+            for i in range(max(n_pods, 1))]
     arrays, batch = staged(nodes, bound, pods)
     jna, tna = jax_na(arrays), torch_na(arrays)
     jtab, ttab = jax_table(batch.table), torch_table(batch.table)
-    cfg = jp.ScoreConfig()
     sig, tidx = int(batch.sig[0]), int(batch.tidx[0])
     jc, jpk = jp.run_uniform(
-        cfg, jna, jp.initial_carry(jna),
+        jp.ScoreConfig(strategy=strategy), jna, jp.initial_carry(jna),
         jp.PodXs(valid=np.bool_(True), sig=np.int32(sig),
                  tidx=np.int32(tidx)),
         jtab, np.int32(n_pods), L, K, J)
-    tc, tpk = tp.run_uniform(tp.ScoreConfig(), tna, tp.initial_carry(tna),
+    tna_in = tp.initial_carry(tna)
+    before = [t.clone() for t in list(tna_in[:4]) + list(tna_in.cache)]
+    tc, tpk = tp.run_uniform(tp.ScoreConfig(strategy=strategy), tna, tna_in,
                              tp.PodXs(True, sig, tidx), ttab, n_pods, L, K,
                              J)
     _eq(jpk, tpk)
     assert_carry_equal(jc, tc)
+    # the input carry is never written
+    for a, b in zip(before, list(tna_in[:4]) + list(tna_in.cache)):
+        assert torch.equal(a, b)
     return tpk.numpy()
 
 
@@ -116,3 +122,48 @@ def test_initial_carry():
         _eq(getattr(jc.cache, f), getattr(tc.cache, f))
     # copies, never views of the resident node arrays
     assert tc.used.data_ptr() != tna.used.data_ptr()
+
+
+def _nodes(n, rng, cpu=(2, 32), identical=False):
+    if identical:
+        return [make_node(f"n{i}").capacity(
+            {"cpu": 8, "memory": "16Gi", "pods": 110}).obj()
+            for i in range(n)]
+    return [make_node(f"n{i}").capacity(
+        {"cpu": rng.randint(*cpu), "memory": f"{rng.randint(4, 64)}Gi",
+         "pods": rng.randint(3, 20)}).obj() for i in range(n)]
+
+
+# csrc/run_uniform.cu's branches at the parity tests' 32 node rows:
+# name → (nodes, identical, pod cpu, L, K, J, n_pods, strategy). K < 32
+# selects the candidate rows, K = 32 takes every row; n_pods below L
+# counts only the first n_pods entries
+UNIFORM_SHAPES = {
+    "select_rows": (20, False, "1", 32, 8, 8, 20, "LeastAllocated"),
+    "all_rows": (20, False, "1", 64, 32, 8, 50, "LeastAllocated"),
+    "fewer_feasible": (20, False, "6", 64, 32, 4, 60, "LeastAllocated"),
+    "ties": (12, True, "1", 32, 8, 4, 32, "LeastAllocated"),
+    "j2": (6, False, "1", 32, 32, 2, 30, "LeastAllocated"),
+    "most_allocated": (10, False, "1", 32, 16, 8, 20, "MostAllocated"),
+}
+
+
+@pytest.mark.parametrize("shape", sorted(UNIFORM_SHAPES))
+def test_run_uniform_branch_shapes(shape):
+    n, identical, cpu, L, K, J, n_pods, strategy = UNIFORM_SHAPES[shape]
+    rng = random.Random(len(shape))
+    nodes = _nodes(n, rng, cpu=(4, 8) if shape == "fewer_feasible"
+                   else (2, 32), identical=identical)
+    packed = _both_uniform(nodes, (), n_pods, L, K, J,
+                           req={"cpu": cpu, "memory": "1Gi"},
+                           strategy=strategy)
+    assigned = packed[:L]
+    if shape == "fewer_feasible":
+        assert (assigned[:n_pods] == -1).any()
+    if shape == "ties":
+        # identical rows: the lowest rows first, each a candidate
+        assert set(assigned[:n_pods].tolist()) <= set(range(K))
+    if shape == "j2":
+        assert packed[L + 1] == 0
+    if shape == "most_allocated":
+        assert packed[L] == 0
