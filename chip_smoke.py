@@ -2,9 +2,12 @@
 """Smoke run of the PyTorch port (kubernetes_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase, on cuda:0
-    python3 chip_smoke.py --closed-form-times [ROOT]
-        # only the single-device closed form of the port in checkout ROOT
-        # (default: this one), timed in a fresh process: one JSON line
+    python3 chip_smoke.py --times GROUP [ROOT]
+        # only one group of kernels of the port in checkout ROOT (default:
+        # this one), timed in a fresh process: one JSON line. GROUP
+        # closed_form: run_uniform (lean, overlay) and run_gang's closed
+        # form; plan: run_plan (MixedHighSignature, lean ports span) and
+        # run_plan_sharded on make_mesh(2) / (4) of one card.
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -46,7 +49,10 @@ Phases, each reported on its own line:
      on 256 pods of phase 8's mix, against run_batch's group mode on row
      1g's 1,024-pod span), run_plan_sharded (plain: a 1,024-pod span of
      MixedHighSignature's state and row 7's lean ports span; kernel:
-     MixedHighSignature's full drain, S = 8, W = 4,096),
+     MixedHighSignature's full drain, S = 8, W = 4,096; one launch a
+     span; the host-driven chain of shards on several cards, called on
+     the shards of cuda:0, against the plain version on both spans and
+     the one launch on the full drain),
      run_gang_sharded's scan tier (B = 128, S = 1, w_contig = 2,
      accepted and rejected; S = 4, 60 members in 64 slots) and closed
      form (L = K = 256, J = 8: accepted, rejected, inexact; its selection
@@ -895,7 +901,7 @@ def closed_form_times(torch, pkg, device, reps: int = 10) -> dict:
     SchedulingBasic's shape (n_actual = 8,192), run_gang's closed form
     accepted at GangTraining's. Only the port's public entries are
     called, so an older checkout is timed the same way
-    (`--closed-form-times ROOT`)."""
+    (`--times closed_form ROOT`)."""
     from kubernetes_tpu_torch.ops import gang as G
     P = pkg.program
     cfg, na, carry0, x, table, L, K, J = sb_uniform_inputs(pkg, device)
@@ -1693,8 +1699,12 @@ def check_run_plan(torch, pkg, device, rows: list) -> None:
             has_groups, has_ports = args
         if kind == "lean_ports" and not has_ports:
             fail("run_plan[lean_ports]: the span holds no host-port row")
+        raw0 = pkg.kernels.RAW_LAUNCHES["run_plan"]
         kc, kp = P.run_plan(*args)
         torch.cuda.synchronize()
+        launches_a_span = pkg.kernels.RAW_LAUNCHES["run_plan"] - raw0
+        if launches_a_span != 1:
+            fail(f"run_plan[{kind}]: {launches_a_span} launches a span")
         t0 = time.perf_counter()
         pc, pp = P._run_plan_plain(*args)
         torch.cuda.synchronize()
@@ -1709,6 +1719,8 @@ def check_run_plan(torch, pkg, device, rows: list) -> None:
         bound_ms, bound_by, ops, moved = plan_work(P, args, kc, kp, out)
         placed = sum(1 for x in out[:m] if x >= 0)
         times[kind] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           cluster=pkg.kernels.PLAN_CLUSTER,
+                           launches_a_span=launches_a_span,
                            bound_ms=bound_ms, bound_by=bound_by,
                            placed=placed, conflicts=n_conf, prefix=prefix,
                            ops=vars(ops), bytes=moved, **shape)
@@ -1722,8 +1734,10 @@ def check_run_plan(torch, pkg, device, rows: list) -> None:
         max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"],
         bound_ms=first["bound_ms"], bound_by=first["bound_by"],
         library_ms=None,
+        cluster=first["cluster"],
         by_shape={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
-                                        "bound_ms", "bound_by", "S", "W")}
+                                        "bound_ms", "bound_by", "S", "W",
+                                        "launches_a_span")}
                   for k, v in times.items()}))
 
 
@@ -2571,9 +2585,21 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
 
         # run_plan_sharded: the plain version on a 1,024-pod span of
         # MixedHighSignature's state and on row 7's lean ports span; the
-        # single-device kernel on MixedHighSignature's full drain
+        # single-device kernel on MixedHighSignature's full drain. The
+        # host-driven chain of shards on several cards (placement
+        # "cards") runs here on the shards of one card, held against the
+        # plain version on both spans and against the one-launch grid on
+        # the full drain
         k = "run_plan_sharded"
-        plain_by, kern_by = {}, {}
+        plain_by, kern_by, chain = {}, {}, {}
+
+        def chain_of(sargs):
+            raw0 = pkg.kernels.RAW_LAUNCHES[k]
+            out = pkg.kernels._plan_sharded_chain(
+                *sargs[:6], [int(u) for u in sargs[6]], *sargs[7:])
+            torch.cuda.synchronize()
+            chain["launches_a_span"] = pkg.kernels.RAW_LAUNCHES[k] - raw0
+            return out
         for kind, args in cut.items():
             cfg_, na_, carry_, xs_, table_, wt_, gd_, _st, fam_, nl_, hg_, \
                 hp_ = args
@@ -2589,7 +2615,12 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
             err[k] = max(err[k], assert_equal_trees(
                 torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)),
                 f"{k}[D={D}, {kind}]"))
-            del gna, gc0, ggd, gst, kc, pc
+            (cc, cp), chain[f"{kind}_ms"] = timed(
+                torch, lambda: chain_of(sargs))
+            err[k] = max(err[k], assert_equal_trees(
+                torch, (cp, S.unshard(cc)), (pp, S.unshard(pc)),
+                f"{k}[D={D}, {kind}] chain"))
+            del gna, gc0, ggd, gst, kc, pc, cc
         cfg_, na_, carry_, xs_, table_, wt_, gd_, _st, fam_, nl_, hg_, hp_ \
             = full
         gna, gc0, ggd = sharded_state(S, mesh, na_, carry_, gd_)
@@ -2598,15 +2629,29 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
         def kern_p():
             return S.run_plan_sharded(cfg_, mesh, gna, gc0, xs_, table_, wt_,
                                       ggd, gst, fam_, nl_, hg_, hp_)
+        raw0 = pkg.kernels.RAW_LAUNCHES["run_plan_sharded"]
         kc, kp = kern_p()
+        torch.cuda.synchronize()
+        launches_a_span = pkg.kernels.RAW_LAUNCHES["run_plan_sharded"] - raw0
+        if launches_a_span != 1:
+            fail(f"{k}[D={D}]: {launches_a_span} launches a span on one card")
         assert_equal_trees(torch, (kp, S.unshard(kc)), (sfp, sfc),
                            f"{k}[D={D}] vs run_plan")
+        (cc, cp), chain["ms"] = timed(torch, lambda: chain_of(
+            (cfg_, mesh, gna, gc0, xs_, table_, wt_, ggd, gst, fam_, nl_,
+             hg_, hp_)))
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (cp, S.unshard(cc)), (kp, S.unshard(kc)),
+            f"{k}[D={D}] chain vs one launch"))
+        del cc
         per[k][D] = dict(ms=cuda_ms(torch, kern_p, 1),
+                         launches_a_span=launches_a_span,
                          device_ms=device_ms(torch, kern_p, 1),
                          plain_ms=plain_by["mhs"],
                          plain_lean_ports_ms=plain_by["lean_ports"],
                          cut_ms=kern_by["mhs"],
                          lean_ports_ms=kern_by["lean_ports"],
+                         chain=dict(chain),
                          S=len(wt_), W=int(xs_.valid.shape[0]))
         del gna, gc0, ggd, gst, kc
 
@@ -4489,31 +4534,80 @@ def outcome(api, sched):
 # ---------------------------------------------------------------------------
 
 
-def closed_form_main(torch, root: str, smi: str) -> int:
-    """`--closed-form-times ROOT`: the closed-form rows (2, 2o, 13u) of
-    the port in checkout ROOT, its kernels built under ROOT/build, as one
-    JSON line. Two checkouts compare on one card in one call: run each in
-    its own process, in turns (parent, change, change, parent)."""
+def plan_times(torch, pkg, device, reps: int = 3) -> dict:
+    """The plan program at its main-path shapes: timed ms (CUDA events
+    over `reps` calls; one for the parent's slowest mesh span) and device
+    ms (torch.profiler) — run_plan at MixedHighSignature's first drain
+    (S = 8, W = 4,096) and on the lean ports span (S = 4, W = 1,024), and
+    run_plan_sharded on D shards of one card at both. Only the port's
+    public entries are called, so an older checkout is timed the same way
+    (`--times plan ROOT`)."""
+    P, S = pkg.program, pkg.sharding
+    out = {}
+    for kind in ("mhs", "lean_ports"):
+        args, _m, shape = plan_inputs(torch, pkg, device, kind)
+
+        def single():
+            return P.run_plan(*args)
+        out[f"run_plan[{kind}]"] = dict(
+            ms=cuda_ms(torch, single, reps),
+            device_ms=device_ms(torch, single, reps),
+            S=shape["S"], W=shape["W"])
+        cfg, na, carry, xs, table, wt, gd, _st, fam, nl, hg, hp = args
+        for D in MESH_SIZES:
+            if kind == "lean_ports" and D != 2:
+                continue
+            mesh = S.make_mesh(devices=[device] * D)
+            gna, gc0, ggd = sharded_state(S, mesh, na, carry, gd)
+            gst = S.wave_statics_sharded(mesh, gna, table, wt)
+
+            def sharded():
+                return S.run_plan_sharded(cfg, mesh, gna, gc0, xs, table,
+                                          wt, ggd, gst, fam, nl, hg, hp)
+            n = 1 if kind == "mhs" else reps
+            out[f"run_plan_sharded[{kind}, D={D}]"] = dict(
+                ms=cuda_ms(torch, sharded, n),
+                device_ms=device_ms(torch, sharded, n),
+                S=shape["S"], W=shape["W"], D=D)
+            del gna, gc0, ggd, gst
+        del args
+    return out
+
+
+TIMES = {"closed_form": closed_form_times, "plan": plan_times}
+
+
+def times_main(torch, group: str, root: str, smi: str) -> int:
+    """`--times GROUP ROOT`: one group of kernel rows (closed_form: 2, 2o,
+    13u; plan: 7, 14d) of the port in checkout ROOT, its kernels built
+    under ROOT/build, as one JSON line. Two checkouts compare on one card
+    in one call: run each in its own process, in turns (parent, change,
+    change, parent)."""
     pkg = _Pkg()
     if not os.path.abspath(pkg.kernels.__file__).startswith(root + os.sep):
         print(f"chip_smoke: the port came from {pkg.kernels.__file__}, not "
               f"{root}", file=sys.stderr)
         return 2
     pkg.kernels.build()
-    print(json.dumps({"root": root, "nvidia_smi": smi,
+    print(json.dumps({"root": root, "group": group, "nvidia_smi": smi,
                       "device": torch.cuda.get_device_name(0),
-                      "rows": closed_form_times(torch, pkg, "cuda")}))
+                      "rows": TIMES[group](torch, pkg, "cuda")}))
     return 0
 
 
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--closed-form-times", nargs="?", const=HERE,
-                    metavar="ROOT", help="only time the closed form of the "
-                    "port in checkout ROOT (default: this one)")
+    ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
+                    help="only time one group of kernels (closed_form, "
+                    "plan) of the port in checkout ROOT")
+    ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
+                    help="the checkout --times imports (default: this one)")
     args = ap.parse_args(argv)
-    root = os.path.abspath(args.closed_form_times or HERE)
+    if not args.times and args.root != HERE:
+        ap.error("ROOT names the checkout a group is timed in: it needs "
+                 "--times")
+    root = os.path.abspath(args.root)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4531,8 +4625,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    if args.closed_form_times:
-        return closed_form_main(torch, root, smi)
+    if args.times:
+        return times_main(torch, args.times, root, smi)
     log("device", name=name, count=torch.cuda.device_count(),
         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi)
 

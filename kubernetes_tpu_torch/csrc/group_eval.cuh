@@ -1,7 +1,7 @@
 // Per-node group math (PodTopologySpread + InterPodAffinity) shared by the
-// scan kernel (run_batch.cu), the wave and plan kernels (run_wave.cu,
-// run_plan.cu) and their node-sharded forms (run_batch_sharded.cu,
-// run_plan_sharded.cu). Each
+// scan kernel (run_batch.cu), the wave kernel (run_wave.cu), the plan
+// span (plan_span.cuh, its per-row helpers) and the node-sharded forms
+// (run_batch_sharded.cu, run_plan_sharded.cu). Each
 // function is the CUDA form of the matching plain function in
 // kubernetes_tpu_torch/ops/groups.py and of kubernetes_tpu/ops/groups.py
 // (line numbers below):

@@ -8,11 +8,28 @@
 // every read of the chosen node's row an owner broadcast (`own`,
 // :638-643), and the group normalizers and the spread minimum exchanged.
 //
-// A launch cannot wait on another shard's launch, so each step is a chain
-// of launches per shard with the exchange (kubernetes_tpu_torch/parallel/
-// sharding.py) between them; the wrapper (ops/kernels.py
-// run_plan_sharded_cuda) drives it from the host without reading anything
-// back:
+// Two placements, two implementations:
+//
+// Every shard on one card (ops/kernels.py plan_sharded_placement "one"):
+// ONE cooperative launch a span (ktpu_plan_span_grid), the body of
+// plan_span.cuh over D shards. The grid is D teams of T blocks of
+// KT_PLAN_BLOCK (512) threads, T = ceil(n_local / 512), block b in shard
+// b / T; each block owns a contiguous range of its shard's rows. Each exchange of the
+// chain below becomes one grid-wide reduction: every block writes its
+// part into its slot of a [2, D·T, 8] buffer, grid.sync, and each
+// block's warp 0 folds the slots (summed or maxed as `exchange` does),
+// the two halves alternating by reduction. The owner broadcast needs no exchange: the
+// chosen node's topology values are read from the owning shard's static
+// arrays, which lie on the same card. Nothing reads back to the host
+// between evaluations. A shard's team is its T blocks of the grid: a
+// cluster of CTAs a shard inside the cooperative grid would add a
+// cluster barrier to every grid barrier, since the fold spans the shards.
+//
+// Shards on several cards ("cards"): a launch cannot wait on another
+// card's launch, so each step is a chain of launches per shard with the
+// exchange (kubernetes_tpu_torch/parallel/sharding.py) between them; the
+// wrapper (ops/kernels.py run_plan_sharded_cuda) drives it from the host
+// without reading anything back:
 //   init (one block a shard): the fit surfaces of the S slots at the
 //     pre-span carry (Phase A, :586-592) and the step control;
 //   per evaluation of slot w — the S speculative choices of Phase A
@@ -51,17 +68,17 @@
 // with --fmad=false.
 //
 // What bounds it on an H100: the dependent chain of S + W evaluations,
-// each 4 to 6 launches a shard and up to five exchanges; every launch
-// moves well under a megabyte. Launch latency, not bytes or operations.
-// The design keeps every launch to one block a shard, so a launch is a
-// few microseconds of work, and skips the launches and exchanges of the
+// each moving well under a megabyte: latency, not bytes or operations. On
+// one card that is one to five grid barriers an evaluation (the
+// reductions of the active families only). On several cards each
+// evaluation is 4 to 6 launches a shard and up to five exchanges; that
+// chain keeps every launch to one block a shard, so a launch is a few
+// microseconds of work, and skips the launches and exchanges of the
 // inactive families (the minima without DoNotSchedule terms, the raw
 // pass without ScheduleAnyway terms, the own vector and the update on a
 // group-free span).
 
-#include "group_eval.cuh"
-
-#define KT_PLAN_MAX_S 32
+#include "plan_span.cuh"
 
 // one shard's arguments, mirrored field for field by ctypes
 // (ops/kernels.py PlanShardC)
@@ -402,5 +419,46 @@ extern "C" int ktpu_plan_shard_update(const PlanShardC* a, int k,
                                       const int64_t* gown, void* stream) {
   plan_update_kernel<<<1, BLOCK, 0, (cudaStream_t)stream>>>(*a, k, gkey,
                                                              gown);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// every shard on one card: the whole span in one cooperative launch
+
+namespace {
+
+constexpr int PBLOCK = KT_PLAN_BLOCK;
+
+__global__ void __launch_bounds__(PBLOCK, 1)
+plan_span_grid_kernel(const __grid_constant__ PlanSpanC cm,
+                      const PlanNodesC* all, int T) {
+  __shared__ PlanShared<PBLOCK> sh;
+  const int d = blockIdx.x / T, r = blockIdx.x % T;
+  const int n = cm.n_local, span = (n + T - 1) / T;
+  const int lo = min(n, r * span), hi = min(n, lo + span);
+  GridTeam<PBLOCK> tm{cm.part};
+  plan_span<PBLOCK>(cm, all, d, lo, hi, span, r == 0, blockIdx.x == 0, tm,
+                    sh);
+}
+
+}  // namespace
+
+extern "C" int ktpu_plan_block() { return PBLOCK; }
+
+// all: the D shards' PlanNodesC in device memory; T blocks a shard (the
+// wrapper's T: its partial slots are sized by D·T)
+extern "C" int ktpu_plan_span_grid(const PlanSpanC* cm, const void* all,
+                                   int D, int T, void* stream) {
+  const PlanNodesC* nodes = (const PlanNodesC*)all;
+  void* kargs[] = {(void*)cm, (void*)&nodes, (void*)&T};
+  const int smem = plan_dyn_bytes((cm->n_local + T - 1) / T);
+  cudaError_t e = cudaFuncSetAttribute(
+      plan_span_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel((const void*)plan_span_grid_kernel,
+                                    dim3(D * T), dim3(PBLOCK), kargs, smem,
+                                    (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

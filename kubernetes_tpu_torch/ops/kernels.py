@@ -59,6 +59,11 @@ LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "wave_statics_sharded",
                                            "run_gang_uniform_sharded")}
 
+# CUDA kernel launches the plan programs' wrappers issued (LAUNCHES counts
+# wrapper calls): run_plan one a span; run_plan_sharded one a span on a
+# mesh whose shards share a card, its chain of launches a shard otherwise
+RAW_LAUNCHES = {"run_plan": 0, "run_plan_sharded": 0}
+
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
 # fresh nvcc builds plus library loads per source in this process (the
@@ -70,7 +75,8 @@ MAX_IC = 16    # csrc/lean_eval.cuh KT_MAX_IC
 MAX_SC = 8     # csrc/group_eval.cuh KT_MAX_SC
 MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
 MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
-MAX_PLAN_SLOTS = 32       # csrc/run_plan.cu KT_PLAN_MAX_S
+MAX_PLAN_SLOTS = 32       # csrc/plan_span.cuh KT_PLAN_MAX_S
+PLAN_CLUSTER = 16         # csrc/run_plan.cu KT_PLAN_CLUSTER (CTAs)
 MAX_DRY_R = 64            # csrc/dry_run.cu KT_DRY_MAX_R
 MAX_DRY_V = 128           # victim slots (Evaluator.MAX_BATCHED_VICTIMS)
 
@@ -78,6 +84,8 @@ MAX_DRY_V = 128           # victim slots (Evaluator.MAX_BATCHED_VICTIMS)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in RAW_LAUNCHES:
+        RAW_LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -231,11 +239,6 @@ _WAVE_SCRATCH = ("f_cnt", "veto", "aa_cnt", "cnt_n", "cnt_add", "gmask",
                  "newcnt", "lvlmask")
 
 
-_PLAN_SCRATCH = ("fit_ok", "s_fit", "s_bal", "f_cnt", "s_cnt", "veto",
-                 "a_cnt", "a_total", "aa_cnt", "iscore", "cnt_sn", "feas",
-                 "gsc", "flags", "seg")
-
-
 class WaveArgsC(ctypes.Structure):
     _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
                  ("g", GroupsC), ("gin", GCarryC), ("gout", GCarryC),
@@ -250,21 +253,32 @@ class WaveArgsC(ctypes.Structure):
                 + [("P0", _I), ("P1", _I), ("packed", _P)])
 
 
-class PlanArgsC(ctypes.Structure):
-    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC),
-                 ("g", GroupsC), ("gin", GCarryC), ("gout", GCarryC),
-                 ("fam", FamC)]
-                + [(f, _P) for f in ("used", "nonzero_used", "npods",
-                                     "ports")]
-                + [("P", _I)]
-                + [(f, _P) for f in ("m0", "taint_raw", "na_raw", "s_img",
-                                     "valid", "widx")]
-                + [("wt", _I * MAX_PLAN_SLOTS)]
-                + [(f, _I) for f in ("S", "W", "norm_live", "has_groups",
-                                     "has_ports")]
+class PlanSpanC(ctypes.Structure):
+    """csrc/plan_span.cuh PlanSpanC: what every node shard shares."""
+    _fields_ = ([("tb", TableC), ("cfg", CfgC), ("fam", FamC),
+                 ("valid", _P), ("widx", _P),
+                 ("wt", _I * MAX_PLAN_SLOTS)]
+                + [(f, _I) for f in ("S", "W", "P", "norm_live",
+                                     "has_groups", "has_ports")]
                 + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)]
-                + [(f, _P) for f in _PLAN_SCRATCH]
-                + [("packed", _P)])
+                + [(f, _I) for f in ("n_global", "n_local", "D")]
+                + [(f, _P) for f in ("flags", "part", "packed")])
+
+
+_PLAN_NODE_PTRS = ("used", "nonzero_used", "npods", "ports", "m0",
+                   "taint_raw", "na_raw", "s_img", "fit_ok", "s_fit",
+                   "s_bal")
+
+
+class PlanNodesC(ctypes.Structure):
+    """csrc/plan_span.cuh PlanNodesC: one node shard's arrays."""
+    _fields_ = ([("na", NodeC), ("g", GroupsC), ("gc", GCarryC)]
+                + [(f, _P) for f in _PLAN_NODE_PTRS] + [("offset", _I)])
+
+
+class PlanArgsC(ctypes.Structure):
+    """csrc/run_plan.cu PlanArgs."""
+    _fields_ = [("cm", PlanSpanC), ("nodes", PlanNodesC)]
 
 
 class DryArgsC(ctypes.Structure):
@@ -472,6 +486,11 @@ def _bind(name: str, lib):
         lib.ktpu_plan_shard_update.argtypes = [_P, _I, _P, _P, _P]
         for f in ("init", "min", "eval", "raw", "select", "apply", "update"):
             getattr(lib, f"ktpu_plan_shard_{f}").restype = ctypes.c_int
+        lib.ktpu_plan_span_grid.argtypes = [_P, _P, _I, _I, _P]
+        lib.ktpu_plan_span_grid.restype = ctypes.c_int
+        lib.ktpu_plan_block.argtypes = []
+        lib.ktpu_plan_block.restype = ctypes.c_int
+        lib.block = lib.ktpu_plan_block()
     elif name == "run_gang_sharded":
         lib.ktpu_gang_shard_init.argtypes = [_P, _P]
         lib.ktpu_gang_shard_eval.argtypes = [_P, _I, _P]
@@ -1106,87 +1125,133 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
                  cache=cache, groups=gout_t), packed
 
 
-def run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
-                  norm_live: bool, has_groups: bool, has_ports: bool):
-    """The plan program (csrc/run_plan.cu) over one mixed-signature span;
-    same contract as program.run_plan."""
+PLAN_RED_K = 8        # csrc/plan_span.cuh KT_RED_K
+
+
+def plan_span_parts(S: int, n_local: int, D: int, SC: int, spread_s: bool,
+                    blocks: int) -> list:
+    """The scratch pieces of one plan span launch, in carve order: a grid
+    team's partial slots [2, blocks, PLAN_RED_K] (none for a cluster:
+    blocks = 0), the epoch-tagged spread domain flags [SC, D·n_local]
+    (ScheduleAnyway spans only), then each shard's fit surfaces [S,
+    n_local] (an evaluation's feasible set and raw spread scores live in
+    each CTA's shared memory)."""
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    parts = [("part", 2 * blocks * PLAN_RED_K, i64),
+             ("flags", SC * D * n_local if spread_s else 0, i32)]
+    for d in range(D):
+        parts += [(f"s_fit{d}", S * n_local, i64),
+                  (f"s_bal{d}", S * n_local, i64),
+                  (f"fit_ok{d}", S * n_local, u8)]
+    return parts
+
+
+def _plan_rows(wt, W: int, what: str) -> list:
+    rows = [int(u) for u in wt]
+    if not 1 <= len(rows) <= MAX_PLAN_SLOTS:
+        raise ValueError(f"{what}: {len(rows)} signature slots, kernel "
+                         f"takes 1..{MAX_PLAN_SLOTS}")
+    if W < 1:
+        raise ValueError(f"{what}: an empty span")
+    return rows
+
+
+def _plan_shard(cfg, na, carry, table, rows, gd, statics, fam, has_groups,
+                has_ports, device, what: str, offset: int = 0):
+    """Check one node shard of a plan span and make its outputs: (PlanNodesC
+    without its scratch pointers, the output Carry, the shard's SC, its
+    TableC). Every check runs before anything is allocated or built."""
     from .program import Carry
-    libs = build()
-    device = carry.used.device
     node = _node_c(na, device)
     N, R = node.N, node.R
     tab = _table_c(table, R, device)
-    rows = [int(u) for u in wt]
-    S = len(rows)
-    if not 1 <= S <= MAX_PLAN_SLOTS:
-        raise ValueError(f"run_plan: {S} signature slots, kernel takes "
-                         f"1..{MAX_PLAN_SLOTS}")
     if any(not 0 <= u < tab.U for u in rows):
-        raise ValueError(f"run_plan: rows {rows} outside the table")
-    W = xs.valid.shape[0]
-    valid_p = _check(xs.valid, "xs.valid", torch.bool, 1, device)
-    widx_p = _check(xs.widx, "xs.widx", torch.int32, 1, device)
-    if xs.widx.shape[0] != W or W < 1:
-        raise ValueError("run_plan: xs.valid / xs.widx lengths differ")
-    stat = [_check(t, f"statics[{k}]", dt, 2, device) for k, (t, dt) in
-            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
-                                    torch.int64)))]
-    if any(tuple(t.shape) != (S, N) for t in statics):
-        raise ValueError(f"run_plan: statics must be [{S}, {N}] each")
+        raise ValueError(f"{what}: rows {rows} outside the table")
+    stat = _check_statics(statics, len(rows), N, device, what)
     _carry_c(carry, N, R, device)
-    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
     if has_groups:
         g = _groups_c(gd, N, device)
-        gin = _gcarry_c(carry.groups, g, device)
-        if any(u >= g.U for u in rows):
-            raise ValueError(f"run_plan: rows {rows} outside the group "
+        _gcarry_c(carry.groups, g, device)
+        if any(u >= g.U for u in rows) or g.U > tab.U:
+            raise ValueError(f"{what}: rows {rows} outside the group "
                              "tables")
-        if g.U > tab.U:
-            raise ValueError("run_plan: more group rows than table rows")
         gout_t = _clone_groups(carry.groups)
-        gout = _gcarry_c(gout_t, g, device)
-        famc = _fam_c(fam)
-        SC, TA, TAA = g.SC, g.TA, g.TAA
+        gc, SC = _gcarry_c(gout_t, g, device), g.SC
     else:
-        g, gin, gout, famc = GroupsC(), GCarryC(), GCarryC(), FamC()
-        gout_t = carry.groups
-        SC = TA = TAA = 0
-    used = carry.used.clone()
-    nz = carry.nonzero_used.clone()
-    npods = carry.npods.clone()
+        g, gc, gout_t, SC = GroupsC(), GCarryC(), carry.groups, 0
+    used, nz, npods = (carry.used.clone(), carry.nonzero_used.clone(),
+                       carry.npods.clone())
     ports = carry.ports.clone() if has_ports else carry.ports
-    G = S if has_groups else 0    # slots with group state
-    sizes = {"fit_ok": (S * N, u8), "s_fit": (S * N, i64),
-             "s_bal": (S * N, i64), "feas": (N, u8),
-             "f_cnt": (G * SC * N, i32), "s_cnt": (G * SC * N, i32),
-             "veto": (G * N, i32), "a_cnt": (G * TA * N, i32),
-             "a_total": (G, i64), "aa_cnt": (G * TAA * N, i32),
-             "iscore": (G * N, i64), "cnt_sn": (G * N, i32),
-             "gsc": (G and N, i64), "flags": (SC * N, i32),
-             "seg": (G and N, i64)}
-    scratch = {k: torch.empty((max(n, 1),), dtype=dt, device=device)
-               for k, (n, dt) in sizes.items()}
-    packed = torch.empty((W + 2,), dtype=i32, device=device)
-    wt_c = (_I * MAX_PLAN_SLOTS)(*(rows + [0] * (MAX_PLAN_SLOTS - S)))
-    # the struct stays bound to a name until the call returns
-    args = PlanArgsC(
-        na=node, tb=tab, cfg=_cfg_c(cfg, R), g=g, gin=gin, gout=gout,
-        fam=famc, used=used.data_ptr(), nonzero_used=nz.data_ptr(),
-        npods=npods.data_ptr(), ports=ports.data_ptr(),
-        P=carry.ports.shape[1], m0=stat[0], taint_raw=stat[1],
-        na_raw=stat[2], s_img=stat[3], valid=valid_p, widx=widx_p, wt=wt_c,
-        S=S, W=W, norm_live=int(bool(norm_live)),
+    nodes = PlanNodesC(
+        na=node, g=g, gc=gc, used=used.data_ptr(), nonzero_used=nz.data_ptr(),
+        npods=npods.data_ptr(), ports=ports.data_ptr(), m0=stat[0],
+        taint_raw=stat[1], na_raw=stat[2], s_img=stat[3], offset=offset)
+    out = Carry(used=used, nonzero_used=nz, npods=npods, ports=ports,
+                cache=carry.cache._replace(sig=torch.zeros(
+                    (), dtype=torch.int32, device=device)),
+                groups=gout_t)
+    return nodes, out, SC, tab
+
+
+def _plan_xs(xs, device) -> tuple:
+    """(valid, widx) pointers of a checked span layout."""
+    return (_check(xs.valid, "xs.valid", torch.bool, 1, device),
+            _check(xs.widx, "xs.widx", torch.int32, 1, device))
+
+
+def _plan_span_c(cfg, tab, R: int, xs_p, W: int, rows, fam, norm_live,
+                 has_groups, has_ports, P: int, n_local: int, D: int, ptr,
+                 packed) -> PlanSpanC:
+    valid_p, widx_p = xs_p
+    S = len(rows)
+    return PlanSpanC(
+        tb=tab, cfg=_cfg_c(cfg, R), fam=_fam_c(fam) if has_groups else FamC(),
+        valid=valid_p, widx=widx_p,
+        wt=(_I * MAX_PLAN_SLOTS)(*(rows + [0] * (MAX_PLAN_SLOTS - S))),
+        S=S, W=W, P=P, norm_live=int(bool(norm_live)),
         has_groups=int(bool(has_groups)), has_ports=int(bool(has_ports)),
-        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, packed=packed.data_ptr(),
-        **{k: t.data_ptr() for k, t in scratch.items()})
-    rc = libs["run_plan"].ktpu_run_plan(ctypes.addressof(args),
-                                        _stream(device))
+        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, n_global=D * n_local,
+        n_local=n_local, D=D, flags=ptr["flags"], part=ptr["part"],
+        packed=packed.data_ptr())
+
+
+def _set_scratch(nodes: PlanNodesC, ptr: dict, d: int) -> None:
+    for f in ("s_fit", "s_bal", "fit_ok"):
+        setattr(nodes, f, ptr[f"{f}{d}"])
+
+
+def run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
+                  norm_live: bool, has_groups: bool, has_ports: bool):
+    """The plan program (csrc/run_plan.cu) over one mixed-signature span;
+    same contract as program.run_plan. One launch of a thread-block
+    cluster; its scratch is one buffer. The caller's carry is never
+    written."""
+    device = carry.used.device
+    W = xs.valid.shape[0]
+    rows = _plan_rows(wt, W, "run_plan")
+    if xs.widx.shape[0] != W:
+        raise ValueError("run_plan: xs.valid / xs.widx lengths differ")
+    xs_p = _plan_xs(xs, device)
+    nodes, out, SC, tab = _plan_shard(cfg, na, carry, table, rows, gd,
+                                      statics, fam, has_groups, has_ports,
+                                      device, "run_plan")
+    N, R = nodes.na.N, nodes.na.R
+    lib = build()["run_plan"]
+    spread_s = bool(has_groups and fam.spr_s)
+    _scratch, ptr, _offs = _carve(device, plan_span_parts(
+        len(rows), N, 1, SC, spread_s, 0))
+    _set_scratch(nodes, ptr, 0)
+    packed = torch.empty((W + 2,), dtype=torch.int32, device=device)
+    # the struct stays bound to a name until the call returns
+    args = PlanArgsC(cm=_plan_span_c(
+        cfg, tab, R, xs_p, W, rows, fam, norm_live, has_groups, has_ports,
+        carry.ports.shape[1], N, 1, ptr, packed), nodes=nodes)
+    with torch.cuda.device(device):
+        rc = lib.ktpu_run_plan(ctypes.addressof(args), _stream(device))
     _raise_on(rc, "run_plan")
     LAUNCHES["run_plan"] += 1
-    cache = carry.cache._replace(
-        sig=torch.zeros((), dtype=torch.int32, device=device))
-    return Carry(used=used, nonzero_used=nz, npods=npods, ports=ports,
-                 cache=cache, groups=gout_t), packed
+    RAW_LAUNCHES["run_plan"] += 1
+    return out, packed
 
 
 def diagnose_row_cuda(na, table, tidx: int, gd=None, gc=None, fam=None):
@@ -1679,10 +1744,11 @@ def _uniform_sharded_run(cfg, mesh, na, carry, x, table, n_actual: int,
     i64, i32, u8 = torch.int64, torch.int32, torch.uint8
     R = na[0].cap.shape[1]
     cfgc = _cfg_c(cfg, R)
-    tabs = {}
-    same = all(dev == table.req.device for dev in mesh.distinct)
-    for dev, tab_d in zip(mesh.devices, [table] * D if same
-                          else replicate(mesh, table)):
+    # the table on every card (the caller's tensors where it lies there
+    # already), bound to a name until the launches return: the structs
+    # hold only pointers
+    tabs, tab_by = {}, replicate(mesh, table)
+    for dev, tab_d in zip(mesh.devices, tab_by):
         if dev not in tabs:
             tabs[dev] = _table_c(tab_d, R, dev)
             if not 0 <= tidx < tabs[dev].U:
@@ -1860,30 +1926,95 @@ def _ptrs(xs) -> list:
     return [x.data_ptr() for x in xs]
 
 
+def plan_sharded_placement(mesh) -> str:
+    """"one" when every shard of the mesh lies on one card, where the plan
+    span is one cooperative launch; "cards" when the shards span several
+    cards, whose launches cannot meet at a grid barrier: the host-driven
+    chain."""
+    return "one" if len(mesh.distinct) == 1 else "cards"
+
+
 def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
                           fam, norm_live: bool, has_groups: bool,
                           has_ports: bool):
     """The plan program over node shards (csrc/run_plan_sharded.cu); same
-    contract as parallel/sharding.py run_plan_sharded. Per shard: init;
-    per evaluation (the S speculative choices, then each pod): the spread
-    minima and their exchange (DoNotSchedule rows), eval and the exchange
-    of the maxima and score partials, the raw spread pass and its exchange
-    (ScheduleAnyway rows), select and the max of the keys, apply, and on
-    a group span the sum of the own vectors and the update. The output
-    carries hold fresh copies of every field the kernels write."""
+    contract as parallel/sharding.py run_plan_sharded. Shards on one card
+    (plan_sharded_placement "one"): one cooperative launch a span. Shards
+    on several cards: the chain of launches a shard, driven from the host.
+    The output carries hold fresh copies of every field the kernels
+    write."""
+    W = xs.valid.shape[0]
+    rows = _plan_rows(wt, W, "run_plan_sharded")
+    if xs.widx.shape[0] != W:
+        raise ValueError("run_plan_sharded: xs.valid / xs.widx lengths "
+                         "differ")
+    n_local = na[0].cap.shape[0]
+    if any(s.cap.shape[0] != n_local for s in na):
+        raise ValueError("run_plan_sharded: shards of unequal size")
+    run = (_plan_sharded_one if plan_sharded_placement(mesh) == "one"
+           else _plan_sharded_chain)
+    out = run(cfg, mesh, na, carry, xs, table, rows, gd, statics, fam,
+              norm_live, has_groups, has_ports)
+    LAUNCHES["run_plan_sharded"] += 1
+    return out
+
+
+def _plan_sharded_one(cfg, mesh, na, carry, xs, table, rows, gd, statics,
+                      fam, norm_live, has_groups, has_ports):
+    """Every shard on one card: the span in one cooperative launch of D
+    teams of T blocks (csrc/run_plan_sharded.cu ktpu_plan_span_grid). The
+    shards' PlanNodesC go to the card through pinned memory; the scratch
+    (partial slots, flags, each shard's surfaces) is one buffer."""
+    from ..parallel.sharding import Shards, replicate
+    dev, D = mesh.devices[0], mesh.size
+    n_local, S = na[0].cap.shape[0], len(rows)
+    xs_d, table_d = replicate(mesh, xs)[0], replicate(mesh, table)[0]
+    xs_p = _plan_xs(xs_d, dev)
+    nodes, outs, tab = [], [], None
+    for d in range(D):
+        nd, out, SC, tab = _plan_shard(
+            cfg, na[d], carry[d], table_d, rows,
+            gd[d] if has_groups else None, statics[d], fam, has_groups,
+            has_ports, dev, "run_plan_sharded", offset=d * n_local)
+        nodes.append(nd)
+        outs.append(out)
+    lib = build()["run_plan_sharded"]
+    T = max(1, min(-(-n_local // lib.block), _sm_count(dev) // D))
+    spread_s = bool(has_groups and fam.spr_s)
+    _scratch, ptr, _offs = _carve(dev, plan_span_parts(
+        S, n_local, D, SC, spread_s, D * T))
+    for d, nd in enumerate(nodes):
+        _set_scratch(nd, ptr, d)
+    arr = (PlanNodesC * D)(*nodes)
+    nodes_dev = torch.frombuffer(bytearray(arr), dtype=torch.uint8) \
+        .pin_memory().to(dev, non_blocking=True)
+    packed = torch.empty((xs.valid.shape[0] + 2,), dtype=torch.int32,
+                         device=dev)
+    span = _plan_span_c(cfg, tab, nodes[0].na.R, xs_p, xs.valid.shape[0],
+                        rows, fam, norm_live, has_groups, has_ports,
+                        carry[0].ports.shape[1], n_local, D, ptr, packed)
+    with torch.cuda.device(dev):
+        rc = lib.ktpu_plan_span_grid(ctypes.addressof(span),
+                                     nodes_dev.data_ptr(), D, T,
+                                     _stream(dev))
+    _raise_on(rc, "run_plan_sharded")
+    RAW_LAUNCHES["run_plan_sharded"] += 1
+    return Shards(outs), packed
+
+
+def _plan_sharded_chain(cfg, mesh, na, carry, xs, table, rows, gd, statics,
+                        fam, norm_live, has_groups, has_ports):
+    """Shards on several cards: per shard, init; per evaluation (the S
+    speculative choices, then each pod): the spread minima and their
+    exchange (DoNotSchedule rows), eval and the exchange of the maxima and
+    score partials, the raw spread pass and its exchange (ScheduleAnyway
+    rows), select and the max of the keys, apply, and on a group span the
+    sum of the own vectors and the update."""
     from ..parallel.sharding import (Shards, exchange, pmax, psum,
                                      replicate)
     from .program import Carry
-    lib = build()["run_plan_sharded"]
-    rows = [int(u) for u in wt]
     S = len(rows)
-    if not 1 <= S <= MAX_PLAN_SLOTS:
-        raise ValueError(f"run_plan_sharded: {S} signature slots, kernel "
-                         f"takes 1..{MAX_PLAN_SLOTS}")
     W = xs.valid.shape[0]
-    if xs.widx.shape[0] != W or W < 1:
-        raise ValueError("run_plan_sharded: xs.valid / xs.widx lengths "
-                         "differ")
     xs_r, tabs = replicate(mesh, xs), replicate(mesh, table)
     n_local = na[0].cap.shape[0]
     n_global = n_local * mesh.size
@@ -1895,8 +2026,6 @@ def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
     for d, dev in enumerate(mesh.devices):
         node = _node_c(na[d], dev)
         N, R = node.N, node.R
-        if N != n_local:
-            raise ValueError("run_plan_sharded: shards of unequal size")
         tab = _table_c(tabs[d], R, dev)
         if any(not 0 <= u < tab.U for u in rows):
             raise ValueError(f"run_plan_sharded: rows {rows} outside the "
@@ -1951,6 +2080,7 @@ def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
                           ports=ports, cache=c.cache._replace(
                               sig=torch.zeros((), dtype=i32, device=dev)),
                           groups=gout_t))
+    lib = build()["run_plan_sharded"]
     # every struct stays bound to a name until the last launch returns
     shards = [(ctypes.addressof(a), _stream(dev), dev)
               for a, dev in zip(args, mesh.devices)]
@@ -1958,6 +2088,11 @@ def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
     n_sum = int(bufs[0].loc2.shape[0]) - 4
     spr_f = has_groups and fam.spr_f
     spr_s = has_groups and fam.spr_s
+    launches = [0]
+
+    def each(fn, *per) -> int:
+        launches[0] += D
+        return _each(shards, fn, *per)
 
     def evaluate(k: int, spec: int) -> tuple:
         # (k, spec): the speculative choice of slot `spec`, or (spec = -1)
@@ -1966,21 +2101,19 @@ def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
         rc = 0
         g1 = [b.loc1 for b in bufs]
         if spr_f:
-            rc |= _each(shards, lib.ktpu_plan_shard_min, *ks)
+            rc |= each(lib.ktpu_plan_shard_min, *ks)
             g1 = pmax(mesh, g1)
-        rc |= _each(shards, lib.ktpu_plan_shard_eval, *ks, _ptrs(g1))
+        rc |= each(lib.ktpu_plan_shard_eval, *ks, _ptrs(g1))
         g2 = exchange(mesh, [b.loc2 for b in bufs], n_sum)
         g3 = g2
         if spr_s:
-            rc |= _each(shards, lib.ktpu_plan_shard_raw, *ks, _ptrs(g2))
+            rc |= each(lib.ktpu_plan_shard_raw, *ks, _ptrs(g2))
             g3 = pmax(mesh, [b.loc3 for b in bufs])
-        rc |= _each(shards, lib.ktpu_plan_shard_select, *ks, _ptrs(g2),
-                    _ptrs(g3))
+        rc |= each(lib.ktpu_plan_shard_select, *ks, _ptrs(g2), _ptrs(g3))
         gkey = pmax(mesh, [b.key for b in bufs])
-        return rc | _each(shards, lib.ktpu_plan_shard_apply, *ks,
-                          _ptrs(gkey)), gkey
+        return rc | each(lib.ktpu_plan_shard_apply, *ks, _ptrs(gkey)), gkey
 
-    rc = _each(shards, lib.ktpu_plan_shard_init)
+    rc = each(lib.ktpu_plan_shard_init)
     for s in range(S):
         rc |= evaluate(0, s)[0]
     for k in range(W):
@@ -1988,11 +2121,11 @@ def run_plan_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, gd, statics,
         rc |= r
         if has_groups:
             gown = psum(mesh, [b.own for b in bufs])
-            rc |= _each(shards, lib.ktpu_plan_shard_update, [k] * D,
-                        _ptrs(gkey), _ptrs(gown))
+            rc |= each(lib.ktpu_plan_shard_update, [k] * D, _ptrs(gkey),
+                       _ptrs(gown))
         _raise_on(rc, "run_plan_sharded")
     _raise_on(rc, "run_plan_sharded")
-    LAUNCHES["run_plan_sharded"] += 1
+    RAW_LAUNCHES["run_plan_sharded"] += launches[0]
     return Shards(outs), packed
 
 

@@ -410,6 +410,108 @@ def test_run_plan_kernel_full_width(cuda):
     assert kc.used.shape[0] == 8192 and (kp[:300] >= 0).all()
 
 
+# the cluster design's edges (csrc/run_plan.cu: C CTAs, a contiguous
+# range of N / C rows each; csrc/run_plan_sharded.cu on one card: D·T
+# blocks), run by run_plan and by run_plan_sharded on make_mesh(2) of one
+# card, each against the single-device plain version. N = 2,048 puts a
+# CTA boundary at every multiple of 128 for C = 16 (256 for C = 8).
+
+
+def _rack_nodes(n, per_rack, cpu=16):
+    """n nodes, racks of `per_rack` consecutive nodes (label "rack"):
+    a rack's domain id, its first row, falls inside one CTA's range while
+    its nodes straddle the next boundary."""
+    return [make_node(f"n{i}").capacity({"cpu": cpu, "memory": "32Gi",
+                                         "pods": 40})
+            .zone(f"z{i % 4}").label(HOSTNAME, f"n{i}")
+            .label("rack", f"r{i // per_rack}").obj() for i in range(n)]
+
+
+def _rack_pods(n):
+    return [make_pod(f"k{i}").req({"cpu": "1", "memory": "1Gi"})
+            .label("app", "mix").spread_constraint(
+                1, "rack", "ScheduleAnyway", {"app": "mix"}).obj()
+            for i in range(n)]
+
+
+def _boosted(rows, by):
+    def boost(na):
+        cap = na.cap.clone()
+        cap[rows] = cap[rows] * by
+        return na._replace(cap=cap)
+    return boost
+
+
+PLAN_EDGE_CASES = {
+    # name: (nodes, pods, lean, node-array edit, every step padded)
+    # equal maxima on both sides of every CTA boundary: the lowest wins
+    "ties_across_boundaries": (
+        lambda: _zone_nodes(2048, 16), lambda: _mixed_pods(
+            64, 2, kinds=("plain",)), True,
+        _boosted([b + o for b in range(128, 2048, 128) for o in (-1, 0)],
+                 4), False),
+    # the chosen row the first, then the last row of a CTA's range
+    "best_first_and_last_rows": (
+        lambda: _zone_nodes(2048, 16), lambda: _mixed_pods(
+            48, 3, kinds=("plain",)), True,
+        lambda na: _boosted([1024], 8)(_boosted([255, 1151], 6)(na)),
+        False),
+    # full width with S = 32: the slots' surfaces over 8,192 rows
+    "full_width_32sigs": (
+        lambda: _zone_nodes(5000, 16, cpu=32), lambda: _mixed_pods(
+            96, 32), False, None, False),
+    "one_pod": (lambda: _zone_nodes(64, 4), lambda: _mixed_pods(1, 1),
+                False, None, False),
+    "every_step_padded": (lambda: _zone_nodes(64, 4), lambda: _mixed_pods(
+        20, 4), False, None, True),
+    # ScheduleAnyway domains (racks of 7) whose ids and rows cross CTAs
+    "anyway_domains_cross_ctas": (lambda: _rack_nodes(2048, 7),
+                                  lambda: _rack_pods(40), False, None,
+                                  False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_EDGE_CASES))
+def test_run_plan_cluster_edges_equal_plain(cuda, case):
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies
+    from kubernetes_tpu_torch.parallel import sharding as S
+    mk_nodes, mk_pods, lean, edit, padded = PLAN_EDGE_CASES[case]
+    pods = mk_pods()
+    na, batch, table, gd, gc, fam, builder, state = _group_setup(
+        mk_nodes(), [], pods, cuda)
+    if edit is not None:
+        na = edit(na)
+    m = len(pods)
+    wt, xs = _plan_span(batch, m, cuda)
+    if padded:
+        xs = xs._replace(valid=torch.zeros_like(xs.valid))
+    has_ports = bool((batch.sig[:m] == 0).any())
+    statics = P.wave_statics(na, table, wt)
+    if lean:
+        gd = gc = None
+        fam = GroupFamilies(False, False, False, False, False)
+    carry = P.initial_carry(na, gc)
+    cfg = P.ScoreConfig()
+    args = (cfg, na, carry, xs, table, wt, gd, statics, fam, True,
+            not lean, has_ports)
+    want = P._run_plan_plain(*args)
+    _equal(P.run_plan(*args), want)
+    placed = int((want[1][:xs.valid.shape[0]] >= 0).sum())
+    assert placed == (0 if padded else m)
+    # the same span on two shards of the card: one cooperative launch
+    mesh = S.make_mesh(devices=["cuda:0"] * 2)
+    gna = S.shard_node_arrays(mesh, na)
+    gcarry = S.initial_carry_sharded(
+        gna, None if lean else S.shard_group_carry(mesh, gc))
+    got = S.run_plan_sharded(cfg, mesh, gna, gcarry, xs, table, wt,
+                             None if lean else S.shard_groups(mesh, gd),
+                             S.wave_statics_sharded(mesh, gna, table, wt),
+                             fam, True, has_groups=not lean,
+                             has_ports=has_ports)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (want[1], want[0]))
+
+
 def test_run_plan_refuses_bad_arguments(cuda):
     nodes, pods = _zone_nodes(16, 4), _mixed_pods(40, 4)
     na, batch, table, gd, gc, fam, _b, _s = _group_setup(nodes, [], pods,
@@ -1016,6 +1118,7 @@ def test_held_carry_checksum_sees_device_write(cuda):
 # CPU shards (kubernetes_tpu_torch/parallel/sharding.py)
 
 MESHES = [(1, "one"), (2, "one"), (4, "one"), (2, "cards"), (4, "cards")]
+MESHES_PLAN_COUNT = [(2, "one"), (4, "one"), (2, "cards")]
 
 
 def _mesh_pair(D, place):
@@ -1287,6 +1390,88 @@ def test_run_plan_sharded_kernel_equals_plain(cuda, case, D, place):
                       P.wave_statics(na, table, wt), fam, norm_live,
                       has_groups=not lean, has_ports=has_ports)
     _equal((got[1], S.unshard(got[0])), (sgot[1], sgot[0]))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", SHARDED_PLAN_CASES)
+def test_plan_sharded_chain_on_one_card(cuda, case, D):
+    """The host-driven chain of shards on several cards (placement
+    "cards"), called on D shards of one card: the same bits as the plain
+    version over CPU shards and as the one-launch grid."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, cm = _mesh_pair(D, "one")
+    mk_nodes, mk_pods, lean = PLAN_CASES[case]
+    pods = mk_pods()
+    na, batch, table, gd, gc, fam, builder, state = _group_setup(
+        mk_nodes(), [], pods, cuda)
+    m = len(pods)
+    wt, xs = _plan_span(batch, m, cuda)
+    has_ports = bool((batch.sig[:m] == 0).any())
+    if lean:
+        from kubernetes_tpu_torch.ops.groups import GroupFamilies
+        gd = gc = None
+        fam = GroupFamilies(False, False, False, False, False)
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, na)
+    ctab = P.table_from_batch(batch, "cpu")
+    ggd = cgd = None
+    gcarry, ccarry = S.initial_carry_sharded(gna), S.initial_carry_sharded(
+        cna)
+    if not lean:
+        ggd, cgd = S.shard_groups(gm, gd), S.shard_groups(cm, gd)
+        gcarry = S.initial_carry_sharded(gna, S.shard_group_carry(gm, gc))
+        ccarry = S.initial_carry_sharded(cna, S.shard_group_carry(cm, gc))
+    gst = S.wave_statics_sharded(gm, gna, table, wt)
+    cfg = P.ScoreConfig()
+    K.reset_launches()
+    got = K._plan_sharded_chain(cfg, gm, gna, gcarry, xs, table, wt, ggd,
+                                gst, fam, True, not lean, has_ports)
+    torch.cuda.synchronize()
+    assert K.RAW_LAUNCHES["run_plan_sharded"] >= D * (
+        1 + 3 * (len(wt) + xs.valid.shape[0]))
+    want = S.run_plan_sharded(
+        cfg, cm, cna, ccarry, P.WaveXs(xs.valid.cpu(), xs.widx.cpu()), ctab,
+        wt, cgd, S.wave_statics_sharded(cm, cna, ctab, wt), fam, True,
+        has_groups=not lean, has_ports=has_ports)
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    one = S.run_plan_sharded(cfg, gm, gna, gcarry, xs, table, wt, ggd, gst,
+                             fam, True, has_groups=not lean,
+                             has_ports=has_ports)
+    torch.cuda.synchronize()
+    _equal((got[1], S.unshard(got[0])), (one[1], S.unshard(one[0])))
+
+
+@pytest.mark.parametrize("D,place", MESHES_PLAN_COUNT)
+def test_run_plan_launches_once_a_card_a_span(cuda, D, place):
+    """run_plan is one launch a span; run_plan_sharded one launch a span
+    when the shards share a card ("one"), its chain of launches a shard
+    when they do not ("cards")."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, _cm = _mesh_pair(D, place)
+    pods = _mixed_pods(40, 4)
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        _zone_nodes(40, 5), [], pods, cuda)
+    wt, xs = _plan_span(batch, len(pods), cuda)
+    cfg = P.ScoreConfig()
+    K.reset_launches()
+    P.run_plan(cfg, na, P.initial_carry(na, gc), xs, table, wt, gd,
+               P.wave_statics(na, table, wt), fam, False)
+    assert K.RAW_LAUNCHES["run_plan"] == 1 == K.LAUNCHES["run_plan"]
+    gna = S.shard_node_arrays(gm, na)
+    gst = S.wave_statics_sharded(gm, gna, table, wt)
+    gcarry = S.initial_carry_sharded(gna, S.shard_group_carry(gm, gc))
+    ggd = S.shard_groups(gm, gd)
+    K.reset_launches()
+    S.run_plan_sharded(cfg, gm, gna, gcarry, xs, table, wt, ggd, gst, fam,
+                       False)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["run_plan_sharded"] == 1
+    assert K.plan_sharded_placement(gm) == place
+    if place == "one":
+        assert K.RAW_LAUNCHES["run_plan_sharded"] == 1
+    else:
+        # init, then per evaluation at least eval, select and apply
+        assert K.RAW_LAUNCHES["run_plan_sharded"] >= D * (
+            1 + 3 * (len(wt) + xs.valid.shape[0]))
 
 
 @pytest.mark.parametrize("D,place", MESHES)

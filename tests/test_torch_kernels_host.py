@@ -282,3 +282,143 @@ def test_uniform_cuda_checks_before_building(bad, gang):
         else:
             Kr.run_uniform_cuda(P.ScoreConfig(), na, carry, x, table,
                                 n_actual, L, K, J, overlay=overlay)
+
+
+# ---------------------------------------------------------------------------
+# the plan program (csrc/run_plan.cu, csrc/run_plan_sharded.cu): the
+# checks before the build, the scratch carve, the route by placement
+
+
+def _plan_cpu(n_nodes=20):
+    na, batch, table = _cpu_state(n_nodes)
+    u = int(batch.tidx[0])
+    wt = [u, u]
+    xs = P.WaveXs(valid=torch.ones((4,), dtype=torch.bool),
+                  widx=torch.zeros((4,), dtype=torch.int32))
+    return na, table, wt, xs
+
+
+def _no_build(monkeypatch):
+    def build():
+        raise AssertionError("built before the checks")
+    monkeypatch.setattr(Kr, "build", build)
+
+
+@pytest.mark.parametrize("bad", ["slots_zero", "slots_over", "row_outside",
+                                 "statics_shape", "widx_length"])
+def test_run_plan_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    na, table, wt, xs = _plan_cpu()
+    carry = P.initial_carry(na)
+    statics = P.wave_statics(na, table, wt)
+    if bad == "slots_zero":
+        wt = []
+    elif bad == "slots_over":
+        wt = wt * 17                                 # 34 slots
+        statics = tuple(torch.cat([s] * 17) for s in statics)
+    elif bad == "row_outside":
+        wt = [wt[0], table.req.shape[0]]
+    elif bad == "statics_shape":
+        statics = tuple(s[:1] for s in statics)
+    else:
+        xs = xs._replace(widx=xs.widx[:3])
+    with pytest.raises(ValueError, match="run_plan"):
+        Kr.run_plan_cuda(P.ScoreConfig(), na, carry, xs, table, wt, None,
+                         statics, None, False, False, False)
+
+
+@pytest.mark.parametrize("bad,place", [
+    ("slots_over", "one"), ("slots_over", "cards"), ("ragged", "one"),
+    ("ragged", "cards"), ("row_outside", "one"), ("widx_length", "cards")])
+def test_run_plan_sharded_cuda_checks_before_building(monkeypatch, bad,
+                                                      place):
+    _no_build(monkeypatch)
+    na, table, wt, xs = _plan_cpu()                 # N = 32 rows
+    cpu = S.make_mesh(devices=["cpu"] * 2)
+    gna = S.shard_node_arrays(cpu, na)
+    statics = S.wave_statics_sharded(cpu, gna, table, wt)
+    mesh = cpu if place == "one" else S.Mesh(["cuda:0", "cuda:1"])
+    if bad == "slots_over":
+        wt = wt * 17
+    elif bad == "ragged":
+        cut = type(gna[1])(*(t[:8] if t.dim() else t for t in gna[1]))
+        gna = S.Shards([gna[0], cut])
+    elif bad == "row_outside":
+        wt = [wt[0], table.req.shape[0]]
+    else:
+        xs = xs._replace(widx=xs.widx[:3])
+    carry = S.initial_carry_sharded(gna)
+    with pytest.raises(ValueError, match="run_plan_sharded"):
+        Kr.run_plan_sharded_cuda(P.ScoreConfig(), mesh, gna, carry, xs,
+                                 table, wt, None, statics, None, False,
+                                 False, False)
+
+
+@pytest.mark.parametrize("shape", [(8, 8192, 1, 1, False, 0),
+                                   (32, 8192, 1, 8, True, 0),
+                                   (8, 4096, 2, 1, True, 8),
+                                   (4, 2048, 4, 3, True, 8),
+                                   (3, 37, 3, 2, True, 3)])
+def test_plan_span_scratch_is_aligned_and_disjoint(shape):
+    S_, n_local, D, SC, spread_s, blocks = shape
+    pieces = Kr.plan_span_parts(S_, n_local, D, SC, spread_s, blocks)
+    size = {name: n for name, n, _dt in pieces}
+    assert len(size) == len(pieces)
+    # the partial slots: two halves of one slot a block; the flags span
+    # every shard's rows
+    assert size["part"] == 2 * blocks * Kr.PLAN_RED_K
+    assert size["flags"] == (SC * D * n_local if spread_s else 0)
+    buf, ptrs, offs = Kr._carve("cpu", pieces)
+    base, end = buf.data_ptr(), buf.data_ptr() + 8 * buf.numel()
+    spans = []
+    for name, n, dt in pieces:
+        if n == 0:
+            assert ptrs[name] is None
+            continue
+        assert ptrs[name] % 8 == 0 and ptrs[name] == base + 8 * offs[name]
+        assert ptrs[name] + n * dt.itemsize <= end
+        spans.append((ptrs[name], ptrs[name] + n * dt.itemsize))
+    spans.sort()
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    # every shard's scratch pointers of PlanNodesC come from the carve
+    for d in range(D):
+        nodes = Kr.PlanNodesC()
+        Kr._set_scratch(nodes, ptrs, d)
+        for f in ("s_fit", "s_bal", "fit_ok"):
+            assert getattr(nodes, f) == ptrs[f"{f}{d}"] is not None
+
+
+def test_plan_sharded_routes_one_card_to_one_launch(monkeypatch):
+    M = S.Mesh
+    assert Kr.plan_sharded_placement(M(["cuda:0"] * 4)) == "one"
+    assert Kr.plan_sharded_placement(M(["cpu"] * 2)) == "one"
+    assert Kr.plan_sharded_placement(M(["cuda:0", "cuda:1"])) == "cards"
+    assert Kr.plan_sharded_placement(
+        M(["cuda:0", "cuda:0", "cuda:1", "cuda:1"])) == "cards"
+    seen = []
+    monkeypatch.setattr(Kr, "_plan_sharded_one",
+                        lambda *a: seen.append("one") or ("out", "packed"))
+    monkeypatch.setattr(Kr, "_plan_sharded_chain",
+                        lambda *a: seen.append("chain") or ("out", "packed"))
+    na, table, wt, xs = _plan_cpu()
+    cpu = S.make_mesh(devices=["cpu"] * 2)
+    gna = S.shard_node_arrays(cpu, na)
+    carry = S.initial_carry_sharded(gna)
+    before = Kr.LAUNCHES["run_plan_sharded"]
+    for mesh in (cpu, M(["cuda:0", "cuda:1"])):
+        assert Kr.run_plan_sharded_cuda(
+            P.ScoreConfig(), mesh, gna, carry, xs, table, wt, None, None,
+            None, False, False, False) == ("out", "packed")
+    assert seen == ["one", "chain"]
+    assert Kr.LAUNCHES["run_plan_sharded"] == before + 2
+
+
+@pytest.mark.parametrize("const,source,define", [
+    ("MAX_PLAN_SLOTS", "plan_span.cuh", "KT_PLAN_MAX_S"),
+    ("PLAN_RED_K", "plan_span.cuh", "KT_RED_K"),
+    ("PLAN_CLUSTER", "run_plan.cu", "KT_PLAN_CLUSTER")])
+def test_plan_constants_mirror_the_sources(const, source, define):
+    import re
+    text = (Kr.CSRC / source).read_text()
+    found = re.findall(rf"^#define {define} (\d+)\b", text, re.M)
+    assert found == [str(getattr(Kr, const))]
