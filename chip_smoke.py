@@ -5,8 +5,10 @@
     python3 chip_smoke.py --times GROUP [ROOT]
         # only one group of kernels of the port in checkout ROOT (default:
         # this one), timed in a fresh process: one JSON line. GROUP
-        # closed_form: run_uniform (lean, overlay) and run_gang's closed
-        # form; plan: run_plan (MixedHighSignature, lean ports span) and
+        # batch: run_batch (lean, overlay, groups) and the probe (one
+        # device, make_mesh(2) / (4) of one card); closed_form:
+        # run_uniform (lean, overlay) and run_gang's closed form; plan:
+        # run_plan (MixedHighSignature, lean ports span) and
         # run_plan_sharded on make_mesh(2) / (4) of one card.
 
 Phases, each reported on its own line:
@@ -16,7 +18,11 @@ Phases, each reported on its own line:
      equality of every output and carry field, with kernel, plain and
      library timings: run_batch and run_uniform on seeded lean inputs at
      the SchedulingBasic harness shapes (5,000 nodes padded to 8,192,
-     batch 8,192); scatter_rows, wave_statics, run_wave and run_batch's
+     batch 8,192), and run_batch on tests/_batch_edges.py's edge cases
+     (ties at the cluster's CTA boundaries, N below, at and above its
+     rows, signature changes every pod / every other pod / never, a row
+     outside the table, invalid pods, full port slots, nominated rows at
+     a CTA boundary and on invalid nodes, every group family); scatter_rows, wave_statics, run_wave and run_batch's
      group mode at the full-width shapes of TopologySpreading and
      SchedulingPodAntiAffinity; run_plan at the MixedHighSignature shape
      (S = 8 signatures, a 4,096-pod span) and on a lean four-signature
@@ -657,7 +663,12 @@ def assert_equal_trees(torch, a, b, what: str) -> float:
 # phase 3: kernels against their plain versions
 
 
-def check_run_batch(torch, pkg, device, rows: list) -> None:
+def batch_span_inputs(torch, pkg, device):
+    """Row 1's 1,024-pod mixed span over 5,000 lean nodes (600 bound pods,
+    every fifth on host port 8080), and its overlay variant's inputs: every
+    tenth pod nominated (its own request at its row, as the scheduler
+    builds the overlay) and 200 more nodes reserved whole by 64-cpu
+    nominations."""
     P = pkg.program
     rng = np.random.RandomState(11)
     nodes = lean_cluster(rng, SB_NODES, pkg.wrappers)
@@ -673,10 +684,38 @@ def check_run_batch(torch, pkg, device, rows: list) -> None:
     span = 1024
     pods = lean_pods(rng, span - 24, pkg.wrappers, "scan")
     na, batch, table = staged(nodes, bound, pods, device, pkg)
-    carry0 = P.initial_carry(na)
     xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
         valid=batch.valid[:span], sig=batch.sig[:span],
         tidx=batch.tidx[:span]), device)
+    N, R = na.cap.shape
+    ovl_used = np.zeros((N, R), np.int64)
+    ovl_np = np.zeros((N,), np.int32)
+    nom = np.full((span,), -1, np.int32)
+    req = batch.table.req
+    for k in range(0, span, 10):
+        row = (7 * k + 3) % SB_NODES
+        nom[k] = row
+        ovl_used[row] += req[batch.tidx[k]]
+        ovl_np[row] += 1
+    for k in range(200):
+        row = (13 * k + 1) % SB_NODES
+        ovl_used[row, 0] += 64000
+        ovl_np[row] += 1
+    ovl = (torch.from_numpy(ovl_used).to(device),
+           torch.from_numpy(ovl_np).to(device))
+    xs_n = pkg.convert.pod_xs_from_numpy(P.PodXs(
+        valid=batch.valid[:span], sig=batch.sig[:span],
+        tidx=batch.tidx[:span], nom_idx=nom), device)
+    return SimpleNamespace(na=na, batch=batch, table=table, span=span,
+                           carry0=P.initial_carry(na), xs=xs, xs_n=xs_n,
+                           ovl=ovl, nom=nom)
+
+
+def check_run_batch(torch, pkg, device, rows: list) -> None:
+    P = pkg.program
+    b = batch_span_inputs(torch, pkg, device)
+    na, batch, table, span = b.na, b.batch, b.table, b.span
+    carry0, xs = b.carry0, b.xs
     err = 0.0
     for strategy in ("LeastAllocated", "MostAllocated"):
         cfg = P.ScoreConfig(strategy=strategy)
@@ -712,28 +751,8 @@ def check_run_batch(torch, pkg, device, rows: list) -> None:
         max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None))
 
-    # the overlay variant on the same span: every tenth pod nominated
-    # (its own request at its row, as the scheduler builds the overlay)
-    # and 200 more nodes reserved whole by 64-cpu nominations
-    N, R = na.cap.shape
-    ovl_used = np.zeros((N, R), np.int64)
-    ovl_np = np.zeros((N,), np.int32)
-    nom = np.full((span,), -1, np.int32)
-    req = batch.table.req
-    for k in range(0, span, 10):
-        row = (7 * k + 3) % SB_NODES
-        nom[k] = row
-        ovl_used[row] += req[batch.tidx[k]]
-        ovl_np[row] += 1
-    for k in range(200):
-        row = (13 * k + 1) % SB_NODES
-        ovl_used[row, 0] += 64000
-        ovl_np[row] += 1
-    ovl = (torch.from_numpy(ovl_used).to(device),
-           torch.from_numpy(ovl_np).to(device))
-    xs_n = pkg.convert.pod_xs_from_numpy(P.PodXs(
-        valid=batch.valid[:span], sig=batch.sig[:span],
-        tidx=batch.tidx[:span], nom_idx=nom), device)
+    # the overlay variant on the same span
+    ovl, xs_n, nom = b.ovl, b.xs_n, b.nom
     kc, ka = P.run_batch(cfg, na, carry0, xs_n, table, overlay=ovl)
     pc, pa = P._run_batch_plain(cfg, na, carry0, xs_n, table, overlay=ovl)
     torch.cuda.synchronize()
@@ -764,15 +783,9 @@ def check_run_batch(torch, pkg, device, rows: list) -> None:
         bound_ms=bound_o, bound_by=by_o, library_ms=None))
 
 
-def check_run_batch_churn(torch, pkg, device) -> None:
+def churn_inputs(torch, pkg, device):
     """run_batch's overlay variant at the shape PreemptionChurn's last
-    drain gives it: the 8-cpu cluster after the preemptor wave (an init
-    pod of 4 cpu on every node but the 200 nominated ones, 8,192 measured
-    pods of 500m / 256 Mi bound at seeded nodes), the 200 preemptors
-    (8 cpu / 1 Gi, each nominated on its own node) and 1,808 measured
-    pods in one scan span padded to a 2,048 bucket, as the scheduler's
-    _scan_dispatch pads it. Every preemptor must land on its nominated
-    node. Logs the times and bound beside the kernel table's row."""
+    drain gives it (check_run_batch_churn)."""
     P, W = pkg.program, pkg.wrappers
     n_nodes, _n_init, n_pre, _n_meas, zones = PC_SHAPE
     rng = np.random.RandomState(31)
@@ -813,6 +826,77 @@ def check_run_batch_churn(torch, pkg, device) -> None:
     xs = pkg.convert.pod_xs_from_numpy(P.PodXs(
         valid=padded(batch.valid, False), sig=sig, tidx=tidx, nom_idx=nom),
         device)
+    return SimpleNamespace(na=na, table=table, carry0=carry0, xs=xs, ovl=ovl,
+                           span=span, bucket=bucket, n_pre=n_pre,
+                           rows_of=rows_of, sig=sig, tidx=tidx, nom=nom,
+                           n_nodes=n_nodes)
+
+
+def check_run_batch_edges(torch, pkg, device) -> None:
+    """run_batch on tests/_batch_edges.py's RUN_BATCH_EDGE_CASES (ties at
+    CTA boundaries, N not a multiple of the cluster's rows, equal to and
+    above them, signature changes every pod / every other pod / never, a
+    row outside the table, invalid pods, full port slots, nominated rows
+    at a CTA boundary and on invalid nodes, every group family): the
+    kernel over the whole span against the plain version on the span
+    without the rows outside the table, exactly."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _batch_edges import (RUN_BATCH_EDGE_CASES, check_span, full_span,
+                              kept, stage)
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies
+    from kubernetes_tpu_torch.state.batch import BatchDims
+    P, conv = pkg.program, pkg.convert
+    layer = SimpleNamespace(Cache=pkg.Cache, Snapshot=pkg.Snapshot,
+                            ClusterState=pkg.ClusterState,
+                            BatchBuilder=pkg.BatchBuilder,
+                            BatchDims=BatchDims, W=pkg.wrappers)
+    cfg = P.ScoreConfig()
+    for case in sorted(RUN_BATCH_EDGE_CASES):
+        e = stage(case, layer)
+        keep = kept(e)
+        outs = []
+        for dev, sl in ((device, slice(None)), ("cpu", keep)):
+            na = conv.node_arrays_from_numpy(e.arrays, dev)
+            gd = gc = fam = ovl = None
+            if e.mode == "groups":
+                gd = conv.groups_dev_from_numpy(e.gd, dev)
+                gc = conv.group_carry_from_numpy(e.gc, dev)
+                fam = GroupFamilies(*e.fam)
+            if e.mode == "ovl":
+                ovl = (torch.from_numpy(e.ovl_used).to(dev),
+                       torch.from_numpy(e.ovl_npods).to(dev))
+            xs = conv.pod_xs_from_numpy(P.PodXs(
+                valid=e.valid[sl], sig=e.sig[sl], tidx=e.tidx[sl],
+                nom_idx=None if e.nom_idx is None else e.nom_idx[sl]), dev)
+            run = P.run_batch if dev == device else P._run_batch_plain
+            outs.append(run(cfg, na, P.initial_carry(na, gc), xs,
+                            conv.pod_table_from_numpy(e.table, dev), gd, fam,
+                            overlay=ovl))
+        torch.cuda.synchronize()
+        (kc, ka), (pc, pa) = outs
+        got = np_of(ka).tolist()
+        if got != full_span(e, np_of(pa)):
+            fail(f"run_batch edge {case}: assignments differ")
+        assert_equal_trees(torch, to_cpu(kc), pc, f"run_batch edge {case}")
+        check_span(case, got)
+    log("kernel_edges", name="run_batch", cases=sorted(RUN_BATCH_EDGE_CASES),
+        exact=True)
+
+
+def check_run_batch_churn(torch, pkg, device) -> None:
+    """run_batch's overlay variant at the shape PreemptionChurn's last
+    drain gives it: the 8-cpu cluster after the preemptor wave (an init
+    pod of 4 cpu on every node but the 200 nominated ones, 8,192 measured
+    pods of 500m / 256 Mi bound at seeded nodes), the 200 preemptors
+    (8 cpu / 1 Gi, each nominated on its own node) and 1,808 measured
+    pods in one scan span padded to a 2,048 bucket, as the scheduler's
+    _scan_dispatch pads it. Every preemptor must land on its nominated
+    node. Logs the times and bound beside the kernel table's row."""
+    P = pkg.program
+    c = churn_inputs(torch, pkg, device)
+    na, table, carry0, xs, ovl = c.na, c.table, c.carry0, c.xs, c.ovl
+    span, bucket, n_pre, rows_of = c.span, c.bucket, c.n_pre, c.rows_of
+    sig, tidx, nom, n_nodes = c.sig, c.tidx, c.nom, c.n_nodes
     cfg = P.ScoreConfig()
     kc, ka = P.run_batch(cfg, na, carry0, xs, table, overlay=ovl)
     t0 = time.perf_counter()
@@ -2343,7 +2427,10 @@ def check_mesh_kernels(torch, pkg, sched, rows: list) -> None:
                 S.gather_rows(mesh, [t.used for t in gc], "cuda:0"),
                 S.gather_rows(mesh, [t.npods for t in gc], "cuda:0"),
                 dom, ndom), 10))
-        payload[k][D] = nbytes(na.cap, na.valid, carry.used, carry.npods)
+        # on one card the kernels read the shards in place
+        payload[k][D] = (0 if pkg.kernels.probe_in_place(mesh)
+                         else nbytes(na.cap, na.valid, carry.used,
+                                     carry.npods))
         del gna, gc, kc, pc, got, want
 
     # the bounds: the single-device rows' at the same shapes
@@ -4574,12 +4661,69 @@ def plan_times(torch, pkg, device, reps: int = 3) -> dict:
     return out
 
 
-TIMES = {"closed_form": closed_form_times, "plan": plan_times}
+def batch_times(torch, pkg, device, reps: int = 3) -> dict:
+    """run_batch at its main-path shapes and the mesh's probe: timed ms
+    (CUDA events over `reps` calls) and device ms (torch.profiler) — row
+    1 on phase 3's 1,024-pod mixed span, row 1o on the same span and on
+    PreemptionChurn's last drain (2,008 pods in a 2,048 bucket), row 1g
+    on its 1,024-pod span of five signatures; then row 11 and row 14h on
+    make_mesh(2) / (4) of one card at N = 8,192 (the mixed span's output
+    carry, zone domain ids), beside `torch.sort` of the [N, R] util (their
+    library yardstick). Only the port's public entries are called, so an
+    older checkout is timed the same way (`--times batch ROOT`)."""
+    P, S = pkg.program, pkg.sharding
+    cfg = P.ScoreConfig()
+    b = batch_span_inputs(torch, pkg, device)
+    c = churn_inputs(torch, pkg, device)
+    g = groups_span_inputs(pkg, device, 1024)
+    gcarry = P.initial_carry(g[0], g[4])
+    runs = {
+        "run_batch[mixed span]": lambda: P.run_batch(
+            cfg, b.na, b.carry0, b.xs, b.table),
+        "run_batch_ovl[mixed span]": lambda: P.run_batch(
+            cfg, b.na, b.carry0, b.xs_n, b.table, overlay=b.ovl),
+        "run_batch_ovl[PreemptionChurn last drain]": lambda: P.run_batch(
+            cfg, c.na, c.carry0, c.xs, c.table, overlay=c.ovl),
+        "run_batch_groups[1,024 pods]": lambda: P.run_batch(
+            cfg, g[0], gcarry, g[6], g[2], groups=g[3], fam=g[5]),
+    }
+    out = {name: dict(ms=cuda_ms(torch, fn, reps),
+                      device_ms=device_ms(torch, fn, reps))
+           for name, fn in runs.items()}
+    na = b.na
+    carry, _ = P.run_batch(cfg, na, b.carry0, b.xs, b.table)
+    N = na.cap.shape[0]
+    dom = (torch.arange(N, device=na.cap.device) % 16).to(torch.int32)
+    part = na.valid[:, None] & (na.cap > 0)
+    util = torch.where(part, P._f32_ratio(carry.used, na.cap),
+                       torch.full_like(carry.used, -1, dtype=torch.float32))
+    lib_ms = cuda_ms(torch, lambda: torch.sort(util, dim=0), 50)
+
+    def probe():
+        return P.cluster_probe(na, carry, dom, 16)
+    out["cluster_probe"] = dict(ms=cuda_ms(torch, probe, 50),
+                                device_ms=device_ms(torch, probe, 50),
+                                library_ms=lib_ms)
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=[device] * D)
+        gna, gc, _ = sharded_state(S, mesh, na, carry)
+
+        def sharded():
+            return S.cluster_probe_sharded(mesh, gna, gc, dom, 16)
+        out[f"cluster_probe_sharded[D={D}]"] = dict(
+            ms=cuda_ms(torch, sharded, 50),
+            device_ms=device_ms(torch, sharded, 50), library_ms=lib_ms)
+    return out
+
+
+TIMES = {"batch": batch_times, "closed_form": closed_form_times,
+         "plan": plan_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
-    """`--times GROUP ROOT`: one group of kernel rows (closed_form: 2, 2o,
-    13u; plan: 7, 14d) of the port in checkout ROOT, its kernels built
+    """`--times GROUP ROOT`: one group of kernel rows (batch: 1, 1o, 1g,
+    11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d) of the port in
+    checkout ROOT, its kernels built
     under ROOT/build, as one JSON line. Two checkouts compare on one card
     in one call: run each in its own process, in turns (parent, change,
     change, parent)."""
@@ -4599,8 +4743,8 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
-                    help="only time one group of kernels (closed_form, "
-                    "plan) of the port in checkout ROOT")
+                    help="only time one group of kernels (batch, "
+                    "closed_form, plan) of the port in checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")
     args = ap.parse_args(argv)
@@ -4650,6 +4794,7 @@ def main(argv=None) -> int:
     mark("build")
     rows: list = []
     check_run_batch(torch, pkg, device, rows)
+    check_run_batch_edges(torch, pkg, device)
     check_run_batch_churn(torch, pkg, device)
     check_run_uniform(torch, pkg, device, rows)
     check_scatter_rows(torch, pkg, device, rows)

@@ -25,37 +25,57 @@
 // is a value of the column, so selecting it instead of sorting gives the
 // same bits.
 //
+// The mesh's probe (kubernetes_tpu/parallel/sharding.py cluster_probe_sharded
+// :1198, _cluster_probe_sharded_jit :1157: an all-gather onto lane 0 and
+// _probe_math there) is the same entry on its shards: the kernels take a
+// shard table by value, up to KT_PROBE_MAX_SHARDS shards (row 11, one
+// device, is the table of one shard). A global row is its shard's offset
+// plus its local row, the shards in mesh order; every statistic is an
+// exact sum, a max, a count or a rank over the same cells as the gathered
+// columns, so the outputs keep their bits without the gather.
+//
 // What bounds it on an H100: the bytes. It needs the valid rows' cap,
-// the participating cells' used and the node columns once (under 0.5 MB
+// the participating cells' used and the node columns once (under 0.9 MB
 // at 5,000 valid nodes of 8,192 and R = 16); the work is a few
 // comparisons per cell. At that size each of the three launches is a few
 // microseconds of launch latency.
 //
-// Design: three launches on the drain's stream.
+// Design: three launches on the drain's stream, their scratch and outputs
+// carved by the wrapper from one allocation.
 //   (a) one thread per node: the bottleneck util and tight flag into a
-//       scratch byte per node, and the per-domain pod / node counts as
-//       int64 atomics into [ndom] scratch the wrapper zeroed;
+//       scratch byte per node; the [ndom] domain counts zeroed;
 //   (b) five blocks per resource column: one takes the int64 sums and
 //       the max free block, each of the other four one order statistic
 //       by a radix select over the f32 bits (four 8-bit passes, a
 //       256-bucket shared histogram each, its bucket found by a warp
 //       scan), which works at any N where a shared-memory sort would stop
-//       fitting past 2^15 nodes;
+//       fitting past 2^15 nodes; after them, blocks of a thread per node
+//       add the per-domain pod / node counts as int64 atomics;
 //   (c) one block: the domain statistics and the valid count.
 // The kernels never write their inputs.
 
 #include "lean_eval.cuh"
 
+#define KT_PROBE_MAX_SHARDS 4
+
+// one node shard's columns (ops/kernels.py ProbeShardC)
+struct ProbeShard {
+  const int64_t* cap;     // [rows, R]
+  const uint8_t* valid;   // [rows]
+  const int64_t* used;    // [rows, R]
+  const int32_t* npods;   // [rows]
+  int32_t rows;
+};
+
+// mirrored field for field by ctypes (ops/kernels.py ProbeArgsC)
 struct ProbeArgs {
-  const int64_t* cap;     // [N, R]
-  const uint8_t* valid;   // [N]
-  const int64_t* used;    // [N, R]
-  const int32_t* npods;   // [N]
-  const int32_t* dom;     // [N]
+  ProbeShard s[KT_PROBE_MAX_SHARDS];
+  int32_t D;              // shards in use
+  const int32_t* dom;     // [N], N = the shards' rows
   int32_t N, R, ndom;
   uint8_t* tight;         // [N] scratch
-  int64_t* dom_pods;      // [ndom] scratch, zeroed by the wrapper
-  int64_t* dom_nodes;     // [ndom] scratch, zeroed by the wrapper
+  int64_t* dom_pods;      // [ndom] scratch, zeroed by launch (a)
+  int64_t* dom_nodes;     // [ndom] scratch, zeroed by launch (a)
   float* per_res;         // [R, 7]
   float* dom_stats;       // [4]
   int32_t* valid_count;   // []
@@ -69,14 +89,30 @@ __device__ __forceinline__ float f32_ratio(int64_t num, int64_t den) {
   return __fdiv_rn(__ll2float_rn(num), __ll2float_rn(den > 1 ? den : 1));
 }
 
-__device__ __forceinline__ bool participates(const ProbeArgs& a, int n,
-                                             int r) {
-  return a.valid[n] && a.cap[(int64_t)n * a.R + r] > 0;
+__device__ __forceinline__ bool participates(const ProbeShard& s, int m,
+                                             int R, int r) {
+  return s.valid[m] && s.cap[(int64_t)m * R + r] > 0;
 }
 
-__device__ __forceinline__ float util_of(const ProbeArgs& a, int n, int r) {
-  const int64_t k = (int64_t)n * a.R + r;
-  return f32_ratio(a.used[k], a.cap[k]);
+__device__ __forceinline__ float util_of(const ProbeShard& s, int m, int R,
+                                         int r) {
+  const int64_t k = (int64_t)m * R + r;
+  return f32_ratio(s.used[k], s.cap[k]);
+}
+
+// global row n: its shard d and local row *m (n < N)
+__device__ __forceinline__ int shard_of(const ProbeArgs& a, int n, int* m) {
+  int d = 0;
+#pragma unroll
+  for (int k = 0; k < KT_PROBE_MAX_SHARDS - 1; ++k)
+    if (k + 1 < a.D && n >= a.s[k].rows) {
+      n -= a.s[k].rows;
+      d = k + 1;
+    } else {
+      break;
+    }
+  *m = n;
+  return d;
 }
 
 // order-preserving uint32 key of a float (negatives flipped whole,
@@ -90,22 +126,24 @@ __device__ __forceinline__ float unkey(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-__global__ void __launch_bounds__(256) probe_nodes(ProbeArgs a) {
+// launch (a): a thread per global row, and the [ndom] domain counts
+// zeroed, a thread an entry
+__global__ void __launch_bounds__(256)
+probe_nodes(const __grid_constant__ ProbeArgs a) {
   const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n >= a.N) return;
-  const bool v = a.valid[n] != 0;
-  // max over the row of util, 0 where the cell does not participate
-  float bottleneck = -INFINITY;
-  for (int r = 0; r < a.R; ++r)
-    bottleneck = fmaxf(bottleneck,
-                       participates(a, n, r) ? util_of(a, n, r) : 0.0f);
-  a.tight[n] = v && bottleneck >= 0.95f;
-  int d = a.dom[n];
-  d = d < 0 ? 0 : (d > a.ndom - 1 ? a.ndom - 1 : d);
-  if (v) {
-    atomicAdd((unsigned long long*)(a.dom_pods + d),
-              (unsigned long long)(int64_t)a.npods[n]);
-    atomicAdd((unsigned long long*)(a.dom_nodes + d), 1ull);
+  if (n < a.N) {
+    int m;
+    const ProbeShard& s = a.s[shard_of(a, n, &m)];
+    // max over the row of util, 0 where the cell does not participate
+    float bottleneck = -INFINITY;
+    for (int r = 0; r < a.R; ++r)
+      bottleneck = fmaxf(bottleneck, participates(s, m, a.R, r)
+                                         ? util_of(s, m, a.R, r) : 0.0f);
+    a.tight[n] = s.valid[m] && bottleneck >= 0.95f;
+  }
+  if (n < a.ndom) {
+    a.dom_pods[n] = 0;
+    a.dom_nodes[n] = 0;
   }
 }
 
@@ -147,31 +185,53 @@ __device__ __forceinline__ void select_bucket(const uint32_t* hist,
   }
 }
 
-// grid (R, 5): block (r, q < 4) selects column r's order statistic q,
-// block (r, 4) takes the column's sums and its max free block
-__global__ void __launch_bounds__(BLOCK) probe_columns(ProbeArgs a) {
+// launch (b): blocks [0, 5R) — block 5r + q < 4 selects column r's order
+// statistic q, block 5r + 4 takes the column's sums and its max free block
+// — then blocks of a thread per global row add the domain counts
+__global__ void __launch_bounds__(BLOCK)
+probe_columns(const __grid_constant__ ProbeArgs a) {
   __shared__ BlockScratch<BLOCK> sh;
   __shared__ uint32_t hist[256];
   __shared__ uint32_t sel_bucket;
   __shared__ int64_t sel_rank;
-  const int r = blockIdx.x;
-  const int qi = blockIdx.y;
-  const int N = a.N;
+  const int R = a.R, N = a.N;
+  if ((int)blockIdx.x >= 5 * R) {
+    const int n = (blockIdx.x - 5 * R) * BLOCK + threadIdx.x;
+    if (n >= N) return;
+    int m;
+    const ProbeShard& s = a.s[shard_of(a, n, &m)];
+    if (!s.valid[m]) return;
+    int d = a.dom[n];
+    d = d < 0 ? 0 : (d > a.ndom - 1 ? a.ndom - 1 : d);
+    atomicAdd((unsigned long long*)(a.dom_pods + d),
+              (unsigned long long)(int64_t)s.npods[m]);
+    atomicAdd((unsigned long long*)(a.dom_nodes + d), 1ull);
+    return;
+  }
+  const int r = blockIdx.x / 5;
+  const int qi = blockIdx.x % 5;
   float* out = a.per_res + (int64_t)r * 7;
   if (qi == 4) {
     int64_t s_used = 0, s_cap = 0, s_free = 0, s_strand = 0;
     int64_t mx = KT_I64_MIN;
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      int64_t free = 0;
-      if (participates(a, n, r)) {
-        const int64_t k = (int64_t)n * a.R + r;
-        s_used += a.used[k];
-        s_cap += a.cap[k];
-        free = a.cap[k] - a.used[k];
+    int off = 0;
+#pragma unroll
+    for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
+      if (d >= a.D) break;
+      const ProbeShard& s = a.s[d];
+      for (int m = threadIdx.x; m < s.rows; m += BLOCK) {
+        int64_t free = 0;
+        if (participates(s, m, R, r)) {
+          const int64_t k = (int64_t)m * R + r;
+          s_used += s.used[k];
+          s_cap += s.cap[k];
+          free = s.cap[k] - s.used[k];
+        }
+        s_free += free;
+        if (a.tight[off + m]) s_strand += free;
+        mx = free > mx ? free : mx;
       }
-      s_free += free;
-      if (a.tight[n]) s_strand += free;
-      mx = free > mx ? free : mx;
+      off += s.rows;
     }
     s_used = block_sum<BLOCK>(s_used, sh);
     s_cap = block_sum<BLOCK>(s_cap, sh);
@@ -186,29 +246,41 @@ __global__ void __launch_bounds__(BLOCK) probe_columns(ProbeArgs a) {
     return;
   }
   int64_t mcount = 0;
-  for (int n = threadIdx.x; n < N; n += BLOCK) mcount += participates(a, n, r);
-  const int64_t m = block_sum<BLOCK>(mcount, sh);
-  if (m == 0) {
+#pragma unroll
+  for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
+    if (d >= a.D) break;
+    const ProbeShard& s = a.s[d];
+    for (int m = threadIdx.x; m < s.rows; m += BLOCK)
+      mcount += participates(s, m, R, r);
+  }
+  const int64_t mc = block_sum<BLOCK>(mcount, sh);
+  if (mc == 0) {
     if (threadIdx.x == 0) out[qi] = 0.0f;
     return;
   }
   const double qs[4] = {0.5, 0.9, 0.99, 1.0};
   // rank among the participants (the sorted column's position N - m +
   // idx, clipped to [0, N - 1], minus the N - m leading −1s)
-  const double mf = (double)m;
+  const double mf = (double)mc;
   const int32_t idx =
       (int32_t)floor(__dadd_rn(__dmul_rn(qs[qi], __dsub_rn(mf, 1.0)), 0.5));
-  int64_t at = (int64_t)N - m + idx;
+  int64_t at = (int64_t)N - mc + idx;
   at = at < 0 ? 0 : (at > N - 1 ? N - 1 : at);
-  int64_t kk = at - ((int64_t)N - m);
+  int64_t kk = at - ((int64_t)N - mc);
   uint32_t prefix = 0, pmask = 0;
   for (int shift = 24; shift >= 0; shift -= 8) {
     for (int b = threadIdx.x; b < 256; b += BLOCK) hist[b] = 0;
     __syncthreads();
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      if (!participates(a, n, r)) continue;
-      const uint32_t key = fkey(util_of(a, n, r));
-      if ((key & pmask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
+#pragma unroll
+    for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
+      if (d >= a.D) break;
+      const ProbeShard& s = a.s[d];
+      for (int m = threadIdx.x; m < s.rows; m += BLOCK) {
+        if (!participates(s, m, R, r)) continue;
+        const uint32_t key = fkey(util_of(s, m, R, r));
+        if ((key & pmask) == prefix)
+          atomicAdd(&hist[(key >> shift) & 255u], 1u);
+      }
     }
     __syncthreads();
     if (threadIdx.x < 32) select_bucket(hist, kk, &sel_bucket, &sel_rank);
@@ -221,7 +293,9 @@ __global__ void __launch_bounds__(BLOCK) probe_columns(ProbeArgs a) {
   if (threadIdx.x == 0) out[qi] = unkey(prefix);
 }
 
-__global__ void __launch_bounds__(BLOCK) probe_domains(ProbeArgs a) {
+// launch (c): one block
+__global__ void __launch_bounds__(BLOCK)
+probe_domains(const __grid_constant__ ProbeArgs a) {
   __shared__ BlockScratch<BLOCK> sh;
   __shared__ float fmx[BLOCK / 32], fmn[BLOCK / 32];
   int64_t populated = 0, nvalid = 0;
@@ -233,7 +307,12 @@ __global__ void __launch_bounds__(BLOCK) probe_domains(ProbeArgs a) {
     dmax = fmaxf(dmax, load);
     dmin = fminf(dmin, load);
   }
-  for (int n = threadIdx.x; n < a.N; n += BLOCK) nvalid += a.valid[n] != 0;
+#pragma unroll
+  for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
+    if (d >= a.D) break;
+    const ProbeShard& s = a.s[d];
+    for (int m = threadIdx.x; m < s.rows; m += BLOCK) nvalid += s.valid[m] != 0;
+  }
   for (int o = 16; o > 0; o >>= 1) {
     dmax = fmaxf(dmax, __shfl_down_sync(0xffffffffu, dmax, o));
     dmin = fminf(dmin, __shfl_down_sync(0xffffffffu, dmin, o));
@@ -263,14 +342,16 @@ __global__ void __launch_bounds__(BLOCK) probe_domains(ProbeArgs a) {
 }  // namespace
 
 extern "C" int ktpu_cluster_probe(const ProbeArgs* args, void* stream) {
-  const ProbeArgs a = *args;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (a.N > 0) probe_nodes<<<(a.N + 255) / 256, 256, 0, s>>>(a);
+  const ProbeArgs& a = *args;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_a = a.N > a.ndom ? a.N : a.ndom;
+  if (n_a > 0) probe_nodes<<<(n_a + 255) / 256, 256, 0, st>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  if (a.R > 0) probe_columns<<<dim3(a.R, 5), BLOCK, 0, s>>>(a);
+  const int blocks = 5 * a.R + (a.N + BLOCK - 1) / BLOCK;
+  if (blocks > 0) probe_columns<<<blocks, BLOCK, 0, st>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  probe_domains<<<1, BLOCK, 0, s>>>(a);
+  probe_domains<<<1, BLOCK, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

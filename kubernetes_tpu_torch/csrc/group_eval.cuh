@@ -1,7 +1,7 @@
 // Per-node group math (PodTopologySpread + InterPodAffinity) shared by the
-// scan kernel (run_batch.cu), the wave kernel (run_wave.cu), the plan
-// span (plan_span.cuh, its per-row helpers) and the node-sharded forms
-// (run_batch_sharded.cu, run_plan_sharded.cu). Each
+// wave kernel (run_wave.cu), the plan span (plan_span.cuh) and the scan
+// kernel (run_batch.cu) through their per-row helpers, and the node-sharded
+// forms (run_batch_sharded.cu, run_plan_sharded.cu). Each
 // function is the CUDA form of the matching plain function in
 // kubernetes_tpu_torch/ops/groups.py and of kubernetes_tpu/ops/groups.py
 // (line numbers below):
@@ -11,7 +11,6 @@
 //                                      _ipa_norm_scores  (:459-472)
 //     (its phases apart for a node shard: block_score_partials,
 //     block_spread_weights + block_spread_raw, kt_group_score)
-//   block_group_update                 group_update      (:475-570)
 //   block_own_write /                  group_update on a node shard, its
 //     block_group_update_own           `pick` psum'd (parallel/sharding.py
 //                                      :142-155)
@@ -19,10 +18,11 @@
 //   block_wave_fold                    wave_fold         (:1215-1311),
 //                                      for one wave row
 //
-// All of them run inside ONE block that owns the whole node axis (node n
-// belongs to thread n % BLOCK), so the reductions are block reductions and
-// the scatters are plain stores or shared/global atomics followed by a
-// barrier. The family flags (FamC) are runtime ints: a spread-only span
+// The block_* functions run inside ONE block that owns the whole node
+// axis (node n belongs to thread n % BLOCK), so the reductions are block
+// reductions and the scatters are plain stores or shared/global atomics
+// followed by a barrier (group_update itself, for a team of CTAs, is
+// plan_span.cuh's plan_gate / plan_sweep). The family flags (FamC) are runtime ints: a spread-only span
 // skips every inter-pod-affinity loop, as the JAX program skips them at
 // trace time.
 //
@@ -388,96 +388,6 @@ __device__ void block_group_scores(const GViewD& v, const FamC& fam,
   for (int n = threadIdx.x; n < N; n += BLOCK)
     gsc[n] = kt_group_score(v, fam, n, feas[n], gsc[n], w_spread, w_ipa,
                             has_s, rmin, rmax, lo, hi);
-  __syncthreads();
-}
-
-// group_update after placing a pod of row u on node `best` (the caller
-// only calls it when the pod was placed). Every element is written by one
-// thread; ends with a barrier.
-template <int BLOCK>
-__device__ void block_group_update(const GroupsC& g, const GCarryC& c,
-                                   const FamC& fam, int u, int best) {
-  const int64_t N = g.N, U = g.U, SC = g.SC, TA = g.TA, TAA = g.TAA;
-  const int64_t CT = g.CT, PT = g.PT;
-  if (fam.spr_f) {
-    for (int64_t e = threadIdx.x; e < U * SC * N; e += BLOCK) {
-      const int64_t vc = e / N, v = vc / SC, cc = vc % SC;
-      const int32_t tvb = g.spr_f_tv[vc * N + best];
-      if (g.m_spr_f[(u * U + v) * SC + cc] && g.spr_f_elig[vc * N + best]
-          && tvb != 0 && g.spr_f_tv[e] == tvb)
-        c.spr_f_cnt[e] += 1;
-    }
-  }
-  if (fam.spr_s) {
-    for (int64_t e = threadIdx.x; e < U * SC * N; e += BLOCK) {
-      const int64_t vc = e / N, n = e % N, v = vc / SC, cc = vc % SC;
-      const bool m = g.m_spr_s[(u * U + v) * SC + cc];
-      bool hit;
-      if (g.spr_s_is_host[vc]) {
-        hit = m && n == best;
-      } else {
-        const int32_t tvb = g.spr_s_tv[vc * N + best];
-        hit = m && g.spr_s_elig[vc * N + best] && tvb != 0
-            && g.spr_s_tv[e] == tvb;
-      }
-      if (hit) c.spr_s_cnt[e] += 1;
-    }
-  }
-  if (fam.ipa_anti) {
-    for (int64_t e = threadIdx.x; e < U * N; e += BLOCK) {
-      const int64_t v = e / N, n = e % N;
-      int32_t d = 0;
-      for (int64_t t = 0; t < TAA; ++t) {
-        const int32_t* tv = g.ipa_raa_tv + (u * TAA + t) * N;
-        d += g.m_ipa_exist[(u * U + v) * TAA + t] && tv[best] != 0
-             && tv[n] == tv[best];
-      }
-      c.ipa_veto[e] += d;
-    }
-    for (int64_t e = threadIdx.x; e < U * TAA * N; e += BLOCK) {
-      const int64_t vt = e / N, v = vt / TAA, t = vt % TAA;
-      const int32_t tvb = g.ipa_raa_tv[vt * N + best];
-      if (g.m_ipa_aa[(u * U + v) * TAA + t] && tvb != 0
-          && g.ipa_raa_tv[e] == tvb)
-        c.ipa_aa_cnt[e] += 1;
-    }
-  }
-  if (fam.ipa_req) {
-    for (int64_t e = threadIdx.x; e < U * TA * N; e += BLOCK) {
-      const int64_t vt = e / N, v = vt / TA;
-      const int32_t tvb = g.ipa_ra_tv[vt * N + best];
-      if (g.m_ipa_a[u * U + v] && g.ipa_ra_active[vt] && tvb != 0
-          && g.ipa_ra_tv[e] == tvb)
-        c.ipa_a_cnt[e] += 1;
-    }
-    if (threadIdx.x == 0) {
-      for (int64_t v = 0; v < U; ++v) {
-        if (!g.m_ipa_a[u * U + v]) continue;
-        int64_t k = 0;
-        for (int64_t t = 0; t < TA; ++t)
-          k += g.ipa_ra_active[v * TA + t]
-               && g.ipa_ra_tv[(v * TA + t) * N + best] != 0;
-        c.ipa_a_total[v] += k;
-      }
-    }
-  }
-  if (fam.ipa_score) {
-    for (int64_t e = threadIdx.x; e < U * N; e += BLOCK) {
-      const int64_t v = e / N, n = e % N;
-      int64_t d = 0;
-      for (int64_t t = 0; t < CT; ++t) {
-        const int32_t* tv = g.ipa_stc_tv + (v * CT + t) * N;
-        if (tv[best] != 0 && tv[n] == tv[best])
-          d += g.w_stc[(u * U + v) * CT + t];
-      }
-      for (int64_t t = 0; t < PT; ++t) {
-        const int32_t* tv = g.ipa_stp_tv + (u * PT + t) * N;
-        if (tv[best] != 0 && tv[n] == tv[best])
-          d += g.w_stp[(u * U + v) * PT + t];
-      }
-      c.ipa_score[e] += d;
-    }
-  }
   __syncthreads();
 }
 

@@ -595,99 +595,8 @@ __device__ __forceinline__ void block_argmax(int64_t& v, int32_t& i,
   i = sh.out_i;
 }
 
-// ---------------------------------------------------------------------------
-// _slow_parts / the SigCache fast path (program.py:424, :495) for one pod
-// over all N nodes, by one block. `in` is the carry's cache (read on the
-// fast path), `out` receives the parts (may alias `in`). Returns, in
-// *tmax / *namax, the feasible-set maxima of the PreferNoSchedule counts
-// and the preferred-affinity weights (the default_normalize
-// denominators); `gmask`, when given, is the group mask folded into the
-// feasible set before those maxima (_eval_pod :544-550), read only at the
-// nodes this thread owns. `ovl` (null pointers: none) folds the
-// nominated-pod overlay into the slow path's fit; `nom_row` >= 0 is the
-// pod's own nominated row, whose EFFECTIVE fit `nom_fit` replaces the
-// cached one in the maxima (the cache itself keeps the signature-pure
-// fit). Ends with a __syncthreads.
-
-template <int BLOCK>
-__device__ void block_eval_parts(const CfgC& cfg, const NodeC& na,
-                                 const TableC& tb, const CarryC& carry,
-                                 const PodRowD& p, bool use_fast,
-                                 const CacheC& in, const CacheC& out,
-                                 BlockScratch<BLOCK>& sh,
-                                 int64_t* num_with_sh, int64_t* tmax,
-                                 int64_t* namax,
-                                 const uint8_t* gmask = nullptr,
-                                 OvlD ovl = OvlD{nullptr, nullptr},
-                                 int nom_row = -1, bool nom_fit = false) {
-  const int N = na.N;
-  const int IC = tb.IC;
-  if (!use_fast) {
-    // ImageLocality's cluster-wide counts (:244-249) first
-    int64_t cnt[KT_MAX_IC];
-    for (int c = 0; c < IC; ++c) cnt[c] = 0;
-    int64_t nvalid = 0;
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      if (!na.valid[n]) continue;
-      ++nvalid;
-      int64_t size_c[KT_MAX_IC];
-      const uint32_t bits = kt_image_presence(na, n, p, IC, size_c);
-      for (int c = 0; c < IC; ++c) cnt[c] += (bits >> c) & 1u;
-    }
-    for (int c = 0; c < IC; ++c) {
-      const int64_t s = block_sum<BLOCK>(cnt[c], sh);
-      if (threadIdx.x == 0) num_with_sh[c] = s;
-    }
-    const int64_t total = block_sum<BLOCK>(nvalid, sh);  // syncs num_with_sh
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      const int64_t* used_row = carry.used + (int64_t)n * na.R;
-      const int32_t* port_row = carry.ports + (int64_t)n * carry.P;
-      bool m = na.valid[n] != 0;
-      m = m && (p.node_name_id == 0 || na.name_id[n] == p.node_name_id);
-      m = m && (!na.unschedulable[n] || p.tolerates_unsched);
-      m = m && kt_taints_ok(na, n, p, tb.TT);
-      m = m && kt_selector_ok(na, n, p, tb.Q, tb.TM, tb.V);
-      m = m && kt_ports_ok(port_row, carry.P, p.port_ids, tb.PP);
-      int64_t size_c[KT_MAX_IC];
-      kt_image_presence(na, n, p, IC, size_c);
-      int64_t s_fit, s_bal;
-      kt_fit_scores(cfg, na, n, used_row,
-                    carry.nonzero_used + (int64_t)n * 2, p, &s_fit, &s_bal);
-      out.static_mask[n] = m;
-      out.taint_raw[n] = kt_taint_prefer(na, n, p, tb.TT);
-      out.na_raw[n] = kt_pref_score(na, n, p, tb.PT, tb.Q, tb.V);
-      out.s_img[n] = kt_image_score(p, IC, size_c, num_with_sh, total);
-      out.fit_ok[n] = kt_fit_ovl(na, n, used_row, carry.npods[n], p, ovl);
-      out.s_fit[n] = s_fit;
-      out.s_bal[n] = s_bal;
-    }
-  } else if (out.static_mask != in.static_mask) {
-    for (int n = threadIdx.x; n < N; n += BLOCK) {
-      out.static_mask[n] = in.static_mask[n];
-      out.taint_raw[n] = in.taint_raw[n];
-      out.na_raw[n] = in.na_raw[n];
-      out.s_img[n] = in.s_img[n];
-      out.fit_ok[n] = in.fit_ok[n];
-      out.s_fit[n] = in.s_fit[n];
-      out.s_bal[n] = in.s_bal[n];
-    }
-  }
-  // each thread re-reads only the nodes it wrote itself above, so no
-  // barrier is needed before the maxima pass
-  int64_t tm = 0, nm = 0;
-  for (int n = threadIdx.x; n < N; n += BLOCK) {
-    const bool fit = n == nom_row ? nom_fit : out.fit_ok[n] != 0;
-    if (out.static_mask[n] && fit && (!gmask || gmask[n])) {
-      tm = out.taint_raw[n] > tm ? out.taint_raw[n] : tm;
-      nm = out.na_raw[n] > nm ? out.na_raw[n] : nm;
-    }
-  }
-  *tmax = block_max<BLOCK>(tm, sh);
-  *namax = block_max<BLOCK>(nm, sh);
-}
-
-// block_eval_parts' slow path for the one row n, for kernels that run a
-// thread a row (explain_row.cu, run_uniform.cu, run_uniform_sharded.cu):
+// _slow_parts (:424) for the one row n, for kernels that run a thread a
+// row (run_batch.cu, explain_row.cu, run_uniform.cu, run_uniform_sharded.cu):
 // every SigCache part but s_img into `out`, the overlay `ovl` (null
 // pointers: none, the default) in the fit only. Returns the
 // image-presence bits of a valid row (0 for an invalid one): its share of

@@ -3,7 +3,9 @@
 // once for a team of CTAs that splits the node axis, shared by
 // run_plan.cu (one device: a thread-block cluster, ClusterTeam) and
 // run_plan_sharded.cu (a mesh's shards on one card: one cooperative grid,
-// GridTeam). The node axis may be cut into D equal shards, each with its
+// GridTeam). run_batch.cu's cluster reuses the team, its reductions, the
+// packed key, the listed group increments (plan_gate, plan_sweep) and the
+// ports placement. The node axis may be cut into D equal shards, each with its
 // own arrays (PlanNodesC); every CTA owns a contiguous range of one
 // shard's rows, one row a thread where the team is wide enough.
 //
@@ -65,7 +67,7 @@ extern __shared__ __align__(16) unsigned char kt_plan_dyn[];
 
 #define KT_PLAN_MAX_S 32
 #define KT_PLAN_BLOCK 512    // threads a CTA of the plan span's team
-#define KT_RED_K 8           // values one team reduction carries
+#define KT_RED_K 16          // values one team reduction carries
 #define KT_INC_CAP 128       // group increments decided a round
 
 // one listed group increment (plan_gate)
@@ -242,6 +244,26 @@ struct GridTeam {
   }
 };
 
+// _apply_assignment's ports (:906): the pod's port ids into the first
+// free slots of the chosen row, by one warp (`lane` its lane); a pod
+// without ports leaves the row as it is
+__device__ __forceinline__ void kt_warp_place_ports(int32_t* row, int P,
+                                                    const PodRowD& p, int PP,
+                                                    int lane) {
+  bool any_port = false;
+  for (int q = 0; q < PP; ++q) any_port = any_port || p.port_ids[q];
+  if (!any_port) return;
+  int rank0 = 0;
+  for (int s0 = 0; s0 < P; s0 += 32) {
+    const int slot = s0 + lane;
+    const bool free = slot < P && row[slot] == 0;
+    const unsigned m = __ballot_sync(0xffffffffu, free);
+    const int rank = rank0 + __popc(m & ((1u << lane) - 1u));
+    if (free && rank < PP) row[slot] = p.port_ids[rank];
+    rank0 += __popc(m);
+  }
+}
+
 // decode a packed key: (score, global index)
 __device__ __forceinline__ void kt_plan_unkey(int64_t k, int64_t* score,
                                               int32_t* best) {
@@ -415,16 +437,16 @@ __device__ __forceinline__ int plan_candidates(const GroupsC& g,
                 + (fam.ipa_score ? g.CT + g.PT : 0));
 }
 
-// candidate j's gate; an increment goes to the list, a hostname count
-// straight to the chosen row (this CTA owns it: `owner`), a required-
-// affinity term into the slots' a_total (and the shard's, `lead`)
-template <int BLOCK>
-__device__ void plan_gate(const PlanSpanC& cm, const PlanNodesC& a,
-                          const GroupsC& go, bool owner, int lb, int64_t u,
-                          int64_t j, bool lead, PlanShared<BLOCK>& sh) {
-  const GroupsC& g = a.g;
-  const GCarryC& c = a.gc;
-  const FamC& fam = cm.fam;
+// candidate j's gate over the groups `g` / counters `c` of this shard
+// (the chosen node on shard `go`, local row lb); an increment goes to the
+// list, a hostname count straight to the chosen row (this CTA owns it:
+// `owner`), and a required-affinity term of consumer row v to
+// `on_a_total(v)` (one more active term whose key the node carries)
+template <int BLOCK, class OnATotal>
+__device__ void plan_gate(const FamC& fam, const GroupsC& g,
+                          const GCarryC& c, const GroupsC& go, bool owner,
+                          int lb, int64_t u, int64_t j,
+                          PlanShared<BLOCK>& sh, OnATotal on_a_total) {
   const int64_t NN = g.N, NO = go.N, U = g.U, SC = g.SC, TA = g.TA;
   const int64_t TAA = g.TAA, CT = g.CT, PT = g.PT;
   PlanInc q{nullptr, nullptr, 1, 0, 0};
@@ -436,7 +458,7 @@ __device__ void plan_gate(const PlanSpanC& cm, const PlanNodesC& a,
         if (g.m_spr_f[(u * U + v) * SC + vc % SC] && go.spr_f_elig[at]
             && q.tvb != 0) {
           q.tv = g.spr_f_tv + vc * NN;
-          q.dst = a.gc.spr_f_cnt + vc * NN;
+          q.dst = c.spr_f_cnt + vc * NN;
         }
         break;
       }
@@ -485,12 +507,7 @@ __device__ void plan_gate(const PlanSpanC& cm, const PlanNodesC& a,
         if (g.m_ipa_a[u * U + v] && g.ipa_ra_active[j] && q.tvb != 0) {
           q.tv = g.ipa_ra_tv + j * NN;
           q.dst = c.ipa_a_cnt + j * NN;
-          // a_total: one more active term whose key the node carries
-          for (int s = 0; s < cm.S; ++s)
-            if (cm.wt[s] == v)
-              atomicAdd((unsigned long long*)&sh.a_total[s], 1ull);
-          if (lead)
-            atomicAdd((unsigned long long*)(c.ipa_a_total + v), 1ull);
+          on_a_total(v);
         }
         break;
       }
@@ -673,8 +690,15 @@ __device__ void plan_span(const PlanSpanC& cm, const PlanNodesC* all, int d,
       // rest sweep
       for (int base = 0;; base += KT_INC_CAP) {
         if (t < KT_INC_CAP && base + t < ncand)
-          plan_gate<BLOCK>(cm, a, all[d_own].g, owner, lb, cm.wt[w],
-                           base + t, shard_lead, sh);
+          plan_gate<BLOCK>(cm.fam, a.g, a.gc, all[d_own].g, owner, lb,
+                           cm.wt[w], base + t, sh, [&](int64_t v) {
+            // the slots' a_total, and the shard's (`shard_lead`)
+            for (int s = 0; s < cm.S; ++s)
+              if (cm.wt[s] == v)
+                atomicAdd((unsigned long long*)&sh.a_total[s], 1ull);
+            if (shard_lead)
+              atomicAdd((unsigned long long*)(a.gc.ipa_a_total + v), 1ull);
+          });
         if (base == 0 && owner && wp == KT_INC_CAP / 32) {
           const PodRowD p = pod_row(cm.tb, cm.wt[w]);
           for (int r = lane; r < R + 3; r += 32) {
@@ -688,25 +712,9 @@ __device__ void plan_span(const PlanSpanC& cm, const PlanNodesC* all, int d,
           }
         }
         if (base == 0 && owner && wp == KT_INC_CAP / 32 + 1
-            && cm.has_ports) {
-          // the pod's port ids into the first free slots of the row
-          const PodRowD p = pod_row(cm.tb, cm.wt[w]);
-          bool any_port = false;
-          for (int q = 0; q < cm.tb.PP; ++q)
-            any_port = any_port || p.port_ids[q];
-          if (any_port) {
-            int32_t* row = a.ports + (int64_t)lb * cm.P;
-            int rank0 = 0;
-            for (int s0 = 0; s0 < cm.P; s0 += 32) {
-              const int slot = s0 + lane;
-              const bool free = slot < cm.P && row[slot] == 0;
-              const unsigned m = __ballot_sync(0xffffffffu, free);
-              const int rank = rank0 + __popc(m & ((1u << lane) - 1u));
-              if (free && rank < cm.tb.PP) row[slot] = p.port_ids[rank];
-              rank0 += __popc(m);
-            }
-          }
-        }
+            && cm.has_ports)
+          kt_warp_place_ports(a.ports + (int64_t)lb * cm.P, cm.P,
+                              pod_row(cm.tb, cm.wt[w]), cm.tb.PP, lane);
         __syncthreads();
         if (base == 0 && owner && t >= BLOCK - 3 * KT_PLAN_MAX_S
             && (BLOCK - 1 - t) % KT_PLAN_MAX_S < S)

@@ -16,6 +16,7 @@ the plain versions: a CUDA tensor either runs the kernel or raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -77,6 +78,10 @@ MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
 MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
 MAX_PLAN_SLOTS = 32       # csrc/plan_span.cuh KT_PLAN_MAX_S
 PLAN_CLUSTER = 16         # csrc/run_plan.cu KT_PLAN_CLUSTER (CTAs)
+BATCH_CLUSTER = 16        # csrc/run_batch.cu KT_BATCH_CLUSTER (CTAs)
+# a CTA's dynamic shared memory the wrappers allow (of the H100's 227 KB a
+# block; the static PlanShared takes the rest)
+MAX_DYN_SMEM = 200 * 1024
 MAX_DRY_R = 64            # csrc/dry_run.cu KT_DRY_MAX_R
 MAX_DRY_V = 128           # victim slots (Evaluator.MAX_BATCHED_VICTIMS)
 
@@ -253,6 +258,17 @@ class WaveArgsC(ctypes.Structure):
                 + [("P0", _I), ("P1", _I), ("packed", _P)])
 
 
+class BatchArgsC(ctypes.Structure):
+    """csrc/run_batch.cu BatchArgs."""
+    _fields_ = ([("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
+                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
+                 ("has_groups", _I), ("w_spread", ctypes.c_int64),
+                 ("w_ipa", ctypes.c_int64)]
+                + [(f, _P) for f in ("flags", "ovl_used", "ovl_npods",
+                                     "nom_idx", "valid", "sig", "tidx")]
+                + [("B", _I), ("out", _P)])
+
+
 class PlanSpanC(ctypes.Structure):
     """csrc/plan_span.cuh PlanSpanC: what every node shard shares."""
     _fields_ = ([("tb", TableC), ("cfg", CfgC), ("fam", FamC),
@@ -312,8 +328,19 @@ class DiagArgsC(ctypes.Structure):
                 ("slot", _P), ("pods_fail", _P), ("cols_fail", _P)]
 
 
+PROBE_MAX_SHARDS = 4   # csrc/cluster_probe.cu KT_PROBE_MAX_SHARDS
+
+
+class ProbeShardC(ctypes.Structure):
+    """csrc/cluster_probe.cu ProbeShard: one node shard's columns."""
+    _fields_ = ([(f, _P) for f in ("cap", "valid", "used", "npods")]
+                + [("rows", _I)])
+
+
 class ProbeArgsC(ctypes.Structure):
-    _fields_ = ([(f, _P) for f in ("cap", "valid", "used", "npods", "dom")]
+    """csrc/cluster_probe.cu ProbeArgs."""
+    _fields_ = ([("s", ProbeShardC * PROBE_MAX_SHARDS), ("D", _I),
+                 ("dom", _P)]
                 + [(f, _I) for f in ("N", "R", "ndom")]
                 + [(f, _P) for f in ("tight", "dom_pods", "dom_nodes",
                                      "per_res", "dom_stats",
@@ -414,9 +441,7 @@ class ExplainArgsC(ctypes.Structure):
 
 def _bind(name: str, lib):
     if name == "run_batch":
-        lib.ktpu_run_batch.argtypes = (
-            [_P] * 7 + [_I, ctypes.c_int64, ctypes.c_int64] + [_P] * 9
-            + [_I, _P, _P])
+        lib.ktpu_run_batch.argtypes = [_P, _P]
         lib.ktpu_run_batch.restype = ctypes.c_int
     elif name == "run_uniform":
         lib.ktpu_run_uniform.argtypes = [_P, _I, _P]
@@ -773,14 +798,22 @@ def _overlay_c(overlay, N: int, R: int, device, copy: bool):
     return (used.data_ptr(), npods.data_ptr()), (used, npods)
 
 
+def batch_dyn_bytes(N: int, U: int) -> int:
+    """A run_batch CTA's dynamic shared memory (csrc/run_batch.cu
+    batch_dyn_bytes): its ⌈N / BATCH_CLUSTER⌉ rows' raw spread scores and
+    feasible set, then ipa_a_total of the U group rows (0 lean)."""
+    span = -(-N // BATCH_CLUSTER)
+    return (9 * span + 15) // 16 * 16 + 8 * U
+
+
 def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
                    overlay=None):
     """The scan kernel (csrc/run_batch.cu) over pods [B]; same contract as
     program.run_batch, with the group branch when `groups` is given and
     the overlay variant when `overlay` is (the kernel consumes a copy of
     it; `pods.nom_idx`, when not None, holds each pod's own nominated
-    row)."""
-    libs = build()
+    row). One launch of a thread-block cluster a call; every argument is
+    checked before the kernels are built."""
     device = carry.used.device
     node = _node_c(na, device)
     B = pods.valid.shape[0]
@@ -788,7 +821,7 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
     sig = _check(pods.sig, "pods.sig", torch.int32, 1, device)
     tidx = _check(pods.tidx, "pods.tidx", torch.int32, 1, device)
     if pods.sig.shape[0] != B or pods.tidx.shape[0] != B:
-        raise ValueError("pods: valid/sig/tidx lengths differ")
+        raise ValueError("run_batch: pods.valid / sig / tidx lengths differ")
     if overlay is not None and groups is not None:
         raise ValueError("run_batch: the overlay is a lean-scan input")
     # the copies stay bound to a name until the call returns
@@ -798,34 +831,44 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
     if overlay is not None and nom is not None:
         nom_ptr = _check(nom, "pods.nom_idx", torch.int32, 1, device)
         if nom.shape[0] != B:
-            raise ValueError("pods.nom_idx: wrong length")
+            raise ValueError("run_batch: pods.nom_idx: wrong length")
     tab = _table_c(table, node.R, device)
+    cfgc = _cfg_c(cfg, node.R)
+    g = gcc = None
+    U = 0
+    if groups is not None:
+        g = _groups_c(groups, node.N, device)
+        _gcarry_c(carry.groups, g, device)
+        if g.U > tab.U:
+            raise ValueError("run_batch: more group rows than table rows")
+        U = g.U
+    if batch_dyn_bytes(node.N, U) > MAX_DYN_SMEM:
+        raise ValueError(f"run_batch: {node.N} node rows and {U} group rows "
+                         "exceed a CTA's shared memory")
+    _carry_c(carry, node.N, node.R, device)
+    libs = build()
     out_carry = _out_carry(carry)
     cc = _carry_c(out_carry, node.N, node.R, device)
     out = torch.empty((B,), dtype=torch.int32, device=device)
-    if groups is not None:
-        g = _groups_c(groups, node.N, device)
-        gc = _gcarry_c(out_carry.groups, g, device)
-        if g.U > tab.U:
-            raise ValueError("run_batch: more group rows than table rows")
+    flags = None
+    if g is not None:
+        gcc = _gcarry_c(out_carry.groups, g, device)
         famc = _fam_c(fam if fam is not None else (1,) * 5)
-        gmask = torch.empty((node.N,), dtype=torch.uint8, device=device)
-        flags = torch.empty((g.SC * node.N,), dtype=torch.int32,
-                            device=device)
-        gsc = torch.empty((node.N,), dtype=torch.int64, device=device)
-        scratch = (gmask.data_ptr(), flags.data_ptr(), gsc.data_ptr())
+        if famc.spr_s:
+            flags = torch.empty((max(g.SC, 1) * node.N,), dtype=torch.int32,
+                                device=device)
     else:
-        g, gc, famc = GroupsC(), GCarryC(), FamC()
-        scratch = (None, None, None)
-    # every struct stays bound to a name until the call returns: the C
-    # entry copies them into the launch, from host memory ctypes owns
-    cfgc = _cfg_c(cfg, node.R)
-    rc = libs["run_batch"].ktpu_run_batch(
-        ctypes.addressof(node), ctypes.addressof(tab), ctypes.addressof(cc),
-        ctypes.addressof(cfgc), ctypes.addressof(g), ctypes.addressof(gc),
-        ctypes.addressof(famc), int(groups is not None), cfg.w_spread,
-        cfg.w_ipa, *scratch, *ovl_ptrs, nom_ptr, valid, sig, tidx, B,
-        out.data_ptr(), _stream(device))
+        g, gcc, famc = GroupsC(), GCarryC(), FamC()
+    # every struct and tensor stays bound to a name until the call
+    # returns: the C entry copies the struct into the launch
+    args = BatchArgsC(
+        na=node, tb=tab, c=cc, cfg=cfgc, g=g, gc=gcc, fam=famc,
+        has_groups=int(groups is not None), w_spread=cfg.w_spread,
+        w_ipa=cfg.w_ipa, flags=None if flags is None else flags.data_ptr(),
+        ovl_used=ovl_ptrs[0], ovl_npods=ovl_ptrs[1], nom_idx=nom_ptr,
+        valid=valid, sig=sig, tidx=tidx, B=B, out=out.data_ptr())
+    rc = libs["run_batch"].ktpu_run_batch(ctypes.addressof(args),
+                                          _stream(device))
     _raise_on(rc, "run_batch")
     LAUNCHES["run_batch_groups" if groups is not None
              else "run_batch_ovl" if overlay is not None
@@ -1125,7 +1168,7 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
                  cache=cache, groups=gout_t), packed
 
 
-PLAN_RED_K = 8        # csrc/plan_span.cuh KT_RED_K
+PLAN_RED_K = 16       # csrc/plan_span.cuh KT_RED_K
 
 
 def plan_span_parts(S: int, n_local: int, D: int, SC: int, spread_s: bool,
@@ -1433,40 +1476,72 @@ def run_gang_cuda(cfg, na, carry, xs, table, wt, needed: int, dom, statics,
 def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):
     """The cluster probe (csrc/cluster_probe.cu); same contract as
     program.cluster_probe on (na.cap, na.valid, carry.used, carry.npods,
-    dom). Three launches on the current stream; reads its inputs only."""
-    out = _cluster_probe_launch(cap, valid, used, npods, dom, ndom)
+    dom): the probe's table of one shard. Three launches on the current
+    stream; reads its inputs only."""
+    out = _cluster_probe_launch([cap], [valid], [used], [npods], dom, ndom)
     LAUNCHES["cluster_probe"] += 1
     return out
 
 
-def _cluster_probe_launch(cap, valid, used, npods, dom, ndom: int):
-    libs = build()
-    device = used.device
-    N, R = cap.shape
-    ptrs = {"cap": _check(cap, "cap", torch.int64, 2, device),
-            "valid": _check(valid, "valid", torch.bool, 1, device),
-            "used": _check(used, "used", torch.int64, 2, device),
-            "npods": _check(npods, "npods", torch.int32, 1, device),
-            "dom": _check(dom, "dom", torch.int32, 1, device)}
-    if (tuple(used.shape) != (N, R) or valid.shape[0] != N
-            or npods.shape[0] != N or dom.shape[0] != N):
-        raise ValueError("cluster_probe: node axis or resource width differ")
+def probe_parts(N: int, R: int, ndom: int) -> list:
+    """The scratch and output pieces of one probe call, in carve order."""
+    return [("dom_pods", ndom, torch.int64), ("dom_nodes", ndom, torch.int64),
+            ("per_res", R * 7, torch.float32),
+            ("dom_stats", 4, torch.float32),
+            ("valid_count", 1, torch.int32), ("tight", N, torch.uint8)]
+
+
+def _cluster_probe_launch(caps, valids, useds, npods, dom, ndom: int):
+    """The probe kernels on D node shards of one device (the shards' rows
+    in order make the node axis; `dom` is the whole axis). The outputs are
+    views of one fresh allocation that also holds the scratch."""
+    device = dom.device
+    D = len(caps)
+    if not 1 <= D <= PROBE_MAX_SHARDS:
+        raise ValueError(f"cluster_probe: {D} shards, the kernel takes "
+                         f"1..{PROBE_MAX_SHARDS}")
+    R = caps[0].shape[1] if caps[0].dim() == 2 else -1
+    shards, N = [], 0
+    for d in range(D):
+        rows = caps[d].shape[0]
+        ptrs = {"cap": _check(caps[d], "cap", torch.int64, 2, device),
+                "valid": _check(valids[d], "valid", torch.bool, 1, device),
+                "used": _check(useds[d], "used", torch.int64, 2, device),
+                "npods": _check(npods[d], "npods", torch.int32, 1, device)}
+        if (caps[d].shape[1] != R or tuple(useds[d].shape) != (rows, R)
+                or valids[d].shape[0] != rows or npods[d].shape[0] != rows):
+            raise ValueError("cluster_probe: node axis or resource width "
+                             "differ")
+        shards.append(ProbeShardC(**ptrs, rows=rows))
+        N += rows
+    _check(dom, "dom", torch.int32, 1, device)
+    if dom.shape[0] != N:
+        raise ValueError(f"cluster_probe: dom has {dom.shape[0]} rows, the "
+                         f"shards {N}")
     ndom = int(ndom)
     if not 1 <= ndom < 2 ** 31:
         raise ValueError(f"cluster_probe: ndom = {ndom}")
-    tight = torch.empty((N,), dtype=torch.uint8, device=device)
-    dom_cnt = torch.zeros((2, ndom), dtype=torch.int64, device=device)
-    per_res = torch.empty((R, 7), dtype=torch.float32, device=device)
-    dom_stats = torch.empty((4,), dtype=torch.float32, device=device)
-    valid_count = torch.empty((), dtype=torch.int32, device=device)
-    args = ProbeArgsC(**ptrs, N=N, R=R, ndom=ndom, tight=tight.data_ptr(),
-                      dom_pods=dom_cnt[0].data_ptr(),
-                      dom_nodes=dom_cnt[1].data_ptr(),
-                      per_res=per_res.data_ptr(),
-                      dom_stats=dom_stats.data_ptr(),
-                      valid_count=valid_count.data_ptr())
-    rc = libs["cluster_probe"].ktpu_cluster_probe(ctypes.addressof(args),
-                                                  _stream(device))
+    libs = build()
+    buf, ptr, offs = _carve(device, probe_parts(N, R, ndom))
+    # the outputs: views of the buffer's float32 and int32 halves
+    f32, i32 = buf.view(torch.float32), buf.view(torch.int32)
+    at = 2 * offs["per_res"]
+    per_res = f32[at:at + R * 7].view(R, 7)
+    at = 2 * offs["dom_stats"]
+    dom_stats = f32[at:at + 4]
+    valid_count = i32[2 * offs["valid_count"]]
+    args = ProbeArgsC((*shards,), D=D, dom=dom.data_ptr(), N=N, R=R,
+                      ndom=ndom, tight=ptr["tight"],
+                      dom_pods=ptr["dom_pods"], dom_nodes=ptr["dom_nodes"],
+                      per_res=ptr["per_res"], dom_stats=ptr["dom_stats"],
+                      valid_count=ptr["valid_count"])
+    # a mesh's first device need not be the current one
+    guard = (torch.cuda.device(device)
+             if device.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        rc = libs["cluster_probe"].ktpu_cluster_probe(ctypes.addressof(args),
+                                                      _stream(device))
     _raise_on(rc, "cluster_probe")
     return per_res, dom_stats, valid_count
 
@@ -1843,11 +1918,27 @@ def scatter_rows_sharded_cuda(mesh, dev, staged):
     return Shards(out)
 
 
-def cluster_probe_sharded_cuda(cap, valid, used, npods, dom, ndom: int):
-    """The cluster probe on the mesh: the probe kernels on the node
-    columns the wrapper gathered onto the first shard's device."""
-    with torch.cuda.device(cap.device):
-        out = _cluster_probe_launch(cap, valid, used, npods, dom, ndom)
+def probe_in_place(mesh) -> bool:
+    """True when the mesh's probe reads its shards where they lie: every
+    shard on one card (plan_sharded_placement "one"), at most
+    PROBE_MAX_SHARDS of them. Otherwise the node columns are gathered onto
+    the first device first."""
+    return (plan_sharded_placement(mesh) == "one"
+            and mesh.size <= PROBE_MAX_SHARDS)
+
+
+def cluster_probe_sharded_cuda(mesh, na, carry, dom, ndom: int):
+    """The cluster probe on the mesh (`dom` on the first device): on one
+    card the probe kernels read the D shards in place; on several cards
+    the node columns are gathered onto the first device and the kernels
+    run there on the one shard they make."""
+    from ..parallel import sharding as S
+    cols = [[getattr(t, f) for t in tree]
+            for tree, f in ((na, "cap"), (na, "valid"), (carry, "used"),
+                            (carry, "npods"))]
+    if not probe_in_place(mesh):
+        cols = [[S.gather_rows(mesh, xs, mesh.devices[0])] for xs in cols]
+    out = _cluster_probe_launch(*cols, dom, ndom)
     LAUNCHES["cluster_probe_sharded"] += 1
     return out
 

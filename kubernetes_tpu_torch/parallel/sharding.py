@@ -867,21 +867,22 @@ def scatter_rows_sharded(mesh: Mesh, dev: Shards, idx, rows) -> Shards:
 
 def cluster_probe_sharded(mesh: Mesh, na: Shards, carry: Shards, dom,
                           ndom: int):
-    """`ops/program.py cluster_probe`'s mesh twin: the node shards'
-    cap / valid / used / npods gathered onto the first shard's device and
-    the single-device probe run there only (the JAX package's lane-0
-    `lax.cond`), so every output is bit-equal to the single-device
-    probe's. `dom` (i32 [N]) is replicated; the result lies on the first
-    device, the controller's, which reads it."""
+    """`ops/program.py cluster_probe`'s mesh twin, every output bit-equal
+    to the single-device probe's: the plain version on the node shards'
+    cap / valid / used / npods gathered onto the first shard's device (the
+    JAX package's lane-0 `lax.cond`); the kernels read shards that share
+    a card in place and gather the others (ops/kernels.py
+    cluster_probe_sharded_cuda). `dom` (i32 [N]) is replicated; the
+    result lies on the first device, the controller's, which reads it."""
     kind = mesh_kind(mesh, na, carry)
     dev0 = mesh.devices[0]
-    cols = [gather_rows(mesh, [getattr(t, f) for t in tree], dev0)
-            for tree, f in ((na, "cap"), (na, "valid"), (carry, "used"),
-                            (carry, "npods"))]
     dom0 = _to(dom, dev0)
     if kind == "cuda":
         from ..ops.kernels import cluster_probe_sharded_cuda
-        return cluster_probe_sharded_cuda(*cols, dom0, ndom)
+        return cluster_probe_sharded_cuda(mesh, na, carry, dom0, ndom)
+    cols = [gather_rows(mesh, [getattr(t, f) for t in tree], dev0)
+            for tree, f in ((na, "cap"), (na, "valid"), (carry, "used"),
+                            (carry, "npods"))]
     return _probe_plain(*cols, dom0, ndom)
 
 

@@ -238,6 +238,123 @@ def test_run_wave_kernel_equals_plain(cuda, case):
     _equal((kp, kc), (pp, pc))
 
 
+# ---------------------------------------------------------------------------
+# run_batch (csrc/run_batch.cu: one thread-block cluster a span) on the
+# edge inputs of tests/_batch_edges.py, whose plain version
+# tests/test_torch_batch_edges.py holds to the JAX package
+
+
+def _edge_inputs(case, device):
+    """One RUN_BATCH_EDGE_CASES case through the port's state layer:
+    (e, na, table, groups, fam, overlay) on `device`."""
+    from _batch_edges import stage
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies
+    from kubernetes_tpu_torch.state.batch import BatchDims
+    from kubernetes_tpu_torch.testing import wrappers
+    e = stage(case, SimpleNamespace(
+        Cache=Cache, Snapshot=Snapshot, ClusterState=ClusterState,
+        BatchBuilder=BatchBuilder, BatchDims=BatchDims, W=wrappers))
+    na = convert.node_arrays_from_numpy(e.arrays, device)
+    table = convert.pod_table_from_numpy(e.table, device)
+    groups = fam = overlay = None
+    if e.mode == "groups":
+        groups = (convert.groups_dev_from_numpy(e.gd, device),
+                  convert.group_carry_from_numpy(e.gc, device))
+        fam = GroupFamilies(*e.fam)
+    if e.mode == "ovl":
+        overlay = (torch.from_numpy(e.ovl_used).to(device),
+                   torch.from_numpy(e.ovl_npods).to(device))
+    return e, na, table, groups, fam, overlay
+
+
+def _edge_xs(e, device, keep=None):
+    sl = slice(None) if keep is None else keep
+    return convert.pod_xs_from_numpy(P.PodXs(
+        valid=e.valid[sl], sig=e.sig[sl], tidx=e.tidx[sl],
+        nom_idx=None if e.nom_idx is None else e.nom_idx[sl]), device)
+
+
+@pytest.mark.parametrize("case", [
+    "groups_beyond_lattice", "groups_every_family", "overlay_nominations",
+    "ragged_outside_invalid", "sig_change_every_other_pod",
+    "sig_change_every_pod", "ties_at_cta_boundaries"])
+def test_run_batch_edges_equal_plain(cuda, case):
+    """The kernel over the whole span (a row outside the table reports -2
+    and changes nothing) against the plain version on the CPU over the
+    span without it: assignments, every carry field, the SigCache and the
+    group carry; the caller's carry and overlay unwritten."""
+    from _batch_edges import check_span, full_span, kept
+    e, na, table, groups, fam, overlay = _edge_inputs(case, cuda)
+    gd, gc = groups if groups is not None else (None, None)
+    carry = P.initial_carry(na, gc)
+    before = _cpu(carry)
+    cfg = P.ScoreConfig()
+    kc, ka = P.run_batch(cfg, na, carry, _edge_xs(e, cuda), table, gd, fam,
+                         overlay=overlay)
+    keep = kept(e)
+    pc, pa = P._run_batch_plain(
+        cfg, _cpu(na), _cpu(carry), _edge_xs(e, "cpu", keep), _cpu(table),
+        _cpu(gd), fam,
+        overlay=None if overlay is None else tuple(t.cpu() for t in overlay))
+    torch.cuda.synchronize()
+    got = ka.cpu().tolist()
+    assert got == full_span(e, pa.numpy())
+    _equal(kc, pc)
+    _equal(carry, before)
+    if overlay is not None:
+        assert torch.equal(overlay[0].cpu(), torch.from_numpy(e.ovl_used))
+        assert torch.equal(overlay[1].cpu(), torch.from_numpy(e.ovl_npods))
+    check_span(case, got)
+
+
+@pytest.mark.parametrize("mode", ["lean", "ovl", "groups"])
+def test_run_batch_launches_once_a_span(cuda, mode):
+    """One wrapper call is one CUDA launch of run_batch_kernel, in every
+    mode (the copies of the carry it writes are the only other device
+    work)."""
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.ops import kernels as K
+    case = {"lean": "sig_change_every_pod", "ovl": "overlay_nominations",
+            "groups": "groups_every_family"}[mode]
+    e, na, table, groups, fam, overlay = _edge_inputs(case, cuda)
+    gd, gc = groups if groups is not None else (None, None)
+    carry = P.initial_carry(na, gc)
+    xs = _edge_xs(e, cuda)
+    cfg = P.ScoreConfig()
+    P.run_batch(cfg, na, carry, xs, table, gd, fam, overlay=overlay)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        P.run_batch(cfg, na, carry, xs, table, gd, fam, overlay=overlay)
+        torch.cuda.synchronize()
+    key = {"lean": "run_batch", "ovl": "run_batch_ovl",
+           "groups": "run_batch_groups"}[mode]
+    assert K.LAUNCHES[key] == 1
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("run_batch_kernel" in n for n in names) == 1, names
+
+
+def test_run_batch_refuses_bad_arguments(cuda):
+    """Checked before any launch: a pod stream of mismatched lengths, a
+    tensor on another device, an overlay with groups."""
+    e, na, table, groups, fam, overlay = _edge_inputs("groups_every_family",
+                                                      cuda)
+    gd, gc = groups
+    carry = P.initial_carry(na, gc)
+    xs = _edge_xs(e, cuda)
+    cfg = P.ScoreConfig()
+    with pytest.raises(ValueError):
+        P.run_batch(cfg, na, carry, xs._replace(sig=xs.sig[:-1]), table, gd,
+                    fam)
+    with pytest.raises(ValueError):
+        P.run_batch(cfg, na, carry, xs._replace(valid=xs.valid.cpu()),
+                    table, gd, fam)
+    with pytest.raises(ValueError):
+        P.run_batch(cfg, na, carry, xs, table, gd, fam,
+                    overlay=(carry.used.clone(), carry.npods.clone()))
+
+
 @pytest.mark.parametrize("seed", range(4))
 def test_run_batch_groups_kernel_equals_plain(cuda, seed):
     rng = random.Random(seed)
@@ -1233,6 +1350,63 @@ def test_cluster_probe_sharded_kernel_bit_equal(cuda, D, place):
                            torch.float32 else a.cpu(),
                            b.view(torch.int32) if b.dtype == torch.float32
                            else b)
+
+
+PROBE_SHARD_CASES = {
+    # name: (D, rows a shard, ndom, shard with no valid node or None)
+    "one_shard": (1, 1500, 16, None),
+    "two_shards": (2, 1500, 16, None),
+    "four_shards": (4, 1500, 16, None),
+    "two_shards_one_domain": (2, 1500, 1, None),
+    "four_shards_one_domain": (4, 1500, 1, None),
+    "two_shards_one_empty": (2, 1500, 16, 1),
+    "four_shards_one_empty": (4, 1500, 16, 0),
+    "one_shard_empty": (1, 1500, 16, 0),
+    "four_shards_full_width": (4, 2048, 5000, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PROBE_SHARD_CASES))
+def test_cluster_probe_sharded_in_place(cuda, case):
+    """On one card the mesh's probe reads its D shards where they lie (no
+    gather; n_local not a multiple of any block, one domain, a shard with
+    no valid node): bit-equal to row 11 on the whole axis and to the plain
+    version, one launch set a call."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    D, n, ndom, empty = PROBE_SHARD_CASES[case]
+    cap, valid, used, npods, dom = _probe_inputs(
+        np.random.RandomState(D * 7 + ndom), D * n, 4, ndom, cuda)
+    if empty is not None:
+        valid[empty * n:(empty + 1) * n] = False
+    mesh = S.make_mesh(devices=[cuda] * D)
+    assert K.probe_in_place(mesh)
+
+    def shards(fields):
+        return S.Shards(SimpleNamespace(**{
+            f: t[d * n:(d + 1) * n].clone() for f, t in fields.items()})
+            for d in range(D))
+
+    gathered = []
+    real = S.gather_rows
+    S.gather_rows = lambda *a: gathered.append(1) or real(*a)
+    try:
+        K.reset_launches()
+        got = S.cluster_probe_sharded(
+            mesh, shards({"cap": cap, "valid": valid, "used": used}),
+            shards({"used": used, "npods": npods}), dom, ndom)
+    finally:
+        S.gather_rows = real
+    assert gathered == [] and K.LAUNCHES["cluster_probe_sharded"] == 1
+    one = P.cluster_probe(SimpleNamespace(cap=cap, valid=valid),
+                          SimpleNamespace(used=used, npods=npods), dom, ndom)
+    want = P._probe_plain(cap.cpu(), valid.cpu(), used.cpu(), npods.cpu(),
+                          dom.cpu(), ndom)
+    for a, b, c in zip(got, one, want):
+        assert a.dtype == b.dtype == c.dtype and a.shape == c.shape
+        assert torch.equal(_bits(a.cpu()), _bits(b.cpu()))
+        assert torch.equal(_bits(a.cpu()), _bits(c))
 
 
 def _mesh_drain(mesh, n_nodes=40, n_pods=160):

@@ -422,3 +422,171 @@ def test_plan_constants_mirror_the_sources(const, source, define):
     text = (Kr.CSRC / source).read_text()
     found = re.findall(rf"^#define {define} (\d+)\b", text, re.M)
     assert found == [str(getattr(Kr, const))]
+
+
+# ---------------------------------------------------------------------------
+# run_batch (csrc/run_batch.cu, one cluster a span) and the probe
+# (csrc/cluster_probe.cu, a shard table): the checks before the build, the
+# mirrored constants and structs, the probe's route by placement
+
+
+def _c_fields(source: str, struct: str) -> list:
+    """The field names of `struct` in a csrc/ source, in order."""
+    import re
+    text = (Kr.CSRC / source).read_text()
+    body = re.search(rf"^struct {struct} {{\n(.*?)^}};", text,
+                     re.M | re.S).group(1)
+    names = []
+    for line in body.splitlines():
+        decl = line.split("//")[0].strip()
+        if not decl:
+            continue
+        assert decl.endswith(";"), decl
+        # the type is every word before the first name
+        head, _, rest = decl[:-1].partition(",")
+        words = head.replace("*", " ").split()
+        names.append(re.sub(r"\[.*\]", "", words[-1]))
+        names += [re.sub(r"\[.*\]", "", n.replace("*", "").strip())
+                  for n in rest.split(",") if n.strip()]
+    return names
+
+
+@pytest.mark.parametrize("cls,source,struct", [
+    ("BatchArgsC", "run_batch.cu", "BatchArgs"),
+    ("ProbeShardC", "cluster_probe.cu", "ProbeShard"),
+    ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs")])
+def test_kernel_arg_structs_mirror_the_sources(cls, source, struct):
+    fields = [f for f, _t in getattr(Kr, cls)._fields_]
+    assert fields == _c_fields(source, struct)
+
+
+def test_probe_shard_table_layout():
+    """The shard table the probe kernels take by value: PROBE_MAX_SHARDS
+    entries of four pointers and a row count, then the shard count, the
+    domain column and the sizes."""
+    import ctypes
+    s = dict(Kr.ProbeArgsC._fields_)["s"]
+    assert s._length_ == Kr.PROBE_MAX_SHARDS == Kr.USH_MAX_SHARDS
+    assert s._type_ is Kr.ProbeShardC
+    assert ctypes.sizeof(Kr.ProbeShardC) == 5 * 8      # 4 pointers, i32, pad
+    assert Kr.ProbeArgsC.D.offset == Kr.PROBE_MAX_SHARDS * 40
+    assert Kr.ProbeArgsC.dom.offset == Kr.ProbeArgsC.D.offset + 8
+    args = Kr.ProbeArgsC((Kr.ProbeShardC(rows=3), Kr.ProbeShardC(rows=5)),
+                         D=2)
+    assert [args.s[d].rows for d in range(4)] == [3, 5, 0, 0]
+
+
+@pytest.mark.parametrize("const,source,define", [
+    ("BATCH_CLUSTER", "run_batch.cu", "KT_BATCH_CLUSTER"),
+    ("PROBE_MAX_SHARDS", "cluster_probe.cu", "KT_PROBE_MAX_SHARDS")])
+def test_batch_and_probe_constants_mirror_the_sources(const, source, define):
+    import re
+    text = (Kr.CSRC / source).read_text()
+    found = re.findall(rf"^#define {define} (\d+)\b", text, re.M)
+    assert found == [str(getattr(Kr, const))]
+
+
+def test_batch_shared_memory_layout():
+    """A CTA's dynamic shared memory: the raw spread scores and the
+    feasible set of its ⌈N / C⌉ rows, 16-byte aligned, then ipa_a_total
+    of the group rows; the largest table (4,096 rows) fits at N = 65,536."""
+    span = 8192 // Kr.BATCH_CLUSTER
+    assert Kr.batch_dyn_bytes(8192, 0) == (9 * span + 15) // 16 * 16
+    assert Kr.batch_dyn_bytes(8192, 64) == Kr.batch_dyn_bytes(8192, 0) + 512
+    assert Kr.batch_dyn_bytes(65536, 4096) <= Kr.MAX_DYN_SMEM
+
+
+def _batch_cpu(groups=False):
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies, to_device
+    cache = Cache()
+    for i in range(12):
+        cache.add_node(make_node(f"n{i}").capacity(
+            {"cpu": 8, "memory": "8Gi"}).zone(f"z{i % 3}").obj())
+    snap = Snapshot()
+    cache.update_snapshot(snap)
+    state = ClusterState(device="cpu")
+    state.apply_snapshot(snap)
+    builder = BatchBuilder(state)
+    w = make_pod("p").req({"cpu": "1", "memory": "1Gi"}).label("app", "s")
+    if groups:
+        w = w.spread_constraint(1, "topology.kubernetes.io/zone",
+                                "DoNotSchedule", {"app": "s"})
+    batch = builder.build([w.obj()] * 4)
+    na = state.device_arrays()
+    table = P.table_from_batch(batch, "cpu")
+    xs = P.PodXs(valid=torch.from_numpy(batch.valid),
+                 sig=torch.from_numpy(batch.sig),
+                 tidx=torch.from_numpy(batch.tidx))
+    gd = gc = fam = None
+    if groups:
+        gd_np, gc_np = builder.groups.build_dev(snap)
+        gd, gc = to_device(gd_np, "cpu"), to_device(gc_np, "cpu")
+        fam = GroupFamilies(*builder.groups.families(snap))
+    return na, P.initial_carry(na, gc), xs, table, gd, fam
+
+
+@pytest.mark.parametrize("bad", ["lengths", "dtype", "overlay_groups",
+                                 "overlay_shape", "nom_length",
+                                 "table_width", "group_rows"])
+def test_run_batch_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    groups = bad in ("overlay_groups", "group_rows")
+    na, carry, xs, table, gd, fam = _batch_cpu(groups)
+    N, R = na.cap.shape
+    overlay = None
+    if bad == "lengths":
+        xs = xs._replace(sig=xs.sig[:-1])
+    elif bad == "dtype":
+        xs = xs._replace(tidx=xs.tidx.to(torch.int64))
+    elif bad == "overlay_groups":
+        overlay = (torch.zeros((N, R), dtype=torch.int64),
+                   torch.zeros((N,), dtype=torch.int32))
+    elif bad == "overlay_shape":
+        overlay = (torch.zeros((N, R + 1), dtype=torch.int64),
+                   torch.zeros((N,), dtype=torch.int32))
+    elif bad == "nom_length":
+        overlay = (torch.zeros((N, R), dtype=torch.int64),
+                   torch.zeros((N,), dtype=torch.int32))
+        xs = xs._replace(nom_idx=torch.full((1,), -1, dtype=torch.int32))
+    elif bad == "table_width":
+        table = table._replace(req=table.req[:, :-1].contiguous())
+    else:
+        # more group rows than the table has
+        table = type(table)(*(t[:1] for t in table))
+    with pytest.raises((ValueError, TypeError)):
+        Kr.run_batch_cuda(P.ScoreConfig(), na, carry, xs, table, gd, fam,
+                          overlay=overlay)
+
+
+def test_cluster_probe_sharded_gathers_only_across_cards(monkeypatch):
+    """On one card the mesh's probe hands the kernels its D shards
+    (D <= PROBE_MAX_SHARDS) and gathers nothing; shards on several cards,
+    or more shards than the table holds, are gathered onto the first
+    device first."""
+    na, _batch, _table = _cpu_state(20)              # N = 32 rows
+    carry = P.initial_carry(na)
+    dom = torch.zeros((na.cap.shape[0],), dtype=torch.int32)
+    launched, gathered = [], []
+    real = S.gather_rows
+    monkeypatch.setattr(S, "mesh_kind", lambda *a: "cuda")
+    monkeypatch.setattr(S, "gather_rows",
+                        lambda *a: gathered.append(1) or real(*a))
+    monkeypatch.setattr(Kr, "_cluster_probe_launch", lambda *a: launched
+                        .append([len(c) for c in a[:4]]) or ("probe",))
+    placement = Kr.plan_sharded_placement
+    for D, place, shards in [(1, "one", 1), (2, "one", 2), (4, "one", 4),
+                             (8, "one", 1), (2, "cards", 1),
+                             (4, "cards", 1)]:
+        monkeypatch.setattr(Kr, "plan_sharded_placement",
+                            placement if place == "one"
+                            else (lambda mesh: "cards"))
+        mesh = S.make_mesh(devices=["cpu"] * D)
+        launched.clear()
+        gathered.clear()
+        before = Kr.LAUNCHES["cluster_probe_sharded"]
+        assert S.cluster_probe_sharded(mesh, S.shard_node_arrays(mesh, na),
+                                       S.shard_carry(mesh, carry), dom,
+                                       4) == ("probe",)
+        assert launched == [[shards] * 4]
+        assert len(gathered) == (0 if shards > 1 or D == 1 else 4)
+        assert Kr.LAUNCHES["cluster_probe_sharded"] == before + 1
