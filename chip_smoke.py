@@ -9,7 +9,14 @@
         # device, make_mesh(2) / (4) of one card); closed_form:
         # run_uniform (lean, overlay) and run_gang's closed form; plan:
         # run_plan (MixedHighSignature, lean ports span) and
-        # run_plan_sharded on make_mesh(2) / (4) of one card.
+        # run_plan_sharded on make_mesh(2) / (4) of one card; shard:
+        # run_batch_sharded (lean, groups) and run_gang_sharded's scan
+        # tier on make_mesh(2) / (4) of one card beside run_batch (lean,
+        # groups) and run_gang's scan tier, and the mesh's closed forms
+        # (run_uniform_sharded, run_gang_sharded's closed form);
+        # gang_host: run_gang_sharded's scan tier on make_mesh(2) / (4)
+        # of one card, its host ms a call beside the copies its wrapper
+        # makes (this checkout only).
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -44,23 +51,27 @@ Phases, each reported on its own line:
      node-sharded programs (kubernetes_tpu_torch/parallel/sharding.py) on
      D = 2 and 4 shards of cuda:0, each against its plain version over
      the same shards and against the single-device kernel:
-     run_batch_sharded on a 1,024-pod lean span, run_uniform_sharded at
+     run_batch_sharded on a 1,024-pod lean span (one launch a span; the
+     host-driven chain of shards on several cards, called on the shards
+     of cuda:0, against the plain version), run_uniform_sharded at
      L = K = 8,192, J = 8 (and its fast path; its selection launch as the
      multi-block chain), scatter_rows_sharded with
      1,000 rows including every shard boundary, cluster_probe_sharded bit
      for bit; each logs its timed and device ms per mesh, the bytes it
      exchanged, and the single-device row's bound at the same shape;
      then the mesh's group and gang programs on D = 2 and 4 shards of
-     cuda:0: run_batch_sharded's group mode (against its plain version
-     on 256 pods of phase 8's mix, against run_batch's group mode on row
-     1g's 1,024-pod span), run_plan_sharded (plain: a 1,024-pod span of
+     cuda:0: run_batch_sharded's group mode (one launch a span;
+     against its plain version on 256 pods of phase 8's mix, the chain
+     there too, against run_batch's group mode on row 1g's 1,024-pod
+     span), run_plan_sharded (plain: a 1,024-pod span of
      MixedHighSignature's state and row 7's lean ports span; kernel:
      MixedHighSignature's full drain, S = 8, W = 4,096; one launch a
      span; the host-driven chain of shards on several cards, called on
      the shards of cuda:0, against the plain version on both spans and
      the one launch on the full drain),
-     run_gang_sharded's scan tier (B = 128, S = 1, w_contig = 2,
-     accepted and rejected; S = 4, 60 members in 64 slots) and closed
+     run_gang_sharded's scan tier (one launch a gang, B = 128, S = 1,
+     w_contig = 2, accepted and rejected; S = 4, 60 members in 64 slots;
+     the chain on the shards of cuda:0 in every case) and closed
      form (L = K = 256, J = 8: accepted, rejected, inexact; its selection
      launch as one block), and the
      per-shard surfaces (wave_statics_sharded, the image counts psum'd);
@@ -2331,25 +2342,45 @@ def check_mesh_kernels(torch, pkg, sched, rows: list) -> None:
         gna, gc = S.shard_node_arrays(mesh, na), S.shard_carry(mesh, carry)
         n_local = N // D
 
-        # run_batch_sharded: the kernel, its plain version, run_batch's
+        # run_batch_sharded: the kernel (one launch a span), its plain
+        # version, run_batch's; the host-driven chain of shards on several
+        # cards, called on the shards of cuda:0, against the plain version
+        k = "run_batch_sharded"
+        raw0 = pkg.kernels.RAW_LAUNCHES[k]
         kc, ka = S.run_batch_sharded(cfg, mesh, gna, gc, xs, table)
+        torch.cuda.synchronize()
+        launches_a_span = pkg.kernels.RAW_LAUNCHES[k] - raw0
+        if launches_a_span != 1:
+            fail(f"{k}[D={D}]: {launches_a_span} launches a span on one card")
         t0 = time.perf_counter()
         pc, pa = S._run_batch_sharded_plain(cfg, mesh, gna, gc, xs, table)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        k = "run_batch_sharded"
         err[k] = max(err[k], assert_equal_trees(
             torch, (ka, S.unshard(kc)), (pa, S.unshard(pc)), f"{k}[D={D}]"))
         assert_equal_trees(torch, ka, sa, f"{k}[D={D}] vs run_batch")
         assert_equal_trees(torch, S.unshard(kc)[:4], sc[:4],
                            f"{k}[D={D}] carry vs run_batch")
+        raw0 = pkg.kernels.RAW_LAUNCHES[k]
+        (hc, ha), chain_ms = timed(torch, lambda: pkg.kernels
+                                   ._batch_sharded_chain(cfg, mesh, gna, gc,
+                                                         xs, table, None,
+                                                         None))
+        chain = dict(ms=chain_ms, launches_a_span=pkg.kernels.RAW_LAUNCHES[k]
+                     - raw0)
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (ha, S.unshard(hc)), (pa, S.unshard(pc)),
+            f"{k}[D={D}] chain"))
+        del hc
         per[k][D] = dict(
             ms=cuda_ms(torch, lambda: S.run_batch_sharded(
                 cfg, mesh, gna, gc, xs, table), 2),
             device_ms=device_ms(torch, lambda: S.run_batch_sharded(
                 cfg, mesh, gna, gc, xs, table), 1),
-            plain_ms=plain_ms, placed=int((np_of(ka) >= 0).sum()))
-        payload[k][D] = span * D * (pkg.kernels.MAX_IC + 3 + 1) * 8
+            plain_ms=plain_ms, placed=int((np_of(ka) >= 0).sum()),
+            launches_a_span=launches_a_span, chain=chain)
+        # one launch on one card: the grid reduces in place, no exchange
+        payload[k][D] = 0
 
         # run_uniform_sharded (and its fast path on the output carry)
         kc, kp = S.run_uniform_sharded(cfg, mesh, gna, gc, x, table, BATCH,
@@ -2621,7 +2652,11 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
 
         # run_batch_sharded's group mode: the plain version on phase 8's
         # mix, the single-device kernel on row 1g's span
+        # (one launch a span; the host-driven chain of shards on several
+        # cards, called on the shards of cuda:0, against the plain version
+        # on phase 8's mix)
         k = "run_batch_sharded_groups"
+        raw = "run_batch_sharded"
         gna, gc0, ggd = sharded_state(S, mesh, na8, c8, gd8)
         (kc, ka), k8_ms = timed(torch, lambda: S.run_batch_sharded(
             cfg, mesh, gna, gc0, xs8, t8, groups=ggd, fam=fam8))
@@ -2629,18 +2664,34 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
             cfg, mesh, gna, gc0, xs8, t8, ggd, fam8))
         err[k] = max(err[k], assert_equal_trees(
             torch, (ka, S.unshard(kc)), (pa, S.unshard(pc)), f"{k}[D={D}]"))
+        raw0 = pkg.kernels.RAW_LAUNCHES[raw]
+        (hc, ha), chain_ms = timed(torch, lambda: pkg.kernels
+                                   ._batch_sharded_chain(cfg, mesh, gna, gc0,
+                                                         xs8, t8, ggd, fam8))
+        chain = dict(cut_ms=chain_ms, launches_a_span=pkg.kernels
+                     .RAW_LAUNCHES[raw] - raw0)
+        err[k] = max(err[k], assert_equal_trees(
+            torch, (ha, S.unshard(hc)), (pa, S.unshard(pc)),
+            f"{k}[D={D}] chain"))
+        del hc
         gna, gc0, ggd = sharded_state(S, mesh, na1, c1, gd1)
 
         def kern_g():
             return S.run_batch_sharded(cfg, mesh, gna, gc0, xs1, t1,
                                        groups=ggd, fam=fam1)
+        raw0 = pkg.kernels.RAW_LAUNCHES[raw]
         kc, ka = kern_g()
+        torch.cuda.synchronize()
+        launches_a_span = pkg.kernels.RAW_LAUNCHES[raw] - raw0
+        if launches_a_span != 1:
+            fail(f"{k}[D={D}]: {launches_a_span} launches a span on one card")
         assert_equal_trees(torch, (ka, S.unshard(kc)), (s1a, s1c),
                            f"{k}[D={D}] vs run_batch[groups]")
         per[k][D] = dict(ms=cuda_ms(torch, kern_g, 1),
                          device_ms=device_ms(torch, kern_g, 1),
                          plain_ms=plain_ms, cut_ms=k8_ms, pods=g_span,
-                         cut_pods=int(xs8.valid.shape[0]))
+                         cut_pods=int(xs8.valid.shape[0]),
+                         launches_a_span=launches_a_span, chain=chain)
         n_of[k] = g_span
         del gna, gc0, ggd, kc, pc
 
@@ -2758,7 +2809,13 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
                 return S.run_gang_sharded(cfg, mesh, gna, gc0, xs, table,
                                           wt=wt, needed=needed, dom=gdom,
                                           statics=gst, w_contig=2)
+            raw0 = pkg.kernels.RAW_LAUNCHES[k]
             kc, kp = kern_s()
+            torch.cuda.synchronize()
+            launches_a_gang = pkg.kernels.RAW_LAUNCHES[k] - raw0
+            if launches_a_gang != 1:
+                fail(f"{k}[D={D}, {case}]: {launches_a_gang} launches a gang "
+                     "on one card")
             (pc, pp), plain_ms = timed(
                 torch, lambda: S._run_gang_scan_sharded_plain(
                     cfg, mesh, gna, gc0, xs, table, wt, needed, gdom, gst,
@@ -2766,16 +2823,30 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
             err[k] = max(err[k], assert_equal_trees(
                 torch, (kp, S.unshard(kc)), (pp, S.unshard(pc)),
                 f"{k}[D={D}, {case}]"))
+            # the host-driven chain of shards on several cards, called on
+            # the shards of cuda:0
+            raw0 = pkg.kernels.RAW_LAUNCHES[k]
+            (hc, hp), chain_ms = timed(
+                torch, lambda: pkg.kernels._gang_sharded_chain(
+                    cfg, mesh, gna, gc0, xs, table, [int(u) for u in wt],
+                    needed, gdom, gst, 2))
+            chain = dict(ms=chain_ms, launches_a_gang=pkg.kernels
+                         .RAW_LAUNCHES[k] - raw0)
+            err[k] = max(err[k], assert_equal_trees(
+                torch, (hp, S.unshard(hc)), (pp, S.unshard(pc)),
+                f"{k}[D={D}, {case}] chain"))
+            del hc
             assert_equal_trees(torch, (S.unshard(kc), kp), single,
                                f"{k}[D={D}, {case}] vs run_gang")
             if case == "reject":
                 assert_equal_trees(torch, S.unshard(kc), carry,
                                    f"{k}[D={D}, reject] carry")
             per[k][D][case] = dict(
-                ms=cuda_ms(torch, kern_s, 2),
-                device_ms=device_ms(torch, kern_s, 2), plain_ms=plain_ms,
+                ms=cuda_ms(torch, kern_s, 10),
+                device_ms=device_ms(torch, kern_s, 10), plain_ms=plain_ms,
                 accept=int(kp[bucket]), placed=int(kp[bucket + 1]),
-                S=len(wt), B=bucket)
+                S=len(wt), B=bucket, launches_a_gang=launches_a_gang,
+                chain=chain)
             del gna, gc0, gst, kc, pc
 
         # run_gang_sharded's closed form: accepted, rejected, inexact
@@ -4716,15 +4787,146 @@ def batch_times(torch, pkg, device, reps: int = 3) -> dict:
     return out
 
 
+def shard_times(torch, pkg, device, reps: int = 3) -> dict:
+    """The mesh's two scans on D = 2 and 4 shards of one card beside their
+    single-device yardsticks: timed ms (CUDA events) and device ms
+    (torch.profiler) — row 14a on row 1's 1,024-pod mixed span (row 1
+    beside it), row 14a's group mode on row 1g's 1,024-pod span (row 1g
+    beside it), row 14e at CoLocatedInference's gang shape (B = 128, S =
+    1, w_contig = 2, N = 8,192; row 13s beside it); and the mesh's closed
+    forms the scans share the card with, rows 14c (SchedulingBasic's L =
+    K = 8,192, J = 8) and 14f (GangTraining's L = K = 256, J = 8). A
+    sharded scan is timed over one call (the host-driven chains take a
+    quarter of a second and more); the rest over `reps`. Only the port's
+    public entries are called, so an older checkout is timed the same way
+    (`--times shard ROOT`)."""
+    from kubernetes_tpu_torch.ops import gang as G
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    cfg = P.ScoreConfig()
+    b = batch_span_inputs(torch, pkg, device)
+    g = groups_span_inputs(pkg, device, 1024)
+    gcarry = P.initial_carry(g[0], g[4])
+    train = W.make_pod("train-proto").req({"cpu": "1", "memory": "1Gi"})\
+        .workload("train").obj()
+    na, table, carry, xs, wt, statics, dom = gang_scan_inputs(
+        torch, pkg, device, [train], 128, 128, seed=128)
+    ucfg, una, ucarry, ux, utable, L, K, J = sb_uniform_inputs(pkg, device)
+    gna_u, gx_u, gtable_u, gK_u = gang_uniform_inputs(pkg, device,
+                                                      lean=False)
+    gcarry_u = P.initial_carry(gna_u)
+    # the closed forms first: a process's later profiler sessions read
+    # low (PERF.md §7), and the parent's scans are thousands of launches
+    first, runs = [], [
+        ("run_batch[mixed span]", reps, lambda: P.run_batch(
+            cfg, b.na, b.carry0, b.xs, b.table)),
+        ("run_batch_groups[1,024 pods]", reps, lambda: P.run_batch(
+            cfg, g[0], gcarry, g[6], g[2], groups=g[3], fam=g[5])),
+        ("run_gang[B = 128]", reps, lambda: G.run_gang(
+            cfg, na, carry, xs, table, wt=wt, needed=128, dom=dom,
+            statics=statics, w_contig=2))]
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=[device] * D)
+        n_local = na.cap.shape[0] // D
+        bna, bc, _ = sharded_state(S, mesh, b.na, b.carry0)
+        gna, gc0, ggd = sharded_state(S, mesh, g[0], gcarry, g[3])
+        kna, kc, _ = sharded_state(S, mesh, na, carry)
+        kdom = [dom[d * n_local:(d + 1) * n_local].contiguous()
+                for d in range(D)]
+        kst = S.wave_statics_sharded(mesh, kna, table, wt)
+        una_s, uc_s, _ = sharded_state(S, mesh, una, ucarry)
+        gna_s, gc_s, _ = sharded_state(S, mesh, gna_u, gcarry_u)
+        first += [
+            (f"run_uniform_sharded[L = K = 8,192, D={D}]", reps,
+             lambda m=mesh, a=una_s, c=uc_s: S.run_uniform_sharded(
+                 ucfg, m, a, c, ux, utable, BATCH, L, K, J)),
+            (f"run_gang_uniform_sharded[L = K = 256, D={D}]", reps,
+             lambda m=mesh, a=gna_s, c=gc_s: S.run_gang_sharded(
+                 cfg, m, a, c, gx_u, gtable_u, needed=256, uniform=True,
+                 n_actual=256, L=256, K=gK_u, J=8))]
+        runs += [
+            (f"run_batch_sharded[mixed span, D={D}]", 1,
+             lambda m=mesh, a=bna, c=bc: S.run_batch_sharded(
+                 cfg, m, a, c, b.xs, b.table)),
+            (f"run_batch_sharded_groups[1,024 pods, D={D}]", 1,
+             lambda m=mesh, a=gna, c=gc0, gg=ggd: S.run_batch_sharded(
+                 cfg, m, a, c, g[6], g[2], groups=gg, fam=g[5])),
+            (f"run_gang_sharded[B = 128, D={D}]", reps,
+             lambda m=mesh, a=kna, c=kc, dm=kdom, st=kst: S.run_gang_sharded(
+                 cfg, m, a, c, xs, table, wt=wt, needed=128, dom=dm,
+                 statics=st, w_contig=2))]
+    return {name: dict(ms=cuda_ms(torch, fn, n),
+                       device_ms=device_ms(torch, fn, n))
+            for name, n, fn in first + runs}
+
+
+def gang_host_times(torch, pkg, device, reps: int = 50) -> dict:
+    """Where row 14e's timed-over-device gap goes, at CoLocatedInference's
+    gang shape (B = 128, S = 1, w_contig = 2, N = 8,192) on D = 2 and 4
+    shards of one card: the host ms of one run_gang_sharded call issued
+    back to back without a sync (`host_ms`), the timed ms over `reps`
+    back-to-back calls and over 3 (shard_times' count), the device ms;
+    beside them the host ms of the two copies the wrapper makes a call,
+    the shards' GangNodesC table (`_nodes_dev`) and the slots' rows, both
+    through pinned memory. This checkout only: it reads the wrapper's
+    private helpers."""
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    K = pkg.kernels
+    cfg = P.ScoreConfig()
+    train = W.make_pod("train-proto").req({"cpu": "1", "memory": "1Gi"})\
+        .workload("train").obj()
+    na, table, carry, xs, wt, statics, dom = gang_scan_inputs(
+        torch, pkg, device, [train], 128, 128, seed=128)
+    dev = torch.device(device, 0) if ":" not in device else \
+        torch.device(device)
+
+    def host_ms(fn) -> float:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+        return ms
+
+    rows = [int(u) for u in wt]
+    out = {"slot rows to the card": dict(host_ms=host_ms(
+        lambda: torch.tensor(rows, dtype=torch.int32).pin_memory().to(
+            dev, non_blocking=True)))}
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=[device] * D)
+        n_local = na.cap.shape[0] // D
+        kna, kc, _ = sharded_state(S, mesh, na, carry)
+        kdom = [dom[d * n_local:(d + 1) * n_local].contiguous()
+                for d in range(D)]
+        kst = S.wave_statics_sharded(mesh, kna, table, wt)
+
+        def call(m=mesh, a=kna, c=kc, dm=kdom, st=kst):
+            return S.run_gang_sharded(cfg, m, a, c, xs, table, wt=wt,
+                                      needed=128, dom=dm, statics=st,
+                                      w_contig=2)
+        nodes = (K.GangNodesC * D)()
+        out[f"run_gang_sharded[B = 128, D={D}]"] = dict(
+            host_ms=host_ms(call), ms=cuda_ms(torch, call, reps),
+            ms_3=cuda_ms(torch, call, 3), device_ms=device_ms(torch, call,
+                                                              reps))
+        out[f"shard table to the card[D={D}]"] = dict(host_ms=host_ms(
+            lambda n=nodes: K._nodes_dev(n, dev)))
+    return out
+
+
 TIMES = {"batch": batch_times, "closed_form": closed_form_times,
-         "plan": plan_times}
+         "gang_host": gang_host_times, "plan": plan_times,
+         "shard": shard_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
     """`--times GROUP ROOT`: one group of kernel rows (batch: 1, 1o, 1g,
-    11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d) of the port in
-    checkout ROOT, its kernels built
-    under ROOT/build, as one JSON line. Two checkouts compare on one card
+    11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d; shard: 14a, 14a
+    group, 14e beside 1, 1g, 13s; gang_host: 14e's host time) of the
+    port in checkout ROOT, its kernels built under ROOT/build, as one
+    JSON line. Two checkouts compare on one card
     in one call: run each in its own process, in turns (parent, change,
     change, parent)."""
     pkg = _Pkg()
@@ -4744,7 +4946,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
                     help="only time one group of kernels (batch, "
-                    "closed_form, plan) of the port in checkout ROOT")
+                    "closed_form, gang_host, plan, shard) of the port in "
+                    "checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")
     args = ap.parse_args(argv)

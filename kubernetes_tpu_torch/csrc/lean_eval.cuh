@@ -504,6 +504,40 @@ __device__ __forceinline__ void kt_fit_scores(const CfgC& cfg,
   *s_bal = p.skip_balanced ? 0 : kt_balanced(cfg.C, capc, plain);
 }
 
+// parts 1 and 2 of _row_refresh (:458) at the touched row n, from its
+// updated carry row (used_row, nz_row): 1 LeastAllocated into *s_fit, 2
+// Balanced into *s_bal, for the batch and gang span bodies, which run the
+// refresh's three parts side by side, a thread each (the refresh is the
+// critical path between two evaluations); part 0, the fit, stays with
+// each body (the batch's overlaid early exit, the gang's plain one). The
+// plan keeps its own refresh (plan_span.cuh plan_refresh): calling this
+// one there measured 3 % slower on its cluster and grid.
+__device__ __forceinline__ void kt_refresh_score(
+    const CfgC& cfg, const NodeC& na, int n, const int64_t* used_row,
+    const int64_t* nz_row, const PodRowD& p, int part, int64_t* s_fit,
+    int64_t* s_bal) {
+  if (part == 2 && p.skip_balanced) {
+    *s_bal = 0;
+    return;
+  }
+  const int64_t* cap = na.cap + (int64_t)n * na.R;
+  int64_t capc[KT_MAX_C], usedc[KT_MAX_C], plain[KT_MAX_C];
+#pragma unroll
+  for (int c = 0; c < KT_MAX_C; ++c) {
+    if (c >= cfg.C) break;
+    const int col = cfg.score_cols[c];
+    capc[c] = cap[col];
+    plain[c] = used_row[col] + p.req[col];
+    const int sl = cfg.nonzero_slot[c];
+    usedc[c] = cfg.col_nonzero[c] ? nz_row[sl] + p.nonzero_req[sl]
+                                  : plain[c];
+  }
+  if (part == 1)
+    *s_fit = kt_least_allocated(cfg, capc, usedc);
+  else
+    *s_bal = kt_balanced(cfg.C, capc, plain);
+}
+
 // default_normalize (:293) of one score given the feasible-set maximum
 __device__ __forceinline__ int64_t kt_normalize(int64_t s, int64_t maxc,
                                                 bool reverse) {

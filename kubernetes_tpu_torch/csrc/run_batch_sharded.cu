@@ -9,11 +9,32 @@
 // and _row_refresh (:458) on the owning shard and, in group mode,
 // group_update with the chosen node's values psum'd (`pick`, :142-155).
 //
-// A persistent kernel cannot wait on another shard's kernel, so each pod
-// step is a short chain of launches per shard, with the exchange
-// (kubernetes_tpu_torch/parallel/sharding.py) between them; the wrapper
-// (ops/kernels.py run_batch_sharded_cuda) drives the pods from the host
-// without reading anything back. Lean mode:
+// Two placements, two implementations:
+//
+// Every shard on one card (ops/kernels.py plan_sharded_placement "one"):
+// ONE cooperative launch a span (ktpu_batch_span_grid), the body of
+// batch_span.cuh over D shards, lean and group mode alike. The grid is D
+// teams of T blocks of KT_PLAN_BLOCK (512) threads, T = ceil(n_local /
+// 512) capped by the card's SMs / D, block b in shard b / T; each block
+// owns a contiguous range of its shard's rows. Each exchange of the chain
+// below becomes one grid-wide reduction (plan_span.cuh's GridTeam: every
+// block's part into its slot of a [2, D·T, KT_RED_K] buffer, grid.sync,
+// each block's warp 0 folding the slots). The packed key uses the global
+// row, so a tie across a shard or block boundary goes to the lowest global
+// row; the spread domain flags are [SC, n_global] with global domain ids,
+// epoch-tagged and never zeroed between steps; the chosen node's topology
+// values are read from the owning shard's static arrays on the same card
+// (no `own` exchange); each shard's SigCache rows, its replicated
+// signature and its ipa_a_total are written only by that shard's blocks
+// (the first block of each shard writes the scalars at the end). The
+// overlay is single-device only (the mesh refuses pending nominations):
+// the grid takes none.
+//
+// Shards on several cards ("cards"): a launch cannot wait on another
+// card's launch, so each pod step is a short chain of launches per shard,
+// with the exchange (kubernetes_tpu_torch/parallel/sharding.py) between
+// them; the wrapper (ops/kernels.py _batch_sharded_chain) drives the pods
+// from the host without reading anything back. Lean mode:
 //   1. shard_eval (one block a shard): the mask, the raw scores and the
 //      SigCache fast or slow path into the shard's cache, and the
 //      exchanged vector of shard_eval.cuh — image counts on a miss, the
@@ -50,11 +71,12 @@
 // `sig` is replicated, so every shard takes the same branch.
 //
 // What bounds it on an H100: as run_batch.cu, the dependent chain of B
-// steps; here each step is 3·D launches (lean) or 6·D (group) plus the
-// exchange's small copies and reductions, so launch latency, not bytes
-// or operations.
+// steps — latency, not bytes or operations. On one card a step is one to
+// five grid barriers (the reductions of the active families only); on
+// several cards each step is 3·D launches (lean) or 6·D (group) plus the
+// exchange's small copies and reductions, so launch latency.
 
-#include "group_eval.cuh"
+#include "batch_span.cuh"
 #include "shard_eval.cuh"
 
 struct ShardStepC {       // one shard's arguments, fixed for a span
@@ -378,5 +400,47 @@ extern "C" int ktpu_shard_select(const ShardStepC* a, int i,
 extern "C" int ktpu_shard_apply(const ShardStepC* a, int i,
                                 const int64_t* gkey, void* stream) {
   shard_apply_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(*a, i, gkey);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// every shard on one card: the whole span in one cooperative launch
+
+namespace {
+
+constexpr int GBLOCK = KT_PLAN_BLOCK;
+
+__global__ void __launch_bounds__(GBLOCK, 1)
+batch_span_grid_kernel(const __grid_constant__ BatchSpanC cm,
+                       const BatchNodesC* all, int T) {
+  __shared__ PlanShared<GBLOCK> sh;
+  __shared__ int64_t img[KT_MAX_IC + 1];   // ImageLocality's counts
+  const int d = blockIdx.x / T, r = blockIdx.x % T;
+  const int n = cm.n_local, span = (n + T - 1) / T;
+  const int lo = min(n, r * span), hi = min(n, lo + span);
+  GridTeam<GBLOCK> tm{cm.part};
+  batch_span<GBLOCK>(cm, all, d, lo, hi, span, r == 0, blockIdx.x == 0, tm,
+                     sh, img);
+}
+
+}  // namespace
+
+// all: the D shards' BatchNodesC in device memory; T blocks a shard (the
+// wrapper's T: its partial slots are sized by D·T); U: the group rows (0
+// lean), whose ipa_a_total each block keeps in shared memory
+extern "C" int ktpu_batch_span_grid(const BatchSpanC* cm, const void* all,
+                                    int D, int T, int U, void* stream) {
+  if (cm->B <= 0) return 0;
+  const BatchNodesC* nodes = (const BatchNodesC*)all;
+  void* kargs[] = {(void*)cm, (void*)&nodes, (void*)&T};
+  const int smem = batch_dyn_bytes((cm->n_local + T - 1) / T, U);
+  cudaError_t e = cudaFuncSetAttribute(
+      batch_span_grid_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel((const void*)batch_span_grid_kernel,
+                                    dim3(D * T), dim3(GBLOCK), kargs, smem,
+                                    (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

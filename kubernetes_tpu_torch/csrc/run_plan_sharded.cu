@@ -443,8 +443,6 @@ plan_span_grid_kernel(const __grid_constant__ PlanSpanC cm,
 
 }  // namespace
 
-extern "C" int ktpu_plan_block() { return PBLOCK; }
-
 // all: the D shards' PlanNodesC in device memory; T blocks a shard (the
 // wrapper's T: its partial slots are sized by D·T)
 extern "C" int ktpu_plan_span_grid(const PlanSpanC* cm, const void* all,

@@ -60,10 +60,12 @@ LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "wave_statics_sharded",
                                            "run_gang_uniform_sharded")}
 
-# CUDA kernel launches the plan programs' wrappers issued (LAUNCHES counts
-# wrapper calls): run_plan one a span; run_plan_sharded one a span on a
-# mesh whose shards share a card, its chain of launches a shard otherwise
-RAW_LAUNCHES = {"run_plan": 0, "run_plan_sharded": 0}
+# CUDA kernel launches the scans' wrappers issued (LAUNCHES counts wrapper
+# calls): run_plan one a span; run_plan_sharded and run_batch_sharded (both
+# modes) one a span, and run_gang_sharded's scan tier one a gang, on a mesh
+# whose shards share a card, their chains of launches a shard otherwise
+RAW_LAUNCHES = {"run_plan": 0, "run_plan_sharded": 0,
+                "run_batch_sharded": 0, "run_gang_sharded": 0}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -258,15 +260,26 @@ class WaveArgsC(ctypes.Structure):
                 + [("P0", _I), ("P1", _I), ("packed", _P)])
 
 
-class BatchArgsC(ctypes.Structure):
-    """csrc/run_batch.cu BatchArgs."""
-    _fields_ = ([("na", NodeC), ("tb", TableC), ("c", CarryC), ("cfg", CfgC),
-                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
+class BatchSpanC(ctypes.Structure):
+    """csrc/batch_span.cuh BatchSpanC: what every node shard shares."""
+    _fields_ = ([("tb", TableC), ("cfg", CfgC), ("fam", FamC),
                  ("has_groups", _I), ("w_spread", ctypes.c_int64),
                  ("w_ipa", ctypes.c_int64)]
                 + [(f, _P) for f in ("flags", "ovl_used", "ovl_npods",
                                      "nom_idx", "valid", "sig", "tidx")]
-                + [("B", _I), ("out", _P)])
+                + [(f, _I) for f in ("B", "n_global", "n_local", "D")]
+                + [("part", _P), ("out", _P)])
+
+
+class BatchNodesC(ctypes.Structure):
+    """csrc/batch_span.cuh BatchNodesC: one node shard's arrays."""
+    _fields_ = [("na", NodeC), ("c", CarryC), ("g", GroupsC),
+                ("gc", GCarryC), ("offset", _I)]
+
+
+class BatchArgsC(ctypes.Structure):
+    """csrc/run_batch.cu BatchArgs: the span and its one shard."""
+    _fields_ = [("cm", BatchSpanC), ("nodes", BatchNodesC)]
 
 
 class PlanSpanC(ctypes.Structure):
@@ -411,6 +424,25 @@ class GangShardC(ctypes.Structure):
                                      "packed")])
 
 
+class GangSpanC(ctypes.Structure):
+    """csrc/run_gang_sharded.cu GangSpanC: what every node shard shares."""
+    _fields_ = ([("tb", TableC), ("cfg", CfgC)]
+                + [(f, _P) for f in ("valid", "tidx", "widx", "wt")]
+                + [(f, _I) for f in ("S", "B", "needed", "w_contig",
+                                     "n_local", "D")]
+                + [("part", _P), ("packed", _P)])
+
+
+class GangNodesC(ctypes.Structure):
+    """csrc/run_gang_sharded.cu GangNodesC: one node shard's arrays."""
+    _fields_ = ([("na", NodeC)]
+                + [(f, _P) for f in (
+                    "used_in", "nz_in", "npods_in", "sig_in", "used",
+                    "nonzero_used", "npods", "sig_out", "m0", "taint_raw",
+                    "na_raw", "s_img", "dom", "fit_ok", "s_fit", "s_bal")]
+                + [("offset", _I)])
+
+
 class ScoreProbeArgsC(ctypes.Structure):
     _fields_ = [("na", NodeC), ("tb", TableC), ("cfg", CfgC),
                 ("used", _P), ("nonzero_used", _P), ("tidx", _I),
@@ -490,9 +522,11 @@ def _bind(name: str, lib):
         lib.ktpu_shard_gselect.argtypes = [_P, _I, _P, _P, _P]
         lib.ktpu_shard_gapply.argtypes = [_P, _I, _P, _P]
         lib.ktpu_shard_gupdate.argtypes = [_P, _I, _P, _P, _P]
+        lib.ktpu_batch_span_grid.argtypes = [_P, _P, _I, _I, _I, _P]
         for f in ("ktpu_shard_eval", "ktpu_shard_select", "ktpu_shard_apply",
                   "ktpu_shard_geval", "ktpu_shard_graw", "ktpu_shard_gselect",
-                  "ktpu_shard_gapply", "ktpu_shard_gupdate"):
+                  "ktpu_shard_gapply", "ktpu_shard_gupdate",
+                  "ktpu_batch_span_grid"):
             getattr(lib, f).restype = ctypes.c_int
     elif name == "run_uniform_sharded":
         lib.ktpu_ush_parts.argtypes = [_P, _I, _I, _P]
@@ -513,9 +547,6 @@ def _bind(name: str, lib):
             getattr(lib, f"ktpu_plan_shard_{f}").restype = ctypes.c_int
         lib.ktpu_plan_span_grid.argtypes = [_P, _P, _I, _I, _P]
         lib.ktpu_plan_span_grid.restype = ctypes.c_int
-        lib.ktpu_plan_block.argtypes = []
-        lib.ktpu_plan_block.restype = ctypes.c_int
-        lib.block = lib.ktpu_plan_block()
     elif name == "run_gang_sharded":
         lib.ktpu_gang_shard_init.argtypes = [_P, _P]
         lib.ktpu_gang_shard_eval.argtypes = [_P, _I, _P]
@@ -525,6 +556,8 @@ def _bind(name: str, lib):
         lib.ktpu_gang_shard_verdict.argtypes = [_P, _P]
         for f in ("init", "eval", "select", "apply", "update", "verdict"):
             getattr(lib, f"ktpu_gang_shard_{f}").restype = ctypes.c_int
+        lib.ktpu_gang_span_grid.argtypes = [_P, _P, _I, _I, _P]
+        lib.ktpu_gang_span_grid.restype = ctypes.c_int
     else:
         lib.ktpu_diagnose_row.argtypes = [_P, _P]
         lib.ktpu_diagnose_row.restype = ctypes.c_int
@@ -798,12 +831,45 @@ def _overlay_c(overlay, N: int, R: int, device, copy: bool):
     return (used.data_ptr(), npods.data_ptr()), (used, npods)
 
 
-def batch_dyn_bytes(N: int, U: int) -> int:
-    """A run_batch CTA's dynamic shared memory (csrc/run_batch.cu
-    batch_dyn_bytes): its ⌈N / BATCH_CLUSTER⌉ rows' raw spread scores and
-    feasible set, then ipa_a_total of the U group rows (0 lean)."""
-    span = -(-N // BATCH_CLUSTER)
+def batch_dyn_bytes(N: int, U: int, ctas: int = BATCH_CLUSTER) -> int:
+    """A scan CTA's dynamic shared memory (csrc/batch_span.cuh
+    batch_dyn_bytes) when `ctas` CTAs split N rows (run_batch's cluster by
+    default): its ⌈N / ctas⌉ rows' raw spread scores and feasible set,
+    then ipa_a_total of the U group rows (0 lean)."""
+    span = -(-N // ctas)
     return (9 * span + 15) // 16 * 16 + 8 * U
+
+
+def batch_span_parts(SC: int, n_global: int, spread_s: bool,
+                     blocks: int) -> list:
+    """The scratch pieces of one scan span launch, in carve order: a grid
+    team's partial slots [2, blocks, PLAN_RED_K] (none for a cluster:
+    blocks = 0), then the epoch-tagged spread domain flags [SC, n_global]
+    (ScheduleAnyway spans only)."""
+    return [("part", 2 * blocks * PLAN_RED_K, torch.int64),
+            ("flags", SC * n_global if spread_s else 0, torch.int32)]
+
+
+def _pods_c(pods, B: int, device, what: str) -> tuple:
+    """(valid, sig, tidx) pointers of checked pod inputs of length B."""
+    ptrs = tuple(_check(getattr(pods, f), f"pods.{f}", dt, 1, device)
+                 for f, dt in (("valid", torch.bool), ("sig", torch.int32),
+                               ("tidx", torch.int32)))
+    if pods.sig.shape[0] != B or pods.tidx.shape[0] != B:
+        raise ValueError(f"{what}: pods.valid / sig / tidx lengths differ")
+    return ptrs
+
+
+def _batch_span_c(cfg, tab, R: int, famc, has_groups: bool, ptr: dict,
+                  pods_p: tuple, B: int, n_local: int, D: int, out,
+                  ovl_ptrs=(None, None), nom_ptr=None) -> BatchSpanC:
+    return BatchSpanC(
+        tb=tab, cfg=_cfg_c(cfg, R), fam=famc, has_groups=int(has_groups),
+        w_spread=cfg.w_spread, w_ipa=cfg.w_ipa, flags=ptr["flags"],
+        ovl_used=ovl_ptrs[0], ovl_npods=ovl_ptrs[1], nom_idx=nom_ptr,
+        valid=pods_p[0], sig=pods_p[1], tidx=pods_p[2], B=B,
+        n_global=D * n_local, n_local=n_local, D=D, part=ptr["part"],
+        out=out.data_ptr())
 
 
 def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
@@ -817,11 +883,7 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
     device = carry.used.device
     node = _node_c(na, device)
     B = pods.valid.shape[0]
-    valid = _check(pods.valid, "pods.valid", torch.bool, 1, device)
-    sig = _check(pods.sig, "pods.sig", torch.int32, 1, device)
-    tidx = _check(pods.tidx, "pods.tidx", torch.int32, 1, device)
-    if pods.sig.shape[0] != B or pods.tidx.shape[0] != B:
-        raise ValueError("run_batch: pods.valid / sig / tidx lengths differ")
+    pods_p = _pods_c(pods, B, device, "run_batch")
     if overlay is not None and groups is not None:
         raise ValueError("run_batch: the overlay is a lean-scan input")
     # the copies stay bound to a name until the call returns
@@ -833,7 +895,7 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
         if nom.shape[0] != B:
             raise ValueError("run_batch: pods.nom_idx: wrong length")
     tab = _table_c(table, node.R, device)
-    cfgc = _cfg_c(cfg, node.R)
+    _cfg_c(cfg, node.R)
     g = gcc = None
     U = 0
     if groups is not None:
@@ -850,23 +912,19 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
     out_carry = _out_carry(carry)
     cc = _carry_c(out_carry, node.N, node.R, device)
     out = torch.empty((B,), dtype=torch.int32, device=device)
-    flags = None
     if g is not None:
         gcc = _gcarry_c(out_carry.groups, g, device)
         famc = _fam_c(fam if fam is not None else (1,) * 5)
-        if famc.spr_s:
-            flags = torch.empty((max(g.SC, 1) * node.N,), dtype=torch.int32,
-                                device=device)
     else:
         g, gcc, famc = GroupsC(), GCarryC(), FamC()
+    _scratch, ptr, _offs = _carve(device, batch_span_parts(
+        g.SC, node.N, bool(famc.spr_s), 0))
     # every struct and tensor stays bound to a name until the call
     # returns: the C entry copies the struct into the launch
     args = BatchArgsC(
-        na=node, tb=tab, c=cc, cfg=cfgc, g=g, gc=gcc, fam=famc,
-        has_groups=int(groups is not None), w_spread=cfg.w_spread,
-        w_ipa=cfg.w_ipa, flags=None if flags is None else flags.data_ptr(),
-        ovl_used=ovl_ptrs[0], ovl_npods=ovl_ptrs[1], nom_idx=nom_ptr,
-        valid=valid, sig=sig, tidx=tidx, B=B, out=out.data_ptr())
+        cm=_batch_span_c(cfg, tab, node.R, famc, groups is not None, ptr,
+                         pods_p, B, node.N, 1, out, ovl_ptrs, nom_ptr),
+        nodes=BatchNodesC(na=node, c=cc, g=g, gc=gcc, offset=0))
     rc = libs["run_batch"].ktpu_run_batch(ctypes.addressof(args),
                                           _stream(device))
     _raise_on(rc, "run_batch")
@@ -1169,6 +1227,7 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
 
 
 PLAN_RED_K = 16       # csrc/plan_span.cuh KT_RED_K
+PLAN_BLOCK = 512      # csrc/plan_span.cuh KT_PLAN_BLOCK (threads a CTA)
 
 
 def plan_span_parts(S: int, n_local: int, D: int, SC: int, spread_s: bool,
@@ -1258,7 +1317,8 @@ def _plan_span_c(cfg, tab, R: int, xs_p, W: int, rows, fam, norm_live,
         packed=packed.data_ptr())
 
 
-def _set_scratch(nodes: PlanNodesC, ptr: dict, d: int) -> None:
+def _set_scratch(nodes, ptr: dict, d: int) -> None:
+    """Shard d's fit surfaces (PlanNodesC or GangNodesC) from the carve."""
     for f in ("s_fit", "s_bal", "fit_ok"):
         setattr(nodes, f, ptr[f"{f}{d}"])
 
@@ -1671,8 +1731,10 @@ def score_probe_cuda(cfg, na, carry, table, tidx: int):
 
 
 # ---------------------------------------------------------------------------
-# the node-sharded mesh (parallel/sharding.py): per-shard launches with the
-# exchange between them, driven from the host without a readback
+# the node-sharded mesh (parallel/sharding.py): the scans on shards of one
+# card are one cooperative launch a span or gang; otherwise per-shard
+# launches with the exchange between them, driven from the host without a
+# readback
 
 
 def _own_len(g: GroupsC) -> int:
@@ -1680,21 +1742,115 @@ def _own_len(g: GroupsC) -> int:
     return g.U * (4 * g.SC + g.TAA + g.TA + g.CT + g.PT)
 
 
+def _grid_blocks(n_local: int, D: int, dev, what: str) -> int:
+    """T, the blocks a shard of a cooperative span launch over D shards of
+    one card: one 512-thread block per 512 rows, at most the card's SMs /
+    D (every block must be resident at once). Raises when D shards need
+    more blocks than the card can hold."""
+    sms = _sm_count(dev)
+    T = max(1, min(-(-n_local // PLAN_BLOCK), sms // D))
+    if D * T > sms:
+        raise ValueError(f"{what}: {D} shards need {D * T} co-resident "
+                         f"blocks, the card has {sms} SMs")
+    return T
+
+
+def _nodes_dev(arr, dev) -> torch.Tensor:
+    """A ctypes array of per-shard structs in device memory (through
+    pinned memory, on the current stream)."""
+    return torch.frombuffer(bytearray(arr), dtype=torch.uint8) \
+        .pin_memory().to(dev, non_blocking=True)
+
+
 def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table, groups=None,
                            fam=None):
     """The scan over node shards (csrc/run_batch_sharded.cu); same
-    contract as parallel/sharding.py run_batch_sharded. Lean mode, per
-    pod: every shard's shard_eval, the exchange of the image counts and
-    maxima, every shard's shard_select, the max of the packed keys, every
-    shard's shard_apply. Group mode (`groups`, the shard_groups of the
-    GroupsDev; the counts ride the carry shards), per pod: shard_eval
-    with the spread minima, the exchange, shard_geval, the exchange of
-    the score partials, shard_graw and its exchange (ScheduleAnyway
-    rows), shard_gselect, the max of the keys, shard_gapply, the sum of
-    the own vectors, shard_gupdate. Output carries are fresh copies."""
+    contract as parallel/sharding.py run_batch_sharded, lean and group
+    mode. Shards on one card (plan_sharded_placement "one"): one
+    cooperative launch a span. Shards on several cards: the chain of
+    launches a shard, driven from the host. Output carries are fresh
+    copies; every argument is checked before the kernels are built."""
+    n_local = na[0].cap.shape[0]
+    if any(s.cap.shape[0] != n_local for s in na):
+        raise ValueError("run_batch_sharded: shards of unequal size")
+    run = (_batch_sharded_one if plan_sharded_placement(mesh) == "one"
+           else _batch_sharded_chain)
+    out = run(cfg, mesh, na, carry, pods, table, groups, fam)
+    LAUNCHES["run_batch_sharded_groups" if groups is not None
+             else "run_batch_sharded"] += 1
+    return out
+
+
+def _batch_sharded_one(cfg, mesh, na, carry, pods, table, groups, fam):
+    """Every shard on one card: the span in one cooperative launch of D
+    teams of T blocks (csrc/run_batch_sharded.cu ktpu_batch_span_grid),
+    the body of run_batch's cluster (csrc/batch_span.cuh). The shards'
+    BatchNodesC go to the card through pinned memory; the scratch (the
+    partial slots, the flags) is one buffer."""
+    from ..parallel.sharding import Shards, replicate
+    dev, D = mesh.devices[0], mesh.size
+    n_local = na[0].cap.shape[0]
+    pods_d, table_d = replicate(mesh, pods)[0], replicate(mesh, table)[0]
+    B = pods_d.valid.shape[0]
+    pods_p = _pods_c(pods_d, B, dev, "run_batch_sharded")
+    tab = _table_c(table_d, na[0].cap.shape[1], dev)
+    grp = groups is not None
+    nodes, outs = [], []
+    for d in range(D):
+        node = _node_c(na[d], dev)
+        _carry_c(carry[d], n_local, node.R, dev)
+        g, gc = GroupsC(), GCarryC()
+        if grp:
+            g = _groups_c(groups[d], n_local, dev)
+            _gcarry_c(carry[d].groups, g, dev)
+            if g.U > tab.U:
+                raise ValueError("run_batch_sharded: more group rows than "
+                                 "table rows")
+        nodes.append(BatchNodesC(na=node, g=g, gc=gc, offset=d * n_local))
+    R, g0 = nodes[0].na.R, nodes[0].g
+    U = g0.U
+    _cfg_c(cfg, R)
+    lib = build()["run_batch_sharded"]
+    T = _grid_blocks(n_local, D, dev, "run_batch_sharded")
+    if batch_dyn_bytes(n_local, U, T) > MAX_DYN_SMEM:
+        raise ValueError(f"run_batch_sharded: {-(-n_local // T)} rows a "
+                         f"block and {U} group rows exceed a block's shared "
+                         "memory")
+    famc = _fam_c(fam) if grp else FamC()
+    spread_s = bool(famc.spr_s)
+    _scratch, ptr, _offs = _carve(dev, batch_span_parts(
+        g0.SC, D * n_local, spread_s, D * T))
+    for d, nd in enumerate(nodes):
+        oc = _out_carry(carry[d])
+        outs.append(oc)
+        nd.c = _carry_c(oc, n_local, R, dev)
+        if grp:
+            nd.gc = _gcarry_c(oc.groups, nd.g, dev)
+    nodes_dev = _nodes_dev((BatchNodesC * D)(*nodes), dev)
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    span = _batch_span_c(cfg, tab, R, famc, grp, ptr, pods_p, B, n_local, D,
+                         out)
+    with torch.cuda.device(dev):
+        rc = lib.ktpu_batch_span_grid(ctypes.addressof(span),
+                                      nodes_dev.data_ptr(), D, T, U,
+                                      _stream(dev))
+    _raise_on(rc, "run_batch_sharded")
+    RAW_LAUNCHES["run_batch_sharded"] += 1
+    return Shards(outs), out
+
+
+def _batch_sharded_chain(cfg, mesh, na, carry, pods, table, groups, fam):
+    """Shards on several cards: the chain of launches a shard. Lean mode,
+    per pod: every shard's shard_eval, the exchange of the image counts
+    and maxima, every shard's shard_select, the max of the packed keys,
+    every shard's shard_apply. Group mode (`groups`, the shard_groups of
+    the GroupsDev; the counts ride the carry shards), per pod: shard_eval
+    with the spread minima, the exchange, shard_geval, the exchange of the
+    score partials, shard_graw and its exchange (ScheduleAnyway rows),
+    shard_gselect, the max of the keys, shard_gapply, the sum of the own
+    vectors, shard_gupdate. Output carries are fresh copies."""
     from ..parallel.sharding import (Shards, exchange, lean_exchange, pmax,
                                      psum, replicate)
-    lib = build()["run_batch_sharded"]
     B = pods.valid.shape[0]
     pods_r, tabs = replicate(mesh, pods), replicate(mesh, table)
     n_local = na[0].cap.shape[0]
@@ -1744,36 +1900,39 @@ def run_batch_sharded_cuda(cfg, mesh, na, carry, pods, table, groups=None,
             tidx=ptrs[2], offset=d * n_local, loc=locs[d].data_ptr(),
             key=keys[d].data_ptr(),
             out=out.data_ptr() if d == 0 else None, **gkw))
+    lib = build()["run_batch_sharded"]
     # every struct stays bound to a name until the last launch returns
     shards = [(ctypes.addressof(a), _stream(dev), dev)
               for a, dev in zip(args, mesh.devices)]
+
+    def each(fn, *per) -> int:
+        return _each(shards, "run_batch_sharded", fn, *per)
+
     for i in range(B):
         ii = [i] * mesh.size
-        rc = _each(shards, lib.ktpu_shard_eval, ii)
+        rc = each(lib.ktpu_shard_eval, ii)
         if not grp:
             glob = lean_exchange(mesh, locs)
-            rc |= _each(shards, lib.ktpu_shard_select, ii, _ptrs(glob))
+            rc |= each(lib.ktpu_shard_select, ii, _ptrs(glob))
             gkey = pmax(mesh, keys)
-            rc |= _each(shards, lib.ktpu_shard_apply, ii, _ptrs(gkey))
+            rc |= each(lib.ktpu_shard_apply, ii, _ptrs(gkey))
         else:
             g1 = exchange(mesh, locs, MAX_IC + 1)
-            rc |= _each(shards, lib.ktpu_shard_geval, ii, _ptrs(g1))
+            rc |= each(lib.ktpu_shard_geval, ii, _ptrs(g1))
             g2 = exchange(mesh, [b.loc2 for b in bufs],
                           int(bufs[0].loc2.shape[0]) - 4)
             g3 = g2
             if fam.spr_s:
-                rc |= _each(shards, lib.ktpu_shard_graw, ii, _ptrs(g2))
+                rc |= each(lib.ktpu_shard_graw, ii, _ptrs(g2))
                 g3 = pmax(mesh, [b.loc3 for b in bufs])
-            rc |= _each(shards, lib.ktpu_shard_gselect, ii, _ptrs(g2),
+            rc |= each(lib.ktpu_shard_gselect, ii, _ptrs(g2),
                         _ptrs(g3))
             gkey = pmax(mesh, keys)
-            rc |= _each(shards, lib.ktpu_shard_gapply, ii, _ptrs(gkey))
+            rc |= each(lib.ktpu_shard_gapply, ii, _ptrs(gkey))
             gown = psum(mesh, [b.own for b in bufs])
-            rc |= _each(shards, lib.ktpu_shard_gupdate, ii, _ptrs(gkey),
+            rc |= each(lib.ktpu_shard_gupdate, ii, _ptrs(gkey),
                         _ptrs(gown))
         _raise_on(rc, "run_batch_sharded")
-    LAUNCHES["run_batch_sharded_groups" if grp
-             else "run_batch_sharded"] += 1
     return Shards(outs), out
 
 
@@ -2003,13 +2162,15 @@ def _check_statics(statics, S: int, N: int, dev, what: str) -> list:
     return stat
 
 
-def _each(shards, fn, *per) -> int:
+def _each(shards, raw: str, fn, *per) -> int:
     """fn(struct, *per-shard args, stream) on every shard, each under its
-    device; the OR of the return codes."""
+    device, each launch counted in RAW_LAUNCHES[raw]; the OR of the
+    return codes."""
     rc = 0
     for k, (a, st, dev) in enumerate(shards):
         with torch.cuda.device(dev):
             rc |= fn(a, *(x[k] for x in per), st)
+        RAW_LAUNCHES[raw] += 1
     return rc
 
 
@@ -2070,15 +2231,13 @@ def _plan_sharded_one(cfg, mesh, na, carry, xs, table, rows, gd, statics,
         nodes.append(nd)
         outs.append(out)
     lib = build()["run_plan_sharded"]
-    T = max(1, min(-(-n_local // lib.block), _sm_count(dev) // D))
+    T = _grid_blocks(n_local, D, dev, "run_plan_sharded")
     spread_s = bool(has_groups and fam.spr_s)
     _scratch, ptr, _offs = _carve(dev, plan_span_parts(
         S, n_local, D, SC, spread_s, D * T))
     for d, nd in enumerate(nodes):
         _set_scratch(nd, ptr, d)
-    arr = (PlanNodesC * D)(*nodes)
-    nodes_dev = torch.frombuffer(bytearray(arr), dtype=torch.uint8) \
-        .pin_memory().to(dev, non_blocking=True)
+    nodes_dev = _nodes_dev((PlanNodesC * D)(*nodes), dev)
     packed = torch.empty((xs.valid.shape[0] + 2,), dtype=torch.int32,
                          device=dev)
     span = _plan_span_c(cfg, tab, nodes[0].na.R, xs_p, xs.valid.shape[0],
@@ -2179,11 +2338,9 @@ def _plan_sharded_chain(cfg, mesh, na, carry, xs, table, rows, gd, statics,
     n_sum = int(bufs[0].loc2.shape[0]) - 4
     spr_f = has_groups and fam.spr_f
     spr_s = has_groups and fam.spr_s
-    launches = [0]
 
     def each(fn, *per) -> int:
-        launches[0] += D
-        return _each(shards, fn, *per)
+        return _each(shards, "run_plan_sharded", fn, *per)
 
     def evaluate(k: int, spec: int) -> tuple:
         # (k, spec): the speculative choice of slot `spec`, or (spec = -1)
@@ -2216,28 +2373,127 @@ def _plan_sharded_chain(cfg, mesh, na, carry, xs, table, rows, gd, statics,
                        _ptrs(gown))
         _raise_on(rc, "run_plan_sharded")
     _raise_on(rc, "run_plan_sharded")
-    RAW_LAUNCHES["run_plan_sharded"] += launches[0]
     return Shards(outs), packed
 
 
 def run_gang_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, needed: int,
                           dom, statics, w_contig: int):
     """The gang scan tier over node shards (csrc/run_gang_sharded.cu); same
-    contract as parallel/sharding.py run_gang_sharded (scan tier). Per
-    shard: init; per member: eval and the max of the maxima, select and
-    the max of the keys, apply, and with w_contig the sum of the chosen
-    domain ids and the update; then the verdict. The output carries hold
-    fresh used / nonzero_used / npods and a fresh signature scalar; the
-    rest of the SigCache, the ports and the group counts are the input's
-    (the kernels never write them)."""
+    contract as parallel/sharding.py run_gang_sharded (scan tier). Shards
+    on one card (plan_sharded_placement "one"): one cooperative launch a
+    gang. Shards on several cards: the chain of launches a shard, driven
+    from the host. The output carries hold fresh used / nonzero_used /
+    npods and a fresh signature scalar; the rest of the SigCache, the
+    ports and the group counts are the input's (the kernels never write
+    them). Every argument is checked before the kernels are built."""
+    rows = [int(u) for u in wt]
+    if len(rows) < 1 or xs.valid.shape[0] < 1:
+        raise ValueError("run_gang_sharded: an empty gang or signature set")
+    n_local = na[0].cap.shape[0]
+    if any(s.cap.shape[0] != n_local for s in na):
+        raise ValueError("run_gang_sharded: shards of unequal size")
+    run = (_gang_sharded_one if plan_sharded_placement(mesh) == "one"
+           else _gang_sharded_chain)
+    out = run(cfg, mesh, na, carry, xs, table, rows, int(needed), dom,
+              statics, int(w_contig))
+    LAUNCHES["run_gang_sharded"] += 1
+    return out
+
+
+def _gang_sharded_one(cfg, mesh, na, carry, xs, table, rows, needed: int,
+                      dom, statics, w_contig: int):
+    """Every shard on one card: the gang in one cooperative launch of D
+    teams of T blocks (csrc/run_gang_sharded.cu ktpu_gang_span_grid). The
+    shards' GangNodesC go to the card through pinned memory; the scratch
+    (the partial slots, each shard's fit surfaces) is one buffer."""
+    from ..parallel.sharding import Shards, replicate
+    from .program import Carry
+    dev, D = mesh.devices[0], mesh.size
+    S, B = len(rows), xs.valid.shape[0]
+    n_local = na[0].cap.shape[0]
+    xs_d, table_d = replicate(mesh, xs)[0], replicate(mesh, table)[0]
+    i32, i64 = torch.int32, torch.int64
+    xs_p = {f: _check(getattr(xs_d, f), f"xs.{f}", dt, 1, dev)
+            for f, dt in (("valid", torch.bool), ("tidx", i32),
+                          ("widx", i32))}
+    if xs_d.tidx.shape[0] != B or xs_d.widx.shape[0] != B:
+        raise ValueError("run_gang_sharded: xs.valid / tidx / widx lengths "
+                         "differ")
+    tab = _table_c(table_d, na[0].cap.shape[1], dev)
+    if any(not 0 <= u < tab.U for u in rows):
+        raise ValueError(f"run_gang_sharded: rows {rows} outside the table")
+    nodes, outs = [], []
+    for d in range(D):
+        node = _node_c(na[d], dev)
+        dom_p = _check(dom[d], "dom", i32, 1, dev)
+        if dom[d].shape[0] != n_local:
+            raise ValueError(f"run_gang_sharded: dom shards must be "
+                             f"[{n_local}]")
+        stat = _check_statics(statics[d], S, n_local, dev,
+                              "run_gang_sharded")
+        c = carry[d]
+        cin = _carry_c(c, n_local, node.R, dev)
+        used, nz = torch.empty_like(c.used), torch.empty_like(c.nonzero_used)
+        npods, sig = torch.empty_like(c.npods), torch.empty_like(c.cache.sig)
+        nodes.append(GangNodesC(
+            na=node, used_in=cin.used, nz_in=cin.nonzero_used,
+            npods_in=cin.npods, sig_in=cin.cache.sig, used=used.data_ptr(),
+            nonzero_used=nz.data_ptr(), npods=npods.data_ptr(),
+            sig_out=sig.data_ptr(), m0=stat[0], taint_raw=stat[1],
+            na_raw=stat[2], s_img=stat[3], dom=dom_p, offset=d * n_local))
+        outs.append(Carry(used=used, nonzero_used=nz, npods=npods,
+                          ports=c.ports, cache=c.cache._replace(sig=sig),
+                          groups=c.groups))
+    R = nodes[0].na.R
+    cfgc = _cfg_c(cfg, R)
+    lib = build()["run_gang_sharded"]
+    T = _grid_blocks(n_local, D, dev, "run_gang_sharded")
+    _scratch, ptr, _offs = _carve(dev, gang_span_parts(S, n_local, D,
+                                                       D * T))
+    for d, nd in enumerate(nodes):
+        _set_scratch(nd, ptr, d)
+    wt_t = torch.tensor(rows, dtype=i32).pin_memory().to(dev,
+                                                          non_blocking=True)
+    nodes_dev = _nodes_dev((GangNodesC * D)(*nodes), dev)
+    packed = torch.empty((B + 4,), dtype=i32, device=dev)
+    span = GangSpanC(
+        tb=tab, cfg=cfgc, valid=xs_p["valid"], tidx=xs_p["tidx"],
+        widx=xs_p["widx"], wt=wt_t.data_ptr(), S=S, B=B, needed=needed,
+        w_contig=w_contig, n_local=n_local, D=D, part=ptr["part"],
+        packed=packed.data_ptr())
+    with torch.cuda.device(dev):
+        rc = lib.ktpu_gang_span_grid(ctypes.addressof(span),
+                                     nodes_dev.data_ptr(), D, T,
+                                     _stream(dev))
+    _raise_on(rc, "run_gang_sharded")
+    RAW_LAUNCHES["run_gang_sharded"] += 1
+    return Shards(outs), packed
+
+
+def gang_span_parts(S: int, n_local: int, D: int, blocks: int) -> list:
+    """The scratch pieces of one gang launch over D shards of one card, in
+    carve order: the grid team's partial slots [2, blocks, PLAN_RED_K],
+    then each shard's fit surfaces [S, n_local] (a block's contiguity
+    counts live in its shared memory)."""
+    i64, u8 = torch.int64, torch.uint8
+    parts = [("part", 2 * blocks * PLAN_RED_K, i64)]
+    for d in range(D):
+        parts += [(f"s_fit{d}", S * n_local, i64),
+                  (f"s_bal{d}", S * n_local, i64),
+                  (f"fit_ok{d}", S * n_local, u8)]
+    return parts
+
+
+def _gang_sharded_chain(cfg, mesh, na, carry, xs, table, rows, needed: int,
+                        dom, statics, w_contig: int):
+    """Shards on several cards: per shard, init; per member: eval and the
+    max of the maxima, select and the max of the keys, apply, and with
+    w_contig the sum of the chosen domain ids and the update; then the
+    verdict."""
     from ..parallel.sharding import Shards, pmax, psum, replicate
     from .program import Carry
-    lib = build()["run_gang_sharded"]
-    rows = [int(u) for u in wt]
     S = len(rows)
     B = xs.valid.shape[0]
-    if S < 1 or B < 1:
-        raise ValueError("run_gang_sharded: an empty gang or signature set")
     xs_r, tabs = replicate(mesh, xs), replicate(mesh, table)
     n_local = na[0].cap.shape[0]
     n_global = n_local * mesh.size
@@ -2294,25 +2550,29 @@ def run_gang_sharded_cuda(cfg, mesh, na, carry, xs, table, wt, needed: int,
         outs.append(Carry(used=used, nonzero_used=nz, npods=npods,
                           ports=c.ports, cache=c.cache._replace(sig=sig),
                           groups=c.groups))
+    lib = build()["run_gang_sharded"]
     # every struct stays bound to a name until the last launch returns
     shards = [(ctypes.addressof(a), _stream(dev), dev)
               for a, dev in zip(args, mesh.devices)]
     D = mesh.size
-    rc = _each(shards, lib.ktpu_gang_shard_init)
+
+    def each(fn, *per) -> int:
+        return _each(shards, "run_gang_sharded", fn, *per)
+
+    rc = each(lib.ktpu_gang_shard_init)
     for k in range(B):
-        rc |= _each(shards, lib.ktpu_gang_shard_eval, [k] * D)
+        rc |= each(lib.ktpu_gang_shard_eval, [k] * D)
         glob = pmax(mesh, [b.loc for b in bufs])
-        rc |= _each(shards, lib.ktpu_gang_shard_select, [k] * D, _ptrs(glob))
+        rc |= each(lib.ktpu_gang_shard_select, [k] * D, _ptrs(glob))
         gkey = pmax(mesh, [b.key for b in bufs])
-        rc |= _each(shards, lib.ktpu_gang_shard_apply, [k] * D, _ptrs(gkey))
+        rc |= each(lib.ktpu_gang_shard_apply, [k] * D, _ptrs(gkey))
         if w_contig:
             gown = psum(mesh, [b.own for b in bufs])
-            rc |= _each(shards, lib.ktpu_gang_shard_update, [k] * D,
+            rc |= each(lib.ktpu_gang_shard_update, [k] * D,
                         _ptrs(gkey), _ptrs(gown))
         _raise_on(rc, "run_gang_sharded")
-    rc |= _each(shards, lib.ktpu_gang_shard_verdict)
+    rc |= each(lib.ktpu_gang_shard_verdict)
     _raise_on(rc, "run_gang_sharded")
-    LAUNCHES["run_gang_sharded"] += 1
     return Shards(outs), packed
 
 

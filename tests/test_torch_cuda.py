@@ -18,6 +18,7 @@ from types import SimpleNamespace
 import pytest
 import torch
 
+from _gang_edges import GANG_EDGE_CASES, check_placements
 from kubernetes_tpu_torch.backend.cache import Cache, Snapshot
 from kubernetes_tpu_torch.ops import program as P
 from kubernetes_tpu_torch.state import convert
@@ -1963,3 +1964,255 @@ def test_run_gang_uniform_sharded_verdicts(cuda, case, verdict, D):
                         K=K, J=J)
     if bool(sp[L + 2].cpu()) and verdict_bits[2]:
         _equal((got[1], S.unshard(got[0])), (sp, sc))
+
+
+# ---------------------------------------------------------------------------
+# the mesh's two scans on one card: run_batch_sharded (lean and group mode)
+# one cooperative launch a span, run_gang_sharded's scan tier one a gang
+# (csrc/run_batch_sharded.cu, csrc/run_gang_sharded.cu); the host-driven
+# chains of shards on several cards, called on D shards of one card
+
+
+SHARD_EDGE_CASES = ("ties_at_cta_boundaries", "ragged_outside_invalid",
+                    "sig_change_every_pod", "groups_every_family",
+                    "groups_beyond_lattice")
+
+
+def _sharded_edge(case, D, place="one"):
+    """One RUN_BATCH_EDGE_CASES case on D shards: (S, the card mesh, the
+    CPU mesh, e, na, table, gd, gc, fam)."""
+    S, gm, cm = _mesh_pair(D, place)
+    e, na, table, groups, fam, _ovl = _edge_inputs(case, "cuda")
+    gd, gc = groups if groups is not None else (None, None)
+    return S, gm, cm, e, na, table, gd, gc, fam
+
+
+def _sharded_carry(S, mesh, na, gc):
+    gna = S.shard_node_arrays(mesh, na)
+    gcs = S.shard_group_carry(mesh, gc) if gc is not None else None
+    return gna, S.initial_carry_sharded(gna, gcs)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", SHARD_EDGE_CASES)
+def test_run_batch_sharded_edges_equal_plain(cuda, case, D):
+    """One launch a span over D shards of one card on the scan's edge
+    inputs — ties at block and shard boundaries (N = 2,048: a block
+    boundary at 512 inside each shard of D = 2, the shard boundary at
+    1,024), n_local not a multiple of 512 (5,000 rows: 2,500 / 1,250 a
+    shard), a row outside the table (-2), invalid pods, full port slots,
+    image counts across shards, group mode with ScheduleAnyway rack and
+    hostname spreads and anti-affinity — against the plain version over D
+    CPU shards (the span without the rows outside the table), the
+    single-device kernel, and the input carry untouched."""
+    from _batch_edges import check_span, full_span, kept
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, cm, e, na, table, gd, gc, fam = _sharded_edge(case, D)
+    gna, gcarry = _sharded_carry(S, gm, na, gc)
+    before = _cpu(S.unshard(gcarry))
+    ggd = S.shard_groups(gm, gd) if gd is not None else None
+    cfg = P.ScoreConfig()
+    K.reset_launches()
+    kc, ka = S.run_batch_sharded(cfg, gm, gna, gcarry, _edge_xs(e, cuda),
+                                 table, ggd, fam)
+    torch.cuda.synchronize()
+    assert K.RAW_LAUNCHES["run_batch_sharded"] == 1
+    keep = kept(e)
+    cna, ccarry = _sharded_carry(S, cm, _cpu(na), _cpu(gc))
+    cgd = S.shard_groups(cm, _cpu(gd)) if gd is not None else None
+    pc, pa = S.run_batch_sharded(cfg, cm, cna, ccarry,
+                                 _edge_xs(e, "cpu", keep), _cpu(table), cgd,
+                                 fam)
+    got = ka.cpu().tolist()
+    assert got == full_span(e, pa.numpy())
+    _equal(S.unshard(kc), S.unshard(pc))
+    _equal(S.unshard(gcarry), before)
+    check_span(case, got)
+    sc, sa = P.run_batch(cfg, na, P.initial_carry(na, gc), _edge_xs(e, cuda),
+                         table, gd, fam)
+    _equal((ka, S.unshard(kc)), (sa, sc))
+
+
+def _gang_edge(case, device):
+    """One GANG_EDGE_CASES case (tests/_gang_edges.py) through the port's
+    state layer, on `device`: (na, table, xs, wt, needed, dom, w_contig,
+    m)."""
+    from _gang_edges import stage
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    from kubernetes_tpu_torch.testing import wrappers
+    e = stage(case, SimpleNamespace(
+        Cache=Cache, Snapshot=Snapshot, ClusterState=ClusterState,
+        BatchBuilder=BatchBuilder, W=wrappers))
+    na = convert.node_arrays_from_numpy(e.arrays, device)
+    table = convert.pod_table_from_numpy(e.table, device)
+    xs = convert.gang_xs_from_numpy(GangXs(e.valid, e.tidx, e.widx), device)
+    dom = torch.from_numpy(e.dom).to(device)
+    return na, table, xs, e.wt, e.needed, dom, e.w_contig, e.m
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", sorted(GANG_EDGE_CASES))
+def test_run_gang_sharded_edges_equal_plain(cuda, case, D):
+    """One launch a gang over D shards of one card: members that straddle
+    a shard boundary, contiguity domains that span shards, n_local not a
+    multiple of 512, ties at block and shard boundaries, a rejected gang
+    whose carry equals its input — against the plain version over D CPU
+    shards and the single-device kernel."""
+    from kubernetes_tpu_torch.ops import gang as G
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, cm = _mesh_pair(D, "one")
+    na, table, xs, wt, needed, dom, w_contig, m = _gang_edge(case, cuda)
+    N = na.cap.shape[0]
+    n = N // D
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, _cpu(na))
+    gc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(gna), 7)
+    cc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(cna), 7)
+    before = _cpu(S.unshard(gc0))
+    ctab = _cpu(table)
+    K.reset_launches()
+    got = S.run_gang_sharded(
+        P.ScoreConfig(), gm, gna, gc0, xs, table, wt=wt, needed=needed,
+        dom=[dom[d * n:(d + 1) * n] for d in range(D)],
+        statics=S.wave_statics_sharded(gm, gna, table, wt),
+        w_contig=w_contig)
+    torch.cuda.synchronize()
+    assert K.RAW_LAUNCHES["run_gang_sharded"] == 1
+    want = S.run_gang_sharded(
+        P.ScoreConfig(), cm, cna, cc0, _cpu(xs), ctab, wt=wt, needed=needed,
+        dom=[dom[d * n:(d + 1) * n].cpu() for d in range(D)],
+        statics=S.wave_statics_sharded(cm, cna, ctab, wt),
+        w_contig=w_contig)
+    _equal((got[1], S.unshard(got[0])), (want[1], S.unshard(want[0])))
+    _equal(S.unshard(gc0), before)
+    check_placements(case, got[1].cpu().tolist())
+    if not GANG_EDGE_CASES[case]["accept"]:
+        _equal(S.unshard(got[0]), before)
+    sc, sp = G.run_gang(P.ScoreConfig(), na,
+                        P.with_cache_sig(P.initial_carry(na), 7), xs, table,
+                        wt=wt, needed=needed, dom=dom,
+                        statics=P.wave_statics(na, table, wt),
+                        w_contig=w_contig)
+    _equal((got[1], S.unshard(got[0])), (sp, sc))
+
+
+SCAN_LAUNCH_MESHES = [(1, "one"), (2, "one"), (4, "one"), (2, "cards"),
+                      (4, "cards")]
+
+
+@pytest.mark.parametrize("D,place", SCAN_LAUNCH_MESHES)
+def test_sharded_scans_launch_once_a_card(cuda, D, place):
+    """run_batch_sharded (lean and group mode) is one CUDA launch a span
+    and run_gang_sharded's scan tier one a gang when the shards share a
+    card ("one"); across cards ("cards") each keeps its chain: 3 launches
+    a shard a pod lean, 5 or 6 in group mode; init, verdict and 3 or 4 a
+    shard a member for the gang."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, _cm = _mesh_pair(D, place)
+    assert K.plan_sharded_placement(gm) == place
+    cfg = P.ScoreConfig()
+    e, na, table, groups, fam, _ovl = _edge_inputs("groups_every_family",
+                                                   cuda)
+    gd, gc = groups
+    xs = _edge_xs(e, cuda)
+    B = xs.valid.shape[0]
+    for grp in (False, True):
+        gna, gcarry = _sharded_carry(S, gm, na, gc if grp else None)
+        K.reset_launches()
+        S.run_batch_sharded(cfg, gm, gna, gcarry, xs, table,
+                            S.shard_groups(gm, gd) if grp else None,
+                            fam if grp else None)
+        torch.cuda.synchronize()
+        key = "run_batch_sharded_groups" if grp else "run_batch_sharded"
+        assert K.LAUNCHES[key] == 1
+        per_pod = (6 if fam.spr_s else 5) if grp else 3
+        assert K.RAW_LAUNCHES["run_batch_sharded"] == (
+            1 if place == "one" else per_pod * D * B)
+    na, table, xs, wt, needed, dom, w_contig, m = _gang_edge("straddle",
+                                                             cuda)
+    n = na.cap.shape[0] // D
+    gna = S.shard_node_arrays(gm, na)
+    K.reset_launches()
+    S.run_gang_sharded(cfg, gm, gna, S.initial_carry_sharded(gna), xs,
+                       table, wt=wt, needed=needed,
+                       dom=[dom[d * n:(d + 1) * n].to(gm.devices[d])
+                            for d in range(D)],
+                       statics=S.wave_statics_sharded(gm, gna, table, wt),
+                       w_contig=w_contig)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["run_gang_sharded"] == 1
+    assert K.RAW_LAUNCHES["run_gang_sharded"] == (
+        1 if place == "one" else D * (2 + 4 * xs.valid.shape[0]))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", ["ties_at_cta_boundaries",
+                                  "ragged_outside_invalid",
+                                  "groups_every_family"])
+def test_batch_sharded_chain_on_one_card(cuda, case, D):
+    """The host-driven chain of shards on several cards (placement
+    "cards"), called on D shards of one card: the same bits as the plain
+    version over CPU shards and as the one-launch grid."""
+    from _batch_edges import full_span, kept
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, cm, e, na, table, gd, gc, fam = _sharded_edge(case, D)
+    gna, gcarry = _sharded_carry(S, gm, na, gc)
+    ggd = S.shard_groups(gm, gd) if gd is not None else None
+    cfg = P.ScoreConfig()
+    keep = kept(e)
+    # the chain takes only rows inside the table (the grid reports -2)
+    xs = _edge_xs(e, cuda, keep)
+    K.reset_launches()
+    hc, ha = K._batch_sharded_chain(cfg, gm, gna, gcarry, xs, table, ggd,
+                                    fam)
+    torch.cuda.synchronize()
+    per_pod = (6 if fam.spr_s else 5) if gd is not None else 3
+    assert K.RAW_LAUNCHES["run_batch_sharded"] == (
+        per_pod * D * xs.valid.shape[0])
+    cna, ccarry = _sharded_carry(S, cm, _cpu(na), _cpu(gc))
+    cgd = S.shard_groups(cm, _cpu(gd)) if gd is not None else None
+    pc, pa = S.run_batch_sharded(cfg, cm, cna, ccarry,
+                                 _edge_xs(e, "cpu", keep), _cpu(table), cgd,
+                                 fam)
+    _equal((ha, S.unshard(hc)), (pa, S.unshard(pc)))
+    kc, ka = S.run_batch_sharded(cfg, gm, gna, gcarry, _edge_xs(e, cuda),
+                                 table, ggd, fam)
+    torch.cuda.synchronize()
+    assert ka.cpu().tolist() == full_span(e, ha.cpu().numpy())
+    _equal(S.unshard(kc), S.unshard(hc))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+@pytest.mark.parametrize("case", ["straddle", "straddle_rejected", "ties"])
+def test_gang_sharded_chain_on_one_card(cuda, case, D):
+    """run_gang_sharded's chain of shards on several cards, called on D
+    shards of one card: the same bits as the plain version over CPU
+    shards and as the one-launch grid."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, cm = _mesh_pair(D, "one")
+    na, table, xs, wt, needed, dom, w_contig, m = _gang_edge(case, cuda)
+    n = na.cap.shape[0] // D
+    gna, cna = S.shard_node_arrays(gm, na), S.shard_node_arrays(cm, _cpu(na))
+    gc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(gna), 3)
+    cc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(cna), 3)
+    gdom = [dom[d * n:(d + 1) * n] for d in range(D)]
+    gst = S.wave_statics_sharded(gm, gna, table, wt)
+    cfg = P.ScoreConfig()
+    K.reset_launches()
+    hc, hp = K._gang_sharded_chain(cfg, gm, gna, gc0, xs, table, list(wt),
+                                   needed, gdom, gst, w_contig)
+    torch.cuda.synchronize()
+    B = xs.valid.shape[0]
+    assert K.RAW_LAUNCHES["run_gang_sharded"] == D * (
+        2 + (4 if w_contig else 3) * B)
+    ctab = _cpu(table)
+    want = S.run_gang_sharded(
+        cfg, cm, cna, cc0, _cpu(xs), ctab, wt=wt, needed=needed,
+        dom=[x.cpu() for x in gdom],
+        statics=S.wave_statics_sharded(cm, cna, ctab, wt),
+        w_contig=w_contig)
+    _equal((hp, S.unshard(hc)), (want[1], S.unshard(want[0])))
+    one = S.run_gang_sharded(cfg, gm, gna, gc0, xs, table, wt=wt,
+                             needed=needed, dom=gdom, statics=gst,
+                             w_contig=w_contig)
+    torch.cuda.synchronize()
+    _equal((hp, S.unshard(hc)), (one[1], S.unshard(one[0])))

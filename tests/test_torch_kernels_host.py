@@ -416,6 +416,7 @@ def test_plan_sharded_routes_one_card_to_one_launch(monkeypatch):
 @pytest.mark.parametrize("const,source,define", [
     ("MAX_PLAN_SLOTS", "plan_span.cuh", "KT_PLAN_MAX_S"),
     ("PLAN_RED_K", "plan_span.cuh", "KT_RED_K"),
+    ("PLAN_BLOCK", "plan_span.cuh", "KT_PLAN_BLOCK"),
     ("PLAN_CLUSTER", "run_plan.cu", "KT_PLAN_CLUSTER")])
 def test_plan_constants_mirror_the_sources(const, source, define):
     import re
@@ -453,6 +454,10 @@ def _c_fields(source: str, struct: str) -> list:
 
 @pytest.mark.parametrize("cls,source,struct", [
     ("BatchArgsC", "run_batch.cu", "BatchArgs"),
+    ("BatchSpanC", "batch_span.cuh", "BatchSpanC"),
+    ("BatchNodesC", "batch_span.cuh", "BatchNodesC"),
+    ("GangSpanC", "run_gang_sharded.cu", "GangSpanC"),
+    ("GangNodesC", "run_gang_sharded.cu", "GangNodesC"),
     ("ProbeShardC", "cluster_probe.cu", "ProbeShard"),
     ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs")])
 def test_kernel_arg_structs_mirror_the_sources(cls, source, struct):
@@ -590,3 +595,187 @@ def test_cluster_probe_sharded_gathers_only_across_cards(monkeypatch):
         assert launched == [[shards] * 4]
         assert len(gathered) == (0 if shards > 1 or D == 1 else 4)
         assert Kr.LAUNCHES["cluster_probe_sharded"] == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the mesh's two scans (csrc/run_batch_sharded.cu, csrc/run_gang_sharded.cu):
+# shards on one card are one cooperative launch a span or gang, shards on
+# several cards keep the chain; every argument is checked before the build
+
+
+def _sharded_batch_cpu(D=2, groups=False):
+    na, carry, xs, table, gd, fam = _batch_cpu(groups)
+    mesh = S.make_mesh(devices=["cpu"] * D)
+    gna = S.shard_node_arrays(mesh, na)
+    gc = S.shard_group_carry(mesh, carry.groups) if groups else None
+    ggd = S.shard_groups(mesh, gd) if groups else None
+    return mesh, gna, S.initial_carry_sharded(gna, gc), xs, table, ggd, fam
+
+
+def _sharded_gang_cpu(D=2):
+    na, batch, table = _cpu_state(20)                # N = 32 rows
+    mesh = S.make_mesh(devices=["cpu"] * D)
+    gna = S.shard_node_arrays(mesh, na)
+    u = int(batch.tidx[0])
+    wt = [u]
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    xs = GangXs(valid=torch.ones((4,), dtype=torch.bool),
+                tidx=torch.full((4,), u, dtype=torch.int32),
+                widx=torch.zeros((4,), dtype=torch.int32))
+    n = na.cap.shape[0] // D
+    dom = [torch.zeros((n,), dtype=torch.int32) for _ in range(D)]
+    statics = S.wave_statics_sharded(mesh, gna, table, wt)
+    return mesh, gna, S.initial_carry_sharded(gna), xs, table, wt, dom, \
+        statics
+
+
+def _cards(monkeypatch, place):
+    if place == "cards":
+        monkeypatch.setattr(Kr, "plan_sharded_placement",
+                            lambda mesh: "cards")
+
+
+def test_sharded_scans_route_one_card_to_one_launch(monkeypatch):
+    """Both mesh scans take one cooperative launch when the shards share a
+    card and the chain when they do not; LAUNCHES counts one a call
+    either way."""
+    seen = []
+    for name in ("_batch_sharded_one", "_batch_sharded_chain",
+                 "_gang_sharded_one", "_gang_sharded_chain"):
+        monkeypatch.setattr(Kr, name, lambda *a, _n=name: seen.append(_n)
+                            or ("out", "packed"))
+    mesh, gna, carry, xs, table, _g, _f = _sharded_batch_cpu()
+    gmesh, ggna, gcarry, gxs, gtable, wt, dom, statics = _sharded_gang_cpu()
+    before = dict(Kr.LAUNCHES)
+    for m in (mesh, S.Mesh(["cuda:0", "cuda:1"])):
+        assert Kr.run_batch_sharded_cuda(P.ScoreConfig(), m, gna, carry, xs,
+                                         table) == ("out", "packed")
+        assert Kr.run_gang_sharded_cuda(
+            P.ScoreConfig(), m, ggna, gcarry, gxs, gtable, wt, 4, dom,
+            statics, 2) == ("out", "packed")
+    assert seen == ["_batch_sharded_one", "_gang_sharded_one",
+                    "_batch_sharded_chain", "_gang_sharded_chain"]
+    for k in ("run_batch_sharded", "run_gang_sharded"):
+        assert Kr.LAUNCHES[k] == before[k] + 2
+
+
+@pytest.mark.parametrize("raw", ["run_batch_sharded", "run_plan_sharded",
+                                 "run_gang_sharded"])
+def test_chain_launches_are_counted_where_they_launch(monkeypatch, raw):
+    """The chains' launch helper adds one to RAW_LAUNCHES[raw] at each
+    shard's launch, in order, and ORs the return codes; a launch that
+    raises is not counted."""
+    import contextlib
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    calls = []
+
+    def fn(a, k, stream):
+        calls.append((a, k, stream, Kr.RAW_LAUNCHES[raw]))
+        if a == "boom":
+            raise RuntimeError("launch")
+        return {"s1": 4, "s2": 1}.get(a, 0)
+
+    shards = [(f"s{d}", f"st{d}", None) for d in range(3)]
+    start = Kr.RAW_LAUNCHES[raw]
+    assert Kr._each(shards, raw, fn, [7, 8, 9]) == 5
+    assert calls == [("s0", 7, "st0", start), ("s1", 8, "st1", start + 1),
+                     ("s2", 9, "st2", start + 2)]
+    assert Kr.RAW_LAUNCHES[raw] == start + 3
+    with pytest.raises(RuntimeError):
+        Kr._each(shards[:1] + [("boom", "st", None)], raw, fn, [1, 2])
+    assert Kr.RAW_LAUNCHES[raw] == start + 4
+
+
+@pytest.mark.parametrize("place", ["one", "cards"])
+@pytest.mark.parametrize("bad", ["lengths", "dtype", "table_width",
+                                 "group_rows", "ragged"])
+def test_run_batch_sharded_cuda_checks_before_building(monkeypatch, bad,
+                                                       place):
+    _no_build(monkeypatch)
+    _cards(monkeypatch, place)
+    groups = bad == "group_rows"
+    mesh, gna, carry, xs, table, ggd, fam = _sharded_batch_cpu(2, groups)
+    if bad == "lengths":
+        xs = xs._replace(sig=xs.sig[:-1])
+    elif bad == "dtype":
+        xs = xs._replace(tidx=xs.tidx.to(torch.int64))
+    elif bad == "table_width":
+        table = table._replace(req=table.req[:, :-1].contiguous())
+    elif bad == "group_rows":
+        # more group rows than the table has
+        table = type(table)(*(t[:1] for t in table))
+    else:
+        cut = type(gna[1])(*(t[:4] if t.dim() else t for t in gna[1]))
+        gna = S.Shards([gna[0], cut])
+    with pytest.raises((ValueError, TypeError)):
+        Kr.run_batch_sharded_cuda(P.ScoreConfig(), mesh, gna, carry, xs,
+                                  table, ggd, fam)
+
+
+@pytest.mark.parametrize("place", ["one", "cards"])
+@pytest.mark.parametrize("bad", ["empty", "row_outside", "xs_lengths",
+                                 "dom_length", "statics_shape", "ragged"])
+def test_run_gang_sharded_cuda_checks_before_building(monkeypatch, bad,
+                                                      place):
+    _no_build(monkeypatch)
+    _cards(monkeypatch, place)
+    mesh, gna, carry, xs, table, wt, dom, statics = _sharded_gang_cpu()
+    if bad == "empty":
+        wt = []
+    elif bad == "row_outside":
+        wt = [table.req.shape[0]]
+    elif bad == "xs_lengths":
+        xs = xs._replace(widx=xs.widx[:3])
+    elif bad == "dom_length":
+        dom = [d[:-1] for d in dom]
+    elif bad == "statics_shape":
+        statics = [tuple(s[:, :-1].contiguous() for s in st)
+                   for st in statics]
+    else:
+        cut = type(gna[1])(*(t[:8] if t.dim() else t for t in gna[1]))
+        gna = S.Shards([gna[0], cut])
+    with pytest.raises(ValueError, match="run_gang_sharded"):
+        Kr.run_gang_sharded_cuda(P.ScoreConfig(), mesh, gna, carry, xs,
+                                 table, wt, 4, dom, statics, 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 4096, 2, 8, 3, True),
+                                   (4, 512, 4, 1, 0, False),
+                                   (8, 2500, 1, 5, 1, True)])
+def test_sharded_scan_scratch_is_aligned_and_disjoint(shape):
+    """The one-launch scans' scratch: the grid team's partial slots and
+    the flags (the batch span), the slots and each shard's fit surfaces
+    (the gang), each piece 8-byte aligned, none overlapping; each shard's
+    GangNodesC surfaces come from the carve."""
+    S_, n_local, D, T, SC, spread_s = shape
+    batch = Kr.batch_span_parts(SC, D * n_local, spread_s, D * T)
+    gang = Kr.gang_span_parts(S_, n_local, D, D * T)
+    sizes = {name: n for name, n, _dt in batch + gang}
+    assert sizes["part"] == 2 * D * T * Kr.PLAN_RED_K
+    assert sizes["flags"] == (SC * D * n_local if spread_s else 0)
+    for pieces in (batch, gang):
+        buf, ptrs, offs = Kr._carve("cpu", pieces)
+        end = buf.data_ptr() + 8 * buf.numel()
+        spans = sorted((ptrs[nm], ptrs[nm] + n * dt.itemsize)
+                       for nm, n, dt in pieces if n)
+        assert all(p % 8 == 0 for p, _e in spans)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert spans[-1][1] <= end
+    _buf, ptrs, _offs = Kr._carve("cpu", gang)
+    for d in range(D):
+        nodes = Kr.GangNodesC()
+        Kr._set_scratch(nodes, ptrs, d)
+        for f in ("s_fit", "s_bal", "fit_ok"):
+            assert getattr(nodes, f) == ptrs[f"{f}{d}"] is not None
+
+
+def test_scan_grid_shared_memory_layout():
+    """A grid block's dynamic shared memory: run_batch's layout for its
+    ⌈n_local / T⌉ rows (the cluster's at T = BATCH_CLUSTER); the largest
+    table (4,096 group rows) fits a block at n_local = 65,536 over the
+    card's 132 SMs."""
+    assert Kr.batch_dyn_bytes(8192, 64, Kr.BATCH_CLUSTER) == \
+        Kr.batch_dyn_bytes(8192, 64)
+    assert Kr.batch_dyn_bytes(4096, 0, 8) == (9 * 512 + 15) // 16 * 16
+    assert Kr.batch_dyn_bytes(65536, 4096, 132) <= Kr.MAX_DYN_SMEM
