@@ -14,6 +14,10 @@
         # tier on make_mesh(2) / (4) of one card beside run_batch (lean,
         # groups) and run_gang's scan tier, and the mesh's closed forms
         # (run_uniform_sharded, run_gang_sharded's closed form);
+        # gang: run_gang's scan tier (S = 1 and S = 4), the gang grid on
+        # make_mesh(1) and make_mesh(2) / (4) of one card, dry_run over
+        # every candidate and over a preemptor's subset, and
+        # PreemptionChurn's per-preemptor Evaluator._dry_run_overrides;
         # gang_host: run_gang_sharded's scan tier on make_mesh(2) / (4)
         # of one card, its host ms a call beside the copies its wrapper
         # makes (this checkout only).
@@ -36,11 +40,15 @@ Phases, each reported on its own line:
      host-port span; diagnose_row on lean and group rows at 8,192 nodes;
      the overlay variants of run_batch and run_uniform at their lean
      shapes; dry_run at the PreemptionChurn shape (C = 8,192 candidates,
-     V = 1) and at C = 512, V = 8 with and without a spread; run_gang's
-     closed form at GangTraining's shape (L = K = 256, J = 8: accepted,
-     rejected, inexact) and its scan tier at CoLocatedInference's
-     (B = 128, S = 1, w_contig = 2: accepted, rejected) and on an S = 4
-     gang of 60 members; explain_row on lean and group rows at 8,192
+     V = 1) and at C = 512, V = 8 with and without a spread, and its
+     subset entry (a preemptor's launch over the candidates its
+     nominations touch, reading the plan's tensors through their
+     positions in place: 199 in 256 at V = 1, 100 in 128 at V = 8);
+     run_gang's closed form at GangTraining's shape (L = K = 256, J = 8:
+     accepted, rejected, inexact) and its scan tier, one cluster launch a
+     gang, at CoLocatedInference's (B = 128, S = 1, w_contig = 2:
+     accepted, rejected) and on an S = 4 gang of 60 members, with ptxas
+     of both instantiations of the gang body; explain_row on lean and group rows at 8,192
      nodes with k = 16 and k = 5 (some rows with fewer feasible nodes
      than k; its device time beside the same run's torch.topk of the
      row's keys); after phase 4, cluster_probe on SchedulingBasic's own
@@ -95,7 +103,9 @@ Phases, each reported on its own line:
      on run_wave);
  11. PreemptionChurn 5000Nodes_10000Pods end to end: 200 preemptors each
      evict one victim through the batched dry run (dry_run) and take a
-     nomination; the measured pods drain under the nominated-pod overlay
+     nomination (each preemptor's Evaluator._dry_run_overrides timed: its
+     staging, subset launch and readback); the measured pods drain under
+     the nominated-pod overlay
      (run_uniform's overlay variant), and the drain that takes the
      preemptors back runs run_batch's overlay variant;
  12. GangTraining 5000Nodes: 40 gangs of 256, each one closed-form
@@ -3010,27 +3020,71 @@ def dry_inputs(torch, pkg, device, C: int, V: int, spread: bool, seed: int,
              sp), real, state.request_vector(PodInfo.of(vip).requests))
 
 
-def dry_subset(torch, args, touched, ovl_used, ovl_npods):
+def dry_subset(torch, pkg, args, touched, ovl_used, ovl_npods):
     """The Evaluator's overlay-subset launch (_dry_run_overrides) over
     `args`: the touched candidate positions padded to a power of two by
-    repeating the first, their slices of the plan tensors, and the summed
-    nominations on the touched rows (zero on the padding)."""
+    repeating the first, and the summed nominations on the touched rows
+    (zero on the padding). Returns (launch, plain, gathered): `launch`
+    runs the checkout's own route — the subset entry reading the wave's
+    tensors through the positions in place (its argument block packed
+    once, as a plan packs it) where the package has one, else the
+    positions' slices of the plan tensors gathered, then the dry run;
+    `plain` its plain version on the same inputs; `gathered` the dry
+    run's arguments on the gathered slices (the subset's bytes and
+    operations)."""
+    P = pkg.program
     na, row, cand, vreq, vvalid, _u, _n, sp = args
     s = len(touched)
     s_pad = 1 << max(s - 1, 0).bit_length()
-    sub = np.full((s_pad,), touched[0], np.int64)
+    sub = np.full((s_pad,), touched[0], np.int32)
     sub[:s] = touched
     ou = np.zeros((s_pad, vreq.shape[2]), np.int64)
     on = np.zeros((s_pad,), np.int32)
     ou[:s], on[:s] = ovl_used, ovl_npods
-    sub_t = torch.from_numpy(sub).to(cand.device)
-    if sp is not None:
-        sp = sp._replace(tv_ok=sp.tv_ok[sub_t], cnt0=sp.cnt0[sub_t],
-                         other_min=sp.other_min[sub_t],
-                         vic_match=sp.vic_match[sub_t])
-    return (na, row, cand[sub_t], vreq[sub_t], vvalid[sub_t],
-            torch.from_numpy(ou).to(cand.device),
-            torch.from_numpy(on).to(cand.device), sp)
+    dev = cand.device
+    sub_t = torch.from_numpy(sub.astype(np.int64)).to(dev)
+
+    def gather():
+        g = sp
+        if g is not None:
+            g = g._replace(tv_ok=g.tv_ok[sub_t], cnt0=g.cnt0[sub_t],
+                           other_min=g.other_min[sub_t],
+                           vic_match=g.vic_match[sub_t])
+        return (na, row, cand[sub_t], vreq[sub_t], vvalid[sub_t],
+                torch.from_numpy(ou).to(dev), torch.from_numpy(on).to(dev),
+                g)
+    gathered = gather()
+    if not hasattr(P, "dry_run_select_victims_subset"):
+        def launch():
+            return P.dry_run_select_victims(*gather())
+        return launch, (lambda: P._dry_run_select_victims_plain(*gathered)), \
+            gathered
+    wave = P.DryRunWave(na, row, cand, vreq, vvalid, sp)
+    block = P.dry_run_args(wave)
+    ins = P.dry_run_subset_inputs(sub, ou, on, dev)
+
+    def launch():
+        return P.dry_run_select_victims_subset(wave, *ins, block)
+
+    def plain():
+        return P._dry_run_subset_plain(*wave[:5], *ins, sp)
+    return launch, plain, gathered
+
+
+def ptxas_report(pkg, source: str, kernel: str) -> str:
+    """ptxas's report of one kernel of a source (this process's build,
+    `-Xptxas -v`): its stack frame, spills and registers, or "not built
+    here" when the libraries were already built."""
+    text = pkg.kernels.BUILD_INFO.get("ptxas", {}).get(source)
+    if not text:
+        return "not built here"
+    out, on = [], False
+    for ln in text.splitlines():
+        if "Function properties for" in ln or "Compiling entry" in ln:
+            on = kernel in ln
+        elif on and ("stack frame" in ln or "registers" in ln):
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return "; ".join(dict.fromkeys(out)) or "not found"
 
 
 def req_cols(req) -> np.ndarray:
@@ -3118,9 +3172,7 @@ def dry_ops(na, row, args, real: int, slots: dict) -> Ops:
 def check_dry_run(torch, pkg, device, rows: list) -> None:
     P = pkg.program
 
-    def held(args, real, what, **kw) -> tuple:
-        k = P.dry_run_select_victims(*args)
-        p = P._dry_run_select_victims_plain(*args)
+    def held(k, p, real, what, **kw) -> tuple:
         torch.cuda.synchronize()
         e = assert_equal_trees(torch, k, p, what)
         viable = int(k[:real, 0].sum())
@@ -3132,26 +3184,40 @@ def check_dry_run(torch, pkg, device, rows: list) -> None:
     for C, V, spread in ((8192, 1, False), (512, 8, True), (512, 8, False)):
         args, real, nom_vec = dry_inputs(torch, pkg, device, C, V, spread,
                                          seed=C + V)
-        e, viable = held(args, real, f"dry_run[C={C},V={V}]", C=C, V=V,
-                         spread=spread)
+        e, viable = held(P.dry_run_select_victims(*args),
+                         P._dry_run_select_victims_plain(*args), real,
+                         f"dry_run[C={C},V={V}]", C=C, V=V, spread=spread)
         err = max(err, e)
         if V == 1 and viable != real:
             fail(f"dry_run: {viable} of {real} PreemptionChurn candidates "
                  "viable, expected every one")
         if timed is None:
             timed = (args, real, nom_vec)
+        if V == 8:
+            # the subset entry over a spread and eight victim slots
+            touched = np.sort(np.random.RandomState(C + V).choice(
+                real, 100, replace=False))
+            run, plain, _g = dry_subset(
+                torch, pkg, args, touched,
+                np.zeros((100, nom_vec.shape[0]), np.int64),
+                np.zeros((100,), np.int32))
+            e, _v = held(run(), plain(), 100, f"dry_run[subset,V={V}]",
+                         C=128, V=V, spread=spread)
+            err = max(err, e)
     args, real, nom_vec = timed
     # the overlay-subset launches of the preemptor wave: the 199 candidate
     # rows the earlier preemptors' 8-cpu / 1 Gi nominations touch, padded
     # to 256 (the main path's shape: no touched candidate stays viable),
     # then seeded nominations of 0-500m / 256 Mi-64 Gi, 1-110 pods, on the
-    # same rows (cpu, memory and the pod limit each turn some away)
+    # same rows (cpu, memory and the pod limit each turn some away); the
+    # subset entry reads the plan's tensors through the positions in place
     rng = np.random.RandomState(29)
     touched = np.sort(rng.choice(real, 199, replace=False))
-    sub = dry_subset(torch, args, touched, np.tile(nom_vec, (199, 1)),
-                     np.ones((199,), np.int32))
-    e, viable = held(sub, 199, "dry_run[subset]", C=256, V=1,
-                     nominations="8 cpu / 1 Gi")
+    sub_run, sub_plain, sub = dry_subset(
+        torch, pkg, args, touched, np.tile(nom_vec, (199, 1)),
+        np.ones((199,), np.int32))
+    e, viable = held(sub_run(), sub_plain(), 199, "dry_run[subset]", C=256,
+                     V=1, nominations="8 cpu / 1 Gi")
     err = max(err, e)
     if viable != 0:
         fail(f"dry_run: {viable} candidates under an 8-cpu nomination "
@@ -3160,17 +3226,16 @@ def check_dry_run(torch, pkg, device, rows: list) -> None:
     ou[:, 0] = rng.choice([0, 0, 500], 199)
     ou[:, 1] = rng.choice([256 << 20, 1 << 30, 64 << 30], 199)
     on = rng.choice([1, 2, 109, 110], 199).astype(np.int32)
-    e, viable_m = held(dry_subset(torch, args, touched, ou, on), 199,
-                       "dry_run[subset,mixed]", C=256, V=1,
-                       nominations="seeded")
+    m_run, m_plain, _g = dry_subset(torch, pkg, args, touched, ou, on)
+    e, viable_m = held(m_run(), m_plain(), 199, "dry_run[subset,mixed]",
+                       C=256, V=1, nominations="seeded")
     err = max(err, e)
     if not 0 < viable_m < 199:
         fail(f"dry_run: {viable_m} of 199 mixed-overlay candidates viable, "
              "expected some of each")
-    sub_ms = cuda_ms(torch, lambda: P.dry_run_select_victims(*sub), 20)
-    sub_dev_ms = device_ms(torch, lambda: P.dry_run_select_victims(*sub), 20)
-    sub_plain_ms = cuda_ms(
-        torch, lambda: P._dry_run_select_victims_plain(*sub), 3)
+    sub_ms = cuda_ms(torch, sub_run, 20)
+    sub_dev_ms = device_ms(torch, sub_run, 20)
+    sub_plain_ms = cuda_ms(torch, sub_plain, 3)
     # timed at the PreemptionChurn base shape (C = 8,192, V = 1)
     na, row = args[0], args[1]
     k_ms = cuda_ms(torch, lambda: P.dry_run_select_victims(*args), 20)
@@ -3193,13 +3258,16 @@ def check_dry_run(torch, pkg, device, rows: list) -> None:
         max_abs_err=err, ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
         plain_device_ms=plain_dev_ms, bound_ms=bound_ms, ops=vars(ops),
         bytes=moved, subset_ms=sub_ms, subset_device_ms=sub_dev_ms,
-        subset_plain_ms=sub_plain_ms, subset_bound_ms=sub_bound)
+        subset_plain_ms=sub_plain_ms, subset_bound_ms=sub_bound,
+        ptxas=ptxas_report(pkg, "dry_run", "dry_run_kernel"))
     rows.append(dict(
         name="dry_run", route="cuda",
         source="kubernetes_tpu_torch/csrc/dry_run.cu",
         replaces="kubernetes_tpu/ops/program.py:2169", launches=0,
         max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=bound_by, library_ms=None, device_ms=dev_ms))
+        bound_by=bound_by, library_ms=None, device_ms=dev_ms,
+        subset_ms=sub_ms, subset_device_ms=sub_dev_ms,
+        subset_bound_ms=sub_bound))
 
 
 # ---------------------------------------------------------------------------
@@ -3427,7 +3495,9 @@ def check_run_gang(torch, pkg, device, rows: list) -> None:
     1 cpu / 1 Gi (S = 1, w_contig = 2, 16 zones) over 5,000 harness nodes
     padded to 8,192, accepted and rejected (needed above the gang); then a
     60-member gang of four signatures (S = 4) on the mixed cluster, padded
-    to a 64-slot member axis."""
+    to a 64-slot member axis. Each gang is one cluster launch
+    (RAW_LAUNCHES); timed over 5 and 50 back-to-back calls; ptxas of the
+    gang body's two instantiations (the cluster, the mesh's grid)."""
     from kubernetes_tpu_torch.ops import gang as G
     P = pkg.program
     W = pkg.wrappers
@@ -3456,8 +3526,13 @@ def check_run_gang(torch, pkg, device, rows: list) -> None:
         def plain():
             return G._run_gang_scan_plain(cfg, na, carry, xs, table, wt,
                                           needed, dom, statics, 2)
+        K = pkg.kernels
+        K.reset_launches()
         kc, kp = kern()
         torch.cuda.synchronize()
+        if K.RAW_LAUNCHES["run_gang"] != 1:
+            fail(f"run_gang[{case}]: {K.RAW_LAUNCHES['run_gang']} CUDA "
+                 "launches for one gang, expected one cluster launch")
         t0 = time.perf_counter()
         pc, pp = plain()
         torch.cuda.synchronize()
@@ -3481,11 +3556,17 @@ def check_run_gang(torch, pkg, device, rows: list) -> None:
         times[case] = dict(
             accept=accept, placed=placed, S=len(wt), B=bucket,
             zones_used=zones_used, ms=cuda_ms(torch, kern, 5),
+            ms_50=cuda_ms(torch, kern, 50),
             device_ms=device_ms(torch, kern, 5), plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, ops=vars(ops),
             bytes=moved)
         log("kernel", name="run_gang", case=case, exact_match=True,
-            **times[case])
+            raw_launches=1, **times[case])
+    log("kernel", name="run_gang", ptxas={
+        "run_gang (cluster)": ptxas_report(pkg, "run_gang",
+                                           "run_gang_kernel"),
+        "run_gang_sharded (grid)": ptxas_report(pkg, "run_gang_sharded",
+                                                "gang_span_grid_kernel")})
     acc = times["accept"]
     rows.append(dict(
         name="run_gang", route="cuda",
@@ -3955,8 +4036,9 @@ def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
     and its own constraints; returns the launch counts."""
     name = "PreemptionChurn"
     n_nodes, n_init, n_pre, n_meas, _zones = PC_SHAPE
-    run, cpu, counts, fields = cell_phase(torch, pkg, device, name, smi,
-                                          post=_take_back_preemptors)
+    with OverridesTimer() as overrides:
+        run, cpu, counts, fields = cell_phase(torch, pkg, device, name, smi,
+                                              post=_take_back_preemptors)
     sched = run.sched
     got = outcome(run.api, sched)
     noms, victims = run.noms, run.victims
@@ -3981,7 +4063,8 @@ def preemption_phase(torch, pkg, device: str, smi: str) -> dict:
         nodes=n_nodes, victims=len(victims), nominations=len(noms),
         batched_dry_runs=ev.batched_dry_runs, host_dry_runs=ev.host_dry_runs,
         preemption_attempts=sched.preemption_attempts,
-        nominations_equal_cpu=True, victims_equal_cpu=True, **fields)
+        nominations_equal_cpu=True, victims_equal_cpu=True,
+        dry_run_overrides=overrides.summary("cuda"), **fields)
     log("preemption_churn_profile", card=smi, **cell_profile(
         torch, pkg, device, name, post=_take_back_preemptors))
     return counts
@@ -4916,15 +4999,168 @@ def gang_host_times(torch, pkg, device, reps: int = 50) -> dict:
     return out
 
 
+class OverridesTimer:
+    """While active, the host ms of each Evaluator._dry_run_overrides call
+    (a preemptor's subset launch with its staging and its readback: the
+    call ends once its rows are on the host), with the plan's device and
+    the number of touched candidates. The class attribute is swapped, so
+    every Evaluator of the process is timed."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.framework.preemption import Evaluator
+        self.cls, self.orig, self.calls = (Evaluator,
+                                           Evaluator._dry_run_overrides, [])
+        # the arguments of the call with the most touched candidates
+        self.largest = (None, None, {}, 0, None)
+
+    def __enter__(self):
+        orig, calls = self.orig, self.calls
+
+        def timed(ev, plan, ovl, R, ctx):
+            t0 = time.perf_counter()
+            out = orig(ev, plan, ovl, R, ctx)
+            dev = getattr(plan.victim_req, "device", None)
+            calls.append((getattr(dev, "type", None), len(ovl),
+                          (time.perf_counter() - t0) * 1e3))
+            if len(ovl) >= len(self.largest[2]):
+                self.largest = (ev, plan, ovl, R, ctx)
+            return out
+        self.cls._dry_run_overrides = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._dry_run_overrides = self.orig
+
+    def replay(self, torch, reps: int = 50) -> dict:
+        """The largest call again, `reps` times back to back on an idle
+        stream: its host ms a call, and cProfile's heaviest functions
+        (own seconds) over 20 calls, where its host time goes."""
+        import cProfile
+        import io
+        import pstats
+        ev, plan, ovl, R, ctx = self.largest
+        if ev is None:
+            return {}
+
+        def call():
+            return self.orig(ev, plan, ovl, R, ctx)
+        call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(20):
+            call()
+        prof.disable()
+        buf = io.StringIO()
+        pstats.Stats(prof, stream=buf).sort_stats("tottime").print_stats(14)
+        top = [ln.strip() for ln in buf.getvalue().splitlines()
+               if ln.strip() and ln.strip()[0].isdigit()]
+        return {"touched": len(ovl), "host_ms": ms, "top_tottime_20": top}
+
+    def summary(self, device_type: str = "cuda") -> dict:
+        """The calls that launched (an overlay touched a candidate) on
+        `device_type`: count, mean, median and largest ms, mean touched."""
+        ms = sorted(m for d, n, m in self.calls if d == device_type and n)
+        touched = [n for d, n, _m in self.calls if d == device_type and n]
+        if not ms:
+            return {"calls": 0}
+        return {"calls": len(ms), "mean_ms": sum(ms) / len(ms),
+                "p50_ms": ms[len(ms) // 2], "max_ms": ms[-1],
+                "total_ms": sum(ms),
+                "mean_touched": sum(touched) / len(touched)}
+
+
+def gang_times(torch, pkg, device, reps: int = 5) -> dict:
+    """Rows 13s, 12 and 14e at their main-path shapes, and the preemptor's
+    host cost: timed ms (CUDA events) over `reps` and over 50 back-to-back
+    calls, and device ms (torch.profiler) — row 13s at CoLocatedInference's
+    gang (B = 128, S = 1, w_contig = 2, N = 8,192) and on the S = 4 gang of
+    60 members in 64 slots; the gang grid at D = 1 (make_mesh of one
+    shard) at the B = 128 gang, the cluster's yardstick on the same body;
+    row 14e at D = 2 and 4 of one card; row 12 over every candidate (C =
+    8,192, V = 1) and the preemptor's subset (199 touched candidates in
+    256 positions), the subset by the checkout's own route; then
+    PreemptionChurn on the card with every Evaluator._dry_run_overrides
+    call timed (its staging, launch and readback). Only the port's public
+    entries are called (and the Evaluator's own method), so an older
+    checkout is timed the same way (`--times gang ROOT`)."""
+    from kubernetes_tpu_torch.ops import gang as G
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    cfg = P.ScoreConfig()
+    out = {}
+    train = W.make_pod("train-proto").req({"cpu": "1", "memory": "1Gi"})\
+        .workload("train").obj()
+    mixed = [W.make_pod(f"mix-{k}").req({"cpu": c, "memory": mem})
+             .workload("mix").obj()
+             for k, (c, mem) in enumerate((("900m", "1Gi"), ("2", "4Gi"),
+                                           ("250m", "512Mi"),
+                                           ("4", "16Gi")))]
+
+    def timed(fn, n=reps) -> dict:
+        return dict(ms=cuda_ms(torch, fn, n), ms_50=cuda_ms(torch, fn, 50),
+                    device_ms=device_ms(torch, fn, n))
+    for case, protos, m, bucket, lean in (("S = 1, B = 128", [train], 128,
+                                           128, False),
+                                          ("S = 4, 60 in 64", mixed, 60, 64,
+                                           True)):
+        na, table, carry, xs, wt, statics, dom = gang_scan_inputs(
+            torch, pkg, device, protos, m, bucket, lean=lean, seed=m)
+        out[f"run_gang[{case}]"] = timed(lambda: G.run_gang(
+            cfg, na, carry, xs, table, wt=wt, needed=m, dom=dom,
+            statics=statics, w_contig=2))
+        if case.startswith("S = 1"):
+            for D in (1,) + MESH_SIZES:
+                mesh = S.make_mesh(devices=[device] * D)
+                n_local = na.cap.shape[0] // D
+                kna, kc, _ = sharded_state(S, mesh, na, carry)
+                kdom = [dom[d * n_local:(d + 1) * n_local].contiguous()
+                        for d in range(D)]
+                kst = S.wave_statics_sharded(mesh, kna, table, wt)
+                out[f"run_gang_sharded[B = 128, D={D}]"] = timed(
+                    lambda m_=mesh, a=kna, c=kc, dm=kdom, st=kst:
+                    S.run_gang_sharded(cfg, m_, a, c, xs, table, wt=wt,
+                                       needed=128, dom=dm, statics=st,
+                                       w_contig=2))
+        del na, table, carry, xs, statics, dom
+    args, real, nom_vec = dry_inputs(torch, pkg, device, 8192, 1, False,
+                                     seed=8193)
+    out["dry_run[C = 8,192, V = 1]"] = timed(
+        lambda: P.dry_run_select_victims(*args), 20)
+    touched = np.sort(np.random.RandomState(29).choice(real, 199,
+                                                       replace=False))
+    run, _plain, gathered = dry_subset(torch, pkg, args, touched,
+                                       np.tile(nom_vec, (199, 1)),
+                                       np.ones((199,), np.int32))
+    out["dry_run[subset, 199 in 256]"] = dict(
+        timed(run, 20), route=("in place" if hasattr(
+            P, "dry_run_select_victims_subset") else "gathered"),
+        launch_on_gathered_ms=cuda_ms(
+            torch, lambda: P.dry_run_select_victims(*gathered), 20))
+    del args, gathered
+    with OverridesTimer() as tm:
+        run_pc = cell_run(device, pkg, "PreemptionChurn")
+        torch.cuda.synchronize()
+    out["_dry_run_overrides[PreemptionChurn]"] = dict(
+        tm.summary("cuda"), pods_per_s=run_pc.rate)
+    out["_dry_run_overrides[largest, replayed]"] = tm.replay(torch)
+    return out
+
+
 TIMES = {"batch": batch_times, "closed_form": closed_form_times,
-         "gang_host": gang_host_times, "plan": plan_times,
-         "shard": shard_times}
+         "gang": gang_times, "gang_host": gang_host_times,
+         "plan": plan_times, "shard": shard_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
     """`--times GROUP ROOT`: one group of kernel rows (batch: 1, 1o, 1g,
     11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d; shard: 14a, 14a
-    group, 14e beside 1, 1g, 13s; gang_host: 14e's host time) of the
+    group, 14e beside 1, 1g, 13s; gang: 13s, the gang grid at D = 1, 14e,
+    12 and the preemptor's _dry_run_overrides; gang_host: 14e's host
+    time) of the
     port in checkout ROOT, its kernels built under ROOT/build, as one
     JSON line. Two checkouts compare on one card
     in one call: run each in its own process, in turns (parent, change,
@@ -4946,8 +5182,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
                     help="only time one group of kernels (batch, "
-                    "closed_form, gang_host, plan, shard) of the port in "
-                    "checkout ROOT")
+                    "closed_form, gang, gang_host, plan, shard) of the port "
+                    "in checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")
     args = ap.parse_args(argv)

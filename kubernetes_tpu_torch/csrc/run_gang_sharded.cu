@@ -13,40 +13,19 @@
 // ONE cooperative launch a gang (ktpu_gang_span_grid) of D teams of T
 // blocks of KT_PLAN_BLOCK (512) threads, T = ceil(n_local / 512) capped by
 // the card's SMs / D, block b in shard b / T; each block owns a contiguous
-// range of its shard's rows and is the only writer of them. In order:
-//   1. the hoist, each block over its own rows: the entry carry into the
-//      fresh output rows, and the S slots' fit surfaces at it. Every
-//      later read of a row is by the block that owns it, so a block
-//      barrier suffices: the first reduction's grid barrier follows;
-//   2. per member (a member that is not valid only writes its -1): one
-//      pass over the block's rows takes the feasible maxima of taint_raw,
-//      na_raw and (w_contig) the contiguity counts, and the packed key
-//      ((score + 1) << 32) | (INT32_MAX − global row) under the LAST
-//      member's maxima; ONE grid-wide reduction (plan_span.cuh's GridTeam)
-//      carries the four. When the maxima equal the last member's, that key
-//      is the key; otherwise a second pass and reduction take it;
-//   3. every block decodes the same first max. The contiguity counts are
-//      kept a row at a time: each block holds, in shared memory, the count
-//      of each of its rows' domains and bumps the rows whose domain is the
-//      chosen node's, read from the owning shard's domain ids on the same
-//      card — from the key it decoded itself, so no count is read by one
-//      block while another writes it, and no exchange is needed;
-//   4. on the block that owns the chosen row: the placement (one warp),
-//      then the S slots' refresh of that row, its three parts (fit,
-//      LeastAllocated, Balanced) side by side in three warps (one warp
-//      running them in turn set a scan step's pace, PERF.md §6);
-//   5. the verdict: accept = placed >= needed (every block counts the
-//      placements it decoded). A rejected gang's blocks restore their own
-//      output rows from the input; the first block of each shard writes
-//      its signature (0 accepted, the input's rejected); block 0 writes
-//      the packed tail.
+// range of its shard's rows and is the only writer of them. The gang's
+// body is gang_span.cuh's (the hoist, the member scan with one grid
+// reduction a member when the maxima repeat, the contiguity counts a row
+// at a time in each block's shared memory, the owner block's placement
+// and three-warp refresh, the verdict); run_gang.cu runs the same body as
+// a thread-block cluster on one device.
 //
 // Shards on several cards ("cards"): launches per shard, with the
 // exchange (kubernetes_tpu_torch/parallel/sharding.py) between them; the
 // wrapper (ops/kernels.py _gang_sharded_chain) drives the members from
 // the host without reading anything back:
 //   init: the entry carry into the fresh output rows, the fit surfaces of
-//     the S signature slots at it (the hoist of run_gang.cu, :906-917),
+//     the S signature slots at it (gang_span.cuh's hoist, :906-917),
 //     the contiguity counts ([n_global], replicated on every shard) and
 //     the placed count zeroed;
 //   per member: eval — the feasible set and the maxima of taint_raw,
@@ -71,7 +50,7 @@
 // one block a shard and skips the contiguity exchange and launch when
 // w_contig is 0).
 
-#include "plan_span.cuh"
+#include "gang_span.cuh"
 
 // one shard's arguments, mirrored field for field by ctypes
 // (ops/kernels.py GangShardC)
@@ -309,220 +288,22 @@ extern "C" int ktpu_gang_shard_verdict(const GangShardC* a, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// every shard on one card: the whole gang in one cooperative launch
-
-// what every shard of the gang shares, mirrored field for field by ctypes
-// (ops/kernels.py GangSpanC)
-struct GangSpanC {
-  TableC tb;
-  CfgC cfg;
-  const uint8_t* valid;     // [B]
-  const int32_t* tidx;      // [B]
-  const int32_t* widx;      // [B] slot of each member
-  const int32_t* wt;        // [S] the slots' table rows
-  int32_t S, B, needed, w_contig, n_local, D;
-  int64_t* part;            // [2, blocks, KT_RED_K] the grid team's slots
-  int32_t* packed;          // [B + 4]
-};
-
-// one node shard's arrays (ops/kernels.py GangNodesC)
-struct GangNodesC {
-  NodeC na;
-  const int64_t* used_in;   // the input carry (read)
-  const int64_t* nz_in;
-  const int32_t* npods_in;
-  const int32_t* sig_in;
-  int64_t* used;            // the output carry rows (written)
-  int64_t* nonzero_used;
-  int32_t* npods;
-  int32_t* sig_out;
-  const uint8_t* m0;        // the shard's stacked surfaces, [S, N] each
-  const int64_t* taint_raw;
-  const int64_t* na_raw;
-  const int64_t* s_img;
-  const int32_t* dom;       // [N] the shard's slice of the global domain ids
-  uint8_t* fit_ok;          // [S, N] the slots' fit surfaces
-  int64_t* s_fit;           // [S, N]
-  int64_t* s_bal;           // [S, N]
-  int32_t offset;           // global index of the shard's row 0
-};
-
-// a block's dynamic shared memory for `span` rows: the contiguity count
-// of each row's domain
-__host__ __device__ inline int gang_dyn_bytes(int span) {
-  return (4 * span + 15) / 16 * 16;
-}
+// every shard on one card: the whole gang in one cooperative launch, the
+// body of gang_span.cuh on plan_span.cuh's GridTeam
 
 namespace {
 
 constexpr int GBLOCK = KT_PLAN_BLOCK;
-
-// a member's total at element `at` of its slot's surfaces (a feasible
-// row, its domain count dc) under the maxima m[3]
-__device__ __forceinline__ int64_t gang_total(const GangSpanC& cm,
-                                              const GangNodesC& a,
-                                              int64_t at, int64_t dc,
-                                              const int64_t* m) {
-  const CfgC& cfg = cm.cfg;
-  int64_t val = cfg.w_fit * a.s_fit[at] + cfg.w_balanced * a.s_bal[at]
-      + cfg.w_taint * kt_normalize(a.taint_raw[at], m[0], true)
-      + cfg.w_node_affinity * kt_normalize(a.na_raw[at], m[1], false)
-      + cfg.w_image * a.s_img[at];
-  if (cm.w_contig) val += cm.w_contig * kt_normalize(dc, m[2], false);
-  return val;
-}
 
 __global__ void __launch_bounds__(GBLOCK, 1)
 gang_span_grid_kernel(const __grid_constant__ GangSpanC cm,
                       const GangNodesC* all, int T) {
   __shared__ PlanShared<GBLOCK> sh;
   const int d = blockIdx.x / T, rk = blockIdx.x % T;
-  const GangNodesC& a = all[d];
   const int nl = cm.n_local, span = (nl + T - 1) / T;
   const int lo = min(nl, rk * span), hi = min(nl, lo + span);
-  const int t = threadIdx.x, wp = t >> 5, lane = t & 31;
-  const int R = a.na.R, S = cm.S, off = a.offset;
-  const int64_t NN = nl;
-  const bool lead = blockIdx.x == 0;
-  int32_t* cnt = (int32_t*)kt_plan_dyn;   // [span] each row's domain count
   GridTeam<GBLOCK> tm{cm.part};
-
-  // ---- 1. the hoist (:906-917) over the block's rows
-  const int rows = hi - lo;
-  for (int64_t e = t; e < (int64_t)rows * R; e += GBLOCK)
-    a.used[(int64_t)lo * R + e] = a.used_in[(int64_t)lo * R + e];
-  for (int64_t e = t; e < (int64_t)rows * 2; e += GBLOCK)
-    a.nonzero_used[(int64_t)lo * 2 + e] = a.nz_in[(int64_t)lo * 2 + e];
-  for (int n = lo + t; n < hi; n += GBLOCK) {
-    a.npods[n] = a.npods_in[n];
-    cnt[n - lo] = 0;
-  }
-  if (rows > 0)
-    for (int64_t e = t; e < (int64_t)S * rows; e += GBLOCK) {
-      const int s = (int)(e / rows), n = lo + (int)(e % rows);
-      const PodRowD p = pod_row(cm.tb, cm.wt[s]);
-      const int64_t* used_row = a.used_in + (int64_t)n * R;
-      int64_t s_fit, s_bal;
-      kt_fit_scores(cm.cfg, a.na, n, used_row, a.nz_in + (int64_t)n * 2, p,
-                    &s_fit, &s_bal);
-      a.fit_ok[s * NN + n] = kt_fit(a.na, n, used_row, a.npods_in[n], p);
-      a.s_fit[s * NN + n] = s_fit;
-      a.s_bal[s * NN + n] = s_bal;
-    }
-
-  // ---- 2.-4. the member scan (:919-1001)
-  int64_t prev[3] = {0, 0, 0};   // the last member's maxima
-  int32_t placed = 0;
-  for (int k = 0; k < cm.B; ++k) {
-    if (!cm.valid[k]) {
-      if (lead && t == 0) cm.packed[k] = -1;
-      continue;
-    }
-    const int s = cm.widx[k];
-    const uint8_t* m0 = a.m0 + s * NN;
-    const uint8_t* fit = a.fit_ok + s * NN;
-    // the last member's row writes (other threads of this block) before
-    // any read of this one
-    __syncthreads();
-    int64_t r[4] = {0, 0, 0, KT_I64_MIN};
-    for (int n = lo + t; n < hi; n += GBLOCK) {
-      if (!(m0[n] && fit[n])) {
-        const int64_t kk = (int64_t)(0x7fffffff - (off + n));
-        r[3] = kk > r[3] ? kk : r[3];
-        continue;
-      }
-      const int64_t at = s * NN + n, dc = cnt[n - lo];
-      r[0] = a.taint_raw[at] > r[0] ? a.taint_raw[at] : r[0];
-      r[1] = a.na_raw[at] > r[1] ? a.na_raw[at] : r[1];
-      r[2] = dc > r[2] ? dc : r[2];
-      // (under maxima that do not hold, a score may fall below -1: the
-      // shift is unsigned, and that key is thrown away)
-      const int64_t val = gang_total(cm, a, at, dc, prev);
-      const int64_t kk = (int64_t)((uint64_t)(val + 1) << 32)
-                         | (int64_t)(0x7fffffff - (off + n));
-      r[3] = kk > r[3] ? kk : r[3];
-    }
-    tm.reduce(r, 4, 0u, sh);
-    int64_t key = r[3];
-    if (r[0] != prev[0] || r[1] != prev[1] || r[2] != prev[2]) {
-      // the key under this member's maxima
-      key = KT_I64_MIN;
-      for (int n = lo + t; n < hi; n += GBLOCK) {
-        const int64_t at = s * NN + n;
-        const int64_t val = (m0[n] && fit[n])
-            ? gang_total(cm, a, at, cnt[n - lo], r) : -1;
-        const int64_t kk = ((val + 1) << 32)
-                           | (int64_t)(0x7fffffff - (off + n));
-        key = kk > key ? kk : key;
-      }
-      int64_t kk[1] = {key};
-      tm.reduce(kk, 1, 0u, sh);
-      key = kk[0];
-      prev[0] = r[0];
-      prev[1] = r[1];
-      prev[2] = r[2];
-    }
-    int64_t score;
-    int32_t best;
-    kt_plan_unkey(key, &score, &best);
-    const bool assigned = score >= 0;
-    if (lead && t == 0) cm.packed[k] = assigned ? best : -1;
-    if (!assigned) continue;
-    ++placed;
-    const int d_own = best / nl, lb = best - d_own * nl;
-    if (cm.w_contig) {
-      // the contiguity counts of the block's rows in the chosen domain
-      const int32_t x = all[d_own].dom[lb];
-      for (int n = lo + t; n < hi; n += GBLOCK)
-        if (a.dom[n] == x) ++cnt[n - lo];
-    }
-    if (d_own != d || lb < lo || lb >= hi) continue;
-    // the placement (:975-983) on the owning block
-    if (wp == 0) {
-      const PodRowD p = pod_row(cm.tb, cm.tidx[k]);
-      for (int rr = lane; rr < R + 3; rr += 32) {
-        if (rr < R)
-          a.used[(int64_t)lb * R + rr] += p.req[rr];
-        else if (rr < R + 2)
-          a.nonzero_used[(int64_t)lb * 2 + rr - R] += p.nonzero_req[rr - R];
-        else
-          a.npods[lb] += 1;
-      }
-    }
-    __syncthreads();
-    // the touched row, refreshed for every slot (duplicates included):
-    // the last three warps a part each, a lane a slot
-    if (wp >= GBLOCK / 32 - 3)
-      for (int s2 = lane; s2 < S; s2 += 32) {
-        const int64_t at = s2 * NN + lb;
-        const int64_t* used_row = a.used + (int64_t)lb * R;
-        const PodRowD ps = pod_row(cm.tb, cm.wt[s2]);
-        if (wp == GBLOCK / 32 - 1)
-          a.fit_ok[at] = kt_fit(a.na, lb, used_row, a.npods[lb], ps);
-        else
-          kt_refresh_score(cm.cfg, a.na, lb, used_row,
-                           a.nonzero_used + (int64_t)lb * 2, ps,
-                           GBLOCK / 32 - 1 - wp, a.s_fit + at, a.s_bal + at);
-      }
-  }
-
-  // ---- 5. the verdict (:1003-1016)
-  const bool accept = placed >= cm.needed;
-  __syncthreads();   // every placement and refresh of this block done
-  if (!accept) {
-    for (int64_t e = t; e < (int64_t)rows * R; e += GBLOCK)
-      a.used[(int64_t)lo * R + e] = a.used_in[(int64_t)lo * R + e];
-    for (int64_t e = t; e < (int64_t)rows * 2; e += GBLOCK)
-      a.nonzero_used[(int64_t)lo * 2 + e] = a.nz_in[(int64_t)lo * 2 + e];
-    for (int n = lo + t; n < hi; n += GBLOCK) a.npods[n] = a.npods_in[n];
-  }
-  if (rk == 0 && t == 0) *a.sig_out = accept ? 0 : *a.sig_in;
-  if (lead && t == 0) {
-    cm.packed[cm.B] = accept;
-    cm.packed[cm.B + 1] = placed;
-    cm.packed[cm.B + 2] = 1;
-    cm.packed[cm.B + 3] = 1;
-  }
+  gang_span<GBLOCK>(cm, all, d, lo, hi, rk == 0, blockIdx.x == 0, tm, sh);
 }
 
 }  // namespace

@@ -8,9 +8,12 @@ pkg/scheduler/framework/preemption/preemption.go):
   the nominated-node "victim already terminating" check (a DELETE still
   queued in the dispatcher).
 - `dry_run_preemption` (:775) — the batched device dry run
-  (ops/program.py dry_run_select_victims, one launch over every candidate
-  node) for the cases it represents exactly, the host loop of
-  `select_victims_on_node` (default_preemption.go:583) for the rest: a
+  (ops/program.py dry_run_select_victims_subset: one launch over every
+  candidate node once a preemptor wave, then one a preemptor over the
+  candidates its nominations touch, reading the wave's resident tensors
+  in place through their positions) for the cases it represents
+  exactly, the host loop of `select_victims_on_node`
+  (default_preemption.go:583) for the rest: a
   preemptor with pod (anti-)affinity, a cluster with required
   anti-affinity pods, a pod without a signature row (or with host
   ports), a node with more than MAX_BATCHED_VICTIMS victims, a resource
@@ -100,6 +103,11 @@ class _DryRunPlan:
     # one NodeArrays[Cp] block on the mesh's first device; cand_idx then
     # holds positions into this block, not node rows
     cand_na: object = None
+    # ops/program.py DryRunWave over the node rows the dry run last read,
+    # and its packed CUDA argument block (None on the CPU), rebuilt
+    # whenever those rows are other tensors (Evaluator._dry_run_wave)
+    wave: object = None
+    dry_args: object = None
 
 
 class Evaluator:
@@ -301,41 +309,51 @@ class Evaluator:
 
     def _dry_run_overrides(self, plan: _DryRunPlan, ovl: dict, R: int,
                            ctx) -> dict:
-        """Re-evaluate ONLY the overlay-touched candidate rows: gather
-        their slices of the device-resident plan tensors and launch over
-        the small subset, padded to a power of two by repeating its first
-        row (the padded outputs are ignored). Returns {cand_pos: packed
-        row}."""
+        """Re-evaluate ONLY the overlay-touched candidate rows: one launch
+        over their positions, padded to a power of two with position 0
+        (the padded outputs are ignored), reading the plan's
+        device-resident tensors through the positions in place. The
+        positions and the summed nominations go to the device in one
+        pinned upload, the rows come back in one pinned readback. Returns
+        {cand_pos: packed row as a list of bools}."""
         if not ovl:
             return {}
-        from ..ops.program import dry_run_select_victims
+        from ..ops.program import (dry_run_read_back,
+                                   dry_run_select_victims_subset,
+                                   dry_run_subset_inputs)
         from ..state.tensorize import pow2_at_least
 
-        dev = plan.victim_req.device
-        sub = np.fromiter(ovl.keys(), np.int64, count=len(ovl))
+        wave, args = self._dry_run_wave(plan, ctx)
+        sub = np.fromiter(ovl.keys(), np.int32, count=len(ovl))
+        vals = list(ovl.values())
         s = len(sub)
         s_pad = pow2_at_least(s)
-        sub_pad = np.zeros((s_pad,), np.int64)
+        sub_pad = np.zeros((s_pad,), np.int32)
         sub_pad[:s] = sub
         ovl_used = np.zeros((s_pad, R), np.int64)
+        ovl_used[:s] = np.concatenate([v[0] for v in vals]).reshape(s, R)
         ovl_npods = np.zeros((s_pad,), np.int32)
-        for i, c in enumerate(sub):
-            vec, cnt = ovl[int(c)]
-            ovl_used[i] = vec
-            ovl_npods[i] = cnt
-        sub_t = torch.from_numpy(sub_pad).to(dev)
-        spread = plan.spread
-        if spread is not None:
-            spread = spread._replace(
-                tv_ok=spread.tv_ok[sub_t], cnt0=spread.cnt0[sub_t],
-                other_min=spread.other_min[sub_t],
-                vic_match=spread.vic_match[sub_t])
-        packed = dry_run_select_victims(
-            self._dry_run_rows(plan, ctx), plan.prow, plan.cand_idx[sub_t],
-            plan.victim_req[sub_t], plan.victim_valid[sub_t],
-            torch.from_numpy(ovl_used).to(dev),
-            torch.from_numpy(ovl_npods).to(dev), spread).cpu().numpy()
-        return {int(c): packed[i] for i, c in enumerate(sub)}
+        ovl_npods[:s] = [v[1] for v in vals]
+        packed = dry_run_read_back(dry_run_select_victims_subset(
+            wave, *dry_run_subset_inputs(sub_pad, ovl_used, ovl_npods,
+                                         plan.victim_req.device), args))
+        return dict(zip(sub.tolist(), packed[:s].tolist()))
+
+    def _dry_run_wave(self, plan: _DryRunPlan, ctx) -> tuple:
+        """(DryRunWave, packed argument block) of the plan over the node
+        rows the dry run reads now. The block is packed once per plan and
+        again whenever `_dry_run_rows` returns other tensors (a scatter
+        or reseed between two preemptors of a wave makes fresh ones), so
+        no launch reads through a pointer into freed rows."""
+        rows = self._dry_run_rows(plan, ctx)
+        w = plan.wave
+        if w is None or any(a is not b for a, b in zip(w.na, rows)):
+            from ..ops.program import DryRunWave, dry_run_args
+            plan.wave = DryRunWave(rows, plan.prow, plan.cand_idx,
+                                   plan.victim_req, plan.victim_valid,
+                                   plan.spread)
+            plan.dry_args = dry_run_args(plan.wave)
+        return plan.wave, plan.dry_args
 
     def _dry_run_plan(self, pod: Pod, nodes: list[NodeInfo],
                       all_nodes: list[NodeInfo], pdbs: list, u: int,
@@ -421,7 +439,9 @@ class Evaluator:
         # ship the wave-constant tensors to the device ONCE and run the
         # full-candidate launch overlay-free: every preemptor of the wave
         # then pays only the small overlay-subset launch
-        from ..ops.program import dry_run_select_victims, pod_row_from_table
+        from ..ops.program import (dry_run_read_back,
+                                   dry_run_select_victims_subset,
+                                   pod_row_from_table)
         dev = torch.device(ctx.state.device)
 
         def up(x):
@@ -443,12 +463,11 @@ class Evaluator:
             constraints=constraints,
             prow=pod_row_from_table(ctx.builder.table, u, dev),
             cand_na=cand_na)
-        plan.base_packed = dry_run_select_victims(
-            self._dry_run_rows(plan, ctx), plan.prow, plan.cand_idx,
-            plan.victim_req, plan.victim_valid,
+        wave, args = self._dry_run_wave(plan, ctx)
+        plan.base_packed = dry_run_read_back(dry_run_select_victims_subset(
+            wave, None,
             torch.zeros((c_pad, R), dtype=torch.int64, device=dev),
-            torch.zeros((c_pad,), dtype=torch.int32, device=dev),
-            plan.spread).cpu().numpy()
+            torch.zeros((c_pad,), dtype=torch.int32, device=dev), args))
         self._plan_cache = plan
         return plan
 

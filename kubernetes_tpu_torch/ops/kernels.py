@@ -61,10 +61,11 @@ LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
                                            "run_gang_uniform_sharded")}
 
 # CUDA kernel launches the scans' wrappers issued (LAUNCHES counts wrapper
-# calls): run_plan one a span; run_plan_sharded and run_batch_sharded (both
-# modes) one a span, and run_gang_sharded's scan tier one a gang, on a mesh
-# whose shards share a card, their chains of launches a shard otherwise
-RAW_LAUNCHES = {"run_plan": 0, "run_plan_sharded": 0,
+# calls): run_plan one a span, run_gang's scan tier one a gang;
+# run_plan_sharded and run_batch_sharded (both modes) one a span, and
+# run_gang_sharded's scan tier one a gang, on a mesh whose shards share a
+# card, their chains of launches a shard otherwise
+RAW_LAUNCHES = {"run_plan": 0, "run_gang": 0, "run_plan_sharded": 0,
                 "run_batch_sharded": 0, "run_gang_sharded": 0}
 
 _LIBS: dict = {}
@@ -81,6 +82,7 @@ MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
 MAX_PLAN_SLOTS = 32       # csrc/plan_span.cuh KT_PLAN_MAX_S
 PLAN_CLUSTER = 16         # csrc/run_plan.cu KT_PLAN_CLUSTER (CTAs)
 BATCH_CLUSTER = 16        # csrc/run_batch.cu KT_BATCH_CLUSTER (CTAs)
+GANG_CLUSTER = 16         # csrc/run_gang.cu KT_GANG_CLUSTER (CTAs)
 # a CTA's dynamic shared memory the wrappers allow (of the H100's 227 KB a
 # block; the static PlanShared takes the rest)
 MAX_DYN_SMEM = 200 * 1024
@@ -310,28 +312,16 @@ class PlanArgsC(ctypes.Structure):
     _fields_ = [("cm", PlanSpanC), ("nodes", PlanNodesC)]
 
 
-class DryArgsC(ctypes.Structure):
+class DryPlanC(ctypes.Structure):
+    """csrc/dry_run.cu DryPlanC: the dry run's wave-constant arguments."""
     _fields_ = ([("na", NodeC), ("tb", TableC)]
                 + [(f, _P) for f in ("used", "npods", "cand", "victim_req",
-                                     "victim_valid", "ovl_used",
-                                     "ovl_npods")]
-                + [(f, _I) for f in ("C", "V", "has_spread")]
+                                     "victim_valid")]
+                + [(f, _I) for f in ("Cp", "V", "has_spread")]
                 + [(f, _P) for f in ("max_skew", "self_match", "min_zero",
                                      "tv_ok", "cnt0", "other_min",
                                      "vic_match")]
-                + [("SC", _I), ("out", _P)])
-
-
-class GangArgsC(ctypes.Structure):
-    _fields_ = ([("na", NodeC), ("tb", TableC), ("cfg", CfgC)]
-                + [(f, _P) for f in (
-                    "used_in", "nz_in", "npods_in", "sig_in", "used",
-                    "nonzero_used", "npods", "sig_out", "m0", "taint_raw",
-                    "na_raw", "s_img", "valid", "tidx", "widx", "wt",
-                    "dom")]
-                + [(f, _I) for f in ("S", "B", "needed", "w_contig")]
-                + [(f, _P) for f in ("fit_ok", "s_fit", "s_bal", "domcnt",
-                                     "packed")])
+                + [("SC", _I)])
 
 
 class DiagArgsC(ctypes.Structure):
@@ -425,7 +415,7 @@ class GangShardC(ctypes.Structure):
 
 
 class GangSpanC(ctypes.Structure):
-    """csrc/run_gang_sharded.cu GangSpanC: what every node shard shares."""
+    """csrc/gang_span.cuh GangSpanC: what every node shard shares."""
     _fields_ = ([("tb", TableC), ("cfg", CfgC)]
                 + [(f, _P) for f in ("valid", "tidx", "widx", "wt")]
                 + [(f, _I) for f in ("S", "B", "needed", "w_contig",
@@ -434,7 +424,7 @@ class GangSpanC(ctypes.Structure):
 
 
 class GangNodesC(ctypes.Structure):
-    """csrc/run_gang_sharded.cu GangNodesC: one node shard's arrays."""
+    """csrc/gang_span.cuh GangNodesC: one node shard's arrays."""
     _fields_ = ([("na", NodeC)]
                 + [(f, _P) for f in (
                     "used_in", "nz_in", "npods_in", "sig_in", "used",
@@ -496,10 +486,10 @@ def _bind(name: str, lib):
         lib.ktpu_run_plan.argtypes = [_P, _P]
         lib.ktpu_run_plan.restype = ctypes.c_int
     elif name == "dry_run":
-        lib.ktpu_dry_run.argtypes = [_P, _P]
+        lib.ktpu_dry_run.argtypes = [_P, _P, _P, _P, _I, _P, _P]
         lib.ktpu_dry_run.restype = ctypes.c_int
     elif name == "run_gang":
-        lib.ktpu_run_gang.argtypes = [_P, _P]
+        lib.ktpu_run_gang.argtypes = [_P, _P, _P]
         lib.ktpu_run_gang.restype = ctypes.c_int
     elif name == "cluster_probe":
         lib.ktpu_cluster_probe.argtypes = [_P, _P]
@@ -1398,71 +1388,116 @@ def diagnose_row_cuda(na, table, tidx: int, gd=None, gc=None, fam=None):
     return slot, pods_fail, cols_fail
 
 
+class DryRunArgs:
+    """The dry run's wave-constant arguments (csrc/dry_run.cu DryPlanC),
+    checked and packed once per preemptor wave: `wave` holds (na, pod,
+    cand, victim_req, victim_valid, spread) as program.DryRunWave does —
+    the node rows, the preemptor's PodRow of device tensors, the plan's
+    candidate rows, its victims in reprieve order and its spread tensors.
+    The block holds a reference to every tensor its struct points into
+    (the preemptor's one-row table views included), so none is freed while
+    it lives; `over(wave)` says whether it was packed from this very wave
+    (a tuple of tensor references: the same object, the same tensors)."""
+
+    def __init__(self, wave):
+        from .program import PodTableDev
+        na, pod, cand, victim_req, victim_valid, spread = wave
+        device = victim_req.device
+        node = _node_c(na, device)
+        N, R = node.N, node.R
+        if R > MAX_DRY_R:
+            raise ValueError(f"dry_run: {R} resource columns > kernel limit "
+                             f"{MAX_DRY_R}")
+        used = _check(na.used, "na.used", torch.int64, 2, device)
+        npods = _check(na.npods, "na.npods", torch.int32, 1, device)
+        if tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N:
+            raise ValueError("dry_run: node state shapes differ from cap")
+        # the preemptor's row as a one-row table (views, no copies)
+        row = PodTableDev(*(getattr(pod, f).unsqueeze(0)
+                            for f in PodTableDev._fields))
+        tab = _table_c(row, R, device)
+        Cp = cand.shape[0]
+        cand_p = _check(cand, "cand", torch.int32, 1, device)
+        req_p = _check(victim_req, "victim_req", torch.int64, 3, device)
+        valid_p = _check(victim_valid, "victim_valid", torch.bool, 2, device)
+        V = victim_req.shape[1]
+        if not 1 <= V <= MAX_DRY_V:
+            raise ValueError(f"dry_run: {V} victim slots outside "
+                             f"1..{MAX_DRY_V}")
+        if (tuple(victim_req.shape) != (Cp, V, R)
+                or tuple(victim_valid.shape) != (Cp, V)):
+            raise ValueError(f"dry_run: victim tensors "
+                             f"{tuple(victim_req.shape)} / "
+                             f"{tuple(victim_valid.shape)}, expected "
+                             f"{(Cp, V, R)} / {(Cp, V)}")
+        sp = {}
+        SC = 0
+        if spread is not None:
+            SC = spread.max_skew.shape[0]
+            if SC > MAX_SC:
+                raise ValueError(f"dry_run: {SC} spread constraints > kernel "
+                                 f"limit {MAX_SC}")
+            want = {"max_skew": (torch.int32, (SC,)),
+                    "self_match": (torch.int32, (SC,)),
+                    "min_zero": (torch.bool, (SC,)),
+                    "tv_ok": (torch.bool, (Cp, SC)),
+                    "cnt0": (torch.int32, (Cp, SC)),
+                    "other_min": (torch.int32, (Cp, SC)),
+                    "vic_match": (torch.bool, (Cp, V, SC))}
+            for f, (dtype, shape) in want.items():
+                t = getattr(spread, f)
+                sp[f] = _check(t, f"spread.{f}", dtype, len(shape), device)
+                if tuple(t.shape) != shape:
+                    raise ValueError(f"spread.{f}: {tuple(t.shape)}, "
+                                     f"expected {shape}")
+        self.c = DryPlanC(na=node, tb=tab, used=used, npods=npods,
+                          cand=cand_p, victim_req=req_p,
+                          victim_valid=valid_p, Cp=Cp, V=V,
+                          has_spread=int(bool(sp)), SC=SC, **sp)
+        self.device, self.Cp, self.V, self.R = device, Cp, V, R
+        self.wave, self._row = wave, row
+
+    def over(self, wave) -> bool:
+        return wave is self.wave
+
+
 def dry_run_select_victims_cuda(na, pod, cand, victim_req, victim_valid,
                                 ovl_used, ovl_npods, spread=None):
-    """The batched preemption dry run (csrc/dry_run.cu), one thread per
-    candidate; same contract as program.dry_run_select_victims. `pod` is
-    a PodRow of device tensors (program.pod_row_from_table)."""
-    libs = build()
-    device = victim_req.device
-    node = _node_c(na, device)
-    N, R = node.N, node.R
-    if R > MAX_DRY_R:
-        raise ValueError(f"dry_run: {R} resource columns > kernel limit "
-                         f"{MAX_DRY_R}")
-    used = _check(na.used, "na.used", torch.int64, 2, device)
-    npods = _check(na.npods, "na.npods", torch.int32, 1, device)
-    if tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N:
-        raise ValueError("dry_run: node state shapes differ from cap")
-    from .program import PodTableDev
-    # the preemptor's row as a one-row table (views, no copies)
-    row = PodTableDev(*(getattr(pod, f).unsqueeze(0)
-                        for f in PodTableDev._fields))
-    tab = _table_c(row, R, device)
-    C = cand.shape[0]
-    cand_p = _check(cand, "cand", torch.int32, 1, device)
-    req_p = _check(victim_req, "victim_req", torch.int64, 3, device)
-    valid_p = _check(victim_valid, "victim_valid", torch.bool, 2, device)
-    V = victim_req.shape[1]
-    if not 1 <= V <= MAX_DRY_V:
-        raise ValueError(f"dry_run: {V} victim slots outside 1..{MAX_DRY_V}")
-    if (tuple(victim_req.shape) != (C, V, R)
-            or tuple(victim_valid.shape) != (C, V)):
-        raise ValueError(f"dry_run: victim tensors {tuple(victim_req.shape)}"
-                         f" / {tuple(victim_valid.shape)}, expected "
-                         f"{(C, V, R)} / {(C, V)}")
+    """The batched preemption dry run (csrc/dry_run.cu) over every
+    candidate; same contract as program.dry_run_select_victims. `pod` is a
+    PodRow of device tensors (program.pod_row_from_table)."""
+    wave = (na, pod, cand, victim_req, victim_valid, spread)
+    return dry_run_subset_cuda(DryRunArgs(wave), wave, None, ovl_used,
+                               ovl_npods)
+
+
+def dry_run_subset_cuda(args, wave, sub, ovl_used, ovl_npods):
+    """The dry run over the candidate positions `sub` (i32 [C]) of the
+    plan `args` packed from `wave` (None: every candidate), reading the
+    plan's tensors through `sub` in place; the overlay rows and the output
+    bool [C, V+1] are in the order of `sub`. One launch; only the per-call
+    tensors are checked. A block packed from other tensors than `wave`'s
+    raises."""
+    if not isinstance(args, DryRunArgs):
+        raise ValueError("dry_run: the CUDA launch needs the plan's packed "
+                         "argument block (program.dry_run_args)")
+    if not args.over(wave):
+        raise ValueError("dry_run: a stale argument block (packed from "
+                         "other tensors than the wave's)")
+    device, R = args.device, args.R
+    if sub is None:
+        C, sub_p = args.Cp, None
+    else:
+        sub_p = _check(sub, "sub", torch.int32, 1, device)
+        C = sub.shape[0]
     ou_p = _check(ovl_used, "ovl_used", torch.int64, 2, device)
     on_p = _check(ovl_npods, "ovl_npods", torch.int32, 1, device)
     if tuple(ovl_used.shape) != (C, R) or ovl_npods.shape[0] != C:
-        raise ValueError("dry_run: overlay must be [C, R] / [C]")
-    sp = {}
-    SC = 0
-    if spread is not None:
-        SC = spread.max_skew.shape[0]
-        if SC > MAX_SC:
-            raise ValueError(f"dry_run: {SC} spread constraints > kernel "
-                             f"limit {MAX_SC}")
-        want = {"max_skew": (torch.int32, (SC,)),
-                "self_match": (torch.int32, (SC,)),
-                "min_zero": (torch.bool, (SC,)),
-                "tv_ok": (torch.bool, (C, SC)),
-                "cnt0": (torch.int32, (C, SC)),
-                "other_min": (torch.int32, (C, SC)),
-                "vic_match": (torch.bool, (C, V, SC))}
-        for f, (dtype, shape) in want.items():
-            t = getattr(spread, f)
-            sp[f] = _check(t, f"spread.{f}", dtype, len(shape), device)
-            if tuple(t.shape) != shape:
-                raise ValueError(f"spread.{f}: {tuple(t.shape)}, expected "
-                                 f"{shape}")
-    out = torch.empty((C, V + 1), dtype=torch.bool, device=device)
-    # the struct stays bound to a name until the call returns
-    args = DryArgsC(na=node, tb=tab, used=used, npods=npods, cand=cand_p,
-                    victim_req=req_p, victim_valid=valid_p, ovl_used=ou_p,
-                    ovl_npods=on_p, C=C, V=V, has_spread=int(bool(sp)),
-                    SC=SC, out=out.data_ptr(), **sp)
-    rc = libs["dry_run"].ktpu_dry_run(ctypes.addressof(args),
-                                      _stream(device))
+        raise ValueError(f"dry_run: overlay must be [{C}, {R}] / [{C}]")
+    lib = build()["dry_run"]
+    out = torch.empty((C, args.V + 1), dtype=torch.bool, device=device)
+    rc = lib.ktpu_dry_run(ctypes.addressof(args.c), sub_p, ou_p, on_p, C,
+                          out.data_ptr(), _stream(device))
     _raise_on(rc, "dry_run")
     LAUNCHES["dry_run"] += 1
     return out
@@ -1470,67 +1505,79 @@ def dry_run_select_victims_cuda(na, pod, cand, victim_req, victim_valid,
 
 def run_gang_cuda(cfg, na, carry, xs, table, wt, needed: int, dom, statics,
                   w_contig: int):
-    """The scan tier of run_gang (csrc/run_gang.cu); same contract as
+    """The scan tier of run_gang (csrc/run_gang.cu: gang_span.cuh's body
+    on a thread-block cluster, one launch a gang); same contract as
     gang._run_gang_scan_plain. The output carry holds fresh used /
     nonzero_used / npods and a fresh signature scalar; the rest of the
     SigCache, the ports and the group counts are the input's (the kernel
-    never writes them)."""
+    never writes them). Every argument is checked before the kernels are
+    built; the fit surfaces are one carved scratch buffer."""
     from .program import Carry
-    libs = build()
     device = carry.used.device
+    rows = [int(u) for u in wt]
+    S, B = len(rows), xs.valid.shape[0]
+    if S < 1 or B < 1:
+        raise ValueError("run_gang: an empty gang or signature set")
     node = _node_c(na, device)
     N, R = node.N, node.R
     tab = _table_c(table, R, device)
-    rows = [int(u) for u in wt]
-    S = len(rows)
-    if S < 1 or any(not 0 <= u < tab.U for u in rows):
+    if any(not 0 <= u < tab.U for u in rows):
         raise ValueError(f"run_gang: rows {rows} outside the table")
-    B = xs.valid.shape[0]
-    valid_p = _check(xs.valid, "xs.valid", torch.bool, 1, device)
-    tidx_p = _check(xs.tidx, "xs.tidx", torch.int32, 1, device)
-    widx_p = _check(xs.widx, "xs.widx", torch.int32, 1, device)
-    if B < 1 or xs.tidx.shape[0] != B or xs.widx.shape[0] != B:
+    i32 = torch.int32
+    xs_p = {f: _check(getattr(xs, f), f"xs.{f}", dt, 1, device)
+            for f, dt in (("valid", torch.bool), ("tidx", i32),
+                          ("widx", i32))}
+    if xs.tidx.shape[0] != B or xs.widx.shape[0] != B:
         raise ValueError("run_gang: xs.valid / tidx / widx lengths differ")
-    dom_p = _check(dom, "dom", torch.int32, 1, device)
+    dom_p = _check(dom, "dom", i32, 1, device)
     if dom.shape[0] != N:
         raise ValueError(f"run_gang: dom must be [{N}]")
-    stat = [_check(t, f"statics[{k}]", dt, 2, device) for k, (t, dt) in
-            enumerate(zip(statics, (torch.bool, torch.int64, torch.int64,
-                                    torch.int64)))]
-    if any(tuple(t.shape) != (S, N) for t in statics):
-        raise ValueError(f"run_gang: statics must be [{S}, {N}] each")
+    stat = _check_statics(statics, S, N, device, "run_gang")
+    span = -(-N // GANG_CLUSTER)
+    if gang_dyn_bytes(span) > MAX_DYN_SMEM:
+        raise ValueError(f"run_gang: {N} node rows need "
+                         f"{gang_dyn_bytes(span)} bytes of shared memory a "
+                         f"CTA, over {MAX_DYN_SMEM}")
     cin = _carry_c(carry, N, R, device)
-    i32, i64 = torch.int32, torch.int64
+    cfgc = _cfg_c(cfg, R)
+    lib = build()["run_gang"]
     used = torch.empty_like(carry.used)
     nz = torch.empty_like(carry.nonzero_used)
     npods = torch.empty_like(carry.npods)
     sig = torch.empty_like(carry.cache.sig)
+    # the cluster team's slots live in shared memory: no "part" piece
+    _scratch, ptr, _offs = _carve(device, gang_span_parts(S, N, 1, 0))
+    nodes = GangNodesC(
+        na=node, used_in=cin.used, nz_in=cin.nonzero_used,
+        npods_in=cin.npods, sig_in=cin.cache.sig, used=used.data_ptr(),
+        nonzero_used=nz.data_ptr(), npods=npods.data_ptr(),
+        sig_out=sig.data_ptr(), m0=stat[0], taint_raw=stat[1],
+        na_raw=stat[2], s_img=stat[3], dom=dom_p, offset=0)
+    _set_scratch(nodes, ptr, 0)
     wt_t = torch.tensor(rows, dtype=i32).pin_memory().to(device,
                                                           non_blocking=True)
-    fit_ok = torch.empty((S * N,), dtype=torch.uint8, device=device)
-    s_fit = torch.empty((S * N,), dtype=i64, device=device)
-    s_bal = torch.empty((S * N,), dtype=i64, device=device)
-    domcnt = torch.empty((N,), dtype=i32, device=device)
     packed = torch.empty((B + 4,), dtype=i32, device=device)
-    # the struct stays bound to a name until the call returns
-    args = GangArgsC(
-        na=node, tb=tab, cfg=_cfg_c(cfg, R), used_in=cin.used,
-        nz_in=cin.nonzero_used, npods_in=cin.npods, sig_in=cin.cache.sig,
-        used=used.data_ptr(), nonzero_used=nz.data_ptr(),
-        npods=npods.data_ptr(), sig_out=sig.data_ptr(), m0=stat[0],
-        taint_raw=stat[1], na_raw=stat[2], s_img=stat[3], valid=valid_p,
-        tidx=tidx_p, widx=widx_p, wt=wt_t.data_ptr(), dom=dom_p, S=S, B=B,
-        needed=int(needed), w_contig=int(w_contig),
-        fit_ok=fit_ok.data_ptr(), s_fit=s_fit.data_ptr(),
-        s_bal=s_bal.data_ptr(), domcnt=domcnt.data_ptr(),
+    span_c = GangSpanC(
+        tb=tab, cfg=cfgc, valid=xs_p["valid"], tidx=xs_p["tidx"],
+        widx=xs_p["widx"], wt=wt_t.data_ptr(), S=S, B=B, needed=int(needed),
+        w_contig=int(w_contig), n_local=N, D=1, part=None,
         packed=packed.data_ptr())
-    rc = libs["run_gang"].ktpu_run_gang(ctypes.addressof(args),
-                                        _stream(device))
+    # the structs and the tensors they point into stay bound to names
+    # until the call returns
+    rc = lib.ktpu_run_gang(ctypes.addressof(span_c), ctypes.addressof(nodes),
+                           _stream(device))
     _raise_on(rc, "run_gang")
+    RAW_LAUNCHES["run_gang"] += 1
     LAUNCHES["run_gang"] += 1
     return Carry(used=used, nonzero_used=nz, npods=npods, ports=carry.ports,
                  cache=carry.cache._replace(sig=sig),
                  groups=carry.groups), packed
+
+
+def gang_dyn_bytes(span: int) -> int:
+    """csrc/gang_span.cuh gang_dyn_bytes: a CTA's dynamic shared memory for
+    `span` rows (each row's domain count)."""
+    return (4 * span + 15) // 16 * 16
 
 
 def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):

@@ -7,6 +7,7 @@ program here has two implementations:
 - a plain PyTorch version (`_run_batch_plain`, `_run_uniform_plain`,
   `_wave_statics_plain`, `_run_wave_plain`, `_run_plan_plain`,
   `_diagnose_plain`, `_dry_run_select_victims_plain`,
+  `_dry_run_subset_plain`,
   `_scatter_rows_plain`, `_score_probe_plain` and the filter/score
   functions below), a line-for-line translation of the JAX
   functions with the same dtypes and the same integer and float
@@ -16,7 +17,8 @@ program here has two implementations:
   inputs lie on a CUDA device.
 
 `run_batch`, `run_uniform`, `wave_statics`, `run_wave`, `run_plan`,
-`diagnose_row`, `dry_run_select_victims`, `scatter_rows`,
+`diagnose_row`, `dry_run_select_victims` (and its subset entry
+`dry_run_select_victims_subset`), `scatter_rows`,
 `explain_row`, `cluster_probe` and `score_probe` pick by the device of
 their inputs: CPU
 tensors take the plain version, CUDA tensors launch the kernel, and
@@ -1701,6 +1703,105 @@ def dry_run_select_victims(na: NodeArrays, pod: PodRow, cand, victim_req,
     return _dry_run_select_victims_plain(na, pod, cand, victim_req,
                                          victim_valid, ovl_used, ovl_npods,
                                          spread)
+
+
+class DryRunWave(NamedTuple):
+    """The dry run's wave-constant inputs: one preemptor signature against
+    one cluster state (framework/preemption.py _DryRunPlan). `cand`,
+    `victim_req`, `victim_valid` and the spread tensors share the plan's
+    candidate axis."""
+    na: NodeArrays
+    pod: PodRow
+    cand: torch.Tensor
+    victim_req: torch.Tensor
+    victim_valid: torch.Tensor
+    spread: object = None
+
+
+def dry_run_args(wave: DryRunWave):
+    """The wave's packed argument block for the CUDA kernel
+    (ops/kernels.py DryRunArgs: checked once, holding every tensor it
+    points into); None on the CPU, where the plain version reads the
+    tensors."""
+    dev = wave.victim_req.device
+    if dev.type == "cuda":
+        from .kernels import DryRunArgs
+        return DryRunArgs(wave)
+    if dev.type != "cpu":
+        raise RuntimeError(f"dry_run_args: unsupported device {dev}")
+    return None
+
+
+def _dry_run_subset_plain(na: NodeArrays, pod: PodRow, cand, victim_req,
+                          victim_valid, sub, ovl_used, ovl_npods,
+                          spread=None):
+    """The subset entry's plain version: the candidate positions `sub`
+    gathered out of the wave's tensors (the JAX package's
+    _dry_run_overrides), then the plain dry run."""
+    if sub is not None:
+        idx = sub.to(_I64)
+        cand, victim_req, victim_valid = (cand[idx], victim_req[idx],
+                                          victim_valid[idx])
+        if spread is not None:
+            spread = spread._replace(
+                tv_ok=spread.tv_ok[idx], cnt0=spread.cnt0[idx],
+                other_min=spread.other_min[idx],
+                vic_match=spread.vic_match[idx])
+    return _dry_run_select_victims_plain(na, pod, cand, victim_req,
+                                         victim_valid, ovl_used, ovl_npods,
+                                         spread)
+
+
+def dry_run_select_victims_subset(wave: DryRunWave, sub, ovl_used,
+                                  ovl_npods, args=None):
+    """`dry_run_select_victims` over the candidate positions `sub` (i32
+    [s], positions into the wave's candidate axis; None: every candidate)
+    of a preemptor wave: the Evaluator's per-preemptor launch over the
+    candidates its nominations touch. `ovl_used` [s, R] / `ovl_npods` [s]
+    and the returned bool [s, V+1] are in the order of `sub`. On the card
+    the kernel reads the wave's tensors through `sub` in place, with the
+    wave's packed argument block `args` (`dry_run_args(wave)`); on the
+    CPU the plain version gathers them. Never writes its inputs."""
+    dev = wave.victim_req.device
+    sub, ovl_used, ovl_npods = RAILS.stage((sub, ovl_used, ovl_npods), dev)
+    if dev.type == "cuda":
+        from .kernels import dry_run_subset_cuda
+        return dry_run_subset_cuda(args, wave, sub, ovl_used, ovl_npods)
+    if dev.type != "cpu":
+        raise RuntimeError(f"dry_run_select_victims_subset: unsupported "
+                           f"device {dev}")
+    return _dry_run_subset_plain(*wave[:5], sub, ovl_used, ovl_npods,
+                                 wave.spread)
+
+
+def dry_run_subset_inputs(sub, ovl_used, ovl_npods, device):
+    """(sub i32 [s], ovl_used i64 [s, R], ovl_npods i32 [s]) on `device`
+    from their numpy values; on a CUDA device through ONE pinned buffer and
+    one non-blocking copy, the three tensors views of that copy."""
+    import numpy as np
+    s, R = ovl_used.shape
+    h = (s + 1) // 2                # int32 values in int64 words
+    cuda = torch.device(device).type == "cuda"
+    buf = torch.empty((2 * h + s * R,), dtype=_I64, pin_memory=cuda)
+    b = buf.numpy()
+    b[:h].view(np.int32)[:s] = sub
+    b[h:h + s * R] = np.asarray(ovl_used, np.int64).reshape(-1)
+    b[h + s * R:].view(np.int32)[:s] = ovl_npods
+    if cuda:
+        buf = buf.to(device, non_blocking=True)
+    return (buf[:h].view(_I32)[:s], buf[h:h + s * R].view(s, R),
+            buf[h + s * R:].view(_I32)[:s])
+
+
+def dry_run_read_back(packed):
+    """The dry run's packed output as a numpy bool array: from the card
+    through one pinned buffer, after the stream reaches it."""
+    if packed.device.type != "cuda":
+        return packed.numpy()
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    torch.cuda.current_stream(packed.device).synchronize()
+    return host.numpy()
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """run_gang_sharded's edge inputs (GANG_EDGE_CASES): the node-axis
 partitions of the port's one-card design (csrc/run_gang_sharded.cu
 ktpu_gang_span_grid: D shards of T blocks, a contiguous range of up to 512
-rows a block) and the gang scan's own corners.
+rows a block; csrc/run_gang.cu, the same body at D = 1: a cluster of 16
+CTAs of ⌈N / 16⌉ rows) and the gang scan's own corners.
 
 Shared by tests/test_torch_gang_edges.py (the port's plain version against
 the JAX package on the CPU) and tests/test_torch_cuda.py (the kernel

@@ -831,6 +831,94 @@ def test_dry_run_kernel_full_width(cuda, spread):
                P._dry_run_select_victims_plain(*args))
 
 
+def _dry_wave(args):
+    na, row, cand, vreq, vvalid, _ou, _on, sp = args
+    return P.DryRunWave(na, row, cand, vreq, vvalid, sp)
+
+
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("V", [1, 8])
+def test_dry_run_subset_kernel_equals_plain(cuda, V, spread):
+    """The subset entry reads the wave's tensors through `sub` in place
+    (the Evaluator's per-preemptor launch): against its plain version
+    (the gather, then the plain dry run) at s = 1, 3 (padded with its first
+    position) and 256 (with repeats), the rows in the order of `sub`; and
+    without `sub`, against the full dry run."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    rng = random.Random(40 + V)
+    args = _dry_inputs(rng, 512, V, 300, cuda, spread)
+    wave = _dry_wave(args)
+    block = P.dry_run_args(wave)
+    R = args[0].cap.shape[1]
+    rs = np.random.RandomState(V)
+    for s in (1, 3, 256):
+        sub = rs.choice(512, s, replace=False).astype(np.int32)
+        s_pad = 1 << max(s - 1, 0).bit_length()
+        sub = np.concatenate([sub, np.full((s_pad - s,), sub[0], np.int32)])
+        ou = np.zeros((s_pad, R), np.int64)
+        ou[:, 0] = rs.choice([0, 0, 1000, 4000], s_pad)
+        on = rs.randint(0, 3, (s_pad,)).astype(np.int32)
+        ins = P.dry_run_subset_inputs(sub, ou, on, cuda)
+        K.reset_launches()
+        got = P.dry_run_select_victims_subset(wave, *ins, block)
+        assert K.LAUNCHES["dry_run"] == 1
+        want = P._dry_run_subset_plain(*wave[:5], *ins, wave.spread)
+        torch.cuda.synchronize()
+        _equal(got, want)
+        assert got.shape == (s_pad, V + 1)
+    full = P.dry_run_select_victims_subset(wave, None, args[5], args[6],
+                                           block)
+    _equal(full, P._dry_run_select_victims_plain(*args))
+
+
+def test_dry_run_subset_after_a_node_swap(cuda):
+    """Two preemptors of one wave with a scatter between them: the node
+    rows the Evaluator reads become fresh tensors, its plan's argument
+    block is packed again over them, the second launch reads the new
+    rows (equal to the plain version on them), and the old block handed
+    the new wave raises."""
+    import numpy as np
+    from kubernetes_tpu_torch.framework.preemption import (Evaluator,
+                                                           _DryRunPlan)
+    rng = random.Random(77)
+    args = _dry_inputs(rng, 256, 4, 120, cuda, False)
+    na, row, cand, vreq, vvalid = args[:5]
+    plan = _DryRunPlan(key=(), cands=[], cand_idx=cand, cand_pos={},
+                       victim_req=vreq, victim_valid=vvalid, spread=None,
+                       constraints=[], prow=row)
+    rows = [na]
+    ctx = SimpleNamespace(state=SimpleNamespace(
+        device_arrays=lambda: rows[0]))
+    ev = Evaluator.__new__(Evaluator)
+    R = na.cap.shape[1]
+    sub = np.arange(0, 256, 2, dtype=np.int32)
+    ou = np.zeros((128, R), np.int64)
+    on = np.zeros((128,), np.int32)
+    outs = []
+    for swap in (False, True):
+        if swap:
+            # a scatter: fresh rows, every node's cpu far past what
+            # removing its victims could free
+            used = na.used.clone()
+            used[:, 0] += 1 << 40
+            rows[0] = type(na)(*(used if f == "used" else t.clone()
+                                 for f, t in zip(type(na)._fields, na)))
+        wave, block = ev._dry_run_wave(plan, ctx)
+        assert wave.na is rows[0]
+        ins = P.dry_run_subset_inputs(sub, ou, on, cuda)
+        got = P.dry_run_select_victims_subset(wave, *ins, block)
+        want = P._dry_run_subset_plain(*wave[:5], *ins, None)
+        torch.cuda.synchronize()
+        _equal(got, want)
+        outs.append((wave, block, got.cpu()))
+    (w1, b1, g1), (w2, b2, g2) = outs
+    assert b2 is not b1 and g1[:, 0].any() and not g2.any()
+    with pytest.raises(ValueError, match="stale"):
+        P.dry_run_select_victims_subset(
+            w2, *P.dry_run_subset_inputs(sub, ou, on, cuda), b1)
+
+
 def test_preemption_kernels_refuse_bad_arguments(cuda):
     rng = random.Random(9)
     args = list(_dry_inputs(rng, 16, 4, 20, cuda, False))
@@ -896,9 +984,13 @@ def _gang_scan_check(na, batch, table, m, bucket, needed, w_contig, zones,
     statics = P.wave_statics(na, table, wt)
     carry = P.initial_carry(na)
     before = [t.clone() for t in list(carry[:4]) + list(carry.cache)]
+    from kubernetes_tpu_torch.ops import kernels as K
+    K.reset_launches()
     got = G.run_gang(P.ScoreConfig(), na, carry, xs, table, wt=wt,
                      needed=needed, dom=dom, statics=statics,
                      w_contig=w_contig)
+    # one cluster launch a gang
+    assert K.RAW_LAUNCHES["run_gang"] == K.LAUNCHES["run_gang"] == 1
     want = G._run_gang_scan_plain(P.ScoreConfig(), na, carry, xs, table, wt,
                                   needed, dom, statics, w_contig)
     torch.cuda.synchronize()
@@ -2093,6 +2185,47 @@ def test_run_gang_sharded_edges_equal_plain(cuda, case, D):
                         statics=P.wave_statics(na, table, wt),
                         w_contig=w_contig)
     _equal((got[1], S.unshard(got[0])), (sp, sc))
+
+
+@pytest.mark.parametrize("case", sorted(GANG_EDGE_CASES))
+def test_run_gang_cluster_edges_equal_plain(cuda, case):
+    """run_gang's scan tier, one cluster launch a gang (16 CTAs of ⌈N /
+    16⌉ rows, the one-shard case of the gang body): the straddle band
+    across CTA boundaries, N = 1,536 ragged, ties beside the CTA
+    boundaries to the lowest row, a rejected gang whose carry equals its
+    input — against the plain version and against the gang grid at D = 1
+    (make_mesh of one shard, the same body on GridTeam)."""
+    from kubernetes_tpu_torch.ops import gang as G
+    from kubernetes_tpu_torch.ops import kernels as K
+    S, gm, _cm = _mesh_pair(1, "one")
+    na, table, xs, wt, needed, dom, w_contig, m = _gang_edge(case, cuda)
+    c0 = P.with_cache_sig(P.initial_carry(na), 7)
+    before = [t.clone() for t in list(c0[:4]) + list(c0.cache)]
+    statics = P.wave_statics(na, table, wt)
+    K.reset_launches()
+    got = G.run_gang(P.ScoreConfig(), na, c0, xs, table, wt=wt,
+                     needed=needed, dom=dom, statics=statics,
+                     w_contig=w_contig)
+    torch.cuda.synchronize()
+    assert K.RAW_LAUNCHES["run_gang"] == 1
+    want = G._run_gang_scan_plain(P.ScoreConfig(), _cpu(na), _cpu(c0),
+                                  _cpu(xs), _cpu(table), wt, needed,
+                                  dom.cpu(), tuple(t.cpu() for t in statics),
+                                  w_contig)
+    _equal(got, want)
+    _equal(before, list(c0[:4]) + list(c0.cache))
+    check_placements(case, got[1].cpu().tolist())
+    if not GANG_EDGE_CASES[case]["accept"]:
+        _equal(list(got[0][:3]), before[:3])
+    gna = S.shard_node_arrays(gm, na)
+    gc0 = S.with_cache_sig_sharded(S.initial_carry_sharded(gna), 7)
+    grid = S.run_gang_sharded(
+        P.ScoreConfig(), gm, gna, gc0, xs, table, wt=wt, needed=needed,
+        dom=[dom], statics=S.wave_statics_sharded(gm, gna, table, wt),
+        w_contig=w_contig)
+    torch.cuda.synchronize()
+    assert K.RAW_LAUNCHES["run_gang_sharded"] == 1
+    _equal((grid[1], S.unshard(grid[0])), (got[1], got[0]))
 
 
 SCAN_LAUNCH_MESHES = [(1, "one"), (2, "one"), (4, "one"), (2, "cards"),

@@ -7,7 +7,10 @@ Three layers, each held to the JAX package on the same seeded input:
   with `victim_valid` holes, a non-zero nominated-pod overlay and, in
   half the cases, spread delta tensors go through the JAX
   `_dry_run_select_victims_jit` on the CPU and the port's plain version;
-  the packed [C, V+1] rows must be equal.
+  the packed [C, V+1] rows must be equal. Its subset entry (a
+  preemptor's launch over the candidate positions its nominations touch,
+  reading the wave's tensors through them) against the JAX dry run on
+  the JAX-gathered inputs.
 - `spread_dry_run_tensors`: the same cluster built in each package, each
   package's own PodTopologySpread PreFilter state → equal tensors.
 - the Evaluator: the same fuzzed cluster (random priorities with ties,
@@ -166,6 +169,90 @@ def test_dry_run_program_without_victims_or_overlay():
                                     zero_u, zero_n, None)
     np.testing.assert_array_equal(jpacked, tpacked)
     assert not tpacked[:, 1:].any()
+
+
+def _subset_positions(rs, s: int, Cp: int) -> np.ndarray:
+    """s candidate positions (with repeats when s > Cp), padded to a power
+    of two by repeating the first, as i32."""
+    sub = rs.choice(Cp, s, replace=s > Cp).astype(np.int32)
+    s_pad = 1 << max(s - 1, 0).bit_length()
+    return np.concatenate([sub, np.full((s_pad - s,), sub[0], np.int32)])
+
+
+@pytest.mark.parametrize("s", [1, 3, 256])
+@pytest.mark.parametrize("V", [1, 8])
+@pytest.mark.parametrize("spread", [False, True])
+@pytest.mark.parametrize("seed", range(2))
+def test_dry_run_subset_matches_jax(seed, spread, V, s):
+    """The subset entry (a preemptor's launch over the candidates its
+    nominations touch, reading the wave's tensors through `sub`) equals
+    the JAX dry run on the JAX-gathered inputs, the Evaluator's
+    _dry_run_overrides layout: the rows in the order of `sub`, the pad
+    repeating its first position."""
+    nn, table, u, cand, vreq, vvalid, _ou, _on, sp = _random_dry_run(
+        seed, spread, C=32, V=V)
+    rs = np.random.RandomState(1000 + seed)
+    sub = _subset_positions(rs, s, cand.shape[0])
+    s_pad, R = sub.shape[0], nn.cap.shape[1]
+    ovl_used = (rs.randint(0, 4, (s_pad, R)) * (rs.rand(s_pad, 1) < 0.5)
+                ).astype(np.int64)
+    ovl_npods = rs.randint(0, 3, (s_pad,)).astype(np.int32)
+    jsub = jnp.asarray(sub)
+    jsp = None
+    if sp is not None:
+        jsp = jg.DryRunSpread(*(jnp.asarray(x) for x in sp))
+        jsp = jsp._replace(tv_ok=jsp.tv_ok[jsub], cnt0=jsp.cnt0[jsub],
+                           other_min=jsp.other_min[jsub],
+                           vic_match=jsp.vic_match[jsub])
+    want = np.asarray(jp.dry_run_select_victims(
+        jp.NodeArrays(*(jnp.asarray(x) for x in nn)),
+        jp.pod_row_from_table(table, u), jnp.asarray(cand)[jsub],
+        jnp.asarray(vreq)[jsub], jnp.asarray(vvalid)[jsub],
+        jnp.asarray(ovl_used), jnp.asarray(ovl_npods), jsp))
+    wave = tp.DryRunWave(
+        convert.node_arrays_from_numpy(nn, "cpu"),
+        tp.pod_row_from_table(table, u, "cpu"), torch.from_numpy(cand),
+        torch.from_numpy(vreq), torch.from_numpy(vvalid),
+        None if sp is None else tg.DryRunSpread(
+            *(torch.from_numpy(np.asarray(x)) for x in sp)))
+    got = tp.dry_run_select_victims_subset(
+        wave, *tp.dry_run_subset_inputs(sub, ovl_used, ovl_npods, "cpu"),
+        tp.dry_run_args(wave))
+    assert got.dtype == torch.bool and got.shape == (s_pad, V + 1)
+    np.testing.assert_array_equal(want, got.numpy())
+    # the full wave through the same entry (no `sub`) is the dry run
+    full = tp.dry_run_select_victims_subset(
+        wave, None, torch.zeros((cand.shape[0], R), dtype=torch.int64),
+        torch.zeros((cand.shape[0],), dtype=torch.int32))
+    np.testing.assert_array_equal(full.numpy()[sub],
+                                  tp.dry_run_select_victims_subset(
+                                      wave, torch.from_numpy(sub),
+                                      torch.zeros((s_pad, R),
+                                                  dtype=torch.int64),
+                                      torch.zeros((s_pad,),
+                                                  dtype=torch.int32)).numpy())
+
+
+def test_dry_run_subset_inputs_share_one_buffer():
+    """The Evaluator's staging of a subset launch: the positions, the
+    overlay rows and the pod counts as views of ONE buffer, equal to the
+    numpy values, at an odd and an even subset length."""
+    rs = np.random.RandomState(4)
+    for s in (3, 8):
+        sub = rs.randint(0, 50, s).astype(np.int32)
+        ou = rs.randint(-(1 << 40), 1 << 40, (s, 5)).astype(np.int64)
+        on = rs.randint(-3, 110, s).astype(np.int32)
+        ts, tu, tn = tp.dry_run_subset_inputs(sub, ou, on, "cpu")
+        assert (ts.dtype, tu.dtype, tn.dtype) == (torch.int32, torch.int64,
+                                                 torch.int32)
+        assert ts.is_contiguous() and tu.is_contiguous() \
+            and tn.is_contiguous()
+        assert ts.untyped_storage().data_ptr() == \
+            tu.untyped_storage().data_ptr() == \
+            tn.untyped_storage().data_ptr()
+        np.testing.assert_array_equal(ts.numpy(), sub)
+        np.testing.assert_array_equal(tu.numpy(), ou)
+        np.testing.assert_array_equal(tn.numpy(), on)
 
 
 def test_dry_run_spread_ok_parity():

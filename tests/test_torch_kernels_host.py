@@ -10,6 +10,7 @@ would fail on the build: every refusal below comes first. Tolerance:
 exact."""
 
 import random
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -431,12 +432,26 @@ def test_plan_constants_mirror_the_sources(const, source, define):
 # mirrored constants and structs, the probe's route by placement
 
 
-def _c_fields(source: str, struct: str) -> list:
-    """The field names of `struct` in a csrc/ source, in order."""
+def _struct_body(source: str, struct: str):
+    """The body of `struct` as a csrc/ source compiles it: in the source
+    or in a csrc/ header it includes (depth first), else None."""
     import re
     text = (Kr.CSRC / source).read_text()
-    body = re.search(rf"^struct {struct} {{\n(.*?)^}};", text,
-                     re.M | re.S).group(1)
+    found = re.search(rf"^struct {struct} {{\n(.*?)^}};", text, re.M | re.S)
+    if found:
+        return found.group(1)
+    for header in re.findall(r'^#include "([^"]+)"', text, re.M):
+        body = _struct_body(header, struct)
+        if body is not None:
+            return body
+    return None
+
+
+def _c_fields(source: str, struct: str) -> list:
+    """The field names of `struct` in a csrc/ source (or a header it
+    includes), in order."""
+    import re
+    body = _struct_body(source, struct)
     names = []
     for line in body.splitlines():
         decl = line.split("//")[0].strip()
@@ -458,6 +473,11 @@ def _c_fields(source: str, struct: str) -> list:
     ("BatchNodesC", "batch_span.cuh", "BatchNodesC"),
     ("GangSpanC", "run_gang_sharded.cu", "GangSpanC"),
     ("GangNodesC", "run_gang_sharded.cu", "GangNodesC"),
+    ("GangSpanC", "gang_span.cuh", "GangSpanC"),
+    ("GangNodesC", "gang_span.cuh", "GangNodesC"),
+    ("GangSpanC", "run_gang.cu", "GangSpanC"),
+    ("GangNodesC", "run_gang.cu", "GangNodesC"),
+    ("DryPlanC", "dry_run.cu", "DryPlanC"),
     ("ProbeShardC", "cluster_probe.cu", "ProbeShard"),
     ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs")])
 def test_kernel_arg_structs_mirror_the_sources(cls, source, struct):
@@ -483,6 +503,8 @@ def test_probe_shard_table_layout():
 
 @pytest.mark.parametrize("const,source,define", [
     ("BATCH_CLUSTER", "run_batch.cu", "KT_BATCH_CLUSTER"),
+    ("GANG_CLUSTER", "run_gang.cu", "KT_GANG_CLUSTER"),
+    ("MAX_DRY_R", "dry_run.cu", "KT_DRY_MAX_R"),
     ("PROBE_MAX_SHARDS", "cluster_probe.cu", "KT_PROBE_MAX_SHARDS")])
 def test_batch_and_probe_constants_mirror_the_sources(const, source, define):
     import re
@@ -779,3 +801,178 @@ def test_scan_grid_shared_memory_layout():
         Kr.batch_dyn_bytes(8192, 64)
     assert Kr.batch_dyn_bytes(4096, 0, 8) == (9 * 512 + 15) // 16 * 16
     assert Kr.batch_dyn_bytes(65536, 4096, 132) <= Kr.MAX_DYN_SMEM
+
+
+# ---------------------------------------------------------------------------
+# run_gang's scan tier (csrc/run_gang.cu: gang_span.cuh's body as a
+# thread-block cluster) and the dry run's subset entry (csrc/dry_run.cu,
+# the plan's argument block packed once): the checks before the build,
+# the one-shard carve, the body written once, the block's rebuild
+
+
+def _gang_cpu():
+    na, batch, table = _cpu_state(20)                # N = 32 rows
+    u = int(batch.tidx[0])
+    from kubernetes_tpu_torch.ops.gang import GangXs
+    xs = GangXs(valid=torch.ones((4,), dtype=torch.bool),
+                tidx=torch.full((4,), u, dtype=torch.int32),
+                widx=torch.zeros((4,), dtype=torch.int32))
+    N = na.cap.shape[0]
+    dom = torch.zeros((N,), dtype=torch.int32)
+    return na, P.initial_carry(na), xs, table, [u], dom, \
+        P.wave_statics(na, table, [u])
+
+
+@pytest.mark.parametrize("bad", ["empty", "row_outside", "xs_lengths",
+                                 "xs_dtype", "dom_length", "statics_shape"])
+def test_run_gang_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    na, carry, xs, table, wt, dom, statics = _gang_cpu()
+    if bad == "empty":
+        wt = []
+    elif bad == "row_outside":
+        wt = [table.req.shape[0]]
+    elif bad == "xs_lengths":
+        xs = xs._replace(widx=xs.widx[:3])
+    elif bad == "xs_dtype":
+        xs = xs._replace(tidx=xs.tidx.to(torch.int64))
+    elif bad == "dom_length":
+        dom = dom[:-1]
+    else:
+        statics = tuple(s[:, :-1].contiguous() for s in statics)
+    with pytest.raises((ValueError, TypeError)):
+        Kr.run_gang_cuda(P.ScoreConfig(), na, carry, xs, table, wt, 4, dom,
+                         statics, 2)
+
+
+@pytest.mark.parametrize("shape", [(1, 8192), (4, 8192), (2, 1536), (3, 37)])
+def test_gang_one_shard_scratch_is_aligned_and_disjoint(shape):
+    """run_gang's scratch: gang_span_parts at D = 1 with no grid slots (the
+    cluster reduces through shared memory), the S slots' three fit
+    surfaces 8-byte aligned and disjoint, GangNodesC's surfaces from the
+    carve, and a CTA's contiguity counts within its shared memory."""
+    S_, N = shape
+    pieces = Kr.gang_span_parts(S_, N, 1, 0)
+    buf, ptrs, _offs = Kr._carve("cpu", pieces)
+    assert ptrs["part"] is None
+    end = buf.data_ptr() + 8 * buf.numel()
+    spans = sorted((ptrs[nm], ptrs[nm] + n * dt.itemsize)
+                   for nm, n, dt in pieces if n)
+    assert [n for nm, n, _dt in pieces if nm != "part"] == [S_ * N] * 3
+    assert all(p % 8 == 0 for p, _e in spans)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert spans[-1][1] <= end
+    nodes = Kr.GangNodesC()
+    Kr._set_scratch(nodes, ptrs, 0)
+    for f in ("s_fit", "s_bal", "fit_ok"):
+        assert getattr(nodes, f) == ptrs[f"{f}0"] is not None
+    span = -(-N // Kr.GANG_CLUSTER)
+    assert Kr.gang_dyn_bytes(span) >= 4 * span
+    assert Kr.gang_dyn_bytes(span) % 16 == 0
+
+
+def test_gang_scan_body_is_written_once():
+    """The gang scan's body lives in gang_span.cuh alone: run_gang.cu
+    launches it as a cluster (its only kernel), run_gang_sharded.cu's grid
+    kernel calls the same template, and no source keeps a hoist or scan
+    kernel of its own."""
+    import re
+    one = (Kr.CSRC / "run_gang.cu").read_text()
+    grid = (Kr.CSRC / "run_gang_sharded.cu").read_text()
+    assert '#include "gang_span.cuh"' in one
+    assert '#include "gang_span.cuh"' in grid
+    assert len(re.findall(r"__global__", one)) == 1
+    assert "gang_span<BLOCK>(" in one and "ClusterTeam<BLOCK>" in one
+    assert "gang_span<GBLOCK>(" in grid and "GridTeam<GBLOCK>" in grid
+    for f in Kr.CSRC.glob("*.cu*"):
+        text = f.read_text()
+        assert "gang_hoist_kernel" not in text, f.name
+        assert "gang_scan_kernel" not in text, f.name
+
+
+def _dry_cpu(V=2):
+    na, batch, table = _cpu_state(20)
+    R = na.cap.shape[1]
+    pod = P.pod_row_from_table(batch.table, int(batch.tidx[0]), "cpu")
+    Cp = 4
+    wave = P.DryRunWave(
+        na, pod, torch.arange(Cp, dtype=torch.int32),
+        torch.ones((Cp, V, R), dtype=torch.int64),
+        torch.ones((Cp, V), dtype=torch.bool))
+    sub = torch.tensor([2, 0], dtype=torch.int32)
+    ovl = (torch.zeros((2, R), dtype=torch.int64),
+           torch.zeros((2,), dtype=torch.int32))
+    return wave, sub, ovl
+
+
+@pytest.mark.parametrize("bad", ["no_block", "stale", "sub_dtype",
+                                 "overlay_rows", "victim_slots",
+                                 "victim_shape"])
+def test_dry_run_subset_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    wave, sub, (ou, on) = _dry_cpu()
+    if bad == "victim_slots":
+        R = wave.na.cap.shape[1]
+        wave = wave._replace(
+            victim_req=torch.zeros((4, 129, R), dtype=torch.int64),
+            victim_valid=torch.zeros((4, 129), dtype=torch.bool))
+        with pytest.raises(ValueError, match="victim slots"):
+            Kr.DryRunArgs(wave)
+        return
+    if bad == "victim_shape":
+        wave = wave._replace(victim_valid=wave.victim_valid[:3])
+        with pytest.raises(ValueError, match="victim tensors"):
+            Kr.DryRunArgs(wave)
+        return
+    args = Kr.DryRunArgs(wave)
+    if bad == "no_block":
+        args = None
+    elif bad == "stale":
+        wave = wave._replace(victim_req=wave.victim_req.clone())
+    elif bad == "sub_dtype":
+        sub = sub.to(torch.int64)
+    else:
+        ou = ou[:1]
+    with pytest.raises((ValueError, TypeError)):
+        Kr.dry_run_subset_cuda(args, wave, sub, ou, on)
+
+
+def test_dry_run_block_rebuilt_when_node_rows_change(monkeypatch):
+    """The Evaluator packs a plan's argument block once and again whenever
+    the node rows it reads are other tensors (a scatter or reseed between
+    two preemptors of one wave): the new block points into the new rows,
+    and the old one, handed the new wave, is refused before any build."""
+    from kubernetes_tpu_torch.framework.preemption import (Evaluator,
+                                                           _DryRunPlan)
+    _no_build(monkeypatch)
+    packed = []
+
+    def args(wave):
+        packed.append(Kr.DryRunArgs(wave))
+        return packed[-1]
+    monkeypatch.setattr(P, "dry_run_args", args)
+    wave, sub, (ou, on) = _dry_cpu()
+    plan = _DryRunPlan(key=(), cands=[], cand_idx=wave.cand, cand_pos={},
+                       victim_req=wave.victim_req,
+                       victim_valid=wave.victim_valid, spread=None,
+                       constraints=[], prow=wave.pod)
+    rows = [wave.na]
+    ctx = SimpleNamespace(state=SimpleNamespace(
+        device_arrays=lambda: rows[0]))
+    ev = Evaluator.__new__(Evaluator)
+    w1, a1 = ev._dry_run_wave(plan, ctx)
+    assert a1.c.na.cap == wave.na.cap.data_ptr()
+    # the same rows (a fresh tuple of the same tensors): the same block
+    rows[0] = type(wave.na)(*wave.na)
+    assert ev._dry_run_wave(plan, ctx) == (w1, a1) and len(packed) == 1
+    # fresh rows: a new block over them
+    rows[0] = type(wave.na)(*(t.clone() for t in wave.na))
+    w2, a2 = ev._dry_run_wave(plan, ctx)
+    assert len(packed) == 2 and a2 is not a1 and w2.na is rows[0]
+    for f in ("cap", "valid", "name_id", "taint_eff", "label_kv"):
+        assert getattr(a2.c.na, f) == getattr(rows[0], f).data_ptr()
+    assert a2.c.used == rows[0].used.data_ptr()
+    assert a2.c.npods == rows[0].npods.data_ptr()
+    assert a2.over(w2) and not a1.over(w2)
+    with pytest.raises(ValueError, match="stale"):
+        Kr.dry_run_subset_cuda(a1, w2, sub, ou, on)
