@@ -20,7 +20,9 @@
         # PreemptionChurn's per-preemptor Evaluator._dry_run_overrides;
         # gang_host: run_gang_sharded's scan tier on make_mesh(2) / (4)
         # of one card, its host ms a call beside the copies its wrapper
-        # makes (this checkout only).
+        # makes (this checkout only); wave: run_wave on
+        # TopologySpreading's and SchedulingPodAntiAffinity's first
+        # drains.
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -1434,7 +1436,10 @@ def wave_ops(pkg, args, stats, slots) -> Ops:
             + select_ops(K * J, Lw) + Ops(i64=nv if args[13] >= 0 else 0)
             + Ops(i64=(nreq + 4) * Lw))
     if fam.spr_f:
-        wave = wave + Ops(i32=Lw * Lw * SC // 2 + 2 * SC * nv
+        # the replay: two prefix counts over the ordered entries (rank in
+        # domain, rank in level), the 32 levels' climb, the elig_dom marks
+        # and the d_need counts on every valid node
+        wave = wave + Ops(i32=2 * Lw * SC + 2 * SC * nv
                           + Lw * SC * 33 + 3 * SC * nv)
     U = gd.spr_f_active.shape[0]
     fold = Ops(i32=3 * U * SC * nv) if fam.spr_f else Ops()
@@ -1460,9 +1465,12 @@ def check_run_wave(torch, pkg, device, rows: list) -> None:
         err = max(err, assert_equal_trees(torch, (kp, kc), (pp, pc),
                                           f"run_wave[{kind}]"))
         stats = kp[B:].tolist()
-        k_ms = cuda_ms(torch, lambda: P.run_wave(
-            cfg, na, carry, valid, table, u, gd, statics, K, J, fam,
-            norm_live, anti_term=anti, merge_on=merge, Lw=Lw), 5)
+        def kern():
+            return P.run_wave(cfg, na, carry, valid, table, u, gd, statics,
+                              K, J, fam, norm_live, anti_term=anti,
+                              merge_on=merge, Lw=Lw)
+        k_ms = cuda_ms(torch, kern, 5)
+        dev_ms = device_ms(torch, kern, 5)
         plain_ms = cuda_ms(torch, lambda: P._run_wave_plain(*args), 1,
                            warmup=0)
         slots = node_slots(na, carry)
@@ -1476,12 +1484,14 @@ def check_run_wave(torch, pkg, device, rows: list) -> None:
                  + nbytes(kc.used, kc.nonzero_used, kc.npods, kc.groups,
                           kp))
         bound_ms, bound_by = bound_of(moved, ops)
-        times[kind] = dict(ms=k_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, waves=stats[0],
+        times[kind] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           waves=stats[0],
                            conflicts=stats[1], first_prefix=stats[2],
                            serial_steps=stats[3], ops=vars(ops),
                            bytes=moved, **shape)
         log("kernel", name="run_wave", exact=True, max_abs_err=err,
+            ptxas=ptxas_report(pkg, "run_wave", "run_wave_kernel"),
             **times[kind])
         if first is None:
             first = times[kind]
@@ -1489,12 +1499,55 @@ def check_run_wave(torch, pkg, device, rows: list) -> None:
         name="run_wave", route="cuda",
         source="kubernetes_tpu_torch/csrc/run_wave.cu",
         replaces="kubernetes_tpu/ops/program.py:1703", launches=0,
-        max_abs_err=err, ms=first["ms"], plain_ms=first["plain_ms"],
-        bound_ms=first["bound_ms"], bound_by=first["bound_by"],
-        library_ms=None,
-        by_shape={k: {f: v[f] for f in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "waves")}
+        max_abs_err=err, ms=first["ms"], device_ms=first["device_ms"],
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by=first["bound_by"], library_ms=None,
+        by_shape={k: {f: v[f] for f in ("ms", "device_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "waves")}
                   for k, v in times.items()}))
+
+
+def check_run_wave_edges(torch, pkg, device) -> None:
+    """run_wave on tests/_wave_edges.py's WAVE_EDGE_CASES (ties across the
+    cluster's CTA splits and at the K-th key, a top-Lw cut inside a node's
+    entries, an anti term with keyless nodes, the spread replay reaching
+    M_CAP, a capacity-exhausted serial tail, norm_live with the merge
+    off): the kernel against the plain version, exactly."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    from _wave_edges import CPU_CASES, check_case, stage
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies
+    P, conv = pkg.program, pkg.convert
+    layer = SimpleNamespace(Cache=pkg.Cache, Snapshot=pkg.Snapshot,
+                            ClusterState=pkg.ClusterState,
+                            BatchBuilder=pkg.BatchBuilder, W=pkg.wrappers,
+                            static_norm_ok=P.static_norm_ok)
+    cfg = P.ScoreConfig()
+    for case in CPU_CASES:
+        e = stage(case, layer)
+        outs = []
+        for dev in (device, "cpu"):
+            na = conv.node_arrays_from_numpy(e.arrays, dev)
+            table = conv.pod_table_from_numpy(e.table, dev)
+            gd = conv.groups_dev_from_numpy(e.gd, dev)
+            gc = conv.group_carry_from_numpy(e.gc, dev)
+            statics = tuple(x[0] for x in P.wave_statics(na, table, [e.u]))
+            valid = torch.from_numpy(e.valid.copy()).to(dev)
+            args = (cfg, na, P.initial_carry(na, gc), valid, table, e.u,
+                    gd, statics, e.K, e.J, e.Lw, GroupFamilies(*e.fam),
+                    e.norm_live, e.anti, e.merge_on)
+            if dev == device:
+                outs.append(P.run_wave(*args[:10], args[11], args[12],
+                                       anti_term=e.anti,
+                                       merge_on=e.merge_on, Lw=e.Lw))
+            else:
+                outs.append(P._run_wave_plain(*args))
+        torch.cuda.synchronize()
+        (kc, kp), (pc, pp) = outs
+        assert_equal_trees(torch, (to_cpu(kp), to_cpu(kc)), (pp, pc),
+                           f"run_wave edge {case}")
+        B = e.valid.shape[0]
+        check_case(case, np_of(kp)[:e.n], np_of(kp)[B:])
+    log("kernel_edges", name="run_wave", cases=CPU_CASES, exact=True)
 
 
 def groups_span_inputs(pkg, device, span: int = 1024, seed: int = 51):
@@ -5150,9 +5203,42 @@ def gang_times(torch, pkg, device, reps: int = 5) -> dict:
     return out
 
 
+def wave_times(torch, pkg, device, reps: int = 5) -> dict:
+    """Row 6 at its main-path shapes: timed ms (CUDA events over `reps`
+    calls) and device ms (torch.profiler) of run_wave on
+    TopologySpreading's first drain (B = 4,096, Lw = 512, K = 512, J = 8)
+    and SchedulingPodAntiAffinity's (B = 2,048, Lw = 1,024, J = 1), with
+    each run's packed stats (merge waves, conflict cuts, first prefix,
+    serial steps), and ptxas of the kernel. Only the port's public entry
+    is called, so an older checkout is timed the same way (`--times wave
+    ROOT`)."""
+    P = pkg.program
+    out = {}
+    for kind, label in (("spread", "TopologySpreading drain"),
+                        ("anti", "SchedulingPodAntiAffinity drain")):
+        args, B, shape = wave_inputs(torch, pkg, device, kind)
+        cfg, na, carry, valid, table, u, gd, statics, K, J, Lw, fam, \
+            norm_live, anti, merge = args
+
+        def run():
+            return P.run_wave(cfg, na, carry, valid, table, u, gd, statics,
+                              K, J, fam, norm_live, anti_term=anti,
+                              merge_on=merge, Lw=Lw)
+        _kc, kp = run()
+        stats = kp[B:].tolist()
+        out[f"run_wave[{label}]"] = dict(
+            ms=cuda_ms(torch, run, reps), device_ms=device_ms(torch, run,
+                                                              reps),
+            waves=stats[0], conflicts=stats[1], first_prefix=stats[2],
+            serial_steps=stats[3], **shape)
+        del args, _kc, kp
+    out["ptxas"] = ptxas_report(pkg, "run_wave", "run_wave_kernel")
+    return out
+
+
 TIMES = {"batch": batch_times, "closed_form": closed_form_times,
          "gang": gang_times, "gang_host": gang_host_times,
-         "plan": plan_times, "shard": shard_times}
+         "plan": plan_times, "shard": shard_times, "wave": wave_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
@@ -5160,7 +5246,7 @@ def times_main(torch, group: str, root: str, smi: str) -> int:
     11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d; shard: 14a, 14a
     group, 14e beside 1, 1g, 13s; gang: 13s, the gang grid at D = 1, 14e,
     12 and the preemptor's _dry_run_overrides; gang_host: 14e's host
-    time) of the
+    time; wave: 6) of the
     port in checkout ROOT, its kernels built under ROOT/build, as one
     JSON line. Two checkouts compare on one card
     in one call: run each in its own process, in turns (parent, change,
@@ -5182,7 +5268,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
                     help="only time one group of kernels (batch, "
-                    "closed_form, gang, gang_host, plan, shard) of the port "
+                    "closed_form, gang, gang_host, plan, shard, wave) of the "
+                    "port "
                     "in checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")
@@ -5240,6 +5327,7 @@ def main(argv=None) -> int:
     time_initial_carry(torch, pkg, device)
     check_wave_statics(torch, pkg, device, rows)
     check_run_wave(torch, pkg, device, rows)
+    check_run_wave_edges(torch, pkg, device)
     check_run_batch_groups(torch, pkg, device, rows)
     check_run_plan(torch, pkg, device, rows)
     check_diagnose_row(torch, pkg, device, rows)

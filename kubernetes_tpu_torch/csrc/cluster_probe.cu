@@ -27,7 +27,7 @@
 //
 // The mesh's probe (kubernetes_tpu/parallel/sharding.py cluster_probe_sharded
 // :1198, _cluster_probe_sharded_jit :1157: an all-gather onto lane 0 and
-// _probe_math there) is the same entry on its shards: the kernels take a
+// _probe_math there) is the same entry on its shards: the kernel takes a
 // shard table by value, up to KT_PROBE_MAX_SHARDS shards (row 11, one
 // device, is the table of one shard). A global row is its shard's offset
 // plus its local row, the shards in mesh order; every statistic is an
@@ -37,26 +37,47 @@
 // What bounds it on an H100: the bytes. It needs the valid rows' cap,
 // the participating cells' used and the node columns once (under 0.9 MB
 // at 5,000 valid nodes of 8,192 and R = 16); the work is a few
-// comparisons per cell. At that size each of the three launches is a few
-// microseconds of launch latency.
+// comparisons per cell. At that size the floor is one launch and the few
+// dependent phases inside it.
 //
-// Design: three launches on the drain's stream, their scratch and outputs
-// carved by the wrapper from one allocation.
-//   (a) one thread per node: the bottleneck util and tight flag into a
-//       scratch byte per node; the [ndom] domain counts zeroed;
-//   (b) five blocks per resource column: one takes the int64 sums and
-//       the max free block, each of the other four one order statistic
-//       by a radix select over the f32 bits (four 8-bit passes, a
-//       256-bucket shared histogram each, its bucket found by a warp
-//       scan), which works at any N where a shared-memory sort would stop
-//       fitting past 2^15 nodes; after them, blocks of a thread per node
-//       add the per-domain pod / node counts as int64 atomics;
-//   (c) one block: the domain statistics and the valid count.
-// The kernels never write their inputs.
+// Design: ONE launch a call of a thread-block cluster of KT_PROBE_CLUSTER
+// CTAs × 1,024 threads (cudaLaunchKernelEx with the cluster dimension; a
+// cluster barrier is a hardware barrier, cheaper than a cooperative
+// grid's, and 16 CTAs hold the main path's 16 columns, one CTA a column).
+// CTA c owns a contiguous range of rows. Four phases, a cluster barrier
+// between them:
+//   1. a thread a row: the bottleneck util and the tight flag into a
+//      scratch byte a row, and every cell's order-preserving util key
+//      (0 where the cell does not participate) into a column-major
+//      scratch [R, N], so a column reads contiguously; the [ndom] domain
+//      counts zeroed;
+//   2. a thread a cell (each thread keeps one column: the CTA's rows in
+//      row-major order, BLOCK / R · R threads): the column sums, the max
+//      free block and the participant counts of the CTA's rows into its
+//      shared memory; a thread a row: the per-domain pod / node counts as
+//      int64 atomics;
+//   3. CTA c takes columns c, c + C, ...: every CTA's partials of the
+//      column through distributed shared memory; the column's keys into
+//      shared memory (N ≤ KT_PROBE_SMEM_KEYS, else read in place) with
+//      their min and max, whose common leading digits every target shares;
+//      then ONE multi-target radix select over the remaining 8-bit digits
+//      finds the four order statistics: each pass one sweep building the
+//      four targets' 256-bin histograms (a key counts toward every target
+//      whose prefix it matches, warp-aggregated by its digit and target
+//      set), a warp a target finding its bin;
+//   4. CTA 0: the domain statistics and the valid count.
+// The kernel never writes its inputs; its scratch and outputs are carved
+// by the wrapper from one allocation.
+
+#include <cooperative_groups.h>
 
 #include "lean_eval.cuh"
 
+namespace cg = cooperative_groups;
+
 #define KT_PROBE_MAX_SHARDS 4
+#define KT_PROBE_CLUSTER 16
+#define KT_PROBE_SMEM_KEYS 32768   // util keys a CTA holds (128 KB)
 
 // one node shard's columns (ops/kernels.py ProbeShardC)
 struct ProbeShard {
@@ -74,12 +95,24 @@ struct ProbeArgs {
   const int32_t* dom;     // [N], N = the shards' rows
   int32_t N, R, ndom;
   uint8_t* tight;         // [N] scratch
-  int64_t* dom_pods;      // [ndom] scratch, zeroed by launch (a)
-  int64_t* dom_nodes;     // [ndom] scratch, zeroed by launch (a)
+  uint32_t* keys;         // [R, N] scratch: the cells' util keys
+  int64_t* dom_pods;      // [ndom] scratch, zeroed in phase 1
+  int64_t* dom_nodes;     // [ndom] scratch, zeroed in phase 1
   float* per_res;         // [R, 7]
   float* dom_stats;       // [4]
   int32_t* valid_count;   // []
 };
+
+#define KT_PROBE_PARTS 6        // a column's partials: four sums, a count,
+                                // the max free block
+
+// a CTA's dynamic shared memory: its column partials (int64 [R, 6]), then
+// a column's util keys when they fit
+__host__ __device__ inline int probe_dyn_bytes(int N, int R) {
+  return 8 * KT_PROBE_PARTS * R + (N <= KT_PROBE_SMEM_KEYS ? 4 * N : 0);
+}
+
+extern __shared__ __align__(16) int64_t kt_probe_dyn[];
 
 namespace {
 
@@ -126,36 +159,15 @@ __device__ __forceinline__ float unkey(uint32_t k) {
   return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
 }
 
-// launch (a): a thread per global row, and the [ndom] domain counts
-// zeroed, a thread an entry
-__global__ void __launch_bounds__(256)
-probe_nodes(const __grid_constant__ ProbeArgs a) {
-  const int n = blockIdx.x * 256 + threadIdx.x;
-  if (n < a.N) {
-    int m;
-    const ProbeShard& s = a.s[shard_of(a, n, &m)];
-    // max over the row of util, 0 where the cell does not participate
-    float bottleneck = -INFINITY;
-    for (int r = 0; r < a.R; ++r)
-      bottleneck = fmaxf(bottleneck, participates(s, m, a.R, r)
-                                         ? util_of(s, m, a.R, r) : 0.0f);
-    a.tight[n] = s.valid[m] && bottleneck >= 0.95f;
-  }
-  if (n < a.ndom) {
-    a.dom_pods[n] = 0;
-    a.dom_nodes[n] = 0;
-  }
-}
-
-// the bucket of the 256-bucket histogram that holds rank kk among the
-// keys counted, and kk's rank inside it: warp 0, eight buckets a lane,
-// an inclusive scan of the lanes' counts; the lane whose range covers kk
+// the bucket of a 256-bucket histogram that holds rank kk among the keys
+// counted, and kk's rank inside it: one warp, eight buckets a lane, an
+// inclusive scan of the lanes' counts; the lane whose range covers kk
 // walks its eight (the first bucket b with Σ hist[0..b] > kk, 255 when
 // none is)
 __device__ __forceinline__ void select_bucket(const uint32_t* hist,
                                               int64_t kk, uint32_t* bucket,
                                               int64_t* rank) {
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
   uint32_t loc[8];
   int64_t own = 0;
   for (int j = 0; j < 8; ++j) {
@@ -185,125 +197,270 @@ __device__ __forceinline__ void select_bucket(const uint32_t* hist,
   }
 }
 
-// launch (b): blocks [0, 5R) — block 5r + q < 4 selects column r's order
-// statistic q, block 5r + 4 takes the column's sums and its max free block
-// — then blocks of a thread per global row add the domain counts
-__global__ void __launch_bounds__(BLOCK)
-probe_columns(const __grid_constant__ ProbeArgs a) {
-  __shared__ BlockScratch<BLOCK> sh;
-  __shared__ uint32_t hist[256];
-  __shared__ uint32_t sel_bucket;
-  __shared__ int64_t sel_rank;
-  const int R = a.R, N = a.N;
-  if ((int)blockIdx.x >= 5 * R) {
-    const int n = (blockIdx.x - 5 * R) * BLOCK + threadIdx.x;
-    if (n >= N) return;
+struct ProbeShared {
+  BlockScratch<BLOCK> bs;
+  uint32_t hist[4][256];     // the four targets' bins
+  uint32_t prefix[4];        // each target's digits so far
+  int64_t kk[4];             // each target's rank among its prefix's keys
+  uint32_t bucket[4];
+  int64_t rank[4];
+  int32_t nkeys;
+  float fmx[BLOCK / 32], fmn[BLOCK / 32];
+};
+
+// phase 3 for column r on this CTA
+__device__ void probe_column(const ProbeArgs& a, int r, ProbeShared& sh) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int R = a.R, N = a.N, lane = threadIdx.x & 31;
+  const bool in_smem = N <= KT_PROBE_SMEM_KEYS;
+  uint32_t* skeys = (uint32_t*)(kt_probe_dyn + KT_PROBE_PARTS * R);
+  const uint32_t* col = a.keys + (int64_t)r * N;
+  float* out = a.per_res + (int64_t)r * 7;
+  // every CTA's partials of the column
+  __shared__ int64_t tot[KT_PROBE_PARTS];
+  if (threadIdx.x < KT_PROBE_PARTS) {
+    const int k = threadIdx.x;
+    const int C = (int)cl.num_blocks();
+    int64_t x = k == 5 ? KT_I64_MIN : 0;
+    for (int q = 0; q < C; ++q) {
+      const int64_t y = cl.map_shared_rank(kt_probe_dyn, q)[r * KT_PROBE_PARTS
+                                                            + k];
+      x = k == 5 ? (y > x ? y : x) : x + y;
+    }
+    tot[k] = x;
+  }
+  if (threadIdx.x == 0) sh.nkeys = 0;
+  __syncthreads();
+  const int64_t s_used = tot[0], s_cap = tot[1], s_free = tot[2];
+  const int64_t s_strand = tot[3], mc = tot[4], mx = tot[5];
+  if (threadIdx.x == 0) {
+    out[4] = s_cap > 0 ? f32_ratio(s_used, s_cap) : 0.0f;
+    out[5] = s_free > 0 ? __fsub_rn(1.0f, f32_ratio(mx, s_free)) : 0.0f;
+    out[6] = s_free > 0 ? f32_ratio(s_strand, s_free) : 0.0f;
+  }
+  if (mc == 0) {
+    if (threadIdx.x < 4) out[threadIdx.x] = 0.0f;
+    __syncthreads();
+    return;
+  }
+  // the participants' keys (into shared memory when they fit, a warp's
+  // slots with one shared atomic: the selection reads them as a multiset),
+  // their min and max
+  int64_t hi = 0, nlo = -(int64_t)0xffffffffLL;
+  // the keys are other CTAs' writes: read past L1, four a thread issued
+  // together
+  for (int i00 = 0; i00 < N; i00 += 4 * BLOCK) {
+    uint32_t k4[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int i = i00 + j * BLOCK + threadIdx.x;
+      k4[j] = i < N ? __ldcg(col + i) : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t key = k4[j];
+      const bool take = key != 0;
+      if (take) {
+        hi = key > hi ? key : hi;
+        nlo = -(int64_t)key > nlo ? -(int64_t)key : nlo;
+      }
+      if (!in_smem) continue;
+      const unsigned vote = __ballot_sync(0xffffffffu, take);
+      if (vote == 0) continue;
+      const int lead = __ffs(vote) - 1;
+      int at = 0;
+      if (lane == lead) at = atomicAdd(&sh.nkeys, __popc(vote));
+      at = __shfl_sync(0xffffffffu, at, lead);
+      if (take) skeys[at + __popc(vote & ((1u << lane) - 1u))] = key;
+    }
+  }
+  hi = block_max<BLOCK>(hi, sh.bs);
+  nlo = block_max<BLOCK>(nlo, sh.bs);
+  const uint32_t kmax = (uint32_t)hi, kmin = (uint32_t)(-nlo);
+  // the digits every participant shares are every target's
+  int shift0 = -8;
+  uint32_t pmask = 0xffffffffu;
+  if (kmax != kmin) {
+    const int hb = 31 - __clz(kmax ^ kmin);
+    shift0 = hb / 8 * 8;
+    pmask = shift0 + 8 >= 32 ? 0u : ~0u << (shift0 + 8);
+  }
+  if (threadIdx.x < 4) {
+    const double qs[4] = {0.5, 0.9, 0.99, 1.0};
+    const int q = threadIdx.x;
+    // rank among the participants (the sorted column's position N - m +
+    // idx, clipped to [0, N - 1], minus the N - m leading −1s)
+    const double mf = (double)mc;
+    const int32_t idx =
+        (int32_t)floor(__dadd_rn(__dmul_rn(qs[q], __dsub_rn(mf, 1.0)), 0.5));
+    int64_t at = (int64_t)N - mc + idx;
+    at = at < 0 ? 0 : (at > N - 1 ? N - 1 : at);
+    sh.kk[q] = at - ((int64_t)N - mc);
+    sh.prefix[q] = kmin & pmask;
+  }
+  __syncthreads();
+  const int nk = in_smem ? sh.nkeys : N;
+  for (int shift = shift0; shift >= 0; shift -= 8) {
+    for (int b = threadIdx.x; b < 4 * 256; b += BLOCK) (&sh.hist[0][0])[b] = 0;
+    __syncthreads();
+    uint32_t pre[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) pre[q] = sh.prefix[q];
+    // one sweep: each key toward every target whose prefix it matches
+    for (int i0 = 0; i0 < nk; i0 += BLOCK) {
+      const int i = i0 + threadIdx.x;
+      const uint32_t key =
+          i < nk ? (in_smem ? skeys[i] : __ldcg(col + i)) : 0u;
+      unsigned tgt = 0;
+      if (key != 0)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) tgt |= ((key & pmask) == pre[q]) << q;
+      const unsigned digit = (key >> shift) & 255u;
+      const unsigned tag = tgt ? (tgt << 8) | digit : 0u;
+      const unsigned peers = __match_any_sync(0xffffffffu, tag);
+      if (tag != 0 && __ffs(peers) - 1 == lane)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if ((tgt >> q) & 1)
+            atomicAdd(&sh.hist[q][digit], (unsigned)__popc(peers));
+    }
+    __syncthreads();
+    const int w = threadIdx.x >> 5;
+    if (w < 4)
+      select_bucket(sh.hist[w], sh.kk[w], &sh.bucket[w], &sh.rank[w]);
+    __syncthreads();
+    if (threadIdx.x < 4) {
+      const int q = threadIdx.x;
+      sh.prefix[q] |= sh.bucket[q] << shift;
+      sh.kk[q] = sh.rank[q];
+    }
+    pmask |= 255u << shift;
+    __syncthreads();
+  }
+  if (threadIdx.x < 4) out[threadIdx.x] = unkey(sh.prefix[threadIdx.x]);
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(BLOCK, 1)
+probe_kernel(const __grid_constant__ ProbeArgs a) {
+  __shared__ ProbeShared sh;
+  cg::cluster_group cl = cg::this_cluster();
+  const int C = (int)cl.num_blocks(), rank = (int)cl.block_rank();
+  const int N = a.N, R = a.R;
+  const int span = (N + C - 1) / C;
+  const int lo = min(N, rank * span), hi = min(N, lo + span);
+  int64_t* part = kt_probe_dyn;          // [R, KT_PROBE_PARTS]
+  for (int t = threadIdx.x; t < R * KT_PROBE_PARTS; t += BLOCK)
+    part[t] = t % KT_PROBE_PARTS == 5 ? KT_I64_MIN : 0;
+
+  // 1. a thread a row: the tight flag and the cells' keys; the domain
+  // counts zeroed
+  for (int n = lo + threadIdx.x; n < hi; n += BLOCK) {
     int m;
     const ProbeShard& s = a.s[shard_of(a, n, &m)];
-    if (!s.valid[m]) return;
+    const bool valid = s.valid[m];
+    const int64_t* cap = s.cap + (int64_t)m * R;
+    const int64_t* used = s.used + (int64_t)m * R;
+    // max over the row of util, 0 where the cell does not participate
+    float bottleneck = -INFINITY;
+    for (int r0 = 0; r0 < R; r0 += 8) {
+      int64_t c8[8], u8[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        c8[j] = r0 + j < R ? cap[r0 + j] : 0;
+        u8[j] = r0 + j < R ? used[r0 + j] : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (r0 + j >= R) break;
+        const bool p = valid && c8[j] > 0;
+        const float util = p ? f32_ratio(u8[j], c8[j]) : 0.0f;
+        bottleneck = fmaxf(bottleneck, util);
+        a.keys[(int64_t)(r0 + j) * N + n] = p ? fkey(util) : 0u;
+      }
+    }
+    a.tight[n] = valid && bottleneck >= 0.95f;
+  }
+  for (int d = rank * BLOCK + threadIdx.x; d < a.ndom; d += C * BLOCK) {
+    a.dom_pods[d] = 0;
+    a.dom_nodes[d] = 0;
+  }
+  cl.sync();
+
+  // 2. a thread a cell of the CTA's rows, its column fixed: the column
+  // partials; then a thread a row: the domain counts
+  const int Wc = BLOCK / R * R;
+  if ((int)threadIdx.x < Wc) {
+    const int r = threadIdx.x % R;
+    int64_t su = 0, sc = 0, sf = 0, ss = 0, mcnt = 0, mx = KT_I64_MIN;
+    // four cells at a time, every load issued before any test
+    for (int64_t e0 = (int64_t)lo * R + threadIdx.x; e0 < (int64_t)hi * R;
+         e0 += 4 * (int64_t)Wc) {
+      int64_t cv[4], uv[4];
+      bool vv[4], tv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t e = e0 + j * (int64_t)Wc;
+        const bool in = e < (int64_t)hi * R;
+        const int n = in ? (int)(e / R) : lo;
+        int m;
+        const ProbeShard& s = a.s[shard_of(a, n, &m)];
+        const int64_t k = (int64_t)m * R + r;
+        vv[j] = in && s.valid[m];
+        cv[j] = in ? s.cap[k] : 0;
+        uv[j] = in ? s.used[k] : 0;
+        tv[j] = in && __ldcg(a.tight + n);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (e0 + j * (int64_t)Wc >= (int64_t)hi * R) break;
+        int64_t free = 0;
+        if (vv[j] && cv[j] > 0) {
+          su += uv[j];
+          sc += cv[j];
+          free = cv[j] - uv[j];
+          ++mcnt;
+        }
+        sf += free;
+        if (tv[j]) ss += free;
+        mx = free > mx ? free : mx;
+      }
+    }
+    int64_t* pr = part + r * KT_PROBE_PARTS;
+    atomicAdd((unsigned long long*)&pr[0], (unsigned long long)su);
+    atomicAdd((unsigned long long*)&pr[1], (unsigned long long)sc);
+    atomicAdd((unsigned long long*)&pr[2], (unsigned long long)sf);
+    atomicAdd((unsigned long long*)&pr[3], (unsigned long long)ss);
+    atomicAdd((unsigned long long*)&pr[4], (unsigned long long)mcnt);
+    atomicMax((long long*)&pr[5], (long long)mx);
+  }
+  for (int n = lo + threadIdx.x; n < hi; n += BLOCK) {
+    int m;
+    const ProbeShard& s = a.s[shard_of(a, n, &m)];
+    if (!s.valid[m]) continue;
     int d = a.dom[n];
     d = d < 0 ? 0 : (d > a.ndom - 1 ? a.ndom - 1 : d);
     atomicAdd((unsigned long long*)(a.dom_pods + d),
               (unsigned long long)(int64_t)s.npods[m]);
     atomicAdd((unsigned long long*)(a.dom_nodes + d), 1ull);
-    return;
   }
-  const int r = blockIdx.x / 5;
-  const int qi = blockIdx.x % 5;
-  float* out = a.per_res + (int64_t)r * 7;
-  if (qi == 4) {
-    int64_t s_used = 0, s_cap = 0, s_free = 0, s_strand = 0;
-    int64_t mx = KT_I64_MIN;
-    int off = 0;
-#pragma unroll
-    for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
-      if (d >= a.D) break;
-      const ProbeShard& s = a.s[d];
-      for (int m = threadIdx.x; m < s.rows; m += BLOCK) {
-        int64_t free = 0;
-        if (participates(s, m, R, r)) {
-          const int64_t k = (int64_t)m * R + r;
-          s_used += s.used[k];
-          s_cap += s.cap[k];
-          free = s.cap[k] - s.used[k];
-        }
-        s_free += free;
-        if (a.tight[off + m]) s_strand += free;
-        mx = free > mx ? free : mx;
-      }
-      off += s.rows;
-    }
-    s_used = block_sum<BLOCK>(s_used, sh);
-    s_cap = block_sum<BLOCK>(s_cap, sh);
-    s_free = block_sum<BLOCK>(s_free, sh);
-    s_strand = block_sum<BLOCK>(s_strand, sh);
-    mx = block_max<BLOCK>(mx, sh);
-    if (threadIdx.x == 0) {
-      out[4] = s_cap > 0 ? f32_ratio(s_used, s_cap) : 0.0f;
-      out[5] = s_free > 0 ? __fsub_rn(1.0f, f32_ratio(mx, s_free)) : 0.0f;
-      out[6] = s_free > 0 ? f32_ratio(s_strand, s_free) : 0.0f;
-    }
-    return;
-  }
-  int64_t mcount = 0;
-#pragma unroll
-  for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
-    if (d >= a.D) break;
-    const ProbeShard& s = a.s[d];
-    for (int m = threadIdx.x; m < s.rows; m += BLOCK)
-      mcount += participates(s, m, R, r);
-  }
-  const int64_t mc = block_sum<BLOCK>(mcount, sh);
-  if (mc == 0) {
-    if (threadIdx.x == 0) out[qi] = 0.0f;
-    return;
-  }
-  const double qs[4] = {0.5, 0.9, 0.99, 1.0};
-  // rank among the participants (the sorted column's position N - m +
-  // idx, clipped to [0, N - 1], minus the N - m leading −1s)
-  const double mf = (double)mc;
-  const int32_t idx =
-      (int32_t)floor(__dadd_rn(__dmul_rn(qs[qi], __dsub_rn(mf, 1.0)), 0.5));
-  int64_t at = (int64_t)N - mc + idx;
-  at = at < 0 ? 0 : (at > N - 1 ? N - 1 : at);
-  int64_t kk = at - ((int64_t)N - mc);
-  uint32_t prefix = 0, pmask = 0;
-  for (int shift = 24; shift >= 0; shift -= 8) {
-    for (int b = threadIdx.x; b < 256; b += BLOCK) hist[b] = 0;
-    __syncthreads();
-#pragma unroll
-    for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
-      if (d >= a.D) break;
-      const ProbeShard& s = a.s[d];
-      for (int m = threadIdx.x; m < s.rows; m += BLOCK) {
-        if (!participates(s, m, R, r)) continue;
-        const uint32_t key = fkey(util_of(s, m, R, r));
-        if ((key & pmask) == prefix)
-          atomicAdd(&hist[(key >> shift) & 255u], 1u);
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 32) select_bucket(hist, kk, &sel_bucket, &sel_rank);
-    __syncthreads();
-    prefix |= sel_bucket << shift;
-    pmask |= 255u << shift;
-    kk = sel_rank;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[qi] = unkey(prefix);
-}
+  cl.sync();
 
-// launch (c): one block
-__global__ void __launch_bounds__(BLOCK)
-probe_domains(const __grid_constant__ ProbeArgs a) {
-  __shared__ BlockScratch<BLOCK> sh;
-  __shared__ float fmx[BLOCK / 32], fmn[BLOCK / 32];
+  // 3. the columns
+  for (int r = rank; r < R; r += C) probe_column(a, r, sh);
+  cl.sync();   // every CTA's partials read before any CTA exits
+
+  // 4. the domain statistics and the valid count
+  if (rank != 0) return;
   int64_t populated = 0, nvalid = 0;
   float dmax = -INFINITY, dmin = INFINITY;
   for (int d = threadIdx.x; d < a.ndom; d += BLOCK) {
-    if (a.dom_nodes[d] <= 0) continue;
+    const int64_t nodes =
+        (int64_t)__ldcg((const long long*)(a.dom_nodes + d));
+    if (nodes <= 0) continue;
     ++populated;
-    const float load = f32_ratio(a.dom_pods[d], a.dom_nodes[d]);
+    const float load = f32_ratio(
+        (int64_t)__ldcg((const long long*)(a.dom_pods + d)), nodes);
     dmax = fmaxf(dmax, load);
     dmin = fminf(dmin, load);
   }
@@ -311,7 +468,8 @@ probe_domains(const __grid_constant__ ProbeArgs a) {
   for (int d = 0; d < KT_PROBE_MAX_SHARDS; ++d) {
     if (d >= a.D) break;
     const ProbeShard& s = a.s[d];
-    for (int m = threadIdx.x; m < s.rows; m += BLOCK) nvalid += s.valid[m] != 0;
+    for (int m = threadIdx.x; m < s.rows; m += BLOCK)
+      nvalid += s.valid[m] != 0;
   }
   for (int o = 16; o > 0; o >>= 1) {
     dmax = fmaxf(dmax, __shfl_down_sync(0xffffffffu, dmax, o));
@@ -319,16 +477,16 @@ probe_domains(const __grid_constant__ ProbeArgs a) {
   }
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   if (lane == 0) {
-    fmx[w] = dmax;
-    fmn[w] = dmin;
+    sh.fmx[w] = dmax;
+    sh.fmn[w] = dmin;
   }
-  populated = block_sum<BLOCK>(populated, sh);   // also syncs fmx / fmn
-  nvalid = block_sum<BLOCK>(nvalid, sh);
+  populated = block_sum<BLOCK>(populated, sh.bs);   // also syncs fmx / fmn
+  nvalid = block_sum<BLOCK>(nvalid, sh.bs);
   if (threadIdx.x == 0) {
-    float mx = fmx[0], mn = fmn[0];
+    float mx = sh.fmx[0], mn = sh.fmn[0];
     for (int k = 1; k < BLOCK / 32; ++k) {
-      mx = fmaxf(mx, fmx[k]);
-      mn = fminf(mn, fmn[k]);
+      mx = fmaxf(mx, sh.fmx[k]);
+      mn = fminf(mn, sh.fmn[k]);
     }
     const bool any = populated > 0;
     a.dom_stats[0] = __ll2float_rn(populated);
@@ -342,16 +500,27 @@ probe_domains(const __grid_constant__ ProbeArgs a) {
 }  // namespace
 
 extern "C" int ktpu_cluster_probe(const ProbeArgs* args, void* stream) {
-  const ProbeArgs& a = *args;
-  cudaStream_t st = (cudaStream_t)stream;
-  const int n_a = a.N > a.ndom ? a.N : a.ndom;
-  if (n_a > 0) probe_nodes<<<(n_a + 255) / 256, 256, 0, st>>>(a);
-  cudaError_t e = cudaGetLastError();
+  const int smem = probe_dyn_bytes(args->N, args->R);
+  cudaError_t e = cudaFuncSetAttribute(
+      probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(probe_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
   if (e != cudaSuccess) return (int)e;
-  const int blocks = 5 * a.R + (a.N + BLOCK - 1) / BLOCK;
-  if (blocks > 0) probe_columns<<<blocks, BLOCK, 0, st>>>(a);
-  e = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(KT_PROBE_CLUSTER);
+  cfg.blockDim = dim3(BLOCK);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = KT_PROBE_CLUSTER;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, probe_kernel, *args);
   if (e != cudaSuccess) return (int)e;
-  probe_domains<<<1, BLOCK, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

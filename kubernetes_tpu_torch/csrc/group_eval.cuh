@@ -7,24 +7,23 @@
 // (line numbers below):
 //   block_spread_min / kt_group_mask   group_mask_view   (:287-329)
 //     (block_spread_min_local: a node shard's part of the minimum)
-//   block_group_scores                 group_scores_view (:389-444),
-//                                      _ipa_norm_scores  (:459-472)
-//     (its phases apart for a node shard: block_score_partials,
-//     block_spread_weights + block_spread_raw, kt_group_score)
+//   kt_group_score and its phases      group_scores_view (:389-444),
+//     block_score_partials,            _ipa_norm_scores  (:459-472),
+//     block_spread_weights,            for a node shard
+//     block_spread_raw
 //   block_own_write /                  group_update on a node shard, its
 //     block_group_update_own           `pick` psum'd (parallel/sharding.py
 //                                      :142-155)
-//   block_dom_share                    _dom_share        (:1185-1213)
-//   block_wave_fold                    wave_fold         (:1215-1311),
-//                                      for one wave row
+// (_dom_share and wave_fold for a team of CTAs are run_wave.cu's
+// team_dom_share / team_wave_fold.)
 //
-// The block_* functions run inside ONE block that owns the whole node
-// axis (node n belongs to thread n % BLOCK), so the reductions are block
-// reductions and the scatters are plain stores or shared/global atomics
-// followed by a barrier (group_update itself, for a team of CTAs, is
-// plan_span.cuh's plan_gate / plan_sweep). The family flags (FamC) are runtime ints: a spread-only span
-// skips every inter-pod-affinity loop, as the JAX program skips them at
-// trace time.
+// The block_* functions run inside ONE block that owns its rows (node n
+// belongs to thread n % BLOCK), so the reductions are block reductions
+// and the scatters are plain stores or shared/global atomics followed by
+// a barrier (group_update itself, for a team of CTAs, is plan_span.cuh's
+// plan_gate / plan_sweep). The family flags (FamC) are runtime ints: a
+// spread-only span skips every inter-pod-affinity loop, as the JAX
+// program skips them at trace time.
 //
 // Arithmetic rules: counts are int32 and the score surface int64, as in
 // the JAX package; the spread score's float64 terms use the rounded
@@ -246,11 +245,12 @@ __device__ __forceinline__ int64_t kt_ipa_norm(int64_t s, int64_t lo,
   return (int64_t)val;
 }
 
-// The phases of group_scores_view. On one device block_group_scores runs
-// them back to back over the block's rows; on a node shard the sharded
-// kernels run each phase in its own launch, with the exchange of the
-// partial sums, minima and maxima (the JAX package's _gsum / _gmin /
-// _gmax points, kubernetes_tpu/ops/groups.py:398-422) between them.
+// The phases of group_scores_view for a node shard: the sharded kernels
+// run each phase in its own launch, with the exchange of the partial sums,
+// minima and maxima (the JAX package's _gsum / _gmin / _gmax points,
+// kubernetes_tpu/ops/groups.py:398-422) between them; the cluster and grid
+// bodies (plan_span.cuh, batch_span.cuh, run_wave.cu) run them as team
+// reductions.
 
 // phase 1, over this block's rows: *npart = scored rows (feasible & all
 // keys), flags[c * n_seg + id] = 1 at the dense domain id of every
@@ -365,30 +365,6 @@ __device__ __forceinline__ bool kt_has_s(const GViewD& v) {
   bool has_s = false;
   for (int c = 0; c < v.SC; ++c) has_s = has_s || v.s_act[c];
   return has_s;
-}
-
-// group_scores_view over the node axis: the weighted spread + inter-pod
-// score of every node into gsc[n], for the feasibility flags feas[n]
-// (the FULL filtered set). flags: int32 [SC * N] scratch. Starts and ends
-// with a barrier.
-template <int BLOCK>
-__device__ void block_group_scores(const GViewD& v, const FamC& fam,
-                                   int64_t w_spread, int64_t w_ipa,
-                                   const uint8_t* feas, int32_t* flags,
-                                   int64_t* gsc, BlockScratch<BLOCK>& sh) {
-  const int N = v.N;
-  int64_t lo = 0, hi = 0, npart = 0, rmin = 0, rmax = 0;
-  block_score_partials<BLOCK>(v, fam, feas, flags, N, &npart, &lo, &hi, sh);
-  const bool has_s = fam.spr_s && kt_has_s(v);
-  if (fam.spr_s) {
-    double weight[KT_MAX_SC];
-    block_spread_weights<BLOCK>(v, npart, flags, N, weight, sh);
-    block_spread_raw<BLOCK>(v, feas, weight, gsc, &rmin, &rmax, sh);
-  }
-  for (int n = threadIdx.x; n < N; n += BLOCK)
-    gsc[n] = kt_group_score(v, fam, n, feas[n], gsc[n], w_spread, w_ipa,
-                            has_s, rmin, rmax, lo, hi);
-  __syncthreads();
 }
 
 // ---------------------------------------------------------------------------
@@ -534,148 +510,6 @@ __device__ void block_group_update_own(const GroupsC& g, const GCarryC& c,
         for (int n = threadIdx.x; n < N; n += BLOCK)
           if (tv[n] == tvb) dst[n] += w;
       }
-    }
-  }
-  __syncthreads();
-}
-
-// _dom_share for one [N] vector: out(n, Σ_m w(m) over the nodes m sharing
-// n's topology value), 0 where tv == 0. seg: int64 [N] scratch (a domain
-// id is the index of one of its nodes). Ends with a barrier.
-template <int BLOCK, class WFn, class OutFn>
-__device__ void block_dom_share(const int32_t* tv, const int32_t* dom,
-                                int N, int64_t* seg, WFn w, OutFn out) {
-  for (int n = threadIdx.x; n < N; n += BLOCK) seg[n] = 0;
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += BLOCK) {
-    if (tv[n] == 0) continue;
-    const int64_t x = w(n);
-    if (x != 0)
-      atomicAdd((unsigned long long*)&seg[dom[n]], (unsigned long long)x);
-  }
-  __syncthreads();
-  for (int n = threadIdx.x; n < N; n += BLOCK)
-    out(n, tv[n] != 0 ? seg[dom[n]] : (int64_t)0);
-  __syncthreads();
-}
-
-// wave_fold for the single wave row u: fold the per-node placement counts
-// cnt[n] into the group carry c (in place). Skipped terms are those whose
-// match weight is zero — their add is identically zero.
-template <int BLOCK>
-__device__ void block_wave_fold(const GroupsC& g, const GCarryC& c,
-                                const FamC& fam, int u, const int32_t* cnt,
-                                int64_t* seg, BlockScratch<BLOCK>& sh) {
-  const int N = g.N;
-  const int64_t NN = N, U = g.U, SC = g.SC, TA = g.TA, TAA = g.TAA;
-  const int64_t CT = g.CT, PT = g.PT;
-  if (fam.spr_f) {
-    for (int64_t v = 0; v < U; ++v)
-      for (int64_t cc = 0; cc < SC; ++cc) {
-        if (!g.m_spr_f[(u * U + v) * SC + cc]) continue;
-        const int64_t b = (v * SC + cc) * NN;
-        const uint8_t* el = g.spr_f_elig + b;
-        int32_t* dst = c.spr_f_cnt + b;
-        block_dom_share<BLOCK>(
-            g.spr_f_tv + b, g.spr_f_dom + b, N, seg,
-            [&](int n) { return (int64_t)(el[n] ? cnt[n] : 0); },
-            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
-      }
-  }
-  if (fam.spr_s) {
-    for (int64_t v = 0; v < U; ++v)
-      for (int64_t cc = 0; cc < SC; ++cc) {
-        if (!g.m_spr_s[(u * U + v) * SC + cc]) continue;
-        const int64_t b = (v * SC + cc) * NN;
-        int32_t* dst = c.spr_s_cnt + b;
-        if (g.spr_s_is_host[v * SC + cc]) {
-          // hostname constraints count the node's own pods, ungated
-          for (int n = threadIdx.x; n < N; n += BLOCK) dst[n] += cnt[n];
-          __syncthreads();
-          continue;
-        }
-        const uint8_t* el = g.spr_s_elig + b;
-        block_dom_share<BLOCK>(
-            g.spr_s_tv + b, g.spr_s_dom + b, N, seg,
-            [&](int n) { return (int64_t)(el[n] ? cnt[n] : 0); },
-            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
-      }
-  }
-  if (fam.ipa_anti) {
-    // existing-anti veto: shared along the placed row's term topology
-    for (int64_t t = 0; t < TAA; ++t) {
-      const int64_t b = (u * TAA + t) * NN;
-      block_dom_share<BLOCK>(
-          g.ipa_raa_tv + b, g.ipa_raa_dom + b, N, seg,
-          [&](int n) { return (int64_t)cnt[n]; },
-          [&](int n, int64_t x) {
-            for (int64_t v = 0; v < U; ++v)
-              if (g.m_ipa_exist[(u * U + v) * TAA + t])
-                c.ipa_veto[v * NN + n] += (int32_t)x;
-          });
-    }
-    // incoming-anti counts: shared along the consumer's term topology
-    for (int64_t v = 0; v < U; ++v)
-      for (int64_t t = 0; t < TAA; ++t) {
-        if (!g.m_ipa_aa[(u * U + v) * TAA + t]) continue;
-        const int64_t b = (v * TAA + t) * NN;
-        int32_t* dst = c.ipa_aa_cnt + b;
-        block_dom_share<BLOCK>(
-            g.ipa_raa_tv + b, g.ipa_raa_dom + b, N, seg,
-            [&](int n) { return (int64_t)cnt[n]; },
-            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
-      }
-  }
-  if (fam.ipa_req) {
-    for (int64_t v = 0; v < U; ++v) {
-      if (!g.m_ipa_a[u * U + v]) continue;
-      for (int64_t t = 0; t < TA; ++t) {
-        if (!g.ipa_ra_active[v * TA + t]) continue;
-        const int64_t b = (v * TA + t) * NN;
-        int32_t* dst = c.ipa_a_cnt + b;
-        block_dom_share<BLOCK>(
-            g.ipa_ra_tv + b, g.ipa_ra_dom + b, N, seg,
-            [&](int n) { return (int64_t)cnt[n]; },
-            [&](int n, int64_t x) { dst[n] += (int32_t)x; });
-      }
-      // a_total: Σ_n cnt[n] · (# active terms whose key the node carries)
-      int64_t part = 0;
-      for (int n = threadIdx.x; n < N; n += BLOCK) {
-        int64_t k = 0;
-        for (int64_t t = 0; t < TA; ++t)
-          k += g.ipa_ra_active[v * TA + t]
-               && g.ipa_ra_tv[(v * TA + t) * NN + n] != 0;
-        part += (int64_t)cnt[n] * k;
-      }
-      const int64_t add = block_sum<BLOCK>(part, sh);
-      if (threadIdx.x == 0) c.ipa_a_total[v] += add;
-      __syncthreads();
-    }
-  }
-  if (fam.ipa_score) {
-    // consumer-side preferred terms matching the placed pod
-    for (int64_t v = 0; v < U; ++v)
-      for (int64_t t = 0; t < CT; ++t) {
-        const int64_t w = g.w_stc[(u * U + v) * CT + t];
-        if (w == 0) continue;
-        const int64_t b = (v * CT + t) * NN;
-        int64_t* dst = c.ipa_score + v * NN;
-        block_dom_share<BLOCK>(
-            g.ipa_stc_tv + b, g.ipa_stc_dom + b, N, seg,
-            [&](int n) { return w * cnt[n]; },
-            [&](int n, int64_t x) { dst[n] += x; });
-      }
-    // placed-side terms: share along the placed row's term topology, then
-    // weight per consumer
-    for (int64_t t = 0; t < PT; ++t) {
-      const int64_t b = (u * PT + t) * NN;
-      block_dom_share<BLOCK>(
-          g.ipa_stp_tv + b, g.ipa_stp_dom + b, N, seg,
-          [&](int n) { return (int64_t)cnt[n]; },
-          [&](int n, int64_t x) {
-            for (int64_t v = 0; v < U; ++v)
-              c.ipa_score[v * NN + n] += g.w_stp[(u * U + v) * PT + t] * x;
-          });
     }
   }
   __syncthreads();

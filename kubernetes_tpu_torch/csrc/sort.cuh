@@ -1,9 +1,9 @@
 // Descending bitonic sort of int64 keys (n a power of two) inside one
 // block. The keys of the uniform and wave runs are unique (the node index
 // and the matrix column are folded in), so the order is total and no
-// stability is needed. For kernels that keep a dependent chain on one SM
-// (run_wave.cu) or sort a block's share in shared memory (explain_row.cu,
-// run_uniform.cu, run_uniform_sharded.cu).
+// stability is needed. For kernels that sort a block's share in shared
+// memory (explain_row.cu, run_uniform.cu, run_uniform_sharded.cu, the
+// leader CTA of run_wave.cu).
 #pragma once
 
 #include <cstdint>

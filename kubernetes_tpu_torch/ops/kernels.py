@@ -83,6 +83,9 @@ MAX_PLAN_SLOTS = 32       # csrc/plan_span.cuh KT_PLAN_MAX_S
 PLAN_CLUSTER = 16         # csrc/run_plan.cu KT_PLAN_CLUSTER (CTAs)
 BATCH_CLUSTER = 16        # csrc/run_batch.cu KT_BATCH_CLUSTER (CTAs)
 GANG_CLUSTER = 16         # csrc/run_gang.cu KT_GANG_CLUSTER (CTAs)
+WAVE_CLUSTER = 16         # csrc/run_wave.cu KT_WAVE_CLUSTER (CTAs)
+MAX_WAVE_L = 1024         # csrc/run_wave.cu KT_WAVE_MAX_L (K and Lw)
+WAVE_HASH = 2048          # csrc/run_wave.cu KT_WAVE_HASH
 # a CTA's dynamic shared memory the wrappers allow (of the H100's 227 KB a
 # block; the static PlanShared takes the rest)
 MAX_DYN_SMEM = 200 * 1024
@@ -242,10 +245,9 @@ class ScatterC(ctypes.Structure):
                 ("N", _I), ("D", _I)]
 
 
-_WAVE_SCRATCH = ("f_cnt", "veto", "aa_cnt", "cnt_n", "cnt_add", "gmask",
-                 "feas", "masked", "gsc", "flags", "seg", "elig_dom",
-                 "keys0", "cand", "keys1", "node_i", "j_i", "gate", "dom_ic",
-                 "newcnt", "lvlmask")
+_WAVE_SCRATCH = ("f_cnt", "veto", "aa_cnt", "cnt_n", "cnt_add", "dshare",
+                 "elig_dom", "flags", "gmask", "masked", "champ", "fseg",
+                 "keys1")
 
 
 class WaveArgsC(ctypes.Structure):
@@ -258,8 +260,7 @@ class WaveArgsC(ctypes.Structure):
                 + [(f, _I) for f in ("wt", "B", "K", "J", "Lw", "norm_live",
                                      "anti_term", "merge_on")]
                 + [("w_spread", ctypes.c_int64), ("w_ipa", ctypes.c_int64)]
-                + [(f, _P) for f in _WAVE_SCRATCH]
-                + [("P0", _I), ("P1", _I), ("packed", _P)])
+                + [(f, _P) for f in _WAVE_SCRATCH + ("packed",)])
 
 
 class BatchSpanC(ctypes.Structure):
@@ -332,6 +333,9 @@ class DiagArgsC(ctypes.Structure):
 
 
 PROBE_MAX_SHARDS = 4   # csrc/cluster_probe.cu KT_PROBE_MAX_SHARDS
+PROBE_CLUSTER = 16     # csrc/cluster_probe.cu KT_PROBE_CLUSTER (CTAs)
+PROBE_SMEM_KEYS = 32768   # csrc/cluster_probe.cu KT_PROBE_SMEM_KEYS
+PROBE_BLOCK = 1024     # csrc/cluster_probe.cu BLOCK (threads a CTA)
 
 
 class ProbeShardC(ctypes.Structure):
@@ -345,8 +349,8 @@ class ProbeArgsC(ctypes.Structure):
     _fields_ = ([("s", ProbeShardC * PROBE_MAX_SHARDS), ("D", _I),
                  ("dom", _P)]
                 + [(f, _I) for f in ("N", "R", "ndom")]
-                + [(f, _P) for f in ("tight", "dom_pods", "dom_nodes",
-                                     "per_res", "dom_stats",
+                + [(f, _P) for f in ("tight", "keys", "dom_pods",
+                                     "dom_nodes", "per_res", "dom_stats",
                                      "valid_count")])
 
 
@@ -1147,13 +1151,34 @@ def wave_statics_cuda(na, table, wt, feats=(True, True, True)):
     return mask, traw, nraw, simg
 
 
+def wave_dyn_bytes(N: int) -> int:
+    """csrc/run_wave.cu wave_dyn_bytes: a CTA's dynamic shared memory (its
+    ⌈N / C⌉ rows' raw spread scores and feasible set, then the leader's
+    top-Lw keys, top-K rows, entries and the replay's domain table)."""
+    span = -(-N // WAVE_CLUSTER)
+    return ((9 * span + 15) // 16 * 16 + MAX_WAVE_L * (8 + 4 * 6 + 2)
+            + WAVE_HASH * 8)
+
+
+def wave_parts(N: int, J: int, SC: int, TAA: int) -> list:
+    """The scratch pieces of one run_wave launch, in carve order."""
+    i64, i32, u8 = torch.int64, torch.int32, torch.uint8
+    return [("masked", N, i64), ("champ", N, i64), ("fseg", 3 * N, i64),
+            ("keys1", N * J, i64), ("f_cnt", SC * N, i32), ("veto", N, i32),
+            ("aa_cnt", TAA * N, i32), ("cnt_n", N, i32),
+            ("cnt_add", N, i32), ("dshare", (SC + TAA) * N, i32),
+            ("elig_dom", SC * N, i32), ("flags", SC * N, i32),
+            ("gmask", N, u8)]
+
+
 def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
                   J: int, Lw: int, fam, norm_live: bool, anti_term: int,
                   merge_on: bool):
-    """The same-signature wave kernel (csrc/run_wave.cu); same contract as
-    program.run_wave (Lw already capped at the span bucket)."""
+    """The same-signature wave kernel (csrc/run_wave.cu: one launch of a
+    thread-block cluster a call); same contract as program.run_wave (Lw
+    already capped at the span bucket). Its scratch is one carved
+    allocation; the carry fields it writes are fresh copies."""
     from .program import Carry
-    libs = build()
     device = carry.used.device
     node = _node_c(na, device)
     N, R = node.N, node.R
@@ -1173,8 +1198,16 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
     if not (1 <= K <= N and J >= 1 and 1 <= Lw <= min(B, K * J)):
         raise ValueError(f"run_wave: bad shape K={K} J={J} Lw={Lw} B={B} "
                          f"N={N}")
+    if K > MAX_WAVE_L or Lw > MAX_WAVE_L:
+        raise ValueError(f"run_wave: K={K}, Lw={Lw}: the kernel takes at "
+                         f"most {MAX_WAVE_L} of each")
+    if wave_dyn_bytes(N) > MAX_DYN_SMEM:
+        raise ValueError(f"run_wave: N={N} rows need "
+                         f"{wave_dyn_bytes(N)} bytes of shared memory a "
+                         f"CTA, more than {MAX_DYN_SMEM}")
     if not -1 <= anti_term < g.TAA:
         raise ValueError(f"run_wave: anti term {anti_term} out of range")
+    libs = build()
     gout_t = _clone_groups(carry.groups)
     gout = _gcarry_c(gout_t, g, device)
     used = carry.used.clone()
@@ -1182,21 +1215,8 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
     npods = carry.npods.clone()
     _carry_c(carry._replace(used=used, nonzero_used=nz, npods=npods), N, R,
              device)
-    P0, P1 = _pow2(N), _pow2(K * J)
-    i32, i64, u8 = torch.int32, torch.int64, torch.uint8
-    SC, TAA = g.SC, g.TAA
-    sizes = {"f_cnt": (SC * N, i32), "veto": (N, i32),
-             "aa_cnt": (TAA * N, i32), "cnt_n": (N, i32),
-             "cnt_add": (N, i32), "gmask": (N, u8), "feas": (N, u8),
-             "masked": (N, i64), "gsc": (N, i64), "flags": (SC * N, i32),
-             "seg": (N, i64), "elig_dom": (SC * N, i32), "keys0": (P0, i64),
-             "cand": (K, i32), "keys1": (P1, i64), "node_i": (Lw, i32),
-             "j_i": (Lw, i32), "gate": (Lw * SC, u8),
-             "dom_ic": (Lw * SC, i32), "newcnt": (Lw * SC, i32),
-             "lvlmask": (Lw * SC, i32)}
-    scratch = {k: torch.empty((max(n, 1),), dtype=dt, device=device)
-               for k, (n, dt) in sizes.items()}
-    packed = torch.empty((B + 4,), dtype=i32, device=device)
+    buf, ptr, _offs = _carve(device, wave_parts(N, J, g.SC, g.TAA))
+    packed = torch.empty((B + 4,), dtype=torch.int32, device=device)
     args = WaveArgsC(
         na=node, tb=tab, cfg=_cfg_c(cfg, R), g=g, gin=gin, gout=gout,
         fam=_fam_c(fam), used=used.data_ptr(), nonzero_used=nz.data_ptr(),
@@ -1204,8 +1224,7 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
         na_raw=stat[2], s_img=stat[3], valid=valid_p, wt=wt, B=B, K=K, J=J,
         Lw=Lw, norm_live=int(bool(norm_live)), anti_term=int(anti_term),
         merge_on=int(bool(merge_on)), w_spread=cfg.w_spread,
-        w_ipa=cfg.w_ipa, P0=P0, P1=P1, packed=packed.data_ptr(),
-        **{k: t.data_ptr() for k, t in scratch.items()})
+        w_ipa=cfg.w_ipa, packed=packed.data_ptr(), **ptr)
     rc = libs["run_wave"].ktpu_run_wave(ctypes.addressof(args),
                                         _stream(device))
     _raise_on(rc, "run_wave")
@@ -1583,8 +1602,8 @@ def gang_dyn_bytes(span: int) -> int:
 def cluster_probe_cuda(cap, valid, used, npods, dom, ndom: int):
     """The cluster probe (csrc/cluster_probe.cu); same contract as
     program.cluster_probe on (na.cap, na.valid, carry.used, carry.npods,
-    dom): the probe's table of one shard. Three launches on the current
-    stream; reads its inputs only."""
+    dom): the probe's table of one shard. One launch of a thread-block
+    cluster on the current stream; reads its inputs only."""
     out = _cluster_probe_launch([cap], [valid], [used], [npods], dom, ndom)
     LAUNCHES["cluster_probe"] += 1
     return out
@@ -1595,19 +1614,24 @@ def probe_parts(N: int, R: int, ndom: int) -> list:
     return [("dom_pods", ndom, torch.int64), ("dom_nodes", ndom, torch.int64),
             ("per_res", R * 7, torch.float32),
             ("dom_stats", 4, torch.float32),
-            ("valid_count", 1, torch.int32), ("tight", N, torch.uint8)]
+            ("valid_count", 1, torch.int32), ("keys", R * N, torch.int32),
+            ("tight", N, torch.uint8)]
 
 
 def _cluster_probe_launch(caps, valids, useds, npods, dom, ndom: int):
-    """The probe kernels on D node shards of one device (the shards' rows
-    in order make the node axis; `dom` is the whole axis). The outputs are
-    views of one fresh allocation that also holds the scratch."""
+    """The probe kernel on D node shards of one device (the shards' rows
+    in order make the node axis; `dom` is the whole axis): one launch. The
+    outputs are views of one fresh allocation that also holds the
+    scratch."""
     device = dom.device
     D = len(caps)
     if not 1 <= D <= PROBE_MAX_SHARDS:
         raise ValueError(f"cluster_probe: {D} shards, the kernel takes "
                          f"1..{PROBE_MAX_SHARDS}")
     R = caps[0].shape[1] if caps[0].dim() == 2 else -1
+    if not 1 <= R <= PROBE_BLOCK:
+        raise ValueError(f"cluster_probe: {R} resource columns, the kernel "
+                         f"takes 1..{PROBE_BLOCK}")
     shards, N = [], 0
     for d in range(D):
         rows = caps[d].shape[0]
@@ -1638,7 +1662,7 @@ def _cluster_probe_launch(caps, valids, useds, npods, dom, ndom: int):
     dom_stats = f32[at:at + 4]
     valid_count = i32[2 * offs["valid_count"]]
     args = ProbeArgsC((*shards,), D=D, dom=dom.data_ptr(), N=N, R=R,
-                      ndom=ndom, tight=ptr["tight"],
+                      ndom=ndom, tight=ptr["tight"], keys=ptr["keys"],
                       dom_pods=ptr["dom_pods"], dom_nodes=ptr["dom_nodes"],
                       per_res=ptr["per_res"], dom_stats=ptr["dom_stats"],
                       valid_count=ptr["valid_count"])
@@ -2128,16 +2152,16 @@ def probe_in_place(mesh) -> bool:
     """True when the mesh's probe reads its shards where they lie: every
     shard on one card (plan_sharded_placement "one"), at most
     PROBE_MAX_SHARDS of them. Otherwise the node columns are gathered onto
-    the first device first."""
+    the first device first; either way the probe is one launch."""
     return (plan_sharded_placement(mesh) == "one"
             and mesh.size <= PROBE_MAX_SHARDS)
 
 
 def cluster_probe_sharded_cuda(mesh, na, carry, dom, ndom: int):
     """The cluster probe on the mesh (`dom` on the first device): on one
-    card the probe kernels read the D shards in place; on several cards
-    the node columns are gathered onto the first device and the kernels
-    run there on the one shard they make."""
+    card the probe kernel reads the D shards in place; on several cards
+    the node columns are gathered onto the first device and the kernel
+    runs there on the one shard they make. One launch a call."""
     from ..parallel import sharding as S
     cols = [[getattr(t, f) for t in tree]
             for tree, f in ((na, "cap"), (na, "valid"), (carry, "used"),

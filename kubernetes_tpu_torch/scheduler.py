@@ -1387,8 +1387,9 @@ class Scheduler:
         # its mask is the length-m prefix, built on the device
         valid = torch.arange(bucket, device=self.device) < m
         statics = self._get_wave_statics(na, table, (u,))[0]
-        # the spread replay holds an [Lw, Lw, SC] rank comparison: cap the
-        # wave width under it; without it wider waves just cut waves
+        # the JAX package's wave shape (kubernetes_tpu/scheduler.py:2127),
+        # kept for parity: waves / confs / first depend on the cap (512
+        # with a spread filter, else 1,024)
         Lw = min(512 if self._gd_fam.spr_f else 1024, bucket)
         K = min(Lw, na.cap.shape[0])
         if anti_term >= 0 and not self._gd_fam.spr_f:

@@ -240,6 +240,82 @@ def test_run_wave_kernel_equals_plain(cuda, case):
 
 
 # ---------------------------------------------------------------------------
+# run_wave (csrc/run_wave.cu: one thread-block cluster a call) on the edge
+# inputs of tests/_wave_edges.py, whose plain version
+# tests/test_torch_wave_edges.py holds to the JAX package, and at the
+# full-width TopologySpreading / SchedulingPodAntiAffinity drains
+
+
+def _wave_edge_inputs(case, device):
+    """One WAVE_EDGE_CASES case through the port's state layer: (e, args
+    for program.run_wave's plain version) on `device`."""
+    from _wave_edges import stage
+    from kubernetes_tpu_torch.ops.groups import GroupFamilies
+    from kubernetes_tpu_torch.testing import wrappers
+    e = stage(case, SimpleNamespace(
+        Cache=Cache, Snapshot=Snapshot, ClusterState=ClusterState,
+        BatchBuilder=BatchBuilder, W=wrappers,
+        static_norm_ok=P.static_norm_ok))
+    na = convert.node_arrays_from_numpy(e.arrays, device)
+    table = convert.pod_table_from_numpy(e.table, device)
+    gd = convert.groups_dev_from_numpy(e.gd, device)
+    gc = convert.group_carry_from_numpy(e.gc, device)
+    statics = tuple(x[0] for x in P.wave_statics(na, table, [e.u]))
+    valid = torch.from_numpy(e.valid.copy()).to(device)
+    return e, (P.ScoreConfig(), na, P.initial_carry(na, gc), valid, table,
+               e.u, gd, statics, e.K, e.J, e.Lw, GroupFamilies(*e.fam),
+               e.norm_live, e.anti, e.merge_on)
+
+
+def _run_wave_kernel(args):
+    cfg, na, carry, valid, table, u, gd, statics, K, J, Lw, fam, \
+        norm_live, anti, merge = args
+    return P.run_wave(cfg, na, carry, valid, table, u, gd, statics, K, J,
+                      fam, norm_live, anti_term=anti, merge_on=merge, Lw=Lw)
+
+
+@pytest.mark.parametrize("case", [
+    "aa_full_width", "anti_keyless_nodes", "capacity_exhausted_serial_tail",
+    "lw_cut_inside_node_entries", "norm_live_merge_off",
+    "spread_levels_reach_m_cap", "ties_at_cta_splits_and_kth",
+    "ts_full_width"])
+def test_run_wave_edges_equal_plain(cuda, case):
+    """The kernel against the plain version on the CPU: the assignments
+    and wave stats, every carry field, the whole group carry; the caller's
+    carry unwritten."""
+    from _wave_edges import check_case
+    e, args = _wave_edge_inputs(case, cuda)
+    carry = args[2]
+    before = _cpu(carry)
+    kc, kp = _run_wave_kernel(args)
+    _e, cpu_args = _wave_edge_inputs(case, "cpu")
+    pc, pp = P._run_wave_plain(*cpu_args)
+    torch.cuda.synchronize()
+    _equal((kp, kc), (pp, pc))
+    _equal(carry, before)
+    B = e.valid.shape[0]
+    check_case(case, kp[:e.n].cpu().numpy(), kp[B:].cpu().numpy())
+
+
+def test_run_wave_launches_once_a_call(cuda):
+    """One wrapper call is one CUDA launch of run_wave_kernel (the copies
+    of the carry it writes are the only other device work)."""
+    from torch.profiler import ProfilerActivity, profile
+    from kubernetes_tpu_torch.ops import kernels as K
+    _e, args = _wave_edge_inputs("capacity_exhausted_serial_tail", cuda)
+    _run_wave_kernel(args)
+    torch.cuda.synchronize()
+    K.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _run_wave_kernel(args)
+        torch.cuda.synchronize()
+    assert K.LAUNCHES["run_wave"] == 1
+    names = [ev.name for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("run_wave_kernel" in n for n in names) == 1, names
+
+
+# ---------------------------------------------------------------------------
 # run_batch (csrc/run_batch.cu: one thread-block cluster a span) on the
 # edge inputs of tests/_batch_edges.py, whose plain version
 # tests/test_torch_batch_edges.py holds to the JAX package
@@ -1183,7 +1259,10 @@ def _cpu(tree):
     return type(tree)(*(_cpu(x) for x in tree))
 
 
-def _probe_inputs(rng, N, R, ndom, device):
+def _probe_inputs(rng, N, R, ndom, device, edit=None):
+    """Seeded probe columns; `edit`: "few" (column r has at most 3 - r
+    participants, so the four ranks coincide), "equal" (every util
+    equal), "zero_column" (column 1 has no participant, m = 0)."""
     import numpy as np
     cap = (rng.randint(0, 6, (N, R)) * rng.choice([1, 1000, 2 ** 33 + 5])
            ).astype(np.int64)
@@ -1192,28 +1271,80 @@ def _probe_inputs(rng, N, R, ndom, device):
     valid = rng.rand(N) < 0.9
     npods = rng.randint(0, 110, N).astype(np.int32)
     dom = rng.randint(-1, ndom + 1, N).astype(np.int32)
+    if edit == "few":
+        valid[:] = True
+        for r in range(R):
+            cap[3 - r:, r] = 0
+            cap[:3 - r, r] = 1000 + r
+    elif edit == "equal":
+        valid[:] = True
+        cap[:] = 1000
+        used[:] = 250
+    elif edit == "zero_column":
+        cap[:, 1] = 0
     return [torch.from_numpy(x).to(device)
             for x in (cap, valid, used, npods, dom)]
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (37, 3, 5), (8192, 4, 16),
-                                   (8192, 4, 5000), (65536, 2, 65536)])
+                                   (8192, 4, 5000), (65536, 2, 65536),
+                                   (32769, 3, 7), (3, 4, 2, "few"),
+                                   (64, 3, 4, "equal"),
+                                   (100, 4, 8, "zero_column")])
 def test_cluster_probe_kernel_equals_plain(cuda, shape):
+    """Bit for bit against the plain version: the shared-memory keys and
+    the walk past KT_PROBE_SMEM_KEYS (N = 32,769), ranks shared by two or
+    more targets (m <= 3), equal utils, a column with m = 0; one launch a
+    call."""
     import numpy as np
-    N, R, ndom = shape
+    from kubernetes_tpu_torch.ops import kernels as K
+    N, R, ndom = shape[:3]
     cap, valid, used, npods, dom = _probe_inputs(
-        np.random.RandomState(N + R), N, R, ndom, cuda)
+        np.random.RandomState(N + R), N, R, ndom, cuda, *shape[3:])
+    K.reset_launches()
     got = P.cluster_probe(SimpleNamespace(cap=cap, valid=valid),
                           SimpleNamespace(used=used, npods=npods), dom,
                           ndom)
     want = P._probe_plain(cap.cpu(), valid.cpu(), used.cpu(), npods.cpu(),
                           dom.cpu(), ndom)
+    assert K.LAUNCHES["cluster_probe"] == 1
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
         assert torch.equal(a.cpu().view(torch.int32) if a.dtype ==
                            torch.float32 else a.cpu(),
                            b.view(torch.int32) if b.dtype == torch.float32
                            else b)
+
+
+def test_cluster_probe_launches_once_a_call(cuda, monkeypatch):
+    """One wrapper call is one call of the kernel's C entry, whose one
+    launch is the cluster (tests/test_torch_kernels_host.py holds the
+    source to one launch statement): on one device and on a mesh's shards
+    of one card."""
+    import numpy as np
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    lib = K.build()["cluster_probe"]
+    real, calls = lib.ktpu_cluster_probe, []
+    monkeypatch.setattr(lib, "ktpu_cluster_probe",
+                        lambda *a: calls.append(1) or real(*a))
+    cap, valid, used, npods, dom = _probe_inputs(
+        np.random.RandomState(3), 8192, 4, 16, cuda)
+    P.cluster_probe(SimpleNamespace(cap=cap, valid=valid),
+                    SimpleNamespace(used=used, npods=npods), dom, 16)
+    mesh = S.make_mesh(devices=[cuda] * 2)
+    n = 4096
+
+    def shards(fields):
+        return S.Shards(SimpleNamespace(**{
+            f: t[d * n:(d + 1) * n].clone() for f, t in fields.items()})
+            for d in range(2))
+
+    S.cluster_probe_sharded(
+        mesh, shards({"cap": cap, "valid": valid, "used": used}),
+        shards({"used": used, "npods": npods}), dom, 16)
+    torch.cuda.synchronize()
+    assert calls == [1, 1]
 
 
 @pytest.mark.parametrize("groups", [False, True])

@@ -479,7 +479,8 @@ def _c_fields(source: str, struct: str) -> list:
     ("GangNodesC", "run_gang.cu", "GangNodesC"),
     ("DryPlanC", "dry_run.cu", "DryPlanC"),
     ("ProbeShardC", "cluster_probe.cu", "ProbeShard"),
-    ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs")])
+    ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs"),
+    ("WaveArgsC", "run_wave.cu", "WaveArgs")])
 def test_kernel_arg_structs_mirror_the_sources(cls, source, struct):
     fields = [f for f, _t in getattr(Kr, cls)._fields_]
     assert fields == _c_fields(source, struct)
@@ -505,7 +506,12 @@ def test_probe_shard_table_layout():
     ("BATCH_CLUSTER", "run_batch.cu", "KT_BATCH_CLUSTER"),
     ("GANG_CLUSTER", "run_gang.cu", "KT_GANG_CLUSTER"),
     ("MAX_DRY_R", "dry_run.cu", "KT_DRY_MAX_R"),
-    ("PROBE_MAX_SHARDS", "cluster_probe.cu", "KT_PROBE_MAX_SHARDS")])
+    ("PROBE_MAX_SHARDS", "cluster_probe.cu", "KT_PROBE_MAX_SHARDS"),
+    ("PROBE_CLUSTER", "cluster_probe.cu", "KT_PROBE_CLUSTER"),
+    ("PROBE_SMEM_KEYS", "cluster_probe.cu", "KT_PROBE_SMEM_KEYS"),
+    ("WAVE_CLUSTER", "run_wave.cu", "KT_WAVE_CLUSTER"),
+    ("MAX_WAVE_L", "run_wave.cu", "KT_WAVE_MAX_L"),
+    ("WAVE_HASH", "run_wave.cu", "KT_WAVE_HASH")])
 def test_batch_and_probe_constants_mirror_the_sources(const, source, define):
     import re
     text = (Kr.CSRC / source).read_text()
@@ -976,3 +982,93 @@ def test_dry_run_block_rebuilt_when_node_rows_change(monkeypatch):
     assert a2.over(w2) and not a1.over(w2)
     with pytest.raises(ValueError, match="stale"):
         Kr.dry_run_subset_cuda(a1, w2, sub, ou, on)
+
+
+# ---------------------------------------------------------------------------
+# run_wave (csrc/run_wave.cu, one cluster a call): the shared-memory layout,
+# the scratch carve, the checks before the build
+
+
+def test_wave_shared_memory_layout():
+    """A CTA's dynamic shared memory: its ⌈N / C⌉ rows' raw spread scores
+    and feasible set, 16-byte aligned, then the leader's KT_WAVE_MAX_L
+    keys (int64), six int32 and two byte arrays (the top-K rows and the
+    entries) and the replay's domain table (two int32 a slot); the formula
+    is the source's, and 65,536 rows fit."""
+    import re
+    span = 8192 // Kr.WAVE_CLUSTER
+    leader = Kr.MAX_WAVE_L * (8 + 4 * 6 + 2) + Kr.WAVE_HASH * 8
+    assert Kr.wave_dyn_bytes(8192) == (9 * span + 15) // 16 * 16 + leader
+    assert Kr.wave_dyn_bytes(8193) == (9 * (span + 1) + 15) // 16 * 16 \
+        + leader
+    assert Kr.wave_dyn_bytes(65536) <= Kr.MAX_DYN_SMEM
+    text = (Kr.CSRC / "run_wave.cu").read_text()
+    assert re.search(r"\(9 \* span \+ 15\) / 16 \* 16\s+\+ KT_WAVE_MAX_L "
+                     r"\* \(8 \+ 4 \* 6 \+ 2\) \+ KT_WAVE_HASH \* 8;",
+                     text)
+    assert Kr.WAVE_HASH == 2 * Kr.MAX_WAVE_L
+
+
+def test_wave_scratch_is_one_carve():
+    """The wrapper's scratch is one int64 allocation carved into every
+    WaveArgs scratch field (each 8-byte aligned; a zero-width field null),
+    the int64 pieces first."""
+    parts = Kr.wave_parts(100, 8, 2, 0)
+    assert [p[0] for p in parts] == ["masked", "champ", "fseg", "keys1",
+                                     "f_cnt", "veto", "aa_cnt", "cnt_n",
+                                     "cnt_add", "dshare", "elig_dom",
+                                     "flags", "gmask"]
+    assert sorted(p[0] for p in parts) == sorted(Kr._WAVE_SCRATCH)
+    sizes = dict((p[0], p[1]) for p in parts)
+    assert sizes["keys1"] == 800 and sizes["fseg"] == 300
+    assert sizes["dshare"] == 200 and sizes["aa_cnt"] == 0
+    buf, ptr, offs = Kr._carve("cpu", parts)
+    assert ptr["aa_cnt"] is None
+    assert all(v % 8 == 0 for v in ptr.values() if v is not None)
+    assert buf.dtype == torch.int64
+    assert buf.numel() * 8 >= sum(-(-n * dt.itemsize // 8) * 8
+                                  for _n, n, dt in parts)
+
+
+def _wave_cpu(n_nodes=12):
+    na, carry, _xs, table, gd, fam = _batch_cpu(groups=True)
+    u = int(torch.unique(_xs.tidx)[0])
+    statics = tuple(x[0] for x in P.wave_statics(na, table, [u]))
+    valid = torch.ones((4,), dtype=torch.bool)
+    return na, carry, valid, table, u, gd, statics, fam
+
+
+@pytest.mark.parametrize("bad", ["row_outside", "statics_shape", "k_over_n",
+                                 "lw_over_kj", "k_over_cap", "anti_term"])
+def test_run_wave_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    na, carry, valid, table, u, gd, statics, fam = _wave_cpu()
+    N = na.cap.shape[0]
+    K, J, Lw, anti = 4, 2, 4, -1
+    if bad == "row_outside":
+        u = table.req.shape[0]
+    elif bad == "statics_shape":
+        statics = tuple(s[:1] for s in statics)
+    elif bad == "k_over_n":
+        K = N + 1
+    elif bad == "lw_over_kj":
+        K, J = 1, 2
+    elif bad == "k_over_cap":
+        # the leader holds at most MAX_WAVE_L keys (checked as if the
+        # node axis were wide enough)
+        monkeypatch.setattr(Kr, "MAX_WAVE_L", 2)
+    else:
+        anti = gd.ipa_raa_active.shape[1]
+    with pytest.raises(ValueError, match="run_wave"):
+        Kr.run_wave_cuda(P.ScoreConfig(), na, carry, valid, table, u, gd,
+                         statics, K, J, Lw, fam, False, anti, True)
+
+
+@pytest.mark.parametrize("source", ["run_wave.cu", "cluster_probe.cu"])
+def test_one_launch_a_call(source):
+    """The wave and the probe are one launch a call: their C entry makes
+    one cudaLaunchKernelEx (a thread-block cluster) and no <<< >>>
+    launch."""
+    text = (Kr.CSRC / source).read_text()
+    assert text.count("cudaLaunchKernelEx(") == 1
+    assert "<<<" not in text
