@@ -22,7 +22,11 @@
         # of one card, its host ms a call beside the copies its wrapper
         # makes (this checkout only); wave: run_wave on
         # TopologySpreading's and SchedulingPodAntiAffinity's first
-        # drains.
+        # drains; statics: wave_statics (S = 1 with each family flag set,
+        # the S = 4 / 8 MixedHighSignature rows, SurfaceCache.get) and
+        # wave_statics_sharded on make_mesh(2) / (4) of one card, warm and
+        # cold; diag: diagnose_row on a lean and a group row, warm and
+        # cold, and a failed drain's mask diagnosis of eight signatures.
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -1967,11 +1971,33 @@ def check_diagnose_row(torch, pkg, device, rows: list) -> None:
             torch, got, P._diagnose_plain(gna, gtable, u, gd, gc, fam),
             f"diagnose_row[group {u}]"))
         slots_seen |= set(np_of(got[0]).tolist())
+    # a failed drain's rows in one launch: the lean rows, then the group
+    # rows, each against its packed context block
+    multi = {}
+    for kind, (na_, t_, rows_, kw) in (
+            ("lean", (na, table, lean_rows, {})),
+            ("group", (gna, gtable, group_rows,
+                       dict(gd=gd, gc=gc, fam=fam)))):
+        args = P.diagnose_args(na_, t_, **kw)
+        err = max(err, assert_equal_trees(
+            torch, P.diagnose_rows(na_, t_, rows_, args=args, **kw),
+            P._diagnose_rows_plain(na_, t_, rows_, **kw),
+            f"diagnose_rows[{kind}, {len(rows_)} rows]"))
+        N_, R_ = na_.cap.shape
+
+        def read(na_=na_, t_=t_, rows_=rows_, kw=kw, args=args):
+            return P.diagnosis_read_back(P.diagnose_rows(
+                na_, t_, rows_, args=args, **kw), len(rows_), N_, R_)
+        multi[kind] = dict(rows=len(rows_), ms=cuda_ms(
+            torch, lambda: P.diagnose_rows(na_, t_, rows_, args=args, **kw),
+            20), readback_host_ms=cuda_ms(torch, read, 20))
     u0, g0 = lean_rows[-1], group_rows[0]
     k_ms = cuda_ms(torch, lambda: P.diagnose_row(na, table, u0), 20)
     dev_ms = device_ms(torch, lambda: P.diagnose_row(na, table, u0), 20)
     plain_ms = cuda_ms(torch, lambda: P._diagnose_plain(na, table, u0), 5)
     gk_ms = cuda_ms(torch, lambda: P.diagnose_row(
+        gna, gtable, g0, gd=gd, gc=gc, fam=fam), 20)
+    gdev_ms = device_ms(torch, lambda: P.diagnose_row(
         gna, gtable, g0, gd=gd, gc=gc, fam=fam), 20)
     gplain_ms = cuda_ms(torch, lambda: P._diagnose_plain(
         gna, gtable, g0, gd, gc, fam), 5)
@@ -1983,9 +2009,11 @@ def check_diagnose_row(torch, pkg, device, rows: list) -> None:
                     na.label_key, na.label_kv, na.used, na.npods, na.ports)
              + nbytes(P._diagnose_plain(na, table, u0)))
     bound_ms, bound_by = bound_of(moved, ops)
+    log("diagnose_rows", one_launch=multi, group_device_ms=gdev_ms)
     log("kernel", name="diagnose_row", exact=True, max_abs_err=err,
         ms=k_ms, device_ms=dev_ms, plain_ms=plain_ms, group_ms=gk_ms,
-        group_plain_ms=gplain_ms, bound_ms=bound_ms, ops=vars(ops),
+        group_device_ms=gdev_ms, group_plain_ms=gplain_ms,
+        one_launch=multi, bound_ms=bound_ms, ops=vars(ops),
         bytes=moved, lean_rows=len(lean_rows), group_rows=len(group_rows),
         group_slots=sorted(slots_seen))
     for want in (P.DIAG_SPREAD_SKEW, P.DIAG_IPA_AFFINITY, P.DIAG_IPA_ANTI,
@@ -2772,6 +2800,11 @@ def check_mesh_group_kernels(torch, pkg, device, rows: list) -> None:
                 torch, [torch.cat([g[f] for g in got], dim=1)
                         for f in range(4)], list(single),
                 f"{k}[D={D}, {feats}] vs wave_statics")
+            # the launches a card of shards on several cards, on this card
+            assert_equal_trees(
+                torch, pkg.kernels._statics_sharded_chain(
+                    mesh, gna, t_, wt_, feats), got,
+                f"{k}[D={D}, {feats}] chain")
         na_, t_, wt_, feats = ws_in[0]
         gna = S.shard_node_arrays(mesh, na_)
 
@@ -5236,9 +5269,196 @@ def wave_times(torch, pkg, device, reps: int = 5) -> dict:
     return out
 
 
+def host_ms(torch, fn, reps: int) -> float:
+    """Host ms a call of `fn` issued back to back with no sync between
+    (the enqueue; one sync after the loop, outside the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return ms
+
+
+def warm_cold(torch, run, trees, reps: int) -> dict:
+    """`run(*trees)` timed warm (the same tree objects each call) and cold
+    (a fresh NamedTuple, or a fresh Shards of fresh NamedTuples, of the
+    same tensors each call: what a call sees after a scatter or a
+    reseed): timed ms (CUDA events), host ms a call and device ms."""
+    def fresh(t):
+        if isinstance(t, tuple) and not hasattr(t, "_fields"):
+            return type(t)([type(x)(*x) for x in t])
+        return type(t)(*t)
+
+    def warm():
+        return run(*trees)
+
+    def cold():
+        return run(*(fresh(t) for t in trees))
+    return dict(ms=cuda_ms(torch, warm, reps),
+                host_ms=host_ms(torch, warm, reps),
+                device_ms=device_ms(torch, warm, reps),
+                cold_ms=cuda_ms(torch, cold, reps),
+                cold_host_ms=host_ms(torch, cold, reps))
+
+
+def ptxas_source(pkg, source: str) -> list:
+    """ptxas's registers, stack frame and spill lines of every kernel of a
+    source (this process's build), or ["not built here"]."""
+    text = pkg.kernels.BUILD_INFO.get("ptxas", {}).get(source)
+    if not text:
+        return ["not built here"]
+    return [ln.replace("ptxas info    :", "").strip()
+            for ln in text.splitlines()
+            if "Compiling entry" in ln or "registers" in ln
+            or "stack frame" in ln]
+
+
+def statics_times(torch, pkg, device, reps: int = 20) -> dict:
+    """Row 5 at its main-path shapes, warm and cold (`warm_cold`): S = 1
+    with each `feats` of tests/test_torch_wave.py test_wave_statics_equal
+    on a full-width lean cluster (taints, selectors, images; the row
+    holds images); S = 4 and S = 8 of MixedHighSignature's first drain
+    (every family off, as SurfaceCache.get computes them); SurfaceCache.get
+    on those eight rows all missing and all hit; wave_statics_sharded on
+    make_mesh(2) / (4) of one card at S = 1 with every family on and at
+    the S = 8 rows; ptxas of the source. Only the port's public entries
+    are called, so an older checkout is timed the same way (`--times
+    statics ROOT`)."""
+    from kubernetes_tpu_torch.compiler.surfaces import SurfaceCache
+    P, S, W = pkg.program, pkg.sharding, pkg.wrappers
+    out = {}
+    nodes = lean_cluster(np.random.RandomState(31), SB_NODES, W)
+    pods = lean_pods(np.random.RandomState(32), 16, W, "ws", ports=False)
+    na, batch, table = staged(nodes, (), pods, device, pkg)
+    img = [int(t) for t in batch.tidx[:16]
+           if int(table.img_containers[int(t)]) > 0]
+    u = img[0] if img else int(batch.tidx[0])
+    for feats in ((True, True, True), (False, True, False),
+                  (True, False, True), (False, False, False)):
+        out[f"wave_statics[S=1, feats={feats}]"] = warm_cold(
+            torch, lambda n, f=feats: P.wave_statics(n, table, [u], f),
+            (na,), reps)
+    n_nodes, n_init, _n_meas, zones, _cyc = MHS_SHAPE
+    mnodes = harness_nodes(W, n_nodes, zones)
+    mbound = [W.make_pod(f"init-{i}").req({"cpu": "900m", "memory": "1Gi"})
+              .label("app", "mix").node(f"node-{i}").obj()
+              for i in range(n_init)]
+    mpods = [mhs_pod(W, f"pod-{n_init + i}", n_init + i) for i in range(64)]
+    mna, mbatch, mtable, _gd, _gc, _fam, builder, state = group_staged(
+        pkg, device, mnodes, mbound, mpods)
+    wt = list(dict.fromkeys(int(t) for t in mbatch.tidx[:64]))
+    off = (False, False, False)
+    for s in (4, 8):
+        out[f"wave_statics[S={s}, MHS rows]"] = warm_cold(
+            torch, lambda n, s=s: P.wave_statics(n, mtable, wt[:s], off),
+            (mna,), reps)
+    surf = SurfaceCache(state, builder)
+
+    def missing():
+        surf.invalidate()
+        return surf.get(mna, mtable, tuple(wt))
+    out["SurfaceCache.get[8 rows missing]"] = dict(
+        ms=cuda_ms(torch, missing, reps), host_ms=host_ms(torch, missing,
+                                                          reps))
+    surf.get(mna, mtable, tuple(wt))
+    out["SurfaceCache.get[8 rows hit]"] = dict(
+        ms=cuda_ms(torch, lambda: surf.get(mna, mtable, tuple(wt)), reps),
+        host_ms=host_ms(torch, lambda: surf.get(mna, mtable, tuple(wt)),
+                        reps))
+    for D in MESH_SIZES:
+        mesh = S.make_mesh(devices=[device] * D)
+        gna = S.shard_node_arrays(mesh, na)
+        gmna = S.shard_node_arrays(mesh, mna)
+        out[f"wave_statics_sharded[D={D}, S=1, feats=all]"] = warm_cold(
+            torch, lambda g, m=mesh: S.wave_statics_sharded(
+                m, g, table, [u], (True, True, True)), (gna,), reps)
+        out[f"wave_statics_sharded[D={D}, S=8, MHS rows]"] = warm_cold(
+            torch, lambda g, m=mesh: S.wave_statics_sharded(
+                m, g, mtable, wt[:8], off), (gmna,), reps)
+    out["ptxas"] = ptxas_source(pkg, "wave_statics")
+    return out
+
+
+def diag_times(torch, pkg, device, reps: int = 20) -> dict:
+    """Row 8 at N = 8,192, warm and cold (`warm_cold`): a lean row of the
+    mixed cluster and a group row (zone spread with skew) of the harness
+    cluster, as phase 3 builds them; then a failed drain's mask diagnosis
+    in phase 5's mixed workload: sixteen pods of eight signatures no node
+    fits, diagnosed as the commit does (`Scheduler._device_fit_error` a
+    failure, one diagnosis cache for the drain holding its failures):
+    host ms a drain with the readbacks (median and least of 50 drains),
+    and the diagnose_row launches it made. Only the port's public entries
+    and the scheduler's commit-time method are called, so an older
+    checkout is timed the same way (`--times diag ROOT`)."""
+    P, W, K = pkg.program, pkg.wrappers, pkg.kernels
+    out = {}
+    nodes = lean_cluster(np.random.RandomState(71), SB_NODES, W)
+    bound = [W.make_pod(f"b{i}").req({"cpu": "6", "memory": "8Gi"})
+             .host_port(8080).node(f"node-{7 * i % SB_NODES}").obj()
+             for i in range(1500)]
+    lean = lean_pods(np.random.RandomState(72), 16, W, "diag")
+    lean.append(W.make_pod("huge").req({"cpu": "100"}).obj())
+    na, batch, table = staged(nodes, bound, lean, device, pkg)
+    u0 = sorted(set(int(t) for t in batch.tidx[:len(lean)]))[-1]
+    out["diagnose_row[lean]"] = warm_cold(
+        torch, lambda n: P.diagnose_row(n, table, u0), (na,), reps)
+    gnodes = harness_nodes(W, SB_NODES, 16)
+    gbound = [W.make_pod(f"s{i}").req({"cpu": "900m", "memory": "1Gi"})
+              .label("app", "mix").node(f"node-{i % 8}").obj()
+              for i in range(160)]
+    gna, gbatch, gtable, gd, gc, fam, _b, _s = group_staged(
+        pkg, device, gnodes, gbound, [mhs_pod(W, "m0", 0)])
+    g0 = int(gbatch.tidx[0])
+    out["diagnose_row[group]"] = warm_cold(
+        torch, lambda n: P.diagnose_row(n, gtable, g0, gd=gd, gc=gc,
+                                        fam=fam), (gna,), reps)
+    api, sched = mixed_workload(device, pkg)
+    fails = []
+    for k in range(8):
+        for j in range(2):
+            w = W.make_pod(f"nofit-{k}-{j}")
+            w = (w.req({"cpu": f"{900 + k}"}) if k < 4 else
+                 w.req({"cpu": f"{k}"}).node_selector({"disk": "nvme"}))
+            fails.append(w.obj())
+    api.create_pods(fails)
+    sched.schedule_pending()
+    torch.cuda.synchronize()
+    uids = {p.uid for p in fails}
+    qpis = [q for uid, q in sched.queue.unschedulable_pods.items()
+            if uid in uids]
+    if len(qpis) != len(fails):
+        fail(f"--times diag: {len(qpis)} of {len(fails)} pods failed")
+    profile = next(iter(sched.profiles.values()))
+
+    def diagnose_drain():
+        cache = {"_failures": list(qpis)}
+        return [sched._device_fit_error(q, profile, cache) for q in qpis]
+    K.reset_launches()
+    diagnose_drain()
+    torch.cuda.synchronize()
+    launches = K.LAUNCHES["diagnose_row"]
+    t_host = []
+    for _ in range(50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diagnose_drain()
+        t_host.append((time.perf_counter() - t0) * 1e3)
+    out["_mask_diagnosis[phase 5, 16 failures, 8 signatures]"] = dict(
+        host_ms=float(np.median(t_host)), host_ms_min=min(t_host),
+        launches_a_drain=launches, failures=len(qpis),
+        signatures=len({pkg.BatchBuilder._sig_key(q.pod) for q in qpis}))
+    out["ptxas"] = ptxas_source(pkg, "diagnose_row")
+    return out
+
+
 TIMES = {"batch": batch_times, "closed_form": closed_form_times,
-         "gang": gang_times, "gang_host": gang_host_times,
-         "plan": plan_times, "shard": shard_times, "wave": wave_times}
+         "diag": diag_times, "gang": gang_times,
+         "gang_host": gang_host_times, "plan": plan_times,
+         "shard": shard_times, "statics": statics_times,
+         "wave": wave_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
@@ -5246,7 +5466,8 @@ def times_main(torch, group: str, root: str, smi: str) -> int:
     11, 14h; closed_form: 2, 2o, 13u; plan: 7, 14d; shard: 14a, 14a
     group, 14e beside 1, 1g, 13s; gang: 13s, the gang grid at D = 1, 14e,
     12 and the preemptor's _dry_run_overrides; gang_host: 14e's host
-    time; wave: 6) of the
+    time; wave: 6; statics: 5 and its per-shard form; diag: 8 and a
+    failed drain's diagnosis) of the
     port in checkout ROOT, its kernels built under ROOT/build, as one
     JSON line. Two checkouts compare on one card
     in one call: run each in its own process, in turns (parent, change,
@@ -5268,8 +5489,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
                     help="only time one group of kernels (batch, "
-                    "closed_form, gang, gang_host, plan, shard, wave) of the "
-                    "port "
+                    "closed_form, diag, gang, gang_host, plan, shard, "
+                    "statics, wave) of the port "
                     "in checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")

@@ -43,6 +43,7 @@ class SurfaceCache:
         """Cached surfaces for signature table rows `rows` (ordered,
         duplicates allowed), computing only the missing ones. `na` /
         `table` must reflect the current statics generation."""
+        from ..ops.kernels import MAX_WAVE_ROWS
         from ..ops.program import wave_statics
         from ..parallel.sharding import Mesh, Shards, wave_statics_sharded
 
@@ -56,16 +57,18 @@ class SurfaceCache:
         missing = [u for u in dict.fromkeys(rows) if u not in self._rows]
         self.hits += len(dict.fromkeys(rows)) - len(missing)
         self.misses += len(missing)
+        if not missing:
+            return [self._rows[u] for u in rows]
         t = self.builder.table
         a = self.state.arrays
         has_taints = a is None or bool(
             ((a.taint_key != 0) & a.valid[:, None]).any())
-        for c0 in range(0, len(missing), 4):
-            chunk = missing[c0:c0 + 4]
-            # pad only to the next pow2 row count (the JAX package's
-            # executable-count rule; the same rows come out either way)
-            S = 1 if len(chunk) == 1 else (2 if len(chunk) == 2 else 4)
-            wts = (chunk + [chunk[-1]] * S)[:S]
+        # one call for every missing row (MAX_WAVE_ROWS a call): each row's
+        # surfaces are its own, and a family skipped for rows that cannot
+        # exercise it yields the identity, so the rows come out the same
+        # whatever rows share a call
+        for c0 in range(0, len(missing), MAX_WAVE_ROWS):
+            chunk = missing[c0:c0 + MAX_WAVE_ROWS]
             # feature flags trim wave_statics to the kernels the rows can
             # actually exercise
             feats = (has_taints,
@@ -74,12 +77,12 @@ class SurfaceCache:
                      any(bool(t.img_containers[u]) for u in chunk))
             if sharded:
                 mesh = Mesh([s.cap.device for s in na])
-                per = wave_statics_sharded(mesh, na, table, wts, feats)
+                per = wave_statics_sharded(mesh, na, table, chunk, feats)
                 for k, u in enumerate(chunk):
                     self._rows[u] = tuple([x[f][k] for x in per]
                                           for f in range(4))
                 continue
-            m_, tr, nr, si = wave_statics(na, table, wts, feats)
+            m_, tr, nr, si = wave_statics(na, table, chunk, feats)
             for k, u in enumerate(chunk):
                 self._rows[u] = (m_[k], tr[k], nr[k], si[k])
         return [self._rows[u] for u in rows]

@@ -318,9 +318,8 @@ class Evaluator:
         {cand_pos: packed row as a list of bools}."""
         if not ovl:
             return {}
-        from ..ops.program import (dry_run_read_back,
-                                   dry_run_select_victims_subset,
-                                   dry_run_subset_inputs)
+        from ..ops.program import (dry_run_select_victims_subset,
+                                   dry_run_subset_inputs, read_back)
         from ..state.tensorize import pow2_at_least
 
         wave, args = self._dry_run_wave(plan, ctx)
@@ -334,7 +333,7 @@ class Evaluator:
         ovl_used[:s] = np.concatenate([v[0] for v in vals]).reshape(s, R)
         ovl_npods = np.zeros((s_pad,), np.int32)
         ovl_npods[:s] = [v[1] for v in vals]
-        packed = dry_run_read_back(dry_run_select_victims_subset(
+        packed = read_back(dry_run_select_victims_subset(
             wave, *dry_run_subset_inputs(sub_pad, ovl_used, ovl_npods,
                                          plan.victim_req.device), args))
         return dict(zip(sub.tolist(), packed[:s].tolist()))
@@ -439,9 +438,8 @@ class Evaluator:
         # ship the wave-constant tensors to the device ONCE and run the
         # full-candidate launch overlay-free: every preemptor of the wave
         # then pays only the small overlay-subset launch
-        from ..ops.program import (dry_run_read_back,
-                                   dry_run_select_victims_subset,
-                                   pod_row_from_table)
+        from ..ops.program import (dry_run_select_victims_subset,
+                                   pod_row_from_table, read_back)
         dev = torch.device(ctx.state.device)
 
         def up(x):
@@ -464,7 +462,7 @@ class Evaluator:
             prow=pod_row_from_table(ctx.builder.table, u, dev),
             cand_na=cand_na)
         wave, args = self._dry_run_wave(plan, ctx)
-        plan.base_packed = dry_run_read_back(dry_run_select_victims_subset(
+        plan.base_packed = read_back(dry_run_select_victims_subset(
             wave, None,
             torch.zeros((c_pad, R), dtype=torch.int64, device=dev),
             torch.zeros((c_pad,), dtype=torch.int32, device=dev), args))

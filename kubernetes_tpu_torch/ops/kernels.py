@@ -63,10 +63,12 @@ LAUNCHES = {name: 0 for name in SOURCES + ("run_batch_groups",
 # CUDA kernel launches the scans' wrappers issued (LAUNCHES counts wrapper
 # calls): run_plan one a span, run_gang's scan tier one a gang;
 # run_plan_sharded and run_batch_sharded (both modes) one a span, and
-# run_gang_sharded's scan tier one a gang, on a mesh whose shards share a
-# card, their chains of launches a shard otherwise
+# run_gang_sharded's scan tier one a gang, and wave_statics_sharded one a
+# call, on a mesh whose shards share a card, their chains of launches a
+# shard otherwise
 RAW_LAUNCHES = {"run_plan": 0, "run_gang": 0, "run_plan_sharded": 0,
-                "run_batch_sharded": 0, "run_gang_sharded": 0}
+                "run_batch_sharded": 0, "run_gang_sharded": 0,
+                "wave_statics_sharded": 0}
 
 _LIBS: dict = {}
 BUILD_INFO: dict = {}
@@ -79,6 +81,10 @@ MAX_IC = 16    # csrc/lean_eval.cuh KT_MAX_IC
 MAX_SC = 8     # csrc/group_eval.cuh KT_MAX_SC
 MAX_SCATTER_FIELDS = 24   # csrc/scatter_rows.cu KT_SCATTER_MAX_FIELDS
 MAX_WAVE_ROWS = 64        # csrc/wave_statics.cu KT_WS_MAX_S
+WS_MAX_SHARDS = 4         # csrc/wave_statics.cu KT_WS_MAX_SHARDS
+WS_CLUSTER = 16           # csrc/wave_statics.cu KT_WS_CLUSTER (CTAs)
+MAX_DIAG_ROWS = 64        # csrc/diagnose_row.cu KT_DIAG_MAX_S
+DIAG_CLUSTER = 16         # csrc/diagnose_row.cu KT_DIAG_CLUSTER (CTAs)
 MAX_PLAN_SLOTS = 32       # csrc/plan_span.cuh KT_PLAN_MAX_S
 PLAN_CLUSTER = 16         # csrc/run_plan.cu KT_PLAN_CLUSTER (CTAs)
 BATCH_CLUSTER = 16        # csrc/run_batch.cu KT_BATCH_CLUSTER (CTAs)
@@ -230,8 +236,21 @@ class FamC(ctypes.Structure):
                                   "ipa_score")]
 
 
-class WaveRowsC(ctypes.Structure):
-    _fields_ = [("u", _I * MAX_WAVE_ROWS)]
+class StaticsShardC(ctypes.Structure):
+    """csrc/wave_statics.cu StaticsShard: one node shard and its four
+    [S, rows] outputs."""
+    _fields_ = [("na", NodeC)] + [(f, _P) for f in (
+        "mask", "taint_raw", "na_raw", "s_img")]
+
+
+class StaticsArgsC(ctypes.Structure):
+    """csrc/wave_statics.cu StaticsArgs: the shard table, the rows, the
+    family flags and the image counts' two chain modes."""
+    _fields_ = ([("s", StaticsShardC * WS_MAX_SHARDS), ("D", _I), ("N", _I),
+                 ("tb", TableC), ("wt", _I * MAX_WAVE_ROWS)]
+                + [(f, _I) for f in ("S", "has_taints", "has_sel",
+                                     "has_img")]
+                + [("cnt_in", _P), ("cnt_out", _P)])
 
 
 class ScatterField(ctypes.Structure):
@@ -326,10 +345,12 @@ class DryPlanC(ctypes.Structure):
 
 
 class DiagArgsC(ctypes.Structure):
+    """csrc/diagnose_row.cu DiagArgs: a diagnosis context, its rows and
+    the packed output."""
     _fields_ = [("na", NodeC), ("tb", TableC), ("used", _P), ("npods", _P),
-                ("ports", _P), ("P", _I), ("tidx", _I), ("has_groups", _I),
+                ("ports", _P), ("P", _I), ("has_groups", _I),
                 ("g", GroupsC), ("gc", GCarryC), ("fam", FamC),
-                ("slot", _P), ("pods_fail", _P), ("cols_fail", _P)]
+                ("rows", _I * MAX_DIAG_ROWS), ("S", _I), ("out", _P)]
 
 
 PROBE_MAX_SHARDS = 4   # csrc/cluster_probe.cu KT_PROBE_MAX_SHARDS
@@ -476,13 +497,8 @@ def _bind(name: str, lib):
         lib.ktpu_scatter_rows.argtypes = [_P, _P, _P]
         lib.ktpu_scatter_rows.restype = ctypes.c_int
     elif name == "wave_statics":
-        lib.ktpu_wave_statics.argtypes = [_P, _P, _P] + [_I] * 4 + [_P] * 6
-        lib.ktpu_wave_image_counts.argtypes = [_P, _P, _P, _I, _P, _P]
-        lib.ktpu_wave_statics_counted.argtypes = ([_P, _P, _P] + [_I] * 4
-                                                  + [_P] * 6)
-        for f in ("ktpu_wave_statics", "ktpu_wave_image_counts",
-                  "ktpu_wave_statics_counted"):
-            getattr(lib, f).restype = ctypes.c_int
+        lib.ktpu_wave_statics.argtypes = [_P, _P]
+        lib.ktpu_wave_statics.restype = ctypes.c_int
     elif name == "run_wave":
         lib.ktpu_run_wave.argtypes = [_P, _P]
         lib.ktpu_run_wave.restype = ctypes.c_int
@@ -590,7 +606,39 @@ def _check(t: torch.Tensor, what: str, dtype, rank: int, device) -> int:
     return t.data_ptr()
 
 
-def _node_c(na, device) -> NodeC:
+class _Memo:
+    """Argument structs packed from a tree of tensors (NodeArrays, a
+    PodTableDev, GroupsDev, a GroupCarry), kept for the next call with the
+    same tree: an entry is keyed on the tree object and the packing's other
+    arguments, holds the tree itself (so no tensor its struct points into
+    is freed while the entry lives), and is taken only while every tensor
+    has the data_ptr() and shape it was packed with; otherwise the tree is
+    checked and packed again. At most `size` entries, the oldest dropped
+    first. Reading a tensor's address makes no device sync."""
+
+    def __init__(self, pack, size: int):
+        self.pack, self.size = pack, size
+        self.entries: dict = {}
+
+    def __call__(self, tree, *args):
+        key = (id(tree),) + args
+        ent = self.entries.get(key)
+        if ent is not None and ent[0] is tree:
+            tree_, ts, ptrs, shapes, struct = ent
+            if ([t.data_ptr() for t in ts] == ptrs
+                    and [t.shape for t in ts] == shapes):
+                return struct
+        struct = self.pack(tree, *args)
+        ts = [t for t in tree if isinstance(t, torch.Tensor)]
+        self.entries.pop(key, None)
+        self.entries[key] = (tree, ts, [t.data_ptr() for t in ts],
+                             [t.shape for t in ts], struct)
+        while len(self.entries) > self.size:
+            del self.entries[next(iter(self.entries))]
+        return struct
+
+
+def _pack_node(na, device) -> NodeC:
     ptrs = {f: _check(getattr(na, f), f"na.{f}", *spec, device)
             for f, spec in _NODE_SPEC.items()}
     N, R = na.cap.shape
@@ -606,6 +654,9 @@ def _node_c(na, device) -> NodeC:
             raise ValueError(f"na.{a} / na.{b} shapes differ")
     return NodeC(**ptrs, N=N, R=R, T=na.taint_key.shape[1],
                  Lb=na.label_key.shape[1], I=na.image_id.shape[1])
+
+
+_node_c = _Memo(_pack_node, 8)
 
 
 def _cache_c(cache, N: int, device) -> CacheC:
@@ -653,7 +704,7 @@ _TABLE_SPEC = {
 }
 
 
-def _table_c(table, R: int, device) -> TableC:
+def _pack_table(table, R: int, device) -> TableC:
     ptrs = {f: _check(getattr(table, f), f"table.{f}", *spec, device)
             for f, spec in _TABLE_SPEC.items()}
     U = table.req.shape[0]
@@ -677,6 +728,9 @@ def _table_c(table, R: int, device) -> TableC:
         raise ValueError(f"{IC} images per pod > kernel limit {MAX_IC}")
     return TableC(**ptrs, U=U, R=R, TT=table.tol_key.shape[1], Q=Q, TM=TM,
                   V=V, PT=PT, PP=table.port_ids.shape[1], IC=IC)
+
+
+_table_c = _Memo(_pack_table, 8)
 
 
 def _cfg_c(cfg, R: int) -> CfgC:
@@ -740,7 +794,7 @@ _GCARRY_SPEC = {
 }
 
 
-def _groups_c(gd, N: int, device) -> GroupsC:
+def _pack_groups(gd, N: int, device) -> GroupsC:
     ptrs = {f: _check(getattr(gd, f), f"gd.{f}", *spec, device)
             for f, spec in _GROUPS_SPEC.items()}
     U, SC = gd.spr_f_active.shape
@@ -769,10 +823,15 @@ def _groups_c(gd, N: int, device) -> GroupsC:
     return GroupsC(**ptrs, U=U, SC=SC, TA=TA, TAA=TAA, CT=CT, PT=PT, N=N)
 
 
-def _gcarry_c(gc, g: GroupsC, device) -> GCarryC:
+_groups_c = _Memo(_pack_groups, 4)
+
+
+def _pack_gcarry(gc, dims: tuple, device) -> GCarryC:
+    """A GroupCarry's struct; `dims` = (U, SC, TA, TAA, N) of its
+    GroupsC."""
     ptrs = {f: _check(getattr(gc, f), f"groups.{f}", *spec, device)
             for f, spec in _GCARRY_SPEC.items()}
-    U, SC, TA, TAA, N = g.U, g.SC, g.TA, g.TAA, g.N
+    U, SC, TA, TAA, N = dims
     want = {"spr_f_cnt": (U, SC, N), "spr_f_min_zero": (U, SC),
             "spr_s_cnt": (U, SC, N), "ipa_veto": (U, N),
             "ipa_a_cnt": (U, TA, N), "ipa_a_total": (U,),
@@ -782,6 +841,17 @@ def _gcarry_c(gc, g: GroupsC, device) -> GCarryC:
             raise ValueError(f"groups.{f}: {tuple(getattr(gc, f).shape)}, "
                              f"expected {shape}")
     return GCarryC(**ptrs)
+
+
+_gcarry_memo = _Memo(_pack_gcarry, 4)
+
+
+def _gcarry_c(gc, g: GroupsC, device, fresh: bool = False) -> GCarryC:
+    """The struct of a group carry shaped by `g`: an input carry's kept in
+    the memo; a fresh carry a kernel writes (`fresh`) packed and not
+    kept."""
+    dims = (g.U, g.SC, g.TA, g.TAA, g.N)
+    return (_pack_gcarry if fresh else _gcarry_memo)(gc, dims, device)
 
 
 def _fam_c(fam) -> FamC:
@@ -907,7 +977,7 @@ def run_batch_cuda(cfg, na, carry, pods, table, groups=None, fam=None,
     cc = _carry_c(out_carry, node.N, node.R, device)
     out = torch.empty((B,), dtype=torch.int32, device=device)
     if g is not None:
-        gcc = _gcarry_c(out_carry.groups, g, device)
+        gcc = _gcarry_c(out_carry.groups, g, device, fresh=True)
         famc = _fam_c(fam if fam is not None else (1,) * 5)
     else:
         g, gcc, famc = GroupsC(), GCarryC(), FamC()
@@ -1119,36 +1189,70 @@ def _scatter_rows_launch(dev, idx, rows):
     return NodeArrays(*outs)
 
 
+def _statics_rows(wt, U: int, what: str) -> list:
+    rows = [int(u) for u in wt]
+    if not rows or any(not 0 <= u < U for u in rows):
+        raise ValueError(f"{what}: rows {rows} outside the table")
+    if len(rows) > MAX_WAVE_ROWS:
+        raise ValueError(f"{what}: {len(rows)} rows, at most "
+                         f"{MAX_WAVE_ROWS} per call")
+    return rows
+
+
+def statics_layout(S: int, rows: list) -> tuple:
+    """Byte offsets of one wave_statics launch's outputs in its one
+    allocation, over shards of `rows` node rows each: a shard's three
+    int64 [S, n] surfaces (taint_raw, na_raw, s_img) then its [S, n]
+    mask, each shard's piece 8-byte aligned. Returns ([(surfaces, mask)]
+    a shard, the end: where the chain's image counts go)."""
+    out, at = [], 0
+    for n in rows:
+        out.append((at, at + 24 * S * n))
+        at += -(-25 * S * n // 8) * 8
+    return out, at
+
+
+def _statics_args(nodes: list, tab, rows: list, feats, device,
+                  counts: int = 0):
+    """(StaticsArgsC over the shards `nodes`, [(mask, taint_raw, na_raw,
+    s_img)] a shard, the int64 [counts] image counts or None): every
+    output a view of one allocation."""
+    S = len(rows)
+    layout, at = statics_layout(S, [n.N for n in nodes])
+    buf = torch.empty((max(at + 8 * counts, 8),), dtype=torch.uint8,
+                      device=device)
+    base = buf.data_ptr()
+    has_taints, has_sel, has_img = (int(bool(f)) for f in feats)
+    args = StaticsArgsC(D=len(nodes), N=sum(n.N for n in nodes), tb=tab,
+                        S=S, has_taints=has_taints, has_sel=has_sel,
+                        has_img=has_img)
+    args.wt[:S] = rows
+    outs = []
+    for d, (node, (o, m)) in enumerate(zip(nodes, layout)):
+        n = S * node.N
+        surf = buf[o:m].view(torch.int64).view(3, S, node.N).unbind(0)
+        outs.append((buf[m:m + n].view(torch.bool).view(S, node.N),) + surf)
+        args.s[d] = StaticsShardC(na=node, mask=base + m, taint_raw=base + o,
+                                  na_raw=base + o + 8 * n,
+                                  s_img=base + o + 16 * n)
+    cnt = buf[at:at + 8 * counts].view(torch.int64) if counts else None
+    return args, outs, cnt
+
+
 def wave_statics_cuda(na, table, wt, feats=(True, True, True)):
-    """The per-signature surfaces (csrc/wave_statics.cu); same contract as
-    program.wave_statics."""
-    libs = build()
+    """The per-signature surfaces (csrc/wave_statics.cu: ONE launch a
+    call, the table of one shard); same contract as program.wave_statics.
+    The four outputs are views of one allocation."""
     device = na.valid.device
     node = _node_c(na, device)
     tab = _table_c(table, node.R, device)
-    rows = [int(u) for u in wt]
-    if not rows or any(not 0 <= u < tab.U for u in rows):
-        raise ValueError(f"wave_statics: rows {rows} outside the table")
-    if len(rows) > MAX_WAVE_ROWS:
-        raise ValueError(f"wave_statics: {len(rows)} rows, at most "
-                         f"{MAX_WAVE_ROWS} per call")
-    S, N = len(rows), node.N
-    wt_c = WaveRowsC()
-    wt_c.u[:S] = rows
-    img_cnt = torch.empty((S * (tab.IC + 1),), dtype=torch.int64,
-                          device=device)
-    mask = torch.empty((S, N), dtype=torch.bool, device=device)
-    traw, nraw, simg = (torch.empty((S, N), dtype=torch.int64,
-                                    device=device) for _ in range(3))
-    has_taints, has_sel, has_img = (int(bool(f)) for f in feats)
-    rc = libs["wave_statics"].ktpu_wave_statics(
-        ctypes.addressof(node), ctypes.addressof(tab),
-        ctypes.addressof(wt_c), S,
-        has_taints, has_sel, has_img, img_cnt.data_ptr(), mask.data_ptr(),
-        traw.data_ptr(), nraw.data_ptr(), simg.data_ptr(), _stream(device))
+    rows = _statics_rows(wt, tab.U, "wave_statics")
+    args, outs, _cnt = _statics_args([node], tab, rows, feats, device)
+    lib = build()["wave_statics"]
+    rc = lib.ktpu_wave_statics(ctypes.addressof(args), _stream(device))
     _raise_on(rc, "wave_statics")
     LAUNCHES["wave_statics"] += 1
-    return mask, traw, nraw, simg
+    return outs[0]
 
 
 def wave_dyn_bytes(N: int) -> int:
@@ -1209,7 +1313,7 @@ def run_wave_cuda(cfg, na, carry, valid, table, wt, gd, statics, K: int,
         raise ValueError(f"run_wave: anti term {anti_term} out of range")
     libs = build()
     gout_t = _clone_groups(carry.groups)
-    gout = _gcarry_c(gout_t, g, device)
+    gout = _gcarry_c(gout_t, g, device, fresh=True)
     used = carry.used.clone()
     nz = carry.nonzero_used.clone()
     npods = carry.npods.clone()
@@ -1287,7 +1391,7 @@ def _plan_shard(cfg, na, carry, table, rows, gd, statics, fam, has_groups,
             raise ValueError(f"{what}: rows {rows} outside the group "
                              "tables")
         gout_t = _clone_groups(carry.groups)
-        gc, SC = _gcarry_c(gout_t, g, device), g.SC
+        gc, SC = _gcarry_c(gout_t, g, device, fresh=True), g.SC
     else:
         g, gc, gout_t, SC = GroupsC(), GCarryC(), carry.groups, 0
     used, nz, npods = (carry.used.clone(), carry.nonzero_used.clone(),
@@ -1366,45 +1470,81 @@ def run_plan_cuda(cfg, na, carry, xs, table, wt, gd, statics, fam,
     return out, packed
 
 
-def diagnose_row_cuda(na, table, tidx: int, gd=None, gc=None, fam=None):
-    """The mask diagnosis (csrc/diagnose_row.cu) of table row `tidx`; same
-    contract as program.diagnose_row."""
-    libs = build()
-    device = na.valid.device
-    node = _node_c(na, device)
-    N, R = node.N, node.R
-    tab = _table_c(table, R, device)
-    tidx = int(tidx)
-    if not 0 <= tidx < tab.U:
-        raise ValueError(f"diagnose_row: row {tidx} outside the table")
-    used = _check(na.used, "na.used", torch.int64, 2, device)
-    npods = _check(na.npods, "na.npods", torch.int32, 1, device)
-    ports = _check(na.ports, "na.ports", torch.int32, 2, device)
-    if (tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N
-            or na.ports.shape[0] != N):
-        raise ValueError("diagnose_row: node state shapes differ from cap")
-    if gd is not None:
-        g = _groups_c(gd, N, device)
-        gcc = _gcarry_c(gc, g, device)
-        if tidx >= g.U:
-            raise ValueError(f"diagnose_row: row {tidx} outside the group "
+class DiagArgs:
+    """A diagnosis context's argument block (csrc/diagnose_row.cu DiagArgs
+    less its rows and output), checked and packed once per context: the
+    post-commit node rows `na` (with used / npods / ports), the table and,
+    with group constraints live, the group tensors `gd`, their carry `gc`
+    and the families `fam`. The block holds a reference to every tensor
+    its struct points into, so none is freed while it lives; `over(ctx)`
+    says whether it was packed from these very tensors ((na, table, gd,
+    gc), each the same object)."""
+
+    def __init__(self, na, table, gd=None, gc=None, fam=None):
+        if (gd is None) != (gc is None):
+            raise ValueError("diagnose_row: gd and gc go together")
+        device = na.valid.device
+        node = _node_c(na, device)
+        N, R = node.N, node.R
+        tab = _table_c(table, R, device)
+        used = _check(na.used, "na.used", torch.int64, 2, device)
+        npods = _check(na.npods, "na.npods", torch.int32, 1, device)
+        ports = _check(na.ports, "na.ports", torch.int32, 2, device)
+        if (tuple(na.used.shape) != (N, R) or na.npods.shape[0] != N
+                or na.ports.shape[0] != N):
+            raise ValueError("diagnose_row: node state shapes differ from "
+                             "cap")
+        if gd is not None:
+            g = _groups_c(gd, N, device)
+            gcc = _gcarry_c(gc, g, device)
+            famc = _fam_c(fam if fam is not None else (1,) * 5)
+        else:
+            g, gcc, famc = GroupsC(), GCarryC(), FamC()
+        self.U, self.group_U = tab.U, (g.U if gd is not None else None)
+        self.c = DiagArgsC(na=node, tb=tab, used=used, npods=npods,
+                           ports=ports, P=na.ports.shape[1],
+                           has_groups=int(gd is not None), g=g, gc=gcc,
+                           fam=famc)
+        self.device, self.N, self.R = device, N, R
+        self.ctx = (na, table, gd, gc)
+
+    def over(self, ctx) -> bool:
+        return all(a is b for a, b in zip(ctx, self.ctx))
+
+
+def diagnose_rows_cuda(args, ctx, rows):
+    """The mask diagnosis (csrc/diagnose_row.cu) of the table rows `rows`
+    against the context `args` packed from `ctx` (na, table, gd, gc): ONE
+    launch of a thread-block cluster a row; same contract as
+    program.diagnose_rows. A block packed from other tensors raises."""
+    if not isinstance(args, DiagArgs):
+        raise ValueError("diagnose_row: the CUDA launch needs the context's "
+                         "packed argument block (program.diagnose_args)")
+    if not args.over(ctx):
+        raise ValueError("diagnose_row: a stale argument block (packed from "
+                         "other tensors than the context's)")
+    rows = [int(u) for u in rows]
+    if not 1 <= len(rows) <= MAX_DIAG_ROWS:
+        raise ValueError(f"diagnose_row: {len(rows)} rows, 1 to "
+                         f"{MAX_DIAG_ROWS} a launch")
+    for u in rows:
+        if not 0 <= u < args.U:
+            raise ValueError(f"diagnose_row: row {u} outside the table")
+        if args.group_U is not None and u >= args.group_U:
+            raise ValueError(f"diagnose_row: row {u} outside the group "
                              "tables")
-        famc = _fam_c(fam if fam is not None else (1,) * 5)
-    else:
-        g, gcc, famc = GroupsC(), GCarryC(), FamC()
-    slot = torch.empty((N,), dtype=torch.int32, device=device)
-    pods_fail = torch.empty((N,), dtype=torch.bool, device=device)
-    cols_fail = torch.empty((N, R), dtype=torch.bool, device=device)
-    args = DiagArgsC(na=node, tb=tab, used=used, npods=npods, ports=ports,
-                     P=na.ports.shape[1], tidx=tidx,
-                     has_groups=int(gd is not None), g=g, gc=gcc, fam=famc,
-                     slot=slot.data_ptr(), pods_fail=pods_fail.data_ptr(),
-                     cols_fail=cols_fail.data_ptr())
-    rc = libs["diagnose_row"].ktpu_diagnose_row(ctypes.addressof(args),
-                                                _stream(device))
+    lib = build()["diagnose_row"]
+    S, N, R = len(rows), args.N, args.R
+    out = torch.empty((S * N * (5 + R),), dtype=torch.uint8,
+                      device=args.device)
+    args.c.rows[:S] = rows
+    args.c.S = S
+    args.c.out = out.data_ptr()
+    rc = lib.ktpu_diagnose_row(ctypes.addressof(args.c),
+                               _stream(args.device))
     _raise_on(rc, "diagnose_row")
     LAUNCHES["diagnose_row"] += 1
-    return slot, pods_fail, cols_fail
+    return out
 
 
 class DryRunArgs:
@@ -1896,7 +2036,7 @@ def _batch_sharded_one(cfg, mesh, na, carry, pods, table, groups, fam):
         outs.append(oc)
         nd.c = _carry_c(oc, n_local, R, dev)
         if grp:
-            nd.gc = _gcarry_c(oc.groups, nd.g, dev)
+            nd.gc = _gcarry_c(oc.groups, nd.g, dev, fresh=True)
     nodes_dev = _nodes_dev((BatchNodesC * D)(*nodes), dev)
     out = torch.empty((B,), dtype=torch.int32, device=dev)
     span = _batch_span_c(cfg, tab, R, famc, grp, ptr, pods_p, B, n_local, D,
@@ -1956,7 +2096,8 @@ def _batch_sharded_chain(cfg, mesh, na, carry, pods, table, groups, fam):
                 loc3=torch.zeros((2,), dtype=i64, device=dev),
                 own=torch.empty((_own_len(g),), dtype=i64, device=dev))
             bufs.append(b)
-            gkw = dict(has_groups=1, g=g, gc=_gcarry_c(oc.groups, g, dev),
+            gkw = dict(has_groups=1, g=g,
+                       gc=_gcarry_c(oc.groups, g, dev, fresh=True),
                        fam=_fam_c(fam), w_spread=cfg.w_spread,
                        w_ipa=cfg.w_ipa, n_global=n_global,
                        **{k: t.data_ptr() for k, t in vars(b).items()})
@@ -2173,55 +2314,92 @@ def cluster_probe_sharded_cuda(mesh, na, carry, dom, ndom: int):
     return out
 
 
+def statics_in_place(mesh) -> bool:
+    """True when the mesh's surfaces are one launch over its shard table:
+    every shard on one card (plan_sharded_placement "one"), at most
+    WS_MAX_SHARDS of them. Otherwise each card launches on its shard
+    twice, the image counts psum'd between."""
+    return (plan_sharded_placement(mesh) == "one"
+            and mesh.size <= WS_MAX_SHARDS)
+
+
 def wave_statics_sharded_cuda(mesh, na, table, wt, feats=(True, True, True)):
-    """The per-signature surfaces on the node shards (csrc/wave_statics.cu
-    launches apart): each shard's image counts, their psum, each shard's
-    statics with the cluster-wide counts; same contract as parallel/
-    sharding.py wave_statics_sharded."""
-    from ..parallel.sharding import psum, replicate
-    lib = build()["wave_statics"]
-    rows = [int(u) for u in wt]
-    if len(rows) > MAX_WAVE_ROWS:
-        raise ValueError(f"wave_statics_sharded: {len(rows)} rows, at most "
-                         f"{MAX_WAVE_ROWS} per call")
-    S = len(rows)
-    wt_c = WaveRowsC()
-    wt_c.u[:S] = rows
-    has_taints, has_sel, has_img = (int(bool(f)) for f in feats)
-    tabs = replicate(mesh, table)
-    shards, cnts = [], []
-    rc = 0
-    for d, dev in enumerate(mesh.devices):
-        node = _node_c(na[d], dev)
-        tab = _table_c(tabs[d], node.R, dev)
-        if not rows or any(not 0 <= u < tab.U for u in rows):
-            raise ValueError(f"wave_statics_sharded: rows {rows} outside "
-                             "the table")
-        cnt = torch.zeros((S * (tab.IC + 1),), dtype=torch.int64, device=dev)
-        if has_img:
-            with torch.cuda.device(dev):
-                rc |= lib.ktpu_wave_image_counts(
-                    ctypes.addressof(node), ctypes.addressof(tab),
-                    ctypes.addressof(wt_c), S, cnt.data_ptr(), _stream(dev))
-        shards.append((node, tab))
-        cnts.append(cnt)
-    glob = psum(mesh, cnts) if has_img else cnts
-    out = []
-    for d, dev in enumerate(mesh.devices):
-        node, tab = shards[d]
-        mask = torch.empty((S, node.N), dtype=torch.bool, device=dev)
-        traw, nraw, simg = (torch.empty((S, node.N), dtype=torch.int64,
-                                        device=dev) for _ in range(3))
-        with torch.cuda.device(dev):
-            rc |= lib.ktpu_wave_statics_counted(
-                ctypes.addressof(node), ctypes.addressof(tab),
-                ctypes.addressof(wt_c), S, has_taints, has_sel, has_img,
-                glob[d].data_ptr(), mask.data_ptr(), traw.data_ptr(),
-                nraw.data_ptr(), simg.data_ptr(), _stream(dev))
-        out.append((mask, traw, nraw, simg))
-    _raise_on(rc, "wave_statics_sharded")
+    """The per-signature surfaces on the node shards; same contract as
+    parallel/sharding.py wave_statics_sharded: on one card ONE launch
+    (`_statics_sharded_one`), on several cards the launches a card with
+    the psum between (`_statics_sharded_chain`)."""
+    run = (_statics_sharded_one if statics_in_place(mesh)
+           else _statics_sharded_chain)
+    outs = run(mesh, na, table, wt, feats)
     LAUNCHES["wave_statics_sharded"] += 1
-    return out
+    return outs
+
+
+def _statics_shards(mesh, na, table, wt) -> tuple:
+    """(each shard's NodeC, each shard's TableC of the replicated table,
+    the rows), checked before any build."""
+    from ..parallel.sharding import replicate
+    tabs = replicate(mesh, table)
+    nodes = [_node_c(na[d], dev) for d, dev in enumerate(mesh.devices)]
+    if any(n.R != nodes[0].R for n in nodes):
+        raise ValueError("wave_statics_sharded: shards of unequal resource "
+                         "width")
+    # one table a device: replicate hands every shard of a device the same
+    tab_d = {}
+    for d, dev in enumerate(mesh.devices):
+        if dev not in tab_d:
+            tab_d[dev] = _table_c(tabs[d], nodes[d].R, dev)
+    tab_c = [tab_d[dev] for dev in mesh.devices]
+    return nodes, tab_c, _statics_rows(wt, tab_c[0].U,
+                                       "wave_statics_sharded")
+
+
+def _statics_sharded_one(mesh, na, table, wt, feats):
+    """Shards on one card: ONE launch over the shard table, every shard
+    read in place, the cluster-wide image counts summed inside it."""
+    nodes, tab_c, rows = _statics_shards(mesh, na, table, wt)
+    dev = mesh.devices[0]
+    args, outs, _cnt = _statics_args(nodes, tab_c[0], rows, feats, dev)
+    lib = build()["wave_statics"]
+    with torch.cuda.device(dev):
+        rc = lib.ktpu_wave_statics(ctypes.addressof(args), _stream(dev))
+    RAW_LAUNCHES["wave_statics_sharded"] += 1
+    _raise_on(rc, "wave_statics_sharded")
+    return outs
+
+
+def _statics_sharded_chain(mesh, na, table, wt, feats):
+    """Shards on several cards: with images, each card's counts (the
+    table of its one shard, `cnt_out`), their psum, then each card's
+    surfaces from the summed counts (`cnt_in`); without, one launch a
+    card. Every launch is counted in RAW_LAUNCHES where it is made."""
+    from ..parallel.sharding import psum
+    nodes, tab_c, rows = _statics_shards(mesh, na, table, wt)
+    width = len(rows) * (tab_c[0].IC + 1) if feats[2] else 0
+    per = [_statics_args([nodes[d]], tab_c[d], rows, feats, dev, width)
+           for d, dev in enumerate(mesh.devices)]
+    lib = build()["wave_statics"]
+    rc = 0
+    # the summed counts stay bound until the launches return
+    glob = []
+    if width:
+        for d, dev in enumerate(mesh.devices):
+            counting = StaticsArgsC.from_buffer_copy(per[d][0])
+            counting.cnt_out = per[d][2].data_ptr()
+            with torch.cuda.device(dev):
+                rc |= lib.ktpu_wave_statics(ctypes.addressof(counting),
+                                            _stream(dev))
+            RAW_LAUNCHES["wave_statics_sharded"] += 1
+        glob = psum(mesh, [cnt for _a, _o, cnt in per])
+        for d in range(mesh.size):
+            per[d][0].cnt_in = glob[d].data_ptr()
+    for d, dev in enumerate(mesh.devices):
+        with torch.cuda.device(dev):
+            rc |= lib.ktpu_wave_statics(ctypes.addressof(per[d][0]),
+                                        _stream(dev))
+        RAW_LAUNCHES["wave_statics_sharded"] += 1
+    _raise_on(rc, "wave_statics_sharded")
+    return [outs[0] for _args, outs, _cnt in per]
 
 
 def _check_statics(statics, S: int, N: int, dev, what: str) -> list:
@@ -2362,7 +2540,7 @@ def _plan_sharded_chain(cfg, mesh, na, carry, xs, table, rows, gd, statics,
                 raise ValueError(f"run_plan_sharded: rows {rows} outside "
                                  "the group tables")
             gout_t = _clone_groups(c.groups)
-            gout = _gcarry_c(gout_t, g, dev)
+            gout = _gcarry_c(gout_t, g, dev, fresh=True)
             SC, own_n = g.SC, _own_len(g)
         else:
             g, gout, gout_t, SC, own_n = GroupsC(), GCarryC(), c.groups, 0, 1

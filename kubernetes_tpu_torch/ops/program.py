@@ -1579,17 +1579,74 @@ def diagnose_row(na: NodeArrays, table: PodTableDev, tidx: int, gd=None,
     first failing filter (DIAG_*), the fit arrays the detail of DIAG_FIT
     nodes ("Too many pods" / per-column Insufficient). With `gd` (and the
     group carry `gc`, families `fam`) the spread and inter-pod filters
-    take part; without, the lean filters only."""
+    take part; without, the lean filters only. The one-row case of
+    `diagnose_rows`."""
+    N, R = na.cap.shape
+    slot, pods_fail, cols_fail = diagnosis_views(
+        diagnose_rows(na, table, [tidx], gd, gc, fam), 1, N, R)
+    return slot[0], pods_fail[0], cols_fail[0]
+
+
+def diagnosis_views(packed, S: int, N: int, R: int):
+    """(slot i32 [S, N], pods_fail bool [S, N], cols_fail bool [S, N, R]):
+    views of `diagnose_rows`' packed bytes (a tensor on any device)."""
+    k = S * N
+    return (packed[:4 * k].view(_I32).view(S, N),
+            packed[4 * k:5 * k].view(torch.bool).view(S, N),
+            packed[5 * k:].view(torch.bool).view(S, N, R))
+
+
+def _diagnose_rows_plain(na: NodeArrays, table: PodTableDev, rows, gd=None,
+                         gc=None, fam=None):
+    outs = [_diagnose_plain(na, table, u, gd, gc, fam) for u in rows]
+    return torch.cat([torch.stack(xs).view(torch.uint8).reshape(-1)
+                      for xs in zip(*outs)])
+
+
+def diagnose_args(na: NodeArrays, table: PodTableDev, gd=None, gc=None,
+                  fam=None):
+    """A diagnosis context's packed argument block for the CUDA kernel
+    (ops/kernels.py DiagArgs: checked once, holding every tensor it
+    points into); None on the CPU, where the plain version reads the
+    tensors."""
+    dev = na.valid.device
+    if dev.type == "cuda":
+        from .kernels import DiagArgs
+        return DiagArgs(na, table, gd, gc, fam)
+    if dev.type != "cpu":
+        raise RuntimeError(f"diagnose_args: unsupported device {dev}")
+    return None
+
+
+def diagnose_rows(na: NodeArrays, table: PodTableDev, rows, gd=None,
+                  gc=None, fam=None, args=None):
+    """`diagnose_row` of every table row in `rows` (at most
+    kernels.MAX_DIAG_ROWS on the card) → its outputs packed in one uint8
+    tensor: slot i32 [S, N], then pods_fail [S, N], then cols_fail
+    [S, N, R] (`diagnosis_views`). Row s's outputs are those of
+    `diagnose_row(..., rows[s], ...)`. On the card ONE launch, against
+    `args` when given (`diagnose_args` of the same tensors)."""
     dev = na.valid.device
     if (gd is None) != (gc is None):
         raise ValueError("diagnose_row: gd and gc go together")
     na, table, gd, gc = RAILS.stage((na, table, gd, gc), dev)
     if dev.type == "cuda":
-        from .kernels import diagnose_row_cuda
-        return diagnose_row_cuda(na, table, tidx, gd, gc, fam)
+        from .kernels import DiagArgs, diagnose_rows_cuda
+        if args is None:
+            args = DiagArgs(na, table, gd, gc, fam)
+        return diagnose_rows_cuda(args, (na, table, gd, gc), rows)
     if dev.type != "cpu":
         raise RuntimeError(f"diagnose_row: unsupported device {dev}")
-    return _diagnose_plain(na, table, tidx, gd, gc, fam)
+    return _diagnose_rows_plain(na, table, [int(u) for u in rows], gd, gc,
+                                fam)
+
+
+def diagnosis_read_back(packed, S: int, N: int, R: int):
+    """`diagnose_rows`' packed output as numpy (slot, pods_fail,
+    cols_fail): from the card through one pinned buffer, after the stream
+    reaches it."""
+    host = torch.from_numpy(read_back(packed))
+    return tuple(x.numpy() for x in diagnosis_views(host, S, N, R))
 
 
 # ---------------------------------------------------------------------------
@@ -1793,9 +1850,10 @@ def dry_run_subset_inputs(sub, ovl_used, ovl_npods, device):
             buf[h + s * R:].view(_I32)[:s])
 
 
-def dry_run_read_back(packed):
-    """The dry run's packed output as a numpy bool array: from the card
-    through one pinned buffer, after the stream reaches it."""
+def read_back(packed):
+    """A packed output (the dry run's, the diagnosis's) as a numpy array:
+    from the card through one pinned buffer, after the stream reaches
+    it."""
     if packed.device.type != "cuda":
         return packed.numpy()
     host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)

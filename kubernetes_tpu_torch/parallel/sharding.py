@@ -170,8 +170,13 @@ def _to(tree, device, copy: bool = False):
     if tree is None:
         return None
     if hasattr(tree, "_fields"):
-        return type(tree)(*(_to(x, device, copy) for x in tree))
+        items = [_to(x, device, copy) for x in tree]
+        if all(a is b for a, b in zip(items, tree)):
+            return tree
+        return type(tree)(*items)
     if not isinstance(tree, torch.Tensor):
+        return tree
+    if not copy and tree.device == device:
         return tree
     # torchsan: waive[pageable-h2d] a copy between the shards' devices (or none), never from the host
     return tree.to(device, non_blocking=True, copy=copy)

@@ -111,11 +111,12 @@ from .framework.types import (ActionType, ClusterEvent, Diagnosis,
 from .ops import program as prog
 from .ops.gang import GangXs, run_gang
 from .ops.groups import GroupFamilies, scatter_new_rows, to_device
+from .ops.kernels import MAX_DIAG_ROWS
 from .ops.program import (PROBE_DOM_STATS, PROBE_STATS, PodXs,
-                          ScoreConfig, WaveXs, cluster_probe, diagnose_row,
-                          initial_carry, run_batch, run_plan, run_uniform,
-                          run_wave, static_norm_ok, table_from_batch,
-                          with_cache_sig)
+                          ScoreConfig, WaveXs, cluster_probe, diagnose_args,
+                          diagnose_rows, diagnosis_read_back, initial_carry,
+                          run_batch, run_plan, run_uniform, run_wave,
+                          static_norm_ok, table_from_batch, with_cache_sig)
 from .parallel.sharding import (Shards, cluster_probe_sharded,
                                 initial_carry_sharded, norm_device,
                                 run_batch_sharded, run_gang_sharded,
@@ -261,6 +262,29 @@ class _WaitingPodRec:
     cycle_state: CycleState
     deadline: float
     wait_plugin: str = ""
+
+
+class _DiagnosisContext:
+    """A failed drain's post-commit device state for diagnose_rows
+    (Scheduler._diagnosis_context), built at `version` (the builder's
+    table_version): the kernel's argument block packed once, and every
+    diagnosed row's (slot, pods_fail, cols_fail) in numpy."""
+
+    def __init__(self, version: int, na, table, gd, gc, fam):
+        self.version = version
+        self.tree = (na, table, gd, gc, fam)
+        self.args = diagnose_args(na, table, gd, gc, fam)
+        self.rows: dict = {}
+
+    def diagnose(self, rows: list) -> None:
+        """`rows` in one diagnose_rows launch, read back with one copy."""
+        na, table, gd, gc, fam = self.tree
+        packed = diagnose_rows(na, table, rows, gd, gc, fam, args=self.args)
+        N, R = na.cap.shape
+        slot, pods_fail, cols_fail = diagnosis_read_back(packed, len(rows),
+                                                         N, R)
+        for s, u in enumerate(rows):
+            self.rows[u] = (slot[s], pods_fail[s], cols_fail[s])
 
 
 class _WaitingPodHandle:
@@ -1825,7 +1849,7 @@ class Scheduler:
         if failures:
             # diagnosis reads the live snapshot (assumes included)
             self.cache.update_snapshot(self.snapshot)
-            diag_cache: dict = {}
+            diag_cache: dict = {"_failures": failures}
             if pd.gang is not None and not pd.gang_accepted:
                 self._fail_rejected_gang(pd, qpis, diag_cache)
             else:
@@ -1937,6 +1961,7 @@ class Scheduler:
                 except KeyError:
                     pass
             self.cache.update_snapshot(self.snapshot)
+            diag_cache["_failures"] = infeasible
             for qpi in infeasible:
                 errs.append(self._device_fit_error(qpi, pd.profile,
                                                    diag_cache))
@@ -2039,25 +2064,30 @@ class Scheduler:
 
     def _mask_diagnosis(self, qpi: QueuedPodInfo,
                         diag_cache: dict) -> Optional[Diagnosis]:
-        """Diagnosis from the device filter masks: one diagnose_row
+        """Diagnosis from the device filter masks: the diagnose_row
         reduction against the post-commit node state attributes every
         rejected node to its first failing plugin (host filter order) with
         the exact per-reason detail. None for a pod without a signature
-        row (the host replay takes it, as in the JAX package)."""
+        row (the host replay takes it, as in the JAX package). The first
+        row a context meets diagnoses, in one launch and one readback,
+        every row of the drain's failures (`diag_cache["_failures"]`) the
+        context has not yet diagnosed."""
         ent = self.builder._lookup(qpi.pod)
         if ent[0] != "row":
             return None
         tidx = ent[2]
         ctx = diag_cache.get("_device_ctx")
-        if ctx is None or ctx[0] != self.builder.table_version:
-            ctx = diag_cache["_device_ctx"] = (self.builder.table_version,
-                                               self._diagnosis_context())
-        na, table, gd, gc, fam = ctx[1]
-        slot, pods_fail, cols_fail = diagnose_row(na, table, tidx, gd=gd,
-                                                  gc=gc, fam=fam)
-        return self._assemble_diagnosis(qpi, tidx, slot.cpu().numpy(),
-                                        pods_fail.cpu().numpy(),
-                                        cols_fail.cpu().numpy())
+        if ctx is None or ctx.version != self.builder.table_version:
+            ctx = diag_cache["_device_ctx"] = _DiagnosisContext(
+                self.builder.table_version, *self._diagnosis_context())
+        if tidx not in ctx.rows:
+            rows = {tidx: None}
+            for other in diag_cache.get("_failures", ()):
+                e = self.builder.peek(other.pod)
+                if e is not None and e[0] == "row" and e[2] not in ctx.rows:
+                    rows[e[2]] = None
+            ctx.diagnose(list(rows)[:MAX_DIAG_ROWS])
+        return self._assemble_diagnosis(qpi, tidx, *ctx.rows[tidx])
 
     def _diagnosis_context(self):
         """Post-commit device state for diagnose_row, built once per failed

@@ -250,6 +250,15 @@ class BatchBuilder:
             self._ident_cache[ident] = (pod.spec, pod.metadata.labels, ent)
         return ent
 
+    def peek(self, pod: Pod):
+        """`_lookup`'s entry for `pod` when its signature is already
+        interned, else None; interns nothing (the table does not move)."""
+        hit = self._ident_cache.get((id(pod.spec), id(pod.metadata.labels),
+                                     pod.metadata.namespace))
+        if hit is not None:
+            return hit[2]
+        return self._sig_cache.get(self._sig_key(pod))
+
     # -- signature (signers.go analog, content-level) -------------------------
 
     @staticmethod

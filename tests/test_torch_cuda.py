@@ -2480,3 +2480,205 @@ def test_gang_sharded_chain_on_one_card(cuda, case, D):
                              w_contig=w_contig)
     torch.cuda.synchronize()
     _equal((hp, S.unshard(hc)), (one[1], S.unshard(one[0])))
+
+
+# ---------------------------------------------------------------------------
+# wave_statics (one launch a call, a shard table on one card) and
+# diagnose_row (one launch for a drain's rows, one packed output)
+
+STATICS_FEATS = [(t, s, i) for t in (False, True) for s in (False, True)
+                 for i in (False, True)]
+
+
+def _statics_inputs(N, device, D=1):
+    """(na with N rows, table, 64 rows): a seeded 150-node cluster tiled to
+    N rows; its images cleared but on the rows each side of every CTA
+    split of the 16-CTA cluster and of every boundary of D shards, so the
+    image counts cross both, each image of a size at which one count more
+    or less changes its ImageLocality score."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    rng = random.Random(8)
+    pods = [_pod(rng, i) for i in range(96)]
+    na, batch, table = _staged(rng, 150, pods, "cpu")
+    reps = -(-N // 150)
+    na = type(na)(*(torch.cat([x[:150]] * reps)[:N].contiguous()
+                    for x in na))
+    ids = table.img_ids[table.img_ids != 0]
+    span = -(-N // K.WS_CLUSTER)
+    edge = sorted({b + o for b in list(range(span, N, span))
+                   + [N * d // D for d in range(1, D)] for o in (-1, 0)})
+    image_id = torch.zeros_like(na.image_id)
+    image_size = torch.zeros_like(na.image_size)
+    image_id[edge, 0] = int(ids[0])
+    # a size at which one count more or less moves the score
+    image_size[edge, 0] = N * (12 << 20)
+    na = na._replace(image_id=image_id, image_size=image_size)
+    rows = list(dict.fromkeys(int(t) for t in batch.tidx[:96]))
+    rows = (rows * 64)[:64]
+    return (type(na)(*(x.to(device) for x in na)),
+            type(table)(*(x.to(device) for x in table)), rows)
+
+
+@pytest.mark.parametrize("N", [8192, 32769])
+@pytest.mark.parametrize("S", [1, 4, 8, 64])
+def test_wave_statics_rows_and_families_equal_plain(cuda, S, N):
+    """Every family flag at S = 1, 4, 8 and 64 rows, N = 8,192 and 32,769
+    rows, images on the rows each side of every CTA split: the kernel's
+    four surfaces bit for bit against the plain version."""
+    na, table, rows = _statics_inputs(N, cuda)
+    for feats in STATICS_FEATS:
+        _equal(P.wave_statics(na, table, rows[:S], feats),
+               P._wave_statics_plain(na, table, rows[:S], feats))
+
+
+def test_wave_statics_launches_once_a_call(cuda, monkeypatch):
+    """One wrapper call is one call of the kernel's C entry (one launch,
+    tests/test_torch_kernels_host.py): on one device, at 64 rows, and on
+    a mesh's shards of one card, images or none."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    from kubernetes_tpu_torch.parallel import sharding as S
+    lib = K.build()["wave_statics"]
+    real, calls = lib.ktpu_wave_statics, []
+    monkeypatch.setattr(lib, "ktpu_wave_statics",
+                        lambda *a: calls.append(1) or real(*a))
+    na, table, rows = _statics_inputs(8192, cuda, D=4)
+    K.reset_launches()
+    P.wave_statics(na, table, rows, (True, True, True))
+    mesh = S.make_mesh(devices=[cuda] * 4)
+    gna = S.shard_node_arrays(mesh, na)
+    for feats in ((True, True, True), (False, False, False)):
+        S.wave_statics_sharded(mesh, gna, table, rows[:8], feats)
+    torch.cuda.synchronize()
+    assert calls == [1, 1, 1]
+    assert K.LAUNCHES["wave_statics"] == 1
+    assert K.LAUNCHES["wave_statics_sharded"] == 2
+    assert K.RAW_LAUNCHES["wave_statics_sharded"] == 2
+
+
+@pytest.mark.parametrize("D,place", MESHES)
+@pytest.mark.parametrize("S", [1, 8])
+def test_wave_statics_sharded_equal_plain(cuda, S, D, place):
+    """The per-shard surfaces on D shards (one card: one launch over the
+    shard table; several cards: the launches a card, the counts psum'd),
+    images on both sides of every shard boundary: bit for bit against the
+    plain version over CPU shards and against the single-device kernel
+    cut by shard."""
+    Sh, gm, cm = _mesh_pair(D, place)
+    na, table, rows = _statics_inputs(8192, cuda, D=D)
+    gna = Sh.shard_node_arrays(gm, na)
+    cna = Sh.shard_node_arrays(cm, _cpu(na))
+    for feats in STATICS_FEATS:
+        got = Sh.wave_statics_sharded(gm, gna, table, rows[:S], feats)
+        _equal(got, Sh.wave_statics_sharded(cm, cna, _cpu(table), rows[:S],
+                                            feats))
+        single = P.wave_statics(na, table, rows[:S], feats)
+        _equal([torch.cat([g[f].cpu() for g in got], dim=1)
+                for f in range(4)], list(single))
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_statics_sharded_chain_on_one_card(cuda, D):
+    """The launches a card of shards on several cards (each card's image
+    counts, their psum, each card's surfaces), called on D shards of one
+    card: the same bits as the one launch and the plain version, two
+    launches a shard with images and one without."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    Sh, gm, cm = _mesh_pair(D, "one")
+    na, table, rows = _statics_inputs(8192, cuda, D=D)
+    gna = Sh.shard_node_arrays(gm, na)
+    cna = Sh.shard_node_arrays(cm, _cpu(na))
+    for feats in ((True, True, True), (True, True, False)):
+        K.reset_launches()
+        got = K._statics_sharded_chain(gm, gna, table, rows[:8], feats)
+        torch.cuda.synchronize()
+        assert K.RAW_LAUNCHES["wave_statics_sharded"] == D * (
+            2 if feats[2] else 1)
+        _equal(got, Sh.wave_statics_sharded(gm, gna, table, rows[:8],
+                                            feats))
+        _equal(got, Sh.wave_statics_sharded(cm, cna, _cpu(table), rows[:8],
+                                            feats))
+
+
+def _extended_nodes(n, zones=3):
+    """Zone nodes with twelve extended resources: R = 16 columns."""
+    out = []
+    for i in range(n):
+        cap = {"cpu": 4 + i % 5, "memory": "8Gi", "pods": 6}
+        cap.update({f"example.com/r{k}": (i + k) % 4 for k in range(12)})
+        out.append(make_node(f"n{i}").capacity(cap).zone(f"z{i % zones}")
+                   .label(HOSTNAME, f"n{i}").obj())
+    return out
+
+
+def _diag_rows_cases(kind):
+    """(nodes, existing, pods) of a diagnosis case: "mixed" the group and
+    lean reasons of _diag_cases; "columns" requests over all sixteen
+    resource columns; "split" a hostname spread whose minimum (0) only
+    node 4 holds, the first row of the cluster's second CTA at N = 64."""
+    if kind == "mixed":
+        return _diag_cases()
+    if kind == "columns":
+        pods = [make_pod(f"x{j}").req({"cpu": f"{1 + j}", **{
+            f"example.com/r{k}": (j + k) % 3 for k in range(12)}}).obj()
+            for j in range(6)]
+        existing = [make_pod(f"e{i}").req({"cpu": "2", "example.com/r0": 1})
+                    .node(f"n{i}").obj() for i in range(0, 40, 3)]
+        return _extended_nodes(40), existing, pods
+    nodes = _zone_nodes(64, 4)
+    existing = [make_pod(f"e{i}").req({"cpu": "1"}).label("app", "h")
+                .node(f"n{i}").obj() for i in range(64) if i != 4]
+    pods = [make_pod(f"h{j}").req({"cpu": "1"}).label("app", "h")
+            .spread_constraint(1, HOSTNAME, "DoNotSchedule", {"app": "h"})
+            .obj() for j in range(2)]
+    return nodes, existing, pods
+
+
+@pytest.mark.parametrize("groups", [False, True])
+@pytest.mark.parametrize("kind", ["mixed", "columns", "split"])
+def test_diagnose_rows_one_launch_equal_single_rows(cuda, kind, groups):
+    """S rows in one diagnose_rows launch: row s equal to the one-row call
+    of rows[s] and to the plain version, lean and group; one launch."""
+    from kubernetes_tpu_torch.ops import kernels as K
+    nodes, existing, pods = _diag_rows_cases(kind)
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    kw = dict(gd=gd, gc=gc, fam=fam) if groups else {}
+    rows = sorted(set(int(t) for t in batch.tidx[:len(pods)]))
+    N, R = na.cap.shape
+    assert R == 16
+    K.reset_launches()
+    packed = P.diagnose_rows(na, table, rows, **kw)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["diagnose_row"] == 1
+    got = P.diagnosis_views(packed, len(rows), N, R)
+    _equal(packed, P._diagnose_rows_plain(na, table, rows, **kw))
+    for s, u in enumerate(rows):
+        _equal(tuple(x[s] for x in got), P.diagnose_row(na, table, u, **kw))
+    if kind == "columns":
+        assert bool(got[2][:, :, 4:].any())
+    if kind == "split" and groups:
+        # only node 4 (no pod, the minimum) passes the skew
+        assert got[0][0].cpu().tolist().count(P.DIAG_FEASIBLE) == 1
+        assert int(got[0][0][4]) == P.DIAG_FEASIBLE
+
+
+def test_diagnose_rows_at_64_rows_full_width(cuda):
+    """64 rows (the launch's limit) at N = 8,192 against the plain
+    version, lean and group, and the packed block reused across calls."""
+    nodes = _zone_nodes(5000, 16, cpu=32)
+    existing = [make_pod(f"e{k}").req({"cpu": "30"}).label("app", "mix")
+                .node(f"n{k}").obj() for k in range(0, 5000, 7)]
+    pods = _mixed_pods(64, 32, kinds=("spread", "affinity", "anti"))
+    na, batch, table, gd, gc, fam, _b, _s = _group_setup(
+        nodes, existing, pods, cuda)
+    rows = list(dict.fromkeys(int(t) for t in batch.tidx[:64]))
+    rows = (rows * 64)[:64]
+    args = P.diagnose_args(na, table, gd, gc, fam)
+    for kw, a in ((dict(gd=gd, gc=gc, fam=fam), args), ({}, None)):
+        _equal(P.diagnose_rows(na, table, rows, args=a, **kw),
+               P._diagnose_rows_plain(na, table, rows, **kw))
+    with pytest.raises(ValueError, match="stale"):
+        P.diagnose_rows(na, table, rows, args=args)
+    with pytest.raises(ValueError, match="rows"):
+        P.diagnose_rows(na, table, rows + rows[:1], gd=gd, gc=gc, fam=fam,
+                        args=args)

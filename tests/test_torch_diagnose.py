@@ -311,3 +311,108 @@ def test_scheduler_diagnosis_parity():
         plugins |= set(tk[0])
     assert {"NodeResourcesFit", "TaintToleration", "NodeAffinity",
             "NodePorts", "InterPodAffinity", "NodeUnschedulable"} <= plugins
+
+
+# -- a drain's rows in one call ----------------------------------------------
+
+
+@pytest.mark.parametrize("groups", [False, True])
+@pytest.mark.parametrize("seed", [5, 6])
+def test_diagnose_rows_plain_matches_jax_row_by_row(seed, groups):
+    """diagnose_rows of every distinct row of a batch at once (the port's
+    plain version): row s of its packed output equals the JAX
+    diagnose_row of rows[s]."""
+    rng = random.Random(seed)
+    nodes = lean_cluster(rng, 20)
+    bound = [_bound(f"b{i}", f"n{rng.randint(0, 19)}",
+                    labels={"app": rng.choice(["a", "b"])})
+             for i in range(12)]
+    pods = [lean_pod(rng, f"p{i}") for i in range(8)]
+    pods += [make_pod(f"s{i}").req({"cpu": "1"}).label("app", "a")
+             .spread_constraint(1, ZONE, "DoNotSchedule", {"app": "a"})
+             .obj() for i in range(2)]
+    pods.append(make_pod("huge").req({"cpu": "64"}).obj())
+    state, snap, builder, batch = _staged(nodes, bound, pods)
+    a = state.ensure_arrays()
+    jna = jp.NodeArrays(*(jnp.asarray(x) for x in a))
+    jtab = jp.PodTableDev(*(jnp.asarray(getattr(builder.table, f))
+                            for f in jp.PodTableDev._fields))
+    tna = convert.node_arrays_from_numpy(a, "cpu")
+    ttab = convert.pod_table_from_numpy(builder.table, "cpu")
+    kw_j = kw_t = {}
+    if groups:
+        gd_np, gc_np = builder.groups.build_dev(snap)
+        fam = builder.groups.families(snap)
+        kw_j = dict(gd=jg.to_device(gd_np), gc=jg.to_device(gc_np), fam=fam)
+        kw_t = dict(gd=convert.groups_dev_from_numpy(gd_np, "cpu"),
+                    gc=convert.group_carry_from_numpy(gc_np, "cpu"),
+                    fam=tg.GroupFamilies(*fam))
+    rows = list(dict.fromkeys(int(t) for t in batch.tidx[:len(pods)]))
+    rows = rows[::-1] + rows[:1]          # any order, a row twice
+    N, R = a.cap.shape
+    packed = tp.diagnose_rows(tna, ttab, rows, **kw_t)
+    assert packed.dtype == torch.uint8
+    assert packed.numel() == len(rows) * N * (5 + R)
+    got = tp.diagnosis_read_back(packed, len(rows), N, R)
+    for s, u in enumerate(rows):
+        want = jp.diagnose_row(jna, jtab, u, **kw_j)
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(x[s], np.asarray(y))
+
+
+def _spy_rows(sched):
+    """The rows of every diagnose_rows call the scheduler makes."""
+    import kubernetes_tpu_torch.scheduler as ts
+    calls = []
+    real = ts.diagnose_rows
+
+    def spy(na, table, rows, *a, **kw):
+        calls.append(list(rows))
+        return real(na, table, rows, *a, **kw)
+    ts.diagnose_rows = spy
+    return calls, lambda: setattr(ts, "diagnose_rows", real)
+
+
+@pytest.mark.parametrize("move", [False, True])
+def test_scheduler_diagnoses_a_drain_in_one_call(move):
+    """A failed drain whose failures span several signatures: the first
+    mask diagnosis diagnoses every row of the drain's failures in one
+    diagnose_rows call. With `move`, the table gains a row after the
+    first failure (table_version moves): the context is rebuilt, its rows
+    dropped, and the next row-bearing failure makes a call of its own
+    against the new context. Either way every Diagnosis equals the JAX
+    package's, reason strings and all."""
+    japi, jsched = _failing_workload(JAX)
+    jseen = _record_failures(jsched, replay=False)
+    jsched.schedule_pending()
+    tapi, tsched = _failing_workload(TORCH)
+    tseen = _record_failures(tsched, replay=False)
+    calls, undo = _spy_rows(tsched)
+    if move:
+        handle = tsched._handle_failure
+        extra = iter(range(10 ** 6))
+
+        def handle_and_add_a_row(qpi, err, *a, **kw):
+            before = tsched.builder.table_version
+            tsched.builder._lookup(TORCH[0].make_pod(
+                f"fresh-{next(extra)}").req({"cpu": "7"}).label(
+                    "fresh", str(before)).obj())
+            assert tsched.builder.table_version > before
+            return handle(qpi, err, *a, **kw)
+        tsched._handle_failure = handle_and_add_a_row
+    try:
+        tsched.schedule_pending()
+    finally:
+        undo()
+    assert set(tseen) == set(jseen) and len(tseen) >= 10
+    for uid, (terr, _host) in tseen.items():
+        jerr = jseen[uid][0]
+        assert _diag_key(terr.diagnosis) == _diag_key(jerr.diagnosis), uid
+        assert str(terr) == str(jerr), uid
+    assert calls and len(calls[0]) >= 4, calls
+    if move:
+        # every later call is a rebuilt context's first row and the
+        # failures it has not yet diagnosed
+        assert len(calls) >= 2
+    else:
+        assert len(calls) == 1

@@ -480,7 +480,10 @@ def _c_fields(source: str, struct: str) -> list:
     ("DryPlanC", "dry_run.cu", "DryPlanC"),
     ("ProbeShardC", "cluster_probe.cu", "ProbeShard"),
     ("ProbeArgsC", "cluster_probe.cu", "ProbeArgs"),
-    ("WaveArgsC", "run_wave.cu", "WaveArgs")])
+    ("WaveArgsC", "run_wave.cu", "WaveArgs"),
+    ("StaticsShardC", "wave_statics.cu", "StaticsShard"),
+    ("StaticsArgsC", "wave_statics.cu", "StaticsArgs"),
+    ("DiagArgsC", "diagnose_row.cu", "DiagArgs")])
 def test_kernel_arg_structs_mirror_the_sources(cls, source, struct):
     fields = [f for f, _t in getattr(Kr, cls)._fields_]
     assert fields == _c_fields(source, struct)
@@ -511,7 +514,12 @@ def test_probe_shard_table_layout():
     ("PROBE_SMEM_KEYS", "cluster_probe.cu", "KT_PROBE_SMEM_KEYS"),
     ("WAVE_CLUSTER", "run_wave.cu", "KT_WAVE_CLUSTER"),
     ("MAX_WAVE_L", "run_wave.cu", "KT_WAVE_MAX_L"),
-    ("WAVE_HASH", "run_wave.cu", "KT_WAVE_HASH")])
+    ("WAVE_HASH", "run_wave.cu", "KT_WAVE_HASH"),
+    ("MAX_WAVE_ROWS", "wave_statics.cu", "KT_WS_MAX_S"),
+    ("WS_MAX_SHARDS", "wave_statics.cu", "KT_WS_MAX_SHARDS"),
+    ("WS_CLUSTER", "wave_statics.cu", "KT_WS_CLUSTER"),
+    ("MAX_DIAG_ROWS", "diagnose_row.cu", "KT_DIAG_MAX_S"),
+    ("DIAG_CLUSTER", "diagnose_row.cu", "KT_DIAG_CLUSTER")])
 def test_batch_and_probe_constants_mirror_the_sources(const, source, define):
     import re
     text = (Kr.CSRC / source).read_text()
@@ -1064,11 +1072,281 @@ def test_run_wave_cuda_checks_before_building(monkeypatch, bad):
                          statics, K, J, Lw, fam, False, anti, True)
 
 
-@pytest.mark.parametrize("source", ["run_wave.cu", "cluster_probe.cu"])
+@pytest.mark.parametrize("source", ["run_wave.cu", "cluster_probe.cu",
+                                    "wave_statics.cu", "diagnose_row.cu"])
 def test_one_launch_a_call(source):
-    """The wave and the probe are one launch a call: their C entry makes
-    one cudaLaunchKernelEx (a thread-block cluster) and no <<< >>>
-    launch."""
+    """The wave, the probe, the surfaces and the diagnosis are one launch
+    a call: their C entry makes one cudaLaunchKernelEx (a thread-block
+    cluster) and no <<< >>> launch."""
     text = (Kr.CSRC / source).read_text()
     assert text.count("cudaLaunchKernelEx(") == 1
     assert "<<<" not in text
+
+
+# ---------------------------------------------------------------------------
+# the argument memo (ops/kernels.py _Memo), wave_statics (csrc/wave_statics.cu:
+# one launch a call over a shard table) and diagnose_row (csrc/diagnose_row.cu:
+# one launch for a drain's rows, one packed output)
+
+
+def test_argument_memo_repacks_when_a_tensor_moves():
+    """The node block of a tree is packed once and taken again for the
+    same tree; a fresh tuple of the same tensors is another tree, and a
+    tensor of the tree whose data_ptr moves (set_ to another storage)
+    makes the same tree pack again, pointing at the new storage."""
+    cpu = torch.device("cpu")
+    na, _batch, table = _cpu_state(6)
+    memo = Kr._node_c
+    a = memo(na, cpu)
+    assert memo(na, cpu) is a
+    b = memo(type(na)(*na), cpu)
+    assert b is not a and memo(na, cpu) is a
+    old = na.cap.data_ptr()
+    na.cap.set_(na.cap.clone())
+    c = memo(na, cpu)
+    assert c is not a and c.cap == na.cap.data_ptr() != old
+    assert memo(na, cpu) is c
+    t = Kr._table_c(table, na.cap.shape[1], cpu)
+    assert Kr._table_c(table, na.cap.shape[1], cpu) is t
+
+
+def test_argument_memo_holds_what_it_points_into():
+    """An entry holds its tree, so every tensor its struct points into
+    lives as long as the entry; the memo keeps at most `size` entries,
+    and a dropped entry lets its tensors go."""
+    import gc
+    import weakref
+    cpu = torch.device("cpu")
+    na, _batch, _table = _cpu_state(6)
+    memo = Kr._Memo(Kr._pack_node, 2)
+    fresh = type(na)(*(t.clone() for t in na))
+    ref = weakref.ref(fresh.cap)
+    ptr = memo(fresh, cpu).cap
+    assert ptr == fresh.cap.data_ptr()
+    del fresh
+    gc.collect()
+    assert ref() is not None and ref().data_ptr() == ptr
+    for _ in range(3):
+        memo(type(na)(*(t.clone() for t in na)), cpu)
+    assert len(memo.entries) == 2
+    gc.collect()
+    assert ref() is None
+
+
+def test_argument_memo_keeps_the_checks():
+    """A tree the checks refuse raises with the checks' own message, on
+    its first call and on every later one (nothing refused is kept)."""
+    cpu = torch.device("cpu")
+    na, _batch, _table = _cpu_state(6)
+    bad = na._replace(cap=na.cap.to(torch.int32))
+    for _ in range(2):
+        with pytest.raises(TypeError, match="na.cap: dtype"):
+            Kr._node_c(bad, cpu)
+
+
+def _fake_launches(monkeypatch):
+    """Kernel entries that record the struct each launch was handed (a
+    copy of it) and return 0; the stream and device contexts of the CPU."""
+    import contextlib
+    import ctypes
+    seen = []
+
+    def entry(cls):
+        return lambda addr, _stream: seen.append(
+            cls.from_buffer_copy((ctypes.c_char * ctypes.sizeof(cls))
+                                 .from_address(addr))) or 0
+    libs = {"wave_statics": SimpleNamespace(
+                ktpu_wave_statics=entry(Kr.StaticsArgsC)),
+            "diagnose_row": SimpleNamespace(
+                ktpu_diagnose_row=entry(Kr.DiagArgsC))}
+    monkeypatch.setattr(Kr, "build", lambda: libs)
+    monkeypatch.setattr(Kr, "_stream", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    return seen
+
+
+def test_wave_statics_fills_its_shard_table(monkeypatch):
+    """One device: one launch over a table of one shard, every output a
+    view of one allocation at the pointer the launch got; the rows, their
+    count and the family flags by value."""
+    seen = _fake_launches(monkeypatch)
+    na, batch, table = _cpu_state(20)
+    u = int(batch.tidx[0])
+    before = Kr.LAUNCHES["wave_statics"]
+    outs = Kr.wave_statics_cuda(na, table, [u, u, u], (True, False, True))
+    assert Kr.LAUNCHES["wave_statics"] == before + 1 and len(seen) == 1
+    a = seen[0]
+    assert (a.D, a.N, a.S) == (1, 32, 3) and list(a.wt[:3]) == [u] * 3
+    assert (a.has_taints, a.has_sel, a.has_img) == (1, 0, 1)
+    assert not a.cnt_in and not a.cnt_out
+    assert a.s[0].na.cap == na.cap.data_ptr()
+    assert [getattr(a.s[0], f) for f in ("mask", "taint_raw", "na_raw",
+                                         "s_img")] == [
+        t.data_ptr() for t in outs]
+    assert [t.dtype for t in outs] == [torch.bool] + [torch.int64] * 3
+    assert all(tuple(t.shape) == (3, 32) and t.is_contiguous()
+               for t in outs)
+    assert len({t.untyped_storage().data_ptr() for t in outs}) == 1
+
+
+@pytest.mark.parametrize("place", ["one", "cards"])
+@pytest.mark.parametrize("images", [False, True])
+def test_wave_statics_sharded_launches_by_placement(monkeypatch, place,
+                                                    images):
+    """On one card ONE launch over the table of D shards, each shard's rows
+    read where they lie and its outputs its own; on several cards, with
+    images, each card's counts (cnt_out), then each card's surfaces from
+    the psum'd counts (cnt_in); without images one launch a card. One
+    LAUNCHES a call, every launch in RAW_LAUNCHES."""
+    seen = _fake_launches(monkeypatch)
+    _cards(monkeypatch, place)
+    D = 4
+    na, batch, table = _cpu_state(20)
+    mesh = S.make_mesh(devices=["cpu"] * D)
+    gna = S.shard_node_arrays(mesh, na)
+    u = int(batch.tidx[0])
+    Kr.reset_launches()
+    outs = Kr.wave_statics_sharded_cuda(mesh, gna, table, [u],
+                                        (False, False, images))
+    assert Kr.LAUNCHES["wave_statics_sharded"] == 1
+    n = 32 // D
+    if place == "one":
+        assert len(seen) == 1 == Kr.RAW_LAUNCHES["wave_statics_sharded"]
+        a = seen[0]
+        assert (a.D, a.N, a.S) == (D, 32, 1)
+        for d in range(D):
+            assert a.s[d].na.N == n
+            assert a.s[d].na.valid == gna[d].valid.data_ptr()
+            assert a.s[d].s_img == outs[d][3].data_ptr()
+        return
+    launches = D * (2 if images else 1)
+    assert len(seen) == launches == Kr.RAW_LAUNCHES["wave_statics_sharded"]
+    assert all(a.D == 1 and a.N == n for a in seen)
+    if images:
+        assert all(a.cnt_out and not a.cnt_in for a in seen[:D])
+        assert all(a.cnt_in and not a.cnt_out for a in seen[D:])
+    assert [a.s[0].mask for a in seen[-D:]] == [
+        o[0].data_ptr() for o in outs]
+
+
+def test_statics_route_by_placement():
+    """One launch over the shard table when every shard lies on one card
+    and the table holds them (up to WS_MAX_SHARDS); otherwise the launches
+    a card."""
+    for devices, one in ((["cpu"], True), (["cpu"] * 4, True),
+                         (["cpu"] * 8, False),
+                         (["cuda:0", "cuda:1"], False)):
+        assert Kr.statics_in_place(S.Mesh(devices)) is one
+
+
+def test_statics_outputs_are_one_allocation():
+    """A shard's three int64 surfaces, then its mask, each shard's piece
+    8-byte aligned, then the chain's image counts: every output a view of
+    one allocation at the pointer the launch gets, none overlapping."""
+    layout, end = Kr.statics_layout(3, [5, 8])
+    assert layout == [(0, 360), (376, 952)] and end == 976
+    na, _batch, table = _cpu_state(20)
+    cpu = torch.device("cpu")
+    node, tab = Kr._node_c(na, cpu), Kr._table_c(table, 16, cpu)
+    args, outs, cnt = Kr._statics_args([node, node], tab, [0, 0, 0],
+                                       (True,) * 3, cpu, counts=6)
+    views = [t for o in outs for t in o] + [cnt]
+    assert len({t.untyped_storage().data_ptr() for t in views}) == 1
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.itemsize)
+                   for t in views)
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert all(t.data_ptr() % 8 == 0 for t in views)
+    for d in range(2):
+        assert [getattr(args.s[d], f) for f in ("mask", "taint_raw",
+                                                "na_raw", "s_img")] == [
+            t.data_ptr() for t in outs[d]]
+        assert [tuple(t.shape) for t in outs[d]] == [(3, 32)] * 4
+    assert cnt.dtype == torch.int64 and cnt.numel() == 6
+
+
+@pytest.mark.parametrize("bad", ["empty", "row_outside", "too_many",
+                                 "table_width", "dtype"])
+@pytest.mark.parametrize("mesh", [None, "one", "cards"])
+def test_wave_statics_cuda_checks_before_building(monkeypatch, bad, mesh):
+    _no_build(monkeypatch)
+    na, batch, table = _cpu_state(20)
+    u = int(batch.tidx[0])
+    wt = [u]
+    if bad == "empty":
+        wt = []
+    elif bad == "row_outside":
+        wt = [u, table.req.shape[0]]
+    elif bad == "too_many":
+        wt = [u] * (Kr.MAX_WAVE_ROWS + 1)
+    elif bad == "table_width":
+        table = table._replace(req=table.req[:, :-1].contiguous())
+    else:
+        na = na._replace(image_size=na.image_size.to(torch.int32))
+    with pytest.raises((ValueError, TypeError)):
+        if mesh is None:
+            Kr.wave_statics_cuda(na, table, wt)
+        else:
+            _cards(monkeypatch, mesh)
+            m = S.make_mesh(devices=["cpu"] * 2)
+            Kr.wave_statics_sharded_cuda(m, S.shard_node_arrays(m, na),
+                                         table, wt)
+
+
+def _diag_cpu(groups):
+    na, carry, _xs, table, gd, fam = _batch_cpu(groups)
+    return na, table, gd, carry.groups if groups else None, fam
+
+
+@pytest.mark.parametrize("groups", [False, True])
+def test_diagnose_rows_packs_the_context_once(monkeypatch, groups):
+    """A context's block is packed once (it holds every tensor it points
+    into) and serves any number of launches: each launch gets the rows and
+    their count by value and one output of S·N·(5 + R) bytes."""
+    seen = _fake_launches(monkeypatch)
+    na, table, gd, gc, fam = _diag_cpu(groups)
+    args = Kr.DiagArgs(na, table, gd, gc, fam)
+    assert args.c.na.cap == na.cap.data_ptr()
+    assert args.c.used == na.used.data_ptr()
+    assert args.c.has_groups == int(groups)
+    assert args.ctx == (na, table, gd, gc)
+    U = min(table.req.shape[0], gd.spr_f_active.shape[0] if groups else 64)
+    before = Kr.LAUNCHES["diagnose_row"]
+    N, R = na.cap.shape
+    for rows in ([0], list(range(U)) * 2):
+        out = Kr.diagnose_rows_cuda(args, (na, table, gd, gc), rows)
+        a = seen[-1]
+        assert a.S == len(rows) and list(a.rows[:a.S]) == rows
+        assert a.out == out.data_ptr()
+        assert out.dtype == torch.uint8
+        assert out.numel() == len(rows) * N * (5 + R)
+    assert Kr.LAUNCHES["diagnose_row"] == before + 2 and len(seen) == 2
+
+
+@pytest.mark.parametrize("bad", ["no_block", "stale", "no_rows", "too_many",
+                                 "row_outside", "group_rows", "state"])
+def test_diagnose_rows_cuda_checks_before_building(monkeypatch, bad):
+    _no_build(monkeypatch)
+    groups = bad == "group_rows"
+    na, table, gd, gc, fam = _diag_cpu(groups)
+    ctx = (na, table, gd, gc)
+    rows = [0]
+    if bad == "state":
+        with pytest.raises(ValueError, match="node state"):
+            Kr.DiagArgs(na._replace(npods=na.npods[:-1]), table)
+        return
+    args = Kr.DiagArgs(na, table, gd, gc, fam)
+    if bad == "no_block":
+        args = None
+    elif bad == "stale":
+        ctx = (type(na)(*na), table, gd, gc)
+    elif bad == "no_rows":
+        rows = []
+    elif bad == "too_many":
+        rows = [0] * (Kr.MAX_DIAG_ROWS + 1)
+    elif bad == "row_outside":
+        rows = [table.req.shape[0]]
+    else:
+        args.group_U = 0
+    with pytest.raises(ValueError, match="diagnose_row"):
+        Kr.diagnose_rows_cuda(args, ctx, rows)
