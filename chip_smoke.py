@@ -26,7 +26,11 @@
         # the S = 4 / 8 MixedHighSignature rows, SurfaceCache.get) and
         # wave_statics_sharded on make_mesh(2) / (4) of one card, warm and
         # cold; diag: diagnose_row on a lean and a group row, warm and
-        # cold, and a failed drain's mask diagnosis of eight signatures.
+        # cold, and a failed drain's mask diagnosis of eight signatures;
+        # ingest: SchedulingBasic, MixedHighSignature and PreemptionChurn
+        # with the ColumnarIngest gate off / on / on / off, each run's
+        # pods/s, window, host split and the split of pod creation, the
+        # bind echo and the commit inside the window.
 
 Phases, each reported on its own line:
   1. the device, and `nvidia-smi --query-gpu=name,power.limit`;
@@ -157,7 +161,15 @@ Phases, each reported on its own line:
      every shape (group-mode scans) against its single-device card run,
      and a gang rejected on each run_gang_sharded tier with the whole
      carry unchanged. Each logs pods/s and its host split beside the
-     single-device figure. Every phase logs its seconds.
+     single-device figure;
+ 19. the ColumnarIngest gate off (KubeSchedulerConfiguration(
+     feature_gates={"ColumnarIngest": False}): the serial build, node-row
+     writers, commit and bind echo) on SchedulingBasic, TopologySpreading,
+     PreemptionChurn and GangTraining at full width: each run's bind map,
+     cache dump (less node generations), dispatcher executed and error
+     counts and scheduled and unschedulable counts equal to the cell's
+     gate-on card run, with its pods/s and host split beside the gate-on
+     run's. Every phase logs its seconds.
 Phases 4, 6, 7 and 9-14 run through kubernetes_tpu_torch.perf.harness's
 WorkloadRunner (the reference harness's measured window: pods built
 inside it, the cyclic collector paused) and log the harness's pods/s,
@@ -183,6 +195,7 @@ holds them to the parsed file.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -3686,28 +3699,36 @@ HOST_SPANS = ("scheduling_cycle", "schedule_batch", "host_build",
 
 
 def cell_run(device: str, pkg, name: str, clock=None, rails=False,
-             mesh=None):
+             mesh=None, gates=None, wrap=None):
     """One cell of CELLS through kubernetes_tpu_torch.perf.harness's
     WorkloadRunner at full width: the harness's measured window (pods
     built inside it, the cyclic collector paused), a Tracer keeping every
     drain's span tree, and a clock that stands still unless the caller
     moves it; with `rails`, the Scheduler's config turns the
-    SanitizerRails gate on; with `mesh` the Scheduler runs node-sharded
-    on it. Returns a namespace of the API server, the scheduler, the
-    runner, the measured DataItem and its pods/s."""
+    SanitizerRails gate on, and `gates` sets more feature gates; with
+    `mesh` the Scheduler runs node-sharded on it; `wrap(api, sched)` runs
+    once the Scheduler is built (the timers of `--times ingest`). Returns
+    a namespace of the API server, the scheduler, the runner, the
+    measured DataItem and its pods/s."""
     from kubernetes_tpu_torch.config import KubeSchedulerConfiguration
     from kubernetes_tpu_torch.perf.harness import (TestCase, Workload,
                                                    WorkloadRunner)
     from kubernetes_tpu_torch.scheduler import Scheduler
     cell = CELLS[name]
     clock = clock or SimpleNamespace(t=1000.0)
-    config = (KubeSchedulerConfiguration(
-        feature_gates={"SanitizerRails": True}) if rails else None)
+    feature_gates = dict(gates or {})
+    if rails:
+        feature_gates["SanitizerRails"] = True
+    config = (KubeSchedulerConfiguration(feature_gates=feature_gates)
+              if feature_gates else None)
 
     def factory(api):
-        return Scheduler(api, batch_size=BATCH,
-                         device=None if mesh is not None else device,
-                         clock=lambda: clock.t, config=config, mesh=mesh)
+        sched = Scheduler(api, batch_size=BATCH,
+                          device=None if mesh is not None else device,
+                          clock=lambda: clock.t, config=config, mesh=mesh)
+        if wrap is not None:
+            wrap(api, sched)
+        return sched
 
     runner = WorkloadRunner(scheduler_factory=factory, batch_size=BATCH,
                             create_batch=CREATE_BATCH, trace=True)
@@ -3817,6 +3838,26 @@ def explain_uid(run) -> str:
 # what phase 18 holds its mesh runs to
 RAILS_OFF: dict = {}
 CARD_PROBE: dict = {}
+# each cell's card run with the ColumnarIngest gate on (the default),
+# as `ingest_state` gives it: what phase 19 holds the gate-off run to
+GATE_ON: dict = {}
+
+
+def ingest_state(run) -> dict:
+    """What the ColumnarIngest gate must not move: the bind map and the
+    pending pods, the cache's dump less its node generations (a
+    process-global counter), the dispatcher's executed and error counts,
+    and the scheduled and unschedulable counts."""
+    sched = run.sched
+    dump = sched.cache.dump()
+    return {"outcome": outcome(run.api, sched),
+            "cache_nodes": {n: {k: v for k, v in d.items()
+                                if k != "generation"}
+                            for n, d in dump["nodes"].items()},
+            "assumed": dump["assumed_pods"], "pod_count": dump["pod_count"],
+            "dispatcher": (sched.dispatcher.executed,
+                           sched.dispatcher.errors),
+            "counts": (sched.scheduled_count, sched.unschedulable_count)}
 
 
 def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
@@ -3849,6 +3890,9 @@ def cell_phase(torch, pkg, device: str, name: str, smi: str, post=None):
         post(cpu)
     RAILS_OFF[name] = (outcome(run.api, run.sched), run.rate)
     CARD_PROBE[name] = probe_state(run.sched)
+    if name in GATE_OFF_CELLS:
+        GATE_ON[name] = (ingest_state(run), run.rate,
+                         host_split(run)["share"])
     if RAILS_OFF[name][0] != outcome(cpu.api, cpu.sched):
         fail(f"{name}: cuda bind map differs from the cpu run")
     if probe_state(run.sched) != probe_state(cpu.sched):
@@ -4410,6 +4454,54 @@ def rails_phase(torch, pkg, device: str, smi: str) -> dict:
             checksum_sees_data_write=True, card=smi)
     finally:
         RAILS.enable(False)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the ColumnarIngest gate off on the card
+
+
+GATE_OFF_CELLS = ("SchedulingBasic", "TopologySpreading", "PreemptionChurn",
+                  "GangTraining")
+
+
+def gate_off_phase(torch, pkg, device: str, smi: str) -> dict:
+    """Phase 19: each of GATE_OFF_CELLS at full width with the
+    ColumnarIngest gate off (the serial build, node-row writers, commit
+    and bind echo), held to its gate-on card run (`ingest_state`): the
+    lean path, the group path, failures with nominations and the overlay,
+    and accepted gang drains. Returns the launch counts summed over the
+    cells."""
+    total = {k: 0 for k in pkg.kernels.LAUNCHES}
+    for name in GATE_OFF_CELLS:
+        post = _take_back_preemptors if name == "PreemptionChurn" else None
+        pkg.kernels.reset_launches()
+        run = cell_run(device, pkg, name, gates={"ColumnarIngest": False})
+        if post is not None:
+            post(run)
+        torch.cuda.synchronize()
+        counts = dict(pkg.kernels.LAUNCHES)
+        sched = run.sched
+        if (sched.commit_engine is not None or sched.builder.columnar
+                or sched.state.columnar):
+            fail(f"gate off {name}: the columnar paths are still on")
+        if sched.reconcile() != []:
+            fail(f"gate off {name}: device carry diverges from the host "
+                 "cache")
+        on_state, on_rate, on_share = GATE_ON[name]
+        got = ingest_state(run)
+        for key in got:
+            if got[key] != on_state[key]:
+                fail(f"gate off {name}: {key} differs from the gate-on "
+                     "card run")
+        log("columnar_ingest_off", cell=name, card=smi, pods_per_s=run.rate,
+            gate_on_pods_per_s=on_rate, window_s=run.item.duration_s,
+            share=host_split(run)["share"], gate_on_share=on_share,
+            device_batches=sched.device_batches,
+            counts=list(got["counts"]), dispatcher=list(got["dispatcher"]),
+            launches=counts, equals_gate_on=True)
+        for k, v in counts.items():
+            total[k] += v
     return total
 
 
@@ -5454,11 +5546,131 @@ def diag_times(torch, pkg, device, reps: int = 20) -> dict:
     return out
 
 
+class CallTimes:
+    """Wall seconds of wrapped calls by name, each call kept with its
+    start so that a measured window can be cut out afterwards. A wrapper
+    costs two perf_counter reads and an append a call."""
+
+    def __init__(self):
+        self.calls: dict = {}
+
+    def wrap(self, name: str, fn, when=None):
+        calls = self.calls.setdefault(name, [])
+        clock = time.perf_counter
+
+        def timed(*a, **kw):
+            if when is not None and not when():
+                return fn(*a, **kw)
+            t0 = clock()
+            try:
+                return fn(*a, **kw)
+            finally:
+                calls.append((t0, clock() - t0))
+        return timed
+
+    def ms(self, name: str, t0: float, t1: float) -> float:
+        return 1e3 * sum(dt for start, dt in self.calls.get(name, ())
+                         if t0 <= start <= t1)
+
+    def count(self, name: str, t0: float, t1: float) -> int:
+        return sum(1 for start, _dt in self.calls.get(name, ())
+                   if t0 <= start <= t1)
+
+
+INGEST_CELLS = ("SchedulingBasic", "MixedHighSignature", "PreemptionChurn")
+
+
+def ingest_times(torch, pkg, device) -> dict:
+    """`--times ingest`: SchedulingBasic, MixedHighSignature and
+    PreemptionChurn at full width, each with the ColumnarIngest gate off
+    / on / on / off, in one process. Each run: pods/s, window ms,
+    `host_split`'s shares, and inside the measured window the split of
+    pod creation (PodFactory.make, the harness's pod build, against
+    APIServer.create_pods: the watch fan-out and the queue adds), of the
+    bind echo (APIServer.bind_all, and inside it the pod handlers'
+    fan-out, and the pods the bulk echo handed to the per-pod path) and
+    of the commit (the classify-and-assume pass:
+    CommitEngine.commit or Scheduler._serial_commit less
+    APIDispatcher.add_binds, beside add_binds). The calls are wrapped
+    from outside; the package has no span for them."""
+    from kubernetes_tpu_torch.perf import harness
+    out: dict = {}
+    for name in INGEST_CELLS:
+        runs = []
+        for columnar in (False, True, True, False):
+            t = CallTimes()
+            in_bind = [0]
+
+            def wrap(api, sched, t=t, in_bind=in_bind):
+                api.create_pods = t.wrap("create_pods", api.create_pods)
+                bind_all = api.bind_all
+
+                def binding(*a, **kw):
+                    in_bind[0] += 1
+                    try:
+                        return bind_all(*a, **kw)
+                    finally:
+                        in_bind[0] -= 1
+                api.bind_all = t.wrap("bind_all", binding)
+                for h in api.pod_handlers:
+                    for f in ("on_update", "on_update_bulk"):
+                        if getattr(h, f) is not None:
+                            setattr(h, f, t.wrap("bind_echo", getattr(h, f),
+                                                 when=lambda: in_bind[0]))
+                # the pods the bulk echo hands to the per-pod path (the
+                # registered per-pod handler is bound before this wrap)
+                sched._on_pod_update = t.wrap(
+                    "echo_per_pod", sched._on_pod_update,
+                    when=lambda: in_bind[0])
+                if sched.commit_engine is not None:
+                    sched.commit_engine.commit = t.wrap(
+                        "commit", sched.commit_engine.commit)
+                else:
+                    sched._serial_commit = t.wrap("commit",
+                                                  sched._serial_commit)
+                sched.dispatcher.add_binds = t.wrap(
+                    "add_binds", sched.dispatcher.add_binds)
+            make = harness.PodFactory.make
+            harness.PodFactory.make = t.wrap("pod_build", make)
+            try:
+                run = cell_run(device, pkg, name, wrap=wrap,
+                               gates={"ColumnarIngest": columnar})
+            finally:
+                harness.PodFactory.make = make
+            torch.cuda.synchronize()
+            t0 = run.item.start
+            t1 = t0 + run.item.duration_s
+            split = {k: t.ms(k, t0, t1) for k in (
+                "pod_build", "create_pods", "bind_all", "bind_echo",
+                "commit", "add_binds")}
+            split["classify_assume"] = split["commit"] - split["add_binds"]
+            hs = host_split(run)
+            runs.append({
+                "columnar_ingest": columnar, "pods_per_s": run.rate,
+                "window_ms": 1e3 * run.item.duration_s,
+                "share": hs["share"], "commit_s": hs["commit_s"],
+                "split_ms": split,
+                "calls": {k: t.count(k, t0, t1) for k in (
+                    "pod_build", "create_pods", "bind_all", "bind_echo",
+                    "echo_per_pod", "commit")},
+                "counts": [run.sched.scheduled_count,
+                           run.sched.unschedulable_count],
+                "outcome_digest": hashlib.sha1(json.dumps(
+                    outcome(run.api, run.sched),
+                    sort_keys=True).encode()).hexdigest()})
+            del run
+        if len({r["outcome_digest"] for r in runs}) != 1:
+            fail(f"--times ingest {name}: the bind maps of the four runs "
+                 "differ")
+        out[name] = runs
+    return out
+
+
 TIMES = {"batch": batch_times, "closed_form": closed_form_times,
          "diag": diag_times, "gang": gang_times,
-         "gang_host": gang_host_times, "plan": plan_times,
-         "shard": shard_times, "statics": statics_times,
-         "wave": wave_times}
+         "gang_host": gang_host_times, "ingest": ingest_times,
+         "plan": plan_times, "shard": shard_times,
+         "statics": statics_times, "wave": wave_times}
 
 
 def times_main(torch, group: str, root: str, smi: str) -> int:
@@ -5490,8 +5702,8 @@ def main(argv=None) -> int:
     ap.add_argument("--times", choices=sorted(TIMES), metavar="GROUP",
                     help="only time one group of kernels (batch, "
                     "closed_form, diag, gang, gang_host, plan, shard, "
-                    "statics, wave) of the port "
-                    "in checkout ROOT")
+                    "statics, wave), or the ingest and commit edges "
+                    "(ingest), of the port in checkout ROOT")
     ap.add_argument("root", nargs="?", default=HERE, metavar="ROOT",
                     help="the checkout --times imports (default: this one)")
     args = ap.parse_args(argv)
@@ -5666,6 +5878,11 @@ def main(argv=None) -> int:
     mesh_group_counts = mesh_group_phase(torch, pkg, smi)
     mark("18")
 
+    # phase 19: the ColumnarIngest gate off on four cells, each held to
+    # its gate-on card run
+    gate_off_counts = gate_off_phase(torch, pkg, device, smi)
+    mark("19")
+
     # `launches` sums the main-path runs, each counted from 0;
     # `launches_by_path` keeps them apart
     paths = {"scheduling_basic": sb_counts, "mixed": mixed_counts,
@@ -5676,7 +5893,7 @@ def main(argv=None) -> int:
              "gang_training": gt_counts, "colocated_inference": ci_counts,
              "node_affinity": sna_counts, "gang_reject_preempt": gr_counts,
              "sanitizer_rails": rails_counts, **mesh_counts,
-             **mesh_group_counts}
+             **mesh_group_counts, "columnar_ingest_off": gate_off_counts}
     for row in rows:
         by_path = {k: c[row["name"]] for k, c in paths.items()}
         row["launches"] = sum(by_path.values())

@@ -28,9 +28,9 @@ UNPORTED_PLUGINS = ("NodeDeclaredFeatures", "VolumeRestrictions",
                     "NodeVolumeLimitsCSI", "VolumeBinding", "VolumeZone",
                     "DynamicResources")
 
-# the only gate the port's Scheduler honours; the rest stay at their
-# defaults (features.py DEFAULT_FEATURES)
-PORTED_GATES = ("SanitizerRails",)
+# the gates the port's Scheduler honours; the rest stay at their defaults
+# (features.py DEFAULT_FEATURES)
+PORTED_GATES = ("SanitizerRails", "ColumnarIngest")
 
 
 @dataclass

@@ -85,10 +85,11 @@ DEFAULT_FEATURES: dict[str, FeatureSpec] = {
     # backends, NaN/inf score probes. For tests, soaks and staging —
     # not the production hot path.
     "SanitizerRails": FeatureSpec(False, ALPHA),
-    # columnar ingest & commit engine (kubernetes_tpu/ingest/): the
-    # batched assume/bind path (CommitEngine) + the bulk bind-echo
-    # confirm. Off = the serial per-pod _fast_commit / per-pod informer
-    # fan-out — the parity oracle tests/test_ingest.py compares against.
+    # columnar ingest & commit engine (ingest/): the chunked build, the
+    # columnar node-row writers, the batched assume/bind path
+    # (CommitEngine) + the bulk bind-echo confirm. Off = the serial
+    # per-pod paths — the parity oracle tests/test_torch_ingest.py
+    # compares against.
     "ColumnarIngest": FeatureSpec(True, BETA),
     # shadow-oracle audit (kubernetes_tpu/obs/audit.py): a background
     # sampler captures a deterministic replay record per sampled drain

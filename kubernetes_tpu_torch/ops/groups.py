@@ -34,6 +34,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..ingest.groupcols import NodeLabelColumns, gather_ids
+
 INT32_MAX = np.int32(2**31 - 1)
 I64_MAX = 2**63 - 1
 I64_MIN = -(2**63)
@@ -1132,125 +1134,6 @@ class GroupManager:
             ipa_score=full("ipa_score", (U, N), np.int64),
         )
         return gd, gc
-
-
-# ---------------------------------------------------------------------------
-# columnar node label store shared by node_data and seed_counts: one
-# interned topology-value vector and one dense domain-id vector per
-# topology key, per statics generation of the node state
-
-
-
-def gather_ids(tv: np.ndarray, id_values: dict, dtype=np.int64) -> np.ndarray:
-    """Vectorized `{interned id: value}` lookup over an id vector:
-    out[i] = id_values.get(tv[i], 0). One argsort of the (small) dict +
-    one searchsorted over the node axis replaces the per-node Python
-    dict probes."""
-    out = np.zeros(tv.shape, dtype)
-    if not id_values:
-        return out
-    ids = np.fromiter(id_values.keys(), np.int64, len(id_values))
-    vals = np.fromiter(id_values.values(), dtype, len(id_values))
-    order = np.argsort(ids)
-    ids = ids[order]
-    vals = vals[order]
-    pos = np.searchsorted(ids, tv)
-    pos_c = np.minimum(pos, len(ids) - 1)
-    hit = ids[pos_c] == tv
-    out[hit] = vals[pos_c[hit]]
-    return out
-
-
-class NodeLabelColumns:
-    """Per-statics-generation interned label columns (see module doc).
-
-    Validity contract: a column set is keyed on (statics_gen, node
-    bucket). Every node add/remove/label change writes or invalidates a
-    row, which bumps statics_gen (state/tensorize.py), so cached vectors
-    can never describe a stale node set; snapshot-list ORDER is likewise
-    a function of the node tree, which only changes with membership."""
-
-    def __init__(self, state):
-        self.state = state
-        self._key = (-1, -1)
-        self._nis: list = []
-        self._tv: dict = {}        # topology key → i32 [N] label_kv ids
-        self._dom: dict = {}       # topology key → i32 [N] dense dom ids
-        self._keys_ok: dict = {}   # keys tuple → bool [N]
-        self._order_idx = np.zeros((0,), np.int64)
-
-    def sync(self, nis: list) -> "NodeLabelColumns":
-        """Bind to the current node rows ([(row idx, NodeInfo)] in
-        snapshot order); drops the columns when the statics generation
-        or node bucket moved."""
-        key = (self.state.statics_gen, self.state.dims.nodes)
-        if key != self._key:
-            self._key = key
-            self._tv.clear()
-            self._dom.clear()
-            self._keys_ok.clear()
-            self._order_idx = np.array([idx for idx, _ in nis], np.int64)
-        self._nis = nis
-        return self
-
-    @property
-    def order_idx(self) -> np.ndarray:
-        return self._order_idx
-
-    def tv(self, key: str) -> np.ndarray:
-        """Interned label_kv id of label `key` per node row (0 = label
-        absent) — the O(N) walk runs once per (key, statics_gen)."""
-        v = self._tv.get(key)
-        if v is None:
-            N = self.state.dims.nodes
-            v = np.zeros((N,), np.int32)
-            kid: dict = {}
-            intern = self.state.interner.label_kv
-            for idx, ni in self._nis:
-                val = ni.node.metadata.labels.get(key)
-                if val is not None:
-                    t = kid.get(val)
-                    if t is None:
-                        t = kid[val] = intern(key, val)
-                    v[idx] = t
-            self._tv[key] = v
-        return v
-
-    def dom(self, key: str) -> np.ndarray:
-        """Dense domain id per node: the row index of the FIRST node (in
-        snapshot order) sharing the key's topology value."""
-        d = self._dom.get(key)
-        if d is None:
-            tvv = self.tv(key)
-            N = self.state.dims.nodes
-            d = np.zeros((N,), np.int32)
-            order_idx = self._order_idx
-            if len(order_idx):
-                sub = tvv[order_idx]
-                uniq, first_pos = np.unique(sub, return_index=True)
-                first_row = order_idx[first_pos]
-                d[order_idx] = first_row[np.searchsorted(uniq, sub)]
-            self._dom[key] = d
-        return d
-
-    def keys_ok(self, keys: tuple) -> np.ndarray:
-        """bool [N]: node is in the snapshot AND carries every key."""
-        ok = self._keys_ok.get(keys)
-        if ok is None:
-            N = self.state.dims.nodes
-            ok = np.zeros((N,), bool)
-            ok[self._order_idx] = True
-            for k in keys:
-                ok = ok & (self.tv(k) != 0)
-            self._keys_ok[keys] = ok
-        return ok
-
-    def value_ids(self, key: str, values: dict, dtype=np.int64) -> dict:
-        """{interned label_kv(key, value): v} for a value-string-keyed
-        count/score dict (the seeding surfaces are keyed by raw label
-        values; the vectorized gather wants interned ids)."""
-        intern = self.state.interner.label_kv
-        return {intern(key, val): v for val, v in values.items()}
 
 
 _GD_DTYPES = {np.dtype(bool): torch.bool, np.dtype(np.int32): _I32,

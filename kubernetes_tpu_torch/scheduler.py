@@ -339,6 +339,10 @@ class _PendingDrain:
     # the drain's device_dispatch span: its commit adds `commit_start`
     # (time.perf_counter) and `commit_s`
     span: object = None
+    # the builder's per-row CommitFacts list at dispatch time (the list
+    # object is REPLACED on table reset, so this reference stays aligned
+    # with batch.tidx even when later drains reset the table)
+    facts: object = None
 
     def ready(self) -> bool:
         return self.done is None or self.done.query()
@@ -399,6 +403,11 @@ class Scheduler:
         from .config.features import default_gate
         self.feature_gates = default_gate(
             config.feature_gates if config is not None else None)
+        # columnar ingest & commit engine gate (ingest/): the chunked
+        # build, the columnar node-row writers, the batched commit and the
+        # bulk bind-echo confirm; off runs the serial paths (the parity
+        # oracle, as in the JAX package)
+        self.columnar_ingest = self.feature_gates.enabled("ColumnarIngest")
         queue_backoffs = {}
         # the JAX package's knob, accepted and treated as 100: the device
         # program filters and scores every node
@@ -440,7 +449,8 @@ class Scheduler:
 
         self.cache = Cache(clock=clock)
         self.snapshot = Snapshot()
-        self.state = ClusterState(device=str(self.device))
+        self.state = ClusterState(device=str(self.device),
+                                  columnar=self.columnar_ingest)
         if mesh is not None:
             # the node bucket must never be smaller than the mesh
             self.state.dims.nodes = max(self.state.dims.nodes, mesh.size)
@@ -462,7 +472,8 @@ class Scheduler:
             spread_plugin=next((p for p in default_list
                                 if p.name() == "PodTopologySpread"), None),
             ipa_plugin=next((p for p in default_list
-                             if p.name() == "InterPodAffinity"), None))
+                             if p.name() == "InterPodAffinity"), None),
+            columnar=self.columnar_ingest)
         self.dispatcher = APIDispatcher(client=client,
                                         on_bind_error=self._on_bind_error)
         if config is not None:
@@ -475,6 +486,11 @@ class Scheduler:
             clock=clock, **queue_backoffs)
         from .compiler.plan import DrainCompiler
         self.compiler = DrainCompiler(builder=self.builder, state=self.state)
+        # the batched assume/bind pass (ingest/commit.py); None with the
+        # ColumnarIngest gate off
+        from .ingest.commit import CommitEngine
+        self.commit_engine = (CommitEngine(self)
+                              if self.columnar_ingest else None)
         self._wire_preemption(client)
         self._register_event_handlers()
 
@@ -658,7 +674,9 @@ class Scheduler:
         self.client.watch_pods(WatchHandlers(
             on_add=self._on_pod_add, on_update=self._on_pod_update,
             on_delete=self._on_pod_delete,
-            on_add_bulk=self._on_pod_add_bulk))
+            on_add_bulk=self._on_pod_add_bulk,
+            on_update_bulk=(self._on_pod_update_bulk
+                            if self.columnar_ingest else None)))
         if hasattr(self.client, "watch_workloads"):
             self.client.watch_workloads(WatchHandlers(
                 on_add=self._on_workload_add))
@@ -770,6 +788,47 @@ class Scheduler:
             if flags:
                 self.queue.move_all_to_active_or_backoff_queue(
                     ClusterEvent(EventResource.POD, flags), old, new)
+
+    def _on_pod_update_bulk(self, pairs: list) -> None:
+        """Bulk Binding echo (APIServer.bind_all's fan-out, registered
+        with the ColumnarIngest gate on): the common shape — our own bulk
+        bind confirming pods we assumed — collapses to one pass over the
+        batch instead of the per-pod informer path (workload bookkeeping,
+        a fresh _PodState, the queue probes and a move sweep per pod).
+        Anything off-shape, or any queue state the per-pod path would
+        consult (unschedulable pods whose queueing hints need the
+        individual pod, in-flight event logging, pending bind errors,
+        pods parked at Permit), takes `_on_pod_update` per pod —
+        semantics stay identical by construction."""
+        q = self.queue
+        if (q.unschedulable_pods or q.in_flight_pods
+                or self._bind_errors or self._waiting_pods):
+            for old, new in pairs:
+                self._on_pod_update(old, new)
+            return
+        assumed = self.cache.assumed_pods
+        wm_update = self.workload_manager.update_pod
+        active = q.active_q
+        backoff = q.backoff_q
+        confirm: list = []
+        for old, new in pairs:
+            uid = new.metadata.uid
+            if (not new.spec.node_name or old.spec.node_name
+                    or uid not in assumed):
+                self._on_pod_update(old, new)
+                continue
+            wm_update(old, new)
+            confirm.append(new)
+            if uid in active or uid in backoff:
+                q.delete(new)
+        if confirm:
+            # an assumed pod's confirm keeps the device carry: it already
+            # counts the pod (the per-pod path invalidates only for pods
+            # that were not assumed)
+            self.cache.confirm_bound(confirm)
+            # the EVENT_ASSIGNED_POD_ADD move sweep: with no unschedulable
+            # pods and no in-flight event log (checked above) the per-pod
+            # move_all calls are no-ops — elided wholesale
 
     def _on_pod_delete(self, pod: Pod) -> None:
         self.workload_manager.delete_pod(pod)
@@ -1181,7 +1240,7 @@ class Scheduler:
             qpis=qpis, profile=profile, batch=batch, table=table, na=na,
             n=n, groups_needed=groups_needed, records=records, done=done,
             ovl=ovl, nom=nom, gang=gang, drain_id=did, phases=ph,
-            probe=probe, span=ds))
+            probe=probe, span=ds, facts=self.builder.row_facts))
 
     # -- the node-sharded mesh ------------------------------------------------
 
@@ -1828,21 +1887,13 @@ class Scheduler:
         # an accepted gang commits atomically: the device verdict already
         # proved the quorum the Permit barrier would enforce per pod
         gang_fast = pd.gang is not None and pd.gang_accepted
-        fast: list[tuple[QueuedPodInfo, str]] = []
-        failures: list[QueuedPodInfo] = []
-        bound = 0
-        for i in range(n):
-            a = out[i]
-            qpi = qpis[i]
-            if a < 0:
-                failures.append(qpi)
-            elif not gang_fast and _needs_per_pod_hooks(profile,
-                                                        qpi.pod.spec):
-                self._assume_and_bind(qpi, names[int(a)], profile)
-                bound += 1
-            else:
-                fast.append((qpi, names[int(a)]))
-        bound += self._fast_commit(fast)
+        if self.commit_engine is not None:
+            # the columnar commit engine (ingest/commit.py): one pass, the
+            # cache assume driven by the per-signature commit facts
+            bound, failures = self.commit_engine.commit(pd, out, names,
+                                                        gang_fast)
+        else:
+            bound, failures = self._serial_commit(pd, out, names, gang_fast)
         if pd.gang is not None:
             self.gang_dispatch["placed" if pd.gang_accepted
                                else "rejected"] += 1
@@ -1858,6 +1909,29 @@ class Scheduler:
                         qpi, self._device_fit_error(qpi, profile,
                                                     diag_cache))
         return bound
+
+    def _serial_commit(self, pd: _PendingDrain, out, names,
+                       gang_fast: bool) -> tuple:
+        """The ColumnarIngest gate's off setting, `CommitEngine.commit`'s
+        oracle: each pod classified by `_needs_per_pod_hooks`, the hook
+        pods through `_assume_and_bind` in drain order, the rest through
+        `_fast_commit` at the end. Returns (bound, failures)."""
+        profile = pd.profile
+        fast: list[tuple[QueuedPodInfo, str]] = []
+        failures: list[QueuedPodInfo] = []
+        bound = 0
+        for i in range(pd.n):
+            a = out[i]
+            qpi = pd.qpis[i]
+            if a < 0:
+                failures.append(qpi)
+            elif not gang_fast and _needs_per_pod_hooks(profile,
+                                                        qpi.pod.spec):
+                self._assume_and_bind(qpi, names[int(a)], profile)
+                bound += 1
+            else:
+                fast.append((qpi, names[int(a)]))
+        return bound + self._fast_commit(fast), failures
 
     def _assume_and_bind(self, qpi: QueuedPodInfo, node_name: str,
                          profile: Profile) -> None:
@@ -1991,6 +2065,7 @@ class Scheduler:
         pod_states = cache.pod_states
         assumed_set = cache.assumed_pods
         ttl = cache.ttl
+        nominated = self.queue.nominator.nominated_pods
         in_flight = self.queue.in_flight_pods
         now = self.clock()
         bound_pods: list[tuple[Pod, Pod]] = []
@@ -2010,6 +2085,8 @@ class Scheduler:
                 st.deadline = now + ttl
             pod_states[uid] = st
             assumed_set.add(uid)
+            if nominated:
+                self.queue.nominator.delete(pod)
             in_flight.pop(uid, None)
             bound_pods.append((assumed, pod))
             if qpi.unschedulable_plugins:

@@ -119,10 +119,15 @@ class BatchCapacityError(ValueError):
 
 class BatchBuilder:
     def __init__(self, state: ClusterState, dims: Optional[BatchDims] = None,
-                 spread_plugin=None, ipa_plugin=None, group_dims=None):
+                 spread_plugin=None, ipa_plugin=None, group_dims=None,
+                 columnar: bool = True):
         from ..ops.groups import GroupManager
         self.state = state
         self.dims = dims or BatchDims()
+        # the ColumnarIngest gate: `build` interns a drain's new
+        # signatures in one chunk (ingest/columns.py) when True, one pod
+        # at a time through `_lookup` (the serial oracle) when False
+        self.columnar = columnar
         # bumped whenever existing rows are INVALIDATED (reset), as opposed
         # to appended; device-side consumers must reseed their group state
         # and signature caches when this moves
@@ -142,6 +147,12 @@ class BatchBuilder:
                                  state.dims.resources, self.dims)
         self.table_used = 0
         self.table_version = 0
+        # columnar pod store, commit-side column (ingest/columns.py): one
+        # CommitFacts per interned row, aligned with table_used — the
+        # batched assume path reads facts by tidx instead of re-walking
+        # the pod object graph per commit. REPLACED (not cleared) on
+        # reset: in-flight drains hold the old list by reference.
+        self.row_facts: list = []
         self.groups = GroupManager(state, spread_plugin=spread_plugin,
                                    ipa_plugin=ipa_plugin, dims=group_dims,
                                    table_rows=self.dims.table_rows)
@@ -156,6 +167,7 @@ class BatchBuilder:
                                  self.state.dims.resources, self.dims)
         self.table_used = 0
         self.table_version += 1
+        self.row_facts = []
         self.groups.reset()
 
     def _grow_table(self) -> None:
@@ -190,18 +202,61 @@ class BatchBuilder:
         fallback = np.zeros((B,), bool)
         sig = np.zeros((B,), np.int32)
         tidx = np.zeros((B,), np.int32)
-        # per-pod interning: new signatures mint sig ids in first-appearance
-        # order, exactly like the JAX package's chunked interning
         last = -1
-        for i, pod in enumerate(pods):
-            ent = self._lookup(pod)
-            if ent[0] == "fallback":
-                fallback[i] = True
-                continue
-            valid[i] = True
-            sig[i] = ent[1]
-            tidx[i] = ent[2]
-            last = i
+        if self.columnar:
+            # Chunked interning (ingest/columns.py): ONE identity pass
+            # groups the chunk's positions per table entry, new signatures
+            # intern through the columnar row filler in first-appearance
+            # order (the order mints sig ids — parity with the per-pod
+            # path), and the per-pod scalar stores collapse to one
+            # scatter per distinct entry
+            groups: dict = {}
+            misses: dict = {}        # content key → (ident, pod, placeholder)
+            # ident → placeholder of a signature new in this chunk: the
+            # pods stamped from one template after its first resolve
+            # without recomputing the content key (the ident cache learns
+            # them only once `_intern_misses` has interned the row)
+            pending: dict = {}
+            ident_cache = self._ident_cache
+            for i, pod in enumerate(pods):
+                ident = (id(pod.spec), id(pod.metadata.labels),
+                         pod.metadata.namespace)
+                hit = ident_cache.get(ident)
+                if hit is not None:
+                    ent = hit[2]
+                else:
+                    ent = pending.get(ident)
+                    if ent is None:
+                        ent = self._intern_key(pod, ident, misses)
+                        if ent[0] == "miss":
+                            pending[ident] = ent
+                lst = groups.get(ent)
+                if lst is None:
+                    groups[ent] = [i]
+                else:
+                    lst.append(i)
+            if misses:
+                self._intern_misses(misses, groups)
+            for ent, idxs in groups.items():
+                if ent[0] == "fallback":
+                    fallback[idxs] = True
+                    continue
+                valid[idxs] = True
+                sig[idxs] = ent[1]
+                tidx[idxs] = ent[2]
+                if idxs[-1] > last:
+                    last = idxs[-1]
+        else:
+            # the serial oracle: one `_lookup` a pod
+            for i, pod in enumerate(pods):
+                ent = self._lookup(pod)
+                if ent[0] == "fallback":
+                    fallback[i] = True
+                    continue
+                valid[i] = True
+                sig[i] = ent[1]
+                tidx[i] = ent[2]
+                last = i
         if last >= 0 and len(pods) < B:
             # padding rows inherit the last real pod's signature: valid=False
             # keeps them unassigned while the scan's cached fast step makes
@@ -211,6 +266,48 @@ class BatchBuilder:
         return PodBatch(valid=valid, host_fallback=fallback, sig=sig,
                         tidx=tidx, table=self.table,
                         table_version=self.table_version)
+
+    def _intern_key(self, pod: Pod, ident: tuple, misses: dict) -> tuple:
+        """Identity-miss path of the chunked build: resolve via the
+        content key, deferring genuinely NEW signatures to the columnar
+        chunk filler. Returns the entry when known, else a per-key
+        placeholder entry that `_intern_misses` resolves in place.
+        `misses` maps content key → (ident, pod, placeholder) in
+        first-appearance order (dicts preserve insertion order)."""
+        key = self._sig_key(pod)
+        ent = self._sig_cache.get(key)
+        if ent is None:
+            pending = misses.get(key)
+            if pending is not None:
+                return pending[2]
+            ent = ("miss", len(misses))
+            misses[key] = (ident, pod, ent)
+            return ent
+        if len(self._ident_cache) < 65536:
+            self._ident_cache[ident] = (pod.spec, pod.metadata.labels, ent)
+        return ent
+
+    def _intern_misses(self, misses: dict, groups: dict) -> None:
+        """Resolve the chunk's new signatures through the columnar filler
+        (ingest/columns.py fill_rows) and rewrite the placeholder group
+        keys to the real entries."""
+        from ..ingest.columns import fill_rows
+        items = list(misses.items())
+        ents = fill_rows(self, [pod for _key, (_i, pod, _e) in items])
+        for (key, (ident, pod, placeholder)), ent in zip(items, ents):
+            self._sig_cache[key] = ent
+            if len(self._ident_cache) < 65536:
+                self._ident_cache[ident] = (pod.spec, pod.metadata.labels,
+                                            ent)
+            idxs = groups.pop(placeholder)
+            have = groups.get(ent)
+            if have is None:
+                groups[ent] = idxs
+            else:
+                # two content keys can map to one fallback entry; merge
+                # the position lists preserving drain order
+                have.extend(idxs)
+                have.sort()
 
     def _lookup(self, pod: Pod) -> tuple:
         ident = (id(pod.spec), id(pod.metadata.labels),
@@ -244,6 +341,8 @@ class BatchBuilder:
                 self._next_sig += 1
             self.table_used += 1
             self.table_version += 1
+            from ..ingest.columns import commit_facts_for_row
+            self.row_facts.append(commit_facts_for_row(pod))
             ent = ("row", sig_id, u)
         self._sig_cache[key] = ent
         if len(self._ident_cache) < 65536:

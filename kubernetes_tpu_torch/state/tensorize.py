@@ -137,6 +137,10 @@ class ClusterState:
     _dirty_rows: Optional[set] = field(default_factory=set)
     rows_scattered_total: int = 0
     full_uploads_total: int = 0
+    # the ColumnarIngest gate: apply_snapshot writes 16 or more dirty rows
+    # through the columnar writers (ingest/noderows.py) when True, row by
+    # row (the serial oracle) when False
+    columnar: bool = True
     # scatter only when dirty rows ≤ max(N >> scatter_shift, 32): beyond
     # that the full upload's one big copy beats many-row gathers
     scatter_shift: int = 3
@@ -235,11 +239,21 @@ class ClusterState:
                 self._row_node[ni.name] = ni.node
             self.row_gen[ni.name] = ni.generation
             dirty_writes = True
-        # the per-row writers (the columnar batch writers are not ported)
-        for idx, ni in full_items:
-            self._write_row(idx, ni)
-        for idx, ni in agg_items:
-            self._write_row_aggregates(idx, ni)
+        # columnar batch writers (ingest/noderows.py) take mass updates
+        # (prime, reseeds, churn); small dirty sets and capacity edges keep
+        # the per-row writers, which own growth and CapacityError
+        if full_items:
+            from ..ingest.noderows import write_rows
+            if (not self.columnar or len(full_items) < 16
+                    or not write_rows(self, full_items)):
+                for idx, ni in full_items:
+                    self._write_row(idx, ni)
+        if agg_items:
+            from ..ingest.noderows import write_aggregate_rows
+            if (not self.columnar or len(agg_items) < 16
+                    or not write_aggregate_rows(self, agg_items)):
+                for idx, ni in agg_items:
+                    self._write_row_aggregates(idx, ni)
         if dirty_writes or full:
             self._device_dirty = True
         self._applied_key = applied_key

@@ -277,7 +277,7 @@ class TestRefusals:
             TSched(TApi(), device="cpu", config=cfg)
 
     @pytest.mark.parametrize("gate", [g for g in tf.DEFAULT_FEATURES
-                                      if g != "SanitizerRails"])
+                                      if g not in tc.PORTED_GATES])
     def test_other_gates_stay_at_their_defaults(self, gate):
         default = tf.DEFAULT_FEATURES[gate].default
         tc.refuse_unported(tc.KubeSchedulerConfiguration(
@@ -297,6 +297,24 @@ class TestRefusals:
         TSched(TApi(), device="cpu", config=tc.KubeSchedulerConfiguration(
             profiles=[tc.KubeSchedulerProfile(
                 plugins=tc.PluginSet(disabled=[plugin]))]))
+
+    def test_columnar_ingest_off_is_accepted(self):
+        cfg = tc.KubeSchedulerConfiguration(
+            feature_gates={"ColumnarIngest": False})
+        tc.refuse_unported(cfg)
+        api = TApi()
+        off = TSched(api, device="cpu", config=cfg)
+        assert not off.columnar_ingest and off.commit_engine is None
+        assert not off.builder.columnar and not off.state.columnar
+        assert all(h.on_update_bulk is None for h in api.pod_handlers)
+        # on is the default, with or without a config
+        for kw in ({}, {"config": tc.KubeSchedulerConfiguration()}):
+            api = TApi()
+            on = TSched(api, device="cpu", **kw)
+            assert on.columnar_ingest and on.commit_engine is not None
+            assert on.builder.columnar and on.state.columnar
+            assert [h.on_update_bulk for h in api.pod_handlers] == [
+                on._on_pod_update_bulk]
 
     def test_defaults_and_the_rails_gate_are_accepted(self):
         tc.refuse_unported(tc.KubeSchedulerConfiguration())

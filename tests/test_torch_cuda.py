@@ -2682,3 +2682,63 @@ def test_diagnose_rows_at_64_rows_full_width(cuda):
     with pytest.raises(ValueError, match="rows"):
         P.diagnose_rows(na, table, rows + rows[:1], gd=gd, gc=gc, fam=fam,
                         args=args)
+
+
+# ---------------------------------------------------------------------------
+# the ColumnarIngest gate on the card
+
+
+def _ingest_workload(device, columnar, infeasible):
+    """tests/test_torch_ingest.py's end-state workload (24 nodes, 120 pods
+    in chunks of 40, every seventh a ScheduleAnyway zone spread) through
+    the port's Scheduler on `device` with the gate on or off."""
+    from kubernetes_tpu_torch.backend.apiserver import APIServer
+    from kubernetes_tpu_torch.config import KubeSchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    api = APIServer()
+    sched = Scheduler(api, batch_size=256, clock=lambda: 1000.0,
+                      device=device, config=KubeSchedulerConfiguration(
+                          feature_gates={"ColumnarIngest": columnar}))
+    rng = random.Random(5)
+    for i in range(24):
+        api.create_node(make_node(f"node-{i}").capacity(
+            {"cpu": 8, "memory": "16Gi", "pods": 110}).zone(
+            f"zone-{i % 4}").label("kubernetes.io/hostname",
+                                   f"node-{i}").obj())
+    sched.prime()
+    pods = []
+    for i in range(120):
+        w = make_pod(f"pod-{i}")
+        if infeasible and i % 9 == 0:
+            w = w.req({"cpu": "100"})
+        else:
+            w = w.req({"cpu": f"{rng.choice([250, 500])}m",
+                       "memory": "512Mi"})
+        if i % 7 == 0:
+            w = w.label("app", "web").spread_constraint(
+                5, "topology.kubernetes.io/zone", "ScheduleAnyway",
+                {"app": "web"})
+        pods.append(w.obj())
+    for start in range(0, len(pods), 40):
+        api.create_pods(pods[start:start + 40])
+        sched.schedule_pending(wait=False)
+    sched.schedule_pending()
+    assert sched.reconcile() == []
+    dump = sched.cache.dump()
+    return {
+        "assignments": {uid: p.spec.node_name for uid, p in api.pods.items()},
+        "counts": (sched.scheduled_count, sched.unschedulable_count),
+        "cache_nodes": {n: {k: v for k, v in d.items() if k != "generation"}
+                        for n, d in dump["nodes"].items()},
+        "assumed": dump["assumed_pods"], "pod_count": dump["pod_count"],
+        "dispatcher": (sched.dispatcher.executed, sched.dispatcher.errors),
+        "queue_len": len(sched.queue),
+    }
+
+
+@pytest.mark.parametrize("infeasible", [False, True])
+def test_columnar_ingest_gate_on_equals_off(cuda, infeasible):
+    on = _ingest_workload(cuda, True, infeasible)
+    assert on == _ingest_workload(cuda, False, infeasible)
+    assert on == _ingest_workload("cpu", True, infeasible)
+    assert on["counts"][0] == (106 if infeasible else 120)
